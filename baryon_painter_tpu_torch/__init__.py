@@ -1,11 +1,13 @@
 """baryon_painter_tpu_torch: the PyTorch/CUDA port of baryon_painter_tpu.
 
 Paints gas pressure onto dark-matter tiles with the committed CVAE
-checkpoints, in PyTorch, on an NVIDIA H100. The fused residual block runs
-through a hand-written CUDA kernel (``ops/res_block.py``,
-``csrc/res_block.cu``); everything else is plain PyTorch. The JAX package
-``baryon_painter_tpu`` is the reference this package is tested against; this
-package imports nothing of it, nor of JAX.
+checkpoints, and trains the CVAE, in PyTorch, on an NVIDIA H100. Three
+hand-written CUDA kernels (``csrc/``) carry the parts the JAX package wrote
+in Pallas: the fused residual block (K1, ``ops/res_block.py``), the training
+batch's tile gather (K2, ``ops/gather.py``) and the output heads, forward and
+backward (K3, ``ops/head_stack.py``); everything else is plain PyTorch. The
+JAX package ``baryon_painter_tpu`` is the reference this package is tested
+against; this package imports nothing of it, nor of JAX.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 

@@ -1,14 +1,20 @@
-"""Weights carried across: the JAX package's variables into the port's modules.
+"""Weights carried across between the JAX package's variables and the port's
+modules, both ways, and the port's own initialisation.
 
 ``from_jax_variables(variables, architecture)`` takes ``{"params",
 "batch_stats"}`` as nested dicts of numpy arrays (what
 ``train.checkpoint.load_checkpoint`` yields, or ``jax.tree.map(np.asarray,
 ...)`` of live flax variables) and returns an eval-mode ``CVAE`` carrying
-them. Layer names match flax's per-class auto-names, so the mapping is one
-to one:
+them; ``load_jax_variables`` loads them into an existing one.
+``to_jax_variables`` goes the other way (the port's parameters, or their
+gradients, in the flax layout, as numpy), so the two packages can be
+compared. ``init_cvae`` draws the port's own initial weights from the
+distributions the JAX package initialises with, on a seeded
+``torch.Generator``. Layer names match flax's per-class auto-names, so the
+mapping is one to one:
 
-  * conv kernels HWIO -> OIHW;
-  * transposed-conv kernels: spatial flip plus HWIO -> IOHW, because the JAX
+  * conv kernels HWIO <-> OIHW;
+  * transposed-conv kernels: spatial flip plus HWIO <-> IOHW, because the JAX
     package computes a transposed conv as an lhs-dilated correlation and
     PyTorch applies its weight as the gradient of a conv;
   * batch norm scale/bias and running mean/var;
@@ -16,6 +22,8 @@ to one:
   * fused residual blocks keep their HWIO kernels (K1 takes HWIO).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -27,11 +35,12 @@ from baryon_painter_tpu_torch.models.layers import (BatchNorm, Conv2d,
                                                     ResidualBlock,
                                                     SpecSequential)
 
-__all__ = ["from_jax_variables", "load_spec_sequential"]
+__all__ = ["from_jax_variables", "load_jax_variables", "load_spec_sequential",
+           "to_jax_variables", "init_cvae"]
 
-# CVAE subnets the eval model holds (the recognition net Q is not ported)
-_CVAE_SUBNETS = ("p_y_in", "p_z_in", "p_y_z_in", "p_mu_out", "p_var_out",
-                 "prior_network")
+# the CVAE's subnets, by their flax scope names
+_CVAE_SUBNETS = ("q_x_in", "q_y_in", "q_out", "p_y_in", "p_z_in", "p_y_z_in",
+                 "p_mu_out", "p_var_out", "prior_network")
 
 
 def _copy(dst: torch.Tensor, a):
@@ -79,14 +88,127 @@ def load_spec_sequential(seq: SpecSequential, params: dict, stats: dict):
             raise NotImplementedError(f"no weight mapping for {name}")
 
 
-def from_jax_variables(variables: dict, architecture: dict) -> CVAE:
-    """An eval-mode CVAE (on the CPU) carrying the JAX variables."""
-    model = CVAE(architecture)
+def load_jax_variables(model: CVAE, variables: dict) -> CVAE:
+    """Load JAX-layout ``{"params", "batch_stats"}`` into ``model``."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     for attr in _CVAE_SUBNETS:
         seq = getattr(model, attr)
-        if seq is None:
+        if seq is None or not seq.layers:
             continue
         load_spec_sequential(seq, params.get(attr), stats.get(attr))
-    return model.eval()
+    return model
+
+
+def from_jax_variables(variables: dict, architecture: dict,
+                       fused_heads: bool = False) -> CVAE:
+    """An eval-mode CVAE (on the CPU) carrying the JAX variables."""
+    model = CVAE(architecture, fused_heads=fused_heads)
+    return load_jax_variables(model, variables).eval()
+
+
+def _np(t):
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _export_spec_sequential(seq: SpecSequential, value, params, stats):
+    """Inverse of ``load_spec_sequential``: ``value(param)`` is exported
+    (the parameter itself, or its gradient), running statistics with it
+    into ``stats``."""
+    for name, m in seq.layers.items():
+        if isinstance(m, (Conv2d, ConvTranspose2d)):
+            w = _np(value(m.weight))
+            k = (w.transpose(2, 3, 1, 0) if isinstance(m, Conv2d)
+                 else w.transpose(2, 3, 0, 1)[::-1, ::-1])
+            p = {"kernel": np.ascontiguousarray(k)}
+            if m.bias is not None:
+                p["bias"] = _np(value(m.bias))
+            params[name] = p
+        elif isinstance(m, BatchNorm):
+            params[name] = {"scale": _np(value(m.weight)),
+                            "bias": _np(value(m.bias))}
+            stats[name] = {"mean": _np(m.running_mean),
+                           "var": _np(m.running_var)}
+        elif isinstance(m, PReLU):
+            params[name] = {"negative_slope": _np(value(m.weight))}
+        elif isinstance(m, ResidualBlock):
+            p, s = {}, {}
+            _export_spec_sequential(m.SpecSequential_0, value, p, s)
+            params[name] = {"SpecSequential_0": p}
+            if s:
+                stats[name] = {"SpecSequential_0": s}
+        else:
+            raise NotImplementedError(f"no export for {name}")
+
+
+def to_jax_variables(model: CVAE, grads: bool = False) -> dict:
+    """The model's ``{"params", "batch_stats"}`` in the flax layout, as
+    nested numpy dicts; with ``grads=True`` the parameters' gradients in
+    place of the parameters (a parameter without one exports as zeros)."""
+    if grads:
+        value = lambda p: p.grad if p.grad is not None else torch.zeros_like(p)
+    else:
+        value = lambda p: p
+    params, stats = {}, {}
+    for attr in _CVAE_SUBNETS:
+        seq = getattr(model, attr)
+        if seq is None or not seq.layers:
+            continue
+        p, s = {}, {}
+        _export_spec_sequential(seq, value, p, s)
+        params[attr] = p
+        if s:
+            stats[attr] = s
+    return {"params": params, "batch_stats": stats}
+
+
+@torch.no_grad()
+def _init_spec_sequential(seq: SpecSequential, gen: torch.Generator,
+                          kernel_std=None):
+    def uniform_(t, bound):
+        t.copy_((torch.rand(t.shape, generator=gen) * 2 - 1) * bound)
+
+    for m in seq.layers.values():
+        if isinstance(m, (Conv2d, ConvTranspose2d)):
+            k = m.weight.shape[-1]
+            cin = (m.weight.shape[1] if isinstance(m, Conv2d)
+                   else m.weight.shape[0])
+            bound = 1.0 / math.sqrt(k * k * cin)
+            if kernel_std is None:
+                uniform_(m.weight, bound)
+            else:
+                m.weight.copy_(kernel_std * torch.randn(m.weight.shape,
+                                                        generator=gen))
+            if m.bias is not None:
+                uniform_(m.bias, bound)
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
+            m.running_mean.fill_(0.0)
+            m.running_var.fill_(1.0)
+        elif isinstance(m, PReLU):
+            m.weight.fill_(0.25)
+        elif isinstance(m, ResidualBlock):
+            _init_spec_sequential(m.SpecSequential_0, gen)
+        else:
+            raise NotImplementedError(f"no initialisation for {type(m)}")
+
+
+def init_cvae(model: CVAE, seed: int = 0) -> CVAE:
+    """Draw the model's initial weights (on the CPU) as the JAX package
+    does: conv and transposed-conv kernels and biases U(-b, b) with
+    b = 1/sqrt(k*k*C_in) (PyTorch's default, ``torch_conv_init``), the
+    variance head's kernels N(0, x_var_init_std^2) (default 0.01,
+    ``_normal_init``), batch norm scale 1, bias 0, running mean 0 and
+    variance 1, PReLU slopes 0.25. The draws come from a
+    ``torch.Generator`` seeded with ``seed``: the same distributions as
+    JAX's, not the same numbers."""
+    gen = torch.Generator().manual_seed(seed)
+    std = model.architecture.get("x_var_init_std", 0.01)
+    for attr in _CVAE_SUBNETS:
+        seq = getattr(model, attr)
+        if seq is None:
+            continue
+        _init_spec_sequential(seq, gen,
+                              kernel_std=std if attr == "p_var_out" else None)
+    return model

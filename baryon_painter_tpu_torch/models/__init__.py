@@ -1,1 +1,1 @@
-"""Model layer: layer DSL, eval-mode layers, CVAE."""
+"""Model layer: layer DSL, layers (eval and train mode), CVAE."""

@@ -1,25 +1,38 @@
-"""Conditional VAE, eval methods, NCHW.
+"""Conditional VAE, NCHW: painting and the training ELBO.
 
-Port of ``baryon_painter_tpu/models/cvae.py`` for painting: the prior net
-p(z|y), the latent draw z = mu + eps*(exp(logvar/2) + min_z_var), and the
-generator P(x|y,z) with its optional predicted variance, with the redshift
-merged as a constant feature map. Subnets carry the JAX module's attribute
-names (``prior_network``, ``p_z_in``, ``p_y_z_in``, ``p_mu_out``, ...) so
-checkpoints map onto them one to one. The recognition net Q and the training
-ELBO are not ported yet.
+Port of ``baryon_painter_tpu/models/cvae.py``: the recognition net Q(z|x,y),
+the prior net p(z|y), the latent draw z = mu + eps*(exp(logvar/2) +
+min_z_var), the generator P(x|y,z) with its optional predicted variance,
+the redshift merged as a constant feature map, and the ELBO of
+``CVAE.__call__`` term for term (``forward``). Subnets carry the JAX module's
+attribute names (``q_x_in``, ``q_out``, ``prior_network``, ``p_z_in``,
+``p_y_z_in``, ``p_mu_out``, ...) so checkpoints map onto them one to one.
+
+``fused_heads=True`` is the counterpart of the JAX package's
+``BPT_FUSED_HEADS=1``: where both output heads have the canonical shape
+(``_heads_fusable``, the JAX gate), they run through K3
+(``ops/head_stack.py``) in training and in painting alike.
+
+The model is built in eval mode (painting); ``.train()`` switches batch norm
+to batch statistics for ``forward``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from baryon_painter_tpu_torch.models import dsl
 from baryon_painter_tpu_torch.models.layers import (SpecSequential,
                                                     merge_aux_label)
+from baryon_painter_tpu_torch.ops.head_stack import head_stack
 
 __all__ = ["CVAE", "fiducial_cvae_architecture"]
+
+LOG_2PI = math.log(2 * math.pi)
 
 
 def _strip_unflatten(spec):
@@ -29,22 +42,28 @@ def _strip_unflatten(spec):
 
 
 class CVAE(nn.Module):
-    """Eval-mode CVAE built from the architecture dict of a checkpoint."""
+    """CVAE built from the architecture dict of a checkpoint."""
 
-    def __init__(self, architecture: dict):
+    def __init__(self, architecture: dict, fused_heads: bool = False):
         super().__init__()
         arch = architecture
         if arch.get("type", "Type-1") != "Type-1":
             raise NotImplementedError(
                 f"Architecture {arch.get('type')} not supported yet!")
         self.architecture = arch
+        self.fused_heads = fused_heads
         self.dim_z = tuple(arch["dim_z"])  # channel-first (C,H,W)
+        self.L = arch.get("L", 1)
         self.use_aux_label = arch.get("aux_label", False)
         self.min_z_var = arch.get("min_z_var", 1e-7)
+        self.likelihood_scaling = arch.get("likelihood_scaling", 1.0)
 
         fused = arch.get("fused_res_blocks", False)
         mk = lambda key: SpecSequential(_strip_unflatten(arch.get(key)),
                                         fused_res_blocks=fused)
+        self.q_x_in = mk("q_x_in")
+        self.q_y_in = mk("q_y_in")
+        self.q_out = mk("q_x_y_out")
         self.p_y_in = SpecSequential(_strip_unflatten(arch.get("p_y_in")))
         self.p_z_in = mk("p_z_in")
         self.p_y_z_in = mk("p_y_z_in")
@@ -56,6 +75,7 @@ class CVAE(nn.Module):
         self.prior_network = (
             SpecSequential(_strip_unflatten(arch["prior_z_y"]))
             if arch.get("prior_z_y") is not None else None)
+        self.eval()
 
     def _merge_aux(self, y, aux_label):
         if aux_label is not None and self.use_aux_label:
@@ -71,6 +91,12 @@ class CVAE(nn.Module):
                 f"for dim_z={self.dim_z}.")
         return h[:, :cz], h[:, cz:]
 
+    def Q(self, x, y, aux_label=None):
+        """(z_mu, z_log_var) of the recognition net q(z|x,y)."""
+        y = self._merge_aux(y, aux_label)
+        h = torch.cat([self.q_x_in(x), self.q_y_in(y)], dim=1)
+        return self._split_heads(self.q_out(h))
+
     def prior(self, y, aux_label=None):
         """(z_mu, z_log_var) of p(z|y); zeros without a prior net."""
         if self.prior_network is None:
@@ -82,19 +108,132 @@ class CVAE(nn.Module):
         return self._split_heads(self.prior_network(y))
 
     def sample_z(self, z_mu, z_log_var, eps):
-        """Reparameterized sample z = mu + eps*(exp(logvar/2) + min_z_var);
-        ``eps`` is standard normal noise of z_mu's shape."""
-        return z_mu + eps * (torch.exp(z_log_var / 2) + self.min_z_var)
+        """Reparameterized sample z = mu + eps*(exp(logvar/2) + min_z_var).
+        ``eps`` is standard normal noise of z_mu's shape, or (L, *z_mu.shape)
+        for L samples, returned as (L*N, ...) with the sample index major."""
+        z = z_mu + eps * (torch.exp(z_log_var / 2) + self.min_z_var)
+        return z.reshape(-1, *z_mu.shape[1:])
 
-    def P(self, z, y, aux_label=None):
-        """Decoder: (x_mu, x_log_var) or (x_mu,), each (N,C_x,H,W)."""
+    def _heads_fusable(self, h) -> bool:
+        """Both output heads match the canonical (conv k7, prelu, conv k5,
+        prelu, conv k3[, softplus]) pattern at the shapes the JAX package
+        fuses (its ``_heads_fusable``, whose %4 is its space-to-depth radix:
+        kept so that the same configurations take the fused path)."""
+        if not self.fused_heads or not self.predict_var:
+            return False
+        if h.shape[2] % 4 or h.shape[3] % 4 or h.shape[2] < 32:
+            return False
+        # _fused_heads hardcodes the trailing activations: softplus on head
+        # 0 (mu), raw conv output on head 1 (log-var)
+        tails = (["softplus"], [])
+        for spec, tail in zip(self.architecture["p_y_z_out"], tails):
+            names = [str(l[0]).lower() for l in spec]
+            if names[:5] != ["conv", "prelu", "conv", "prelu", "conv"]:
+                return False
+            if names[5:] != tail:
+                return False
+            convs = [l[1] for l in spec if l[0] == "conv"]
+            ks = [c["kernel_size"] for c in convs]
+            ps = [c["padding"] for c in convs]
+            ss = [c.get("stride", 1) for c in convs]
+            if (ks, ps, ss) != ([7, 5, 3], [3, 2, 1], [1, 1, 1]):
+                return False
+            if any(c.get("bias", True) for c in convs):
+                return False
+            if [c["out_channels"] for c in convs] != [8, 1, 1]:
+                return False
+        return True
+
+    def _fused_heads(self, h):
+        """Both output heads through K3, reading the parameters of the
+        unfused heads' modules (so the parameters are the same either way).
+        Softplus on head 0 and the identity on head 1 stay outside."""
+        heads = (self.p_mu_out.layers, self.p_var_out.layers)
+        hwio = lambda w: w.permute(2, 3, 1, 0)
+        w1, w2, w3 = (torch.stack([hwio(m[name].weight) for m in heads])
+                      for name in ("Conv2d_0", "Conv2d_1", "Conv2d_2"))
+        alphas = torch.stack([torch.stack([m["PReLU_0"].weight,
+                                           m["PReLU_1"].weight])
+                              for m in heads])
+        out = head_stack(h.permute(0, 2, 3, 1).contiguous(), w1, w2, w3,
+                         alphas)
+        return F.softplus(out[:, 0:1]), out[:, 1:2]
+
+    def P(self, z, y, aux_label=None, L: int = 1):
+        """Decoder: (x_mu, x_log_var) or (x_mu,), each (L*N,C_x,H,W)."""
         y = self._merge_aux(y, aux_label)
-        h = torch.cat([self.p_z_in(z), self.p_y_in(y)], dim=1)
+        h_y = self.p_y_in(y).repeat(L, 1, 1, 1)
+        h = torch.cat([self.p_z_in(z), h_y], dim=1)
         h = self.p_y_z_in(h)
+        if self._heads_fusable(h):
+            return self._fused_heads(h)
         x_mu = self.p_mu_out(h)
         if self.predict_var:
             return x_mu, self.p_var_out(h)
         return (x_mu,)
+
+    def forward(self, x, y, aux_label=None, alpha_var: float = 1.0,
+                beta_KL: float = 1.0, sample_weight=None, eps=None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """ELBO and its terms, as the JAX ``CVAE.__call__`` computes them.
+
+        x: (N,C_x,H,W) transformed target field(s); y: (N,C_y,H,W) input.
+        ``eps``: the latent noise, (L, N, Cz, hz, wz) (or (N, Cz, hz, wz)
+        for L = 1); drawn from ``generator`` when not given.
+        ``sample_weight``: optional (N,) weights of each sample's KL and
+        log-likelihood. Returns a dict: elbo, kl, log_likelihood (per output
+        channel), x_mu, and with a predicted variance
+        log_likelihood_fixed_var, log_likelihood_free_var and x_var."""
+        M = x.shape[0]
+        L = self.L
+        z_mu, z_log_var = self.Q(x, y, aux_label)
+        # the KL and the reparameterisation in f32, as in the JAX package
+        z_mu, z_log_var = z_mu.float(), z_log_var.float()
+        if eps is None:
+            eps = torch.randn((L, *z_mu.shape), generator=generator,
+                              dtype=z_mu.dtype, device=z_mu.device)
+        eps = torch.as_tensor(eps, dtype=z_mu.dtype, device=z_mu.device)
+        z = self.sample_z(z_mu, z_log_var, eps.reshape(L, *z_mu.shape))
+
+        prior_mu, prior_log_var = self.prior(y, aux_label)
+        prior_mu, prior_log_var = prior_mu.float(), prior_log_var.float()
+        prior_var = torch.exp(prior_log_var)
+        kl_elem = ((prior_mu - z_mu) ** 2 / prior_var
+                   + torch.exp(z_log_var) / prior_var
+                   + prior_log_var - z_log_var - 1.0)
+        w = None
+        if sample_weight is not None:
+            w = torch.as_tensor(sample_weight, dtype=torch.float32,
+                                device=x.device)
+            kl = 0.5 / M * torch.sum(w * kl_elem.sum(dim=(1, 2, 3)))
+        else:
+            kl = 0.5 / M * torch.sum(kl_elem)
+
+        params = self.P(z, y, aux_label, L=L)
+        x_mu = params[0]
+        sq = (x.repeat(L, 1, 1, 1) - x_mu.to(x.dtype)) ** 2
+        norm = M * L
+        if w is not None:
+            w_rep = w.repeat(L)[:, None, None, None].to(x.dtype)
+            wsum = lambda t: (w_rep * t).sum(dim=(0, 2, 3))
+        else:
+            wsum = lambda t: t.sum(dim=(0, 2, 3))
+        out = {"kl": kl}
+        if self.predict_var:
+            x_log_var = params[1].to(x.dtype)
+            x_var = torch.exp(x_log_var)
+            ll_fixed = -0.5 * LOG_2PI + wsum(-0.5 * sq) / norm
+            ll_free = -0.5 * LOG_2PI + wsum(
+                -0.5 * x_log_var - 0.5 * sq / x_var) / norm
+            ll = (1 - alpha_var) * ll_fixed + alpha_var * ll_free
+            out.update(log_likelihood_fixed_var=ll_fixed,
+                       log_likelihood_free_var=ll_free, x_var=x_var)
+        else:
+            ll = -0.5 * LOG_2PI + wsum(-0.5 * sq) / norm
+        out["log_likelihood"] = ll
+        out["x_mu"] = x_mu
+        out["elbo"] = -kl * beta_KL + self.likelihood_scaling * ll.sum()
+        return out
 
     def sample_P(self, y, aux_label=None, z=None, eps=None,
                  generator: Optional[torch.Generator] = None,

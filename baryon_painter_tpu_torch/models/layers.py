@@ -1,8 +1,13 @@
-"""Eval-mode layers interpreting the layer DSL (``models/dsl.py``), NCHW.
+"""Layers interpreting the layer DSL (``models/dsl.py``), NCHW.
 
-Port of ``baryon_painter_tpu/models/layers.py`` for painting: batch norm
-uses its running statistics, and nothing here trains yet. Shape rules are
-PyTorch's, as in the JAX package:
+Port of ``baryon_painter_tpu/models/layers.py``. The module's ``training``
+flag plays the JAX ``train`` argument (layers are built in eval mode, the
+painting default; ``.train()`` switches them). In train mode batch norm
+normalises with the batch statistics and updates its running averages as the
+JAX package's ``BatchNorm`` does (E[x^2] - E[x]^2 batch variance in f32, running
+statistics updated with that biased variance, momentum 0.9 as the fraction
+kept: ``running = 0.9 * running + 0.1 * batch``); in eval mode it uses the
+running statistics. Shape rules are PyTorch's, as in the JAX package:
 
   * Conv2d:          out = floor((in + 2p - k)/s) + 1
   * ConvTranspose2d: out = (in - 1)*s - 2p + k + output_padding
@@ -11,7 +16,8 @@ Every parametric layer is named as flax names it (``Conv2d_0``,
 ``BatchNorm_1``, ``ResidualBlock_0``, ``FusedResBlock_0``, ...), so the
 weights of a JAX checkpoint map onto it one to one (``convert.py``).
 Convolutions outside the fused residual block are PyTorch's own, as the JAX
-package leaves them to XLA; the fused block runs K1 (``ops/res_block.py``).
+package leaves them to XLA; the fused block runs K1 (``ops/res_block.py``)
+and is inference-only, as K1 has no backward.
 """
 from __future__ import annotations
 
@@ -28,6 +34,13 @@ __all__ = ["Conv2d", "ConvTranspose2d", "BatchNorm", "PReLU",
            "merge_aux_label"]
 
 _BN_EPS = 1e-5
+# the fraction of the running statistics kept per training step: every
+# batch norm of the JAX package's SpecSequential is built with momentum=0.9
+_BN_MOMENTUM = 0.9
+
+
+def _param(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(*shape))
 
 
 def _frozen(*shape) -> nn.Parameter:
@@ -39,9 +52,9 @@ class Conv2d(nn.Module):
                  padding=0, bias=True):
         super().__init__()
         self.stride, self.padding = stride, padding
-        self.weight = _frozen(out_channels, in_channels, kernel_size,
-                              kernel_size)                         # OIHW
-        self.bias = _frozen(out_channels) if bias else None
+        self.weight = _param(out_channels, in_channels, kernel_size,
+                             kernel_size)                          # OIHW
+        self.bias = _param(out_channels) if bias else None
 
     def forward(self, x):
         k = self.weight.shape[-1]
@@ -63,9 +76,9 @@ class ConvTranspose2d(nn.Module):
                              f"k={kernel_size}, p={padding}.")
         self.stride, self.padding = stride, padding
         self.output_padding = output_padding
-        self.weight = _frozen(in_channels, out_channels, kernel_size,
-                              kernel_size)                         # IOHW
-        self.bias = _frozen(out_channels) if bias else None
+        self.weight = _param(in_channels, out_channels, kernel_size,
+                             kernel_size)                          # IOHW
+        self.bias = _param(out_channels) if bias else None
 
     def forward(self, x):
         return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
@@ -73,19 +86,34 @@ class ConvTranspose2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm: x * a + b with a = scale / sqrt(var + eps) and
-    b = bias - mean * a, computed as the JAX package computes it."""
+    """Batch norm with the JAX package's semantics (module docstring).
+
+    Both modes compute ``x * a + b`` with a = scale / sqrt(var + eps) and
+    b = bias - mean * a, as the JAX package does; train mode takes mean and
+    var from the batch (f32) and the gradient flows through them."""
 
     def __init__(self, num_features):
         super().__init__()
-        self.weight = _frozen(num_features)
-        self.bias = _frozen(num_features)
+        self.weight = _param(num_features)
+        self.bias = _param(num_features)
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        a = self.weight * torch.rsqrt(self.running_var + _BN_EPS)
-        b = self.bias - self.running_mean * a
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+            with torch.no_grad():
+                m = _BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            x = xf
+        else:
+            mean, var = self.running_mean, self.running_var
+        a = self.weight * torch.rsqrt(var + _BN_EPS)
+        b = self.bias - mean * a
         return x * a[:, None, None] + b[:, None, None]
 
 
@@ -94,7 +122,7 @@ class PReLU(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.weight = nn.Parameter(torch.full((), 0.25), requires_grad=False)
+        self.weight = nn.Parameter(torch.full((), 0.25))
 
     def forward(self, x):
         return torch.where(x >= 0, x, self.weight * x)
@@ -190,6 +218,11 @@ class FusedResBlock(nn.Module):
             self.register_buffer(name, init(c))
 
     def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "FusedResBlock is inference-only (K1 has no backward); train "
+                "the unfused layout (fused_res_blocks=False) and fuse the "
+                "trained weights for painting.")
         s1, b1 = fold_bn(self.bn1_scale, self.bn1_bias, self.bn1_mean,
                          self.bn1_var, _BN_EPS)
         s2, b2 = fold_bn(self.bn2_scale, self.bn2_bias, self.bn2_mean,
@@ -209,9 +242,10 @@ def _upsample_nearest(x, s: int):
 
 
 class SpecSequential(nn.Module):
-    """Interpret a layer-spec list (see models/dsl.py) in eval mode.
+    """Interpret a layer-spec list (see models/dsl.py).
 
-    ``spec=None`` is the identity. With ``fused_res_blocks=True`` every
+    Built in eval mode, the painting default; ``.train()`` switches batch
+    norm to batch statistics. ``spec=None`` is the identity. With ``fused_res_blocks=True`` every
     canonical residual block becomes a ``FusedResBlock`` (K1); the others
     stay ``ResidualBlock``s, numbered apart, as flax numbers them.
     """
@@ -268,6 +302,7 @@ class SpecSequential(nn.Module):
                 pass
             else:
                 raise NotImplementedError(f"Layer {name} not supported yet!")
+        self.eval()
 
     def forward(self, x):
         for step in self._steps:

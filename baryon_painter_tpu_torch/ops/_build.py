@@ -1,17 +1,20 @@
 """Build and load the package's CUDA kernels: nvcc into a plain-C shared
 library, loaded with ctypes.
 
-Every ``csrc/*.cu`` is compiled in one ``nvcc`` call for ``sm_90a``:
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc -c``, all
+started together, and the objects are linked into one library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <dir>/libbpt_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <tmp>/<name>.o   (each, at once)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o <dir>/libbpt_kernels_<hash>.so <tmp>/*.o
 
 The sources include no PyTorch header, so the build takes seconds. The
-library's name carries a hash of the sources and flags, so a stale library is
-never loaded; it is written under a temporary name and moved into place with
-``os.replace``, so no lock file exists and an interrupted build leaves
-nothing that a later build would wait on. The build directory (``_build/``
-beside this package's sources) is listed in ``.gitignore``.
+library's name carries a hash of all the sources and the flags, so a stale
+library is never loaded; it is written under a temporary name and moved into
+place with ``os.replace``, so no lock file exists and an interrupted build
+leaves nothing that a later build would wait on. The build directory
+(``_build/`` beside this package's sources) is listed in ``.gitignore``.
 
 The build runs at first use, never at import: the CPU tests import every
 module on a machine without nvcc.
@@ -35,8 +38,9 @@ __all__ = ["SOURCE_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc",
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
 
 
@@ -67,44 +71,62 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbpt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds, timeout: float):
+    """Run the commands at once, each in its own process group (so a
+    timeout also ends nvcc's children, cicc and ptxas); wait for all.
+    Returns their stderr texts; raises with the failing command's output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              start_new_session=True) for cmd in cmds]
+    deadline = time.monotonic() + timeout
+    errs, failure = [], None
+    try:
+        for cmd, proc in zip(cmds, procs):
+            try:
+                out, err = proc.communicate(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                failure = failure or (f"nvcc did not finish in {timeout} s:"
+                                      f"\n{' '.join(cmd)}")
+                continue
+            errs.append(err)
+            if proc.returncode != 0 and failure is None:
+                failure = (f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{err}{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    if failure is not None:
+        raise RuntimeError(failure)
+    return errs
+
+
 def build_library(force: bool = False) -> dict:
     """Compile ``csrc/*.cu`` into the library unless it exists (or
-    ``force``). Returns ``{"path", "seconds", "log"}``; ``log`` is nvcc's
-    stderr, with ptxas' register and spill report. Raises with that log if
-    nvcc fails or outlives ``BUILD_TIMEOUT_S``."""
+    ``force``): one nvcc per source in parallel, then one link. Returns
+    ``{"path", "seconds", "log"}``; ``log`` is nvcc's stderr, with ptxas'
+    register and spill report. Raises with nvcc's message if a compile or
+    the link fails or outlives ``BUILD_TIMEOUT_S``."""
     path = library_path()
     if path.exists() and not force:
         return {"path": path, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=path.name + ".", suffix=".tmp",
-                               dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc = find_nvcc()
+    sources = [s for s in _sources() if s.suffix == ".cu"]
     t0 = time.perf_counter()
-    try:
-        # own process group: on a timeout, nvcc's children (cicc, ptxas)
-        # are killed with it
-        with subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True,
-                              start_new_session=True) as proc:
-            try:
-                out, err = proc.communicate(timeout=BUILD_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                os.killpg(proc.pid, signal.SIGKILL)
-                out, err = proc.communicate()
-                raise RuntimeError(
-                    f"nvcc did not finish in {BUILD_TIMEOUT_S} s:\n"
-                    f"{' '.join(cmd)}\n{err}") from None
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{err}{out}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return {"path": path, "seconds": time.perf_counter() - t0, "log": err}
+    with tempfile.TemporaryDirectory(prefix=path.name + ".",
+                                     dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s.stem + ".o") for s in sources]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o]
+                    for s, o in zip(sources, objs)], BUILD_TIMEOUT_S)
+        lib = os.path.join(tmp, path.name)
+        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs]],
+                    BUILD_TIMEOUT_S)
+        os.replace(lib, path)
+    return {"path": path, "seconds": time.perf_counter() - t0,
+            "log": "".join(log)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,6 +138,12 @@ def load_library() -> ctypes.CDLL:
     lib.bpt_res_block_infer.argtypes = [p, p, p, p, p, p, p, p,
                                         i, i, i, i, f, f, i, p]
     lib.bpt_res_block_infer.restype = ctypes.c_int
+    lib.bpt_gather_tiles.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.bpt_gather_tiles.restype = ctypes.c_int
+    lib.bpt_head_stack_fwd.argtypes = [p, p, p, p, p, p, i, i, i, p]
+    lib.bpt_head_stack_fwd.restype = ctypes.c_int
+    lib.bpt_head_stack_bwd.argtypes = [p] * 12 + [i, i, i, p]
+    lib.bpt_head_stack_bwd.restype = ctypes.c_int
     lib.bpt_error_string.argtypes = [ctypes.c_int]
     lib.bpt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,218 @@
+"""K3, the decoder's fused output heads (forward and backward): the CUDA
+kernels' wrappers, an autograd function over them, and their plain PyTorch
+versions.
+
+Port of ``baryon_painter_tpu/ops/pallas_head_stack.py`` (``head_stack`` with
+its custom VJP, ``head_stack_xla``). The functions keep the JAX layout, x
+NHWC and weights HWIO stacked over heads, so the tests compare like with
+like. For each sample and head h, bias-free with "same" padding:
+
+    u1 = conv(x, w1[h]);  a1 = prelu(u1, alphas[h, 0])
+    u2 = conv(a1, w2[h]); a2 = prelu(u2, alphas[h, 1])
+    y[:, h] = conv(a2, w3[h])
+
+with prelu(u, a) = u if u >= 0 else a * u. The head's final softplus or
+identity stays with the caller (``models/cvae.py``).
+
+``head_stack`` is differentiable in all five inputs. On CUDA tensors its
+forward launches K3-fwd and its backward K3-bwd (``csrc/head_stack.cu``);
+anything the kernels do not take raises. On CPU tensors they are the plain
+versions, ``head_stack_ref`` and ``head_stack_bwd_ref``, which are also the
+tests' oracles and ``chip_smoke.py``'s comparison.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.nn.grad import conv2d_input, conv2d_weight
+
+__all__ = ["head_stack", "head_stack_fwd", "head_stack_bwd",
+           "head_stack_ref", "head_stack_bwd_ref"]
+
+# the shapes the kernels are written for: the fiducial heads
+_KERNEL_SHAPES = {"w1": (2, 7, 7, 16, 8), "w2": (2, 5, 5, 8, 1),
+                  "w3": (2, 3, 3, 1, 1), "alphas": (2, 2)}
+_TILE = 16  # the kernels' output tile edge (partials per row of tiles)
+
+
+def _prelu(u, a):
+    return torch.where(u >= 0, u, a * u)
+
+
+def _oihw(w):
+    """HWIO -> OIHW."""
+    return w.permute(3, 2, 0, 1)
+
+
+def _chain(xc, w1, w2, a1, a2):
+    """One head's u1, act1, u2, act2 in NCHW."""
+    u1 = F.conv2d(xc, _oihw(w1), padding=w1.shape[0] // 2)
+    v1 = _prelu(u1, a1)
+    u2 = F.conv2d(v1, _oihw(w2), padding=w2.shape[0] // 2)
+    return u1, v1, u2, _prelu(u2, a2)
+
+
+def head_stack_ref(x, w1, w2, w3, alphas):
+    """Plain PyTorch version of K3's forward: x (N, H, W, Cin) ->
+    (N, n_heads, H, W), a chain of ``F.conv2d`` per head."""
+    xc = x.permute(0, 3, 1, 2)
+    out = []
+    for h in range(w1.shape[0]):
+        _, _, _, v2 = _chain(xc, w1[h], w2[h], alphas[h, 0], alphas[h, 1])
+        out.append(F.conv2d(v2, _oihw(w3[h]),
+                            padding=w3.shape[1] // 2)[:, 0])
+    return torch.stack(out, dim=1)
+
+
+def head_stack_bwd_ref(x, w1, w2, w3, alphas, dy):
+    """Plain PyTorch version of K3's backward, written out as K3-bwd
+    computes it: recompute the chain, then per head the input and weight
+    gradients of conv3, prelu2, conv5, prelu1 and conv7, dx summed over the
+    heads. Returns (dx, dw1, dw2, dw3, dalphas) in the inputs' shapes."""
+    xc = x.permute(0, 3, 1, 2)
+    dx = torch.zeros_like(xc)
+    dws = ([], [], [])
+    dal = []
+    for h in range(w1.shape[0]):
+        k1, k2, k3 = (w[h] for w in (w1, w2, w3))
+        al1, al2 = alphas[h, 0], alphas[h, 1]
+        u1, v1, u2, v2 = _chain(xc, k1, k2, al1, al2)
+        g = dy[:, h:h + 1]
+        p1, p2, p3 = k1.shape[0] // 2, k2.shape[0] // 2, k3.shape[0] // 2
+        dw3 = conv2d_weight(v2, _oihw(k3).shape, g, padding=p3)
+        dv2 = conv2d_input(v2.shape, _oihw(k3), g, padding=p3)
+        du2 = torch.where(u2 >= 0, dv2, al2 * dv2)
+        dal2 = torch.where(u2 < 0, dv2 * u2, 0.0).sum()
+        dw2 = conv2d_weight(v1, _oihw(k2).shape, du2, padding=p2)
+        dv1 = conv2d_input(v1.shape, _oihw(k2), du2, padding=p2)
+        du1 = torch.where(u1 >= 0, dv1, al1 * dv1)
+        dal1 = torch.where(u1 < 0, dv1 * u1, 0.0).sum()
+        dw1 = conv2d_weight(xc, _oihw(k1).shape, du1, padding=p1)
+        dx = dx + conv2d_input(xc.shape, _oihw(k1), du1, padding=p1)
+        for lst, dw in zip(dws, (dw1, dw2, dw3)):
+            lst.append(dw.permute(2, 3, 1, 0))                 # OIHW -> HWIO
+        dal.append(torch.stack([dal1, dal2]))
+    return (dx.permute(0, 2, 3, 1), *(torch.stack(d) for d in dws),
+            torch.stack(dal))
+
+
+def _check_operands(fn, x, w1, w2, w3, alphas, dy=None):
+    """Raise on anything the kernels do not take."""
+    tensors = {"x": x, "w1": w1, "w2": w2, "w3": w3, "alphas": alphas}
+    if dy is not None:
+        tensors["dy"] = dy
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {name} must be float32 (the kernels are "
+                            f"f32 only), got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, x on "
+                             f"{x.device}")
+    if x.ndim != 4 or x.shape[-1] != 16:
+        raise ValueError(f"{fn}: x must be (N, H, W, 16), got "
+                         f"{tuple(x.shape)}")
+    for name, shape in _KERNEL_SHAPES.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{fn}: {name} must be {shape}, got "
+                             f"{tuple(tensors[name].shape)}")
+    n, h, w, _ = x.shape
+    if dy is not None and tuple(dy.shape) != (n, 2, h, w):
+        raise ValueError(f"{fn}: dy must be {(n, 2, h, w)}, got "
+                         f"{tuple(dy.shape)}")
+
+
+def _operand(t):
+    """Contiguous, 16-byte aligned copy (or view) of t."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(fn, name, *args):
+    from baryon_painter_tpu_torch.ops._build import load_library
+    lib = load_library()
+    device = args[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        err = getattr(lib, name)(*ptrs, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed: "
+                           f"{lib.bpt_error_string(err).decode()} ({err})")
+
+
+def head_stack_fwd(x, w1, w2, w3, alphas):
+    """K3-fwd: (N, 2, H, W) head outputs, one kernel launch on the card.
+
+    On CPU tensors this is ``head_stack_ref``. On CUDA tensors it launches
+    the kernel on the current stream without synchronising and adds one to
+    ``head_stack_fwd.launches``; anything the kernel does not take (another
+    dtype, channel count or number of heads) raises."""
+    if x.device.type == "cpu":
+        return head_stack_ref(x, w1, w2, w3, alphas)
+    if x.device.type != "cuda":
+        raise ValueError(f"head_stack_fwd: unsupported device {x.device}")
+    _check_operands("head_stack_fwd", x, w1, w2, w3, alphas)
+    n, h, w, _ = x.shape
+    ops = [_operand(t) for t in (x, w1, w2, w3, alphas)]
+    y = torch.empty((n, 2, h, w), dtype=torch.float32, device=x.device)
+    _launch("head_stack_fwd", "bpt_head_stack_fwd", *ops, y, n, h, w)
+    head_stack_fwd.launches += 1
+    return y
+
+
+head_stack_fwd.launches = 0
+
+
+def head_stack_bwd(x, w1, w2, w3, alphas, dy):
+    """K3-bwd: (dx, dw1, dw2, dw3, dalphas), one kernel launch on the card.
+
+    The kernel writes dx and per-block partial sums of the weight and slope
+    gradients, summed here (deterministic: no atomics). On CPU tensors this
+    is ``head_stack_bwd_ref``. On CUDA tensors it launches on the current
+    stream without synchronising and adds one to
+    ``head_stack_bwd.launches``; anything the kernel does not take raises."""
+    if x.device.type == "cpu":
+        return head_stack_bwd_ref(x, w1, w2, w3, alphas, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"head_stack_bwd: unsupported device {x.device}")
+    _check_operands("head_stack_bwd", x, w1, w2, w3, alphas, dy)
+    n, h, w, _ = x.shape
+    ops = [_operand(t) for t in (x, w1, w1.transpose(3, 4), w2, w3, alphas,
+                                 dy)]
+    blocks = n * ((h + _TILE - 1) // _TILE)
+    dev = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(ops[0])
+    dw1p = torch.empty((blocks,) + tuple(w1.shape), **dev)
+    dw2p = torch.empty((blocks,) + tuple(w2.shape), **dev)
+    dw3p = torch.empty((blocks,) + tuple(w3.shape), **dev)
+    dalp = torch.empty((blocks,) + tuple(alphas.shape), **dev)
+    _launch("head_stack_bwd", "bpt_head_stack_bwd", *ops, dx, dw1p, dw2p,
+            dw3p, dalp, n, h, w)
+    head_stack_bwd.launches += 1
+    return dx, dw1p.sum(0), dw2p.sum(0), dw3p.sum(0), dalp.sum(0)
+
+
+head_stack_bwd.launches = 0
+
+
+class _HeadStack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, w2, w3, alphas):
+        ctx.save_for_backward(x, w1, w2, w3, alphas)
+        return head_stack_fwd(x, w1, w2, w3, alphas)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return head_stack_bwd(*ctx.saved_tensors, dy.contiguous())
+
+
+def head_stack(x, w1, w2, w3, alphas):
+    """Fused train-mode head stack, differentiable in every input.
+
+    x: (N, H, W, Cin) NHWC; w1: (n_heads, 7, 7, Cin, C1), w2: (n_heads, 5,
+    5, C1, 1), w3: (n_heads, 3, 3, 1, 1) HWIO; alphas: (n_heads, 2) PReLU
+    slopes. Returns (N, n_heads, H, W): each head's last conv output,
+    before its final activation. Forward K3-fwd, backward K3-bwd on the
+    card; the plain versions on the CPU."""
+    return _HeadStack.apply(x, w1, w2, w3, alphas)

@@ -10,7 +10,9 @@ Port of ``CVAEPainter`` from ``baryon_painter_tpu/painter.py``:
 Transform -> prior sample -> decode -> inverse transform, on ``device``
 (``cuda`` unless the caller passes ``device="cpu"``; asking for CUDA where
 there is none raises). ``fused_inference=True`` renames the canonical residual
-blocks into the fused layout, so each runs as one K1 launch.
+blocks into the fused layout, so each runs as one K1 launch;
+``fused_heads=True`` runs the two output heads as one K3 launch (the JAX
+package's ``BPT_FUSED_HEADS=1``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ class CVAEPainter:
                  meta: Optional[dict] = None,
                  seed: int = 0,
                  fused_inference: bool = False,
+                 fused_heads: bool = False,
                  device=None):
         """Construct from a checkpoint base path (``filename``), or from
         ``variables`` (``{"params", "batch_stats"}`` as nested numpy dicts)
@@ -45,6 +48,7 @@ class CVAEPainter:
         ``generator`` nor ``eps``."""
         self.device = resolve_device(device)
         self._fused_inference = fused_inference
+        self._fused_heads = fused_heads
         if filename is not None:
             self.load_state_from_file(filename)
         elif variables is not None and meta is not None:
@@ -59,7 +63,8 @@ class CVAEPainter:
         if self._fused_inference and not arch.get("fused_res_blocks"):
             variables, arch = fuse_cvae_variables(variables, arch)
             meta = {**meta, "model_architecture": arch}
-        self.model = from_jax_variables(variables, arch).to(self.device)
+        self.model = from_jax_variables(
+            variables, arch, fused_heads=self._fused_heads).to(self.device)
         self.meta = meta
         self.architecture = arch
         self.input_field = meta["input_field"]

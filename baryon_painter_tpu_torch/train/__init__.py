@@ -1,1 +1,2 @@
-"""Checkpoint reading (the training engine is not ported yet)."""
+"""Training: the CVAE step (``trainer.py``), schedules, statistics
+bookkeeping, and checkpoint reading."""

@@ -3,11 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds K1 (the fused residual-block kernel, csrc/res_block.cu) with nvcc,
-holds it against its plain PyTorch version, paints the committed 512^2
-golden through ``CVAEPainter(fused_inference=True)`` on the card (K1 must
-launch exactly 4 times), and times the painter and the kernel. The phases
-live in ``baryon_painter_tpu_torch/smoke.py``; each prints one line with its
+Builds the kernels (K1, the fused residual block; K2, the training tile
+gather; K3, the fused output heads forward and backward; csrc/*.cu) with
+nvcc, holds each against its plain PyTorch version, and drives the port's
+two main paths on the card: painting the committed 512^2 golden through
+``CVAEPainter(fused_inference=True)`` (K1 must launch exactly 4 times, and
+with ``fused_heads=True`` K3-fwd once more), and training the fiducial CVAE
+at batch 24 on synthetic stacks with the batch gathered on the card through
+K2 and the heads through K3 (exactly one launch of each per step), with a
+kernels-vs-plain training step. Everything is timed. The phases live in
+``baryon_painter_tpu_torch/smoke.py``; each prints one line with its
 seconds. The last lines are the kernels record (JSON), the card's name and
 power limit as nvidia-smi gives them, and the result (JSON). Any failed phase
 raises and the script exits non-zero; without a CUDA device, or without the
@@ -37,15 +42,23 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     env = smoke.environment(device)
+    card = env["nvidia_smi"]
     smoke.build_kernels(device)
     checks = smoke.check_kernels(device)
     paint = smoke.paint_golden(device)
-    timing = smoke.time_main_path(device, paint["painter"],
-                                  card=env["nvidia_smi"])
-    print(f"total {time.perf_counter() - t_start:.3f} s "
-          f"(card: {env['nvidia_smi']})", flush=True)
-    print(json.dumps(smoke.kernels_record(checks, paint, timing)))
-    print(env["nvidia_smi"])
+    timing = smoke.time_main_path(device, paint["painter"], card=card)
+    dataset = smoke.training_data()
+    gather = smoke.check_gather(device, dataset)
+    heads = smoke.check_heads(device)
+    training = smoke.train(device, dataset, card=card)
+    smoke.train_parity(device, dataset)
+    smoke.paint_fused_heads(device, card=card,
+                            heads_unfused_ms=timing["paint_ms"])
+    print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
+          flush=True)
+    print(json.dumps(smoke.kernels_record(checks, paint, timing, gather,
+                                          heads, training)))
+    print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """The kernel build (baryon_painter_tpu_torch/ops/_build.py) without a card.
 
 nvcc exists only on the machine with the card, so these tests stand a small
-script in for it: they check that the library is named by a hash of the
-sources, that it appears under its final name only after a successful
-build (written to a temporary name, then moved), that no temporary or lock
-file is left behind by a failed or timed-out build, and that the failure
-carries nvcc's own message. That the real nvcc builds the real source is
+script in for it: they check that the library is named by a hash of all the
+sources, that each source is compiled by its own nvcc, all at once, before
+one link, that the library appears under its final name only after a
+successful build (written to a temporary name, then moved), that no
+temporary or lock file is left behind by a failed or timed-out build, and
+that the failure carries nvcc's own message. That the real nvcc builds the real source is
 shown on the card by chip_smoke.py.
 """
 import os
@@ -17,11 +18,16 @@ import pytest
 from baryon_painter_tpu_torch.ops import _build
 
 
+SOURCES = ("a.cu", "b.cu", "k.cu")
+
+
 @pytest.fixture
 def tree(tmp_path, monkeypatch):
     src = tmp_path / "csrc"
     src.mkdir()
-    (src / "k.cu").write_text("extern \"C\" int f() { return 0; }\n")
+    for name in SOURCES:
+        (src / name).write_text(f"extern \"C\" int f_{name[0]}() "
+                                f"{{ return 0; }}\n")
     build = tmp_path / "build"
     monkeypatch.setattr(_build, "SOURCE_DIR", src)
     monkeypatch.setattr(_build, "BUILD_DIR", build)
@@ -47,8 +53,11 @@ def test_library_name_follows_the_sources(tree):
     assert first.parent == tree / "build"
     assert first.name.startswith("libbpt_kernels_") and first.suffix == ".so"
     assert _build.library_path() == first
-    (tree / "csrc" / "k.cu").write_text("// changed\n")
-    assert _build.library_path() != first
+    seen = {first}
+    for name in SOURCES:          # a change to any one source renames it
+        (tree / "csrc" / name).write_text(f"// changed {name}\n")
+        assert _build.library_path() not in seen
+        seen.add(_build.library_path())
 
 
 def test_successful_build_moves_the_library_into_place(tree, monkeypatch):
@@ -60,6 +69,38 @@ def test_successful_build_moves_the_library_into_place(tree, monkeypatch):
     # a second call finds the library and does not rebuild
     again = _build.build_library()
     assert again["seconds"] == 0.0 and again["path"] == res["path"]
+
+
+def test_each_source_has_its_own_nvcc_started_together_then_one_link(
+        tree, monkeypatch):
+    """The stand-in logs each call; the compiles sleep so that they overlap
+    only if they were started together."""
+    log = tree / "calls"
+    _fake_nvcc(tree, monkeypatch,
+               f'echo "$@" >> {log}\n'
+               'case "$*" in *" -c "*) sleep 1;; esac\n' + _WRITE_OUTPUT)
+    t0 = time.perf_counter()
+    _build.build_library()
+    assert time.perf_counter() - t0 < 2.5      # three 1 s compiles, at once
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    assert sorted(c.split(" -c ")[1].split()[0].rsplit("/", 1)[1]
+                  for c in compiles) == list(SOURCES)
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    link = calls[-1]
+    assert "-shared" in link and " -c " not in link
+    assert sorted(a.rsplit("/", 1)[1] for a in link.split()
+                  if a.endswith(".o")) == ["a.o", "b.o", "k.o"]
+
+
+def test_a_failing_second_source_fails_the_build_and_leaves_nothing(
+        tree, monkeypatch):
+    _fake_nvcc(tree, monkeypatch,
+               'case "$*" in *b.cu*) echo "b.cu(1): error: broken" >&2; '
+               'exit 2;; esac\n' + _WRITE_OUTPUT)
+    with pytest.raises(RuntimeError, match="b.cu.*broken"):
+        _build.build_library()
+    assert os.listdir(tree / "build") == []
 
 
 def test_failed_build_raises_with_nvcc_message_and_leaves_nothing(

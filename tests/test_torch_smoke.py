@@ -2,8 +2,8 @@
 the rules the smoke script and the port keep.
 
 On the CPU the phases run the same control flow as on the card with the
-kernel's plain version: no build, K1 compared with itself (error 0), the
-golden painted with 0 launches, host times. chip_smoke.py itself must fail,
+kernels' plain versions: no build, each kernel compared with itself (error
+0), the golden painted and the CVAE trained with 0 launches, host times. chip_smoke.py itself must fail,
 printing no result, without a CUDA device or without the package beside it.
 """
 import ast
@@ -39,6 +39,19 @@ def cpu_run():
     return env, build, checks, paint, timing
 
 
+@pytest.fixture(scope="module")
+def cpu_train_run():
+    d = torch.device("cpu")
+    ds = smoke.training_data(tile=32)
+    gather = smoke.check_gather(d, ds, batch=4, iters=1)
+    heads = smoke.check_heads(d, shape=(2, 32, 32), iters=1)
+    training = smoke.train(d, ds, batch=2, warmup=1, iters=2,
+                           n_res_blocks=1)
+    parity = smoke.train_parity(d, ds, batch=2, n_res_blocks=1)
+    fused_paint = smoke.paint_fused_heads(d, n_tiles=2, warmup=0, iters=1)
+    return ds, gather, heads, training, parity, fused_paint
+
+
 def test_environment_and_build_phases_on_cpu(cpu_run):
     env, build, *_ = cpu_run
     assert env["nvidia_smi"] is None and env["kind"] == "cpu"
@@ -60,21 +73,67 @@ def test_golden_paint_phase_on_cpu(cpu_run):
     assert paint["worst_err_over_tol"] <= 1.0
 
 
-def test_timing_phase_and_kernels_record(cpu_run):
+def test_timing_phase_and_kernels_record(cpu_run, cpu_train_run):
     _, _, checks, paint, timing = cpu_run
+    _, gather, heads, training, _, _ = cpu_train_run
     assert timing["n_tiles"] == 2 and timing["paint_ms"] > 0
-    rec = smoke.kernels_record(checks, paint, timing)
+    rec = smoke.kernels_record(checks, paint, timing, gather, heads,
+                               training)
     json.dumps(rec)
-    (k,) = rec["kernels"]
-    for key in ("name", "route", "source", "replaces", "launches",
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms"):
-        assert key in k, key
-    assert k["route"] == "cuda" and k["bound_by"] in ("bytes", "operations")
-    assert (Path(REPO) / k["source"]).is_file()
-    path, line = k["replaces"].split(":")
-    src = (Path(REPO) / path).read_text().splitlines()
-    assert src[int(line) - 1].startswith("def res_block_infer(")
+    assert [k["name"] for k in rec["kernels"]] == [
+        "res_block_infer", "gather_tiles", "head_stack_fwd",
+        "head_stack_bwd"]
+    defs = {"res_block_infer": "def res_block_infer(",
+            "gather_tiles": "def gather_tiles_pallas(",
+            "head_stack_fwd": "def head_stack(",
+            "head_stack_bwd": "def _head_stack_bwd("}
+    for k in rec["kernels"]:
+        for key in ("name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            assert key in k, (k["name"], key)
+        assert k["route"] == "cuda"
+        assert k["bound_by"] in ("bytes", "operations")
+        assert k["launches"] == 0 and k["max_abs_err"] == 0.0
+        assert (Path(REPO) / k["source"]).is_file()
+        path, line = k["replaces"].split(":")
+        src = (Path(REPO) / path).read_text().splitlines()
+        assert src[int(line) - 1].startswith(defs[k["name"]]), k["name"]
+
+
+def test_training_phases_on_cpu(cpu_train_run):
+    ds, gather, heads, training, parity, fused_paint = cpu_train_run
+    # n_z * n_stack^2 * n_tile^4 * n_perm^2
+    assert ds.tile_size == 32 and len(ds) == 2 * 2**2 * 2**4 * 8**2
+    assert gather["shape"] == [4, 2, 2, 32, 32]
+    assert set(heads["errors"]) == set(smoke.K3_TOL)
+    assert all(v == 0.0 for v in heads["errors"].values())
+    assert training["launches"] == {"k1": 0, "k2": 0, "k3_fwd": 0,
+                                    "k3_bwd": 0}
+    assert training["step_ms"] > 0 and len(training["elbo"]) == 2
+    assert parity["loss_rel_err"] <= smoke.STEP_LOSS_RTOL
+    assert parity["worst_grad_rel_err"] <= smoke.STEP_GRAD_TOL
+    assert fused_paint["launches"] == fused_paint["k3_fwd_launches"] == 0
+    assert fused_paint["worst_err_over_tol"] <= 1.0
+
+
+def test_training_data_is_the_bench_configuration():
+    """bench.py:100-108: 2 stacks of 1024^2 at z = 0 and 1, 2 x 2 tiles of
+    512^2 a side, dihedral permutations, shift-log(4) on both fields."""
+    import inspect
+    src = inspect.getsource(smoke.training_data)
+    for text in ("n_stack=2", "n_grid=2 * tile", "redshifts=(0.0, 1.0)",
+                 "seed=0", "n_tile=2", "tile_permutations=True",
+                 'RangeCompress("shift-log", 4.0)'):
+        assert text in src, text
+    assert smoke.TRAIN_TILE == 512 and smoke.TRAIN_BATCH == 24
+    assert smoke.N_RES_BLOCKS == 4
+
+
+def test_launch_counts_are_checked_on_every_path():
+    with pytest.raises(AssertionError, match="kernel launches"):
+        smoke._expect_launches("train", {"k1": 0, "k2": 1},
+                               {"k1": 0, "k2": 2})
 
 
 def test_k1_bound_at_the_main_path_shape():
