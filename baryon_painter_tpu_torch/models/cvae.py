@@ -12,6 +12,11 @@ attribute names (``q_x_in``, ``q_out``, ``prior_network``, ``p_z_in``,
 ``BPT_FUSED_HEADS=1``: where both output heads have the canonical shape
 (``_heads_fusable``, the JAX gate), they run through K3
 (``ops/head_stack.py``) in training and in painting alike.
+``fused_train_conv=True`` is the counterpart of ``BPT_FUSED_TRAIN_CONV=1``:
+every subnet runs its gated train-mode (conv, batch norm, ReLU) triples
+through K4 (``ops/conv_bn.py``, ``SpecSequential``); in the fiducial
+architecture those are ``p_y_z_in``'s input conv and its three up-convs.
+Both switches are off by default, as in the JAX package.
 
 The model is built in eval mode (painting); ``.train()`` switches batch norm
 to batch statistics for ``forward``.
@@ -44,7 +49,8 @@ def _strip_unflatten(spec):
 class CVAE(nn.Module):
     """CVAE built from the architecture dict of a checkpoint."""
 
-    def __init__(self, architecture: dict, fused_heads: bool = False):
+    def __init__(self, architecture: dict, fused_heads: bool = False,
+                 fused_train_conv: bool = False):
         super().__init__()
         arch = architecture
         if arch.get("type", "Type-1") != "Type-1":
@@ -59,21 +65,23 @@ class CVAE(nn.Module):
         self.likelihood_scaling = arch.get("likelihood_scaling", 1.0)
 
         fused = arch.get("fused_res_blocks", False)
-        mk = lambda key: SpecSequential(_strip_unflatten(arch.get(key)),
-                                        fused_res_blocks=fused)
+        seq = lambda spec, res=False: SpecSequential(
+            _strip_unflatten(spec), fused_res_blocks=res,
+            fused_train_conv=fused_train_conv)
+        mk = lambda key: seq(arch.get(key), fused)
         self.q_x_in = mk("q_x_in")
         self.q_y_in = mk("q_y_in")
         self.q_out = mk("q_x_y_out")
-        self.p_y_in = SpecSequential(_strip_unflatten(arch.get("p_y_in")))
+        self.p_y_in = seq(arch.get("p_y_in"))
         self.p_z_in = mk("p_z_in")
         self.p_y_z_in = mk("p_y_z_in")
-        self.p_mu_out = SpecSequential(_strip_unflatten(arch["p_y_z_out"][0]))
+        self.p_mu_out = seq(arch["p_y_z_out"][0])
         self.predict_var = len(arch["p_y_z_out"]) > 1
         self.p_var_out = (
-            SpecSequential(_strip_unflatten(arch["p_y_z_out"][1]))
+            seq(arch["p_y_z_out"][1])
             if self.predict_var else None)
         self.prior_network = (
-            SpecSequential(_strip_unflatten(arch["prior_z_y"]))
+            seq(arch["prior_z_y"])
             if arch.get("prior_z_y") is not None else None)
         self.eval()
 

@@ -17,7 +17,10 @@ Every parametric layer is named as flax names it (``Conv2d_0``,
 weights of a JAX checkpoint map onto it one to one (``convert.py``).
 Convolutions outside the fused residual block are PyTorch's own, as the JAX
 package leaves them to XLA; the fused block runs K1 (``ops/res_block.py``)
-and is inference-only, as K1 has no backward.
+and is inference-only, as K1 has no backward. With
+``fused_train_conv=True`` (the JAX package's ``BPT_FUSED_TRAIN_CONV=1``) a
+train-mode (conv | transposed conv, batch norm, ReLU) triple that passes the
+JAX package's gate runs as one K4 call (``ops/conv_bn.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from baryon_painter_tpu_torch.ops import conv_rules
+from baryon_painter_tpu_torch.ops.conv_bn import conv_bn_relu
 from baryon_painter_tpu_torch.ops.res_block import fold_bn, res_block_infer
 
 __all__ = ["Conv2d", "ConvTranspose2d", "BatchNorm", "PReLU",
@@ -99,16 +104,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    @torch.no_grad()
+    def update_running(self, mean, var):
+        """Move the running statistics towards a batch's (biased) ones."""
+        m = _BN_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
     def forward(self, x):
         if self.training:
             xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
             var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
-            with torch.no_grad():
-                m = _BN_MOMENTUM
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.update_running(mean, var)
             x = xf
         else:
             mean, var = self.running_mean, self.running_var
@@ -187,9 +195,10 @@ def canonical_res_block_slopes(config):
 class ResidualBlock(nn.Module):
     """x -> act(inner(x) + x)."""
 
-    def __init__(self, inner_spec, activation):
+    def __init__(self, inner_spec, activation, fused_train_conv=False):
         super().__init__()
-        self.SpecSequential_0 = SpecSequential(inner_spec)
+        self.SpecSequential_0 = SpecSequential(
+            inner_spec, fused_train_conv=fused_train_conv)
         act = tuple(activation)
         self._act = _activation(act[0], act[1] if len(act) > 1 else None)
 
@@ -245,16 +254,30 @@ class SpecSequential(nn.Module):
     """Interpret a layer-spec list (see models/dsl.py).
 
     Built in eval mode, the painting default; ``.train()`` switches batch
-    norm to batch statistics. ``spec=None`` is the identity. With ``fused_res_blocks=True`` every
-    canonical residual block becomes a ``FusedResBlock`` (K1); the others
-    stay ``ResidualBlock``s, numbered apart, as flax numbers them.
+    norm to batch statistics. ``spec=None`` is the identity. With
+    ``fused_res_blocks=True`` every canonical residual block becomes a
+    ``FusedResBlock`` (K1); the others stay ``ResidualBlock``s, numbered
+    apart, as flax numbers them.
+
+    With ``fused_train_conv=True``, in train mode, each (conv | transposed
+    conv, batch norm, ReLU) triple with a bias-free conv of at least 8
+    output channels runs as one ``conv_bn_relu`` (K4) call when the JAX
+    package's shape gate passes on the actual input
+    (``baryon_painter_tpu/models/layers.py:491-531``, rules in
+    ``ops/conv_rules.py``); the triple's modules and names stay as they are,
+    and the batch norm's running statistics move as they would unfused.
     """
 
-    def __init__(self, spec: Optional[Sequence], fused_res_blocks=False):
+    def __init__(self, spec: Optional[Sequence], fused_res_blocks=False,
+                 fused_train_conv=False):
         super().__init__()
+        self.fused_train_conv = fused_train_conv
         self.layers = nn.ModuleDict()
         self._steps = []   # module names and elementwise callables, in order
+        self._triples = {}  # step index of a conv -> what K4 needs of it
         counters = {}
+        spec = list(spec or ())
+        step_of = []       # the step index each spec entry starts at
 
         def add(module):
             cls = type(module).__name__
@@ -263,7 +286,8 @@ class SpecSequential(nn.Module):
             self.layers[name] = module
             self._steps.append(name)
 
-        for layer in spec or ():
+        for layer in spec:
+            step_of.append(len(self._steps))
             name = layer[0]
             config = layer[1] if len(layer) > 1 else None
             lname = name.lower() if isinstance(name, str) else name
@@ -292,7 +316,7 @@ class SpecSequential(nn.Module):
                 if slopes is not None:
                     add(FusedResBlock(inner[0][1]["out_channels"], *slopes))
                 else:
-                    add(ResidualBlock(inner, act))
+                    add(ResidualBlock(inner, act, fused_train_conv))
             elif lname == "upsample nearest":
                 s = config["scale"]
                 self._steps.append(lambda x, s=s: _upsample_nearest(x, s))
@@ -302,11 +326,61 @@ class SpecSequential(nn.Module):
                 pass
             else:
                 raise NotImplementedError(f"Layer {name} not supported yet!")
+        for i, layer in enumerate(spec[:-2]):
+            kind = str(layer[0]).lower()
+            cfg = layer[1] if len(layer) > 1 else None
+            if (kind in ("conv", "transp conv")
+                    and str(spec[i + 1][0]).lower() == "batchnorm"
+                    and str(spec[i + 2][0]).lower() == "relu"
+                    and not cfg.get("bias", True)
+                    and cfg["out_channels"] >= 8):
+                j = step_of[i]
+                self._triples[j] = (kind == "transp conv", self._steps[j],
+                                    self._steps[j + 1])
         self.eval()
 
+    def _fusable(self, i, x):
+        """The K4 triple at step i when it is fused for this input (the
+        JAX package's ``_train_conv_fusion`` gate), else None."""
+        triple = self._triples.get(i) if (self.fused_train_conv
+                                          and self.training) else None
+        if triple is None:
+            return None
+        transposed, conv_name, _ = triple
+        conv = self.layers[conv_name]
+        k = conv.weight.shape[-1]
+        s, p = conv.stride, conv.padding
+        if transposed:
+            ok = (conv.output_padding == 0
+                  and conv_rules.transp_conv_rewrite_applicable(k, s, p, 0)
+                  and x.shape[2] * s % 8 == 0)
+        else:
+            cin, cout = x.shape[1], conv.weight.shape[0]
+            ok = (conv_rules.s2d_rewrite_applicable(k, s, p, x.shape[2],
+                                                    x.shape[3], cin, 4)
+                  and conv_rules.s2d_rewrite_profitable(k, cin, cout, 4))
+        return triple if ok else None
+
+    def _fused_train_conv(self, triple, x):
+        transposed, conv_name, bn_name = triple
+        conv, bn = self.layers[conv_name], self.layers[bn_name]
+        y, mean, var = conv_bn_relu(x, conv.weight, bn.weight, bn.bias,
+                                    transposed=transposed, stride=conv.stride,
+                                    padding=conv.padding, eps=_BN_EPS)
+        bn.update_running(mean, var)
+        return y
+
     def forward(self, x):
-        for step in self._steps:
+        i = 0
+        while i < len(self._steps):
+            triple = self._fusable(i, x)
+            if triple is not None:
+                x = self._fused_train_conv(triple, x)
+                i += 3   # the conv, its batch norm and its ReLU
+                continue
+            step = self._steps[i]
             x = self.layers[step](x) if isinstance(step, str) else step(x)
+            i += 1
         return x
 
 

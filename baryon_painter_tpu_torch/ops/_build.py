@@ -144,6 +144,16 @@ def load_library() -> ctypes.CDLL:
     lib.bpt_head_stack_fwd.restype = ctypes.c_int
     lib.bpt_head_stack_bwd.argtypes = [p] * 12 + [i, i, i, p]
     lib.bpt_head_stack_bwd.restype = ctypes.c_int
+    dims = [i] * 7   # n, cin, h, w, cout, k, s
+    for name, n_ptr in (("stats", 4), ("fwd", 5), ("bwd1", 9), ("bwd2", 11)):
+        fn = getattr(lib, f"bpt_conv_bn_{name}")
+        fn.argtypes = [p] * n_ptr + dims + [p]
+        fn.restype = ctypes.c_int
+    lib.bpt_conv_bn_fwd_tiles.argtypes = [i, i, i]
+    lib.bpt_conv_bn_bwd2_tiles.argtypes = [i, i, i, i]
+    lib.bpt_conv_bn_bwd2_smem.argtypes = [i, i, i]
+    for name in ("fwd_tiles", "bwd2_tiles", "bwd2_smem"):
+        getattr(lib, f"bpt_conv_bn_{name}").restype = ctypes.c_int
     lib.bpt_error_string.argtypes = [ctypes.c_int]
     lib.bpt_error_string.restype = ctypes.c_char_p
     return lib

@@ -12,7 +12,8 @@ Transform -> prior sample -> decode -> inverse transform, on ``device``
 there is none raises). ``fused_inference=True`` renames the canonical residual
 blocks into the fused layout, so each runs as one K1 launch;
 ``fused_heads=True`` runs the two output heads as one K3 launch (the JAX
-package's ``BPT_FUSED_HEADS=1``).
+package's ``BPT_FUSED_HEADS=1``). A call paints in f32 whatever the
+caller's TF32 setting (``utils/platform.f32_convolutions``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ import torch
 from baryon_painter_tpu_torch.convert import from_jax_variables
 from baryon_painter_tpu_torch.models.fuse import fuse_cvae_variables
 from baryon_painter_tpu_torch.train import checkpoint as ckpt
-from baryon_painter_tpu_torch.utils.platform import resolve_device
+from baryon_painter_tpu_torch.utils.platform import (f32_convolutions,
+                                                     resolve_device)
 
 __all__ = ["CVAEPainter"]
 
@@ -127,6 +129,12 @@ class CVAEPainter:
         decodes at the prior mean; 'zero' at z=0. Returns a tensor on the
         painter's device (and the predicted variance with ``return_var``).
         """
+        with f32_convolutions():
+            return self._paint_batch(tiles, zs, transform, inverse_transform,
+                                     return_var, generator, z_mode, eps)
+
+    def _paint_batch(self, tiles, zs, transform, inverse_transform,
+                     return_var, generator, z_mode, eps):
         if z_mode not in _Z_MODES:
             raise ValueError(f"z_mode must be one of {_Z_MODES}, got "
                              f"'{z_mode}'")

@@ -1,12 +1,17 @@
 """Where the time of the port's training step goes, on one CUDA card.
 
     python -m baryon_painter_tpu_torch.profile_train [--batch 24] [--iters 10]
+        [--fused-train-conv]
 
 Trains the fiducial CVAE (512^2 tiles, 4 residual blocks, the synthetic
 stacks and transforms of ``smoke.training_data``) with ``step_indices``:
-the batch gathered on the card through K2, the output heads through K3
-(``fused_heads=True``) or through cuDNN (``fused_heads=False``), in turns:
-unfused, fused, fused, unfused, each ``iters`` steps after ``warmup``. For
+the batch gathered on the card through K2, and two variants in turns (the
+first, the second, the second, the first), each ``iters`` steps after
+``warmup``: the output heads through cuDNN (``fused_heads=False``) and
+through K3 (``fused_heads=True``); or, with ``--fused-train-conv``, both
+with K3's heads, the train-mode conv + batch norm + ReLU triples through
+cuDNN and the port's BatchNorm (``fused_train_conv=False``) and through K4
+(``fused_train_conv=True``). For
 each it prints ms per step (host clock around steps that end in a
 synchronise) and samples/s; then, per variant, from one torch.profiler
 window (CUDA activity only) over ``iters`` steps, the device time by kernel
@@ -14,7 +19,8 @@ and the device's idle share, 1 - (union of device intervals per step) /
 (ms per step); and the device time of each stage (CUDA events: batch
 assembly and transforms before the model, the forward, the backward and
 Adam after it) and of each subnet's forward (CUDA events in forward
-hooks). TF32 is off. The full record is printed as the last line (JSON).
+hooks), with the K4 kernels' device time per step by name. TF32 is off.
+The full record is printed as the last line (JSON).
 """
 from __future__ import annotations
 
@@ -68,7 +74,8 @@ def _device_profile(fn, iters: int, top: int, step_ms: float) -> dict:
                    for k, (n, us) in by_name.items()),
                   key=lambda r: -r["device_ms_per_step"])
     return {"device_busy_ms_per_step": busy_ms,
-            "idle_share": 1.0 - busy_ms / step_ms, "top_kernels": rows[:top]}
+            "idle_share": 1.0 - busy_ms / step_ms, "top_kernels": rows[:top],
+            "all_kernels": rows}
 
 
 def _stage_times(trainer, idx, lr) -> dict:
@@ -116,6 +123,10 @@ def _stage_times(trainer, idx, lr) -> dict:
     return out
 
 
+# device kernel names of K4 (csrc/conv_bn.cu)
+_K4_KERNEL_NAMES = ("fwd_type_kernel", "bwd2_kernel")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=smoke.TRAIN_BATCH)
@@ -123,6 +134,8 @@ def main():
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--fused-train-conv", action="store_true",
+                    help="compare K4 off and on (both with K3's heads)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
@@ -134,7 +147,13 @@ def main():
                           check=True).stdout.strip()
     device = torch.device("cuda")
     ds = smoke.training_data()
-    trainers = {f: smoke.make_trainer(device, ds, f) for f in (False, True)}
+    # label -> (fused_heads, fused_train_conv)
+    variants = ({"k4_off": (True, False), "k4_on": (True, True)}
+                if args.fused_train_conv else
+                {"cudnn_heads": (False, False), "k3_heads": (True, False)})
+    trainers = {label: smoke.make_trainer(device, ds, heads,
+                                          fused_train_conv=k4)
+                for label, (heads, k4) in variants.items()}
     rng = np.random.default_rng(1)
     draw = lambda k: [ds.sample_indices(rng, args.batch) for _ in range(k)]
     for trainer in trainers.values():
@@ -142,29 +161,32 @@ def main():
     torch.cuda.synchronize()
     record = {"card": card, "batch": args.batch, "iters": args.iters,
               "torch": torch.__version__, "runs": []}
-    for fused in (False, True, True, False):
+    first, second = variants
+    for label in (first, second, second, first):
         idx = draw(args.iters)
         t0 = time.perf_counter()
-        _steps(trainers[fused], idx, args.lr)
+        _steps(trainers[label], idx, args.lr)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / args.iters
-        run = {"fused_heads": fused, "step_ms": ms,
+        heads, k4 = variants[label]
+        run = {"variant": label, "fused_heads": heads,
+               "fused_train_conv": k4, "step_ms": ms,
                "samples_per_s": args.batch / ms * 1e3}
-        print(f"fused_heads={fused}: {ms:.3f} ms per step of batch "
-              f"{args.batch}, {run['samples_per_s']:.2f} samples/s "
-              f"({card})", flush=True)
+        print(f"{label} (fused_heads={heads}, fused_train_conv={k4}): "
+              f"{ms:.3f} ms per step of batch {args.batch}, "
+              f"{run['samples_per_s']:.2f} samples/s ({card})", flush=True)
         record["runs"].append(run)
-    for fused in (False, True):
+    for label in variants:
         step_ms = min(r["step_ms"] for r in record["runs"]
-                      if r["fused_heads"] == fused)
+                      if r["variant"] == label)
         idx = draw(args.iters)
         prof = _device_profile(
-            lambda: _steps(trainers[fused], idx, args.lr), args.iters,
+            lambda: _steps(trainers[label], idx, args.lr), args.iters,
             args.top, step_ms)
-        stages = _stage_times(trainers[fused], draw(args.iters), args.lr)
-        record[f"profile_fused_heads_{fused}"] = prof
-        record[f"stages_fused_heads_{fused}"] = stages
-        print(f"profile fused_heads={fused}: device busy "
+        stages = _stage_times(trainers[label], draw(args.iters), args.lr)
+        record[f"profile_{label}"] = prof
+        record[f"stages_{label}"] = stages
+        print(f"profile {label}: device busy "
               f"{prof['device_busy_ms_per_step']:.3f} ms of {step_ms:.3f} "
               f"ms per step, idle share {prof['idle_share']:.3f}",
               flush=True)
@@ -172,14 +194,25 @@ def main():
             print(f"  {r['device_ms_per_step']:8.3f} ms  "
                   f"{r['calls_per_step']:5.1f}/step  {r['name']}",
                   flush=True)
-        print(f"stages fused_heads={fused} (device ms per step, CUDA "
-              f"events):", flush=True)
+        k4_rows = [r for r in prof["all_kernels"]
+                   if any(n in r["name"] for n in _K4_KERNEL_NAMES)]
+        if k4_rows:
+            k4_ms = sum(r["device_ms_per_step"] for r in k4_rows)
+            print(f"  K4 kernels, {k4_ms:.3f} ms per step:", flush=True)
+            for r in k4_rows:
+                print(f"  {r['device_ms_per_step']:8.3f} ms  "
+                      f"{r['calls_per_step']:5.1f}/step  {r['name']}",
+                      flush=True)
+        print(f"stages {label} (device ms per step, CUDA events):",
+              flush=True)
         for k, v in stages.items():
             if k != "forward_by_subnet":
                 print(f"  {v:8.3f} ms  {k}", flush=True)
         for k, v in sorted(stages["forward_by_subnet"].items(),
                            key=lambda kv: -kv[1]):
             print(f"  {v:8.3f} ms  forward {k}", flush=True)
+    for label in variants:
+        record[f"profile_{label}"].pop("all_kernels")
     print(json.dumps(record))
 
 

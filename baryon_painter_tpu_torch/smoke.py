@@ -7,7 +7,7 @@ prints one line with its elapsed seconds and returns what it found; a phase
 that fails raises.
 
   0. environment: card, power limit, versions; TF32 switched off
-  1. build K1, K2 and K3 from the sources (one library)
+  1. build K1, K2, K3 and K4 from the sources (one library)
   2. K1 against its plain version (f32 with both slopes, bf16)
   3. paint the committed 512^2 golden through the fused painter (4 K1
      launches) and compare
@@ -21,6 +21,14 @@ that fails raises.
      heads through K3 (one launch of each per step), timed; a step with the
      kernels against a step with the plain versions from the same start
   9. paint the golden with the heads through K3 (one K3-fwd launch), timed
+ 10. K4 (stats, fwd, bwd1, bwd2) against its plain version at the four
+     fused sites of the fiducial training step, timed with cuDNN's conv,
+     the port's BatchNorm and ReLU as the yardstick
+ 11. train with K4 as well (``fused_train_conv=True``: 4 launches of each
+     K4 kernel per step at 512^2), timed beside phase 8's step; 11b a step
+     with every kernel against a plain step from the same start
+ 12. repaint the golden with PyTorch's default TF32 setting (cuDNN TF32 on)
+     for the record, and with the painter's pinned f32, which must pass
 """
 from __future__ import annotations
 
@@ -33,6 +41,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from baryon_painter_tpu_torch.ops.conv_bn import (
+    batch_stats, bn_affine, conv_bn_bwd1, conv_bn_bwd1_ref, conv_bn_bwd2,
+    conv_bn_bwd2_ref, conv_bn_fwd, conv_bn_fwd_ref, conv_bn_relu_bwd_ref,
+    conv_bn_relu, conv_bn_relu_ref, conv_bn_stats, conv_bn_stats_ref)
 from baryon_painter_tpu_torch.ops.gather import (gather_tiles,
                                                  gather_tiles_ref)
 from baryon_painter_tpu_torch.ops.head_stack import (head_stack_bwd,
@@ -53,6 +65,12 @@ K2_SOURCE = "baryon_painter_tpu_torch/csrc/gather_tiles.cu"
 K3_FWD_REPLACES = "baryon_painter_tpu/ops/pallas_head_stack.py:211"
 K3_BWD_REPLACES = "baryon_painter_tpu/ops/pallas_head_stack.py:271"
 K3_SOURCE = "baryon_painter_tpu_torch/csrc/head_stack.cu"
+K4_SOURCE = "baryon_painter_tpu_torch/csrc/conv_bn.cu"
+# the bodies of the four pallas_calls of fused_conv_bn_relu (:380)
+K4_REPLACES = {"stats": "baryon_painter_tpu/ops/pallas_conv_bn.py:126",
+               "fwd": "baryon_painter_tpu/ops/pallas_conv_bn.py:149",
+               "bwd1": "baryon_painter_tpu/ops/pallas_conv_bn.py:166",
+               "bwd2": "baryon_painter_tpu/ops/pallas_conv_bn.py:277"}
 
 # one H100 SXM at 700 W (NVIDIA's data sheet): f32 on the CUDA cores,
 # dense bf16 on the tensor cores, HBM3
@@ -125,7 +143,8 @@ def environment(device) -> dict:
 
 
 def build_kernels(device) -> dict:
-    """Phase 1: build K1 from the sources, from scratch (cuda only)."""
+    """Phase 1: build every kernel from the sources, from scratch (cuda
+    only)."""
     t0 = time.perf_counter()
     device = torch.device(device)
     if device.type != "cuda":
@@ -188,32 +207,41 @@ def check_kernels(device, shape=K1_SHAPE, cases=K1_CASES) -> list:
     return results
 
 
+_COUNTED = {"k1": res_block_infer, "k2": gather_tiles,
+            "k3_fwd": head_stack_fwd, "k3_bwd": head_stack_bwd,
+            "k4_stats": conv_bn_stats, "k4_fwd": conv_bn_fwd,
+            "k4_bwd1": conv_bn_bwd1, "k4_bwd2": conv_bn_bwd2}
+
+
 def _reset_launches():
-    for fn in (res_block_infer, gather_tiles, head_stack_fwd,
-               head_stack_bwd):
+    for fn in _COUNTED.values():
         fn.launches = 0
 
 
 def _launches() -> dict:
-    return {"k1": res_block_infer.launches, "k2": gather_tiles.launches,
-            "k3_fwd": head_stack_fwd.launches,
-            "k3_bwd": head_stack_bwd.launches}
+    return {key: fn.launches for key, fn in _COUNTED.items()}
 
 
 def _expect_launches(path: str, got: dict, want: dict):
-    """Every kernel's launch count on a path, against what it must be."""
-    if got != want:
+    """Every kernel's launch count on a path, against what it must be: the
+    counts ``want`` names, and 0 for every other kernel."""
+    full = {key: want.get(key, 0) for key in got}
+    if got != full or set(want) - set(got):
         raise AssertionError(f"{path}: kernel launches {got}, expected "
-                             f"{want}")
+                             f"{full}")
 
 
 def paint_golden(device, repo: Path = REPO, fused_heads: bool = False,
-                 phase: int = 3) -> dict:
+                 phase=3, caller_tf32: bool = False,
+                 check: bool = True) -> dict:
     """Phase 3 (and 9 with ``fused_heads``): a main path. Paint the
     committed 512^2 golden's inputs with the fused painter and the committed
     prior noise; compare with the golden and count the launches (on the
     card 4 of K1, one per residual block, and with ``fused_heads`` 1 of
-    K3-fwd; none on the CPU)."""
+    K3-fwd; none on the CPU). ``caller_tf32`` paints through the painter's
+    inner ``_paint_batch``, under the caller's TF32 setting instead of the
+    f32 that ``paint_batch`` pins; ``check=False`` reports the worst error
+    without failing on it."""
     from baryon_painter_tpu_torch.painter import CVAEPainter
     t0 = time.perf_counter()
     device = torch.device(device)
@@ -226,21 +254,26 @@ def paint_golden(device, repo: Path = REPO, fused_heads: bool = False,
     tiles = golden_inputs(512, 1)
     zs = np.zeros(1, np.float32)
     _reset_launches()
-    out = painter.paint_batch(tiles, zs, eps=eps)
+    if caller_tf32:
+        with torch.inference_mode():
+            out = painter._paint_batch(tiles, zs, True, True, False, None,
+                                       "sample", eps)
+    else:
+        out = painter.paint_batch(tiles, zs, eps=eps)
     _sync(device)
     counts = _launches()
     got = out.cpu().numpy()
     on_card = device.type == "cuda"
     _expect_launches("paint", counts, {
-        "k1": 4 if on_card else 0, "k2": 0,
-        "k3_fwd": 1 if on_card and fused_heads else 0, "k3_bwd": 0})
+        "k1": 4 if on_card else 0,
+        "k3_fwd": 1 if on_card and fused_heads else 0})
     if got.shape != want.shape or not np.all(np.isfinite(got)):
         raise AssertionError(f"painted {got.shape}, finite="
                              f"{np.all(np.isfinite(got))}")
     atol = GOLDEN_RTOL * np.abs(want).mean()
     ratio = float((np.abs(got - want)
                    / (atol + GOLDEN_RTOL * np.abs(want))).max())
-    if not ratio <= 1.0:
+    if check and not ratio <= 1.0:
         raise AssertionError(f"painted tile differs from the golden: worst "
                              f"|diff| / tolerance = {ratio:.3f}")
     _line(phase, "paint_golden_fused_heads" if fused_heads else
@@ -370,14 +403,36 @@ N_RES_BLOCKS = 4
 K3_TOL = {"y": 1e-4, "dx": 1e-4, "dw1": 1e-3, "dw2": 1e-3, "dw3": 1e-3,
           "dalphas": 1e-3}
 # the kernels-vs-plain training step: the loss, relative; every parameter's
-# gradient as the weight gradients above, relative to its largest entry or,
-# where that is below STEP_GRAD_FLOOR of the largest entry of all the
-# gradients, to that floor: the scale of a batch norm followed, through a
-# ReLU and a bias-free conv, by another batch norm has an analytic gradient
-# of 0, and both sides return rounding noise for it
+# gradient as the weight gradients above, relative to its own largest entry;
+# only the parameters of STEP_GRAD_ZERO are held instead to STEP_GRAD_FLOOR
+# of the largest entry of all the gradients. Their gradient is 0
+# analytically at the first step from the initialisation: the scale of a
+# one-channel batch norm whose bias is 0, followed through a ReLU and a
+# bias-free transposed conv by another batch norm, which undoes any positive
+# scale; both sides return rounding noise for it.
 STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_TOL = 1e-3
 STEP_GRAD_FLOOR = 1e-3
+STEP_GRAD_ZERO = ("p_z_in.layers.BatchNorm_0.weight",
+                  "p_z_in.layers.BatchNorm_1.weight")
+# K4 against its plain version, max|kernel - plain| / max|plain|: y, the
+# batch statistics and dx differ by summation order only; the weight and
+# batch-norm parameter gradients sum over every output pixel
+K4_TOL = {"y": 1e-4, "mean": 1e-4, "var": 1e-4, "dx": 1e-4, "dw": 1e-3,
+          "dgamma": 1e-3, "dbeta": 1e-3}
+# the four sites K4 fuses in the fiducial training step at 512^2: the input
+# conv of p_y_z_in and its three up-convs; h is the input's edge at 512^2
+K4_SITES = {
+    "A": dict(transposed=False, cin=3, cout=16, k=5, stride=1, padding=2,
+              h=512),
+    "B": dict(transposed=True, cin=128, cout=64, k=4, stride=2, padding=1,
+              h=64),
+    "C": dict(transposed=True, cin=64, cout=32, k=4, stride=2, padding=1,
+              h=128),
+    "D": dict(transposed=True, cin=32, cout=16, k=4, stride=2, padding=1,
+              h=256),
+}
+K4_KERNELS = ("stats", "fwd", "bwd1", "bwd2")
 # operations per pixel and head: forward conv7 16->8, conv5 8->1, conv3 1->1
 _HEAD_FWD_OPS = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3)
 # backward: the recomputed u1, u2 and the input and weight gradients of the
@@ -608,30 +663,43 @@ def check_heads(device, shape=(TRAIN_BATCH, TRAIN_TILE, TRAIN_TILE),
 
 
 def make_trainer(device, dataset, fused_heads: bool, use_kernel="auto",
-             n_res_blocks: int = N_RES_BLOCKS, seed: int = 0):
+                 n_res_blocks: int = N_RES_BLOCKS, seed: int = 0,
+                 fused_train_conv: bool = False):
     from baryon_painter_tpu_torch.models.cvae import (
         CVAE, fiducial_cvae_architecture)
     from baryon_painter_tpu_torch.train.trainer import (CVAETrainer,
                                                         TrainConfig)
     arch = fiducial_cvae_architecture(dataset.tile_size,
                                       n_res_blocks=n_res_blocks)
-    return CVAETrainer(CVAE(arch, fused_heads=fused_heads), dataset,
-                       config=TrainConfig(seed=seed), device_data=True,
-                       device=device, use_kernel=use_kernel)
+    model = CVAE(arch, fused_heads=fused_heads,
+                 fused_train_conv=fused_train_conv)
+    return CVAETrainer(model, dataset, config=TrainConfig(seed=seed),
+                       device_data=True, device=device, use_kernel=use_kernel)
+
+
+def k4_sites_per_step(tile: int) -> int:
+    """K4 calls in one fiducial training step: the three up-convs, and the
+    input conv where its rows pass the space-to-depth rule (h >= 128)."""
+    return 4 if tile >= 128 else 3
 
 
 def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
           iters: int = 10, n_res_blocks: int = N_RES_BLOCKS,
-          lr: float = 1e-4, card=None) -> dict:
-    """Phase 8, a main path: ``warmup`` then ``iters`` timed training steps
-    (``step_indices``: batch gathered on the device through K2, heads
-    through K3) from the port's own initialisation. Exactly one K2, K3-fwd
-    and K3-bwd launch per timed step on the card; finite metrics; the
-    parameters change. Host clock around steps that end in a
-    synchronise."""
+          lr: float = 1e-4, card=None, fused_train_conv: bool = False,
+          k4_off_ms=None) -> dict:
+    """Phase 8 (and 11 with ``fused_train_conv``), a main path: ``warmup``
+    then ``iters`` timed training steps (``step_indices``: batch gathered on
+    the device through K2, heads through K3, and with ``fused_train_conv``
+    the gated conv + batch norm + ReLU triples through K4) from the port's
+    own initialisation. Per timed step on the card exactly one K2, K3-fwd
+    and K3-bwd launch and, with K4, ``k4_sites_per_step`` of each K4
+    kernel; finite metrics; the parameters change. Host clock around steps
+    that end in a synchronise; ``k4_off_ms`` (phase 8's step) is printed
+    beside."""
     t0 = time.perf_counter()
     device = torch.device(device)
-    trainer = make_trainer(device, dataset, True, n_res_blocks=n_res_blocks)
+    trainer = make_trainer(device, dataset, True, n_res_blocks=n_res_blocks,
+                           fused_train_conv=fused_train_conv)
     rng = np.random.default_rng(1)
     idx = [dataset.sample_indices(rng, batch) for _ in range(warmup + iters)]
     before = [p.detach().clone() for p in trainer.params]
@@ -646,8 +714,11 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
     step_ms = (time.perf_counter() - t1) * 1e3 / iters
     counts = _launches()
     n = iters if device.type == "cuda" else 0
-    _expect_launches("train", counts,
-                     {"k1": 0, "k2": n, "k3_fwd": n, "k3_bwd": n})
+    want = {"k2": n, "k3_fwd": n, "k3_bwd": n}
+    if fused_train_conv:
+        sites = k4_sites_per_step(dataset.tile_size)
+        want.update({f"k4_{k}": sites * n for k in K4_KERNELS})
+    _expect_launches("train", counts, want)
     finite = all(bool(torch.isfinite(v).all()) for m in metrics
                  for v in m.values())
     changed = any(not torch.equal(a, b) for a, b in zip(before,
@@ -658,61 +729,218 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
     out = {"step_ms": step_ms, "samples_per_s": batch / step_ms * 1e3,
            "batch": batch, "launches": counts,
            "elbo": [float(m["elbo"]) for m in metrics]}
-    _line(8, "train", t0, clock="host_clock_after_sync",
-          card=json.dumps(card), batch=batch, steps=iters,
-          step_ms=f"{step_ms:.3f}",
-          samples_per_s=f"{out['samples_per_s']:.2f}",
+    extra = {}
+    if fused_train_conv and k4_off_ms is not None:
+        extra = dict(step_ms_k4_off=f"{k4_off_ms:.3f}",
+                     samples_per_s_k4_off=f"{batch / k4_off_ms * 1e3:.2f}")
+    _line(11 if fused_train_conv else 8,
+          "train_k4" if fused_train_conv else "train", t0,
+          clock="host_clock_after_sync", card=json.dumps(card), batch=batch,
+          steps=iters, step_ms=f"{step_ms:.3f}",
+          samples_per_s=f"{out['samples_per_s']:.2f}", **extra,
           launches=json.dumps(counts),
           elbo_first_last=f"{out['elbo'][0]:.4f},{out['elbo'][-1]:.4f}")
     return out
 
 
+def step_grad_errors(grads_k: dict, grads_p: dict):
+    """Each parameter's max|kernel - plain| relative to its own largest
+    entry (STEP_GRAD_ZERO's: to STEP_GRAD_FLOOR of the largest entry of
+    all), and the parameters whose largest entry lies under that floor with
+    their error relative to their own largest entry."""
+    top = max(g.abs().max().item() for g in grads_p.values())
+    errs, under = {}, {}
+    for name, g in grads_p.items():
+        diff = (grads_k[name] - g).abs().max().item()
+        own = g.abs().max().item()
+        scale = max(own, STEP_GRAD_FLOOR * top) if name in STEP_GRAD_ZERO \
+            else own
+        errs[name] = diff / scale if scale > 0 else diff
+        if own < STEP_GRAD_FLOOR * top:
+            under[name] = {"max_abs": own,
+                           "err_own": diff / own if own > 0 else diff}
+    return errs, under, top
+
+
+def _site_forward_f64(x, w, gamma, beta, transposed, stride, padding,
+                      eps):
+    """relu(bn_train(conv(x))) in f64, rounded to f32: the site's forward
+    as exact as f32 can hold it."""
+    conv = F.conv_transpose2d if transposed else F.conv2d
+    u = conv(x.double(), w.double(), stride=stride, padding=padding)
+    mean = u.mean((0, 2, 3))
+    var = (u * u).mean((0, 2, 3)) - mean * mean
+    _, a, b = bn_affine(gamma.double(), beta.double(), mean, var, eps)
+    y = torch.relu(u * a[:, None, None] + b[:, None, None])
+    return y.float(), mean.float(), var.float()
+
+
+class _PlainSite(torch.autograd.Function):
+    """A K4 site in plain PyTorch: the plain forward (``conv_bn_relu_ref``,
+    or with ``f64`` ``_site_forward_f64``), then the plain backward with the
+    ReLU's active set ``active`` when given (K4's, recorded in the kernels
+    step), else the forward's own (y > 0)."""
+
+    @staticmethod
+    def forward(ctx, x, w, gamma, beta, transposed, stride, padding, eps,
+                active, f64):
+        kw = dict(transposed=transposed, stride=stride, padding=padding)
+        if f64:
+            y, mean, var = _site_forward_f64(x, w, gamma, beta, eps=eps,
+                                             **kw)
+        else:
+            y, mean, var = conv_bn_relu_ref(x, w, gamma, beta, eps=eps, **kw)
+        ctx.save_for_backward(x, w, gamma, beta, mean, var,
+                              y > 0 if active is None else active)
+        ctx.kw = dict(kw, eps=eps)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, w, gamma, beta, mean, var, active = ctx.saved_tensors
+        grads = conv_bn_relu_bwd_ref(x, w, gamma, beta, mean, var, dy,
+                                     active=active, **ctx.kw)
+        return (*grads, None, None, None, None, None, None)
+
+
+class _k4_sites:
+    """Within the block the train-mode triple fusion calls ``site`` in
+    place of ``conv_bn_relu`` (same arguments, same results)."""
+
+    def __init__(self, site):
+        self._site = site
+
+    def __enter__(self):
+        from baryon_painter_tpu_torch.models import layers
+        self._layers, self._saved = layers, layers.conv_bn_relu
+        layers.conv_bn_relu = self._site
+
+    def __exit__(self, *exc):
+        self._layers.conv_bn_relu = self._saved
+
+
+def _recording_k4(masks: list):
+    """``conv_bn_relu`` that appends each call's ReLU active set (y > 0) to
+    ``masks``."""
+    def site(x, w, gamma, beta, **kw):
+        y, mean, var = conv_bn_relu(x, w, gamma, beta, **kw)
+        masks.append(y.detach() > 0)
+        return y, mean, var
+    return site
+
+
+def _plain_k4(masks=None, f64: bool = False):
+    """``_PlainSite`` as a ``conv_bn_relu``: with ``masks``, each call takes
+    the next recorded active set."""
+    def site(x, w, gamma, beta, *, transposed, stride, padding, eps=1e-5):
+        active = masks.pop(0) if masks is not None else None
+        return _PlainSite.apply(x, w, gamma, beta, transposed, stride,
+                                padding, eps, active, f64)
+    return site
+
+
+def _worst(errs: dict, ref: dict, n: int = 5) -> str:
+    return ", ".join(f"{k}: {errs[k]:.2e} (max|g| {ref[k].abs().max():.2e})"
+                     for k in sorted(errs, key=errs.get)[-n:])
+
+
 def train_parity(device, dataset, batch: int = TRAIN_BATCH,
-                 n_res_blocks: int = N_RES_BLOCKS) -> dict:
-    """Phase 8b: one step with the kernels (K2, K3) against one with the
-    plain versions (``use_kernel=False``, cuDNN heads) from the same
+                 n_res_blocks: int = N_RES_BLOCKS,
+                 fused_train_conv: bool = False) -> dict:
+    """Phase 8b (11b with ``fused_train_conv``): one step with the kernels
+    (K2, K3, and with ``fused_train_conv`` K4) against one with the plain
+    versions (``use_kernel=False``, cuDNN heads and trunk) from the same
     initialisation, batch and latent noise: the loss to STEP_LOSS_RTOL,
-    every parameter's gradient to STEP_GRAD_TOL of its largest entry (with
-    the STEP_GRAD_FLOOR)."""
+    every parameter's gradient to STEP_GRAD_TOL of its largest entry
+    (``step_grad_errors``). Prints every parameter whose gradient lies under
+    STEP_GRAD_FLOOR of the largest entry of all.
+
+    With K4 the plain step runs the fused sites in plain PyTorch
+    (``_PlainSite``: the library's conv, the batch statistics, the ReLU and
+    the closed-form backward), its forward wholly its own, and takes K4's
+    ReLU active sets at those sites, recorded in the kernels step: K4
+    recomputes u, so at a pre-activation within rounding of the kink it can
+    pass the ReLU where the plain forward does not. Printed beside, for the
+    record: the kernels step against the wholly plain step, and the witness
+    of how far rounding of the sites' forward alone moves the gradients,
+    the plain sites' step and the kernels step each against a step whose
+    sites' forward is computed in f64 (``_site_forward_f64``). cuDNN runs
+    its deterministic algorithms here, so the comparison reads the same in
+    every run."""
     t0 = time.perf_counter()
     device = torch.device(device)
     idx = dataset.sample_indices(np.random.default_rng(2), batch)
     hz = dataset.tile_size // 32
     eps = torch.randn((1, batch, 1, hz, hz),
                       generator=torch.Generator().manual_seed(3))
-    runs = []
-    for fused, use_kernel in ((True, True), (False, False)):
-        trainer = make_trainer(device, dataset, fused, use_kernel=use_kernel,
-                           n_res_blocks=n_res_blocks)
-        m = trainer.step_indices(idx, 1e-4, eps=eps)
-        names = [n for n, p in trainer.model.named_parameters()
-                 if p.requires_grad]
-        runs.append((float(m["elbo"]), dict(zip(names, (
-            p.grad.detach().clone() for p in trainer.params)))))
-        del trainer
-    (loss_k, grads_k), (loss_p, grads_p) = runs
+    masks = []
+    # (label, fused heads and gather kernel, fused sites, their function)
+    plans = [("kernels", True, fused_train_conv, _recording_k4(masks)),
+             ("plain", False, False, None)]
+    if fused_train_conv:
+        plans += [("plain_k4_active", False, True, _plain_k4(masks)),
+                  ("plain_sites", False, True, _plain_k4()),
+                  ("sites_f64", False, True, _plain_k4(f64=True))]
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, kernels, k4, site in plans:
+            trainer = make_trainer(device, dataset, kernels,
+                                   use_kernel=kernels,
+                                   n_res_blocks=n_res_blocks,
+                                   fused_train_conv=k4)
+            with _k4_sites(site or conv_bn_relu):
+                m = trainer.step_indices(idx, 1e-4, eps=eps)
+            names = [n for n, p in trainer.model.named_parameters()
+                     if p.requires_grad]
+            runs[label] = (float(m["elbo"]), dict(zip(names, (
+                p.grad.detach().clone() for p in trainer.params))))
+            del trainer
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if masks:
+        raise AssertionError(f"{len(masks)} recorded K4 active sets left "
+                             f"unused: the steps fused different sites")
+    loss_k, grads_k = runs["kernels"]
+    loss_p, grads_plain = runs["plain"]
+    ref = "plain_k4_active" if fused_train_conv else "plain"
+    grads_p = runs[ref][1]
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    top = max(g.abs().max().item() for g in grads_p.values())
-    grad_errs = {n: (grads_k[n] - g).abs().max().item()
-                 / max(g.abs().max().item(), STEP_GRAD_FLOOR * top)
-                 for n, g in grads_p.items()}
+    grad_errs, under, top = step_grad_errors(grads_k, grads_p)
+    phase = "11b" if fused_train_conv else "8b"
+    for name, u in under.items():
+        print(f"  under the floor ({STEP_GRAD_FLOOR:.0e} of max|g| "
+              f"{top:.2e}): {name}: max|g| {u['max_abs']:.2e}, max|k-p| / "
+              f"own max {u['err_own']:.2e}"
+              + (" (STEP_GRAD_ZERO)" if name in STEP_GRAD_ZERO else ""),
+              flush=True)
     worst = max(grad_errs, key=grad_errs.get)
-    worst5 = ", ".join(
-        f"{n}: {grad_errs[n]:.2e} (max|g| {grads_p[n].abs().max():.2e})"
-        for n in sorted(grad_errs, key=grad_errs.get)[-5:])
+    worst5 = _worst(grad_errs, grads_p)
+    witness = {}
+    if fused_train_conv:
+        for a, b in (("kernels", "plain"), ("plain_sites", "sites_f64"),
+                     ("kernels", "sites_f64")):
+            errs, _, _ = step_grad_errors(runs[a][1], runs[b][1])
+            witness[f"{a}_vs_{b}"] = max(errs.values())
+            print(f"  {a} against {b}, worst gradients: "
+                  f"{_worst(errs, runs[b][1])}", flush=True)
+    print(f"  worst gradients against {ref} (max|g| of all {top:.2e}): "
+          f"{worst5}", flush=True)
     if not (loss_err <= STEP_LOSS_RTOL
             and grad_errs[worst] <= STEP_GRAD_TOL):
         raise AssertionError(f"kernels-vs-plain step: loss rel err "
                              f"{loss_err:.3e}; largest gradient entry "
                              f"{top:.3e}; worst gradients {worst5}")
-    print(f"  worst gradients (max|g| of all {top:.2e}): {worst5}",
-          flush=True)
-    _line(8, "train_parity", t0, elbo_kernels=f"{loss_k:.6f}",
+    _line(phase, "train_parity", t0, elbo_kernels=f"{loss_k:.6f}",
           elbo_plain=f"{loss_p:.6f}", loss_rel_err=f"{loss_err:.3e}",
           worst_grad=worst, worst_grad_rel_err=f"{grad_errs[worst]:.3e}",
-          params=len(grad_errs))
+          params=len(grad_errs), under_floor=len(under),
+          **{k: f"{v:.3e}" for k, v in witness.items()})
     return {"loss_rel_err": loss_err, "worst_grad": worst,
-            "worst_grad_rel_err": grad_errs[worst]}
+            "worst_grad_rel_err": grad_errs[worst], "under_floor": under,
+            "witness": witness}
 
 
 def paint_fused_heads(device, card=None, heads_unfused_ms=None,
@@ -734,11 +962,256 @@ def paint_fused_heads(device, card=None, heads_unfused_ms=None,
     return {"paint_ms": ms, **paint}
 
 
+def k4_site_shape(site: dict, batch: int, tile: int) -> dict:
+    """The site's shapes at ``tile`` (its input edge scales with the tile)."""
+    h = site["h"] * tile // TRAIN_TILE
+    s = site["stride"] if site["transposed"] else 1
+    return dict(n=batch, h=h, ho=h * s)
+
+
+def k4_inputs(site: dict, batch: int, tile: int, device, seed: int = 0):
+    """Seeded K4 operands at a site: x half-normal (the ReLU outputs and
+    range-compressed fields the sites read are mostly positive), the kernel
+    U(-b, b) with PyTorch's default bound b = 1/sqrt(k*k*C_in), gamma
+    U(0.5, 1.5), beta N(0, 0.1^2), the cotangent dy standard normal."""
+    sh = k4_site_shape(site, batch, tile)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    cin, cout, k = site["cin"], site["cout"], site["k"]
+    x = t(np.abs(rng.standard_normal((batch, cin, sh["h"], sh["h"]))))
+    wshape = (cin, cout, k, k) if site["transposed"] else (cout, cin, k, k)
+    w = t(rng.uniform(-1, 1, wshape) / np.sqrt(k * k * cin))
+    gamma = t(rng.uniform(0.5, 1.5, cout))
+    beta = t(0.1 * rng.standard_normal(cout))
+    dy = t(rng.standard_normal((batch, cout, sh["ho"], sh["ho"])))
+    return x, w, gamma, beta, dy
+
+
+def k4_bounds(site: dict, batch: int, tile: int) -> dict:
+    """Least time of each K4 kernel at a site: its operations over the f32
+    CUDA-core rate against its bytes over the memory rate. One conv pass is
+    2 N Ho Wo Cout Cin taps operations (taps = k^2, or (k/s)^2 for the
+    transposed conv); stats, fwd and bwd1 need one pass and bwd2 three (u
+    again, dx and dW), plus a few elementwise operations per output. Bytes:
+    x and the weights read once, and y (fwd), dy (bwd1, bwd2), dx and dW
+    (bwd2) moved once. ``logical_fwd`` and ``logical_bwd`` bound the fused
+    op as a whole, without the kernels' recomputes of u: one conv pass
+    forward (x read, y written) and two backward (dx and dW, from x, y and
+    dy)."""
+    sh = k4_site_shape(site, batch, tile)
+    cin, cout, k = site["cin"], site["cout"], site["k"]
+    taps = (k // site["stride"]) ** 2 if site["transposed"] else k * k
+    out = batch * sh["ho"] * sh["ho"] * cout
+    conv = 2.0 * out * cin * taps
+    xb = 4.0 * batch * cin * sh["h"] * sh["h"]
+    wb = 4.0 * cin * cout * k * k
+    return {"conv_flops": conv,
+            "stats": _bound(conv + 3 * out, xb + wb),
+            "fwd": _bound(conv + 3 * out, xb + wb + 4 * out),
+            "bwd1": _bound(conv + 6 * out, xb + wb + 4 * out),
+            "bwd2": _bound(3 * conv + 8 * out, 2 * xb + 2 * wb + 4 * out),
+            "logical_fwd": _bound(conv + 3 * out, xb + wb + 4 * out),
+            "logical_bwd": _bound(2 * conv + 8 * out,
+                                  2 * xb + 2 * wb + 8 * out)}
+
+
+def library_conv_bn_relu(x, w, gamma, beta, site):
+    """cuDNN's conv or transposed conv, then the port's train-mode
+    BatchNorm and ReLU, as the unfused model runs them; a yardstick only.
+    Returns a callable of (x, w) and the BatchNorm module."""
+    from baryon_painter_tpu_torch.models.layers import BatchNorm
+    bn = BatchNorm(site["cout"]).to(x.device).train()
+    with torch.no_grad():
+        bn.weight.copy_(gamma)
+        bn.bias.copy_(beta)
+    conv = F.conv_transpose2d if site["transposed"] else F.conv2d
+    kw = dict(stride=site["stride"], padding=site["padding"])
+    return (lambda xx, ww: torch.relu(bn(conv(xx, ww, **kw)))), bn
+
+
+def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
+                  iters: int = 3, card=None) -> dict:
+    """Phase 10: K4 against its plain version at each fused site of the
+    fiducial training step (``K4_SITES``): y, mean and var from K4-stats and
+    K4-fwd against ``conv_bn_relu_ref``; dx, dW, dgamma and dbeta from
+    K4-bwd1 and K4-bwd2 against ``conv_bn_relu_bwd_ref`` on a cotangent
+    zeroed where it meets a pre-activation within KINK_REL of ReLU's kink
+    (the kernel recomputes u, so there it may take the other branch); the
+    tolerances of K4_TOL. Each kernel, its plain version and the yardstick
+    (``library_conv_bn_relu``, forward and autograd backward) timed with
+    CUDA events; the bound beside."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    sites = {}
+    for name, site in K4_SITES.items():
+        x, w, gamma, beta, dy = k4_inputs(site, batch, tile, device)
+        kw = {k: site[k] for k in ("transposed", "stride", "padding")}
+        count = dy.shape[0] * dy.shape[2] * dy.shape[3]
+        with torch.no_grad():
+            mean, var = batch_stats(*conv_bn_stats(x, w, **kw), count)
+            inv, a, b = bn_affine(gamma, beta, mean, var)
+            y = conv_bn_fwd(x, w, a, b, **kw)
+            y_r, mean_r, var_r = conv_bn_relu_ref(x, w, gamma, beta, **kw)
+            _, a_r, b_r = bn_affine(gamma, beta, mean_r, var_r)
+            v = (F.conv_transpose2d if site["transposed"] else F.conv2d)(
+                x, w, stride=site["stride"], padding=site["padding"])
+            v = v * a_r[:, None, None] + b_r[:, None, None]
+            near = v.abs() <= KINK_REL * v.abs().max()
+            dy_k = torch.where(near, 0.0, dy)
+            zeroed = near.float().mean().item()
+            del v, near
+            g1, g2 = conv_bn_bwd1(x, w, a, b, mean, inv, dy_k, **kw)
+            dx, dw = conv_bn_bwd2(x, w, a, b, mean, inv, g1 / count,
+                                  g2 / count, dy_k, **kw)
+            want = dict(zip(("dx", "dw", "dgamma", "dbeta"),
+                            conv_bn_relu_bwd_ref(x, w, gamma, beta, mean_r,
+                                                 var_r, dy_k, **kw)))
+            got = {"y": y, "mean": mean, "var": var, "dx": dx, "dw": dw,
+                   "dgamma": g2, "dbeta": g1}
+            want.update(y=y_r, mean=mean_r, var=var_r)
+            _sync(device)
+            errs = {k: _rel_err(got[k], want[k]) for k in K4_TOL}
+            abs_errs = {k: (got[k] - want[k]).abs().max().item()
+                        for k in K4_TOL}
+            del got, want, y, y_r, dx, dw
+        bad = {k: e for k, e in errs.items() if not e <= K4_TOL[k]}
+        print(f"  K4 site {name}: cotangent zeroed near the kink "
+              f"{zeroed:.3e}; " + ", ".join(f"{k} {e:.2e}"
+                                            for k, e in errs.items()),
+              flush=True)
+        if bad:
+            raise AssertionError(f"K4 site {name} disagrees with its plain "
+                                 f"version: {bad}")
+        s1n, s2n = g1 / count, g2 / count
+        calls = {
+            "stats": (lambda: conv_bn_stats(x, w, **kw),
+                      lambda: conv_bn_stats_ref(x, w, **kw)),
+            "fwd": (lambda: conv_bn_fwd(x, w, a, b, **kw),
+                    lambda: conv_bn_fwd_ref(x, w, a, b, **kw)),
+            "bwd1": (lambda: conv_bn_bwd1(x, w, a, b, mean, inv, dy, **kw),
+                     lambda: conv_bn_bwd1_ref(x, w, a, b, mean, inv, dy,
+                                              **kw)),
+            "bwd2": (lambda: conv_bn_bwd2(x, w, a, b, mean, inv, s1n, s2n,
+                                          dy, **kw),
+                     lambda: conv_bn_bwd2_ref(x, w, a, b, mean, inv, s1n,
+                                              s2n, dy, **kw)),
+        }
+        rec = {"errors": errs, "abs_errors": abs_errs, "kink_zeroed": zeroed,
+               "bounds": k4_bounds(site, batch, tile), "ms": {},
+               "plain_ms": {}}
+        with torch.no_grad():
+            for k, (kern, plain) in calls.items():
+                rec["ms"][k] = _time_ms(kern, device, 1, iters)
+                rec["plain_ms"][k] = _time_ms(plain, device, 1, iters)
+        lib, bn = library_conv_bn_relu(x, w, gamma, beta, site)
+        leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(),
+                  bn.weight, bn.bias]
+        with torch.no_grad():
+            rec["library_fwd_ms"] = _time_ms(lambda: lib(x, w), device, 1,
+                                             iters)
+        y_l = lib(leaves[0], leaves[1])
+        rec["library_bwd_ms"] = _time_ms(
+            lambda: torch.autograd.grad(y_l, leaves, dy, retain_graph=True),
+            device, 1, iters)
+        del y_l, leaves, calls
+        sites[name] = rec
+        b_ = rec["bounds"]
+        print(f"  K4 site {name} ({card}): "
+              + ", ".join(f"{k} {rec['ms'][k]:.3f} ms (plain "
+                          f"{rec['plain_ms'][k]:.3f}, bound "
+                          f"{b_[k]['bound_ms']:.3f})" for k in K4_KERNELS)
+              + f"; library fwd {rec['library_fwd_ms']:.3f} ms, bwd "
+              f"{rec['library_bwd_ms']:.3f} ms; conv pass "
+              f"{b_['conv_flops'] / 1e9:.2f} GFLOP", flush=True)
+    total = {k: sum(r["ms"][k] for r in sites.values()) for k in K4_KERNELS}
+    logical = {k: sum(r["bounds"][f"logical_{k}"]["bound_ms"]
+                      for r in sites.values()) for k in ("fwd", "bwd")}
+    _line(10, "k4_vs_plain", t0, sites=",".join(sites), batch=batch,
+          card=json.dumps(card),
+          **{f"{k}_ms_4_sites": f"{v:.3f}" for k, v in total.items()},
+          logical_fwd_bound_ms=f"{logical['fwd']:.3f}",
+          logical_bwd_bound_ms=f"{logical['bwd']:.3f}",
+          stats_fwd_share_of_logical=(
+              f"{logical['fwd'] / (total['stats'] + total['fwd']):.4f}"),
+          bwd1_bwd2_share_of_logical=(
+              f"{logical['bwd'] / (total['bwd1'] + total['bwd2']):.4f}"),
+          library_fwd_ms_4_sites=f"{sum(r['library_fwd_ms'] for r in sites.values()):.3f}",
+          library_bwd_ms_4_sites=f"{sum(r['library_bwd_ms'] for r in sites.values()):.3f}")
+    return {"sites": sites}
+
+
+def paint_tf32(device, repo: Path = REPO) -> dict:
+    """Phase 12: with PyTorch's default TF32 settings (cuDNN TF32 on,
+    matmul TF32 off), the golden repainted through the painter's inner
+    ``_paint_batch``, which runs under that setting, for the record, and
+    through ``paint_batch``, which pins f32 and must pass; the caller's
+    settings are restored after."""
+    t0 = time.perf_counter()
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        default = paint_golden(device, repo, phase=12, caller_tf32=True,
+                               check=False)["worst_err_over_tol"]
+        pinned = paint_golden(device, repo, phase=12)["worst_err_over_tol"]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    _line(12, "paint_tf32", t0,
+          worst_err_over_tol_library_default=f"{default:.4f}",
+          worst_err_over_tol_pinned_f32=f"{pinned:.4f}",
+          default_within_golden=default <= 1.0)
+    return {"library_default": default, "pinned": pinned}
+
+
+# what each K4 kernel's max_abs_err covers, and the yardstick it carries
+_K4_ERRORS = {"stats": ("mean", "var"), "fwd": ("y",),
+              "bwd1": ("dgamma", "dbeta"), "bwd2": ("dx", "dw")}
+_K4_LIBRARY = {"fwd": "library_fwd_ms", "bwd2": "library_bwd_ms"}
+
+
+def k4_record(conv_bn: dict, training_k4: dict) -> list:
+    """K4's four entries of the kernels record, each summed over the four
+    sites of phase 10 (the per-site values are printed there), with the
+    launches of phase 11's timed steps. The yardstick times the library's
+    forward (conv, BatchNorm, ReLU) and its autograd backward; they stand
+    on K4-fwd and K4-bwd2, as the pairs stats + fwd and bwd1 + bwd2 compute
+    those functions."""
+    sites = conv_bn["sites"].values()
+    out = []
+    for k in K4_KERNELS:
+        t_ops = sum(r["bounds"][k]["flops"] for r in sites) / PEAK_FLOPS[
+            torch.float32]
+        t_bytes = sum(r["bounds"][k]["bytes"] for r in sites) / HBM_BYTES_PER_S
+        lib = _K4_LIBRARY.get(k)
+        entry = {
+            "name": f"conv_bn_{k}", "route": "cuda", "source": K4_SOURCE,
+            "replaces": K4_REPLACES[k],
+            "launches": training_k4["launches"][f"k4_{k}"],
+            "max_abs_err": max(r["abs_errors"][e] for r in sites
+                               for e in _K4_ERRORS[k]),
+            "ms": sum(r["ms"][k] for r in sites),
+            "plain_ms": sum(r["plain_ms"][k] for r in sites),
+            "bound_ms": sum(r["bounds"][k]["bound_ms"] for r in sites),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": (sum(r[lib] for r in sites)
+                           if lib is not None else None),
+            "sites": len(conv_bn["sites"])}
+        if lib is not None:
+            entry["library_covers"] = ("stats+fwd" if k == "fwd"
+                                       else "bwd1+bwd2")
+        out.append(entry)
+    return out
+
+
 def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
-                   heads: dict, training: dict) -> dict:
+                   heads: dict, training: dict, conv_bn: dict,
+                   training_k4: dict) -> dict:
     """The ``{"kernels": [...]}`` record of the run: K1 at the main path's
     dtype (f32), its bf16 numbers beside it; K2, K3-fwd and K3-bwd with
-    their launches in the timed training steps."""
+    their launches in the timed training steps; K4's four kernels
+    (``k4_record``)."""
     f32 = next(c for c in checks if c["dtype"] == "float32")
     bf16 = next(c for c in checks if c["dtype"] == "bfloat16")
     k3 = lambda name, key, replaces: {
@@ -766,4 +1239,5 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
         "bound_by": gather["bound_by"], "library_ms": gather["library_ms"]},
         k3("head_stack_fwd", "k3_fwd", K3_FWD_REPLACES),
-        k3("head_stack_bwd", "k3_bwd", K3_BWD_REPLACES)]}
+        k3("head_stack_bwd", "k3_bwd", K3_BWD_REPLACES),
+        *k4_record(conv_bn, training_k4)]}

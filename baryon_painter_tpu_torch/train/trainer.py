@@ -6,7 +6,10 @@ clip -> Adam, with the learning rate, alpha_var and beta_KL given per step.
 The batch comes from the host (``step``) or is assembled on the device from
 the stack cache (``step_indices``, ``step_scan``; ``device_data=True``), the
 tile gather through K2. With ``CVAE(..., fused_heads=True)`` the output heads
-run through K3, forward and backward.
+run through K3, forward and backward; with ``CVAE(...,
+fused_train_conv=True)`` the gated train-mode conv + batch norm + ReLU
+triples run through K4. A step trains in f32 whatever the caller's TF32
+setting (``utils/platform.f32_convolutions``).
 
     trainer = CVAETrainer(CVAE(arch, fused_heads=True), dataset,
                           config=TrainConfig(seed=0), device_data=True)
@@ -35,7 +38,8 @@ from baryon_painter_tpu_torch.data.device_cache import DeviceStackCache
 from baryon_painter_tpu_torch.models.cvae import CVAE
 from baryon_painter_tpu_torch.models.layers import BatchNorm
 from baryon_painter_tpu_torch.transforms import FieldStats
-from baryon_painter_tpu_torch.utils.platform import resolve_device
+from baryon_painter_tpu_torch.utils.platform import (f32_convolutions,
+                                                     resolve_device)
 
 __all__ = ["TrainConfig", "CVAETrainer", "Adam", "grad_norm",
            "clip_grads_by_global_norm"]
@@ -117,7 +121,7 @@ class CVAETrainer:
         if config.pk_loss_weight > 0:
             raise NotImplementedError(
                 "pk_loss_weight > 0: the spectral loss is not ported yet "
-                "(ROADMAP.md, section 1, item 11).")
+                "(ROADMAP.md, section 1: the spectral loss).")
         self.device = resolve_device(device)
         self.config = config
         self.training_data = training_data
@@ -165,6 +169,12 @@ class CVAETrainer:
             m.running_var.copy_(var)
 
     def _step(self, raw_input, raw_labels, z, lr, alpha_var, beta_KL, eps):
+        with f32_convolutions():
+            return self._step_f(raw_input, raw_labels, z, lr, alpha_var,
+                                beta_KL, eps)
+
+    def _step_f(self, raw_input, raw_labels, z, lr, alpha_var, beta_KL,
+                eps):
         x, y = self._prepare(raw_input, raw_labels, z)
         frozen = self._bn_state() if self.config.freeze_bn_stats else None
         for p in self.params:
@@ -236,7 +246,8 @@ class CVAETrainer:
         state = self._bn_state()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        out = self.model(x, y, z, alpha_var=alpha_var, beta_KL=beta_KL,
-                         generator=gen)
+        with f32_convolutions():
+            out = self.model(x, y, z, alpha_var=alpha_var, beta_KL=beta_KL,
+                             generator=gen)
         self._restore_bn(state)
         return {k: v for k, v in out.items() if k not in ("x_mu", "x_var")}

@@ -4,14 +4,19 @@
     python3 chip_smoke.py
 
 Builds the kernels (K1, the fused residual block; K2, the training tile
-gather; K3, the fused output heads forward and backward; csrc/*.cu) with
+gather; K3, the fused output heads forward and backward; K4, the fused
+train-mode conv + batch norm + ReLU; csrc/*.cu) with
 nvcc, holds each against its plain PyTorch version, and drives the port's
 two main paths on the card: painting the committed 512^2 golden through
 ``CVAEPainter(fused_inference=True)`` (K1 must launch exactly 4 times, and
 with ``fused_heads=True`` K3-fwd once more), and training the fiducial CVAE
 at batch 24 on synthetic stacks with the batch gathered on the card through
 K2 and the heads through K3 (exactly one launch of each per step), with a
-kernels-vs-plain training step. Everything is timed. The phases live in
+kernels-vs-plain training step; then K4 (the fused train-mode conv + batch
+norm + ReLU, four kernels) against its plain version at its four sites, the
+same training with K4 too (exactly 4 launches of each K4 kernel per step)
+and its kernels-vs-plain step, and the golden repainted with PyTorch's
+default TF32 setting. Everything is timed. The phases live in
 ``baryon_painter_tpu_torch/smoke.py``; each prints one line with its
 seconds. The last lines are the kernels record (JSON), the card's name and
 power limit as nvidia-smi gives them, and the result (JSON). Any failed phase
@@ -54,10 +59,17 @@ def main() -> int:
     smoke.train_parity(device, dataset)
     smoke.paint_fused_heads(device, card=card,
                             heads_unfused_ms=timing["paint_ms"])
+    conv_bn = smoke.check_conv_bn(device, card=card)
+    training_k4 = smoke.train(device, dataset, card=card,
+                              fused_train_conv=True,
+                              k4_off_ms=training["step_ms"])
+    smoke.train_parity(device, dataset, fused_train_conv=True)
+    smoke.paint_tf32(device)
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
     print(json.dumps(smoke.kernels_record(checks, paint, timing, gather,
-                                          heads, training)))
+                                          heads, training, conv_bn,
+                                          training_k4)))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
-"""The port on the card: K1 (csrc/res_block.cu), K2 (csrc/gather_tiles.cu) and
-K3 (csrc/head_stack.cu, forward and backward) against their plain versions,
+"""The port on the card: K1 (csrc/res_block.cu), K2 (csrc/gather_tiles.cu),
+K3 (csrc/head_stack.cu, forward and backward) and K4 (csrc/conv_bn.cu: stats,
+fwd, bwd1, bwd2) against their plain versions,
 the fused painter on CUDA against the same painter on the CPU and the golden,
 and training steps with the kernels against steps with the plain versions.
 
@@ -17,6 +18,9 @@ for bit. K3's outputs and dx differ by summation order (1e-4 of the largest
 entry), its weight and slope gradients sum over every pixel (1e-3); its
 backward is compared on a cotangent that reaches no pre-activation within
 summation noise of PReLU's kink, where the two may take different branches.
+K4 as ``smoke.K4_TOL`` (summation order: 1e-4 for y, the statistics and dx,
+1e-3 for the sums over every pixel), its backward on a cotangent zeroed
+where a pre-activation lies within ``smoke.KINK_REL`` of ReLU's kink.
 """
 from pathlib import Path
 
@@ -25,6 +29,7 @@ import pytest
 import torch
 
 from baryon_painter_tpu_torch import smoke
+from baryon_painter_tpu_torch.ops import conv_bn as k4
 from baryon_painter_tpu_torch.ops import gather as k2
 from baryon_painter_tpu_torch.ops import head_stack as k3
 from baryon_painter_tpu_torch.ops import res_block as k1
@@ -239,10 +244,152 @@ def test_training_steps_with_kernels_match_plain_steps(cuda_device):
     assert res["loss_rel_err"] <= smoke.STEP_LOSS_RTOL
     out = smoke.train(cuda_device, ds, batch=4, warmup=1, iters=3,
                       n_res_blocks=1)
-    assert out["launches"] == {"k1": 0, "k2": 3, "k3_fwd": 3, "k3_bwd": 3}
+    assert out["launches"] == {"k1": 0, "k2": 3, "k3_fwd": 3, "k3_bwd": 3,
+                               "k4_stats": 0, "k4_fwd": 0, "k4_bwd1": 0,
+                               "k4_bwd2": 0}
 
 
 def test_fused_heads_painter_on_the_card(cuda_device):
     out = smoke.paint_fused_heads(cuda_device, n_tiles=2, warmup=0, iters=1)
     assert out["launches"] == 4 and out["k3_fwd_launches"] == 1
     assert out["worst_err_over_tol"] <= 1.0
+
+
+def _k4_site(transposed, cin, cout, h, k=None, s=2):
+    if transposed:
+        return dict(transposed=True, cin=cin, cout=cout, k=2 * s, stride=s,
+                    padding=s // 2, h=h)
+    return dict(transposed=False, cin=cin, cout=cout, k=k, stride=1,
+                padding=(k - 1) // 2, h=h)
+
+
+def _k4_run(site, batch, device, seed=0):
+    """Kernels and plain versions on the same inputs: {name: (got, want)}
+    and the launches counted."""
+    x, w, gamma, beta, dy = smoke.k4_inputs(site, batch, smoke.TRAIN_TILE,
+                                            device, seed)
+    kw = {k: site[k] for k in ("transposed", "stride", "padding")}
+    count = dy.shape[0] * dy.shape[2] * dy.shape[3]
+    y_r, mean_r, var_r = k4.conv_bn_relu_ref(x, w, gamma, beta, **kw)
+    _, a_r, b_r = k4.bn_affine(gamma, beta, mean_r, var_r)
+    v = k4._conv(x, w, **kw) * a_r[:, None, None] + b_r[:, None, None]
+    dy = torch.where(v.abs() <= smoke.KINK_REL * v.abs().max(), 0.0, dy)
+    before = {f: f.launches for f in (k4.conv_bn_stats, k4.conv_bn_fwd,
+                                      k4.conv_bn_bwd1, k4.conv_bn_bwd2)}
+    mean, var = k4.batch_stats(*k4.conv_bn_stats(x, w, **kw), count)
+    inv, a, b = k4.bn_affine(gamma, beta, mean, var)
+    y = k4.conv_bn_fwd(x, w, a, b, **kw)
+    g1, g2 = k4.conv_bn_bwd1(x, w, a, b, mean, inv, dy, **kw)
+    dx, dw = k4.conv_bn_bwd2(x, w, a, b, mean, inv, g1 / count, g2 / count,
+                             dy, **kw)
+    want = k4.conv_bn_relu_bwd_ref(x, w, gamma, beta, mean_r, var_r, dy,
+                                   **kw)
+    torch.cuda.synchronize()
+    launches = {f: f.launches - n for f, n in before.items()}
+    got = {"y": (y, y_r), "mean": (mean, mean_r), "var": (var, var_r)}
+    got.update(zip(("dx", "dw", "dgamma", "dbeta"),
+                   zip((dx, dw, g2, g1), want)))
+    return got, launches
+
+
+@pytest.mark.parametrize("site,batch", [
+    (_k4_site(False, 3, 16, 40, k=5), 2),      # small, ragged tiles
+    (_k4_site(False, 5, 20, 37, k=3), 1),      # two channel groups
+    (_k4_site(False, 3, 16, 512, k=5), 4),     # site A's shape
+    (_k4_site(True, 12, 18, 9), 2),            # small transposed, ragged
+    (_k4_site(True, 128, 64, 64), 4),          # site B's shape
+    (_k4_site(True, 32, 16, 256), 4),          # site D's shape
+    (_k4_site(False, 4, 12, 29, k=1), 2),      # the other "same" kernels
+    (_k4_site(False, 6, 16, 33, k=7), 2),
+    (_k4_site(True, 6, 10, 11, s=4), 2),       # stride 4, ragged
+    (_k4_site(True, 16, 8, 40, s=4), 2),       # stride 4, many bwd2 rows
+], ids=["same_small", "same_groups", "same_512", "transp_small",
+        "transp_64", "transp_256", "same_k1", "same_k7", "transp_s4_small",
+        "transp_s4_40"])
+def test_k4_matches_plain_version(cuda_device, site, batch):
+    got, launches = _k4_run(site, batch, cuda_device)
+    assert set(launches.values()) == {1}
+    for name, (a, b) in got.items():
+        assert a.shape == b.shape, name
+        assert _max_rel_err(a, b) <= smoke.K4_TOL[name], name
+
+
+def test_k4_is_deterministic(cuda_device):
+    site = _k4_site(True, 64, 32, 128)
+    first, _ = _k4_run(site, 2, cuda_device)
+    again, _ = _k4_run(site, 2, cuda_device)
+    for name in ("mean", "var", "dw", "dgamma", "dbeta", "y", "dx"):
+        assert torch.equal(first[name][0], again[name][0]), name
+
+
+def test_k4_autograd_on_the_card_matches_autograd_of_the_plain_version(
+        cuda_device):
+    site = _k4_site(True, 16, 8, 24)
+    x, w, gamma, beta, dy = smoke.k4_inputs(site, 2, smoke.TRAIN_TILE,
+                                            cuda_device, seed=3)
+    kw = dict(transposed=True, stride=2, padding=1)
+    y, mean, var = k4.conv_bn_relu(x, w, gamma, beta, **kw)
+    assert not mean.requires_grad and not var.requires_grad
+    leaves = [t.clone().requires_grad_() for t in (x, w, gamma, beta)]
+    yk, _, _ = k4.conv_bn_relu(*leaves, **kw)
+    (yk * dy).sum().backward()
+    y_r, mean_r, var_r = k4.conv_bn_relu_ref(x, w, gamma, beta, **kw)
+    want = k4.conv_bn_relu_bwd_ref(x, w, gamma, beta, mean_r, var_r, dy,
+                                   **kw)
+    assert _max_rel_err(yk, y_r) <= smoke.K4_TOL["y"]
+    for name, leaf, b in zip(("dx", "dw", "dgamma", "dbeta"), leaves, want):
+        assert _max_rel_err(leaf.grad, b) <= smoke.K4_TOL[name], name
+
+
+def test_k4_wrapper_raises_on_what_the_kernels_do_not_take(cuda_device):
+    site = _k4_site(False, 3, 16, 16, k=5)
+    x, w, gamma, beta, _ = smoke.k4_inputs(site, 1, smoke.TRAIN_TILE,
+                                           cuda_device)
+    kw = dict(transposed=False, stride=1, padding=2)
+    with pytest.raises(TypeError, match="float32"):
+        k4.conv_bn_relu(x.bfloat16(), w.bfloat16(), gamma, beta, **kw)
+    with pytest.raises(ValueError, match="bias-free"):
+        k4.conv_bn_relu(x, w, gamma, beta, bias=torch.zeros_like(gamma),
+                        **kw)
+    with pytest.raises(ValueError, match="kernels take"):
+        k4.conv_bn_stats(x, w, transposed=False, stride=1, padding=1)
+    with pytest.raises(ValueError, match="kernels take"):
+        k4.conv_bn_stats(x, w, transposed=False, stride=2, padding=2)
+    wt = torch.zeros((3, 16, 3, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="kernels take"):
+        k4.conv_bn_stats(x, wt, transposed=True, stride=2, padding=1)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros((96, 3, 5, 5), device=cuda_device)
+        ones = torch.ones(96, device=cuda_device)
+        k4.conv_bn_bwd2(x, wide, ones, ones, ones, ones, ones, ones,
+                        torch.zeros((1, 96, 16, 16), device=cuda_device),
+                        **kw)
+
+
+def test_k4_runs_on_the_current_stream(cuda_device):
+    site = _k4_site(True, 16, 8, 24)
+    x, w, gamma, beta, _ = smoke.k4_inputs(site, 2, smoke.TRAIN_TILE,
+                                           cuda_device)
+    kw = dict(transposed=True, stride=2, padding=1)
+    want = k4.conv_bn_relu_ref(x, w, gamma, beta, **kw)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        got = k4.conv_bn_relu(x, w, gamma, beta, **kw)
+    stream.synchronize()
+    for a, b in zip(got, want):
+        assert _max_rel_err(a, b) <= 1e-4
+
+
+def test_training_steps_with_k4_match_plain_steps(cuda_device):
+    """At 64^2 the input conv fails the space-to-depth rule (h >= 128), so
+    three K4 calls a step: the up-convs."""
+    ds = smoke.training_data(tile=64)
+    res = smoke.train_parity(cuda_device, ds, batch=4, n_res_blocks=1,
+                             fused_train_conv=True)
+    assert res["loss_rel_err"] <= smoke.STEP_LOSS_RTOL
+    out = smoke.train(cuda_device, ds, batch=4, warmup=1, iters=2,
+                      n_res_blocks=1, fused_train_conv=True)
+    assert out["launches"] == {"k1": 0, "k2": 2, "k3_fwd": 2, "k3_bwd": 2,
+                               "k4_stats": 6, "k4_fwd": 6, "k4_bwd1": 6,
+                               "k4_bwd2": 6}

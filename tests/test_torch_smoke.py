@@ -52,6 +52,19 @@ def cpu_train_run():
     return ds, gather, heads, training, parity, fused_paint
 
 
+@pytest.fixture(scope="module")
+def cpu_k4_run(cpu_train_run):
+    d = torch.device("cpu")
+    ds, _, _, training, _, _ = cpu_train_run
+    conv_bn = smoke.check_conv_bn(d, batch=2, tile=32, iters=1)
+    training_k4 = smoke.train(d, ds, batch=2, warmup=1, iters=2,
+                              n_res_blocks=1, fused_train_conv=True,
+                              k4_off_ms=training["step_ms"])
+    parity_k4 = smoke.train_parity(d, ds, batch=2, n_res_blocks=1,
+                                   fused_train_conv=True)
+    return conv_bn, training_k4, parity_k4
+
+
 def test_environment_and_build_phases_on_cpu(cpu_run):
     env, build, *_ = cpu_run
     assert env["nvidia_smi"] is None and env["kind"] == "cpu"
@@ -73,20 +86,27 @@ def test_golden_paint_phase_on_cpu(cpu_run):
     assert paint["worst_err_over_tol"] <= 1.0
 
 
-def test_timing_phase_and_kernels_record(cpu_run, cpu_train_run):
+def test_timing_phase_and_kernels_record(cpu_run, cpu_train_run,
+                                         cpu_k4_run):
     _, _, checks, paint, timing = cpu_run
     _, gather, heads, training, _, _ = cpu_train_run
+    conv_bn, training_k4, _ = cpu_k4_run
     assert timing["n_tiles"] == 2 and timing["paint_ms"] > 0
     rec = smoke.kernels_record(checks, paint, timing, gather, heads,
-                               training)
+                               training, conv_bn, training_k4)
     json.dumps(rec)
     assert [k["name"] for k in rec["kernels"]] == [
         "res_block_infer", "gather_tiles", "head_stack_fwd",
-        "head_stack_bwd"]
+        "head_stack_bwd", "conv_bn_stats", "conv_bn_fwd", "conv_bn_bwd1",
+        "conv_bn_bwd2"]
     defs = {"res_block_infer": "def res_block_infer(",
             "gather_tiles": "def gather_tiles_pallas(",
             "head_stack_fwd": "def head_stack(",
-            "head_stack_bwd": "def _head_stack_bwd("}
+            "head_stack_bwd": "def _head_stack_bwd(",
+            "conv_bn_stats": "def _stats_kernel(",
+            "conv_bn_fwd": "def _fwd_kernel(",
+            "conv_bn_bwd1": "def _bwd1_kernel(",
+            "conv_bn_bwd2": "def _bwd2_kernel("}
     for k in rec["kernels"]:
         for key in ("name", "route", "source", "replaces", "launches",
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -108,13 +128,73 @@ def test_training_phases_on_cpu(cpu_train_run):
     assert gather["shape"] == [4, 2, 2, 32, 32]
     assert set(heads["errors"]) == set(smoke.K3_TOL)
     assert all(v == 0.0 for v in heads["errors"].values())
-    assert training["launches"] == {"k1": 0, "k2": 0, "k3_fwd": 0,
-                                    "k3_bwd": 0}
+    assert training["launches"] == {
+        k: 0 for k in ("k1", "k2", "k3_fwd", "k3_bwd", "k4_stats", "k4_fwd",
+                       "k4_bwd1", "k4_bwd2")}
     assert training["step_ms"] > 0 and len(training["elbo"]) == 2
     assert parity["loss_rel_err"] <= smoke.STEP_LOSS_RTOL
     assert parity["worst_grad_rel_err"] <= smoke.STEP_GRAD_TOL
     assert fused_paint["launches"] == fused_paint["k3_fwd_launches"] == 0
     assert fused_paint["worst_err_over_tol"] <= 1.0
+
+
+def test_k4_phases_on_cpu(cpu_k4_run):
+    """Phase 10 at every site (the plain pieces against the whole plain
+    version: equal), phase 11 with K4 on (no launches on the CPU), phase
+    11b within its tolerances, with the parameters under the gradient floor
+    reported and the analytically zero ones among them."""
+    conv_bn, training_k4, parity_k4 = cpu_k4_run
+    assert list(conv_bn["sites"]) == ["A", "B", "C", "D"]
+    for rec in conv_bn["sites"].values():
+        assert set(rec["errors"]) == set(smoke.K4_TOL)
+        assert all(v == 0.0 for v in rec["errors"].values())
+        assert set(rec["ms"]) == set(smoke.K4_KERNELS)
+        assert rec["library_fwd_ms"] > 0 and rec["library_bwd_ms"] > 0
+    assert set(training_k4["launches"].values()) == {0}
+    assert parity_k4["loss_rel_err"] <= smoke.STEP_LOSS_RTOL
+    assert parity_k4["worst_grad_rel_err"] <= smoke.STEP_GRAD_TOL
+    assert set(smoke.STEP_GRAD_ZERO) <= set(parity_k4["under_floor"])
+    assert set(parity_k4["witness"]) == {"kernels_vs_plain",
+                                         "plain_sites_vs_sites_f64",
+                                         "kernels_vs_sites_f64"}
+
+
+@pytest.mark.parametrize("site,gflop", [("A", 15.1), ("B", 25.8),
+                                        ("C", 25.8), ("D", 25.8)])
+def test_k4_sites_and_bounds_at_the_training_shape(site, gflop):
+    """The four sites of the fiducial step at batch 24: one
+    conv pass's logical GFLOP; each kernel bound by operations."""
+    b = smoke.k4_bounds(smoke.K4_SITES[site], smoke.TRAIN_BATCH,
+                        smoke.TRAIN_TILE)
+    assert b["conv_flops"] / 1e9 == pytest.approx(gflop, abs=0.05)
+    for k in smoke.K4_KERNELS:
+        assert b[k]["bound_by"] == "operations"
+    assert b["bwd2"]["flops"] > 3 * b["conv_flops"]
+    # the fused op as a whole: one conv pass forward, two backward
+    assert b["logical_fwd"]["bound_ms"] == b["fwd"]["bound_ms"]
+    assert 2 * b["conv_flops"] < b["logical_bwd"]["flops"] \
+        < b["bwd2"]["flops"]
+    assert smoke.k4_sites_per_step(512) == 4
+    assert smoke.k4_sites_per_step(32) == 3
+
+
+def test_tf32_phase_on_cpu():
+    before = torch.backends.cudnn.allow_tf32
+    out = smoke.paint_tf32(torch.device("cpu"))
+    assert out["pinned"] <= 1.0 and out["library_default"] <= 1.0
+    assert torch.backends.cudnn.allow_tf32 is before
+
+
+def test_step_gradient_floor_covers_only_the_named_parameters():
+    grads_p = {"big": torch.tensor([10.0]), "small": torch.tensor([1e-3]),
+               smoke.STEP_GRAD_ZERO[0]: torch.tensor([1e-6])}
+    grads_k = {"big": torch.tensor([10.0]), "small": torch.tensor([1.1e-3]),
+               smoke.STEP_GRAD_ZERO[0]: torch.tensor([2e-6])}
+    errs, under, top = smoke.step_grad_errors(grads_k, grads_p)
+    assert top == 10.0 and set(under) == {"small", smoke.STEP_GRAD_ZERO[0]}
+    # the small gradient is held to its own largest entry, not the floor
+    assert errs["small"] == pytest.approx(0.1)
+    assert errs[smoke.STEP_GRAD_ZERO[0]] == pytest.approx(1e-6 / 1e-2)
 
 
 def test_training_data_is_the_bench_configuration():
@@ -209,3 +289,38 @@ def test_chip_smoke_imports_only_torch_numpy_and_the_port():
                "baryon_painter_tpu_torch"}
     for name in _imports(CHIP_SMOKE):
         assert name.split(".")[0] in allowed, name
+
+
+def test_painter_and_trainer_pin_f32_convolutions(monkeypatch):
+    """On the card PyTorch runs cuDNN convolutions in TF32 unless told
+    otherwise; painted at that setting the 512^2 golden misses its
+    tolerance (chip_smoke.py phase 12), so the painter and the trainer set
+    cuDNN's TF32 switch off inside their own calls and restore the
+    caller's. The painter's inner ``_paint_batch``, which phase 12 calls
+    for the record, runs under the caller's setting."""
+    from baryon_painter_tpu_torch.painter import CVAEPainter
+    from baryon_painter_tpu_torch.utils.platform import f32_convolutions
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with f32_convolutions():
+        assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is True
+    seen = []
+    painter = CVAEPainter(str(Path(REPO) / smoke.CHECKPOINT), device="cpu")
+    decode = painter.model.sample_P
+    monkeypatch.setattr(painter.model, "sample_P", lambda *a, **k: (
+        seen.append(torch.backends.cudnn.allow_tf32), decode(*a, **k))[1])
+    tiles, zs = golden_inputs(512, 1), np.zeros(1, np.float32)
+    painter.paint_batch(tiles, zs)
+    assert torch.backends.cudnn.allow_tf32 is True
+    with torch.inference_mode():
+        painter._paint_batch(tiles, zs, True, True, False, None, "sample",
+                             None)
+    ds = smoke.training_data(tile=32)
+    trainer = smoke.make_trainer("cpu", ds, False, n_res_blocks=1)
+    forward = trainer.model.forward
+    monkeypatch.setattr(trainer.model, "forward", lambda *a, **k: (
+        seen.append(torch.backends.cudnn.allow_tf32), forward(*a, **k))[1])
+    trainer.step_indices(ds.sample_indices(np.random.default_rng(0), 2),
+                         1e-3)
+    assert seen == [False, True, False]
+    assert torch.backends.cudnn.allow_tf32 is True

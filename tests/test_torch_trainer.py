@@ -9,7 +9,11 @@ device from the stack cache) and the same latent noise (the JAX
 1e-4 of the largest gradient entry: f32 sums in another order through the
 whole model, forward and backward) and the updated running statistics
 (rtol/atol 2e-4), with the output heads unfused and fused (JAX
-``BPT_FUSED_HEADS=1`` in interpret mode; the port's K3 plain versions).
+``BPT_FUSED_HEADS=1`` in interpret mode; the port's K3 plain versions), and
+with the heads and the train-mode conv + batch norm + ReLU triples fused
+(JAX ``BPT_FUSED_TRAIN_CONV=1`` too, its K4 in interpret mode, which at 32^2
+fuses the decoder's three up-convs; the port's
+``CVAE(fused_train_conv=True)`` on K4's plain versions).
 Adam's first step is about lr * sign(g), so a gradient entry near 0 flips
 it; the optimizer is therefore compared on identical gradients: the port's
 ``Adam`` and the JAX trainer's optax chain on the JAX gradients (rtol
@@ -63,14 +67,16 @@ def _arch():
     return fiducial_cvae_architecture(TILE, n_res_blocks=1)
 
 
-@pytest.fixture(scope="module", params=[False, True],
-                ids=["heads_unfused", "heads_fused"])
+@pytest.fixture(scope="module",
+                params=[(False, False), (True, False), (True, True)],
+                ids=["heads_unfused", "heads_fused",
+                     "heads_and_train_conv_fused"])
 def jax_step(request, data):
     """The JAX trainer's step: initial variables, gradients (from a separate
     jit of the step's loss: the step does not return its own), the
     parameters its optimizer makes of those gradients, and the metrics and
     state after the step; its latent noise fixed to ``eps``."""
-    fused = request.param
+    fused, train_conv = request.param
     jd, _ = data
     eps = np.random.default_rng(5).standard_normal(
         (1, BATCH, 1, TILE // 32, TILE // 32)).astype(np.float32)
@@ -83,6 +89,7 @@ def jax_step(request, data):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jcvae.CVAE, "sample_z", sample_z)
         mp.setenv("BPT_FUSED_HEADS", "1" if fused else "0")
+        mp.setenv("BPT_FUSED_TRAIN_CONV", "1" if train_conv else "0")
         jt = jtrainer.CVAETrainer(jcvae.CVAE(_arch()), jd,
                                   config=jtrainer.TrainConfig(seed=0),
                                   device_data=True)
@@ -108,15 +115,16 @@ def jax_step(request, data):
         metrics = to_np(jt.step_indices(idx, lr=LR))
         after = {"params": to_np(jt.state.params),
                  "batch_stats": to_np(jt.state.batch_stats)}
-    return dict(fused=fused, eps=eps, init=init, idx=idx, grads=grads,
+    return dict(fused=fused, train_conv=train_conv, eps=eps, init=init, idx=idx, grads=grads,
                 metrics=metrics, after=after, adam_params=adam_params)
 
 
 @pytest.fixture(scope="module")
 def port_step(jax_step, data):
     _, td = data
-    tr = ttrainer.CVAETrainer(CVAE(_arch(), fused_heads=jax_step["fused"]),
-                              td, device_data=True, device="cpu",
+    model = CVAE(_arch(), fused_heads=jax_step["fused"],
+                 fused_train_conv=jax_step["train_conv"])
+    tr = ttrainer.CVAETrainer(model, td, device_data=True, device="cpu",
                               variables=jax_step["init"])
     metrics = tr.step_indices(jax_step["idx"], LR, eps=jax_step["eps"])
     return tr, metrics
