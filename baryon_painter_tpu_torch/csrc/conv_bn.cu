@@ -10,14 +10,15 @@
 //
 //   K4-stats: per-block partial sums of u and u^2 per channel
 //   K4-fwd:   y = max(u * a + b, 0)
-//   K4-bwd1:  per-block partial sums of dv and dv * uhat per channel, where
-//             dv = dy if u * a + b > 0 else 0 and uhat = (u - mean) * inv
-//   K4-bwd2:  du = a * (dv - S1/n - uhat * S2/n); dx = the adjoint conv of
-//             du; per-block partial dW = sum over the block's pixels
+//   K4-bwd1:  u, written to a scratch tensor, and per-block partial sums of
+//             dv and dv * uhat per channel, where dv = dy if y > 0 else 0
+//             (the forward's ReLU mask) and uhat = (u - mean) * inv
+//   K4-bwd2:  du = a * (dv - S1/n - uhat * S2/n) from u, y and dy; dx = the
+//             adjoint conv of du; dW as partial sums over a fixed split of
+//             the pixels
 //
-// Every kernel recomputes u from x, as the TPU kernels do: u is never
-// stored. The partial sums are written per block and summed by the wrapper
-// in torch; no atomics are used, so every result is deterministic.
+// The partial sums are written per block (bwd2: per split) and summed by the
+// wrapper in torch; no atomics are used, so every result is deterministic.
 //
 // Two families of convolution, NCHW f32, computed directly (no
 // space-to-depth, no phase-major weights):
@@ -27,34 +28,50 @@
 //           as torch's conv_transpose2d takes it; output (N, Cout, S H, S W).
 //           Fine output row oy takes the two coarse rows
 //           iy = (oy + P) / S - t, t = 0, 1, with kernel row
-//           ky = (oy + P) % S + S t; the same for columns.
+//           ky = (oy + P) % S + S t; the same for columns. So each of the
+//           S^2 output phases (oy % S, ox % S) is a 2 x 2 conv on the coarse
+//           grid with its own sub-kernel, and the adjoint (dx) is a stride-S
+//           conv of du with the whole K x K kernel: du at S iy + ky - P.
 //
-// What bounds them: arithmetic. Per output pixel the conv does 2 Cin K^2
-// (S == 1) or 2 Cin 4 (S > 1) operations per channel; at the fiducial sites
-// that is 15 to 26 GFLOP a pass against 0.1 to 0.8 GB of traffic, 20 to 200
-// operations per byte, far above the card's f32 ridge (20 operations/byte at
-// 67 TFLOP/s and 3.35 TB/s).
+// Forward (stats, fwd; CUDA cores, f32, simple first): one block per (sample,
+// 16 x 64 fine output tile, 16 output channels). The input footprint of the
+// tile is staged 8 input channels at a time with its halo, zero outside the
+// image, beside the weights of those channels ([ci][ky][kx][16 co], read as
+// float4 by every thread of a warp at once). Each thread owns 4 pixels x 16
+// channels in registers. stats reduces per block: warp shuffles, then 8
+// warps in a fixed order. What bounds it: arithmetic, 20 to 200 operations
+// per byte at the fiducial sites, above the card's f32 ridge.
 //
-// Design, simple first (CUDA cores, f32):
-//  - stats, fwd, bwd1: one block per (sample, 16 x 64 fine output tile,
-//    16 output channels). The input footprint of the tile is staged 8 input
-//    channels at a time with its halo, zero outside the image, beside the
-//    weights of those channels ([ci][ky][kx][16 co], read as float4 by
-//    every thread of a warp at once). Each thread owns 4 pixels x 16
-//    channels in registers. stats and bwd1 reduce per block: warp shuffles,
-//    then 8 warps in a fixed order.
-//  - bwd2: one block per (sample, tile of the input grid) and all output
-//    channels. (A) u and du on the fine region the tile's dx needs (the
-//    tile's own fine pixels plus the adjoint's halo), kept in shared memory
-//    for all channels, 0 outside the image; (B) the weight gradient over the
-//    block's own fine pixels (each fine pixel belongs to one block), x
-//    staged again per 8 input channels, 4 x 4 (co, ci) a thread per tap;
-//    (C) dx of the tile from du, 16 input channels of weights at a time, 4 a
-//    thread. du stays in shared memory, so it never reaches device memory.
-//    The partial dW is Cout Cin K^2 floats a block (0.55 GB at the 512^2
-//    up-convs at batch 24).
-// Tensor cores (3xTF32 or bf16 wgmma), larger tiles and keeping u in the
-// forward are later work.
+// Backward (bwd1, bwd2): three implicit GEMMs a site on the tensor cores,
+// bounded by the tensor cores at 3xTF32 (B, C) or by memory (A, D):
+//   bwd1 (u):  M = output pixels of one phase, N = Cout, K = Cin x taps
+//   bwd2 (dx): M = input pixels, N = Cin, K = Cout x K^2
+//   bwd2 (dW): M = Cout, N = Cin x taps of one phase, K = output pixels
+// Each f32 operand v is split into big = tf32(v) (cvt.rna) and small =
+// tf32(v - big), and the product accumulates small*big + big*small +
+// big*big in f32 (mma.sync m16n8k8 tf32): about f32's accuracy at three
+// times the tensor-core work. The tensor cores' accumulators round toward
+// zero, so they sum one K chunk from zero and each chunk is added to the
+// running sum by an ordinary f32 add (the error no longer grows with K).
+//   - Staging: each K chunk is copied raw into shared memory with cp.async
+//     (16 bytes a copy where rows allow), through a ring of 2 to 4 stages
+//     sized so two blocks share an SM; the next chunks' copies fly while
+//     the current one is split into big/small (and, for du, formed from u,
+//     y and dy) and multiplied. The im2col of the implicit GEMM is a table
+//     of shared-memory offsets, one per K index, added to each thread's
+//     pixel offset in the staged footprint.
+//   - bwd1 and dx: a block of 8 warps owns an 8 R x 16 pixel tile and up to
+//     64 columns; a warp owns R pixel rows (R = 2 where the columns fill at
+//     most 4 n8 tiles, so the B fragments serve two rows).
+//   - bwd1 computes u once and writes it; bwd2 reads it, so u is never
+//     recomputed with a halo. The ReLU mask is y > 0, the forward's own.
+//   - du is formed while staging, in shared memory, never in device memory.
+//   - dW: a block owns a tile of dW (up to 64 output channels x a tile of
+//     input channels x the taps of one phase) and accumulates in registers
+//     over its split's run of consecutive chunks of 2 rows x 16 to 64
+//     columns; it writes one partial per split (at most kMaxSplit a site),
+//     which the wrapper sums. Where the (m16, n8) tiles are few the warps
+//     split the chunk's K steps and add their sums at the end.
 //
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and called through ctypes (baryon_painter_tpu_torch/ops/_build.py).
@@ -66,16 +83,73 @@
 
 namespace {
 
+// PTX helpers: begin (the only inline PTX of this file)
+
+// tf32(v): round to nearest, ties away, to 10 mantissa bits
+__device__ __forceinline__ float tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// c += a b, one m16n8k8 tile in TF32 with f32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 4-byte asynchronous copy to shared memory; zero-fills when !valid
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// 16-byte asynchronous copy (both addresses 16-byte aligned); zero-fills
+// when !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// PTX helpers: end
+
+// wait until at most n (0 to 3) copy groups are in flight
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
 constexpr int kThreads = 256;
-constexpr int kCob = 16;    // output channels of a forward-type block
-constexpr int kCic = 8;     // input channels staged at a time
-constexpr int kCic2 = 16;   // input channels of dx weights staged at a time
-constexpr int kFTH = 16;    // forward-type tile: 16 x 64 fine pixels
+constexpr int kCob = 16;    // output channels of a forward block
+constexpr int kCic = 8;     // input channels a forward block stages at a time
+constexpr int kFTH = 16;    // forward tile: 16 x 64 fine pixels
 constexpr int kFTW = 64;
 constexpr int kFNpx = kFTH * kFTW / kThreads;  // 4 pixels a thread
 constexpr int kMaxSmem = 232448;               // bytes a block may use
 
-enum Mode { kStats = 0, kFwd = 1, kBwd1 = 2 };
+enum Mode { kStats = 0, kFwd = 1 };
 
 template <int S, int K>
 struct Geo {
@@ -87,18 +161,6 @@ struct Geo {
   __host__ __device__ static constexpr int foot(int rn) {
     return S == 1 ? rn + K - 1 : (rn - 1) / S + 3;
   }
-  // bwd2: the dx tile (on the input grid), the fine region R whose du it
-  // needs, and R's footprint
-  static constexpr int DTH = S == 1 ? 16 : 8 / S;
-  static constexpr int DTW = S == 1 ? 32 : 32 / S;
-  static constexpr int RH = S == 1 ? 16 + 2 * P : 8 + S;
-  static constexpr int RW = S == 1 ? 32 + 2 * P : 32 + S;
-  static constexpr int RP = RH * RW;
-  static constexpr int RNPX = (RP + kThreads - 1) / kThreads;
-  static constexpr int FH = S == 1 ? RH + K - 1 : DTH + 2;
-  static constexpr int FW = S == 1 ? RW + K - 1 : DTW + 2;
-  static constexpr int OH = S == 1 ? DTH : 8;  // owned fine pixels
-  static constexpr int OW = S == 1 ? DTW : 32;
 };
 
 // Input footprint of fine rows [r0, r0 + rn): its first row and row count.
@@ -153,12 +215,12 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ xn,
 
 // Weight of (co, ci, ky, kx) in the family's layout.
 template <int S, int K>
-__device__ __forceinline__ size_t w_index(int co, int ci, int ky, int kx,
-                                          int cin, int cout) {
+__host__ __device__ __forceinline__ size_t w_index(int co, int ci, int ky,
+                                                   int kx, int cin,
+                                                   int cout) {
   return S == 1 ? (((size_t)co * cin + ci) * K + ky) * K + kx
                 : (((size_t)ci * cout + co) * K + ky) * K + kx;
 }
-
 // Stage the weights of input channels ci0.. and output channels co0..co0+15
 // as ws[c][ky][kx][16]; 0 past cin or cout.
 template <int S, int K>
@@ -274,17 +336,15 @@ constexpr int fwd_smem_floats() {
          kCic * K * K * kCob + kThreads;
 }
 
-// K4-stats, K4-fwd and K4-bwd1: one block per (16 x 64 fine tile, sample x
+// K4-stats and K4-fwd: one block per (16 x 64 fine tile, sample x
 // group of 16 output channels).
 template <int S, int K, int MODE>
 __global__ void __launch_bounds__(kThreads)
     fwd_type_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ a, const float* __restrict__ b,
-                    const float* __restrict__ mean,
-                    const float* __restrict__ inv,
-                    const float* __restrict__ dy, float* __restrict__ y,
-                    float* __restrict__ p1, float* __restrict__ p2, int cin,
-                    int H, int W, int cout) {
+                    float* __restrict__ y, float* __restrict__ p1,
+                    float* __restrict__ p2, int cin, int H, int W,
+                    int cout) {
   constexpr int FHM = Geo<S, K>::foot(kFTH);
   constexpr int FWM = Geo<S, K>::foot(kFTW);
   extern __shared__ float smem[];
@@ -349,243 +409,947 @@ __global__ void __launch_bounds__(kThreads)
     s2[c] = 0.f;
     const int co = co0 + c;
     if (co >= cout) continue;
-    if (MODE == kStats) {
 #pragma unroll
-      for (int j = 0; j < kFNpx; ++j)
-        if (oy[j] < Ho && ox[j] < Wo) {
-          s1[c] += acc[j][c];
-          s2[c] += acc[j][c] * acc[j][c];
-        }
-    } else {  // kBwd1
-      const float ac = __ldg(a + co);
-      const float bc = __ldg(b + co);
-      const float mc = __ldg(mean + co);
-      const float ic = __ldg(inv + co);
-      const float* dyc = dy + ((size_t)n * cout + co) * Ho * Wo;
-#pragma unroll
-      for (int j = 0; j < kFNpx; ++j)
-        if (oy[j] < Ho && ox[j] < Wo) {
-          const float u = acc[j][c];
-          const float dv = u * ac + bc > 0.f
-                               ? __ldg(dyc + (size_t)oy[j] * Wo + ox[j])
-                               : 0.f;
-          s1[c] += dv;
-          s2[c] += dv * ((u - mc) * ic);
-        }
-    }
+    for (int j = 0; j < kFNpx; ++j)
+      if (oy[j] < Ho && ox[j] < Wo) {
+        s1[c] += acc[j][c];
+        s2[c] += acc[j][c] * acc[j][c];
+      }
   }
   const size_t blk = (size_t)n * gridDim.x * gridDim.y +
                      (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   block_partials(s1, s2, red, p1, p2, blk, co0, cout);
 }
 
-template <int S, int K>
-constexpr int bwd2_smem_floats(int cout) {
-  using G = Geo<S, K>;
-  const int cpad = (cout + kCob - 1) / kCob * kCob;
-  const int stage = kCic * G::FH * G::FW + kCic * K * K * kCob;
-  const int wdx = cout * K * K * kCic2;
-  return cpad * G::RP + (stage > wdx ? stage : wdx);
+// ------------------------------------------------------------------------ //
+// K4-bwd1 and K4-bwd2: implicit GEMMs on the tensor cores in 3xTF32
+
+constexpr int kTH = 8;        // pixel tile of bwd1 and dx: 8 R rows x 16
+constexpr int kTW = 16;
+constexpr int kNT = 64;       // output columns of a bwd1 or dx block
+constexpr int kMW = 64;       // output channels (rows) of a dW block
+// columns of a dW K chunk (2 rows): where a block's du tile has 16 rows, 64
+// for the "same" conv and 32 for the transposed conv (whose x tile holds a
+// block's 32 input channels); 16 for more rows. So shared memory leaves
+// two blocks an SM.
+constexpr int kDwWide = 64;
+constexpr int kDwMid = 32;
+constexpr int kDwNarrow = 16;
+constexpr int kMaxSplit = 64; // partial dW a site, at most
+
+__host__ __device__ constexpr int rup(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+__host__ __device__ constexpr int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+// row stride of a [k][n] B tile with n columns: 8 mod 32 (or n == 8), so
+// the fragment loads of a warp hit 32 distinct banks
+__host__ __device__ constexpr int ldb(int n) {
+  return n <= 8 ? 8 : rup(n, 32) + 8;
 }
 
-// K4-bwd2: one block per (tile of the input grid, sample), all channels.
 template <int S, int K>
-__global__ void __launch_bounds__(kThreads)
-    bwd2_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ a, const float* __restrict__ b,
+struct Bwd {
+  static constexpr int P = Geo<S, K>::P;
+  static constexpr int PH = S == 1 ? 1 : S * S;  // output phases
+  static constexpr int TW1 = S == 1 ? K : 2;     // taps a dimension, a phase
+  static constexpr int T1 = TW1 * TW1;
+  static constexpr int T2 = K * K;               // taps of the adjoint
+  // x footprint of t rows (columns) of a phase's grid; du footprint of t
+  // rows (columns) of the input grid
+  __host__ __device__ static constexpr int fx(int t) { return t + TW1 - 1; }
+  __host__ __device__ static constexpr int fd(int t) {
+    return S == 1 ? t + K - 1 : S * (t - 1) + K;
+  }
+  // a footprint row of n columns as staged: from the multiple of 4 at or
+  // before its first column, whole groups of 4
+  __host__ __device__ static constexpr int wa(int n) { return rup(n + 3, 4); }
+  // input channels a bwd1 K chunk (K = CIC x T1, about 100 or 64)
+  static constexpr int CIC = S == 1 ? clampi(100 / T1, 1, 16) : 8;
+  static constexpr int KC1 = rup(CIC * T1, 8);
+  // output channels a dx K chunk (K = COC x T2)
+  static constexpr int COC =
+      S == 1 ? clampi(104 / T2, 1, 8) : clampi(32 / T2, 1, 8);
+  static constexpr int KC2 = rup(COC * T2, 8);
+  // input channels a dW block (N = CIW x T1)
+  static constexpr int CIW = S == 1 ? CIC : 32;
+  static constexpr int NW = rup(CIW * T1, 8);
+  // bwd1's x and dx's du footprint, a channel, for tiles of 8 R rows
+  __host__ __device__ static constexpr int fx1(int R) {
+    return fx(kTH * R) * wa(fx(kTW));
+  }
+  __host__ __device__ static constexpr int fdd(int R) {
+    return fd(kTH * R) * wa(fd(kTW));
+  }
+  // dW x, a channel, for chunks of dwc columns
+  __host__ __device__ static constexpr int fxw(int dwc) {
+    return fx(2) * wa(fx(dwc));
+  }
+  static_assert(CIW * T1 <= 128, "dW block wider than 16 n8 tiles");
+};
+
+// The phase (ry, rx) = (oy % S, ox % S) of a transposed conv: its first
+// coarse row offset off = (r + P) / S and sub-kernel origin (r + P) % S.
+template <int S, int K>
+struct Phase {
+  int ry = 0, rx = 0, offy = 0, offx = 0, ky0 = 0, kx0 = 0;
+  __device__ explicit Phase(int ph) {
+    if (S > 1) {
+      constexpr int P = Geo<S, K>::P;
+      ry = ph / S;
+      rx = ph % S;
+      offy = (ry + P) / S;
+      offx = (rx + P) / S;
+      ky0 = (ry + P) % S;
+      kx0 = (rx + P) % S;
+    }
+  }
+  // kernel entry of tap t (t / TW1, t % TW1) of this phase
+  __device__ int ky(int t) const {
+    return S == 1 ? t / K : ky0 + S * (t / 2);
+  }
+  __device__ int kx(int t) const {
+    return S == 1 ? t % K : kx0 + S * (t % 2);
+  }
+};
+
+// Shared-memory offset of tap t in an x footprint of row stride fw, for the
+// u GEMM: x at (q + t / TW1 - P) for S == 1, at (q + off - t / 2) for S > 1.
+template <int S, int K>
+__device__ __forceinline__ int x_tap(int t, int fw) {
+  constexpr int TW1 = Bwd<S, K>::TW1;
+  const int o = (t / TW1) * fw + t % TW1;
+  return S == 1 ? o : -o;
+}
+// A pixel's offset (tile row r, column c) in that footprint, first tap.
+template <int S>
+__device__ __forceinline__ int x_pix(int r, int c, int fw) {
+  return S == 1 ? r * fw + c : (r + 1) * fw + c + 1;
+}
+
+__device__ __forceinline__ void split_store(float v, float* hi, float* lo,
+                                            int i) {
+  const float h = tf32_rna(v);
+  hi[i] = h;
+  lo[i] = tf32_rna(v - h);
+}
+
+// split_store of 4 values at i4 (in float4s); hi, lo 16-byte aligned
+__device__ __forceinline__ void split_store4(const float (&v)[4], float* hi,
+                                             float* lo, int i4) {
+  float4 h, l;
+  h.x = tf32_rna(v[0]);
+  h.y = tf32_rna(v[1]);
+  h.z = tf32_rna(v[2]);
+  h.w = tf32_rna(v[3]);
+  l.x = tf32_rna(v[0] - h.x);
+  l.y = tf32_rna(v[1] - h.y);
+  l.z = tf32_rna(v[2] - h.z);
+  l.w = tf32_rna(v[3] - h.w);
+  reinterpret_cast<float4*>(hi)[i4] = h;
+  reinterpret_cast<float4*>(lo)[i4] = l;
+}
+
+__device__ __forceinline__ void load4(const float* a, int i4, float (&v)[4]) {
+  const float4 t = reinterpret_cast<const float4*>(a)[i4];
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+// Stage nch planes' windows of FH rows x 4 NC4 columns from (ay, ax), ax a
+// multiple of 4, into dst[c][FH][4 NC4], zero outside the h x w image;
+// plane(c) is channel c's image. Rows of a w % 4 == 0 image take one
+// 16-byte copy a group of 4 columns (each group lies wholly inside or
+// outside the image), others four 4-byte copies.
+template <int FH, int NC4, class Plane>
+__device__ __forceinline__ void stage_window(float* dst, int nch, int ay,
+                                             int ax, int h, int w,
+                                             Plane&& plane) {
+  const bool wide = (w & 3) == 0;
+  for (int i = threadIdx.x; i < nch * FH * NC4; i += kThreads) {
+    const int r = i / NC4;
+    const int gy = ay + r % FH;
+    const int gx = ax + 4 * (i % NC4);
+    const float* p = plane(r / FH);
+    float* d = dst + 4 * i;
+    const bool row = gy >= 0 && gy < h;
+    if (wide) {
+      const bool ok = row && gx >= 0 && gx < w;
+      cp_async16(d, ok ? p + (size_t)gy * w + gx : p, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = row && gx + e >= 0 && gx + e < w;
+        cp_async4(d + e, ok ? p + (size_t)gy * w + gx + e : p, ok);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
+
+// i / d and i % d for 0 <= i < 2^20 and a runtime d, through d's float
+// reciprocal (exact in that range; an integer division is ~20 instructions)
+__device__ __forceinline__ int div_by(int i, float rd, int d, int& rem) {
+  const int q = (int)(((float)i + 0.5f) * rd);
+  rem = i - q * d;
+  return q;
+}
+
+// c += a b in 3xTF32: small a x big b + big a x small b + big a x big b
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// The A fragment (rows g, g + 8; columns tig, tig + 4) of a pixel-row GEMM:
+// element (row, k) lies at pix[row] + koff[k] in hi / lo.
+__device__ __forceinline__ void load_a(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                       const float* hi, const float* lo,
+                                       int p0, int p1, int k0, int k1) {
+  const int i[4] = {p0 + k0, p1 + k0, p0 + k1, p1 + k1};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    ah[r] = bits(hi[i[r]]);
+    al[r] = bits(lo[i[r]]);
+  }
+}
+
+// The tensor cores accumulate with truncation, not f32's rounding to
+// nearest, so their accumulators sum one K chunk from zero and each chunk's
+// sum is added to the running f32 sum by an ordinary add.
+__device__ __forceinline__ void add_chunk(float (&acc)[8][4],
+                                          float (&part)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[j][e] += part[j][e];
+      part[j][e] = 0.f;
+    }
+}
+
+// One K chunk of a GEMM whose rows are 16 pixels of a tile row (bwd1, dx):
+// acc[j] += A[rows][0..kc) B[0..kc)[8 j ..] for each n8 tile j < nj.
+__device__ __forceinline__ void pixel_row_mma(
+    float (&acc)[8][4], const float* ahi, const float* alo, const int* koff,
+    const float* bhi, const float* blo, int ld, int kc, int p0, int p1,
+    int nj, int g, int tig) {
+  float part[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+  for (int kk = 0; kk < kc; kk += 8) {
+    uint32_t ah[4], al[4];
+    load_a(ah, al, ahi, alo, p0, p1, koff[kk + tig], koff[kk + tig + 4]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nj) {
+        const int b0 = (kk + tig) * ld + 8 * j + g;
+        const int b1 = b0 + 4 * ld;
+        const uint32_t bh[2] = {bits(bhi[b0]), bits(bhi[b1])};
+        const uint32_t bl[2] = {bits(blo[b0]), bits(blo[b1])};
+        mma3(part[j], ah, al, bh, bl);
+      }
+    }
+  }
+  add_chunk(acc, part);
+}
+
+// pixel_row_mma for a warp that owns two tile rows (R = 2) and at most 4 n8
+// tiles: acc[4 r + j] for row r, and the B fragments serve both rows.
+__device__ __forceinline__ void pixel_rows2_mma(
+    float (&acc)[8][4], const float* ahi, const float* alo, const int* koff,
+    const float* bhi, const float* blo, int ld, int kc, const int (&p0)[2],
+    const int (&p1)[2], int nj, int g, int tig) {
+  float part[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+  for (int kk = 0; kk < kc; kk += 8) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      load_a(ah[r], al[r], ahi, alo, p0[r], p1[r], koff[kk + tig],
+             koff[kk + tig + 4]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < nj) {
+        const int b0 = (kk + tig) * ld + 8 * j + g;
+        const int b1 = b0 + 4 * ld;
+        const uint32_t bh[2] = {bits(bhi[b0]), bits(bhi[b1])};
+        const uint32_t bl[2] = {bits(blo[b0]), bits(blo[b1])};
+        mma3(part[j], ah[0], al[0], bh, bl);
+        mma3(part[4 + j], ah[1], al[1], bh, bl);
+      }
+    }
+  }
+  add_chunk(acc, part);
+}
+
+// Rows a warp owns in bwd1 and dx: 2 where the block's output columns fill
+// at most 4 n8 tiles (the B fragments then serve two rows), else 1.
+__host__ __device__ constexpr int rows_for(int ntv) {
+  return ntv <= 32 ? 2 : 1;
+}
+
+template <typename F>
+int with_rows(int ntv, F&& f) {
+  if (rows_for(ntv) == 2) return f(std::integral_constant<int, 2>{});
+  return f(std::integral_constant<int, 1>{});
+}
+
+// The K loop of a block over chunks [c0, c1) through a ring of `stages`
+// raw buffers (2 to 4): issue(c, slot) starts chunk c's asynchronous copies
+// into slot, `stages - 1` chunks ahead; step(c, slot) runs once chunk c has
+// landed (it converts, synchronises and multiplies). The slot issue writes
+// was last read by the previous step's convert, behind its barrier.
+template <class Issue, class Step>
+__device__ __forceinline__ void pipeline(int c0, int c1, int stages,
+                                         Issue&& issue, Step&& step) {
+  for (int i = 0; i < stages - 1; ++i) {
+    if (c0 + i < c1) issue(c0 + i, i);
+    cp_async_commit();
+  }
+  for (int c = c0; c < c1; ++c) {
+    const int ahead = c + stages - 1;
+    if (ahead < c1) issue(ahead, (ahead - c0) % stages);
+    cp_async_commit();
+    cp_async_wait_n(stages - 1);
+    __syncthreads();
+    step(c, (c - c0) % stages);
+  }
+}
+
+// Ring depth of a kernel: the deepest of 4, 3, 2 stages whose shared
+// memory lets two blocks share an SM, else 2.
+template <class Floats>
+int pick_stages(Floats&& floats) {
+  for (int st = 4; st > 2; --st)
+    if (floats(st) * (int)sizeof(float) <= kMaxSmem / 2 - 1024) return st;
+  return 2;
+}
+
+// ---- K4-bwd1 ------------------------------------------------------------ //
+
+template <int S, int K, int R>
+int bwd1_smem_floats(int cout, int stages) {
+  using B = Bwd<S, K>;
+  const int ld = ldb(rup(cout < kNT ? cout : kNT, 8));
+  return (stages + 2) * (B::CIC * B::fx1(R) + B::KC1 * ld) + 8 * kNT * 2 +
+         B::KC1;
+}
+
+// One block per (phase x 16-column tile, 8 R-row tile, sample x 64 output
+// channels) of the phase's grid (the input grid's size); warp w owns rows
+// w + 8 r, r < R.
+template <int S, int K, int R>
+__global__ void __launch_bounds__(kThreads, 2)
+    bwd1_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ mean, const float* __restrict__ inv,
-                const float* __restrict__ s1n, const float* __restrict__ s2n,
-                const float* __restrict__ dy, float* __restrict__ dx,
-                float* __restrict__ dwp, int cin, int H, int W, int cout) {
-  using G = Geo<S, K>;
-  constexpr int P = G::P;
-  constexpr int NPX = G::RNPX;
-  extern __shared__ float smem[];
-  const int cpad = (cout + kCob - 1) / kCob * kCob;
-  float* dus = smem;                 // [cpad][RP]: du on the region R
-  float* xs = dus + cpad * G::RP;    // [kCic][FH][FW]
-  float* ws = xs + kCic * G::FH * G::FW;  // [kCic][K][K][16]
-  float* wdx = xs;                   // [cout][K][K][kCic2], stage C only
+                const float* __restrict__ y, const float* __restrict__ dy,
+                float* __restrict__ u, float* __restrict__ p1,
+                float* __restrict__ p2, int cin, int H, int W, int cout,
+                int stages) {
+  using B = Bwd<S, K>;
+  constexpr int FH = B::fx(kTH * R);
+  constexpr int FW = B::wa(B::fx(kTW));  // staged row, 16-byte groups
+  constexpr int FX = B::fx1(R);
+  constexpr int CIC = B::CIC;
+  constexpr int KC = B::KC1;
+  const int ntv = rup(cout < kNT ? cout : kNT, 8);
+  const float rntv = 1.f / ntv;
+  const int ld = ldb(ntv);
+  extern __shared__ __align__(16) float smem[];
+  float* xraw = smem;                     // [stages][CIC][FX]
+  float* xhi = xraw + stages * CIC * FX;  // [CIC][FX]
+  float* xlo = xhi + CIC * FX;
+  float* wraw = xlo + CIC * FX;           // [stages][KC][ld]
+  float* whi = wraw + stages * KC * ld;   // [KC][ld]
+  float* wlo = whi + KC * ld;
+  float* red = wlo + KC * ld;         // [8 warps][kNT][2]
+  int* koff = reinterpret_cast<int*>(red + 8 * kNT * 2);  // [KC]
+
+  const Phase<S, K> ph(blockIdx.x % B::PH);
+  const int qx0 = (blockIdx.x / B::PH) * kTW;
+  const int q0 = blockIdx.y * kTH * R;
+  const int cot = (cout + kNT - 1) / kNT;
+  const int n = blockIdx.z / cot;
+  const int co0 = (blockIdx.z % cot) * kNT;
+  const int orgy = S == 1 ? q0 - B::P : q0 + ph.offy - 1;
+  const int orgx = S == 1 ? qx0 - B::P : qx0 + ph.offx - 1;
+  const int lead = orgx & 3;  // the footprint's first column in its row
+  const float* xn = x + (size_t)n * cin * H * W;
+  const int nchunks = (cin + CIC - 1) / CIC;
+
+  auto issue = [&](int c, int slot) {
+    const int ci0 = c * CIC;
+    const int nci = min(CIC, cin - ci0);
+    stage_window<FH, FW / 4>(xraw + slot * CIC * FX, nci, orgy, orgx - lead,
+                             H, W, [&](int ch) {
+                               return xn + (size_t)(ci0 + ch) * H * W;
+                             });
+    float* wr = wraw + slot * KC * ld;
+    for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
+      int col;
+      const int k = div_by(i, rntv, ntv, col);
+      const int co = co0 + col;
+      const int t = k % B::T1;
+      const bool ok = k < nci * B::T1 && co < cout;
+      cp_async4(wr + k * ld + col,
+                ok ? w + w_index<S, K>(co, ci0 + k / B::T1, ph.ky(t),
+                                       ph.kx(t), cin, cout)
+                   : w,
+                ok);
+    }
+  };
+  auto convert = [&](int slot, int nci) {
+    const float* xr = xraw + slot * CIC * FX;
+    for (int i = threadIdx.x; i < nci * FX / 4; i += kThreads) {
+      float v[4];
+      load4(xr, i, v);
+      split_store4(v, xhi, xlo, i);
+    }
+    const float* wr = wraw + slot * KC * ld;
+    for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
+      int col;
+      const int k = div_by(i, rntv, ntv, col);
+      split_store(wr[k * ld + col], whi, wlo, k * ld + col);
+    }
+    // padded K columns read tap 0 of channel 0 (finite) against zero weights
+    for (int k = threadIdx.x; k < KC; k += kThreads)
+      koff[k] = k < nci * B::T1
+                    ? (k / B::T1) * FX + x_tap<S, K>(k % B::T1, FW)
+                    : 0;
+  };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  int pix0[R], pix1[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    pix0[r] = x_pix<S>(warp + 8 * r, g, FW) + lead;
+    pix1[r] = x_pix<S>(warp + 8 * r, g + 8, FW) + lead;
+  }
+  const int nj = (min(kNT, cout - co0) + 7) / 8;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  pipeline(0, nchunks, stages, issue, [&](int c, int slot) {
+    const int nci = min(CIC, cin - c * CIC);
+    convert(slot, nci);
+    __syncthreads();
+    if constexpr (R == 1)
+      pixel_row_mma(acc, xhi, xlo, koff, whi, wlo, ld, rup(nci * B::T1, 8),
+                    pix0[0], pix1[0], nj, g, tig);
+    else
+      pixel_rows2_mma(acc, xhi, xlo, koff, whi, wlo, ld,
+                      rup(nci * B::T1, 8), pix0, pix1, nj, g, tig);
+  });
+
+  // epilogue: write u; S1, S2 over the block's pixels with the forward's
+  // mask y > 0. Each thread holds pixels (rows warp + 8 r, columns g, g + 8)
+  // x channels 8 j + 2 tig + e, in acc[4 r + j] (R = 2) or acc[j].
   const int Ho = H * S;
   const int Wo = W * S;
-  const int n = blockIdx.z;
-  const int dy0 = blockIdx.y * G::DTH;  // the dx tile, on the input grid
-  const int dx0 = blockIdx.x * G::DTW;
-  // R's first fine row and column
-  const int r0y = S == 1 ? dy0 - P : S * dy0 - P;
-  const int r0x = S == 1 ? dx0 - P : S * dx0 - P;
-  int org_y, fh, org_x, fw;
-  footprint<S, K>(r0y, G::RH, org_y, fh);
-  footprint<S, K>(r0x, G::RW, org_x, fw);
-  const float* xn = x + (size_t)n * cin * H * W;
-
-  // (A) du on R for every output channel, 16 at a time
-  {
-    int ly[NPX], lx[NPX], ry[NPX], rx[NPX];
+  float s1[8][2], s2[8][2];
 #pragma unroll
-    for (int j = 0; j < NPX; ++j) {
-      int r = threadIdx.x + j * kThreads;
-      if (r >= G::RP) r = 0;  // computed, never stored
-      tap_origin<S, K>(r0y + r / G::RW, r0y, ly[j], ry[j]);
-      tap_origin<S, K>(r0x + r % G::RW, r0x, lx[j], rx[j]);
-    }
-    for (int co0 = 0; co0 < cout; co0 += kCob) {
-      float acc[NPX][kCob];
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < NPX; ++j)
+    for (int e = 0; e < 2; ++e) {
+      s1[j][e] = 0.f;
+      s2[j][e] = 0.f;
+      const int co = co0 + 8 * j + 2 * tig + e;
+      if (j >= nj || co >= cout || (R == 2 && j >= 4)) continue;
+      const float mc = __ldg(mean + co);
+      const float ic = __ldg(inv + co);
+      const size_t plane = ((size_t)n * cout + co) * Ho;
 #pragma unroll
-        for (int c = 0; c < kCob; ++c) acc[j][c] = 0.f;
-      for (int ci0 = 0; ci0 < cin; ci0 += kCic) {
-        stage_x(xn, xs, ci0, cin, H, W, org_y, org_x, fh, fw, G::FH, G::FW);
-        stage_w<S, K>(w, ws, ci0, co0, cin, cout);
-        __syncthreads();
-        accumulate_u<S, K, NPX>(xs, ws, G::FH, G::FW, ly, lx, ry, rx, acc);
-        __syncthreads();
-      }
+      for (int r = 0; r < R; ++r) {
+        const int q = q0 + warp + 8 * r;
+        if (q >= H) continue;
 #pragma unroll
-      for (int c = 0; c < kCob; ++c) {
-        const int co = co0 + c;
-        if (co >= cout) break;
-        const float ac = __ldg(a + co);
-        const float bc = __ldg(b + co);
-        const float mc = __ldg(mean + co);
-        const float ic = __ldg(inv + co);
-        const float m1 = __ldg(s1n + co);
-        const float m2 = __ldg(s2n + co);
-        const float* dyc = dy + ((size_t)n * cout + co) * Ho * Wo;
-#pragma unroll
-        for (int j = 0; j < NPX; ++j) {
-          const int r = threadIdx.x + j * kThreads;
-          if (r >= G::RP) continue;
-          const int oy = r0y + r / G::RW;
-          const int ox = r0x + r % G::RW;
-          float du = 0.f;  // the adjoint's zero padding
-          if (oy >= 0 && oy < Ho && ox >= 0 && ox < Wo) {
-            const float u = acc[j][c];
-            const float dv = u * ac + bc > 0.f
-                                 ? __ldg(dyc + (size_t)oy * Wo + ox)
-                                 : 0.f;
-            du = ac * (dv - m1 - (u - mc) * ic * m2);
-          }
-          dus[co * G::RP + r] = du;
+        for (int h = 0; h < 2; ++h) {
+          const int qx = qx0 + g + 8 * h;
+          if (qx >= W) continue;
+          const int oy = S == 1 ? q : S * q + ph.ry;
+          const int ox = S == 1 ? qx : S * qx + ph.rx;
+          const size_t idx = (plane + oy) * Wo + ox;
+          const float uv = acc[R == 1 ? j : 4 * r + j][2 * h + e];
+          u[idx] = uv;
+          const float dv = __ldg(y + idx) > 0.f ? __ldg(dy + idx) : 0.f;
+          s1[j][e] += dv;
+          s2[j][e] += dv * ((uv - mc) * ic);
         }
+      }
+    }
+  // over the 8 pixel groups of the warp (lanes xor 4, 8, 16), then the 8
+  // warps in a fixed order
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j >= nj) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float a1 = s1[j][e], a2 = s2[j][e];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        a1 += __shfl_xor_sync(0xffffffffu, a1, off);
+        a2 += __shfl_xor_sync(0xffffffffu, a2, off);
+      }
+      if (g == 0) {
+        const int col = 8 * j + 2 * tig + e;
+        red[(warp * kNT + col) * 2] = a1;
+        red[(warp * kNT + col) * 2 + 1] = a2;
       }
     }
   }
-
-  // (B) the block's partial dW over its own fine pixels; each thread a tap
-  // and 4 x 4 (co, ci), the tap slowest so a warp shares it
-  float* dwb = dwp + ((size_t)n * gridDim.x * gridDim.y +
-                      (size_t)blockIdx.y * gridDim.x + blockIdx.x) *
-                         cout * cin * K * K;
-  const int nco4 = (cout + 3) / 4;
-  constexpr int nci4 = kCic / 4;
-  for (int ci0 = 0; ci0 < cin; ci0 += kCic) {
-    stage_x(xn, xs, ci0, cin, H, W, org_y, org_x, fh, fw, G::FH, G::FW);
-    __syncthreads();
-    for (int t = threadIdx.x; t < K * K * nco4 * nci4; t += kThreads) {
-      const int inner = t % (nco4 * nci4);
-      const int kk = t / (nco4 * nci4);
-      const int ky = kk / K;
-      const int kx = kk % K;
-      const int co4 = (inner % nco4) * 4;
-      const int ci4 = (inner / nco4) * 4;
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-      // owned fine pixels that meet this tap: R-local (ru, rv) and
-      // footprint-local (fu, fv) of their x tap
-      int ry0, rx0, fy0, fx0, step, nh, nw;
-      if (S == 1) {
-        ry0 = P; rx0 = P; fy0 = ky + P; fx0 = kx + P;
-        step = 1; nh = G::OH; nw = G::OW;
-      } else {
-        const int phy = ((ky - P) % S + S) % S;
-        const int phx = ((kx - P) % S + S) % S;
-        ry0 = phy + P; rx0 = phx + P;
-        fy0 = (phy + P - ky) / S + 1; fx0 = (phx + P - kx) / S + 1;
-        step = S; nh = G::DTH; nw = G::DTW;
-      }
-      for (int u = 0; u < nh; ++u) {
-        const float* dr = dus + (ry0 + step * u) * G::RW + rx0;
-        const float* xr = xs + (fy0 + u) * G::FW + fx0;
-        for (int v = 0; v < nw; ++v) {
-          float d[4], xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            d[i] = dr[(co4 + i) * G::RP + step * v];
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            xv[q] = xr[(ci4 + q) * G::FH * G::FW + v];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[i][q] += d[i] * xv[q];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int co = co4 + i;
-          const int ci = ci0 + ci4 + q;
-          if (co < cout && ci < cin)
-            dwb[w_index<S, K>(co, ci, ky, kx, cin, cout)] = acc[i][q];
-        }
+  __syncthreads();
+  if (threadIdx.x < 2 * kNT) {
+    const int col = threadIdx.x >> 1;
+    const int which = threadIdx.x & 1;
+    if (co0 + col < cout) {
+      float s = 0.f;
+      for (int wi = 0; wi < kThreads / 32; ++wi)
+        s += red[(wi * kNT + col) * 2 + which];
+      const size_t blk = ((size_t)n * gridDim.y + blockIdx.y) * gridDim.x +
+                         blockIdx.x;
+      (which ? p2 : p1)[blk * cout + co0 + col] = s;
     }
-    __syncthreads();
   }
+}
 
-  // (C) dx on the tile, 16 input channels of weights at a time, each
-  // thread one pixel x 4 channels
-  constexpr int NDX = G::DTH * G::DTW;
-  for (int ci0 = 0; ci0 < cin; ci0 += kCic2) {
-    for (int i = threadIdx.x; i < cout * K * K * kCic2; i += kThreads) {
-      const int c = i % kCic2;
-      const int kk = (i / kCic2) % (K * K);
-      const int co = i / (kCic2 * K * K);
-      wdx[i] = ci0 + c < cin ? __ldg(w + w_index<S, K>(co, ci0 + c, kk / K,
-                                                        kk % K, cin, cout))
-                             : 0.f;
+// ---- K4-bwd2 ------------------------------------------------------------ //
+
+// The per-channel constants du = a (dv - s1n - (u - mean) inv s2n) needs.
+struct DuConsts {
+  const float* a;
+  const float* mean;
+  const float* inv;
+  const float* s1n;
+  const float* s2n;
+};
+
+__device__ __forceinline__ void load_consts(const DuConsts& k, int co,
+                                            float* dst) {
+  dst[0] = __ldg(k.a + co);
+  dst[1] = __ldg(k.mean + co);
+  dst[2] = __ldg(k.inv + co);
+  dst[3] = __ldg(k.s1n + co);
+  dst[4] = __ldg(k.s2n + co);
+}
+
+// du from the staged u, y and dy with the channel's constants (the wrapper's
+// plain formula, operation for operation)
+__device__ __forceinline__ float form_du(float uv, float yv, float dyv,
+                                         const float* k) {
+  const float dv = yv > 0.f ? dyv : 0.f;
+  return k[0] * (dv - k[3] - (uv - k[1]) * k[2] * k[4]);
+}
+
+template <int S, int K, int R>
+int dx_smem_floats(int cin, int stages) {
+  using B = Bwd<S, K>;
+  const int ld = ldb(rup(cin < kNT ? cin : kNT, 8));
+  return stages * (3 * B::COC * B::fdd(R) + B::KC2 * ld + B::COC * 5) +
+         2 * (B::COC * B::fdd(R) + B::KC2 * ld) + B::KC2;
+}
+
+// dx: one block per (16-column tile, 8 R-row tile, sample x 64 input
+// channels) of the input grid; warp w owns rows w + 8 r, r < R.
+template <int S, int K, int R>
+__global__ void __launch_bounds__(kThreads, 2)
+    dx_kernel(const float* __restrict__ w, DuConsts kc,
+              const float* __restrict__ u, const float* __restrict__ y,
+              const float* __restrict__ dy, float* __restrict__ dx, int cin,
+              int H, int W, int cout, int stages) {
+  using B = Bwd<S, K>;
+  constexpr int FH = B::fd(kTH * R);
+  constexpr int FW = B::wa(B::fd(kTW));  // staged row, 16-byte groups
+  constexpr int FD = B::fdd(R);
+  constexpr int COC = B::COC;
+  constexpr int KC = B::KC2;
+  const int ntv = rup(cin < kNT ? cin : kNT, 8);
+  const float rntv = 1.f / ntv;
+  const int ld = ldb(ntv);
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;                        // [stages][3][COC][FD]: u, y, dy
+  float* dhi = raw + stages * 3 * COC * FD; // [COC][FD]
+  float* dlo = dhi + COC * FD;
+  float* wraw = dlo + COC * FD;             // [stages][KC][ld]
+  float* whi = wraw + stages * KC * ld;
+  float* wlo = whi + KC * ld;
+  float* cst = wlo + KC * ld;               // [stages][COC][5]
+  int* koff = reinterpret_cast<int*>(cst + stages * COC * 5);  // [KC]
+
+  const int p0x = blockIdx.x * kTW;
+  const int p0y = blockIdx.y * kTH * R;
+  const int cit = (cin + kNT - 1) / kNT;
+  const int n = blockIdx.z / cit;
+  const int ci0 = (blockIdx.z % cit) * kNT;
+  const int Ho = H * S;
+  const int Wo = W * S;
+  // du footprint: S == 1: du at p - k + P; S > 1: du at S p + k - P
+  const int orgy = S == 1 ? p0y + B::P - (K - 1) : S * p0y - B::P;
+  const int lead = (S == 1 ? p0x + B::P - (K - 1) : S * p0x - B::P) & 3;
+  const int orgx = (S == 1 ? p0x + B::P - (K - 1) : S * p0x - B::P) - lead;
+  const int nchunks = (cout + COC - 1) / COC;
+
+  auto issue = [&](int c, int slot) {
+    const int co0 = c * COC;
+    const int nco = min(COC, cout - co0);
+    float* rr = raw + slot * 3 * COC * FD;
+    const float* ts[3] = {u, y, dy};
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      stage_window<FH, FW / 4>(rr + t * COC * FD, nco, orgy, orgx, Ho, Wo,
+                               [&](int ch) {
+                                 return ts[t] + ((size_t)n * cout + co0 + ch) *
+                                                    Ho * Wo;
+                               });
+    float* wr = wraw + slot * KC * ld;
+    for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
+      int col;
+      const int k = div_by(i, rntv, ntv, col);
+      const int ci = ci0 + col;
+      const int t = k % B::T2;
+      const bool ok = k < nco * B::T2 && ci < cin;
+      cp_async4(wr + k * ld + col,
+                ok ? w + w_index<S, K>(co0 + k / B::T2, ci, t / K, t % K,
+                                       cin, cout)
+                   : w,
+                ok);
     }
-    __syncthreads();
-    for (int t = threadIdx.x; t < NDX * (kCic2 / 4); t += kThreads) {
-      const int pix = t % NDX;
-      const int cg = t / NDX;
-      const int py = pix / G::DTW;
-      const int px = pix % G::DTW;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int co = 0; co < cout; ++co) {
-        const float* dc = dus + co * G::RP;
-        const float* wc = wdx + co * K * K * kCic2 + cg * 4;
+    if (threadIdx.x < nco)
+      load_consts(kc, co0 + threadIdx.x, cst + (slot * COC + threadIdx.x) * 5);
+  };
+  auto convert = [&](int slot, int nco) {
+    const float* rr = raw + slot * 3 * COC * FD;
+    for (int i = threadIdx.x; i < nco * FD / 4; i += kThreads) {
+      const int r = i / (FW / 4);
+      const int gy = orgy + r % FH;
+      const int gx = orgx + 4 * (i % (FW / 4));
+      const float* k = cst + (slot * COC + r / FH) * 5;
+      float uv[4], yv[4], dyv[4], du[4];
+      load4(rr, i, uv);
+      load4(rr + COC * FD, i, yv);
+      load4(rr + 2 * COC * FD, i, dyv);
 #pragma unroll
-        for (int ky = 0; ky < K; ++ky)
-#pragma unroll
-          for (int kx = 0; kx < K; ++kx) {
-            // S == 1: du at (y + P - ky); S > 1: du at (S iy - P + ky)
-            const int ru = S == 1 ? py + 2 * P - ky : S * py + ky;
-            const int rv = S == 1 ? px + 2 * P - kx : S * px + kx;
-            const float g = dc[ru * G::RW + rv];
-            const float4 w4 =
-                *reinterpret_cast<const float4*>(wc + (ky * K + kx) * kCic2);
-            acc[0] += g * w4.x;
-            acc[1] += g * w4.y;
-            acc[2] += g * w4.z;
-            acc[3] += g * w4.w;
-          }
+      for (int e = 0; e < 4; ++e)  // 0 outside: the adjoint's zero padding
+        du[e] = gy >= 0 && gy < Ho && gx + e >= 0 && gx + e < Wo
+                    ? form_du(uv[e], yv[e], dyv[e], k)
+                    : 0.f;
+      split_store4(du, dhi, dlo, i);
+    }
+    const float* wr = wraw + slot * KC * ld;
+    for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
+      int col;
+      const int k = div_by(i, rntv, ntv, col);
+      split_store(wr[k * ld + col], whi, wlo, k * ld + col);
+    }
+    for (int k = threadIdx.x; k < KC; k += kThreads) {
+      int off = 0;
+      if (k < nco * B::T2) {
+        const int t = k % B::T2;
+        const int tap = (t / K) * FW + t % K;
+        off = (k / B::T2) * FD + (S == 1 ? -tap : tap);
       }
-      const int iy = dy0 + py;
-      const int ix = dx0 + px;
-      if (iy < H && ix < W)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int ci = ci0 + cg * 4 + q;
-          if (ci < cin) dx[(((size_t)n * cin + ci) * H + iy) * W + ix] = acc[q];
-        }
+      koff[k] = off;
     }
+  };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  // a pixel's du offset at tap 0: S == 1 (r + K - 1, c + K - 1); S > 1
+  // (S r, S c)
+  int pix0[R], pix1[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = warp + 8 * r;
+    pix0[r] = (S == 1 ? (row + K - 1) * FW + g + K - 1
+                      : S * row * FW + S * g) +
+              lead;
+    pix1[r] = pix0[r] + 8 * S;
+  }
+  const int nj = (min(kNT, cin - ci0) + 7) / 8;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  pipeline(0, nchunks, stages, issue, [&](int c, int slot) {
+    const int nco = min(COC, cout - c * COC);
+    convert(slot, nco);
     __syncthreads();
+    if constexpr (R == 1)
+      pixel_row_mma(acc, dhi, dlo, koff, whi, wlo, ld, rup(nco * B::T2, 8),
+                    pix0[0], pix1[0], nj, g, tig);
+    else
+      pixel_rows2_mma(acc, dhi, dlo, koff, whi, wlo, ld,
+                      rup(nco * B::T2, 8), pix0, pix1, nj, g, tig);
+  });
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int iy = p0y + warp + 8 * r;
+    if (iy >= H) break;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ci = ci0 + 8 * j + 2 * tig + e;
+        if (j >= nj || ci >= cin || (R == 2 && j >= 4)) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int ix = p0x + g + 8 * h;
+          if (ix < W)
+            dx[(((size_t)n * cin + ci) * H + iy) * W + ix] =
+                acc[R == 1 ? j : 4 * r + j][2 * h + e];
+        }
+      }
+  }
+}
+
+// floats of the dW block's cross-warp reduction: 8 warps x 8 tiles x 32
+// lanes x 4 (it reuses the shared memory of the K loop)
+constexpr int kDwRed = 8 * 8 * 32 * 4;
+
+// rows of a dW block's du tile: its output channels, in m16 tiles
+__host__ __device__ constexpr int dw_rows(int cout) {
+  return rup(cout < kMW ? cout : kMW, 16);
+}
+
+// f(IC<dwc>) with the dW chunk's columns for cout output channels
+template <int S, typename F>
+int with_dw_cols(int cout, F&& f) {
+  if (dw_rows(cout) > 16) return f(std::integral_constant<int, kDwNarrow>{});
+  if (S == 1) return f(std::integral_constant<int, kDwWide>{});
+  return f(std::integral_constant<int, kDwMid>{});
+}
+
+template <int S, int K, int DWC>
+int dw_smem_floats(int cout, int stages) {
+  using B = Bwd<S, K>;
+  const int mw = dw_rows(cout);
+  const int lda = 2 * DWC + 4;
+  const int f = (stages * 3 + 2) * mw * lda +
+                (stages + 2) * B::CIW * B::fxw(DWC) + mw * 5 + B::NW +
+                2 * DWC;
+  return f > kDwRed ? f : kDwRed;
+}
+
+// dW: one block per (phase x input-channel tile x output-channel tile,
+// split); the block walks its split's run of consecutive K chunks of 2 x
+// DWC pixels of the phase's grid (columns fastest, so consecutive chunks
+// read the same rows of u, y, dy and x) and writes its partial dW.
+template <int S, int K, int DWC>
+__global__ void __launch_bounds__(kThreads, 2)
+    dw_kernel(const float* __restrict__ x, DuConsts kc,
+              const float* __restrict__ u, const float* __restrict__ y,
+              const float* __restrict__ dy, float* __restrict__ dwp,
+              int N, int cin, int H, int W, int cout, int stages) {
+  using B = Bwd<S, K>;
+  constexpr int FW = B::wa(B::fx(DWC));  // staged x row, 16-byte groups
+  constexpr int FXW = B::fxw(DWC);
+  constexpr int CIW = B::CIW;
+  constexpr int T1 = B::T1;
+  constexpr int dwc = DWC;
+  constexpr int px = 2 * DWC;      // chunk pixels
+  constexpr int lda = px + 4;      // du row stride, 4 mod 32
+  const int mw = dw_rows(cout);
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;                        // [stages][3][mw][lda]
+  float* dhi = raw + stages * 3 * mw * lda;  // [mw][lda]
+  float* dlo = dhi + mw * lda;
+  float* xraw = dlo + mw * lda;            // [stages][CIW][FXW]
+  float* xhi = xraw + stages * CIW * FXW;
+  float* xlo = xhi + CIW * FXW;
+  float* cst = xlo + CIW * FXW;             // [mw][5]
+  int* noff = reinterpret_cast<int*>(cst + mw * 5);  // [NW]
+  int* pxo = noff + B::NW;                           // [px]
+
+  const int cit = (cin + CIW - 1) / CIW;
+  const Phase<S, K> ph(blockIdx.x % B::PH);
+  const int rest = blockIdx.x / B::PH;
+  const int ci0 = (rest % cit) * CIW;
+  const int co0 = (rest / cit) * kMW;
+  const int nci = min(CIW, cin - ci0);
+  const int nco = min(kMW, cout - co0);
+  const int Ho = H * S;
+  const int Wo = W * S;
+  const int nrows = (H + 1) / 2;
+  const int ncols = (W + dwc - 1) / dwc;
+  const int nchunks = N * nrows * ncols;
+  const int per = (nchunks + gridDim.y - 1) / gridDim.y;
+  const int c0 = min(nchunks, (int)blockIdx.y * per);
+  const int c1 = min(nchunks, c0 + per);
+
+  for (int i = threadIdx.x; i < nco; i += kThreads)
+    load_consts(kc, co0 + i, cst + i * 5);
+  for (int k = threadIdx.x; k < B::NW; k += kThreads)
+    noff[k] = k < nci * T1 ? (k / T1) * FXW + x_tap<S, K>(k % T1, FW) : 0;
+  // chunks start at multiples of 16 columns: the x footprint's first column
+  // lies `lead` into its staged row in every chunk
+  const int lead = (S == 1 ? -B::P : ph.offx - 1) & 3;
+  for (int k = threadIdx.x; k < px; k += kThreads)
+    pxo[k] = x_pix<S>(k / dwc, k % dwc, FW) + lead;
+
+  // chunk c: sample, first row (of 2) and first column (of dwc)
+  auto where = [&](int c, int& n, int& q0, int& qx0) {
+    n = c / (nrows * ncols);
+    const int r = c % (nrows * ncols);
+    q0 = 2 * (r / ncols);
+    qx0 = dwc * (r % ncols);
+  };
+  auto issue = [&](int c, int slot) {
+    int n, q0, qx0;
+    where(c, n, q0, qx0);
+    float* rr = raw + slot * 3 * mw * lda;
+    for (int i = threadIdx.x; i < nco * px; i += kThreads) {
+      const int q = q0 + (i % px) / dwc;
+      const int qx = qx0 + (i % px) % dwc;
+      const bool ok = q < H && qx < W;
+      const int oy = S == 1 ? q : S * q + ph.ry;
+      const int ox = S == 1 ? qx : S * qx + ph.rx;
+      const size_t idx =
+          ok ? (((size_t)n * cout + co0 + i / px) * Ho + oy) * Wo + ox : 0;
+      const int j = (i / px) * lda + i % px;
+      cp_async4(rr + j, u + idx, ok);
+      cp_async4(rr + mw * lda + j, y + idx, ok);
+      cp_async4(rr + 2 * mw * lda + j, dy + idx, ok);
+    }
+    const int orgy = S == 1 ? q0 - B::P : q0 + ph.offy - 1;
+    const int orgx = S == 1 ? qx0 - B::P : qx0 + ph.offx - 1;
+    const float* xn = x + (size_t)n * cin * H * W;
+    stage_window<B::fx(2), FW / 4>(xraw + slot * CIW * FXW, nci, orgy,
+                                   orgx - lead, H, W, [&](int ch) {
+                                     return xn + (size_t)(ci0 + ch) * H * W;
+                                   });
+  };
+  const int mt = (nco + 15) / 16;  // m16 tiles of output channels
+  auto convert = [&](int c, int slot) {
+    int n, q0, qx0;
+    where(c, n, q0, qx0);
+    const float* rr = raw + slot * 3 * mw * lda;
+    for (int i = threadIdx.x; i < mt * 16 * px; i += kThreads) {
+      const int cl = i / px;
+      const int j = cl * lda + i % px;
+      float du = 0.f;  // past the image or the channels
+      if (cl < nco && q0 + (i % px) / dwc < H && qx0 + (i % px) % dwc < W)
+        du = form_du(rr[j], rr[mw * lda + j], rr[2 * mw * lda + j],
+                     cst + cl * 5);
+      split_store(du, dhi, dlo, j);
+    }
+    const float* xr = xraw + slot * CIW * FXW;
+    for (int i = threadIdx.x; i < nci * FXW / 4; i += kThreads) {
+      float v[4];
+      load4(xr, i, v);
+      split_store4(v, xhi, xlo, i);
+    }
+  };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int nn8 = (nci * T1 + 7) / 8;  // n8 tiles of (channel, tap) columns
+  const int npairs = mt * nn8;         // (m16, n8) tiles
+  // the 8 warps as wk_n K-step groups x wp_n tile groups: a warp takes the
+  // tiles wp + wp_n i (at most 8) on the K steps wk + wk_n j of each chunk;
+  // with few tiles the warps split the K steps instead, so each warp keeps
+  // several independent MMA chains; their sums meet at the end
+  const int wp_n = npairs <= 16 ? 2 : (npairs <= 32 ? 4 : 8);
+  const int wk_n = 8 / wp_n;
+  const int wk = warp % wk_n;
+  const int wp = warp / wk_n;
+  float acc[8][4], part[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[i][e] = 0.f;
+      part[i][e] = 0.f;
+    }
+
+  pipeline(c0, c1, stages, issue, [&](int c, int slot) {
+    convert(c, slot);
+    __syncthreads();
+    for (int kk = 8 * wk; kk < px; kk += 8 * wk_n) {
+      const int x0 = pxo[kk + tig];
+      const int x1 = pxo[kk + tig + 4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int pr = wp + wp_n * i;
+        if (pr >= npairs) break;
+        const int a0 = (16 * (pr / nn8) + g) * lda + kk + tig;
+        const int ia[4] = {a0, a0 + 8 * lda, a0 + 4, a0 + 8 * lda + 4};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          ah[r] = bits(dhi[ia[r]]);
+          al[r] = bits(dlo[ia[r]]);
+        }
+        const int no = noff[8 * (pr % nn8) + g];
+        const uint32_t bh[2] = {bits(xhi[x0 + no]), bits(xhi[x1 + no])};
+        const uint32_t bl[2] = {bits(xlo[x0 + no]), bits(xlo[x1 + no])};
+        mma3(part[i], ah, al, bh, bl);
+      }
+    }
+    add_chunk(acc, part);
+  });
+
+  // the K-step groups' sums, in a fixed order, into the wk == 0 warps
+  __syncthreads();
+  float* red = smem;  // [warp][tile][lane][4]
+  if (wk > 0)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[((warp * 8 + i) * 32 + lane) * 4 + e] = acc[i][e];
+  __syncthreads();
+  if (wk > 0) return;
+  for (int o = 1; o < wk_n; ++o)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[i][e] += red[(((warp + o) * 8 + i) * 32 + lane) * 4 + e];
+
+  // this split's partial dW over its chunks (0 if it had none)
+  float* dwb = dwp + (size_t)blockIdx.y * cin * cout * K * K;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int pr = wp + wp_n * i;
+    if (pr >= npairs) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = 16 * (pr / nn8) + g + 8 * h;
+        const int col = 8 * (pr % nn8) + 2 * tig + e;
+        if (cl < nco && col < nci * T1) {
+          const int t = col % T1;
+          dwb[w_index<S, K>(co0 + cl, ci0 + col / T1, ph.ky(t), ph.kx(t),
+                            cin, cout)] = acc[i][2 * h + e];
+        }
+      }
   }
 }
 
@@ -606,8 +1370,7 @@ int dispatch(int s, int k, F&& f) {
 
 template <int S, int K, int MODE>
 int launch_fwd_type(const float* x, const float* w, const float* a,
-                    const float* b, const float* mean, const float* inv,
-                    const float* dy, float* y, float* p1, float* p2, int n,
+                    const float* b, float* y, float* p1, float* p2, int n,
                     int cin, int h, int wd, int cout, cudaStream_t stream) {
   const int smem = fwd_smem_floats<S, K>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -617,38 +1380,128 @@ int launch_fwd_type(const float* x, const float* w, const float* a,
   const dim3 grid((wd * S + kFTW - 1) / kFTW, (h * S + kFTH - 1) / kFTH,
                   n * ((cout + kCob - 1) / kCob));
   fwd_type_kernel<S, K, MODE><<<grid, kThreads, smem, stream>>>(
-      x, w, a, b, mean, inv, dy, y, p1, p2, cin, h, wd, cout);
+      x, w, a, b, y, p1, p2, cin, h, wd, cout);
   return (int)cudaGetLastError();
 }
 
 bool dims_ok(int n, int cin, int h, int w, int cout) {
   return n > 0 && cin > 0 && h > 0 && w > 0 && cout > 0 &&
-         (long long)n * ((cout + kCob - 1) / kCob) <= 65535;
+         (long long)n * ((cout + kCob - 1) / kCob) <= 65535 &&
+         (long long)n * ((cin + kNT - 1) / kNT) <= 65535 &&
+         (h + kTH - 1) / kTH <= 65535;
+}
+
+// Ring depths of the three backward kernels (bwd1, dx, dW) for the widths.
+template <int S, int K>
+void bwd_stages(int cin, int cout, int (&st)[3]) {
+  st[0] = with_rows(rup(cout < kNT ? cout : kNT, 8), [&](auto R) {
+    return pick_stages(
+        [&](int s) { return bwd1_smem_floats<S, K, R.value>(cout, s); });
+  });
+  st[1] = with_rows(rup(cin < kNT ? cin : kNT, 8), [&](auto R) {
+    return pick_stages(
+        [&](int s) { return dx_smem_floats<S, K, R.value>(cin, s); });
+  });
+  st[2] = with_dw_cols<S>(cout, [&](auto D) {
+    return pick_stages(
+        [&](int s) { return dw_smem_floats<S, K, D.value>(cout, s); });
+  });
+}
+
+// Shared memory of a block of bwd1 (which = 0), dx (1) or dW (2) in bytes.
+template <int S, int K>
+int bwd_smem_bytes(int cin, int cout, int which) {
+  int st[3];
+  bwd_stages<S, K>(cin, cout, st);
+  int f;
+  if (which == 0) {
+    f = with_rows(rup(cout < kNT ? cout : kNT, 8), [&](auto R) {
+      return bwd1_smem_floats<S, K, R.value>(cout, st[0]);
+    });
+  } else if (which == 1) {
+    f = with_rows(rup(cin < kNT ? cin : kNT, 8), [&](auto R) {
+      return dx_smem_floats<S, K, R.value>(cin, st[1]);
+    });
+  } else {
+    f = with_dw_cols<S>(cout, [&](auto D) {
+      return dw_smem_floats<S, K, D.value>(cout, st[2]);
+    });
+  }
+  return f * (int)sizeof(float);
+}
+
+int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// dW tiles of a site (phases x input-channel tiles x output-channel tiles)
+template <int S, int K>
+int dw_tiles(int cin, int cout) {
+  using B = Bwd<S, K>;
+  return B::PH * ((cin + B::CIW - 1) / B::CIW) * ((cout + kMW - 1) / kMW);
+}
+
+// dW splits: enough blocks for about four per SM, at most kMaxSplit and at
+// most one a K chunk
+template <int S, int K>
+int bwd2_splits(int n, int h, int w, int cin, int cout) {
+  const int dwc = with_dw_cols<S>(cout, [](auto D) { return D.value; });
+  const long long chunks = (long long)n * ((h + 1) / 2) * ((w + dwc - 1) / dwc);
+  const int others = dw_tiles<S, K>(cin, cout);
+  long long s = (4LL * sm_count() + others - 1) / others;
+  if (s > chunks) s = chunks;
+  return clampi((int)(s < kMaxSplit ? s : kMaxSplit), 1, kMaxSplit);
+}
+
+
+template <typename Kern>
+cudaError_t set_smem(Kern kern, int bytes) {
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Spatial blocks a sample of the stats/fwd/bwd1 launches (the rows of their
+// Spatial blocks a sample of the stats/fwd launches (the rows of their
 // partials per sample): (h, w) is the input, s the stride (1: "same" conv).
 int bpt_conv_bn_fwd_tiles(int h, int w, int s) {
   return ((w * s + kFTW - 1) / kFTW) * ((h * s + kFTH - 1) / kFTH);
 }
 
-// Spatial blocks a sample of the bwd2 launch (its partial dW rows).
-int bpt_conv_bn_bwd2_tiles(int h, int w, int k, int s) {
+// Spatial blocks a sample of the bwd1 launch (the rows of its partials per
+// sample) for cout output channels; -1 for an unsupported (k, s).
+int bpt_conv_bn_bwd1_tiles(int h, int w, int cout, int k, int s) {
   return dispatch(s, k, [&](auto S_, auto K_) {
-    using G = Geo<decltype(S_)::value, decltype(K_)::value>;
-    return ((h + G::DTH - 1) / G::DTH) * ((w + G::DTW - 1) / G::DTW);
+    using B = Bwd<decltype(S_)::value, decltype(K_)::value>;
+    const int th = kTH * rows_for(rup(cout < kNT ? cout : kNT, 8));
+    return B::PH * ((w + kTW - 1) / kTW) * ((h + th - 1) / th);
   });
 }
 
-// Shared memory of one bwd2 block in bytes; -1 for an unsupported (k, s).
-int bpt_conv_bn_bwd2_smem(int cout, int k, int s) {
+// Partial dW rows of the bwd2 call (its pixel splits) for x (n, cin, h, w)
+// and cout output channels; -1 for an unsupported (k, s).
+int bpt_conv_bn_bwd2_splits(int n, int cin, int h, int w, int cout, int k,
+                            int s) {
   return dispatch(s, k, [&](auto S_, auto K_) {
-    return bwd2_smem_floats<decltype(S_)::value, decltype(K_)::value>(cout) *
-           (int)sizeof(float);
+    return bwd2_splits<decltype(S_)::value, decltype(K_)::value>(n, h, w,
+                                                                 cin, cout);
+  });
+}
+
+// Shared memory of a block of the bwd1 (which = 0), dx (1) or dW (2)
+// launch in bytes; -1 for an unsupported (k, s) or which.
+int bpt_conv_bn_bwd_smem(int cin, int cout, int k, int s, int which) {
+  if (which < 0 || which > 2) return -1;
+  return dispatch(s, k, [&](auto S_, auto K_) {
+    return bwd_smem_bytes<decltype(S_)::value, decltype(K_)::value>(
+        cin, cout, which);
   });
 }
 
@@ -662,9 +1515,8 @@ int bpt_conv_bn_stats(const void* x, const void* w, void* p1, void* p2, int n,
   const int r = dispatch(s, k, [&](auto S_, auto K_) {
     return launch_fwd_type<decltype(S_)::value, decltype(K_)::value, kStats>(
         static_cast<const float*>(x), static_cast<const float*>(w), nullptr,
-        nullptr, nullptr, nullptr, nullptr, nullptr, static_cast<float*>(p1),
-        static_cast<float*>(p2), n, cin, h, wd, cout,
-        static_cast<cudaStream_t>(stream));
+        nullptr, nullptr, static_cast<float*>(p1), static_cast<float*>(p2), n,
+        cin, h, wd, cout, static_cast<cudaStream_t>(stream));
   });
   return r < 0 ? (int)cudaErrorInvalidValue : r;
 }
@@ -677,60 +1529,103 @@ int bpt_conv_bn_fwd(const void* x, const void* w, const void* a,
   const int r = dispatch(s, k, [&](auto S_, auto K_) {
     return launch_fwd_type<decltype(S_)::value, decltype(K_)::value, kFwd>(
         static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(a), static_cast<const float*>(b), nullptr,
-        nullptr, nullptr, static_cast<float*>(y), nullptr, nullptr, n, cin,
-        h, wd, cout, static_cast<cudaStream_t>(stream));
-  });
-  return r < 0 ? (int)cudaErrorInvalidValue : r;
-}
-
-// As stats, with a, b, mean, inv (Cout) and dy (N, Cout, s H, s W): the
-// partial sums of dv (p1) and dv * uhat (p2).
-int bpt_conv_bn_bwd1(const void* x, const void* w, const void* a,
-                     const void* b, const void* mean, const void* inv,
-                     const void* dy, void* p1, void* p2, int n, int cin,
-                     int h, int wd, int cout, int k, int s, void* stream) {
-  if (!dims_ok(n, cin, h, wd, cout)) return (int)cudaErrorInvalidValue;
-  const int r = dispatch(s, k, [&](auto S_, auto K_) {
-    return launch_fwd_type<decltype(S_)::value, decltype(K_)::value, kBwd1>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<const float*>(mean), static_cast<const float*>(inv),
-        static_cast<const float*>(dy), nullptr, static_cast<float*>(p1),
-        static_cast<float*>(p2), n, cin, h, wd, cout,
+        static_cast<float*>(y), nullptr, nullptr, n, cin, h, wd, cout,
         static_cast<cudaStream_t>(stream));
   });
   return r < 0 ? (int)cudaErrorInvalidValue : r;
 }
 
-// As bwd1, with s1n = S1 / count and s2n = S2 / count (Cout); writes dx
-// (N, Cin, H, W) and dwp (N * tiles, w's shape) with tiles =
-// bpt_conv_bn_bwd2_tiles.
-int bpt_conv_bn_bwd2(const void* x, const void* w, const void* a,
-                     const void* b, const void* mean, const void* inv,
-                     const void* s1n, const void* s2n, const void* dy,
-                     void* dx, void* dwp, int n, int cin, int h, int wd,
+// bwd1: x, w as stats; mean, inv (Cout); y, dy (N, Cout, s H, s W). Writes u
+// (y's shape) and the partial sums of dv (p1) and dv * uhat (p2), (N *
+// tiles, Cout) with tiles = bpt_conv_bn_bwd1_tiles.
+int bpt_conv_bn_bwd1(const void* x, const void* w, const void* mean,
+                     const void* inv, const void* y, const void* dy, void* u,
+                     void* p1, void* p2, int n, int cin, int h, int wd,
                      int cout, int k, int s, void* stream) {
   if (!dims_ok(n, cin, h, wd, cout)) return (int)cudaErrorInvalidValue;
   const int r = dispatch(s, k, [&](auto S_, auto K_) {
     constexpr int S = decltype(S_)::value;
     constexpr int K = decltype(K_)::value;
-    using G = Geo<S, K>;
-    const int smem = bwd2_smem_floats<S, K>(cout) * (int)sizeof(float);
-    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        bwd2_kernel<S, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int st[3];
+    bwd_stages<S, K>(cin, cout, st);
+    return with_rows(rup(cout < kNT ? cout : kNT, 8), [&](auto R_) {
+      constexpr int R = decltype(R_)::value;
+      const int smem =
+          bwd1_smem_floats<S, K, R>(cout, st[0]) * (int)sizeof(float);
+      cudaError_t err = set_smem(bwd1_kernel<S, K, R>, smem);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid(Bwd<S, K>::PH * ((wd + kTW - 1) / kTW),
+                      (h + kTH * R - 1) / (kTH * R),
+                      n * ((cout + kNT - 1) / kNT));
+      bwd1_kernel<S, K, R><<<grid, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x), static_cast<const float*>(w),
+          static_cast<const float*>(mean), static_cast<const float*>(inv),
+          static_cast<const float*>(y), static_cast<const float*>(dy),
+          static_cast<float*>(u), static_cast<float*>(p1),
+          static_cast<float*>(p2), cin, h, wd, cout, st[0]);
+      return (int)cudaGetLastError();
+    });
+  });
+  return r < 0 ? (int)cudaErrorInvalidValue : r;
+}
+
+// bwd2: x, w as stats; a, mean, inv, s1n = S1 / count, s2n = S2 / count
+// (Cout); u (from bwd1), y, dy (N, Cout, s H, s W). Writes dx (N, Cin, H, W)
+// and dwp (nsplit, w's shape), nsplit = bpt_conv_bn_bwd2_splits: two
+// launches on `stream`, dx then dW.
+int bpt_conv_bn_bwd2(const void* x, const void* w, const void* a,
+                     const void* mean, const void* inv, const void* s1n,
+                     const void* s2n, const void* u, const void* y,
+                     const void* dy, void* dx, void* dwp, int n, int cin,
+                     int h, int wd, int cout, int k, int s, int nsplit,
+                     void* stream) {
+  if (!dims_ok(n, cin, h, wd, cout) || nsplit < 1 || nsplit > kMaxSplit)
+    return (int)cudaErrorInvalidValue;
+  const int r = dispatch(s, k, [&](auto S_, auto K_) {
+    constexpr int S = decltype(S_)::value;
+    constexpr int K = decltype(K_)::value;
+    using B = Bwd<S, K>;
+    const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+    const DuConsts kc{static_cast<const float*>(a),
+                      static_cast<const float*>(mean),
+                      static_cast<const float*>(inv),
+                      static_cast<const float*>(s1n),
+                      static_cast<const float*>(s2n)};
+    const float* uf = static_cast<const float*>(u);
+    const float* yf = static_cast<const float*>(y);
+    const float* dyf = static_cast<const float*>(dy);
+    int st[3];
+    bwd_stages<S, K>(cin, cout, st);
+    cudaError_t err = (cudaError_t)with_rows(
+        rup(cin < kNT ? cin : kNT, 8), [&](auto R_) {
+          constexpr int R = decltype(R_)::value;
+          const int smem_dx =
+              dx_smem_floats<S, K, R>(cin, st[1]) * (int)sizeof(float);
+          cudaError_t e = set_smem(dx_kernel<S, K, R>, smem_dx);
+          if (e != cudaSuccess) return (int)e;
+          const dim3 grid_dx((wd + kTW - 1) / kTW,
+                             (h + kTH * R - 1) / (kTH * R),
+                             n * ((cin + kNT - 1) / kNT));
+          dx_kernel<S, K, R><<<grid_dx, kThreads, smem_dx, strm>>>(
+              static_cast<const float*>(w), kc, uf, yf, dyf,
+              static_cast<float*>(dx), cin, h, wd, cout, st[1]);
+          return (int)cudaGetLastError();
+        });
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((wd + G::DTW - 1) / G::DTW, (h + G::DTH - 1) / G::DTH, n);
-    bwd2_kernel<S, K><<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<const float*>(mean), static_cast<const float*>(inv),
-        static_cast<const float*>(s1n), static_cast<const float*>(s2n),
-        static_cast<const float*>(dy), static_cast<float*>(dx),
-        static_cast<float*>(dwp), cin, h, wd, cout);
-    return (int)cudaGetLastError();
+    return with_dw_cols<S>(cout, [&](auto D) {
+      constexpr int DWC = decltype(D)::value;
+      const int smem_dw =
+          dw_smem_floats<S, K, DWC>(cout, st[2]) * (int)sizeof(float);
+      cudaError_t e = set_smem(dw_kernel<S, K, DWC>, smem_dw);
+      if (e != cudaSuccess) return (int)e;
+      const dim3 grid_dw(dw_tiles<S, K>(cin, cout), nsplit);
+      dw_kernel<S, K, DWC><<<grid_dw, kThreads, smem_dw, strm>>>(
+          static_cast<const float*>(x), kc, uf, yf, dyf,
+          static_cast<float*>(dwp), n, cin, h, wd, cout, st[2]);
+      return (int)cudaGetLastError();
+    });
   });
   return r < 0 ? (int)cudaErrorInvalidValue : r;
 }

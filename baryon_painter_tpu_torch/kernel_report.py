@@ -1,0 +1,110 @@
+"""What the compiler made of K4's backward kernels (csrc/conv_bn.cu).
+
+    python -m baryon_painter_tpu_torch.kernel_report
+
+Builds the kernel library afresh (nvcc with ``-Xptxas -v``), then prints for
+each backward kernel (bwd1, dx, dW) instantiation: ptxas' registers and
+spills, the number of tensor-core instructions in its SASS (``HMMA`` from
+``cuobjdump -sass``) with one of them quoted, and, at the four fused sites
+of the fiducial training step, each backward launch's shared memory per
+block in bytes. The last line is the same as JSON. Needs nvcc and cuobjdump
+(the CUDA toolkit); no card.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+from pathlib import Path
+
+from baryon_painter_tpu_torch import smoke
+from baryon_painter_tpu_torch.ops import _build
+
+_KERNEL = re.compile(r"(bwd1_kernel|dx_kernel|dw_kernel)ILi(\d+)ELi(\d+)E"
+                     r"(?:Li(\d+)E)?")
+
+
+def _name(mangled: str):
+    m = _KERNEL.search(mangled)
+    if m is None:
+        return None
+    kind, s, k, extra = m.groups()
+    return f"{kind}<{s},{k}" + (f",{extra}>" if extra else ">")
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from nvcc's
+    ``-Xptxas -v`` output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _name(m.group(1))
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def sass_report(library: Path) -> dict:
+    """{kernel: {"hmma", "example"}} from ``cuobjdump -sass``."""
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _name(m.group(1))
+            if name:
+                out[name] = {"hmma": 0, "example": None}
+            continue
+        m = re.search(r"(HMMA[^;]*);", line)
+        if name and m:
+            out[name]["hmma"] += 1
+            if out[name]["example"] is None:
+                out[name]["example"] = " ".join(m.group(1).split())
+    return out
+
+
+def smem_report() -> dict:
+    """Shared memory per block of the bwd1, dx and dW launches at the fused
+    sites (bytes, as the launches request it)."""
+    lib = _build.load_library()
+    out = {}
+    for name, site in smoke.K4_SITES.items():
+        s = site["stride"] if site["transposed"] else 1
+        out[name] = {kind: lib.bpt_conv_bn_bwd_smem(site["cin"], site["cout"],
+                                                    site["k"], s, which)
+                     for which, kind in enumerate(("bwd1", "dx", "dw"))}
+    return out
+
+
+def main():
+    build = _build.build_library(force=True)
+    record = {"build_s": build["seconds"],
+              "ptxas": ptxas_report(build["log"]),
+              "sass": sass_report(build["path"]),
+              "smem_bytes": smem_report()}
+    for k in sorted(record["sass"]):
+        p = record["ptxas"].get(k, {})
+        print(f"{k:18s} registers {p.get('registers')}, spill stores "
+              f"{p.get('spill_stores')} B, HMMA {record['sass'][k]['hmma']}: "
+              f"{record['sass'][k]['example']}")
+    for site, v in record["smem_bytes"].items():
+        print(f"site {site}: shared memory per block " + ", ".join(
+            f"{k} {b} B" for k, b in v.items()))
+    print(json.dumps(record))
+
+
+if __name__ == "__main__":
+    main()

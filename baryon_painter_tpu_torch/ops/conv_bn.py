@@ -17,19 +17,23 @@ update and carry no gradient (the JAX ``stop_gradient`` contract). The
 backward is the exact full batch-norm backward through the batch
 statistics (``_bwd_xla``):
 
-    dv = dy where u * a + b > 0 (strictly), else 0;  uhat = (u - mean) * inv
+    dv = dy where the forward's y > 0, else 0;  uhat = (u - mean) * inv
     S1 = sum(dv), S2 = sum(dv * uhat) over (N, H, W);  n = N H W
     du = a * (dv - S1/n - uhat * S2/n);  dgamma = S2;  dbeta = S1
     dx, dW = the convolution's adjoints applied to du
 
-Four kernels (``csrc/conv_bn.cu``), each recomputing u from x: K4-stats
-(per-block partial sums of u and u^2), K4-fwd (y), K4-bwd1 (partial S1, S2)
-and K4-bwd2 (dx and partial dW); the partials are summed here in torch, so
-every result is deterministic. The kernels take two families: a stride-1
-"same" conv with odd k in (1, 3, 5, 7), and a transposed conv with k = 2s,
-p = s/2, s in (2, 4); f32 only. On CUDA tensors anything else raises; on
-CPU tensors each wrapper is its plain version, which takes any stride and
-padding.
+The ReLU mask is the forward's own (y > 0, y saved for the backward), so
+the backward's rounding cannot send a pre-activation near 0 to the other
+branch. Four kernels (``csrc/conv_bn.cu``): K4-stats (per-block partial
+sums of u and u^2) and K4-fwd (y), each computing u from x on the CUDA
+cores; K4-bwd1 (u, kept in a scratch tensor for K4-bwd2, and partial S1,
+S2) and K4-bwd2 (dx, and dW as partials over a fixed split of the pixels),
+implicit GEMMs on the tensor cores in 3xTF32. The partials are summed here
+in torch, so every result is deterministic. The kernels take two families:
+a stride-1 "same" conv with odd k in (1, 3, 5, 7), and a transposed conv
+with k = 2s, p = s/2, s in (2, 4); f32 only. On CUDA tensors anything else
+raises; on CPU tensors each wrapper is its plain version, which takes any
+stride and padding.
 """
 from __future__ import annotations
 
@@ -116,12 +120,11 @@ def _out_shape(x, w, transposed, stride):
     return n, cout, h * s, wd * s
 
 
-def _check(fn, x, w, transposed, stride, padding, vecs=None, dy=None):
-    """Raise on anything the kernels do not take; returns (k, s)."""
-    vecs = vecs or {}
-    tensors = {"x": x, "w": w, **vecs}
-    if dy is not None:
-        tensors["dy"] = dy
+def _check(fn, x, w, transposed, stride, padding, vecs=None, outs=None):
+    """Raise on anything the kernels do not take; returns (k, s). ``outs``
+    (name: tensor) must have y's shape."""
+    vecs, outs = vecs or {}, outs or {}
+    tensors = {"x": x, "w": w, **vecs, **outs}
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{fn}: {name} must be float32 (the kernels are "
@@ -141,11 +144,14 @@ def _check(fn, x, w, transposed, stride, padding, vecs=None, dy=None):
         if tuple(t.shape) != (cout,):
             raise ValueError(f"{fn}: {name} must be ({cout},), got "
                              f"{tuple(t.shape)}")
-    if dy is not None and tuple(dy.shape) != (n, cout, ho, wo):
-        raise ValueError(f"{fn}: dy must be {(n, cout, ho, wo)}, got "
-                         f"{tuple(dy.shape)}")
+    for name, t in outs.items():
+        if tuple(t.shape) != (n, cout, ho, wo):
+            raise ValueError(f"{fn}: {name} must be {(n, cout, ho, wo)}, "
+                             f"got {tuple(t.shape)}")
     if n * -(-cout // 16) > 65535:
         raise ValueError(f"{fn}: N * ceil(Cout / 16) must be at most 65535")
+    if n * -(-cin // 64) > 65535:
+        raise ValueError(f"{fn}: N * ceil(Cin / 64) must be at most 65535")
     return k, s
 
 
@@ -175,30 +181,27 @@ def conv_bn_fwd_ref(x, w, a, b, *, transposed: bool, stride: int,
     return torch.relu(u * _vec(a) + _vec(b))
 
 
-def _dv_uhat(x, w, a, b, mean, inv, dy, transposed, stride, padding,
-             active=None):
-    u = _conv(x, w, transposed, stride, padding)
-    if active is None:
-        active = u * _vec(a) + _vec(b) > 0
+def _dv_uhat(u, mean, inv, dy, active):
     return torch.where(active, dy, 0.0), (u - _vec(mean)) * _vec(inv)
 
 
-def conv_bn_bwd1_ref(x, w, a, b, mean, inv, dy, *, transposed: bool,
-                     stride: int, padding: int, active=None):
-    """Plain version of K4-bwd1. ``active`` (y's shape, bool): where the
-    ReLU passes, given instead of recomputed from u * a + b > 0."""
-    dv, uhat = _dv_uhat(x, w, a, b, mean, inv, dy, transposed, stride,
-                        padding, active)
-    return dv.sum((0, 2, 3)), (dv * uhat).sum((0, 2, 3))
+def conv_bn_bwd1_ref(x, w, mean, inv, dy, *, transposed: bool, stride: int,
+                     padding: int, active):
+    """Plain version of K4-bwd1: (S1, S2, u) with u = the library's conv and
+    ``active`` (y's shape, bool) the forward's ReLU mask, y > 0."""
+    u = _conv(x, w, transposed, stride, padding)
+    dv, uhat = _dv_uhat(u, mean, inv, dy, active)
+    return dv.sum((0, 2, 3)), (dv * uhat).sum((0, 2, 3)), u
 
 
-def conv_bn_bwd2_ref(x, w, a, b, mean, inv, s1n, s2n, dy, *,
-                     transposed: bool, stride: int, padding: int,
-                     active=None):
-    """Plain version of K4-bwd2: du, then the library's adjoints
-    (``active`` as in ``conv_bn_bwd1_ref``)."""
-    dv, uhat = _dv_uhat(x, w, a, b, mean, inv, dy, transposed, stride,
-                        padding, active)
+def conv_bn_bwd2_ref(x, w, a, mean, inv, s1n, s2n, dy, *, transposed: bool,
+                     stride: int, padding: int, active, u=None):
+    """Plain version of K4-bwd2: du from u (given, as K4-bwd1 returns it, or
+    recomputed), then the library's adjoints (``active`` as in
+    ``conv_bn_bwd1_ref``)."""
+    if u is None:
+        u = _conv(x, w, transposed, stride, padding)
+    dv, uhat = _dv_uhat(u, mean, inv, dy, active)
     du = _vec(a) * (dv - _vec(s1n) - uhat * _vec(s2n))
     return _adjoints(x, w, du, transposed, stride, padding)
 
@@ -249,64 +252,67 @@ def conv_bn_fwd(x, w, a, b, *, transposed: bool, stride: int, padding: int):
 conv_bn_fwd.launches = 0
 
 
-def conv_bn_bwd1(x, w, a, b, mean, inv, dy, *, transposed: bool,
-                 stride: int, padding: int):
-    """K4-bwd1: (S1, S2) = (sum of dv, sum of dv * uhat) per channel.
+def conv_bn_bwd1(x, w, mean, inv, y, dy, *, transposed: bool, stride: int,
+                 padding: int):
+    """K4-bwd1: (S1, S2, u), S1 = sum of dv, S2 = sum of dv * uhat per
+    channel with the forward's mask y > 0, and u = conv(x, w) for K4-bwd2.
 
     On CPU tensors the plain version; on CUDA tensors one launch (adds one
-    to ``conv_bn_bwd1.launches``) writing per-block partials, summed here."""
+    to ``conv_bn_bwd1.launches``) writing u into a tensor of y's shape and
+    per-block partials, summed here."""
     if not _device("conv_bn_bwd1", x):
-        return conv_bn_bwd1_ref(x, w, a, b, mean, inv, dy,
-                                transposed=transposed, stride=stride,
-                                padding=padding)
-    vecs = {"a": a, "b": b, "mean": mean, "inv": inv}
-    k, s = _check("conv_bn_bwd1", x, w, transposed, stride, padding, vecs, dy)
+        return conv_bn_bwd1_ref(x, w, mean, inv, dy, transposed=transposed,
+                                stride=stride, padding=padding,
+                                active=y > 0)
+    k, s = _check("conv_bn_bwd1", x, w, transposed, stride, padding,
+                  {"mean": mean, "inv": inv}, {"y": y, "dy": dy})
     from baryon_painter_tpu_torch.ops._build import load_library
     dims = _dims(x, w, transposed, k, s)
-    rows = x.shape[0] * load_library().bpt_conv_bn_fwd_tiles(
-        x.shape[2], x.shape[3], s)
+    rows = x.shape[0] * load_library().bpt_conv_bn_bwd1_tiles(
+        x.shape[2], x.shape[3], dims[4], k, s)
+    u = torch.empty(y.shape, dtype=torch.float32, device=x.device)
     p1 = torch.empty((rows, dims[4]), dtype=torch.float32, device=x.device)
     p2 = torch.empty_like(p1)
     _launch("conv_bn_bwd1", "bpt_conv_bn_bwd1", _operand(x), _operand(w),
-            *(_operand(t) for t in (a, b, mean, inv, dy)), p1, p2, *dims)
+            *(_operand(t) for t in (mean, inv, y, dy)), u, p1, p2, *dims)
     conv_bn_bwd1.launches += 1
-    return p1.sum(0), p2.sum(0)
+    return p1.sum(0), p2.sum(0), u
 
 
 conv_bn_bwd1.launches = 0
 
 
-def conv_bn_bwd2(x, w, a, b, mean, inv, s1n, s2n, dy, *, transposed: bool,
+def conv_bn_bwd2(x, w, a, mean, inv, s1n, s2n, u, y, dy, *, transposed: bool,
                  stride: int, padding: int):
-    """K4-bwd2: (dx, dW) from du = a (dv - s1n - uhat s2n), with s1n = S1/n
-    and s2n = S2/n.
+    """K4-bwd2: (dx, dW) from du = a (dv - s1n - uhat s2n), with s1n = S1/n,
+    s2n = S2/n, u from K4-bwd1 and the forward's mask y > 0.
 
-    On CPU tensors the plain version; on CUDA tensors one launch (adds one
-    to ``conv_bn_bwd2.launches``) writing dx and per-block partial dW,
-    summed here."""
+    On CPU tensors the plain version; on CUDA tensors one call (adds one to
+    ``conv_bn_bwd2.launches``) of two launches, dx and dW, writing dx and
+    one partial dW per split of the pixels, summed here."""
     if not _device("conv_bn_bwd2", x):
-        return conv_bn_bwd2_ref(x, w, a, b, mean, inv, s1n, s2n, dy,
+        return conv_bn_bwd2_ref(x, w, a, mean, inv, s1n, s2n, dy,
                                 transposed=transposed, stride=stride,
-                                padding=padding)
-    vecs = {"a": a, "b": b, "mean": mean, "inv": inv, "s1n": s1n,
-            "s2n": s2n}
-    k, s = _check("conv_bn_bwd2", x, w, transposed, stride, padding, vecs, dy)
+                                padding=padding, active=y > 0, u=u)
+    vecs = {"a": a, "mean": mean, "inv": inv, "s1n": s1n, "s2n": s2n}
+    k, s = _check("conv_bn_bwd2", x, w, transposed, stride, padding, vecs,
+                  {"u": u, "y": y, "dy": dy})
     from baryon_painter_tpu_torch.ops._build import load_library
     lib = load_library()
     dims = _dims(x, w, transposed, k, s)
-    smem = lib.bpt_conv_bn_bwd2_smem(dims[4], k, s)
+    smem = max(lib.bpt_conv_bn_bwd_smem(dims[1], dims[4], k, s, which)
+               for which in range(3))
     if not 0 < smem <= 232448:
-        raise ValueError(f"conv_bn_bwd2: {dims[4]} output channels need "
-                         f"{smem} bytes of shared memory a block, more than "
-                         f"the 232448 an H100 block may use")
-    rows = x.shape[0] * lib.bpt_conv_bn_bwd2_tiles(x.shape[2], x.shape[3],
-                                                   k, s)
+        raise ValueError(f"conv_bn_bwd2: the backward kernels need {smem} "
+                         f"bytes of shared memory a block, more than the "
+                         f"232448 an H100 block may use")
+    splits = lib.bpt_conv_bn_bwd2_splits(*dims[:5], k, s)
     dx = torch.empty_like(x, memory_format=torch.contiguous_format)
-    dwp = torch.empty((rows,) + tuple(w.shape), dtype=torch.float32,
+    dwp = torch.empty((splits,) + tuple(w.shape), dtype=torch.float32,
                       device=x.device)
     _launch("conv_bn_bwd2", "bpt_conv_bn_bwd2", _operand(x), _operand(w),
-            *(_operand(t) for t in (a, b, mean, inv, s1n, s2n, dy)), dx, dwp,
-            *dims)
+            *(_operand(t) for t in (a, mean, inv, s1n, s2n, u, y, dy)), dx,
+            dwp, *dims, splits)
     conv_bn_bwd2.launches += 1
     return dx, dwp.sum(0)
 
@@ -332,17 +338,17 @@ def conv_bn_relu_ref(x, w, gamma, beta, *, transposed: bool, stride: int,
 
 def conv_bn_relu_bwd_ref(x, w, gamma, beta, mean, var, dy, *,
                          transposed: bool, stride: int, padding: int,
-                         eps: float = EPS, active=None):
+                         active, eps: float = EPS):
     """Plain PyTorch backward, the math of the JAX ``_bwd_xla`` on the
     logical convolution: (dx, dW, dgamma, dbeta) for the cotangent dy of y,
-    given the forward's batch statistics (and, as ``active``, where its
-    ReLU passed, else recomputed)."""
+    given the forward's batch statistics and, as ``active``, where its ReLU
+    passed (y > 0)."""
     kw = dict(transposed=transposed, stride=stride, padding=padding,
               active=active)
-    inv, a, b = bn_affine(gamma, beta, mean, var, eps)
-    s1, s2 = conv_bn_bwd1_ref(x, w, a, b, mean, inv, dy, **kw)
+    inv, a, _ = bn_affine(gamma, beta, mean, var, eps)
+    s1, s2, u = conv_bn_bwd1_ref(x, w, mean, inv, dy, **kw)
     n = _count(x, w, transposed, stride)
-    dx, dw = conv_bn_bwd2_ref(x, w, a, b, mean, inv, s1 / n, s2 / n, dy,
+    dx, dw = conv_bn_bwd2_ref(x, w, a, mean, inv, s1 / n, s2 / n, dy, u=u,
                               **kw)
     return dx, dw, s2, s1
 
@@ -355,18 +361,19 @@ class _ConvBnRelu(torch.autograd.Function):
         mean, var = batch_stats(*conv_bn_stats(x, w, **kw), count)
         inv, a, b = bn_affine(gamma, beta, mean, var, eps)
         y = conv_bn_fwd(x, w, a, b, **kw)
-        ctx.save_for_backward(x, w, a, b, mean, inv)
+        # y carries the ReLU mask to the backward (the next layer keeps it)
+        ctx.save_for_backward(x, w, a, mean, inv, y)
         ctx.kw, ctx.count = kw, count
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
-        x, w, a, b, mean, inv = ctx.saved_tensors
+        x, w, a, mean, inv, y = ctx.saved_tensors
         dy = dy.contiguous()
-        s1, s2 = conv_bn_bwd1(x, w, a, b, mean, inv, dy, **ctx.kw)
-        dx, dw = conv_bn_bwd2(x, w, a, b, mean, inv, s1 / ctx.count,
-                              s2 / ctx.count, dy, **ctx.kw)
+        s1, s2, u = conv_bn_bwd1(x, w, mean, inv, y, dy, **ctx.kw)
+        dx, dw = conv_bn_bwd2(x, w, a, mean, inv, s1 / ctx.count,
+                              s2 / ctx.count, u, y, dy, **ctx.kw)
         return dx, dw, s2, s1, None, None, None, None
 
 
@@ -377,7 +384,8 @@ def conv_bn_relu(x, w, gamma, beta, *, transposed: bool, stride: int,
     x (N, Cin, H, W); w OIHW (conv) or IOHW (``transposed``); gamma, beta
     (Cout,). Differentiable in x, w, gamma and beta; mean and var carry no
     gradient. On CUDA tensors the forward is K4-stats then K4-fwd and the
-    backward K4-bwd1 then K4-bwd2; on CPU tensors their plain versions. The
+    backward K4-bwd1 then K4-bwd2 (u kept between them, y's mask); on CPU
+    tensors their plain versions. The
     triple it fuses has a bias-free conv: a ``bias`` raises."""
     if bias is not None:
         raise ValueError("conv_bn_relu: the conv must be bias-free (a bias "

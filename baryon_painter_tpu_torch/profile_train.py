@@ -124,7 +124,8 @@ def _stage_times(trainer, idx, lr) -> dict:
 
 
 # device kernel names of K4 (csrc/conv_bn.cu)
-_K4_KERNEL_NAMES = ("fwd_type_kernel", "bwd2_kernel")
+_K4_KERNEL_NAMES = ("fwd_type_kernel", "bwd1_kernel", "dx_kernel",
+                    "dw_kernel")
 
 
 def main():

@@ -22,8 +22,10 @@ that fails raises.
      kernels against a step with the plain versions from the same start
   9. paint the golden with the heads through K3 (one K3-fwd launch), timed
  10. K4 (stats, fwd, bwd1, bwd2) against its plain version at the four
-     fused sites of the fiducial training step, timed with cuDNN's conv,
-     the port's BatchNorm and ReLU as the yardstick
+     fused sites of the fiducial training step (the backward on the raw
+     cotangent with K4's ReLU mask, and on a kink-zeroed one), the backward
+     pair's peak memory, timed with cuDNN's conv, the port's BatchNorm and
+     ReLU as the yardstick
  11. train with K4 as well (``fused_train_conv=True``: 4 launches of each
      K4 kernel per step at 512^2), timed beside phase 8's step; 11b a step
      with every kernel against a plain step from the same start
@@ -76,6 +78,9 @@ K4_REPLACES = {"stats": "baryon_painter_tpu/ops/pallas_conv_bn.py:126",
 # dense bf16 on the tensor cores, HBM3
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 HBM_BYTES_PER_S = 3.35e12
+# f32 products as 3xTF32 on the tensor cores: three TF32 products (dense
+# 495 TFLOP/s) for each f32 one
+PEAK_3XTF32 = 495e12 / 3
 
 # main-path shape of K1: 16 tiles of 512^2 reach the blocks at 64x64x128
 K1_SHAPE = (16, 64, 64, 128)
@@ -349,8 +354,9 @@ def time_main_path(device, painter, card=None, n_tiles: int = 16,
                    k1_iters: int = 20) -> dict:
     """Phase 4: paint_batch at n_tiles 512^2 tiles over the 11 redshifts of
     the checkpoint's grid; K1 per launch in f32 and bf16; the plain version;
-    the library yardstick; the bound. ``card`` (nvidia-smi's name and power
-    limit) is printed beside the times."""
+    the library yardstick (cuDNN on channels_last) in f32 and bf16; the
+    bound. ``card`` (nvidia-smi's name and power limit) is printed beside
+    the times."""
     t0 = time.perf_counter()
     device = torch.device(device)
     paint_ms = paint_time_ms(device, painter, n_tiles, warmup, iters)
@@ -363,14 +369,18 @@ def time_main_path(device, painter, card=None, n_tiles: int = 16,
             out[f"k1_ms_{key}"] = _time_ms(lambda: res_block_infer(*args),
                                            device, 3, k1_iters)
             out[f"bound_{key}"] = k1_bound(k1_shape, dtype)
+            # the library yardstick on channels_last (NHWC) memory
+            x, w1, s1, b1, w2, s2, b2 = args
+            lib_args = (x.permute(0, 3, 1, 2),
+                        w1.permute(3, 2, 0, 1).contiguous(), s1.to(dtype),
+                        b1.to(dtype), w2.permute(3, 2, 0, 1).contiguous(),
+                        s2.to(dtype), b2.to(dtype))
+            out[f"library_ms_{key}"] = _time_ms(
+                lambda: library_block(*lib_args), device, 3, k1_iters)
         args = k1_inputs(k1_shape, torch.float32, device)
         out["plain_ms"] = _time_ms(lambda: res_block_infer_ref(*args),
                                    device, 3, k1_iters)
-        x, w1, s1, b1, w2, s2, b2 = args
-        lib_args = (x.permute(0, 3, 1, 2), w1.permute(3, 2, 0, 1).contiguous(),
-                    s1, b1, w2.permute(3, 2, 0, 1).contiguous(), s2, b2)
-        out["library_ms"] = _time_ms(lambda: library_block(*lib_args),
-                                     device, 3, k1_iters)
+        out["library_ms"] = out["library_ms_float32"]
     out["k1_share_of_bound_float32"] = (out["bound_float32"]["bound_ms"]
                                         / out["k1_ms_float32"])
     out["k1_share_of_bound_bfloat16"] = (out["bound_bfloat16"]["bound_ms"]
@@ -383,6 +393,7 @@ def time_main_path(device, painter, card=None, n_tiles: int = 16,
           k1_ms_bf16=f"{out['k1_ms_bfloat16']:.4f}",
           plain_ms=f"{out['plain_ms']:.4f}",
           library_ms=f"{out['library_ms']:.4f}",
+          library_ms_bf16=f"{out['library_ms_bfloat16']:.4f}",
           bound_ms_f32=f"{out['bound_float32']['bound_ms']:.4f}",
           bound_ms_bf16=f"{out['bound_bfloat16']['bound_ms']:.4f}",
           share_of_bound_f32=f"{out['k1_share_of_bound_float32']:.3f}",
@@ -994,10 +1005,13 @@ def k4_bounds(site: dict, batch: int, tile: int) -> dict:
     transposed conv); stats, fwd and bwd1 need one pass and bwd2 three (u
     again, dx and dW), plus a few elementwise operations per output. Bytes:
     x and the weights read once, and y (fwd), dy (bwd1, bwd2), dx and dW
-    (bwd2) moved once. ``logical_fwd`` and ``logical_bwd`` bound the fused
-    op as a whole, without the kernels' recomputes of u: one conv pass
-    forward (x read, y written) and two backward (dx and dW, from x, y and
-    dy)."""
+    (bwd2) moved once. ``bwd1_tc`` and ``bwd2_tc`` bound the backward as
+    its kernels compute it, on the tensor cores at the 3xTF32 rate: bwd1
+    one pass (u), reading x, y and dy and writing u; bwd2 two (dx, dW),
+    reading x, u, y and dy and writing dx and dW. ``logical_fwd`` and
+    ``logical_bwd`` bound the fused op as a whole, without the kernels'
+    recomputes of u: one conv pass forward (x read, y written) and two
+    backward (dx and dW, from x, y and dy), at the f32 rate."""
     sh = k4_site_shape(site, batch, tile)
     cin, cout, k = site["cin"], site["cout"], site["k"]
     taps = (k // site["stride"]) ** 2 if site["transposed"] else k * k
@@ -1010,6 +1024,10 @@ def k4_bounds(site: dict, batch: int, tile: int) -> dict:
             "fwd": _bound(conv + 3 * out, xb + wb + 4 * out),
             "bwd1": _bound(conv + 6 * out, xb + wb + 4 * out),
             "bwd2": _bound(3 * conv + 8 * out, 2 * xb + 2 * wb + 4 * out),
+            "bwd1_tc": _bound(conv + 6 * out, xb + wb + 12 * out,
+                              PEAK_3XTF32),
+            "bwd2_tc": _bound(2 * conv + 8 * out, 2 * xb + 2 * wb + 12 * out,
+                              PEAK_3XTF32),
             "logical_fwd": _bound(conv + 3 * out, xb + wb + 4 * out),
             "logical_bwd": _bound(2 * conv + 8 * out,
                                   2 * xb + 2 * wb + 8 * out)}
@@ -1029,17 +1047,40 @@ def library_conv_bn_relu(x, w, gamma, beta, site):
     return (lambda xx, ww: torch.relu(bn(conv(xx, ww, **kw)))), bn
 
 
+def _k4_backward(x, w, gamma, beta, mean, var, y, dy, kw, count):
+    """K4-bwd1 then K4-bwd2 (the kernels on the card): dx, dW, dgamma,
+    dbeta, and the peak device memory of the pair beyond what was live
+    before it (u is its transient)."""
+    inv, a, _ = bn_affine(gamma, beta, mean, var)
+    if y.device.type == "cuda":
+        torch.cuda.synchronize(y.device)
+        base = torch.cuda.memory_allocated(y.device)
+        torch.cuda.reset_peak_memory_stats(y.device)
+    g1, g2, u = conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)
+    dx, dw = conv_bn_bwd2(x, w, a, mean, inv, g1 / count, g2 / count, u, y,
+                          dy, **kw)
+    del u
+    peak = 0
+    if y.device.type == "cuda":
+        torch.cuda.synchronize(y.device)
+        peak = torch.cuda.max_memory_allocated(y.device) - base
+    return {"dx": dx, "dw": dw, "dgamma": g2, "dbeta": g1}, peak
+
+
 def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
                   iters: int = 3, card=None) -> dict:
     """Phase 10: K4 against its plain version at each fused site of the
     fiducial training step (``K4_SITES``): y, mean and var from K4-stats and
     K4-fwd against ``conv_bn_relu_ref``; dx, dW, dgamma and dbeta from
-    K4-bwd1 and K4-bwd2 against ``conv_bn_relu_bwd_ref`` on a cotangent
-    zeroed where it meets a pre-activation within KINK_REL of ReLU's kink
-    (the kernel recomputes u, so there it may take the other branch); the
-    tolerances of K4_TOL. Each kernel, its plain version and the yardstick
+    K4-bwd1 and K4-bwd2 against ``conv_bn_relu_bwd_ref`` on the raw
+    cotangent, both with K4's statistics and K4's ReLU mask (y > 0 of
+    K4-fwd), as the training step runs them; and, as before the mask was
+    shared, against the plain backward with its own forward on a cotangent
+    zeroed where it meets a pre-activation within KINK_REL of ReLU's kink.
+    The tolerances of K4_TOL. The peak device memory of the backward pair
+    (u's transient), each kernel, its plain version and the yardstick
     (``library_conv_bn_relu``, forward and autograd backward) timed with
-    CUDA events; the bound beside."""
+    CUDA events; the bounds beside."""
     t0 = time.perf_counter()
     device = torch.device(device)
     sites = {}
@@ -1052,6 +1093,24 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
             inv, a, b = bn_affine(gamma, beta, mean, var)
             y = conv_bn_fwd(x, w, a, b, **kw)
             y_r, mean_r, var_r = conv_bn_relu_ref(x, w, gamma, beta, **kw)
+            errs = {k: _rel_err(g, r) for k, g, r in (
+                ("y", y, y_r), ("mean", mean, mean_r), ("var", var, var_r))}
+            abs_errs = {k: (g - r).abs().max().item() for k, g, r in (
+                ("y", y, y_r), ("mean", mean, mean_r), ("var", var, var_r))}
+            del y_r
+            # the raw cotangent, K4's statistics and mask on both sides
+            got, peak = _k4_backward(x, w, gamma, beta, mean, var, y, dy, kw,
+                                     count)
+            want = dict(zip(("dx", "dw", "dgamma", "dbeta"),
+                            conv_bn_relu_bwd_ref(x, w, gamma, beta, mean,
+                                                 var, dy, active=y > 0,
+                                                 **kw)))
+            _sync(device)
+            for k in want:
+                errs[k] = _rel_err(got[k], want[k])
+                abs_errs[k] = (got[k] - want[k]).abs().max().item()
+            del got, want
+            # the kink-zeroed comparison against the plain forward's own
             _, a_r, b_r = bn_affine(gamma, beta, mean_r, var_r)
             v = (F.conv_transpose2d if site["transposed"] else F.conv2d)(
                 x, w, stride=site["stride"], padding=site["padding"])
@@ -1059,50 +1118,58 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
             near = v.abs() <= KINK_REL * v.abs().max()
             dy_k = torch.where(near, 0.0, dy)
             zeroed = near.float().mean().item()
+            active_r = v > 0
             del v, near
-            g1, g2 = conv_bn_bwd1(x, w, a, b, mean, inv, dy_k, **kw)
-            dx, dw = conv_bn_bwd2(x, w, a, b, mean, inv, g1 / count,
-                                  g2 / count, dy_k, **kw)
+            got, _ = _k4_backward(x, w, gamma, beta, mean, var, y, dy_k, kw,
+                                  count)
             want = dict(zip(("dx", "dw", "dgamma", "dbeta"),
                             conv_bn_relu_bwd_ref(x, w, gamma, beta, mean_r,
-                                                 var_r, dy_k, **kw)))
-            got = {"y": y, "mean": mean, "var": var, "dx": dx, "dw": dw,
-                   "dgamma": g2, "dbeta": g1}
-            want.update(y=y_r, mean=mean_r, var=var_r)
+                                                 var_r, dy_k,
+                                                 active=active_r, **kw)))
             _sync(device)
-            errs = {k: _rel_err(got[k], want[k]) for k in K4_TOL}
-            abs_errs = {k: (got[k] - want[k]).abs().max().item()
-                        for k in K4_TOL}
-            del got, want, y, y_r, dx, dw
+            errs_kink = {k: _rel_err(got[k], want[k]) for k in want}
+            del got, want, dy_k, active_r
         bad = {k: e for k, e in errs.items() if not e <= K4_TOL[k]}
-        print(f"  K4 site {name}: cotangent zeroed near the kink "
-              f"{zeroed:.3e}; " + ", ".join(f"{k} {e:.2e}"
-                                            for k, e in errs.items()),
-              flush=True)
+        bad.update({f"{k}_kink_zeroed": e for k, e in errs_kink.items()
+                    if not e <= K4_TOL[k]})
+        u_gb = 4 * y.numel() / 1e9
+        print(f"  K4 site {name}: raw cotangent, K4's mask: "
+              + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+              + f"; cotangent zeroed near the kink ({zeroed:.3e}), plain "
+              f"forward's own mask: "
+              + ", ".join(f"{k} {e:.2e}" for k, e in errs_kink.items())
+              + f"; backward pair's peak memory {peak / 1e9:.3f} GB (u "
+              f"{u_gb:.3f} GB)", flush=True)
         if bad:
             raise AssertionError(f"K4 site {name} disagrees with its plain "
                                  f"version: {bad}")
-        s1n, s2n = g1 / count, g2 / count
+        mask = y > 0
+        s1, s2, u = conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)
+        s1n, s2n = s1 / count, s2 / count
+        u_p = conv_bn_bwd1_ref(x, w, mean, inv, dy, active=mask, **kw)[2]
         calls = {
             "stats": (lambda: conv_bn_stats(x, w, **kw),
                       lambda: conv_bn_stats_ref(x, w, **kw)),
             "fwd": (lambda: conv_bn_fwd(x, w, a, b, **kw),
                     lambda: conv_bn_fwd_ref(x, w, a, b, **kw)),
-            "bwd1": (lambda: conv_bn_bwd1(x, w, a, b, mean, inv, dy, **kw),
-                     lambda: conv_bn_bwd1_ref(x, w, a, b, mean, inv, dy,
-                                              **kw)),
-            "bwd2": (lambda: conv_bn_bwd2(x, w, a, b, mean, inv, s1n, s2n,
+            "bwd1": (lambda: conv_bn_bwd1(x, w, mean, inv, y, dy, **kw),
+                     lambda: conv_bn_bwd1_ref(x, w, mean, inv, dy,
+                                              active=mask, **kw)),
+            "bwd2": (lambda: conv_bn_bwd2(x, w, a, mean, inv, s1n, s2n, u, y,
                                           dy, **kw),
-                     lambda: conv_bn_bwd2_ref(x, w, a, b, mean, inv, s1n,
-                                              s2n, dy, **kw)),
+                     lambda: conv_bn_bwd2_ref(x, w, a, mean, inv, s1n, s2n,
+                                              dy, active=mask, u=u_p, **kw)),
         }
-        rec = {"errors": errs, "abs_errors": abs_errs, "kink_zeroed": zeroed,
+        rec = {"errors": errs, "abs_errors": abs_errs,
+               "errors_kink_zeroed": errs_kink, "kink_zeroed": zeroed,
+               "bwd_peak_bytes": peak, "u_bytes": 4 * y.numel(),
                "bounds": k4_bounds(site, batch, tile), "ms": {},
                "plain_ms": {}}
         with torch.no_grad():
             for k, (kern, plain) in calls.items():
                 rec["ms"][k] = _time_ms(kern, device, 1, iters)
                 rec["plain_ms"][k] = _time_ms(plain, device, 1, iters)
+        del u, u_p, mask, calls
         lib, bn = library_conv_bn_relu(x, w, gamma, beta, site)
         leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(),
                   bn.weight, bn.bias]
@@ -1113,28 +1180,39 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
         rec["library_bwd_ms"] = _time_ms(
             lambda: torch.autograd.grad(y_l, leaves, dy, retain_graph=True),
             device, 1, iters)
-        del y_l, leaves, calls
+        del y_l, leaves
         sites[name] = rec
         b_ = rec["bounds"]
         print(f"  K4 site {name} ({card}): "
               + ", ".join(f"{k} {rec['ms'][k]:.3f} ms (plain "
                           f"{rec['plain_ms'][k]:.3f}, bound "
                           f"{b_[k]['bound_ms']:.3f})" for k in K4_KERNELS)
-              + f"; library fwd {rec['library_fwd_ms']:.3f} ms, bwd "
+              + f"; 3xTF32 bounds bwd1 {b_['bwd1_tc']['bound_ms']:.3f} "
+              f"({b_['bwd1_tc']['bound_by']}), bwd2 "
+              f"{b_['bwd2_tc']['bound_ms']:.3f} "
+              f"({b_['bwd2_tc']['bound_by']}); library fwd "
+              f"{rec['library_fwd_ms']:.3f} ms, bwd "
               f"{rec['library_bwd_ms']:.3f} ms; conv pass "
               f"{b_['conv_flops'] / 1e9:.2f} GFLOP", flush=True)
     total = {k: sum(r["ms"][k] for r in sites.values()) for k in K4_KERNELS}
     logical = {k: sum(r["bounds"][f"logical_{k}"]["bound_ms"]
                       for r in sites.values()) for k in ("fwd", "bwd")}
+    tc = sum(r["bounds"][k]["bound_ms"] for r in sites.values()
+             for k in ("bwd1_tc", "bwd2_tc"))
     _line(10, "k4_vs_plain", t0, sites=",".join(sites), batch=batch,
           card=json.dumps(card),
           **{f"{k}_ms_4_sites": f"{v:.3f}" for k, v in total.items()},
           logical_fwd_bound_ms=f"{logical['fwd']:.3f}",
           logical_bwd_bound_ms=f"{logical['bwd']:.3f}",
+          bwd_3xtf32_bound_ms=f"{tc:.3f}",
           stats_fwd_share_of_logical=(
               f"{logical['fwd'] / (total['stats'] + total['fwd']):.4f}"),
           bwd1_bwd2_share_of_logical=(
               f"{logical['bwd'] / (total['bwd1'] + total['bwd2']):.4f}"),
+          bwd1_bwd2_share_of_3xtf32=(
+              f"{tc / (total['bwd1'] + total['bwd2']):.4f}"),
+          bwd_peak_gb_max=(
+              f"{max(r['bwd_peak_bytes'] for r in sites.values()) / 1e9:.3f}"),
           library_fwd_ms_4_sites=f"{sum(r['library_fwd_ms'] for r in sites.values()):.3f}",
           library_bwd_ms_4_sites=f"{sum(r['library_bwd_ms'] for r in sites.values()):.3f}")
     return {"sites": sites}
@@ -1177,13 +1255,17 @@ def k4_record(conv_bn: dict, training_k4: dict) -> list:
     launches of phase 11's timed steps. The yardstick times the library's
     forward (conv, BatchNorm, ReLU) and its autograd backward; they stand
     on K4-fwd and K4-bwd2, as the pairs stats + fwd and bwd1 + bwd2 compute
-    those functions."""
+    those functions. The backward kernels' bound is at the 3xTF32
+    tensor-core rate (their f32 CUDA-core bound beside it)."""
     sites = conv_bn["sites"].values()
     out = []
     for k in K4_KERNELS:
-        t_ops = sum(r["bounds"][k]["flops"] for r in sites) / PEAK_FLOPS[
-            torch.float32]
-        t_bytes = sum(r["bounds"][k]["bytes"] for r in sites) / HBM_BYTES_PER_S
+        # the backward kernels run on the tensor cores: their bound is the
+        # 3xTF32 one, the f32 CUDA-core one beside it
+        bk, peak = ((f"{k}_tc", PEAK_3XTF32) if k in ("bwd1", "bwd2")
+                    else (k, PEAK_FLOPS[torch.float32]))
+        t_ops = sum(r["bounds"][bk]["flops"] for r in sites) / peak
+        t_bytes = sum(r["bounds"][bk]["bytes"] for r in sites) / HBM_BYTES_PER_S
         lib = _K4_LIBRARY.get(k)
         entry = {
             "name": f"conv_bn_{k}", "route": "cuda", "source": K4_SOURCE,
@@ -1193,7 +1275,7 @@ def k4_record(conv_bn: dict, training_k4: dict) -> list:
                                for e in _K4_ERRORS[k]),
             "ms": sum(r["ms"][k] for r in sites),
             "plain_ms": sum(r["plain_ms"][k] for r in sites),
-            "bound_ms": sum(r["bounds"][k]["bound_ms"] for r in sites),
+            "bound_ms": sum(r["bounds"][bk]["bound_ms"] for r in sites),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": (sum(r[lib] for r in sites)
                            if lib is not None else None),
@@ -1201,6 +1283,9 @@ def k4_record(conv_bn: dict, training_k4: dict) -> list:
         if lib is not None:
             entry["library_covers"] = ("stats+fwd" if k == "fwd"
                                        else "bwd1+bwd2")
+        if bk != k:
+            entry["bound_ms_f32_cuda_cores"] = sum(
+                r["bounds"][k]["bound_ms"] for r in sites)
         out.append(entry)
     return out
 
@@ -1232,6 +1317,7 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         "library_ms": timing["library_ms"],
         "bf16_ms": timing["k1_ms_bfloat16"],
         "bf16_bound_ms": timing["bound_bfloat16"]["bound_ms"],
+        "bf16_library_ms": timing["library_ms_bfloat16"],
         "bf16_max_abs_err": bf16["max_abs_err"]}, {
         "name": "gather_tiles", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": training["launches"]["k2"],

@@ -136,7 +136,8 @@ def test_plain_versions_match_autograd_of_the_unfused_layers(kind, xs, ws, s,
     gt, bt = torch.from_numpy(gamma), torch.from_numpy(beta)
     y, mean, var = k4.conv_bn_relu_ref(xt, wt, gt, bt, **kw)
     dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(4))
-    got = k4.conv_bn_relu_bwd_ref(xt, wt, gt, bt, mean, var, dy, **kw)
+    got = k4.conv_bn_relu_bwd_ref(xt, wt, gt, bt, mean, var, dy,
+                                  active=y > 0, **kw)
     bn = BatchNorm(gt.shape[0]).train()
     with torch.no_grad():
         bn.weight.copy_(gt)
@@ -168,14 +169,89 @@ def test_kernel_wrappers_on_the_cpu_are_the_plain_pieces():
     torch.testing.assert_close(k4.conv_bn_fwd(xt, wt, a, b, **kw), y)
     dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(6))
     dx, dw, dg, db = k4.conv_bn_relu_bwd_ref(xt, wt, gt, bt, mean, var, dy,
-                                             **kw)
-    g1, g2 = k4.conv_bn_bwd1(xt, wt, a, b, mean, inv, dy, **kw)
+                                             active=y > 0, **kw)
+    g1, g2, u = k4.conv_bn_bwd1(xt, wt, mean, inv, y, dy, **kw)
     torch.testing.assert_close((g2, g1), (dg, db))
     torch.testing.assert_close(
-        k4.conv_bn_bwd2(xt, wt, a, b, mean, inv, g1 / n, g2 / n, dy, **kw),
+        k4.conv_bn_bwd2(xt, wt, a, mean, inv, g1 / n, g2 / n, u, y, dy,
+                        **kw),
         (dx, dw))
     for f, count in before.items():
         assert f.launches == count   # the plain versions launch nothing
+
+
+def _plain_pieces(kind, xs, ws, s, p, seed):
+    """The port's plain forward and the backward's inputs: (x, w, gamma,
+    beta, y, mean, var, inv, a, dy, kw)."""
+    x, w, gamma, beta = _inputs(xs, ws, seed)
+    kw = _kw(kind, s, p)
+    xt, wt = _nchw(x), torch.from_numpy(_port_weight(kind, w))
+    gt, bt = torch.from_numpy(gamma), torch.from_numpy(beta)
+    y, mean, var = k4.conv_bn_relu_ref(xt, wt, gt, bt, **kw)
+    inv, a, _ = k4.bn_affine(gt, bt, mean, var)
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(seed))
+    return xt, wt, gt, bt, y, mean, var, inv, a, dy, kw
+
+
+@pytest.mark.parametrize("kind,xs,ws,s,p", CASES, ids=IDS)
+def test_bwd1_returns_u_equal_to_the_conv(kind, xs, ws, s, p):
+    """K4-bwd1 keeps u for K4-bwd2: the plain version (and the CPU wrapper)
+    return the convolution itself beside S1 and S2."""
+    xt, wt, _, _, y, mean, _, inv, _, dy, kw = _plain_pieces(kind, xs, ws,
+                                                             s, p, 7)
+    s1, s2, u = k4.conv_bn_bwd1_ref(xt, wt, mean, inv, dy, active=y > 0,
+                                    **kw)
+    torch.testing.assert_close(u, k4._conv(xt, wt, **kw), rtol=0, atol=0)
+    dv = torch.where(y > 0, dy, 0.0)
+    torch.testing.assert_close(s1, dv.sum((0, 2, 3)))
+    g1, g2, uw = k4.conv_bn_bwd1(xt, wt, mean, inv, y, dy, **kw)
+    torch.testing.assert_close((g1, g2, uw), (s1, s2, u), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind,xs,ws,s,p", CASES, ids=IDS)
+def test_bwd2_from_a_stored_u_equals_bwd2_from_a_recomputed_u(kind, xs, ws,
+                                                              s, p):
+    xt, wt, _, _, y, mean, _, inv, a, dy, kw = _plain_pieces(kind, xs, ws,
+                                                             s, p, 8)
+    n = y.shape[0] * y.shape[2] * y.shape[3]
+    s1, s2, u = k4.conv_bn_bwd1_ref(xt, wt, mean, inv, dy, active=y > 0,
+                                    **kw)
+    args = (xt, wt, a, mean, inv, s1 / n, s2 / n, dy)
+    stored = k4.conv_bn_bwd2_ref(*args, active=y > 0, u=u, **kw)
+    again = k4.conv_bn_bwd2_ref(*args, active=y > 0, **kw)
+    torch.testing.assert_close(stored, again, rtol=0, atol=0)
+    torch.testing.assert_close(
+        k4.conv_bn_bwd2(xt, wt, a, mean, inv, s1 / n, s2 / n, u, y, dy,
+                        **kw), stored, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind,xs,ws,s,p", CASES, ids=IDS)
+def test_backward_with_the_forward_mask_matches_jax(kind, xs, ws, s, p):
+    """The plain backward with the ReLU mask taken from the forward's y > 0
+    (as the kernels take it) against the JAX package's gradients (its
+    Pallas kernels in interpret mode), on the port's own forward."""
+    x, w, gamma, beta = _inputs(xs, ws, 9)
+    y_shape = _jax(kind, jnp.asarray(x), jnp.asarray(w), jnp.asarray(gamma),
+                   jnp.asarray(beta), s, p)[0].shape
+    cot = np.random.default_rng(10).standard_normal(y_shape).astype(
+        np.float32)
+
+    def loss(x_, w_, g_, b_):
+        return jnp.sum(_jax(kind, x_, w_, g_, b_, s, p)[0] * cot)
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (x, w, gamma, beta)))
+    kw = _kw(kind, s, p)
+    xt, wt = _nchw(x), torch.from_numpy(_port_weight(kind, w))
+    gt, bt = torch.from_numpy(gamma), torch.from_numpy(beta)
+    y, mean, var = k4.conv_bn_relu_ref(xt, wt, gt, bt, **kw)
+    dx, dw, dg, db = k4.conv_bn_relu_bwd_ref(xt, wt, gt, bt, mean, var,
+                                             _nchw(cot), active=y > 0, **kw)
+    got = (dx.numpy().transpose(0, 2, 3, 1), _jax_weight(kind, dw),
+           dg.numpy(), db.numpy())
+    for name, a, b in zip(("dx", "dw", "dgamma", "dbeta"), got, want):
+        assert a.shape == b.shape, name
+        assert _rel(a, np.asarray(b)) <= GRAD_TOL, name
 
 
 @pytest.mark.parametrize("transposed,k,s,p,ok", [

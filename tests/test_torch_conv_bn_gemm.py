@@ -1,0 +1,306 @@
+"""A plain-torch model of K4's backward GEMMs (csrc/conv_bn.cu), held against
+``F.conv2d`` / ``F.conv_transpose2d`` and their autograd, and an emulation
+of the 3xTF32 split the kernels multiply with.
+
+The kernels run three implicit GEMMs a site:
+  bwd1 (u):  for each output phase (oy % s, ox % s), M = the phase's pixels,
+             N = Cout, K = (ci, ty, tx) with ci slowest, taps TW1 x TW1
+             (TW1 = k for the "same" conv, 2 for the transposed conv)
+  bwd2 (dx): M = input pixels, N = Cin, K = (co, ky, kx) with co slowest:
+             du at p - k + P (same conv) or s p + k - P (transposed conv)
+  bwd2 (dW): for each phase, M = Cout, N = (ci, ty, tx), K = the phase's
+             pixels in chunks of 2 rows x 16 or 64 columns (columns
+             fastest); each split takes a run of consecutive chunks, and
+             the splits' partials are summed.
+The model builds each operand with the kernels' index rules and checks the
+products at small shapes of both families and every compiled (k, s). f64,
+so the comparison sees the index rules only (rtol 1e-10).
+
+The 3xTF32 emulation rounds each f32 operand to TF32 (10 mantissa bits,
+to nearest, ties away: cvt.rna.tf32.f32), forms big = tf32(v) and small =
+tf32(v - big), and accumulates small*big + big*small + big*big in f32, as
+the tensor cores do. At the fiducial sites' contraction lengths it holds
+``smoke.K4_TOL`` with a wide margin, where one TF32 pass does not.
+"""
+import zlib
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from baryon_painter_tpu_torch import smoke
+
+# (transposed, k, s): every (stride, kernel) pair the kernels are compiled for
+FAMILIES = [(False, 1, 1), (False, 3, 1), (False, 5, 1), (False, 7, 1),
+            (True, 4, 2), (True, 8, 4)]
+IDS = ["same_k1", "same_k3", "same_k5", "same_k7", "transp_s2", "transp_s4"]
+RTOL = 1e-10
+
+
+def _inputs(transposed, k, cin=3, cout=5, n=2, h=7, w=9, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, cin, h, w, generator=g, dtype=torch.float64)
+    ws = (cin, cout, k, k) if transposed else (cout, cin, k, k)
+    return x, torch.randn(ws, generator=g, dtype=torch.float64)
+
+
+def _pad(transposed, k, s):
+    return s // 2 if transposed else (k - 1) // 2
+
+
+def _conv(x, w, transposed, k, s):
+    p = _pad(transposed, k, s)
+    if transposed:
+        return F.conv_transpose2d(x, w, stride=s, padding=p)
+    return F.conv2d(x, w, padding=p)
+
+
+def _w(w, transposed, co, ci, ky, kx):
+    return w[ci, co, ky, kx] if transposed else w[co, ci, ky, kx]
+
+
+def _phases(transposed, s):
+    return [(ry, rx) for ry in range(s) for rx in range(s)] if transposed \
+        else [(0, 0)]
+
+
+def _phase_taps(transposed, k, s, r):
+    """(row offset, kernel origin, taps a dimension) of phase r."""
+    if not transposed:
+        return 0, 0, k
+    p = s // 2
+    return (r + p) // s, (r + p) % s, 2
+
+
+def _x_at(x, n, ci, iy, ix):
+    _, _, h, w = x.shape
+    if 0 <= iy < h and 0 <= ix < w:
+        return x[n, ci, iy, ix].item()
+    return 0.0
+
+
+def _u_operands(x, w, transposed, k, s, phase):
+    """A (the phase's pixels x (ci, ty, tx)) and B ((ci, ty, tx) x Cout) of
+    the u GEMM, and the pixels' (n, oy, ox)."""
+    n_, cin, h, wd = x.shape
+    cout = w.shape[1] if transposed else w.shape[0]
+    p = _pad(transposed, k, s)
+    offy, ky0, tw = _phase_taps(transposed, k, s, phase[0])
+    offx, kx0, _ = _phase_taps(transposed, k, s, phase[1])
+    kdim = cin * tw * tw
+    a = torch.zeros(n_ * h * wd, kdim, dtype=torch.float64)
+    b = torch.zeros(kdim, cout, dtype=torch.float64)
+    pix = []
+    for kk in range(kdim):
+        ci, t = divmod(kk, tw * tw)
+        ty, tx = divmod(t, tw)
+        ky = ty if not transposed else ky0 + s * ty
+        kx = tx if not transposed else kx0 + s * tx
+        for co in range(cout):
+            b[kk, co] = _w(w, transposed, co, ci, ky, kx)
+    m = 0
+    for n in range(n_):
+        for q in range(h):
+            for qx in range(wd):
+                for kk in range(kdim):
+                    ci, t = divmod(kk, tw * tw)
+                    ty, tx = divmod(t, tw)
+                    if transposed:
+                        iy, ix = q + offy - ty, qx + offx - tx
+                    else:
+                        iy, ix = q + ty - p, qx + tx - p
+                    a[m, kk] = _x_at(x, n, ci, iy, ix)
+                oy = s * q + phase[0] if transposed else q
+                ox = s * qx + phase[1] if transposed else qx
+                pix.append((n, oy, ox))
+                m += 1
+    return a, b, pix
+
+
+@pytest.mark.parametrize("transposed,k,s", FAMILIES, ids=IDS)
+def test_u_gemm_per_phase_is_the_conv(transposed, k, s):
+    x, w = _inputs(transposed, k, h=5, w=6)
+    u = _conv(x, w, transposed, k, s)
+    seen = torch.zeros(u.shape[0], u.shape[2], u.shape[3], dtype=torch.bool)
+    for phase in _phases(transposed, s):
+        a, b, pix = _u_operands(x, w, transposed, k, s, phase)
+        got = a @ b
+        for m, (n, oy, ox) in enumerate(pix):
+            torch.testing.assert_close(got[m], u[n, :, oy, ox], rtol=RTOL,
+                                       atol=RTOL)
+            seen[n, oy, ox] = True
+    assert bool(seen.all())   # the phases cover every output pixel once
+
+
+def _dx_operands(du, w, transposed, k, s, cin, h, wd):
+    """A (input pixels x (co, ky, kx)) and B ((co, ky, kx) x Cin) of the dx
+    GEMM."""
+    n_, cout, ho, wo = du.shape
+    p = _pad(transposed, k, s)
+    kdim = cout * k * k
+    a = torch.zeros(n_ * h * wd, kdim, dtype=torch.float64)
+    b = torch.zeros(kdim, cin, dtype=torch.float64)
+    for kk in range(kdim):
+        co, t = divmod(kk, k * k)
+        for ci in range(cin):
+            b[kk, ci] = _w(w, transposed, co, ci, *divmod(t, k))
+    m = 0
+    for n in range(n_):
+        for py in range(h):
+            for px in range(wd):
+                for kk in range(kdim):
+                    co, t = divmod(kk, k * k)
+                    ky, kx = divmod(t, k)
+                    if transposed:
+                        oy, ox = s * py + ky - p, s * px + kx - p
+                    else:
+                        oy, ox = py - ky + p, px - kx + p
+                    if 0 <= oy < ho and 0 <= ox < wo:
+                        a[m, kk] = du[n, co, oy, ox]
+                m += 1
+    return a, b
+
+
+@pytest.mark.parametrize("transposed,k,s", FAMILIES, ids=IDS)
+def test_dx_gemm_is_the_adjoint(transposed, k, s):
+    """dx as a conv of du: with kernel k and stride s for the transposed
+    conv (du at s p + k - P), with the flipped kernel for the "same" one."""
+    x, w = _inputs(transposed, k, h=5, w=6)
+    xg = x.clone().requires_grad_()
+    u = _conv(xg, w, transposed, k, s)
+    du = torch.randn(u.shape, generator=torch.Generator().manual_seed(1),
+                     dtype=torch.float64)
+    u.backward(du)
+    n_, cin, h, wd = x.shape
+    a, b = _dx_operands(du, w, transposed, k, s, cin, h, wd)
+    got = (a @ b).reshape(n_, h, wd, cin).permute(0, 3, 1, 2)
+    torch.testing.assert_close(got, xg.grad, rtol=RTOL, atol=RTOL)
+
+
+def _dw_partials(x, w, du, transposed, k, s, nsplit, cols):
+    """The dW GEMM per phase, over chunks of 2 x ``cols`` pixels of the
+    phase's grid dealt to ``nsplit`` splits: (nsplit, w's shape)
+    partials."""
+    n_, cin, h, wd = x.shape
+    parts = torch.zeros((nsplit,) + tuple(w.shape), dtype=torch.float64)
+    nrows, ncols = (h + 1) // 2, -(-wd // cols)
+    per = -(-n_ * nrows * ncols // nsplit)
+    for phase in _phases(transposed, s):
+        a, b, pix = _u_operands(x, w, transposed, k, s, phase)
+        _, ky0, tw = _phase_taps(transposed, k, s, phase[0])
+        _, kx0, _ = _phase_taps(transposed, k, s, phase[1])
+        index = {(n, q, qx): m for m, (n, q, qx) in enumerate(
+            (n, q, qx) for n in range(n_) for q in range(h)
+            for qx in range(wd))}
+        for c in range(n_ * nrows * ncols):
+            n, r = divmod(c, nrows * ncols)
+            q0, qx0 = 2 * (r // ncols), cols * (r % ncols)
+            rows = [index[(n, q, qx)] for q in range(q0, min(q0 + 2, h))
+                    for qx in range(qx0, min(qx0 + cols, wd))]
+            d = torch.stack([du[pix[m][0], :, pix[m][1], pix[m][2]]
+                             for m in rows], 1)          # (Cout, pixels)
+            prod = d @ a[rows]                           # (Cout, (ci, t))
+            for kk in range(prod.shape[1]):
+                ci, t = divmod(kk, tw * tw)
+                ty, tx = divmod(t, tw)
+                ky = ty if not transposed else ky0 + s * ty
+                kx = tx if not transposed else kx0 + s * tx
+                if transposed:
+                    parts[c // per, ci, :, ky, kx] += prod[:, kk]
+                else:
+                    parts[c // per, :, ci, ky, kx] += prod[:, kk]
+    return parts
+
+
+@pytest.mark.parametrize("transposed,k,s", FAMILIES, ids=IDS)
+@pytest.mark.parametrize("nsplit,cols", [(1, 16), (3, 16), (2, 64)])
+def test_dw_gemm_split_over_pixels_is_the_weight_gradient(transposed, k, s,
+                                                         nsplit, cols):
+    x, w = _inputs(transposed, k, h=5, w=19)   # ragged column chunks
+    wg = w.clone().requires_grad_()
+    u = _conv(x, wg, transposed, k, s)
+    du = torch.randn(u.shape, generator=torch.Generator().manual_seed(2),
+                     dtype=torch.float64)
+    u.backward(du)
+    parts = _dw_partials(x, w, du, transposed, k, s, nsplit, cols)
+    torch.testing.assert_close(parts.sum(0), wg.grad, rtol=RTOL, atol=RTOL)
+
+
+# ---------------------------------------------------------------------- #
+# 3xTF32
+
+def tf32(v: np.ndarray) -> np.ndarray:
+    """Round f32 to TF32 (10 mantissa bits), to nearest, ties away from 0,
+    as cvt.rna.tf32.f32 does (finite inputs)."""
+    b = np.asarray(v, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def dot_3xtf32(a: np.ndarray, b: np.ndarray, chunks: int) -> np.ndarray:
+    """a (K, M) . b (K, N) with each product as small*big + big*small +
+    big*big (f32), summed in f32 over ``chunks`` blocks of K whose partials
+    are summed in f32, as the kernels accumulate."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    out = np.zeros((a.shape[1], b.shape[1]), np.float32)
+    for ka, kb in zip(np.array_split(np.arange(a.shape[0]), chunks),
+                      np.array_split(np.arange(a.shape[0]), chunks)):
+        part = (al[ka].T @ bh[kb]).astype(np.float32)
+        part = part + (ah[ka].T @ bl[kb]).astype(np.float32)
+        part = part + (ah[ka].T @ bh[kb]).astype(np.float32)
+        out = out + part
+    return out
+
+
+def dot_tf32(a, b, chunks):
+    out = np.zeros((a.shape[1], b.shape[1]), np.float32)
+    for ka in np.array_split(np.arange(a.shape[0]), chunks):
+        out = out + (tf32(a[ka]).T @ tf32(b[ka])).astype(np.float32)
+    return out
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    v = np.array([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -20,
+                  3.0, 1e-30], np.float32)
+    want = np.array([one + ulp, -(one + ulp), one, 3.0,
+                     tf32(np.float32(1e-30))], np.float32)
+    np.testing.assert_array_equal(tf32(v), want)
+    assert (tf32(v).view(np.uint32) & 0x1FFF == 0).all()
+
+
+# per site (A-D at batch 24, 512^2): the contraction length of each GEMM;
+# dW's over the pixels of a phase, in the same number of splits the kernels
+# use at most (64)
+SITE_K = {"A": {"u": 3 * 25, "dx": 16 * 25, "dw": 24 * 512 * 512},
+          "B": {"u": 128 * 4, "dx": 64 * 16, "dw": 24 * 64 * 64},
+          "C": {"u": 64 * 4, "dx": 32 * 16, "dw": 24 * 128 * 128},
+          "D": {"u": 32 * 4, "dx": 16 * 16, "dw": 24 * 256 * 256}}
+GEMM_TOL = {"u": smoke.K4_TOL["y"], "dx": smoke.K4_TOL["dx"],
+            "dw": smoke.K4_TOL["dw"]}
+
+
+@pytest.mark.parametrize("gemm", ["u", "dx", "dw"])
+@pytest.mark.parametrize("site", ["A", "B", "C", "D"])
+def test_3xtf32_holds_k4_tol_at_the_sites_contraction_lengths(site, gemm):
+    """Half-normal activations against zero-mean operands (x and y are
+    ReLU outputs or range-compressed fields; weights and du have either
+    sign); a few output columns. 3xTF32 stays 10x inside K4_TOL; one TF32
+    pass is at least 30x worse than 3xTF32."""
+    k = SITE_K[site][gemm]
+    rng = np.random.default_rng(zlib.crc32(f"{site}/{gemm}".encode()))
+    cols = 2 if gemm == "dw" else 8
+    a = np.abs(rng.standard_normal((k, cols))).astype(np.float32)
+    b = rng.standard_normal((k, cols)).astype(np.float32)
+    want = a.astype(np.float64).T @ b.astype(np.float64)
+    chunks = 64 if gemm == "dw" else 1
+    err3 = _rel(dot_3xtf32(a, b, chunks), want)
+    err1 = _rel(dot_tf32(a, b, chunks), want)
+    assert err3 <= GEMM_TOL[gemm] / 10, err3
+    assert err1 >= 30 * err3, (err1, err3)

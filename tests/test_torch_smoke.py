@@ -119,6 +119,12 @@ def test_timing_phase_and_kernels_record(cpu_run, cpu_train_run,
         path, line = k["replaces"].split(":")
         src = (Path(REPO) / path).read_text().splitlines()
         assert src[int(line) - 1].startswith(defs[k["name"]]), k["name"]
+    by_name = {k["name"]: k for k in rec["kernels"]}
+    assert by_name["res_block_infer"]["bf16_library_ms"] > 0
+    for name in ("conv_bn_bwd1", "conv_bn_bwd2"):
+        # the 3xTF32 tensor-core bound, the f32 CUDA-core one beside it
+        k = by_name[name]
+        assert k["bound_ms"] > 0 and k["bound_ms_f32_cuda_cores"] > 0
 
 
 def test_training_phases_on_cpu(cpu_train_run):
@@ -148,6 +154,10 @@ def test_k4_phases_on_cpu(cpu_k4_run):
     for rec in conv_bn["sites"].values():
         assert set(rec["errors"]) == set(smoke.K4_TOL)
         assert all(v == 0.0 for v in rec["errors"].values())
+        assert set(rec["errors_kink_zeroed"]) == {"dx", "dw", "dgamma",
+                                                  "dbeta"}
+        assert all(v == 0.0 for v in rec["errors_kink_zeroed"].values())
+        assert rec["bwd_peak_bytes"] == 0 and rec["u_bytes"] > 0
         assert set(rec["ms"]) == set(smoke.K4_KERNELS)
         assert rec["library_fwd_ms"] > 0 and rec["library_bwd_ms"] > 0
     assert set(training_k4["launches"].values()) == {0}
@@ -174,6 +184,14 @@ def test_k4_sites_and_bounds_at_the_training_shape(site, gflop):
     assert b["logical_fwd"]["bound_ms"] == b["fwd"]["bound_ms"]
     assert 2 * b["conv_flops"] < b["logical_bwd"]["flops"] \
         < b["bwd2"]["flops"]
+    # the backward as its tensor-core kernels compute it: three conv passes
+    # at the 3xTF32 rate, u written by bwd1 and read by bwd2; the pair bound
+    # by memory at A and D, by the tensor cores at B and C
+    tc = [b["bwd1_tc"], b["bwd2_tc"]]
+    assert sum(t["flops"] for t in tc) > 3 * b["conv_flops"]
+    t_ops = sum(t["flops"] for t in tc) / smoke.PEAK_3XTF32
+    t_bytes = sum(t["bytes"] for t in tc) / smoke.HBM_BYTES_PER_S
+    assert (t_bytes > t_ops) == (site in ("A", "D"))
     assert smoke.k4_sites_per_step(512) == 4
     assert smoke.k4_sites_per_step(32) == 3
 
