@@ -81,55 +81,9 @@
 
 #include <type_traits>
 
+#include "ptx.cuh"
+
 namespace {
-
-// PTX helpers: begin (the only inline PTX of this file)
-
-// tf32(v): round to nearest, ties away, to 10 mantissa bits
-__device__ __forceinline__ float tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return __uint_as_float(r);
-}
-
-// c += a b, one m16n8k8 tile in TF32 with f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 4-byte asynchronous copy to shared memory; zero-fills when !valid
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-// 16-byte asynchronous copy (both addresses 16-byte aligned); zero-fills
-// when !valid
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// wait until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// PTX helpers: end
 
 // wait until at most n (0 to 3) copy groups are in flight
 __device__ __forceinline__ void cp_async_wait_n(int n) {
@@ -597,16 +551,6 @@ __device__ __forceinline__ int div_by(int i, float rd, int d, int& rem) {
   const int q = (int)(((float)i + 0.5f) * rd);
   rem = i - q * d;
   return q;
-}
-
-// c += a b in 3xTF32: small a x big b + big a x small b + big a x big b
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
 }
 
 // The A fragment (rows g, g + 8; columns tig, tig + 4) of a pixel-row GEMM:

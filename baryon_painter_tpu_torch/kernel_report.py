@@ -1,14 +1,18 @@
-"""What the compiler made of K4's backward kernels (csrc/conv_bn.cu).
+"""What the compiler made of the tensor-core kernels: K1 (csrc/res_block.cu,
+f32 and bf16), K3-bwd (csrc/head_stack.cu) and K4's backward
+(csrc/conv_bn.cu).
 
     python -m baryon_painter_tpu_torch.kernel_report
 
 Builds the kernel library afresh (nvcc with ``-Xptxas -v``), then prints for
-each backward kernel (bwd1, dx, dW) instantiation: ptxas' registers and
-spills, the number of tensor-core instructions in its SASS (``HMMA`` from
-``cuobjdump -sass``) with one of them quoted, and, at the four fused sites
-of the fiducial training step, each backward launch's shared memory per
-block in bytes. The last line is the same as JSON. Needs nvcc and cuobjdump
-(the CUDA toolkit); no card.
+each of those kernels' instantiations (K1 f32 and bf16; K3-bwd, with K3-fwd
+beside it; K4's bwd1, dx and dW): ptxas' registers and spills, the number
+of tensor-core instructions in its SASS (``HMMA`` from ``cuobjdump
+-sass``) by variant (``HMMA.1688.F32.TF32``, ``HMMA.16816.F32.BF16``) with
+one of them quoted, and each launch's shared memory per block in bytes (K1
+at C = 128, K3 at any shape, K4's backward at the four fused sites of the
+fiducial training step). The last line is the same as JSON. Needs nvcc and
+cuobjdump (the CUDA toolkit); no card.
 """
 from __future__ import annotations
 
@@ -22,9 +26,18 @@ from baryon_painter_tpu_torch.ops import _build
 
 _KERNEL = re.compile(r"(bwd1_kernel|dx_kernel|dw_kernel)ILi(\d+)ELi(\d+)E"
                      r"(?:Li(\d+)E)?")
+_K1 = re.compile(r"res_block_kernelI(f|13__nv_bfloat16)E")
+_K3 = re.compile(r"(head_fwd_kernel|head_bwd_kernel)")
 
 
 def _name(mangled: str):
+    m = _K1.search(mangled)
+    if m is not None:
+        return "res_block_kernel<" + ("float" if m.group(1) == "f"
+                                      else "bf16") + ">"
+    m = _K3.search(mangled)
+    if m is not None:
+        return m.group(1)
     m = _KERNEL.search(mangled)
     if m is None:
         return None
@@ -55,7 +68,9 @@ def ptxas_report(log: str) -> dict:
 
 
 def sass_report(library: Path) -> dict:
-    """{kernel: {"hmma", "example"}} from ``cuobjdump -sass``."""
+    """{kernel: {"hmma", "variants", "example"}} from ``cuobjdump -sass``:
+    the HMMA count, the count of each HMMA variant (its opcode with its
+    shape and types, e.g. ``HMMA.1688.F32.TF32``) and one quoted."""
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
                           capture_output=True, text=True, check=True,
@@ -66,21 +81,28 @@ def sass_report(library: Path) -> dict:
         if m:
             name = _name(m.group(1))
             if name:
-                out[name] = {"hmma": 0, "example": None}
+                out[name] = {"hmma": 0, "variants": {}, "example": None}
             continue
         m = re.search(r"(HMMA[^;]*);", line)
         if name and m:
             out[name]["hmma"] += 1
+            op = m.group(1).split()[0]
+            out[name]["variants"][op] = out[name]["variants"].get(op, 0) + 1
             if out[name]["example"] is None:
                 out[name]["example"] = " ".join(m.group(1).split())
     return out
 
 
 def smem_report() -> dict:
-    """Shared memory per block of the bwd1, dx and dW launches at the fused
-    sites (bytes, as the launches request it)."""
+    """Shared memory per block (bytes, as the launches request it): K1 at
+    C = 128 in f32 and bf16, K3-fwd and K3-bwd, and the bwd1, dx and dW
+    launches of K4 at the fused sites."""
     lib = _build.load_library()
-    out = {}
+    c = smoke.K1_SHAPE[-1]
+    out = {"res_block_kernel<float>": lib.bpt_res_block_smem(c, 0),
+           "res_block_kernel<bf16>": lib.bpt_res_block_smem(c, 1),
+           "head_fwd_kernel": lib.bpt_head_stack_smem(0),
+           "head_bwd_kernel": lib.bpt_head_stack_smem(1)}
     for name, site in smoke.K4_SITES.items():
         s = site["stride"] if site["transposed"] else 1
         out[name] = {kind: lib.bpt_conv_bn_bwd_smem(site["cin"], site["cout"],
@@ -98,11 +120,15 @@ def main():
     for k in sorted(record["sass"]):
         p = record["ptxas"].get(k, {})
         print(f"{k:18s} registers {p.get('registers')}, spill stores "
-              f"{p.get('spill_stores')} B, HMMA {record['sass'][k]['hmma']}: "
+              f"{p.get('spill_stores')} B, HMMA {record['sass'][k]['hmma']} "
+              f"{record['sass'][k]['variants']}: "
               f"{record['sass'][k]['example']}")
     for site, v in record["smem_bytes"].items():
-        print(f"site {site}: shared memory per block " + ", ".join(
-            f"{k} {b} B" for k, b in v.items()))
+        if isinstance(v, int):
+            print(f"{site}: shared memory per block {v} B")
+        else:
+            print(f"K4 site {site}: shared memory per block " + ", ".join(
+                f"{k} {b} B" for k, b in v.items()))
     print(json.dumps(record))
 
 

@@ -144,6 +144,12 @@ def load_library() -> ctypes.CDLL:
     lib.bpt_head_stack_fwd.restype = ctypes.c_int
     lib.bpt_head_stack_bwd.argtypes = [p] * 12 + [i, i, i, p]
     lib.bpt_head_stack_bwd.restype = ctypes.c_int
+    lib.bpt_head_stack_bwd_blocks.argtypes = [i, i, i]
+    lib.bpt_head_stack_bwd_blocks.restype = ctypes.c_int
+    lib.bpt_head_stack_smem.argtypes = [i]
+    lib.bpt_head_stack_smem.restype = ctypes.c_int
+    lib.bpt_res_block_smem.argtypes = [i, i]
+    lib.bpt_res_block_smem.restype = ctypes.c_int
     dims = [i] * 7   # n, cin, h, w, cout, k, s
     for name, n_ptr in (("stats", 4), ("fwd", 5), ("bwd1", 9)):
         fn = getattr(lib, f"bpt_conv_bn_{name}")

@@ -32,7 +32,6 @@ __all__ = ["head_stack", "head_stack_fwd", "head_stack_bwd",
 # the shapes the kernels are written for: the fiducial heads
 _KERNEL_SHAPES = {"w1": (2, 7, 7, 16, 8), "w2": (2, 5, 5, 8, 1),
                   "w3": (2, 3, 3, 1, 1), "alphas": (2, 2)}
-_TILE = 16  # the kernels' output tile edge (partials per row of tiles)
 
 
 def _prelu(u, a):
@@ -164,6 +163,14 @@ def head_stack_fwd(x, w1, w2, w3, alphas):
 head_stack_fwd.launches = 0
 
 
+def gemm_weights(w1):
+    """K3-bwd's B operands from w1 (2, 7, 7, 16, 8): the u1 GEMM's
+    wu (16, 784) = [h, c][ky, kx, ci] and the dx GEMM's wdx (16, 784) =
+    [ci][ky, kx, h, c]."""
+    return (w1.permute(0, 4, 1, 2, 3).reshape(16, 784),
+            w1.permute(3, 1, 2, 0, 4).reshape(16, 784))
+
+
 def head_stack_bwd(x, w1, w2, w3, alphas, dy):
     """K3-bwd: (dx, dw1, dw2, dw3, dalphas), one kernel launch on the card.
 
@@ -178,9 +185,9 @@ def head_stack_bwd(x, w1, w2, w3, alphas, dy):
         raise ValueError(f"head_stack_bwd: unsupported device {x.device}")
     _check_operands("head_stack_bwd", x, w1, w2, w3, alphas, dy)
     n, h, w, _ = x.shape
-    ops = [_operand(t) for t in (x, w1, w1.transpose(3, 4), w2, w3, alphas,
-                                 dy)]
-    blocks = n * ((h + _TILE - 1) // _TILE)
+    ops = [_operand(t) for t in (x, *gemm_weights(w1), w2, w3, alphas, dy)]
+    from baryon_painter_tpu_torch.ops._build import load_library
+    blocks = load_library().bpt_head_stack_bwd_blocks(n, h, w)
     dev = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(ops[0])
     dw1p = torch.empty((blocks,) + tuple(w1.shape), **dev)

@@ -20,10 +20,8 @@ import torch.nn.functional as F
 __all__ = ["fold_bn", "res_block_infer", "res_block_infer_ref"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# shared memory a block may use on Hopper (bytes)
-_MAX_SMEM = 232448
-# staged input (12x12) and intermediate (10x10) pixels per block, f32
-_SMEM_PIXELS = 12 * 12 + 10 * 10
+# output channels a block computes: all of them (conv2 needs all of h)
+_MAX_C = 128
 
 
 def fold_bn(scale, bias, mean, var, eps: float = 1e-5):
@@ -74,7 +72,8 @@ def res_block_infer(x, w1, scale1, bias1, w2, scale2, bias2,
     HWIO (cast to x's type); scale/bias: (C,) folded BN (see ``fold_bn``).
     On a CPU tensor this is ``res_block_infer_ref``. On a CUDA tensor it
     launches K1 on the current stream without synchronising and adds one to
-    ``res_block_infer.launches``; anything the kernel does not take raises.
+    ``res_block_infer.launches``; anything the kernel does not take (C not
+    a multiple of 4 or above 128, another dtype, layout or device) raises.
     """
     if x.device.type == "cpu":
         return res_block_infer_ref(x, w1, scale1, bias1, w2, scale2, bias2,
@@ -94,9 +93,9 @@ def res_block_infer(x, w1, scale1, bias1, w2, scale2, bias2,
     n, h, w, c = x.shape
     if c % 4:
         raise ValueError(f"res_block_infer: C={c} must be a multiple of 4")
-    if _SMEM_PIXELS * c * 4 > _MAX_SMEM:
-        raise ValueError(f"res_block_infer: C={c} needs more shared memory "
-                         f"than a block has")
+    if c > _MAX_C:
+        raise ValueError(f"res_block_infer: C={c} is more than the "
+                         f"{_MAX_C} channels a block computes")
     for name, t, shape in (("w1", w1, (3, 3, c, c)), ("w2", w2, (3, 3, c, c)),
                            ("scale1", scale1, (c,)), ("bias1", bias1, (c,)),
                            ("scale2", scale2, (c,)), ("bias2", bias2, (c,))):
@@ -106,7 +105,9 @@ def res_block_infer(x, w1, scale1, bias1, w2, scale2, bias2,
         if t.device != x.device:
             raise ValueError(f"res_block_infer: {name} is on {t.device}, "
                              f"x on {x.device}")
-    w1k, w2k = (_kernel_operand(t, x.dtype) for t in (w1, w2))
+    # HWIO -> (C_out, 3, 3, C_in): a weight row per output channel
+    w1k, w2k = (_kernel_operand(t.permute(3, 0, 1, 2), x.dtype)
+                for t in (w1, w2))
     s1, b1, s2, b2 = (_kernel_operand(t, torch.float32)
                       for t in (scale1, bias1, scale2, bias2))
     out = torch.empty_like(x, memory_format=torch.contiguous_format)

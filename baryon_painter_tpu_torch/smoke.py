@@ -8,15 +8,17 @@ that fails raises.
 
   0. environment: card, power limit, versions; TF32 switched off
   1. build K1, K2, K3 and K4 from the sources (one library)
-  2. K1 against its plain version (f32 with both slopes, bf16)
+  2. K1 against its plain version (f32 and bf16, each at both slopes)
   3. paint the committed 512^2 golden through the fused painter (4 K1
      launches) and compare
-  4. time the painter, K1, its plain version and the library yardstick
+  4. time the painter, K1, its plain version and the library yardstick;
+     K1's bounds on the tensor cores (3xTF32 in f32) and the CUDA cores
   5. the training data: synthetic stacks and the tile dataset
   6. K2 against its plain version (bit for bit), timed with a library
      yardstick
   7. K3 forward and backward against their plain versions, timed with
-     cuDNN's heads as the yardstick
+     cuDNN's heads as the yardstick; K3-bwd's bound on the tensor cores
+     (3xTF32) beside the CUDA-core one
   8. train: steps of the CVAE trainer with the batch gathered by K2 and the
      heads through K3 (one launch of each per step), timed; a step with the
      kernels against a step with the plain versions from the same start
@@ -86,9 +88,9 @@ PEAK_3XTF32 = 495e12 / 3
 K1_SHAPE = (16, 64, 64, 128)
 # (dtype, inner/outer slope, tolerance on max|kernel - plain| / max|plain|):
 # f32 differs only by summation order; bf16 also by where the intermediate
-# rounds to bf16
+# rounds to bf16; both slopes, the CVAE's 0 and the CGAN's 0.2, in both types
 K1_CASES = ((torch.float32, 0.0, 1e-4), (torch.float32, 0.2, 1e-4),
-            (torch.bfloat16, 0.0, 2e-2))
+            (torch.bfloat16, 0.0, 2e-2), (torch.bfloat16, 0.2, 2e-2))
 # the golden test's own tolerance (tests/test_paint_goldens.py)
 GOLDEN_RTOL = 5e-3
 
@@ -321,24 +323,35 @@ def paint_time_ms(device, painter, n_tiles: int, warmup: int,
                     iters)
 
 
-def _bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS[
-        torch.float32]) -> dict:
-    t_ops = flops / peak
+def _mixed_bound(parts, nbytes: float) -> dict:
+    """The least time of work done on several units in turn: ``parts`` is a
+    list of (operations, peak rate), whose times add, against ``nbytes``
+    over the memory rate."""
+    t_ops = sum(f / peak for f, peak in parts)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    return {"flops": flops, "bytes": nbytes,
+    return {"flops": sum(f for f, _ in parts), "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS[
+        torch.float32]) -> dict:
+    return _mixed_bound([(flops, peak)], nbytes)
 
 
 def k1_bound(shape, dtype) -> dict:
     """Least time for one K1 launch: the larger of its operations over the
     peak rate for the type and its bytes (x read, out written, weights and
-    folded BN read once) over the memory rate."""
+    folded BN read once) over the memory rate. The rate is f32 on the CUDA
+    cores in f32 and the bf16 tensor cores in bf16; ``tc`` is the bound on
+    the tensor cores, where K1 runs: 3xTF32 in f32, bf16 in bf16."""
     n, h, w, c = shape
     elt = torch.empty((), dtype=dtype).element_size()
     flops = 2 * 2 * n * h * w * c * c * 9
     nbytes = 2 * n * h * w * c * elt + 2 * 9 * c * c * elt + 4 * c * 4
-    return _bound(flops, nbytes, PEAK_FLOPS[dtype])
+    tc = PEAK_3XTF32 if dtype == torch.float32 else PEAK_FLOPS[dtype]
+    return {**_bound(flops, nbytes, PEAK_FLOPS[dtype]),
+            "tc": _bound(flops, nbytes, tc)}
 
 
 def library_block(x, w1, s1, b1, w2, s2, b2):
@@ -381,8 +394,8 @@ def time_main_path(device, painter, card=None, n_tiles: int = 16,
         out["plain_ms"] = _time_ms(lambda: res_block_infer_ref(*args),
                                    device, 3, k1_iters)
         out["library_ms"] = out["library_ms_float32"]
-    out["k1_share_of_bound_float32"] = (out["bound_float32"]["bound_ms"]
-                                        / out["k1_ms_float32"])
+    out["k1_share_of_bound_float32"] = (
+        out["bound_float32"]["tc"]["bound_ms"] / out["k1_ms_float32"])
     out["k1_share_of_bound_bfloat16"] = (out["bound_bfloat16"]["bound_ms"]
                                          / out["k1_ms_bfloat16"])
     clock = "cuda_events" if device.type == "cuda" else "host_clock_cpu"
@@ -394,7 +407,8 @@ def time_main_path(device, painter, card=None, n_tiles: int = 16,
           plain_ms=f"{out['plain_ms']:.4f}",
           library_ms=f"{out['library_ms']:.4f}",
           library_ms_bf16=f"{out['library_ms_bfloat16']:.4f}",
-          bound_ms_f32=f"{out['bound_float32']['bound_ms']:.4f}",
+          bound_ms_f32_3xtf32=f"{out['bound_float32']['tc']['bound_ms']:.4f}",
+          bound_ms_f32_cuda_cores=f"{out['bound_float32']['bound_ms']:.4f}",
           bound_ms_bf16=f"{out['bound_bfloat16']['bound_ms']:.4f}",
           share_of_bound_f32=f"{out['k1_share_of_bound_float32']:.3f}",
           share_of_bound_bf16=f"{out['k1_share_of_bound_bfloat16']:.3f}")
@@ -581,16 +595,41 @@ def kink_free_cotangent(x, w1, w2, w3, alphas, dy, rel: float = KINK_REL):
     return dy * keep, 1.0 - keep.float().mean().item()
 
 
+# K3-bwd's blocks: a tile row of 16 x 16 tiles is walked by blocks of up
+# to 16 tiles (csrc/head_stack.cu kT, kWalk); each writes one partial of
+# every weight gradient
+K3_TILE = 16
+K3_WALK = 16
+# the 7x7 GEMMs of K3-bwd per pixel and head: u1 recomputed, dx, dw1
+_HEAD_BWD_GEMM_OPS = 3 * 2 * 7 * 7 * 16 * 8
+
+
+def k3_bwd_blocks(n: int, h: int, w: int) -> int:
+    """Blocks (and partials of each weight gradient) of a K3-bwd launch."""
+    tiles_x = -(-w // K3_TILE)
+    return n * -(-h // K3_TILE) * -(-tiles_x // K3_WALK)
+
+
 def k3_bounds(n: int, h: int, w: int) -> dict:
     """Least times of K3-fwd and K3-bwd: their operations (both heads) over
     the f32 CUDA-core rate, against x, dy, y, dx and the weights moved
-    once."""
+    once. ``bwd_tc`` bounds K3-bwd as it computes: its three 7x7 GEMMs per
+    pixel (u1, dx, dw1) at the 3xTF32 tensor-core rate plus the rest (the
+    5x5 and 3x3 convs, their gradients) on the CUDA cores, against x and
+    dy read, dx written and each block's weight-gradient partials
+    written."""
     pix = n * h * w
     weights = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3 + 2) * 4
+    gemm = 2 * pix * _HEAD_BWD_GEMM_OPS
     return {"fwd": _bound(2 * pix * _HEAD_FWD_OPS,
                           pix * (16 + 2) * 4 + weights),
             "bwd": _bound(2 * pix * _HEAD_BWD_OPS,
-                          pix * (16 + 2 + 16) * 4 + 2 * weights)}
+                          pix * (16 + 2 + 16) * 4 + 2 * weights),
+            "bwd_tc": _mixed_bound(
+                [(gemm, PEAK_3XTF32),
+                 (2 * pix * _HEAD_BWD_OPS - gemm, PEAK_FLOPS[torch.float32])],
+                pix * (16 + 2 + 16) * 4 + weights
+                + k3_bwd_blocks(n, h, w) * weights)}
 
 
 def library_heads(xc, w1, w2, w3, alphas):
@@ -669,7 +708,8 @@ def check_heads(device, shape=(TRAIN_BATCH, TRAIN_TILE, TRAIN_TILE),
           bwd_ms=f"{out['bwd_ms']:.3f}",
           bwd_plain_ms=f"{out['bwd_plain_ms']:.3f}",
           bwd_library_ms=f"{out['bwd_library_ms']:.3f}",
-          bwd_bound_ms=f"{out['bwd_bound']['bound_ms']:.3f}")
+          bwd_bound_ms_3xtf32=f"{out['bwd_tc_bound']['bound_ms']:.3f}",
+          bwd_bound_ms_cuda_cores=f"{out['bwd_bound']['bound_ms']:.3f}")
     return out
 
 
@@ -1296,25 +1336,34 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     """The ``{"kernels": [...]}`` record of the run: K1 at the main path's
     dtype (f32), its bf16 numbers beside it; K2, K3-fwd and K3-bwd with
     their launches in the timed training steps; K4's four kernels
-    (``k4_record``)."""
+    (``k4_record``). K1 and K3-bwd run on the tensor cores: their bound is
+    the tensor-core one (``k1_bound``'s ``tc``, ``k3_bounds``' ``bwd_tc``),
+    the f32 CUDA-core one beside it."""
     f32 = next(c for c in checks if c["dtype"] == "float32")
     bf16 = next(c for c in checks if c["dtype"] == "bfloat16")
-    k3 = lambda name, key, replaces: {
-        "name": name, "route": "cuda", "source": K3_SOURCE,
-        "replaces": replaces, "launches": training["launches"][key],
-        "max_abs_err": heads["abs_errors"]["y" if key == "k3_fwd" else "dx"],
-        "ms": heads[f"{key[3:]}_ms"], "plain_ms": heads[f"{key[3:]}_plain_ms"],
-        "bound_ms": heads[f"{key[3:]}_bound"]["bound_ms"],
-        "bound_by": heads[f"{key[3:]}_bound"]["bound_by"],
-        "library_ms": heads[f"{key[3:]}_library_ms"]}
+    def k3(name, key, replaces, bound):
+        return {"name": name, "route": "cuda", "source": K3_SOURCE,
+                "replaces": replaces, "launches": training["launches"][key],
+                "max_abs_err": heads["abs_errors"][
+                    "y" if key == "k3_fwd" else "dx"],
+                "ms": heads[f"{key[3:]}_ms"],
+                "plain_ms": heads[f"{key[3:]}_plain_ms"],
+                "bound_ms": heads[bound]["bound_ms"],
+                "bound_by": heads[bound]["bound_by"],
+                "library_ms": heads[f"{key[3:]}_library_ms"]}
+
+    k3_bwd = k3("head_stack_bwd", "k3_bwd", K3_BWD_REPLACES, "bwd_tc_bound")
+    k3_bwd["bound_ms_f32_cuda_cores"] = heads["bwd_bound"]["bound_ms"]
+    k1_f32 = timing["bound_float32"]
     return {"kernels": [{
         "name": "res_block_infer", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": paint["launches"],
         "max_abs_err": f32["max_abs_err"], "ms": timing["k1_ms_float32"],
         "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_float32"]["bound_ms"],
-        "bound_by": timing["bound_float32"]["bound_by"],
+        "bound_ms": k1_f32["tc"]["bound_ms"],
+        "bound_by": k1_f32["tc"]["bound_by"],
         "library_ms": timing["library_ms"],
+        "bound_ms_f32_cuda_cores": k1_f32["bound_ms"],
         "bf16_ms": timing["k1_ms_bfloat16"],
         "bf16_bound_ms": timing["bound_bfloat16"]["bound_ms"],
         "bf16_library_ms": timing["library_ms_bfloat16"],
@@ -1324,6 +1373,6 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
         "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
         "bound_by": gather["bound_by"], "library_ms": gather["library_ms"]},
-        k3("head_stack_fwd", "k3_fwd", K3_FWD_REPLACES),
-        k3("head_stack_bwd", "k3_bwd", K3_BWD_REPLACES),
+        k3("head_stack_fwd", "k3_fwd", K3_FWD_REPLACES, "fwd_bound"),
+        k3_bwd,
         *k4_record(conv_bn, training_k4)]}

@@ -2,6 +2,7 @@
 """Where the time of the port's paint path goes, on one CUDA card.
 
     python3 scripts/profile_torch_paint.py [--n-tiles 16] [--iters 10]
+                                           [--fused-heads]
 
 Paints n 512^2 tiles (redshifts over the checkpoint's 11-point grid) with
 ``CVAEPainter(trained_models/CVAE/fiducial-512/model)`` of the PyTorch port,
@@ -11,8 +12,11 @@ unfused. For each it prints ms per paint_batch call (CUDA events) and, from
 one torch.profiler window (CUDA activity only) over ``iters`` calls, the
 device time by kernel and the device's idle share: 1 - (union of device
 intervals per call) / (ms per call from the CUDA events); then the device
-time of each layer module, from CUDA events in forward hooks.
-TF32 is off. The full record is printed as the last line (JSON).
+time of each layer module, from CUDA events in forward hooks. With
+``--fused-heads`` both painters run the two output heads as one K3-fwd
+launch (``fused_heads=True``); the heads are then no layer module, and
+their time is ``head_fwd_kernel``'s in the table by kernel. TF32 is off.
+The full record is printed as the last line (JSON).
 """
 import argparse
 import json
@@ -131,6 +135,8 @@ def main():
     ap.add_argument("--n-tiles", type=int, default=16)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--fused-heads", action="store_true",
+                    help="run the output heads through K3 (fused_heads)")
     args = ap.parse_args()
 
     import numpy as np
@@ -149,7 +155,8 @@ def main():
                           check=True).stdout.strip()
     device = torch.device("cuda")
     base = os.path.join(REPO, smoke.CHECKPOINT)
-    painters = {f: CVAEPainter(base, fused_inference=f, device=device)
+    painters = {f: CVAEPainter(base, fused_inference=f,
+                               fused_heads=args.fused_heads, device=device)
                 for f in (False, True)}
     z_grid = np.asarray(painters[True].meta["stats"]["dm"]["z_grid"],
                         np.float32)
@@ -158,7 +165,8 @@ def main():
     zs = torch.as_tensor(z_grid[np.arange(args.n_tiles) % len(z_grid)],
                          device=device)
     record = {"card": card, "n_tiles": args.n_tiles, "iters": args.iters,
-              "torch": torch.__version__, "runs": []}
+              "fused_heads": args.fused_heads, "torch": torch.__version__,
+              "runs": []}
     for fused in (False, True, True, False):
         paint = lambda: painters[fused].paint_batch(tiles, zs)
         for _ in range(2):

@@ -110,7 +110,11 @@ def test_kink_free_cotangent_zeroes_only_near_the_kink():
 
 def test_bounds_at_the_training_shape():
     """163 GFLOP forward, 489 GFLOP backward at (24, 512, 512), both heads:
-    >= 2.43 and 7.30 ms at 67 TFLOP/s, bound by operations."""
+    >= 2.43 and 7.30 ms at 67 TFLOP/s, bound by operations. On the tensor
+    cores (``bwd_tc``) the backward's three 7x7 GEMMs, 473 GFLOP, take
+    >= 2.869 ms at 495/3 TFLOP/s and the rest, 15.6 GFLOP, >= 0.233 ms on
+    the CUDA cores: 3.10 ms, against 1,536 blocks' partials and x, dy, dx
+    moved once (0.28 ms at 3.35 TB/s)."""
     b = smoke.k3_bounds(24, 512, 512)
     pix = 24 * 512 * 512
     assert b["fwd"]["flops"] == 2 * pix * 12962
@@ -118,6 +122,17 @@ def test_bounds_at_the_training_shape():
     assert b["fwd"]["bound_by"] == b["bwd"]["bound_by"] == "operations"
     assert b["fwd"]["bound_ms"] == pytest.approx(2.434, rel=1e-3)
     assert b["bwd"]["bound_ms"] == pytest.approx(7.300, rel=1e-3)
+    tc = b["bwd_tc"]
+    gemm = 2 * pix * 3 * 2 * 7 * 7 * 16 * 8
+    assert gemm == pytest.approx(473.4e9, rel=1e-3)
+    assert tc["flops"] == b["bwd"]["flops"]
+    assert tc["bound_by"] == "operations"
+    assert tc["bound_ms"] == pytest.approx(
+        (gemm / (495e12 / 3) + (tc["flops"] - gemm) / 67e12) * 1e3)
+    assert tc["bound_ms"] == pytest.approx(3.102, rel=1e-3)
+    assert smoke.k3_bwd_blocks(24, 512, 512) == 24 * 32 * 2
+    weights = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3 + 2) * 4
+    assert tc["bytes"] == pix * 34 * 4 + (1 + 1536) * weights
     k2b = smoke.k2_bound(24, 2, 512)
     assert k2b["bytes"] == 2 * 24 * 2 * 2 * 512 * 512 * 4
     assert k2b["bound_by"] == "bytes"
