@@ -15,48 +15,65 @@
 // zero padding applies to its own input, so a1 and a2 are 0 outside the
 // image: they are never computed from padded data.
 //
-// The backward takes dy (N, 2, H, W) and returns dx (both heads summed) and
-// per-block partial sums of dw1, dw2, dw3 and dalpha, which the wrapper sums
-// in torch: every block writes its own partials and no atomics are used, so
-// the result is deterministic. Each block walks up to 16 of the 16 x 16
-// output tiles of a tile row and adds to its partials only the pixels it
-// owns, so no halo pixel is counted twice.
+// In a training step the forward keeps u1 for the backward: u1 (N, H, W, 16)
+// f32, channel 8 h + c, conv7's pre-activation at every pixel of the image
+// (402.7 MB at (24, 512, 512)). Painting keeps none: the launch passes no
+// u1. The backward takes dy (N, 2, H, W), x and that u1 and returns dx (both
+// heads summed) and per-block partial sums of dw1, dw2, dw3 and dalpha,
+// which the wrapper sums in torch: every block writes its own partials and
+// no atomics are used, so the result is deterministic. PReLU1's mask comes
+// from the kept u1; u2 is recomputed from it.
 //
 // What bounds them: arithmetic. The forward does 12,962 operations per pixel
-// and head (the 7x7 conv is 12,544 of them): 163 GFLOP at (24, 512, 512),
-// >= 2.4 ms at 67 TFLOP/s (f32 on the CUDA cores), against 0.4 GB of
-// traffic. The backward does three 7x7 products per pixel and head (u1
-// recomputed, dx, dw1): 473 GFLOP, >= 2.87 ms as 3xTF32 on the tensor cores
-// (495/3 TFLOP/s), and 15.6 GFLOP of small convs on the CUDA cores.
+// and head (the 7x7 conv is 12,544 of them): 163 GFLOP at (24, 512, 512);
+// with the 7x7 conv as 3xTF32 on the tensor cores (495/3 TFLOP/s) and the
+// rest on the CUDA cores (67 TFLOP/s) >= 1.04 ms, against 0.86 GB of traffic
+// (x read, y and u1 written). The backward does two 7x7 products per pixel
+// and head (dx, dw1): 316 GFLOP, >= 1.91 ms as 3xTF32, and 15.6 GFLOP of
+// small convs on the CUDA cores (0.23 ms).
 //
-// Forward, simple first: one block per (sample, 16 x 16 output tile); the
-// input tile with its 6-pixel halo (28 x 28 x 16, 50 KB) is staged once in
-// shared memory, planar per channel, and serves both heads in turn; a1 on
-// the tile + 3 halo and a2 on the tile + 1 halo stay in shared memory, so
-// only y goes back to device memory. The halos are recomputed by the
-// neighbouring blocks (1.9x the 7x7 conv's work at this tile). FFMA on the
-// CUDA cores; weights through the read-only cache.
-//
-// Backward: the two heads stacked, so the 7x7 convs are implicit GEMMs with
-// N = 16 on the tensor cores in 3xTF32 (mma.sync m16n8k8; each f32 operand
-// split into a tf32 big and small = v - big, split_tf32 in ptx.cuh;
-// small*big + big*small + big*big accumulated in f32):
-//   u1:  M = the tile + 7 (30 x 30 pixels), N = 2 heads x 8, K = 7 x 7 x 16
+// The 7x7 convs are implicit GEMMs with the two heads stacked (N = 16) on
+// the tensor cores in 3xTF32 (mma.sync m16n8k8; each f32 operand split into
+// a tf32 big and small = v - big, split_tf32 in ptx.cuh; small*big +
+// big*small + big*big accumulated in f32):
+//   u1 (forward): M = the tile + 3 (22 x 22 pixels, where conv5 reads a1),
+//        N = 2 heads x 8, K = 7 x 7 x 16 = 784
 //   dx:  M = the tile's 256 pixels, N = 16, K = 7 x 7 x (2 heads x 8): the
 //        transposed conv of du1, the heads' sum inside the GEMM
 //   dw1: du1^T x, M = 16 (h, c), N = 7 x 7 x 16, K = the tile's pixels
 // The tensor cores' accumulators truncate, so each K chunk (a row of 7 taps
-// for u1 and dx, a tile for dw1) sums from zero and is added in f32. Per
-// tile: x is staged on the tile + 10 (36 x 36, planar, planes padded so a
-// warp's fragment loads hit 32 banks); u1 on the tile + 7 stays in shared
-// memory (planar); per head on the CUDA cores u2 (tile + 5), du2 with
-// dalpha2 and dw3, du1 (tile + 3, planar) with dalpha1 and dw2; then dx and
-// dw1. The weights of the u1 and dx GEMMs (16 x 784 each, laid out by the
-// wrapper) stream through a 4-stage cp.async ring of 7 chunks. A block's dw1
-// partial lives in its slot of the partials in device memory (each entry
-// read and written by one thread), which keeps 52 registers a thread free;
-// dw2, dw3 and dalpha in registers. Keeping u1 from the forward (no
-// recompute on the tile + 7, 3.5x the owned pixels) is later work.
+// for u1 and dx, a tile for dw1) sums from zero and is added in f32.
+//
+// Forward: a block stages wu (16 x 784, w1 as [h, c][ky, kx, ci]) once in
+// shared memory and walks 16 x 16 output tiles (grid stride over (sample,
+// tile row, tile)); two blocks an SM. With N = 16 each x value serves only
+// 6 MMAs, so the loop is bound by loading and splitting x: per tile x on the
+// tile + 6 (28 x 28) is staged in pair planes, plane (hf, t) holding
+// channels 8 hf + t and 8 hf + t + 4 of a pixel side by side, so the two
+// values of a thread's A fragment row (k = tig, tig + 4) are one 64-bit
+// load; rows lie kFXS = 30 pixels apart, so any 4 consecutive GEMM rows
+// differ mod 4 and a half-warp's 16 loads hit 32 banks. The weights are
+// permuted the same way in each 8-wide k group (one 64-bit load a B
+// fragment). x is split in registers as it is loaded: staged already split
+// it would double the shared-memory traffic of the loop. Each warp owns 4
+// m16 tiles of the 484 rows (31 hold pixels). u1 leaves the GEMM in
+// registers: a kept u1 is stored for the tile's own pixels (each pixel once),
+// and PReLU makes a1 (0 outside the image), written over the staged x; then
+// per head on the CUDA cores conv5 (a2 on the tile + 1) and conv3. Only y
+// and u1 go to device memory. The halo (22^2 / 16^2 = 1.89x the owned
+// pixels) is recomputed by the neighbouring tiles.
+//
+// Backward: one block per run of up to 16 tiles of a tile row; two blocks
+// an SM (the CUDA-core chain and dw1 are bound by latency, and a second
+// block hides it). Per tile and head: the head's u1 on the tile + 7 (30 x
+// 30) is staged from the kept u1 with cp.async (planar, 0 outside the
+// image); on the CUDA cores u2 (tile + 5), du2 with dalpha2 and dw3, du1
+// (tile + 3, planar) with dalpha1 and dw2. Then dx, whose weights (wdx, 16
+// x 784, laid out by the wrapper) stream through a 4-stage cp.async ring of
+// 7 chunks; then x on the tile + 3 (22 x 22, planar) is staged over the
+// ring, and dw1. A block's dw1 partial lives in its slot of the partials in
+// device memory (each entry read and written by one thread); dw2, dw3 and
+// dalpha in registers.
 //
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and called through ctypes (baryon_painter_tpu_torch/ops/_build.py).
@@ -71,17 +88,31 @@ namespace {
 constexpr int kCin = 16;   // head input channels
 constexpr int kC1 = 8;     // conv7 output channels
 constexpr int kHeads = 2;
+constexpr int kN1 = kHeads * kC1;  // 16: both heads' conv7 channels
 constexpr int kT = 16;     // output tile edge
 constexpr int kThreads = 256;
 constexpr int kW1 = 7 * 7 * kCin * kC1;   // w1 entries per head (6272)
 constexpr int kW2 = 5 * 5 * kC1;          // w2 entries per head (200)
+constexpr int kK1 = 7 * 7 * kCin;         // 784: K of the 7x7 GEMMs
+// K chunk of the u1 and dx GEMMs: one row of 7 taps x 16 channels
+constexpr int kKC = 7 * kCin;    // 112
 
-// forward regions: x on tile + 6, a1 on tile + 3, a2 on tile + 1
-constexpr int kFX = kT + 12;   // 28
-constexpr int kFA1 = kT + 6;   // 22
-constexpr int kFA2 = kT + 2;   // 18
+// forward regions: x on tile + 6, a1 (the GEMM's rows) on tile + 3, a2 on
+// tile + 1
+constexpr int kFX = kT + 12;    // 28
+constexpr int kFXS = kFX + 2;   // 30: row stride of x in a pair plane
+constexpr int kFA1 = kT + 6;    // 22
+constexpr int kFA2 = kT + 2;    // 18
+constexpr int kFM = kFA1 * kFA1;       // 484 GEMM rows, also a1's planes
+// pixels of a pair plane: 2 kFPP = 24 mod 32, so the 4 planes of tig
+// start 0, 24, 16 and 8 banks apart
+constexpr int kFPP = kFX * kFXS + 4;   // 844
+constexpr int kFMT = 4;                // m16 tiles a warp
+constexpr int kLDWF = kK1 + 8;         // 792 = 24 mod 32: the weights' rows
 constexpr int kFwdSmemFloats =
-    kCin * kFX * kFX + kC1 * kFA1 * kFA1 + kFA2 * kFA2;
+    8 * kFPP * 2 + kN1 * kLDWF + kHeads * kFA2 * kFA2;
+static_assert(kN1 * kFM <= 8 * kFPP * 2, "a1 fits over the staged x");
+static_assert(8 * kFMT * 16 >= kFM, "the warps' m16 tiles hold the rows");
 
 __device__ __forceinline__ float prelu(float u, float a) {
   return u >= 0.f ? u : a * u;
@@ -121,153 +152,246 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ xn,
   }
 }
 
-// u1 = conv7x7(x) for NP pixels of a square region of edge `out_edge`
-// (pixel p = threadIdx.x + j * kThreads), reading the staged x of edge
-// `x_edge` (region corner 3 pixels further out). acc[j][c] for c < 8.
-template <int NP>
-__device__ __forceinline__ void conv7_acc(const float* xs, int x_edge,
-                                          int out_edge,
-                                          const float* __restrict__ w1h,
-                                          float acc[NP][kC1]) {
-  const int plane = x_edge * x_edge;
-  const int npix = out_edge * out_edge;
-  int base[NP];
-#pragma unroll
-  for (int j = 0; j < NP; ++j) {
-    int p = threadIdx.x + j * kThreads;
-    if (p >= npix) p = 0;  // computed, never stored
-    base[j] = (p / out_edge) * x_edge + p % out_edge;
-#pragma unroll
-    for (int c = 0; c < kC1; ++c) acc[j][c] = 0.f;
-  }
-  for (int ky = 0; ky < 7; ++ky) {
-    for (int kx = 0; kx < 7; ++kx) {
-      const float* wk = w1h + (ky * 7 + kx) * kCin * kC1;
-      const int off = ky * x_edge + kx;
-#pragma unroll 4
-      for (int ci = 0; ci < kCin; ++ci) {
-        const float4 wa = __ldg(reinterpret_cast<const float4*>(wk + ci * kC1));
-        const float4 wb =
-            __ldg(reinterpret_cast<const float4*>(wk + ci * kC1 + 4));
-        const float* xc = xs + ci * plane + off;
-#pragma unroll
-        for (int j = 0; j < NP; ++j) {
-          const float v = xc[base[j]];
-          acc[j][0] += v * wa.x;
-          acc[j][1] += v * wa.y;
-          acc[j][2] += v * wa.z;
-          acc[j][3] += v * wa.w;
-          acc[j][4] += v * wb.x;
-          acc[j][5] += v * wb.y;
-          acc[j][6] += v * wb.z;
-          acc[j][7] += v * wb.w;
-        }
-      }
-    }
-  }
-}
+// ------------------------------------------------------------------------ //
+// K3-fwd: the 7x7 convolution as an implicit GEMM on the tensor cores
 
-__global__ void __launch_bounds__(kThreads)
-    head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+// x (N, H, W, 16); wu (16, 784) = w1 as [h, c][ky, kx, ci]; u1 (N, H, W, 16)
+// or null (painting). Blocks walk the tiles with a grid stride.
+__global__ void __launch_bounds__(kThreads, 2)
+    head_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wu,
                     const float* __restrict__ w2, const float* __restrict__ w3,
                     const float* __restrict__ alpha, float* __restrict__ y,
-                    int H, int W) {
+                    float* __restrict__ u1, int N, int H, int W) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* xs = reinterpret_cast<float*>(smem_raw);  // [16][28][28]
-  float* a1s = xs + kCin * kFX * kFX;         // [8][22][22]
-  float* a2s = a1s + kC1 * kFA1 * kFA1;       // [18][18]
-  const int n = blockIdx.z;
-  const int ty0 = blockIdx.y * kT;
-  const int tx0 = blockIdx.x * kT;
+  float2* xs = reinterpret_cast<float2*>(smem_raw);  // [8][kFPP] pairs
+  float* a1s = reinterpret_cast<float*>(smem_raw);   // [16][484], over xs
+  float* ws = reinterpret_cast<float*>(smem_raw) + 8 * kFPP * 2;  // [16][792]
+  float* a2s = ws + kN1 * kLDWF;                     // [2][18][18]
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
 
-  stage_x(x + (size_t)n * H * W * kCin, xs, kFX, kFX * kFX, ty0 - 6, tx0 - 6,
-          H, W);
-  __syncthreads();
+  // the weights, once a block: k = 8 grp + r at 8 grp + 2 (r % 4) + r / 4,
+  // so a thread's B pair (k = tig, tig + 4) is adjacent
+  for (int i = tid; i < kN1 * kK1; i += kThreads) {
+    const int nn = i / kK1;
+    const int k = i - nn * kK1;
+    const int r = k & 7;
+    ws[nn * kLDWF + (k - r) + 2 * (r & 3) + (r >> 2)] = __ldg(wu + i);
+  }
 
-  for (int h = 0; h < kHeads; ++h) {
-    const float al1 = alpha[2 * h];
-    const float al2 = alpha[2 * h + 1];
-    {  // a1 on tile + 3: 484 pixels, 2 a thread, all 8 channels
-      float acc[2][kC1];
-      conv7_acc<2>(xs, kFX, kFA1, w1 + (size_t)h * kW1, acc);
+  // the warp's GEMM rows: pixel of the pair planes at tap (0, 0) of rows
+  // g and g + 8 of each of its m16 tiles; tiles past the rows are skipped
+  int qrow[kFMT][2];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int p = tid + j * kThreads;
-        if (p >= kFA1 * kFA1) continue;
-        const bool in =
-            inside(ty0 - 3 + p / kFA1, tx0 - 3 + p % kFA1, H, W);
+  for (int i = 0; i < kFMT; ++i)
 #pragma unroll
-        for (int c = 0; c < kC1; ++c)
-          a1s[c * kFA1 * kFA1 + p] = in ? prelu(acc[j][c], al1) : 0.f;
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      int p = 16 * (warp * kFMT + i) + g + 8 * hh;
+      if (p >= kFM) p = 0;  // computed, never stored
+      qrow[i][hh] = (p / kFA1) * kFXS + p % kFA1;
     }
-    __syncthreads();
-    const float* w2h = w2 + h * kW2;
-    for (int p = tid; p < kFA2 * kFA2; p += kThreads) {  // a2 on tile + 1
-      const int py = p / kFA2;
-      const int px = p % kFA2;
+  int live = (kFM - 16 * kFMT * warp + 15) / 16;
+  live = live > kFMT ? kFMT : live;
+
+  const int tiles_x = (W + kT - 1) / kT;
+  const int tiles_img = tiles_x * ((H + kT - 1) / kT);
+  const int tiles = N * tiles_img;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n = t / tiles_img;
+    const int ty0 = (t - n * tiles_img) / tiles_x * kT;
+    const int tx0 = (t - n * tiles_img) % tiles_x * kT;
+    const float* xn = x + (size_t)n * H * W * kCin;
+
+    // x on tile + 6 in pair planes; the previous tile's readers of xs (as
+    // a1s) passed the barrier after conv5
+    for (int i = tid; i < 2 * kFX * kFX; i += kThreads) {
+      const int hf = i / (kFX * kFX);
+      const int pix = i - hf * kFX * kFX;
+      const int ry = pix / kFX;
+      const int rx = pix - ry * kFX;
+      const int gy = ty0 - 6 + ry;
+      const int gx = tx0 - 6 + rx;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (inside(gy, gx, H, W)) {
+        const float4* s = reinterpret_cast<const float4*>(
+            xn + ((size_t)gy * W + gx) * kCin + 8 * hf);
+        lo = __ldg(s);
+        hi = __ldg(s + 1);
+      }
+      float2* d = xs + hf * 4 * kFPP + ry * kFXS + rx;
+      d[0] = make_float2(lo.x, hi.x);
+      d[kFPP] = make_float2(lo.y, hi.y);
+      d[2 * kFPP] = make_float2(lo.z, hi.z);
+      d[3 * kFPP] = make_float2(lo.w, hi.w);
+    }
+    __syncthreads();  // x (and, at the first tile, the weights) staged
+
+    // u1 = conv7x7(x) on tile + 3, both heads: M = 484, N = 16, K = 784 in
+    // 7 chunks of a tap row; k = (kx, hf, r): tap (ky, kx), channel
+    // 8 hf + r, r = tig (pair .x) and tig + 4 (pair .y)
+    float sum[kFMT][2][4];
+#pragma unroll
+    for (int i = 0; i < kFMT; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[i][j][e] = 0.f;
+    const float2* xa = xs + tig * kFPP;
+    const float* wa = ws + g * kLDWF + 2 * tig;
+#pragma unroll 1
+    for (int ky = 0; ky < 7; ++ky) {
+      float part[kFMT][2][4];
+#pragma unroll
+      for (int i = 0; i < kFMT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 2 * 7; ++s) {
+        const float2* xk = xa + (s & 1) * 4 * kFPP + ky * kFXS + (s >> 1);
+        const float* wk = wa + ky * kKC + 8 * s;
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(wk + 8 * j *
+                                                            kLDWF);
+          split_tf32(b.x, bh[j][0], bl[j][0]);
+          split_tf32(b.y, bh[j][1], bl[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < kFMT; ++i) {
+          if (i < live) {
+            const float2 r0 = xk[qrow[i][0]];
+            const float2 r1 = xk[qrow[i][1]];
+            uint32_t ah[4], al[4];
+            split_tf32(r0.x, ah[0], al[0]);
+            split_tf32(r1.x, ah[1], al[1]);
+            split_tf32(r0.y, ah[2], al[2]);
+            split_tf32(r1.y, ah[3], al[3]);
+            mma3(part[i][0], ah, al, bh[0], bl[0]);
+            mma3(part[i][1], ah, al, bh[1], bl[1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kFMT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[i][j][e] += part[i][j][e];
+    }
+    __syncthreads();  // every warp is done with xs: a1 goes over it
+
+    // column n = 8 j + 2 tig + e of the C fragment is head j, channel
+    // 2 tig + e; a kept u1 gets the tile's own pixels
+#pragma unroll
+    for (int i = 0; i < kFMT; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int p = 16 * (warp * kFMT + i) + g + 8 * hh;
+        if (p >= kFM) continue;
+        const int py = p / kFA1;
+        const int px = p % kFA1;
+        const int gy = ty0 - 3 + py;
+        const int gx = tx0 - 3 + px;
+        const bool in = inside(gy, gx, H, W);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float al1 = __ldg(alpha + 2 * j);
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            a1s[(8 * j + 2 * tig + e) * kFM + p] =
+                in ? prelu(sum[i][j][2 * hh + e], al1) : 0.f;
+        }
+        if (u1 != nullptr && in && py >= 3 && py < 3 + kT && px >= 3 &&
+            px < 3 + kT) {
+          float* d = u1 + (((size_t)n * H + gy) * W + gx) * kN1 + 2 * tig;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            *reinterpret_cast<float2*>(d + 8 * j) =
+                make_float2(sum[i][j][2 * hh], sum[i][j][2 * hh + 1]);
+        }
+      }
+    __syncthreads();  // a1 staged
+
+    // a2 on tile + 1, both heads, on the CUDA cores
+    for (int p = tid; p < kHeads * kFA2 * kFA2; p += kThreads) {
+      const int h = p / (kFA2 * kFA2);
+      const int q = p - h * kFA2 * kFA2;
+      const int py = q / kFA2;
+      const int px = q % kFA2;
+      const float* w2h = w2 + h * kW2;
+      const float* a1h = a1s + h * kC1 * kFM;
       float acc = 0.f;
       for (int ky = 0; ky < 5; ++ky)
         for (int kx = 0; kx < 5; ++kx) {
           const float* wk = w2h + (ky * 5 + kx) * kC1;
-          const float* ak = a1s + (py + ky) * kFA1 + px + kx;
+          const float* ak = a1h + (py + ky) * kFA1 + px + kx;
 #pragma unroll
-          for (int c = 0; c < kC1; ++c)
-            acc += ak[c * kFA1 * kFA1] * __ldg(wk + c);
+          for (int c = 0; c < kC1; ++c) acc += ak[c * kFM] * __ldg(wk + c);
         }
-      a2s[p] = inside(ty0 - 1 + py, tx0 - 1 + px, H, W) ? prelu(acc, al2)
-                                                          : 0.f;
+      a2s[p] = inside(ty0 - 1 + py, tx0 - 1 + px, H, W)
+                   ? prelu(acc, __ldg(alpha + 2 * h + 1))
+                   : 0.f;
     }
-    __syncthreads();
-    {  // y on the tile: one pixel a thread
-      const int py = tid / kT;
-      const int px = tid % kT;
+    __syncthreads();  // a2 staged; a1s (xs) free for the next tile
+
+    // y on the tile, both heads: two pixels a thread
+    for (int p = tid; p < kHeads * kT * kT; p += kThreads) {
+      const int h = p / (kT * kT);
+      const int q = p - h * kT * kT;
+      const int py = q / kT;
+      const int px = q % kT;
       const float* w3h = w3 + h * 9;
+      const float* a2h = a2s + h * kFA2 * kFA2;
       float acc = 0.f;
 #pragma unroll
       for (int ky = 0; ky < 3; ++ky)
 #pragma unroll
         for (int kx = 0; kx < 3; ++kx)
-          acc += a2s[(py + ky) * kFA2 + px + kx] * __ldg(w3h + ky * 3 + kx);
+          acc += a2h[(py + ky) * kFA2 + px + kx] * __ldg(w3h + ky * 3 + kx);
       const int gy = ty0 + py;
       const int gx = tx0 + px;
-      if (gy < H && gx < W) y[(((size_t)n * kHeads + h) * H + gy) * W + gx] = acc;
+      if (gy < H && gx < W)
+        y[(((size_t)n * kHeads + h) * H + gy) * W + gx] = acc;
     }
-    __syncthreads();  // a1s/a2s are rewritten by the next head
+    // the next tile's conv5 rewrites a2s only after three more barriers
   }
 }
 
 // ------------------------------------------------------------------------ //
-// K3-bwd: the 7x7 convolutions as implicit GEMMs on the tensor cores
+// K3-bwd: dx and dw1 as implicit GEMMs on the tensor cores
 
-// backward regions of a 16 x 16 tile: x on tile + 10, u1 on tile + 7, u2 and
-// du2 on tile + 5, dy on tile + 6, du1 on tile + 3
-constexpr int kBX = kT + 20;   // 36
+// backward regions of a 16 x 16 tile: u1 on tile + 7, u2 and du2 on
+// tile + 5, dy on tile + 6, x and du1 on tile + 3; x shares its shared
+// memory with the dx GEMM's weight ring, u1 holds one head at a time
+constexpr int kBX = kT + 6;    // 22
 constexpr int kBU1 = kT + 14;  // 30
 constexpr int kBU2 = kT + 10;  // 26
 constexpr int kBDY = kT + 12;  // 28
 constexpr int kBD1 = kT + 6;   // 22
-constexpr int kN1 = kHeads * kC1;  // 16: both heads' conv7 channels
 // plane strides (floats) of the planar tiles: a warp's fragment loads (8
-// consecutive pixels x 4 channel planes) hit 32 banks in x (24 mod 32) and
-// du1 (8 mod 32), and the u1 GEMM's stores (8 pixels x 8 planes) in u1
-constexpr int kPX = kBX * kBX + 8;     // 1304
-constexpr int kPU1 = kBU1 * kBU1;      // 900
+// consecutive pixels x 4 channel planes) hit 32 banks in du1 (8 mod 32),
+// dw1's B loads (8 planes x 4 pixels) in x (4 mod 32); u1's planes are
+// 902 = 6 mod 32 floats apart
+constexpr int kPX = kBX * kBX;         // 484
+constexpr int kPU1 = kBU1 * kBU1 + 2;  // 902
 constexpr int kPD1 = kBD1 * kBD1 + 4;  // 488
-// K chunk of the u1 and dx GEMMs: one row of 7 taps x 16 channels; the
-// weights (16, 784) stream through a ring of kStages such chunks
-constexpr int kKC = 7 * kCin;    // 112
+// the dx GEMM's weights (16, 784) stream through a ring of kStages K chunks
 constexpr int kLDW = kKC + 4;    // ring row stride, 20 mod 32
 constexpr int kStages = 4;
 constexpr int kWalk = 16;        // tiles a block walks along its tile row
-constexpr int kMT = 4;           // m16 tiles a warp, a u1 pass
 constexpr int kNJ = 49 * kCin / 8;        // 98 n8 tiles of dw1^T
 constexpr int kJW = (kNJ + 7) / 8;        // 13: of them a warp, at most
 constexpr int kJH = (kJW + 1) / 2;        // in two halves of at most 7
-constexpr int kBwdSmemFloats = kCin * kPX + kN1 * kPU1 + 2 * kBU2 * kBU2 +
-                               kBDY * kBDY + kN1 * kPD1 +
-                               kStages * kN1 * kLDW;
+constexpr int kXR = kCin * kPX > kStages * kN1 * kLDW ? kCin * kPX
+                                                       : kStages * kN1 * kLDW;
+constexpr int kBwdSmemFloats = kXR + kC1 * kPU1 + 2 * kBU2 * kBU2 +
+                               kBDY * kBDY + kN1 * kPD1;
 
 // The K loop of a GEMM whose B is a (16, 784) weight matrix `wg` streamed
 // in 7 chunks of kKC through the ring; step(c, ws) multiplies chunk c
@@ -282,7 +406,7 @@ __device__ __forceinline__ void weight_loop(const float* __restrict__ wg,
     for (int i = threadIdx.x; i < kN1 * Q; i += kThreads) {
       const int r = i / Q;
       const int q = i - r * Q;
-      cp_async16(dst + r * kLDW + 4 * q, wg + r * 49 * kCin + c * kKC + 4 * q,
+      cp_async16(dst + r * kLDW + 4 * q, wg + r * kK1 + c * kKC + 4 * q,
                  true);
     }
   };
@@ -301,11 +425,11 @@ __device__ __forceinline__ void weight_loop(const float* __restrict__ wg,
   __syncthreads();
 }
 
-// x (N, H, W, 16); wu (16, 784) = w1 as [h, c][ky, kx, ci] and wdx (16,
-// 784) = w1 as [ci][ky, kx, h, c], the B operands of the u1 and dx GEMMs.
-// One block per (run of kWalk tiles, tile row, sample).
-__global__ void __launch_bounds__(kThreads, 1)
-    head_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wu,
+// x (N, H, W, 16); u1 (N, H, W, 16) as K3-fwd keeps it; wdx (16, 784) = w1
+// as [ci][ky, kx, h, c], the B operand of the dx GEMM. One block per (run
+// of kWalk tiles, tile row, sample).
+__global__ void __launch_bounds__(kThreads, 2)
+    head_bwd_kernel(const float* __restrict__ x, const float* __restrict__ u1,
                     const float* __restrict__ wdx,
                     const float* __restrict__ w2, const float* __restrict__ w3,
                     const float* __restrict__ alpha,
@@ -315,12 +439,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                     int H, int W) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* xs = reinterpret_cast<float*>(smem_raw);  // [16][kPX] planar
-  float* u1s = xs + kCin * kPX;           // [16][30 x 30] pre-activation
-  float* u2s = u1s + kN1 * kPU1;          // [26][26] one head's pre-act
+  float* ring = xs;                       // [kStages][16][kLDW], over xs
+  float* u1s = xs + kXR;                  // [8][kPU1] one head's u1
+  float* u2s = u1s + kC1 * kPU1;          // [26][26] one head's pre-act
   float* du2s = u2s + kBU2 * kBU2;        // [26][26]
   float* dys = du2s + kBU2 * kBU2;        // [28][28] one head's dy
   float* du1s = dys + kBDY * kBDY;        // [16][kPD1] planar, 22 x 22
-  float* ring = du1s + kN1 * kPD1;        // [kStages][16][kLDW]
 
   const int n = blockIdx.z;
   const int ty0 = blockIdx.y * kT;
@@ -333,6 +457,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int bx0 = blockIdx.x * kWalk;
   const int bx1 = bx0 + kWalk < tiles_x ? bx0 + kWalk : tiles_x;
   const float* xn = x + (size_t)n * H * W * kCin;
+  const float* u1n = u1 + (size_t)n * H * W * kN1;
   const size_t blk =
       ((size_t)n * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
 
@@ -345,96 +470,28 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int bx = bx0; bx < bx1; ++bx) {
     const int tx0 = bx * kT;
-    __syncthreads();  // the previous tile's readers of xs and du1s are done
-    stage_x(xn, xs, kBX, kPX, ty0 - 10, tx0 - 10, H, W);
+    __syncthreads();  // the previous tile's readers of xs, u1s, du1s done
 
-    // 1. u1 = conv7x7(x) on tile + 7, both heads (N = 16), K = 784, in
-    //    passes of 8 warps x kMT m16 tiles (57 tiles hold the 900 pixels)
-    for (int pass = 0; pass * 8 * kMT * 16 < kPU1; ++pass) {
-      const int t0 = pass * 8 * kMT + warp * kMT;  // the warp's first tile
-      int live = (kPU1 - 16 * t0 + 15) / 16;       // tiles holding pixels
-      live = live < 0 ? 0 : (live > kMT ? kMT : live);
-      int arow[kMT][2];  // x slot of the first tap of rows g, g + 8
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          int p = 16 * (t0 + i) + g + 8 * hh;
-          if (p >= kPU1) p = 0;  // computed, never stored
-          arow[i][hh] = (p / kBU1) * kBX + p % kBU1;
-        }
-      float sum[kMT][2][4];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sum[i][j][e] = 0.f;
-      weight_loop(wu, ring, [&](int c, const float* ws) {
-        if (live == 0) return;
-        float part[kMT][2][4];
-#pragma unroll
-        for (int i = 0; i < kMT; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
-#pragma unroll 2
-        for (int kk = 0; kk < kKC; kk += 8) {
-          // k = (kx, ci): tap (c, kk / 16), channels kk % 16 + tig (+ 4)
-          const float* xk = xs + ((kk & 15) + tig) * kPX + c * kBX + (kk >> 4);
-          uint32_t ah[kMT][4], al[kMT][4];
-#pragma unroll
-          for (int i = 0; i < kMT; ++i) {
-            if (i < live) {
-              split_tf32(xk[arow[i][0]], ah[i][0], al[i][0]);
-              split_tf32(xk[arow[i][1]], ah[i][1], al[i][1]);
-              split_tf32(xk[4 * kPX + arow[i][0]], ah[i][2], al[i][2]);
-              split_tf32(xk[4 * kPX + arow[i][1]], ah[i][3], al[i][3]);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            uint32_t bh[2], bl[2];
-            const float* wk = ws + (8 * j + g) * kLDW + kk + tig;
-            split_tf32(wk[0], bh[0], bl[0]);
-            split_tf32(wk[4], bh[1], bl[1]);
-#pragma unroll
-            for (int i = 0; i < kMT; ++i)
-              if (i < live) mma3(part[i][j], ah[i], al[i], bh, bl);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kMT; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sum[i][j][e] += part[i][j][e];
-      });
-      // u1 is 0 outside the image: a1 = prelu(u1) is conv5's padded input
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int p = 16 * (t0 + i) + g + 8 * hh;
-          if (p >= kPU1) continue;
-          const bool in =
-              inside(ty0 - 7 + p / kBU1, tx0 - 7 + p % kBU1, H, W);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              u1s[(8 * j + 2 * tig + e) * kPU1 + p] =
-                  in ? sum[i][j][2 * hh + e] : 0.f;
-        }
-    }
-
-    // 2. per head, on the CUDA cores: u2, du2 (with dalpha2 and dw3), du1
-    //    (with dalpha1 and dw2) of the small convs
+    // 1. per head: its u1 staged, then on the CUDA cores u2, du2 (with
+    //    dalpha2 and dw3), du1 (with dalpha1 and dw2) of the small convs
     for (int h = 0; h < kHeads; ++h) {
       const float al1 = alpha[2 * h];
       const float al2 = alpha[2 * h + 1];
-      const float* u1h = u1s + h * kC1 * kPU1;
+      const float* u1h = u1s;
+      if (h > 0) __syncthreads();  // head 0's readers of u1s are done
+      // the head's u1 on tile + 7 from the forward's (planar, 0 outside the
+      // image: a1 = prelu(u1) is conv5's padded input)
+      for (int i = tid; i < kBU1 * kBU1 * kC1; i += kThreads) {
+        const int c = i % kC1;
+        const int p = i / kC1;
+        const int gy = ty0 - 7 + p / kBU1;
+        const int gx = tx0 - 7 + p % kBU1;
+        const bool in = inside(gy, gx, H, W);
+        cp_async4(u1s + c * kPU1 + p,
+                  in ? u1n + ((size_t)gy * W + gx) * kN1 + kC1 * h + c : u1n,
+                  in);
+      }
+      cp_async_commit();
       const float* w2h = w2 + h * kW2;
       const float* w3h = w3 + h * 9;
       for (int p = tid; p < kBDY * kBDY; p += kThreads) {  // dy on tile + 6
@@ -444,7 +501,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                      ? dy[(((size_t)n * kHeads + h) * H + gy) * W + gx]
                      : 0.f;
       }
-      __syncthreads();  // u1 (the GEMM's stores), dy; previous head done
+      cp_async_wait<0>();
+      __syncthreads();  // u1, dy; previous head done
 
       for (int p = tid; p < kBU2 * kBU2; p += kThreads) {  // u2 on tile + 5
         const int py = p / kBU2;
@@ -552,7 +610,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    // 3. dx on the tile = the transposed 7x7 conv of du1 (both heads):
+    // 2. dx on the tile = the transposed 7x7 conv of du1 (both heads):
     //    M = 256 pixels (warp w: tile rows 2 w, 2 w + 1), N = 16, K = 784
     //    (ky, kx, h, c); the heads' sum falls out of the GEMM
     {
@@ -622,7 +680,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
     }
 
-    // 4. dw1 of the tile's pixels: du1^T x, M = 16 (h, c), N = 784 (tap,
+    // x on tile + 3 for dw1, over the ring (free behind dx's last barrier)
+    stage_x(xn, xs, kBX, kPX, ty0 - 3, tx0 - 3, H, W);
+    __syncthreads();
+
+    // 3. dw1 of the tile's pixels: du1^T x, M = 16 (h, c), N = 784 (tap,
     //    ci), K = 256; warp w owns the n8 tiles w + 8 jj, in two halves of
     //    jj. The tile's product sums from zero and is added in f32 to the
     //    block's partial, which lives in device memory (its slot of dw1p,
@@ -635,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int jj = 0; jj < kJH; ++jj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[jj][e] = 0.f;
-#pragma unroll 1
+#pragma unroll 8
       for (int kk = 0; kk < kT * kT; kk += 8) {  // 8 pixels of a tile row
         const int r = kk / kT;
         const int col = kk % kT + tig;
@@ -645,7 +707,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         split_tf32(dk[8 * kPD1], ah[1], al[1]);
         split_tf32(dk[4], ah[2], al[2]);
         split_tf32(dk[8 * kPD1 + 4], ah[3], al[3]);
-        const float* xk = xs + (r + 7) * kBX + col + 7;
+        const float* xk = xs + r * kBX + col;
 #pragma unroll
         for (int jj = 0; jj < kJH; ++jj) {
           const int J = warp + 8 * (half * kJH + jj);  // n = 8 J + g
@@ -707,33 +769,47 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 extern "C" {
 
-// x (N, H, W, 16), w1 (2, 7, 7, 16, 8), w2 (2, 5, 5, 8), w3 (2, 3, 3),
-// alpha (2, 2), y (N, 2, H, W), all f32 and contiguous. Returns the
+// x (N, H, W, 16), wu (16, 784) = w1 (2, 7, 7, 16, 8) as [h, c][ky, kx, ci],
+// w2 (2, 5, 5, 8), w3 (2, 3, 3), alpha (2, 2), y (N, 2, H, W), u1 (N, H, W,
+// 16) or null (then no u1 is kept), all f32 and contiguous. Returns the
 // cudaError_t of the launch (0 on success); asynchronous on `stream`.
-int bpt_head_stack_fwd(const void* x, const void* w1, const void* w2,
-                       const void* w3, const void* alpha, void* y, int n,
-                       int h, int w, void* stream) {
+int bpt_head_stack_fwd(const void* x, const void* wu, const void* w2,
+                       const void* w3, const void* alpha, void* y, void* u1,
+                       int n, int h, int w, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+  const long long tiles =
+      (long long)n * ((h + kT - 1) / kT) * ((w + kT - 1) / kT);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int smem = kFwdSmemFloats * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       head_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + kT - 1) / kT, (h + kT - 1) / kT, n);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, head_fwd_kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long resident = (long long)sms * per_sm;
+  const int grid = (int)(tiles < resident ? tiles : resident);
   head_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1),
+      static_cast<const float*>(x), static_cast<const float*>(wu),
       static_cast<const float*>(w2), static_cast<const float*>(w3),
-      static_cast<const float*>(alpha), static_cast<float*>(y), h, w);
+      static_cast<const float*>(alpha), static_cast<float*>(y),
+      static_cast<float*>(u1), n, h, w);
   return (int)cudaGetLastError();
 }
 
-// x (N, H, W, 16), wu (16, 784) = w1 (2, 7, 7, 16, 8) as [h, c][ky, kx, ci],
-// wdx (16, 784) = w1 as [ci][ky, kx, h, c], w2, w3, alpha as above, dy
+// x (N, H, W, 16), u1 (N, H, W, 16) as bpt_head_stack_fwd keeps it, wdx
+// (16, 784) = w1 as [ci][ky, kx, h, c], w2, w3, alpha as above, dy
 // (N, 2, H, W); writes dx (N, H, W, 16) and the partials of the
 // N * ceil(H / 16) * ceil(ceil(W / 16) / 16) blocks
 // (bpt_head_stack_bwd_blocks):
 // dw1p (B, 2, 7, 7, 16, 8), dw2p (B, 2, 5, 5, 8), dw3p (B, 2, 3, 3),
 // dalp (B, 2, 2).
-int bpt_head_stack_bwd(const void* x, const void* wu, const void* wdx,
+int bpt_head_stack_bwd(const void* x, const void* u1, const void* wdx,
                        const void* w2, const void* w3, const void* alpha,
                        const void* dy, void* dx, void* dw1p, void* dw2p,
                        void* dw3p, void* dalp, int n, int h, int w,
@@ -747,7 +823,7 @@ int bpt_head_stack_bwd(const void* x, const void* wu, const void* wdx,
   const dim3 grid(((w + kT - 1) / kT + kWalk - 1) / kWalk, (h + kT - 1) / kT,
                   n);
   head_bwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wu),
+      static_cast<const float*>(x), static_cast<const float*>(u1),
       static_cast<const float*>(wdx), static_cast<const float*>(w2),
       static_cast<const float*>(w3), static_cast<const float*>(alpha),
       static_cast<const float*>(dy), static_cast<float*>(dx),

@@ -1,4 +1,4 @@
-// The inline PTX shared by the kernels (K1, K3-bwd, K4's backward):
+// The inline PTX shared by the kernels (K1, K3, K4's backward):
 // tensor-core products with mma.sync and asynchronous copies to shared
 // memory with cp.async. Nothing else in csrc/ holds inline assembly.
 //

@@ -1,12 +1,12 @@
 """What the compiler made of the tensor-core kernels: K1 (csrc/res_block.cu,
-f32 and bf16), K3-bwd (csrc/head_stack.cu) and K4's backward
+f32 and bf16), K3-fwd and K3-bwd (csrc/head_stack.cu) and K4's backward
 (csrc/conv_bn.cu).
 
     python -m baryon_painter_tpu_torch.kernel_report
 
 Builds the kernel library afresh (nvcc with ``-Xptxas -v``), then prints for
-each of those kernels' instantiations (K1 f32 and bf16; K3-bwd, with K3-fwd
-beside it; K4's bwd1, dx and dW): ptxas' registers and spills, the number
+each of those kernels' instantiations (K1 f32 and bf16; K3-fwd and K3-bwd;
+K4's bwd1, dx and dW): ptxas' registers and spills, the number
 of tensor-core instructions in its SASS (``HMMA`` from ``cuobjdump
 -sass``) by variant (``HMMA.1688.F32.TF32``, ``HMMA.16816.F32.BF16``) with
 one of them quoted, and each launch's shared memory per block in bytes (K1

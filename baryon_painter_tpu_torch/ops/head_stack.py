@@ -16,9 +16,15 @@ identity stays with the caller (``models/cvae.py``).
 
 ``head_stack`` is differentiable in all five inputs. On CUDA tensors its
 forward launches K3-fwd and its backward K3-bwd (``csrc/head_stack.cu``);
-anything the kernels do not take raises. On CPU tensors they are the plain
-versions, ``head_stack_ref`` and ``head_stack_bwd_ref``, which are also the
-tests' oracles and ``chip_smoke.py``'s comparison.
+anything the kernels do not take raises. K3-fwd runs conv7 of both heads as
+one GEMM on the tensor cores and, when a gradient will be taken, keeps u1,
+the conv7 pre-activation of both heads as (N, H, W, 16) f32 with channel
+8 h + c; K3-bwd reads that u1 (PReLU1's mask and conv5's input) instead of
+recomputing it. ``head_stack`` keeps u1 only under autograd with an input
+that requires a gradient, so painting (``torch.inference_mode``) allocates
+none. On CPU tensors the functions are the plain versions,
+``head_stack_ref`` and ``head_stack_bwd_ref``, which are also the tests'
+oracles and ``chip_smoke.py``'s comparison.
 """
 from __future__ import annotations
 
@@ -43,39 +49,51 @@ def _oihw(w):
     return w.permute(3, 2, 0, 1)
 
 
-def _chain(xc, w1, w2, a1, a2):
-    """One head's u1, act1, u2, act2 in NCHW."""
-    u1 = F.conv2d(xc, _oihw(w1), padding=w1.shape[0] // 2)
+def _chain(xc, w1, w2, a1, a2, u1=None):
+    """One head's u1, act1, u2, act2 in NCHW; u1 computed unless given."""
+    if u1 is None:
+        u1 = F.conv2d(xc, _oihw(w1), padding=w1.shape[0] // 2)
     v1 = _prelu(u1, a1)
     u2 = F.conv2d(v1, _oihw(w2), padding=w2.shape[0] // 2)
     return u1, v1, u2, _prelu(u2, a2)
 
 
-def head_stack_ref(x, w1, w2, w3, alphas):
+def head_stack_ref(x, w1, w2, w3, alphas, keep_u1: bool = False):
     """Plain PyTorch version of K3's forward: x (N, H, W, Cin) ->
-    (N, n_heads, H, W), a chain of ``F.conv2d`` per head."""
+    (N, n_heads, H, W), a chain of ``F.conv2d`` per head. With ``keep_u1``
+    returns (y, u1): u1 (N, H, W, n_heads * C1) the heads' conv7
+    pre-activations, channel C1 * h + c, in K3-fwd's layout."""
     xc = x.permute(0, 3, 1, 2)
-    out = []
+    out, u1s = [], []
     for h in range(w1.shape[0]):
-        _, _, _, v2 = _chain(xc, w1[h], w2[h], alphas[h, 0], alphas[h, 1])
+        u1, _, _, v2 = _chain(xc, w1[h], w2[h], alphas[h, 0], alphas[h, 1])
+        u1s.append(u1)
         out.append(F.conv2d(v2, _oihw(w3[h]),
                             padding=w3.shape[1] // 2)[:, 0])
-    return torch.stack(out, dim=1)
+    y = torch.stack(out, dim=1)
+    if not keep_u1:
+        return y
+    return y, torch.cat(u1s, dim=1).permute(0, 2, 3, 1).contiguous()
 
 
-def head_stack_bwd_ref(x, w1, w2, w3, alphas, dy):
+def head_stack_bwd_ref(x, w1, w2, w3, alphas, dy, u1=None):
     """Plain PyTorch version of K3's backward, written out as K3-bwd
-    computes it: recompute the chain, then per head the input and weight
-    gradients of conv3, prelu2, conv5, prelu1 and conv7, dx summed over the
-    heads. Returns (dx, dw1, dw2, dw3, dalphas) in the inputs' shapes."""
+    computes it: the chain from u1 (given, as ``head_stack_ref(...,
+    keep_u1=True)`` returns it, or recomputed when None), then per head the
+    input and weight gradients of conv3, prelu2, conv5, prelu1 and conv7, dx
+    summed over the heads. PReLU1's mask and conv5's input come from that
+    u1. Returns (dx, dw1, dw2, dw3, dalphas) in the inputs' shapes."""
     xc = x.permute(0, 3, 1, 2)
     dx = torch.zeros_like(xc)
     dws = ([], [], [])
     dal = []
+    c1 = w1.shape[-1]
     for h in range(w1.shape[0]):
         k1, k2, k3 = (w[h] for w in (w1, w2, w3))
         al1, al2 = alphas[h, 0], alphas[h, 1]
-        u1, v1, u2, v2 = _chain(xc, k1, k2, al1, al2)
+        kept = (None if u1 is None
+                else u1[..., c1 * h:c1 * (h + 1)].permute(0, 3, 1, 2))
+        u1h, v1, u2, v2 = _chain(xc, k1, k2, al1, al2, kept)
         g = dy[:, h:h + 1]
         p1, p2, p3 = k1.shape[0] // 2, k2.shape[0] // 2, k3.shape[0] // 2
         dw3 = conv2d_weight(v2, _oihw(k3).shape, g, padding=p3)
@@ -84,8 +102,8 @@ def head_stack_bwd_ref(x, w1, w2, w3, alphas, dy):
         dal2 = torch.where(u2 < 0, dv2 * u2, 0.0).sum()
         dw2 = conv2d_weight(v1, _oihw(k2).shape, du2, padding=p2)
         dv1 = conv2d_input(v1.shape, _oihw(k2), du2, padding=p2)
-        du1 = torch.where(u1 >= 0, dv1, al1 * dv1)
-        dal1 = torch.where(u1 < 0, dv1 * u1, 0.0).sum()
+        du1 = torch.where(u1h >= 0, dv1, al1 * dv1)
+        dal1 = torch.where(u1h < 0, dv1 * u1h, 0.0).sum()
         dw1 = conv2d_weight(xc, _oihw(k1).shape, du1, padding=p1)
         dx = dx + conv2d_input(xc.shape, _oihw(k1), du1, padding=p1)
         for lst, dw in zip(dws, (dw1, dw2, dw3)):
@@ -95,11 +113,12 @@ def head_stack_bwd_ref(x, w1, w2, w3, alphas, dy):
             torch.stack(dal))
 
 
-def _check_operands(fn, x, w1, w2, w3, alphas, dy=None):
+def _check_operands(fn, x, w1, w2, w3, alphas, dy=None, u1=None):
     """Raise on anything the kernels do not take."""
     tensors = {"x": x, "w1": w1, "w2": w2, "w3": w3, "alphas": alphas}
-    if dy is not None:
-        tensors["dy"] = dy
+    for name, t in (("dy", dy), ("u1", u1)):
+        if t is not None:
+            tensors[name] = t
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{fn}: {name} must be float32 (the kernels are "
@@ -115,9 +134,10 @@ def _check_operands(fn, x, w1, w2, w3, alphas, dy=None):
             raise ValueError(f"{fn}: {name} must be {shape}, got "
                              f"{tuple(tensors[name].shape)}")
     n, h, w, _ = x.shape
-    if dy is not None and tuple(dy.shape) != (n, 2, h, w):
-        raise ValueError(f"{fn}: dy must be {(n, 2, h, w)}, got "
-                         f"{tuple(dy.shape)}")
+    for name, shape in (("dy", (n, 2, h, w)), ("u1", (n, h, w, 16))):
+        if name in tensors and tuple(tensors[name].shape) != shape:
+            raise ValueError(f"{fn}: {name} must be {shape}, got "
+                             f"{tuple(tensors[name].shape)}")
 
 
 def _operand(t):
@@ -140,52 +160,74 @@ def _launch(fn, name, *args):
                            f"{lib.bpt_error_string(err).decode()} ({err})")
 
 
-def head_stack_fwd(x, w1, w2, w3, alphas):
-    """K3-fwd: (N, 2, H, W) head outputs, one kernel launch on the card.
+def gemm_weights(w1):
+    """The B operands of K3's 7x7 GEMMs from w1 (2, 7, 7, 16, 8): K3-fwd's
+    u1 GEMM wu (16, 784) = [h, c][ky, kx, ci] and K3-bwd's dx GEMM
+    wdx (16, 784) = [ci][ky, kx, h, c]."""
+    return _wu(w1), _wdx(w1)
+
+
+def _wu(w1):
+    return w1.permute(0, 4, 1, 2, 3).reshape(16, 784)
+
+
+def _wdx(w1):
+    return w1.permute(3, 1, 2, 0, 4).reshape(16, 784)
+
+
+def head_stack_fwd(x, w1, w2, w3, alphas, keep_u1: bool = False):
+    """K3-fwd: (N, 2, H, W) head outputs, one kernel launch on the card;
+    with ``keep_u1`` (y, u1), u1 (N, H, W, 16) as ``head_stack_ref``
+    returns it, for ``head_stack_bwd``.
 
     On CPU tensors this is ``head_stack_ref``. On CUDA tensors it launches
     the kernel on the current stream without synchronising and adds one to
-    ``head_stack_fwd.launches``; anything the kernel does not take (another
+    ``head_stack_fwd.launches``, and with ``keep_u1`` one to
+    ``head_stack_fwd.kept_u1``; anything the kernel does not take (another
     dtype, channel count or number of heads) raises."""
     if x.device.type == "cpu":
-        return head_stack_ref(x, w1, w2, w3, alphas)
+        return head_stack_ref(x, w1, w2, w3, alphas, keep_u1=keep_u1)
     if x.device.type != "cuda":
         raise ValueError(f"head_stack_fwd: unsupported device {x.device}")
     _check_operands("head_stack_fwd", x, w1, w2, w3, alphas)
     n, h, w, _ = x.shape
-    ops = [_operand(t) for t in (x, w1, w2, w3, alphas)]
-    y = torch.empty((n, 2, h, w), dtype=torch.float32, device=x.device)
-    _launch("head_stack_fwd", "bpt_head_stack_fwd", *ops, y, n, h, w)
+    ops = [_operand(t) for t in (x, _wu(w1), w2, w3, alphas)]
+    dev = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((n, 2, h, w), **dev)
+    u1 = torch.empty((n, h, w, 16), **dev) if keep_u1 else None
+    _launch("head_stack_fwd", "bpt_head_stack_fwd", *ops, y, u1, n, h, w)
     head_stack_fwd.launches += 1
-    return y
+    if not keep_u1:
+        return y
+    head_stack_fwd.kept_u1 += 1
+    return y, u1
 
 
 head_stack_fwd.launches = 0
+head_stack_fwd.kept_u1 = 0
 
 
-def gemm_weights(w1):
-    """K3-bwd's B operands from w1 (2, 7, 7, 16, 8): the u1 GEMM's
-    wu (16, 784) = [h, c][ky, kx, ci] and the dx GEMM's wdx (16, 784) =
-    [ci][ky, kx, h, c]."""
-    return (w1.permute(0, 4, 1, 2, 3).reshape(16, 784),
-            w1.permute(3, 1, 2, 0, 4).reshape(16, 784))
-
-
-def head_stack_bwd(x, w1, w2, w3, alphas, dy):
-    """K3-bwd: (dx, dw1, dw2, dw3, dalphas), one kernel launch on the card.
+def head_stack_bwd(x, w1, w2, w3, alphas, dy, u1=None):
+    """K3-bwd: (dx, dw1, dw2, dw3, dalphas), one kernel launch on the card,
+    from u1 as ``head_stack_fwd(..., keep_u1=True)`` kept it.
 
     The kernel writes dx and per-block partial sums of the weight and slope
     gradients, summed here (deterministic: no atomics). On CPU tensors this
-    is ``head_stack_bwd_ref``. On CUDA tensors it launches on the current
-    stream without synchronising and adds one to
-    ``head_stack_bwd.launches``; anything the kernel does not take raises."""
+    is ``head_stack_bwd_ref``, which recomputes u1 when none is given. On
+    CUDA tensors u1 is required; the kernel launches on the current stream
+    without synchronising and adds one to ``head_stack_bwd.launches``;
+    anything the kernel does not take raises."""
     if x.device.type == "cpu":
-        return head_stack_bwd_ref(x, w1, w2, w3, alphas, dy)
+        return head_stack_bwd_ref(x, w1, w2, w3, alphas, dy, u1=u1)
     if x.device.type != "cuda":
         raise ValueError(f"head_stack_bwd: unsupported device {x.device}")
-    _check_operands("head_stack_bwd", x, w1, w2, w3, alphas, dy)
+    if u1 is None:
+        raise ValueError("head_stack_bwd: u1 is required on the card (K3-bwd "
+                         "reads the u1 that head_stack_fwd(..., "
+                         "keep_u1=True) keeps)")
+    _check_operands("head_stack_bwd", x, w1, w2, w3, alphas, dy, u1)
     n, h, w, _ = x.shape
-    ops = [_operand(t) for t in (x, *gemm_weights(w1), w2, w3, alphas, dy)]
+    ops = [_operand(t) for t in (x, u1, _wdx(w1), w2, w3, alphas, dy)]
     from baryon_painter_tpu_torch.ops._build import load_library
     blocks = load_library().bpt_head_stack_bwd_blocks(n, h, w)
     dev = dict(dtype=torch.float32, device=x.device)
@@ -205,13 +247,18 @@ head_stack_bwd.launches = 0
 
 class _HeadStack(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, w2, w3, alphas):
-        ctx.save_for_backward(x, w1, w2, w3, alphas)
-        return head_stack_fwd(x, w1, w2, w3, alphas)
+    def forward(ctx, x, w1, w2, w3, alphas, keep_u1):
+        if not keep_u1:
+            return head_stack_fwd(x, w1, w2, w3, alphas)
+        y, u1 = head_stack_fwd(x, w1, w2, w3, alphas, keep_u1=True)
+        ctx.save_for_backward(x, w1, w2, w3, alphas, u1)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        return head_stack_bwd(*ctx.saved_tensors, dy.contiguous())
+        x, w1, w2, w3, alphas, u1 = ctx.saved_tensors
+        return (*head_stack_bwd(x, w1, w2, w3, alphas, dy.contiguous(),
+                                u1=u1), None)
 
 
 def head_stack(x, w1, w2, w3, alphas):
@@ -221,5 +268,8 @@ def head_stack(x, w1, w2, w3, alphas):
     5, C1, 1), w3: (n_heads, 3, 3, 1, 1) HWIO; alphas: (n_heads, 2) PReLU
     slopes. Returns (N, n_heads, H, W): each head's last conv output,
     before its final activation. Forward K3-fwd, backward K3-bwd on the
-    card; the plain versions on the CPU."""
-    return _HeadStack.apply(x, w1, w2, w3, alphas)
+    card; the plain versions on the CPU. u1 is kept for the backward only
+    where one can follow: gradients enabled and an input requiring one."""
+    keep_u1 = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, w1, w2, w3, alphas))
+    return _HeadStack.apply(x, w1, w2, w3, alphas, keep_u1)

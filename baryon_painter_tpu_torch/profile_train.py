@@ -13,7 +13,8 @@ with K3's heads, the train-mode conv + batch norm + ReLU triples through
 cuDNN and the port's BatchNorm (``fused_train_conv=False``) and through K4
 (``fused_train_conv=True``). For
 each it prints ms per step (host clock around steps that end in a
-synchronise) and samples/s; then, per variant, from one torch.profiler
+synchronise), samples/s and the peak device memory allocated over the run
+(both variants' trainers are resident); then, per variant, from one torch.profiler
 window (CUDA activity only) over ``iters`` steps, the device time by kernel
 and the device's idle share, 1 - (union of device intervals per step) /
 (ms per step); and the device time of each stage (CUDA events: batch
@@ -165,6 +166,7 @@ def main():
     first, second = variants
     for label in (first, second, second, first):
         idx = draw(args.iters)
+        torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         _steps(trainers[label], idx, args.lr)
         torch.cuda.synchronize()
@@ -172,10 +174,13 @@ def main():
         heads, k4 = variants[label]
         run = {"variant": label, "fused_heads": heads,
                "fused_train_conv": k4, "step_ms": ms,
-               "samples_per_s": args.batch / ms * 1e3}
+               "samples_per_s": args.batch / ms * 1e3,
+               "peak_memory_gb": torch.cuda.max_memory_allocated(device)
+               / 1e9}
         print(f"{label} (fused_heads={heads}, fused_train_conv={k4}): "
               f"{ms:.3f} ms per step of batch {args.batch}, "
-              f"{run['samples_per_s']:.2f} samples/s ({card})", flush=True)
+              f"{run['samples_per_s']:.2f} samples/s, peak device memory "
+              f"{run['peak_memory_gb']:.3f} GB ({card})", flush=True)
         record["runs"].append(run)
     for label in variants:
         step_ms = min(r["step_ms"] for r in record["runs"]

@@ -16,20 +16,24 @@ that fails raises.
   5. the training data: synthetic stacks and the tile dataset
   6. K2 against its plain version (bit for bit), timed with a library
      yardstick
-  7. K3 forward and backward against their plain versions, timed with
-     cuDNN's heads as the yardstick; K3-bwd's bound on the tensor cores
-     (3xTF32) beside the CUDA-core one
+  7. K3 forward (y, and the u1 it keeps for the backward) and backward
+     (from that u1) against their plain versions, timed with and without
+     u1 kept and with cuDNN's heads as the yardstick; both kernels' bounds
+     on the tensor cores (3xTF32) beside the CUDA-core ones
   8. train: steps of the CVAE trainer with the batch gathered by K2 and the
-     heads through K3 (one launch of each per step), timed; a step with the
-     kernels against a step with the plain versions from the same start
-  9. paint the golden with the heads through K3 (one K3-fwd launch), timed
+     heads through K3 (one launch of each per step, u1 kept between them),
+     timed, with the step's peak device memory; a step with the kernels
+     against a step with the plain versions from the same start
+  9. paint the golden with the heads through K3 (one K3-fwd launch, no u1
+     kept), timed
  10. K4 (stats, fwd, bwd1, bwd2) against its plain version at the four
      fused sites of the fiducial training step (the backward on the raw
      cotangent with K4's ReLU mask, and on a kink-zeroed one), the backward
      pair's peak memory, timed with cuDNN's conv, the port's BatchNorm and
      ReLU as the yardstick
  11. train with K4 as well (``fused_train_conv=True``: 4 launches of each
-     K4 kernel per step at 512^2), timed beside phase 8's step; 11b a step
+     K4 kernel per step at 512^2), timed beside phase 8's step, with its
+     peak device memory; 11b a step
      with every kernel against a plain step from the same start
  12. repaint the golden with PyTorch's default TF32 setting (cuDNN TF32 on)
      for the record, and with the painter's pinned f32, which must pass
@@ -223,6 +227,7 @@ _COUNTED = {"k1": res_block_infer, "k2": gather_tiles,
 def _reset_launches():
     for fn in _COUNTED.values():
         fn.launches = 0
+    head_stack_fwd.kept_u1 = 0
 
 
 def _launches() -> dict:
@@ -423,10 +428,11 @@ def time_main_path(device, painter, card=None, n_tiles: int = 16,
 TRAIN_TILE = 512
 TRAIN_BATCH = 24
 N_RES_BLOCKS = 4
-# tolerances on max|kernel - plain| / max|plain|: the outputs and dx differ
-# by summation order only; the weight and slope gradients sum 6.3 M pixels
-K3_TOL = {"y": 1e-4, "dx": 1e-4, "dw1": 1e-3, "dw2": 1e-3, "dw3": 1e-3,
-          "dalphas": 1e-3}
+# tolerances on max|kernel - plain| / max|plain|: the outputs, the kept u1
+# and dx differ by summation order only; the weight and slope gradients sum
+# 6.3 M pixels
+K3_TOL = {"y": 1e-4, "u1": 1e-4, "dx": 1e-4, "dw1": 1e-3, "dw2": 1e-3,
+          "dw3": 1e-3, "dalphas": 1e-3}
 # the kernels-vs-plain training step: the loss, relative; every parameter's
 # gradient as the weight gradients above, relative to its own largest entry;
 # only the parameters of STEP_GRAD_ZERO are held instead to STEP_GRAD_FLOOR
@@ -460,10 +466,9 @@ K4_SITES = {
 K4_KERNELS = ("stats", "fwd", "bwd1", "bwd2")
 # operations per pixel and head: forward conv7 16->8, conv5 8->1, conv3 1->1
 _HEAD_FWD_OPS = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3)
-# backward: the recomputed u1, u2 and the input and weight gradients of the
-# three convs
-_HEAD_BWD_OPS = (2 * (7 * 7 * 16 * 8 + 5 * 5 * 8)
-                 + 2 * 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3))
+# backward, from the u1 the forward keeps: u2 recomputed and the input and
+# weight gradients of the three convs
+_HEAD_BWD_OPS = 2 * 5 * 5 * 8 + 2 * 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3)
 
 
 def training_data(tile: int = TRAIN_TILE):
@@ -600,8 +605,9 @@ def kink_free_cotangent(x, w1, w2, w3, alphas, dy, rel: float = KINK_REL):
 # every weight gradient
 K3_TILE = 16
 K3_WALK = 16
-# the 7x7 GEMMs of K3-bwd per pixel and head: u1 recomputed, dx, dw1
-_HEAD_BWD_GEMM_OPS = 3 * 2 * 7 * 7 * 16 * 8
+# the 7x7 GEMMs per pixel and head: K3-fwd's u1; K3-bwd's dx and dw1
+_HEAD_FWD_GEMM_OPS = 2 * 7 * 7 * 16 * 8
+_HEAD_BWD_GEMM_OPS = 2 * 2 * 7 * 7 * 16 * 8
 
 
 def k3_bwd_blocks(n: int, h: int, w: int) -> int:
@@ -610,26 +616,31 @@ def k3_bwd_blocks(n: int, h: int, w: int) -> int:
     return n * -(-h // K3_TILE) * -(-tiles_x // K3_WALK)
 
 
-def k3_bounds(n: int, h: int, w: int) -> dict:
+def k3_bounds(n: int, h: int, w: int, keep_u1: bool = True) -> dict:
     """Least times of K3-fwd and K3-bwd: their operations (both heads) over
-    the f32 CUDA-core rate, against x, dy, y, dx and the weights moved
-    once. ``bwd_tc`` bounds K3-bwd as it computes: its three 7x7 GEMMs per
-    pixel (u1, dx, dw1) at the 3xTF32 tensor-core rate plus the rest (the
-    5x5 and 3x3 convs, their gradients) on the CUDA cores, against x and
-    dy read, dx written and each block's weight-gradient partials
-    written."""
+    the f32 CUDA-core rate, against x, dy, y, dx, the kept u1 (written by
+    the forward when ``keep_u1``, as in training; read by the backward) and
+    the weights moved once. ``fwd_tc`` and ``bwd_tc`` bound the kernels as
+    they compute: the 7x7 GEMMs per pixel (the forward's u1; the
+    backward's dx and dw1) at the 3xTF32 tensor-core rate plus the rest
+    (the 5x5 and 3x3 convs, their gradients) on the CUDA cores; the
+    backward's bytes also count each block's weight-gradient partials."""
     pix = n * h * w
     weights = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3 + 2) * 4
-    gemm = 2 * pix * _HEAD_BWD_GEMM_OPS
-    return {"fwd": _bound(2 * pix * _HEAD_FWD_OPS,
-                          pix * (16 + 2) * 4 + weights),
-            "bwd": _bound(2 * pix * _HEAD_BWD_OPS,
-                          pix * (16 + 2 + 16) * 4 + 2 * weights),
+    fwd_bytes = pix * (16 + 2 + (16 if keep_u1 else 0)) * 4 + weights
+    bwd_bytes = pix * (16 + 16 + 2 + 16) * 4 + weights
+    fwd_gemm = 2 * pix * _HEAD_FWD_GEMM_OPS
+    bwd_gemm = 2 * pix * _HEAD_BWD_GEMM_OPS
+    f32 = PEAK_FLOPS[torch.float32]
+    return {"fwd": _bound(2 * pix * _HEAD_FWD_OPS, fwd_bytes),
+            "fwd_tc": _mixed_bound(
+                [(fwd_gemm, PEAK_3XTF32),
+                 (2 * pix * _HEAD_FWD_OPS - fwd_gemm, f32)], fwd_bytes),
+            "bwd": _bound(2 * pix * _HEAD_BWD_OPS, bwd_bytes + weights),
             "bwd_tc": _mixed_bound(
-                [(gemm, PEAK_3XTF32),
-                 (2 * pix * _HEAD_BWD_OPS - gemm, PEAK_FLOPS[torch.float32])],
-                pix * (16 + 2 + 16) * 4 + weights
-                + k3_bwd_blocks(n, h, w) * weights)}
+                [(bwd_gemm, PEAK_3XTF32),
+                 (2 * pix * _HEAD_BWD_OPS - bwd_gemm, f32)],
+                bwd_bytes + k3_bwd_blocks(n, h, w) * weights)}
 
 
 def library_heads(xc, w1, w2, w3, alphas):
@@ -649,52 +660,63 @@ def library_heads(xc, w1, w2, w3, alphas):
 
 def check_heads(device, shape=(TRAIN_BATCH, TRAIN_TILE, TRAIN_TILE),
                 iters: int = 5) -> dict:
-    """Phase 7: K3-fwd and K3-bwd against their plain versions at the
-    training shape, with the tolerances of K3_TOL, the backward on a
-    cotangent free of PReLU's kink (``kink_free_cotangent``); each timed,
-    beside cuDNN's unfused heads forward and (under autograd) backward."""
+    """Phase 7: K3-fwd (y and the u1 it keeps) and K3-bwd (from that u1)
+    against their plain versions at the training shape, with the
+    tolerances of K3_TOL: the plain backward takes the kernel's u1, so both
+    take PReLU1's branch from the same pre-activation; the cotangent is free
+    of u2's kink (``kink_free_cotangent``), which both recompute. The
+    forward without u1 (painting) must give the same y. Each timed, the
+    forward with and without u1 kept, beside cuDNN's unfused heads forward
+    and (under autograd) backward."""
     t0 = time.perf_counter()
     device = torch.device(device)
     x, w1, w2, w3, al, dy = head_inputs(*shape, device)
     with torch.no_grad():
         dy_check, zeroed = kink_free_cotangent(x, w1, w2, w3, al, dy)
-    got = (head_stack_fwd(x, w1, w2, w3, al),
-           *head_stack_bwd(x, w1, w2, w3, al, dy_check))
-    want = (head_stack_ref(x, w1, w2, w3, al),
-            *head_stack_bwd_ref(x, w1, w2, w3, al, dy_check))
+    y, u1 = head_stack_fwd(x, w1, w2, w3, al, keep_u1=True)
+    y_paint = head_stack_fwd(x, w1, w2, w3, al)
+    got = dict(zip(K3_TOL, (y, u1, *head_stack_bwd(x, w1, w2, w3, al,
+                                                   dy_check, u1=u1))))
+    y_ref, u1_ref = head_stack_ref(x, w1, w2, w3, al, keep_u1=True)
+    want = dict(zip(K3_TOL, (y_ref, u1_ref, *head_stack_bwd_ref(
+        x, w1, w2, w3, al, dy_check, u1=u1))))
     _sync(device)
-    errs, abs_errs = {}, {}
-    for name, a, b in zip(K3_TOL, got, want):
-        errs[name] = _rel_err(a, b)
-        abs_errs[name] = (a - b).abs().max().item()
-    del got, want
-    print(f"  K3 cotangent zeroed near the kink: {zeroed:.3e} of dy",
+    same_y = torch.equal(y_paint, y)
+    errs = {k: _rel_err(got[k], want[k]) for k in K3_TOL}
+    abs_errs = {k: (got[k] - want[k]).abs().max().item() for k in K3_TOL}
+    del got, want, y_paint, y_ref, u1_ref
+    print(f"  K3 cotangent zeroed near PReLU's kink: {zeroed:.3e} of dy",
           flush=True)
     for name, err in errs.items():
         print(f"  K3 {name}: max|k-ref|/max|ref|={err:.3e} "
               f"tol={K3_TOL[name]:.0e}", flush=True)
     bad = {k: v for k, v in errs.items() if not v <= K3_TOL[k]}
-    if bad:
-        raise AssertionError(f"K3 disagrees with its plain version: {bad}")
+    if bad or not same_y:
+        raise AssertionError(f"K3 disagrees with its plain version: {bad}; "
+                             f"y without u1 kept equals y with: {same_y}")
     oihw = lambda w: w.permute(0, 4, 3, 1, 2).contiguous()
     xc = x.permute(0, 3, 1, 2).contiguous()
     lib_args = [t.clone().requires_grad_() for t in
                 (xc, oihw(w1), oihw(w2), oihw(w3), al)]
     out = {"errors": errs, "abs_errors": abs_errs, "kink_zeroed": zeroed,
-           **{f"{k}_bound": v for k, v in
-                              k3_bounds(*shape).items()}}
+           **{f"{k}_bound": v for k, v in k3_bounds(*shape).items()}}
     with torch.no_grad():
-        out["fwd_ms"] = _time_ms(lambda: head_stack_fwd(x, w1, w2, w3, al),
-                                 device, 1, iters)
+        out["fwd_ms"] = _time_ms(
+            lambda: head_stack_fwd(x, w1, w2, w3, al, keep_u1=True), device,
+            1, iters)
+        out["fwd_without_u1_ms"] = _time_ms(
+            lambda: head_stack_fwd(x, w1, w2, w3, al), device, 1, iters)
         out["fwd_plain_ms"] = _time_ms(
-            lambda: head_stack_ref(x, w1, w2, w3, al), device, 1, iters)
+            lambda: head_stack_ref(x, w1, w2, w3, al, keep_u1=True), device,
+            1, iters)
         out["fwd_library_ms"] = _time_ms(lambda: library_heads(*lib_args),
                                          device, 1, iters)
         out["bwd_ms"] = _time_ms(
-            lambda: head_stack_bwd(x, w1, w2, w3, al, dy), device, 1, iters)
-        out["bwd_plain_ms"] = _time_ms(
-            lambda: head_stack_bwd_ref(x, w1, w2, w3, al, dy), device, 1,
+            lambda: head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1), device, 1,
             iters)
+        out["bwd_plain_ms"] = _time_ms(
+            lambda: head_stack_bwd_ref(x, w1, w2, w3, al, dy, u1=u1), device,
+            1, iters)
     y = library_heads(*lib_args)
     out["bwd_library_ms"] = _time_ms(
         lambda: torch.autograd.grad(y, lib_args, dy, retain_graph=True),
@@ -702,9 +724,11 @@ def check_heads(device, shape=(TRAIN_BATCH, TRAIN_TILE, TRAIN_TILE),
     del y
     _line(7, "k3_vs_plain", t0, shape=list(shape),
           fwd_ms=f"{out['fwd_ms']:.3f}",
+          fwd_without_u1_ms=f"{out['fwd_without_u1_ms']:.3f}",
           fwd_plain_ms=f"{out['fwd_plain_ms']:.3f}",
           fwd_library_ms=f"{out['fwd_library_ms']:.3f}",
-          fwd_bound_ms=f"{out['fwd_bound']['bound_ms']:.3f}",
+          fwd_bound_ms_3xtf32=f"{out['fwd_tc_bound']['bound_ms']:.3f}",
+          fwd_bound_ms_cuda_cores=f"{out['fwd_bound']['bound_ms']:.3f}",
           bwd_ms=f"{out['bwd_ms']:.3f}",
           bwd_plain_ms=f"{out['bwd_plain_ms']:.3f}",
           bwd_library_ms=f"{out['bwd_library_ms']:.3f}",
@@ -743,10 +767,10 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
     the device through K2, heads through K3, and with ``fused_train_conv``
     the gated conv + batch norm + ReLU triples through K4) from the port's
     own initialisation. Per timed step on the card exactly one K2, K3-fwd
-    and K3-bwd launch and, with K4, ``k4_sites_per_step`` of each K4
-    kernel; finite metrics; the parameters change. Host clock around steps
-    that end in a synchronise; ``k4_off_ms`` (phase 8's step) is printed
-    beside."""
+    (keeping u1) and K3-bwd launch and, with K4, ``k4_sites_per_step`` of
+    each K4 kernel; finite metrics; the parameters change. Host clock
+    around steps that end in a synchronise; the peak device memory of the
+    timed steps; ``k4_off_ms`` (phase 8's step) is printed beside."""
     t0 = time.perf_counter()
     device = torch.device(device)
     trainer = make_trainer(device, dataset, True, n_res_blocks=n_res_blocks,
@@ -757,12 +781,16 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
     for i in range(warmup):
         trainer.step_indices(idx[i], lr)
     _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     _reset_launches()
     t1 = time.perf_counter()
     metrics = [trainer.step_indices(idx[warmup + i], lr)
                for i in range(iters)]
     _sync(device)
     step_ms = (time.perf_counter() - t1) * 1e3 / iters
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
     counts = _launches()
     n = iters if device.type == "cuda" else 0
     want = {"k2": n, "k3_fwd": n, "k3_bwd": n}
@@ -770,6 +798,9 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
         sites = k4_sites_per_step(dataset.tile_size)
         want.update({f"k4_{k}": sites * n for k in K4_KERNELS})
     _expect_launches("train", counts, want)
+    if head_stack_fwd.kept_u1 != n:
+        raise AssertionError(f"train: K3-fwd kept u1 in "
+                             f"{head_stack_fwd.kept_u1} of {n} launches")
     finite = all(bool(torch.isfinite(v).all()) for m in metrics
                  for v in m.values())
     changed = any(not torch.equal(a, b) for a, b in zip(before,
@@ -778,7 +809,7 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
         raise AssertionError(f"training: finite metrics {finite}, "
                              f"parameters changed {changed}")
     out = {"step_ms": step_ms, "samples_per_s": batch / step_ms * 1e3,
-           "batch": batch, "launches": counts,
+           "batch": batch, "launches": counts, "peak_bytes": peak,
            "elbo": [float(m["elbo"]) for m in metrics]}
     extra = {}
     if fused_train_conv and k4_off_ms is not None:
@@ -789,6 +820,8 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
           clock="host_clock_after_sync", card=json.dumps(card), batch=batch,
           steps=iters, step_ms=f"{step_ms:.3f}",
           samples_per_s=f"{out['samples_per_s']:.2f}", **extra,
+          peak_memory_gb=(f"{peak / 1e9:.3f}" if peak is not None
+                          else "not_measured_on_cpu"),
           launches=json.dumps(counts),
           elbo_first_last=f"{out['elbo'][0]:.4f},{out['elbo'][-1]:.4f}")
     return out
@@ -1000,13 +1033,19 @@ def paint_fused_heads(device, card=None, heads_unfused_ms=None,
     """Phase 9, a main path: the golden painted with the heads through K3
     (``CVAEPainter(fused_inference=True, fused_heads=True)``: 4 K1 and 1
     K3-fwd launches a call), then timed as phase 4 times the painter with
-    cuDNN's heads (``heads_unfused_ms``)."""
+    cuDNN's heads (``heads_unfused_ms``). Painting keeps no u1: no K3-fwd
+    launch of the golden or the timed calls writes one."""
     t0 = time.perf_counter()
     device = torch.device(device)
     paint = paint_golden(device, fused_heads=True, phase=9)
     ms = paint_time_ms(device, paint["painter"], n_tiles, warmup, iters)
+    if head_stack_fwd.kept_u1:   # counted since the golden's launch
+        raise AssertionError(f"paint: K3-fwd kept u1 in "
+                             f"{head_stack_fwd.kept_u1} launches; painting "
+                             f"keeps none")
     _line(9, "paint_timing_fused_heads", t0, card=json.dumps(card),
           paint_ms=f"{ms:.3f}", n_tiles=n_tiles,
+          k3_fwd_launches_keeping_u1=head_stack_fwd.kept_u1,
           tiles_per_s=f"{n_tiles / ms * 1e3:.2f}",
           paint_ms_cudnn_heads=(f"{heads_unfused_ms:.3f}"
                                 if heads_unfused_ms is not None else None))
@@ -1336,24 +1375,29 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     """The ``{"kernels": [...]}`` record of the run: K1 at the main path's
     dtype (f32), its bf16 numbers beside it; K2, K3-fwd and K3-bwd with
     their launches in the timed training steps; K4's four kernels
-    (``k4_record``). K1 and K3-bwd run on the tensor cores: their bound is
-    the tensor-core one (``k1_bound``'s ``tc``, ``k3_bounds``' ``bwd_tc``),
-    the f32 CUDA-core one beside it."""
+    (``k4_record``). K1 and K3 run on the tensor cores: their bound is the
+    tensor-core one (``k1_bound``'s ``tc``, ``k3_bounds``' ``fwd_tc`` and
+    ``bwd_tc``), the f32 CUDA-core one beside it. K3-fwd's times are with
+    u1 kept, as the training steps that count its launches run it; without
+    u1 (painting) beside them."""
     f32 = next(c for c in checks if c["dtype"] == "float32")
     bf16 = next(c for c in checks if c["dtype"] == "bfloat16")
-    def k3(name, key, replaces, bound):
+    def k3(name, key, replaces):
+        d = key[3:]
         return {"name": name, "route": "cuda", "source": K3_SOURCE,
                 "replaces": replaces, "launches": training["launches"][key],
                 "max_abs_err": heads["abs_errors"][
                     "y" if key == "k3_fwd" else "dx"],
-                "ms": heads[f"{key[3:]}_ms"],
-                "plain_ms": heads[f"{key[3:]}_plain_ms"],
-                "bound_ms": heads[bound]["bound_ms"],
-                "bound_by": heads[bound]["bound_by"],
-                "library_ms": heads[f"{key[3:]}_library_ms"]}
+                "ms": heads[f"{d}_ms"],
+                "plain_ms": heads[f"{d}_plain_ms"],
+                "bound_ms": heads[f"{d}_tc_bound"]["bound_ms"],
+                "bound_by": heads[f"{d}_tc_bound"]["bound_by"],
+                "library_ms": heads[f"{d}_library_ms"],
+                "bound_ms_f32_cuda_cores": heads[f"{d}_bound"]["bound_ms"]}
 
-    k3_bwd = k3("head_stack_bwd", "k3_bwd", K3_BWD_REPLACES, "bwd_tc_bound")
-    k3_bwd["bound_ms_f32_cuda_cores"] = heads["bwd_bound"]["bound_ms"]
+    k3_fwd = k3("head_stack_fwd", "k3_fwd", K3_FWD_REPLACES)
+    k3_fwd["u1_max_abs_err"] = heads["abs_errors"]["u1"]
+    k3_fwd["ms_without_u1"] = heads["fwd_without_u1_ms"]
     k1_f32 = timing["bound_float32"]
     return {"kernels": [{
         "name": "res_block_infer", "route": "cuda", "source": K1_SOURCE,
@@ -1373,6 +1417,5 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
         "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
         "bound_by": gather["bound_by"], "library_ms": gather["library_ms"]},
-        k3("head_stack_fwd", "k3_fwd", K3_FWD_REPLACES, "fwd_bound"),
-        k3_bwd,
+        k3_fwd, k3("head_stack_bwd", "k3_bwd", K3_BWD_REPLACES),
         *k4_record(conv_bn, training_k4)]}

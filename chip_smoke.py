@@ -6,13 +6,15 @@
 Builds the kernels (K1, the fused residual block; K2, the training tile
 gather; K3, the fused output heads forward and backward; K4, the fused
 train-mode conv + batch norm + ReLU; csrc/*.cu) with
-nvcc, holds each against its plain PyTorch version, and drives the port's
+nvcc, holds each against its plain PyTorch version (K3-fwd also on the u1 it
+keeps for K3-bwd in training), and drives the port's
 two main paths on the card: painting the committed 512^2 golden through
 ``CVAEPainter(fused_inference=True)`` (K1 must launch exactly 4 times, and
 with ``fused_heads=True`` K3-fwd once more), and training the fiducial CVAE
 at batch 24 on synthetic stacks with the batch gathered on the card through
-K2 and the heads through K3 (exactly one launch of each per step), with a
-kernels-vs-plain training step; then K4 (the fused train-mode conv + batch
+K2 and the heads through K3 (exactly one launch of each per step; painting
+keeps no u1), with the step's peak device memory and a kernels-vs-plain
+training step; then K4 (the fused train-mode conv + batch
 norm + ReLU, four kernels) against its plain version at its four sites, the
 same training with K4 too (exactly 4 launches of each K4 kernel per step)
 and its kernels-vs-plain step, and the golden repainted with PyTorch's

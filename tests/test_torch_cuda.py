@@ -14,10 +14,11 @@ card, which has no JAX; there, skip the JAX-importing conftest:
 Tolerances: f32 K1 differs from the plain version only by summation order
 (max|diff| <= 1e-4 max|plain|); bf16 also by where the intermediate rounds
 (2e-2); the painter by the golden test's own rtol 5e-3. K2 is a copy: bit
-for bit. K3's outputs and dx differ by summation order (1e-4 of the largest
-entry), its weight and slope gradients sum over every pixel (1e-3); its
-backward is compared on a cotangent that reaches no pre-activation within
-summation noise of PReLU's kink, where the two may take different branches.
+for bit. K3's outputs, the u1 it keeps and dx differ by summation order
+(1e-4 of the largest entry), its weight and slope gradients sum over every
+pixel (1e-3); its backward is compared with the plain backward given the
+kernel's u1, on a cotangent that reaches no u2 within summation noise of
+PReLU's kink, where the two may take different branches.
 K4 as ``smoke.K4_TOL`` (summation order: 1e-4 for y, the statistics and dx,
 1e-3 for the sums over every pixel); its backward (3xTF32 on the tensor
 cores) on the raw cotangent, the plain version taking K4's statistics and
@@ -191,22 +192,29 @@ def test_device_cache_on_the_card_matches_the_cpu(cuda_device):
 
 
 @pytest.mark.parametrize("shape", [(2, 32, 32), (3, 37, 45), (1, 16, 16),
-                                   (4, 512, 512)],
+                                   (1, 12, 20), (4, 512, 512)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_k3_matches_plain_version(cuda_device, shape):
-    """Whole and ragged tiles, one tile, and the training resolution; the
-    cotangent zeroed where it would reach PReLU's kink
-    (``smoke.kink_free_cotangent``)."""
+    """Whole and ragged tiles, one tile, a partial tile at every image edge
+    (1, 12, 20) and the training resolution: K3-fwd's y and kept u1, and
+    K3-bwd from that u1 against the plain backward given the same u1; the
+    cotangent zeroed where it would reach u2's kink
+    (``smoke.kink_free_cotangent``). Without u1 kept K3-fwd gives the same
+    y."""
     x, w1, w2, w3, al, dy = smoke.head_inputs(*shape, cuda_device)
     dy, _ = smoke.kink_free_cotangent(x, w1, w2, w3, al, dy)
     f0, b0 = k3.head_stack_fwd.launches, k3.head_stack_bwd.launches
-    got = (k3.head_stack_fwd(x, w1, w2, w3, al),
-           *k3.head_stack_bwd(x, w1, w2, w3, al, dy))
-    want = (k3.head_stack_ref(x, w1, w2, w3, al),
-            *k3.head_stack_bwd_ref(x, w1, w2, w3, al, dy))
+    kept0 = k3.head_stack_fwd.kept_u1
+    y, u1 = k3.head_stack_fwd(x, w1, w2, w3, al, keep_u1=True)
+    y_paint = k3.head_stack_fwd(x, w1, w2, w3, al)
+    got = (y, u1, *k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1))
+    want = (*k3.head_stack_ref(x, w1, w2, w3, al, keep_u1=True),
+            *k3.head_stack_bwd_ref(x, w1, w2, w3, al, dy, u1=u1))
     torch.cuda.synchronize()
-    assert k3.head_stack_fwd.launches == f0 + 1
+    assert k3.head_stack_fwd.launches == f0 + 2
+    assert k3.head_stack_fwd.kept_u1 == kept0 + 1
     assert k3.head_stack_bwd.launches == b0 + 1
+    assert torch.equal(y_paint, y)
     for name, a, b in zip(smoke.K3_TOL, got, want):
         assert a.shape == b.shape, name
         assert _max_rel_err(a, b) <= smoke.K3_TOL[name], name
@@ -214,24 +222,42 @@ def test_k3_matches_plain_version(cuda_device, shape):
 
 def test_k3_autograd_on_the_card_matches_autograd_of_the_plain_version(
         cuda_device):
+    """head_stack under autograd keeps u1 (one K3-fwd launch writing it) and
+    its backward is one K3-bwd launch from that u1."""
     args = smoke.head_inputs(2, 48, 32, cuda_device, seed=3)
     dy, _ = smoke.kink_free_cotangent(*args)
     grads = []
+    kept0, b0 = k3.head_stack_fwd.kept_u1, k3.head_stack_bwd.launches
     for fn in (k3.head_stack, k3.head_stack_ref):
         leaves = [a.clone().requires_grad_() for a in args[:-1]]
         (fn(*leaves) * dy).sum().backward()
         grads.append([a.grad for a in leaves])
+    assert k3.head_stack_fwd.kept_u1 == kept0 + 1
+    assert k3.head_stack_bwd.launches == b0 + 1
     for name, a, b in zip(("dx", "dw1", "dw2", "dw3", "dalphas"), *grads):
         assert _max_rel_err(a, b) <= smoke.K3_TOL[name], name
+
+
+def test_k3_keeps_no_u1_without_autograd(cuda_device):
+    x, w1, w2, w3, al, _ = smoke.head_inputs(1, 20, 20, cuda_device)
+    kept0, f0 = k3.head_stack_fwd.kept_u1, k3.head_stack_fwd.launches
+    leaves = [t.requires_grad_() for t in (w1, w2, w3, al)]
+    with torch.inference_mode():
+        k3.head_stack(x, *leaves)
+    with torch.no_grad():
+        k3.head_stack(x, *leaves)
+    assert k3.head_stack_fwd.launches == f0 + 2
+    assert k3.head_stack_fwd.kept_u1 == kept0
 
 
 def test_k3_bwd_is_deterministic(cuda_device):
     """K3-bwd's weight gradients are per-block partials summed in torch, no
     atomics: two calls are bit-identical (a row of 19 tiles, so two blocks
     walk each tile row)."""
-    args = smoke.head_inputs(2, 40, 300, cuda_device, seed=5)
-    first = k3.head_stack_bwd(*args)
-    again = k3.head_stack_bwd(*args)
+    x, w1, w2, w3, al, dy = smoke.head_inputs(2, 40, 300, cuda_device, seed=5)
+    _, u1 = k3.head_stack_fwd(x, w1, w2, w3, al, keep_u1=True)
+    first = k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1)
+    again = k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1)
     for name, a, b in zip(("dx", "dw1", "dw2", "dw3", "dalphas"), first,
                           again):
         assert torch.equal(a, b), name
@@ -245,8 +271,15 @@ def test_k3_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         k3.head_stack_fwd(x[..., :8], w1[..., :8, :], w2, w3, al)
     with pytest.raises(ValueError, match="w1"):
         k3.head_stack_fwd(x, w1[:1], w2, w3, al)
+    _, u1 = k3.head_stack_fwd(x, w1, w2, w3, al, keep_u1=True)
     with pytest.raises(ValueError, match="dy"):
-        k3.head_stack_bwd(x, w1, w2, w3, al, dy[:, :1])
+        k3.head_stack_bwd(x, w1, w2, w3, al, dy[:, :1], u1=u1)
+    with pytest.raises(ValueError, match="u1 is required"):
+        k3.head_stack_bwd(x, w1, w2, w3, al, dy)
+    with pytest.raises(ValueError, match="u1"):
+        k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1[..., :8])
+    with pytest.raises(TypeError, match="u1"):
+        k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1.double())
 
 
 def test_training_steps_with_kernels_match_plain_steps(cuda_device):
@@ -263,8 +296,11 @@ def test_training_steps_with_kernels_match_plain_steps(cuda_device):
 
 
 def test_fused_heads_painter_on_the_card(cuda_device):
+    """4 K1 and 1 K3-fwd launches, and no u1 kept (phase 9 raises if one
+    is)."""
     out = smoke.paint_fused_heads(cuda_device, n_tiles=2, warmup=0, iters=1)
     assert out["launches"] == 4 and out["k3_fwd_launches"] == 1
+    assert k3.head_stack_fwd.kept_u1 == 0
     assert out["worst_err_over_tol"] <= 1.0
 
 

@@ -1,21 +1,30 @@
-"""A plain model of K3-bwd's three 7x7 GEMMs (csrc/head_stack.cu), held against
-the port's plain backward and the JAX package's gradient of its Pallas
-kernel (interpret mode), and the 3xTF32 arithmetic emulated at the GEMMs'
+"""A plain model of K3's three 7x7 GEMMs (csrc/head_stack.cu), held against
+the port's plain versions and the JAX package's Pallas kernel (interpret
+mode) and its gradient, and the 3xTF32 arithmetic emulated at the GEMMs'
 contraction lengths.
 
 Per 16 x 16 output tile, both heads stacked (n = (h, c), 16 columns):
-  u1:  M = the tile + 7 (30 x 30 pixels), N = 16, K = (ky, kx, ci) = 784:
-       x staged on the tile + 10, pixel (r, c) reading (r + ky, c + kx);
-       B = wu (16, 784); u1 is 0 outside the image
-  dx:  M = the tile's 256 pixels, N = 16 input channels, K = (ky, kx, h, c)
-       = 784: du1 staged on the tile + 3, pixel (r, c) reading
+  u1 (K3-fwd): M = the tile + 3 (22 x 22 pixels), N = 16, K = (ky, kx, ci)
+       = 784 in k-steps of 8 (tap, channel half hf, r): x staged on the
+       tile + 6 in 8 pair planes, plane 4 hf + t holding channels 8 hf + t
+       (.x) and 8 hf + t + 4 (.y) of a pixel, pixel (ry, rx) at ry * 30 +
+       rx; GEMM row p reads the pixel (p // 22) * 30 + p % 22 + ky * 30 +
+       kx; thread tig's float2 is its A fragment pair k = tig, tig + 4. B =
+       wu (16, 784) staged with each 8-wide k group permuted so k = tig and
+       tig + 4 lie at 2 tig, 2 tig + 1. a1 = prelu(u1) on the region, 0
+       outside the image; a kept u1 is stored for the tile's own pixels
+       only; conv5 and conv3 follow on the regions.
+  dx (K3-bwd): M = the tile's 256 pixels, N = 16 input channels, K = (ky,
+       kx, h, c) = 784: du1 staged on the tile + 3, pixel (r, c) reading
        (r + 6 - ky, c + 6 - kx); B = wdx (16, 784); the heads' sum is part
        of the GEMM
-  dw1: the transposed product du1^T x, M = 16 (h, c), N = 784 (ky, kx, ci),
-       K = the tile's pixels, x read at (r + 3 + ky, c + 3 + kx) of the
-       tile + 3; each tile's product is one K chunk, added in f32 to its
-       block's sum; a block walks up to 16 tiles of a tile row and writes
-       one partial, and the partials are summed.
+  dw1 (K3-bwd): the transposed product du1^T x, M = 16 (h, c), N = 784
+       (ky, kx, ci), K = the tile's pixels, x staged on the tile + 3 and
+       read at (r + ky, c + kx); each tile's product is one K chunk, added
+       in f32 to its block's sum; a block walks up to 16 tiles of a tile
+       row and writes one partial, and the partials are summed.
+K3-bwd stages the kept u1 on the tile + 7 (0 outside the image) for the
+small convs of the chain.
 The model builds the operands with those index rules. Its products are
 exact (f64: the index rules alone) or the tensor cores' 3xTF32 emulation
 (``mma_emulation``).
@@ -26,17 +35,22 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from numpy.lib.stride_tricks import sliding_window_view
 from torch.nn.grad import conv2d_input
 
 from baryon_painter_tpu.ops.pallas_head_stack import \
     head_stack as jax_head_stack
 from baryon_painter_tpu_torch import smoke
 from baryon_painter_tpu_torch.ops.head_stack import (gemm_weights,
-                                                     head_stack_bwd_ref)
+                                                     head_stack_bwd_ref,
+                                                     head_stack_ref)
 from mma_emulation import exact_gemm, mma_gemm
 
 T, WALK = smoke.K3_TILE, smoke.K3_WALK
 KC = 7 * 16    # the u1 and dx GEMMs' K chunk: a row of 7 taps x 16
+# K3-fwd's staging (csrc/head_stack.cu kFX, kFXS, kFA1, kFPP, kLDWF)
+FX, FXS, FA1, FPP, LDWF = 28, 30, 22, 844, 792
+PADS = (3, 2, 1)
 
 
 def _region(a, y0, x0, size):
@@ -51,6 +65,12 @@ def _region(a, y0, x0, size):
     return out
 
 
+def _inside(y0, x0, size, h, w):
+    gy = y0 + np.arange(size)[:, None]
+    gx = x0 + np.arange(size)[None, :]
+    return (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+
+
 def _im2col(src, off, size, flip=False):
     """(size^2 pixels, 49 taps x channels), the tap slowest: pixel (r, c)
     reads src at (r + off + ky, c + off + kx), or with ``flip`` at
@@ -62,30 +82,95 @@ def _im2col(src, off, size, flip=False):
          for ky in range(7) for kx in range(7)], axis=1)
 
 
-def _tiles(h, w):
-    return [(ty, tx) for ty in range(0, h, T) for tx in range(0, w, T)]
+def stage_pairs(xr):
+    """x on the tile + 6 (28, 28, 16) in K3-fwd's pair planes (8, 844, 2);
+    the slots no pixel fills (columns 28, 29 of a row, the planes' tail)
+    are NaN, so a read of one poisons the product."""
+    out = np.full((8, FPP, 2), np.nan)
+    q = (np.arange(FX)[:, None] * FXS + np.arange(FX)[None, :]).ravel()
+    for hf in range(2):
+        for t in range(4):
+            out[4 * hf + t, q, 0] = xr[..., 8 * hf + t].ravel()
+            out[4 * hf + t, q, 1] = xr[..., 8 * hf + t + 4].ravel()
+    return out
 
 
-def u1_model(x, wu, gemm=exact_gemm):
-    """u1 (N, H, W, 16) from each tile's GEMM on its tile + 7, kept on the
-    tile (every region must agree with its neighbours: checked by the
-    caller against the conv); also each region's values outside the
-    image."""
+def stage_weights(wu):
+    """wu (16, 784) as K3-fwd stages it (16, 792): k = 8 grp + r at
+    8 grp + 2 (r % 4) + r // 4; the row's tail is NaN."""
+    ws = np.full((16, LDWF), np.nan)
+    k = np.arange(784)
+    r = k % 8
+    ws[:, k - r + 2 * (r % 4) + r // 4] = wu
+    return ws
+
+
+def qrow(p):
+    """The pair-plane pixel of GEMM row p (of the tile + 3) at tap (0, 0)."""
+    return (p // FA1) * FXS + p % FA1
+
+
+def fwd_operands(pairs, ws):
+    """A (484, 784) and B (784, 16) of the u1 GEMM as the fragments read
+    them: at k-step (ky, s), s = 2 kx + hf, thread tig loads the float2 of
+    pair plane 4 hf + tig at pixel qrow(p) + 30 ky + kx for A (.x is k =
+    kb + tig, .y k = kb + tig + 4) and the float2 of staged weight row n at
+    kb + 2 tig for B (the same two k)."""
+    rows = qrow(np.arange(FA1 * FA1))
+    a = np.empty((rows.size, 784))
+    b = np.empty((784, 16))
+    for ky in range(7):
+        for s in range(14):
+            kb = ky * KC + 8 * s
+            for tig in range(4):
+                pair = pairs[4 * (s & 1) + tig, rows + ky * FXS + (s >> 1)]
+                a[:, kb + tig], a[:, kb + tig + 4] = pair[:, 0], pair[:, 1]
+                b[kb + tig] = ws[:, kb + 2 * tig]
+                b[kb + tig + 4] = ws[:, kb + 2 * tig + 1]
+    return a, b
+
+
+def _prelu(u, a):
+    return np.where(u >= 0, u, a * u)
+
+
+def fwd_model(x, w1, w2, w3, al, gemm=exact_gemm):
+    """K3-fwd by its index rules: y (N, 2, H, W), the kept u1 (N, H, W, 16)
+    and how many times each u1 pixel was stored."""
+    x, w1, w2, w3, al = (np.asarray(t, np.float64)
+                         for t in (x, w1, w2, w3, al))
     n, h, w, _ = x.shape
-    out = np.zeros((n, h, w, 16))
-    outside = []
+    ws = stage_weights(gemm_weights(torch.from_numpy(w1))[0].numpy())
+    y = np.zeros((n, 2, h, w))
+    u1 = np.zeros((n, h, w, 16))
+    stores = np.zeros((n, h, w), int)
     for b in range(n):
         for ty, tx in _tiles(h, w):
-            xr = _region(x[b], ty - 10, tx - 10, 36)
-            u = np.asarray(gemm(_im2col(xr, 0, 30), wu.T)).reshape(30, 30, 16)
-            gy = ty - 7 + np.arange(30)[:, None]
-            gx = tx - 7 + np.arange(30)[None, :]
-            inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
-            u = np.where(inside[..., None], u, 0.0)
-            outside.append(np.abs(u[~inside]).max(initial=0.0))
+            a, bm = fwd_operands(stage_pairs(_region(x[b], ty - 6, tx - 6,
+                                                     FX)), ws)
+            u = np.asarray(gemm(a, bm), np.float64).reshape(FA1, FA1, 16)
             th, tw = min(T, h - ty), min(T, w - tx)
-            out[b, ty:ty + th, tx:tx + tw] = u[7:7 + th, 7:7 + tw]
-    return out, max(outside)
+            u1[b, ty:ty + th, tx:tx + tw] = u[3:3 + th, 3:3 + tw]
+            stores[b, ty:ty + th, tx:tx + tw] += 1
+            in1 = _inside(ty - 3, tx - 3, FA1, h, w)
+            in2 = _inside(ty - 1, tx - 1, T + 2, h, w)
+            for hd in range(2):
+                a1 = np.where(in1[..., None],
+                              _prelu(u[..., 8 * hd:8 * hd + 8], al[hd, 0]),
+                              0.0)
+                u2 = np.einsum("yxcij,ijc->yx",
+                               sliding_window_view(a1, (5, 5), (0, 1)),
+                               w2[hd, ..., 0])
+                a2 = np.where(in2, _prelu(u2, al[hd, 1]), 0.0)
+                yt = np.einsum("yxij,ij->yx",
+                               sliding_window_view(a2, (3, 3)),
+                               w3[hd, ..., 0, 0])
+                y[b, hd, ty:ty + th, tx:tx + tw] = yt[:th, :tw]
+    return y, u1, stores
+
+
+def _tiles(h, w):
+    return [(ty, tx) for ty in range(0, h, T) for tx in range(0, w, T)]
 
 
 def dx_dw1_model(x, du1, wdx, gemm=exact_gemm, dw1_gemm=exact_gemm):
@@ -147,15 +232,80 @@ def _rel(got, want):
 @pytest.mark.parametrize("shape", [(2, 16, 16), (1, 20, 37)],
                          ids=["one_tile", "ragged_tiles"])
 def test_u1_gemm_is_both_heads_conv7(shape):
+    """K3-fwd's u1 GEMM by its index rules (pair planes, the permuted
+    weights, the tile + 3 rows) is both heads' conv7, stored once for
+    every pixel; no unfilled staging slot is read (they are NaN)."""
     args = [a.double() for a in _inputs(*shape)]
-    x, w1 = args[0], args[1]
-    wu, _ = gemm_weights(w1)
-    got, outside = u1_model(x.numpy(), wu.numpy())
-    want = torch.cat([F.conv2d(x.permute(0, 3, 1, 2),
-                               w1[h].permute(3, 2, 0, 1), padding=3)
-                      for h in range(2)], 1).permute(0, 2, 3, 1)
+    _, got, stores = fwd_model(*(a.numpy() for a in args[:5]))
+    _, want = head_stack_ref(*args[:5], keep_u1=True)
     np.testing.assert_allclose(got, want.numpy(), rtol=1e-10, atol=1e-10)
-    assert outside == 0.0
+    assert (stores == 1).all()
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16), (1, 20, 36), (1, 12, 20)],
+                         ids=["one_tile", "ragged_tiles", "partial_tiles"])
+def test_forward_model_is_the_heads_and_the_pallas_kernel(shape):
+    """y from the model's u1 region through a1 (zero outside the image),
+    conv5 on the tile + 1 and conv3, against the plain forward and the JAX
+    package's Pallas kernel (interpret mode, f32: its own tolerance)."""
+    args = _inputs(*shape, seed=4)
+    y, _, _ = fwd_model(*(a.numpy() for a in args[:5]))
+    want = head_stack_ref(*(a.double() for a in args[:5]))
+    np.testing.assert_allclose(y, want.numpy(), rtol=1e-10, atol=1e-10)
+    jargs = [jnp.asarray(a.numpy()) for a in args[:5]]
+    np.testing.assert_allclose(y, np.asarray(jax_head_stack(*jargs, PADS,
+                                                            True)),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_fwd_fragment_loads_hit_every_bank():
+    """Each half-warp phase of K3-fwd's 64-bit fragment loads (16 lanes,
+    g = 0..3 or 4..7 by tig) reads 32 distinct banks: A from the pair
+    planes at every k-step of every m16 tile, B from the staged weights."""
+    rows = qrow(np.arange(FA1 * FA1))
+    rows = np.concatenate([rows, np.zeros(-rows.size % 16, int)])
+    for ky in range(7):
+        for s in range(14):
+            for tile in range(rows.size // 16):
+                for g0 in (0, 4):
+                    for hh in (0, 1):
+                        banks = [
+                            (2 * ((4 * (s & 1) + tig) * FPP
+                                  + rows[16 * tile + g + 8 * hh]
+                                  + ky * FXS + (s >> 1)) + e) % 32
+                            for g in range(g0, g0 + 4) for tig in range(4)
+                            for e in (0, 1)]
+                        if 16 * tile + g0 + 3 + 8 * hh < FA1 * FA1:
+                            assert len(set(banks)) == 32, (ky, s, tile)
+            for j in (0, 1):
+                for g0 in (0, 4):
+                    banks = [((8 * j + g) * LDWF + ky * KC + 8 * s + 2 * tig
+                              + e) % 32 for g in range(g0, g0 + 4)
+                             for tig in range(4) for e in (0, 1)]
+                    assert len(set(banks)) == 32, (ky, s, j)
+
+
+def test_bwd_u1_staging_feeds_the_small_convs():
+    """K3-bwd stages the kept u1 on the tile + 7, 0 outside the image; conv5
+    of prelu of that region is u2 on the tile + 5 wherever it lies in the
+    image (where the chain uses it)."""
+    x, w1, w2, w3, al, _ = (a.double() for a in _inputs(1, 21, 37, seed=5))
+    _, u1 = head_stack_ref(x, w1, w2, w3, al, keep_u1=True)
+    u1 = u1.numpy()[0]
+    for hd in range(2):
+        a1 = _prelu(u1[..., 8 * hd:8 * hd + 8], al[hd, 0].item())
+        want = F.conv2d(torch.from_numpy(a1).permute(2, 0, 1)[None],
+                        w2[hd].permute(3, 2, 0, 1), padding=2)[0, 0].numpy()
+        for ty, tx in _tiles(21, 37):
+            r = _prelu(_region(u1, ty - 7, tx - 7, 30)[..., 8 * hd:8 * hd + 8],
+                       al[hd, 0].item())
+            u2 = np.einsum("yxcij,ijc->yx", sliding_window_view(r, (5, 5),
+                                                                (0, 1)),
+                           w2[hd, ..., 0].numpy())
+            ys, xs = np.nonzero(_inside(ty - 5, tx - 5, T + 10, 21, 37))
+            np.testing.assert_allclose(
+                u2[ys, xs], want[ty - 5 + ys, tx - 5 + xs], rtol=1e-10,
+                atol=1e-10)
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 16), (1, 20, 280)],
@@ -186,26 +336,29 @@ def test_dx_and_dw1_gemms_are_the_gradients(shape):
 
 
 def test_3xtf32_emulation_at_k784_meets_k3_tol():
-    """u1 and dx in 3xTF32 with truncating accumulators over K = 784 in
-    chunks of 112, dw1 with each tile's 256 pixels a chunk: within a tenth
-    of K3_TOL of the exact products; one TF32 pass is not."""
+    """K3-fwd's u1 (and y from it) and K3-bwd's dx in 3xTF32 with truncating
+    accumulators over K = 784 in chunks of 112, in the kernels' operand
+    order (the forward's pair planes and permuted weights), dw1 with each
+    tile's 256 pixels a chunk: within a tenth of K3_TOL of the exact
+    products; one TF32 pass is not."""
     args = [a.double() for a in _inputs(1, 32, 32, seed=2)]
     x, w1 = args[0], args[1]
-    wu, wdx = gemm_weights(w1)
+    _, wdx = gemm_weights(w1)
+    fwd_args = [a.numpy() for a in args[:5]]
     xn, du1 = x.numpy(), _du1(*args).numpy()
-    u_want, _ = u1_model(xn, wu.numpy())
+    y_want, u_want, _ = fwd_model(*fwd_args)
     dx_want, parts = dx_dw1_model(xn, du1, wdx.numpy())
     err = {}
     for mode in ("3xtf32", "tf32"):
         k784 = lambda a, b: mma_gemm(a, b, kstep=8, chunk=KC, mode=mode)
         tile = lambda a, b: mma_gemm(a, b, kstep=8, chunk=T * T, mode=mode)
-        u, _ = u1_model(xn, wu.numpy(), k784)
+        y, u, _ = fwd_model(*fwd_args, gemm=k784)
         dx, p = dx_dw1_model(xn, du1, wdx.numpy(), k784, tile)
-        err[mode] = {"u1": _rel(u, u_want), "dx": _rel(dx, dx_want),
+        err[mode] = {"y": _rel(y, y_want), "u1": _rel(u, u_want),
+                     "dx": _rel(dx, dx_want),
                      "dw1": _rel(p.sum(0), parts.sum(0))}
-    for name, tol in (("u1", smoke.K3_TOL["y"]), ("dx", smoke.K3_TOL["dx"]),
-                      ("dw1", smoke.K3_TOL["dw1"])):
-        assert err["3xtf32"][name] <= tol / 10, err
+    for name in ("y", "u1", "dx", "dw1"):
+        assert err["3xtf32"][name] <= smoke.K3_TOL[name] / 10, err
         assert err["tf32"][name] > err["3xtf32"][name] * 30, err
 
 

@@ -122,11 +122,15 @@ def test_timing_phase_and_kernels_record(cpu_run, cpu_train_run,
         assert src[int(line) - 1].startswith(defs[k["name"]]), k["name"]
     by_name = {k["name"]: k for k in rec["kernels"]}
     assert by_name["res_block_infer"]["bf16_library_ms"] > 0
-    for name in ("res_block_infer", "head_stack_bwd", "conv_bn_bwd1",
-                 "conv_bn_bwd2"):
+    for name in ("res_block_infer", "head_stack_fwd", "head_stack_bwd",
+                 "conv_bn_bwd1", "conv_bn_bwd2"):
         # the tensor-core bound, the f32 CUDA-core one beside it
         k = by_name[name]
         assert k["bound_ms"] > 0 and k["bound_ms_f32_cuda_cores"] > 0, name
+    # K3-fwd is timed keeping u1, as the training steps run it; painting's
+    # variant (no u1) beside it
+    fwd = by_name["head_stack_fwd"]
+    assert fwd["ms_without_u1"] > 0 and fwd["u1_max_abs_err"] == 0.0
 
 
 def test_training_phases_on_cpu(cpu_train_run):
@@ -140,6 +144,7 @@ def test_training_phases_on_cpu(cpu_train_run):
         k: 0 for k in ("k1", "k2", "k3_fwd", "k3_bwd", "k4_stats", "k4_fwd",
                        "k4_bwd1", "k4_bwd2")}
     assert training["step_ms"] > 0 and len(training["elbo"]) == 2
+    assert training["peak_bytes"] is None   # a device number: card only
     assert parity["loss_rel_err"] <= smoke.STEP_LOSS_RTOL
     assert parity["worst_grad_rel_err"] <= smoke.STEP_GRAD_TOL
     assert fused_paint["launches"] == fused_paint["k3_fwd_launches"] == 0
