@@ -8,17 +8,19 @@
 // statistics over (N, H, W) per output channel, a = gamma * inv and
 // b = beta - mean * a (inv = rsqrt(var + eps), formed by the wrapper):
 //
-//   K4-stats: per-block partial sums of u and u^2 per channel
-//   K4-fwd:   y = max(u * a + b, 0)
-//   K4-bwd1:  u, written to a scratch tensor, and per-block partial sums of
-//             dv and dv * uhat per channel, where dv = dy if y > 0 else 0
-//             (the forward's ReLU mask) and uhat = (u - mean) * inv
+//   K4-stats: u, written into the buffer that K4-fwd turns into y, and
+//             per-block partial sums of u and u^2 per channel
+//   K4-fwd:   y = max(u * a + b, 0), in place over u
+//   K4-bwd1:  u again, written to a scratch tensor, and per-block partial
+//             sums of dv and dv * uhat per channel, where dv = dy if y > 0
+//             else 0 (the forward's ReLU mask) and uhat = (u - mean) * inv
 //   K4-bwd2:  du = a * (dv - S1/n - uhat * S2/n) from u, y and dy; dx = the
 //             adjoint conv of du; dW as partial sums over a fixed split of
 //             the pixels
 //
 // The partial sums are written per block (bwd2: per split) and summed by the
-// wrapper in torch; no atomics are used, so every result is deterministic.
+// wrapper in torch (K4-stats' in f64); no atomics are used, so every result
+// is deterministic.
 //
 // Two families of convolution, NCHW f32, computed directly (no
 // space-to-depth, no phase-major weights):
@@ -33,26 +35,19 @@
 //           grid with its own sub-kernel, and the adjoint (dx) is a stride-S
 //           conv of du with the whole K x K kernel: du at S iy + ky - P.
 //
-// Forward (stats, fwd; CUDA cores, f32, simple first): one block per (sample,
-// 16 x 64 fine output tile, 16 output channels). The input footprint of the
-// tile is staged 8 input channels at a time with its halo, zero outside the
-// image, beside the weights of those channels ([ci][ky][kx][16 co], read as
-// float4 by every thread of a warp at once). Each thread owns 4 pixels x 16
-// channels in registers. stats reduces per block: warp shuffles, then 8
-// warps in a fixed order. What bounds it: arithmetic, 20 to 200 operations
-// per byte at the fiducial sites, above the card's f32 ridge.
-//
-// Backward (bwd1, bwd2): three implicit GEMMs a site on the tensor cores,
-// bounded by the tensor cores at 3xTF32 (B, C) or by memory (A, D):
-//   bwd1 (u):  M = output pixels of one phase, N = Cout, K = Cin x taps
-//   bwd2 (dx): M = input pixels, N = Cin, K = Cout x K^2
-//   bwd2 (dW): M = Cout, N = Cin x taps of one phase, K = output pixels
+// Four implicit GEMMs a site run on the tensor cores, bounded by the tensor
+// cores at 3xTF32 (sites B, C) or by memory (A, D):
+//   u (stats, bwd1): M = output pixels of one phase, N = Cout,
+//                    K = Cin x taps
+//   bwd2 (dx):       M = input pixels, N = Cin, K = Cout x K^2
+//   bwd2 (dW):       M = Cout, N = Cin x taps of one phase, K = output pixels
 // Each f32 operand v is split into big = tf32(v) (cvt.rna) and small =
 // tf32(v - big), and the product accumulates small*big + big*small +
 // big*big in f32 (mma.sync m16n8k8 tf32): about f32's accuracy at three
 // times the tensor-core work. The tensor cores' accumulators round toward
-// zero, so they sum one K chunk from zero and each chunk is added to the
-// running sum by an ordinary f32 add (the error no longer grows with K).
+// zero, so the u and dx GEMMs sum each k-step from zero and dW each K
+// chunk, and add that sum to the running sum by an ordinary f32 add (the
+// error no longer grows with K, and u no longer drifts toward zero).
 //   - Staging: each K chunk is copied raw into shared memory with cp.async
 //     (16 bytes a copy where rows allow), through a ring of 2 to 4 stages
 //     sized so two blocks share an SM; the next chunks' copies fly while
@@ -60,11 +55,22 @@
 //     y and dy) and multiplied. The im2col of the implicit GEMM is a table
 //     of shared-memory offsets, one per K index, added to each thread's
 //     pixel offset in the staged footprint.
-//   - bwd1 and dx: a block of 8 warps owns an 8 R x 16 pixel tile and up to
-//     64 columns; a warp owns R pixel rows (R = 2 where the columns fill at
-//     most 4 n8 tiles, so the B fragments serve two rows).
-//   - bwd1 computes u once and writes it; bwd2 reads it, so u is never
-//     recomputed with a halo. The ReLU mask is y > 0, the forward's own.
+//   - u GEMM and dx: a block of 8 warps owns an 8 R x 16 pixel tile and up
+//     to 64 columns; a warp owns R pixel rows (R = 2 where the columns fill
+//     at most 4 n8 tiles, so the B fragments serve two rows).
+//   - stats and bwd1 are one kernel template (u_gemm_kernel) that differs
+//     only in its epilogue: stats sums u and u^2, bwd1 dv and dv * uhat,
+//     both from the accumulators as u is stored, over the pixels inside the
+//     image. One mainloop with one K order, so the u behind the batch
+//     statistics and the forward's mask is, bit for bit, the u bwd1
+//     recomputes for bwd2 (u is never recomputed with a halo). The ReLU
+//     mask of the backward is y > 0, the forward's own.
+//   - K4-fwd is a pass over u in place, float4 groups a thread, one block
+//     per (plane, run of groups), so a block loads its channel's a and b
+//     once; bounded by memory (u read, y written). Writing u once and
+//     reading it back costs less than a second tensor-core pass of the
+//     conv, and y takes u's buffer, so the forward needs no more memory
+//     than y.
 //   - du is formed while staging, in shared memory, never in device memory.
 //   - dW: a block owns a tile of dW (up to 64 output channels x a tile of
 //     input channels x the taps of one phase) and accumulates in registers
@@ -96,76 +102,14 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 }
 
 constexpr int kThreads = 256;
-constexpr int kCob = 16;    // output channels of a forward block
-constexpr int kCic = 8;     // input channels a forward block stages at a time
-constexpr int kFTH = 16;    // forward tile: 16 x 64 fine pixels
-constexpr int kFTW = 64;
-constexpr int kFNpx = kFTH * kFTW / kThreads;  // 4 pixels a thread
-constexpr int kMaxSmem = 232448;               // bytes a block may use
-
-enum Mode { kStats = 0, kFwd = 1 };
+constexpr int kMaxSmem = 232448;  // bytes a block may use
 
 template <int S, int K>
 struct Geo {
   static_assert(S == 1 ? (K % 2 == 1) : (K == 2 * S && S % 2 == 0),
                 "unsupported conv family");
   static constexpr int P = S == 1 ? (K - 1) / 2 : S / 2;
-  static constexpr int TAPS = S == 1 ? K : 2;  // taps a dimension a pixel
-  // largest input footprint of `rn` consecutive fine rows
-  __host__ __device__ static constexpr int foot(int rn) {
-    return S == 1 ? rn + K - 1 : (rn - 1) / S + 3;
-  }
 };
-
-// Input footprint of fine rows [r0, r0 + rn): its first row and row count.
-template <int S, int K>
-__device__ __forceinline__ void footprint(int r0, int rn, int& org,
-                                          int& size) {
-  constexpr int P = Geo<S, K>::P;
-  if (S == 1) {
-    org = r0 - P;
-    size = rn + K - 1;
-  } else {  // r0 + P >= 0 for every region used here
-    const int a = (r0 + P) / S;
-    org = a - 1;
-    size = (r0 + rn - 1 + P) / S - a + 2;
-  }
-}
-
-// Local footprint coordinate of the first tap of fine row `o` of a region
-// whose first row is r0, and (S > 1) its phase (o + P) % S.
-template <int S, int K>
-__device__ __forceinline__ void tap_origin(int o, int r0, int& l, int& r) {
-  constexpr int P = Geo<S, K>::P;
-  if (S == 1) {
-    l = o - r0;
-    r = 0;
-  } else {
-    l = (o + P) / S - (r0 + P) / S + 1;
-    r = (o + P) % S;
-  }
-}
-
-// Stage x[n][ci0 : ci0 + kCic] on the footprint (org_y, org_x, fh, fw) into
-// xs[c][fhm][fwm]; 0 outside the image and for channels past cin.
-__device__ __forceinline__ void stage_x(const float* __restrict__ xn,
-                                        float* xs, int ci0, int cin, int H,
-                                        int W, int org_y, int org_x, int fh,
-                                        int fw, int fhm, int fwm) {
-  const int plane = fh * fw;
-  for (int i = threadIdx.x; i < kCic * plane; i += kThreads) {
-    const int c = i / plane;
-    const int r = i % plane;
-    const int fy = r / fw;
-    const int fx = r % fw;
-    const int gy = org_y + fy;
-    const int gx = org_x + fx;
-    float v = 0.f;
-    if (ci0 + c < cin && gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = __ldg(xn + ((size_t)(ci0 + c) * H + gy) * W + gx);
-    xs[(c * fhm + fy) * fwm + fx] = v;
-  }
-}
 
 // Weight of (co, ci, ky, kx) in the family's layout.
 template <int S, int K>
@@ -175,212 +119,14 @@ __host__ __device__ __forceinline__ size_t w_index(int co, int ci, int ky,
   return S == 1 ? (((size_t)co * cin + ci) * K + ky) * K + kx
                 : (((size_t)ci * cout + co) * K + ky) * K + kx;
 }
-// Stage the weights of input channels ci0.. and output channels co0..co0+15
-// as ws[c][ky][kx][16]; 0 past cin or cout.
-template <int S, int K>
-__device__ __forceinline__ void stage_w(const float* __restrict__ w, float* ws,
-                                        int ci0, int co0, int cin, int cout) {
-  for (int i = threadIdx.x; i < kCic * K * K * kCob; i += kThreads) {
-    const int col = i % kCob;
-    const int kk = (i / kCob) % (K * K);
-    const int c = i / (kCob * K * K);
-    const int ci = ci0 + c;
-    const int co = co0 + col;
-    ws[i] = (ci < cin && co < cout)
-                ? __ldg(w + w_index<S, K>(co, ci, kk / K, kk % K, cin, cout))
-                : 0.f;
-  }
-}
-
-// acc[j][0..15] += the staged chunk's part of u at each of NPX pixels, whose
-// first-tap footprint coordinates are (ly, lx) and phases (ry, rx).
-template <int S, int K, int NPX>
-__device__ __forceinline__ void accumulate_u(const float* xs, const float* ws,
-                                             int fhm, int fwm,
-                                             const int (&ly)[NPX],
-                                             const int (&lx)[NPX],
-                                             const int (&ry)[NPX],
-                                             const int (&rx)[NPX],
-                                             float (&acc)[NPX][kCob]) {
-  constexpr int T = Geo<S, K>::TAPS;
-  for (int c = 0; c < kCic; ++c) {
-    const float* xc = xs + c * fhm * fwm;
-    const float* wc = ws + c * K * K * kCob;
-#pragma unroll
-    for (int ty = 0; ty < T; ++ty) {
-#pragma unroll
-      for (int tx = 0; tx < T; ++tx) {
-        if (S == 1) {  // one tap for every pixel: the weights once
-          const float4* w4 =
-              reinterpret_cast<const float4*>(wc + (ty * K + tx) * kCob);
-          float wr[kCob];
-#pragma unroll
-          for (int q = 0; q < kCob / 4; ++q) {
-            const float4 wq = w4[q];
-            wr[4 * q + 0] = wq.x;
-            wr[4 * q + 1] = wq.y;
-            wr[4 * q + 2] = wq.z;
-            wr[4 * q + 3] = wq.w;
-          }
-#pragma unroll
-          for (int j = 0; j < NPX; ++j) {
-            const float v = xc[(ly[j] + ty) * fwm + lx[j] + tx];
-#pragma unroll
-            for (int o = 0; o < kCob; ++o) acc[j][o] += v * wr[o];
-          }
-        } else {  // the tap's kernel entry follows each pixel's phase
-#pragma unroll
-          for (int j = 0; j < NPX; ++j) {
-            const float v = xc[(ly[j] - ty) * fwm + lx[j] - tx];
-            const float4* w4 = reinterpret_cast<const float4*>(
-                wc + ((ry[j] + S * ty) * K + rx[j] + S * tx) * kCob);
-#pragma unroll
-            for (int q = 0; q < kCob / 4; ++q) {
-              const float4 wq = w4[q];
-              acc[j][4 * q + 0] += v * wq.x;
-              acc[j][4 * q + 1] += v * wq.y;
-              acc[j][4 * q + 2] += v * wq.z;
-              acc[j][4 * q + 3] += v * wq.w;
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// The block's sums of s1[c] and s2[c] (per thread) into p1/p2[blk][co0 + c],
-// in a fixed order: warp shuffles, then the 8 warps in turn.
-__device__ __forceinline__ void block_partials(const float (&s1)[kCob],
-                                               const float (&s2)[kCob],
-                                               float* red, float* p1,
-                                               float* p2, size_t blk, int co0,
-                                               int cout) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int c = 0; c < kCob; ++c) {
-    const float a = warp_sum(s1[c]);
-    const float b = warp_sum(s2[c]);
-    if (lane == 0) {
-      red[warp * 32 + c] = a;
-      red[warp * 32 + kCob + c] = b;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < 2 * kCob) {
-    float s = 0.f;
-    for (int wi = 0; wi < kThreads / 32; ++wi) s += red[wi * 32 + threadIdx.x];
-    const int c = threadIdx.x % kCob;
-    if (co0 + c < cout)
-      (threadIdx.x < kCob ? p1 : p2)[blk * cout + co0 + c] = s;
-  }
-}
-
-template <int S, int K>
-constexpr int fwd_smem_floats() {
-  return kCic * Geo<S, K>::foot(kFTH) * Geo<S, K>::foot(kFTW) +
-         kCic * K * K * kCob + kThreads;
-}
-
-// K4-stats and K4-fwd: one block per (16 x 64 fine tile, sample x
-// group of 16 output channels).
-template <int S, int K, int MODE>
-__global__ void __launch_bounds__(kThreads)
-    fwd_type_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ a, const float* __restrict__ b,
-                    float* __restrict__ y, float* __restrict__ p1,
-                    float* __restrict__ p2, int cin, int H, int W,
-                    int cout) {
-  constexpr int FHM = Geo<S, K>::foot(kFTH);
-  constexpr int FWM = Geo<S, K>::foot(kFTW);
-  extern __shared__ float smem[];
-  float* xs = smem;                    // [kCic][FHM][FWM]
-  float* ws = xs + kCic * FHM * FWM;   // [kCic][K][K][16]
-  float* red = ws + kCic * K * K * kCob;
-  const int Ho = H * S;
-  const int Wo = W * S;
-  const int groups = (cout + kCob - 1) / kCob;
-  const int n = blockIdx.z / groups;
-  const int co0 = (blockIdx.z % groups) * kCob;
-  const int oy0 = blockIdx.y * kFTH;
-  const int ox0 = blockIdx.x * kFTW;
-  int org_y, fh, org_x, fw;
-  footprint<S, K>(oy0, kFTH, org_y, fh);
-  footprint<S, K>(ox0, kFTW, org_x, fw);
-
-  int ly[kFNpx], lx[kFNpx], ry[kFNpx], rx[kFNpx], oy[kFNpx], ox[kFNpx];
-#pragma unroll
-  for (int j = 0; j < kFNpx; ++j) {
-    const int idx = threadIdx.x + j * kThreads;
-    oy[j] = oy0 + idx / kFTW;
-    ox[j] = ox0 + idx % kFTW;
-    tap_origin<S, K>(oy[j], oy0, ly[j], ry[j]);
-    tap_origin<S, K>(ox[j], ox0, lx[j], rx[j]);
-  }
-  float acc[kFNpx][kCob];
-#pragma unroll
-  for (int j = 0; j < kFNpx; ++j)
-#pragma unroll
-    for (int c = 0; c < kCob; ++c) acc[j][c] = 0.f;
-
-  const float* xn = x + (size_t)n * cin * H * W;
-  for (int ci0 = 0; ci0 < cin; ci0 += kCic) {
-    stage_x(xn, xs, ci0, cin, H, W, org_y, org_x, fh, fw, FHM, FWM);
-    stage_w<S, K>(w, ws, ci0, co0, cin, cout);
-    __syncthreads();
-    accumulate_u<S, K, kFNpx>(xs, ws, FHM, FWM, ly, lx, ry, rx, acc);
-    __syncthreads();
-  }
-
-  if (MODE == kFwd) {
-#pragma unroll
-    for (int c = 0; c < kCob; ++c) {
-      const int co = co0 + c;
-      if (co >= cout) break;
-      const float ac = __ldg(a + co);
-      const float bc = __ldg(b + co);
-      float* yc = y + ((size_t)n * cout + co) * Ho * Wo;
-#pragma unroll
-      for (int j = 0; j < kFNpx; ++j)
-        if (oy[j] < Ho && ox[j] < Wo)
-          yc[(size_t)oy[j] * Wo + ox[j]] = fmaxf(acc[j][c] * ac + bc, 0.f);
-    }
-    return;
-  }
-
-  float s1[kCob], s2[kCob];
-#pragma unroll
-  for (int c = 0; c < kCob; ++c) {
-    s1[c] = 0.f;
-    s2[c] = 0.f;
-    const int co = co0 + c;
-    if (co >= cout) continue;
-#pragma unroll
-    for (int j = 0; j < kFNpx; ++j)
-      if (oy[j] < Ho && ox[j] < Wo) {
-        s1[c] += acc[j][c];
-        s2[c] += acc[j][c] * acc[j][c];
-      }
-  }
-  const size_t blk = (size_t)n * gridDim.x * gridDim.y +
-                     (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  block_partials(s1, s2, red, p1, p2, blk, co0, cout);
-}
 
 // ------------------------------------------------------------------------ //
-// K4-bwd1 and K4-bwd2: implicit GEMMs on the tensor cores in 3xTF32
+// The implicit GEMMs on the tensor cores in 3xTF32: u (K4-stats, K4-bwd1),
+// dx and dW (K4-bwd2)
 
-constexpr int kTH = 8;        // pixel tile of bwd1 and dx: 8 R rows x 16
+constexpr int kTH = 8;        // pixel tile of the u GEMM and dx: 8 R x 16
 constexpr int kTW = 16;
-constexpr int kNT = 64;       // output columns of a bwd1 or dx block
+constexpr int kNT = 64;       // output columns of a u GEMM or dx block
 constexpr int kMW = 64;       // output channels (rows) of a dW block
 // columns of a dW K chunk (2 rows): where a block's du tile has 16 rows, 64
 // for the "same" conv and 32 for the transposed conv (whose x tile holds a
@@ -567,7 +313,8 @@ __device__ __forceinline__ void load_a(uint32_t (&ah)[4], uint32_t (&al)[4],
 }
 
 // The tensor cores accumulate with truncation, not f32's rounding to
-// nearest, so their accumulators sum one K chunk from zero and each chunk's
+// nearest, so a sum carried across k-steps in their accumulator drifts
+// toward zero. dW's accumulators sum one K chunk from zero and each chunk's
 // sum is added to the running f32 sum by an ordinary add.
 __device__ __forceinline__ void add_chunk(float (&acc)[8][4],
                                           float (&part)[8][4]) {
@@ -580,17 +327,29 @@ __device__ __forceinline__ void add_chunk(float (&acc)[8][4],
     }
 }
 
-// One K chunk of a GEMM whose rows are 16 pixels of a tile row (bwd1, dx):
+// acc += one k-step's 3xTF32 product, summed from zero on the tensor cores
+// and added by an ordinary f32 add (the u and dx GEMMs): each k-step's sum
+// is truncated once, so u carries no drift toward zero into the batch
+// statistics (summed over a chunk of 4 to 13 k-steps, u at site A lost
+// about 6e-7 of its scale on average; summed a k-step at a time 4e-8, with
+// a smaller spread than an f32 FMA chain's).
+__device__ __forceinline__ void mma3_add(float (&acc)[4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const uint32_t (&bh)[2],
+                                         const uint32_t (&bl)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(t, ah, al, bh, bl);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+}
+
+// One K chunk of a GEMM whose rows are 16 pixels of a tile row (u, dx):
 // acc[j] += A[rows][0..kc) B[0..kc)[8 j ..] for each n8 tile j < nj.
 __device__ __forceinline__ void pixel_row_mma(
     float (&acc)[8][4], const float* ahi, const float* alo, const int* koff,
     const float* bhi, const float* blo, int ld, int kc, int p0, int p1,
     int nj, int g, int tig) {
-  float part[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
   for (int kk = 0; kk < kc; kk += 8) {
     uint32_t ah[4], al[4];
     load_a(ah, al, ahi, alo, p0, p1, koff[kk + tig], koff[kk + tig + 4]);
@@ -601,11 +360,10 @@ __device__ __forceinline__ void pixel_row_mma(
         const int b1 = b0 + 4 * ld;
         const uint32_t bh[2] = {bits(bhi[b0]), bits(bhi[b1])};
         const uint32_t bl[2] = {bits(blo[b0]), bits(blo[b1])};
-        mma3(part[j], ah, al, bh, bl);
+        mma3_add(acc[j], ah, al, bh, bl);
       }
     }
   }
-  add_chunk(acc, part);
 }
 
 // pixel_row_mma for a warp that owns two tile rows (R = 2) and at most 4 n8
@@ -614,11 +372,6 @@ __device__ __forceinline__ void pixel_rows2_mma(
     float (&acc)[8][4], const float* ahi, const float* alo, const int* koff,
     const float* bhi, const float* blo, int ld, int kc, const int (&p0)[2],
     const int (&p1)[2], int nj, int g, int tig) {
-  float part[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
   for (int kk = 0; kk < kc; kk += 8) {
     uint32_t ah[2][4], al[2][4];
 #pragma unroll
@@ -632,12 +385,11 @@ __device__ __forceinline__ void pixel_rows2_mma(
         const int b1 = b0 + 4 * ld;
         const uint32_t bh[2] = {bits(bhi[b0]), bits(bhi[b1])};
         const uint32_t bl[2] = {bits(blo[b0]), bits(blo[b1])};
-        mma3(part[j], ah[0], al[0], bh, bl);
-        mma3(part[4 + j], ah[1], al[1], bh, bl);
+        mma3_add(acc[j], ah[0], al[0], bh, bl);
+        mma3_add(acc[4 + j], ah[1], al[1], bh, bl);
       }
     }
   }
-  add_chunk(acc, part);
 }
 
 // Rows a warp owns in bwd1 and dx: 2 where the block's output columns fill
@@ -683,10 +435,10 @@ int pick_stages(Floats&& floats) {
   return 2;
 }
 
-// ---- K4-bwd1 ------------------------------------------------------------ //
+// ---- the u GEMM: K4-stats and K4-bwd1 ------------------------------------ //
 
 template <int S, int K, int R>
-int bwd1_smem_floats(int cout, int stages) {
+int u_gemm_smem_floats(int cout, int stages) {
   using B = Bwd<S, K>;
   const int ld = ldb(rup(cout < kNT ? cout : kNT, 8));
   return (stages + 2) * (B::CIC * B::fx1(R) + B::KC1 * ld) + 8 * kNT * 2 +
@@ -695,15 +447,19 @@ int bwd1_smem_floats(int cout, int stages) {
 
 // One block per (phase x 16-column tile, 8 R-row tile, sample x 64 output
 // channels) of the phase's grid (the input grid's size); warp w owns rows
-// w + 8 r, r < R.
-template <int S, int K, int R>
+// w + 8 r, r < R. The block computes u on its tile, writes it, and writes
+// one partial row of two per-channel sums over its pixels inside the image:
+// K4-stats (STATS): u and u^2, from x and w alone (mean, inv, y and dy are
+// not read); K4-bwd1: dv and dv * uhat, with dv = dy where the forward's
+// y > 0. The mainloop is the same code for both.
+template <int S, int K, int R, bool STATS>
 __global__ void __launch_bounds__(kThreads, 2)
-    bwd1_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ mean, const float* __restrict__ inv,
-                const float* __restrict__ y, const float* __restrict__ dy,
-                float* __restrict__ u, float* __restrict__ p1,
-                float* __restrict__ p2, int cin, int H, int W, int cout,
-                int stages) {
+    u_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ mean,
+                  const float* __restrict__ inv, const float* __restrict__ y,
+                  const float* __restrict__ dy, float* __restrict__ u,
+                  float* __restrict__ p1, float* __restrict__ p2, int cin,
+                  int H, int W, int cout, int stages) {
   using B = Bwd<S, K>;
   constexpr int FH = B::fx(kTH * R);
   constexpr int FW = B::wa(B::fx(kTW));  // staged row, 16-byte groups
@@ -805,9 +561,10 @@ __global__ void __launch_bounds__(kThreads, 2)
                       rup(nci * B::T1, 8), pix0, pix1, nj, g, tig);
   });
 
-  // epilogue: write u; S1, S2 over the block's pixels with the forward's
-  // mask y > 0. Each thread holds pixels (rows warp + 8 r, columns g, g + 8)
-  // x channels 8 j + 2 tig + e, in acc[4 r + j] (R = 2) or acc[j].
+  // epilogue: write u; the two sums over the block's pixels inside the
+  // image (stats: u, u^2; bwd1: dv, dv * uhat with the forward's mask
+  // y > 0). Each thread holds pixels (rows warp + 8 r, columns g, g + 8) x
+  // channels 8 j + 2 tig + e, in acc[4 r + j] (R = 2) or acc[j].
   const int Ho = H * S;
   const int Wo = W * S;
   float s1[8][2], s2[8][2];
@@ -819,8 +576,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       s2[j][e] = 0.f;
       const int co = co0 + 8 * j + 2 * tig + e;
       if (j >= nj || co >= cout || (R == 2 && j >= 4)) continue;
-      const float mc = __ldg(mean + co);
-      const float ic = __ldg(inv + co);
+      const float mc = STATS ? 0.f : __ldg(mean + co);
+      const float ic = STATS ? 0.f : __ldg(inv + co);
       const size_t plane = ((size_t)n * cout + co) * Ho;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -835,9 +592,14 @@ __global__ void __launch_bounds__(kThreads, 2)
           const size_t idx = (plane + oy) * Wo + ox;
           const float uv = acc[R == 1 ? j : 4 * r + j][2 * h + e];
           u[idx] = uv;
-          const float dv = __ldg(y + idx) > 0.f ? __ldg(dy + idx) : 0.f;
-          s1[j][e] += dv;
-          s2[j][e] += dv * ((uv - mc) * ic);
+          if constexpr (STATS) {
+            s1[j][e] += uv;
+            s2[j][e] += uv * uv;
+          } else {
+            const float dv = __ldg(y + idx) > 0.f ? __ldg(dy + idx) : 0.f;
+            s1[j][e] += dv;
+            s2[j][e] += dv * ((uv - mc) * ic);
+          }
         }
       }
     }
@@ -873,6 +635,57 @@ __global__ void __launch_bounds__(kThreads, 2)
                          blockIdx.x;
       (which ? p2 : p1)[blk * cout + co0 + col] = s;
     }
+  }
+}
+
+// ---- K4-fwd ------------------------------------------------------------- //
+
+constexpr int kFwdUnroll = 4;  // float4 groups a thread, a block
+
+// y = max(u a + b, 0) with the product and the sum rounded separately (no
+// FMA contraction), as the plain version's u * a + b computes it; NaN
+// passes, as through torch.relu
+__device__ __forceinline__ float bn_relu(float v, float a, float b) {
+  const float t = __fadd_rn(__fmul_rn(v, a), b);
+  return t < 0.f ? 0.f : t;
+}
+
+// K4-fwd, in place over u (NCHW, planes of hw elements; channel c of plane
+// p is p % C): one block per (plane, run of kThreads x kFwdUnroll float4
+// groups). A plane's float4 groups start at its first 16-byte boundary; the
+// elements before it (its head) and after its last whole group (its tail),
+// fewer than 4 each, are done by the plane's first block.
+__global__ void __launch_bounds__(kThreads)
+    bn_relu_kernel(float* __restrict__ u, const float* __restrict__ a,
+                   const float* __restrict__ b, int C, int hw) {
+  const int c = blockIdx.x % C;
+  const float ac = __ldg(a + c);
+  const float bc = __ldg(b + c);
+  float* p = u + (size_t)blockIdx.x * hw;
+  const int head = min(hw, (int)((0u - (unsigned)(
+                                     reinterpret_cast<uintptr_t>(p) >> 2)) &
+                                 3u));
+  const int n4 = (hw - head) >> 2;
+  float4* p4 = reinterpret_cast<float4*>(p + head);
+  const int i0 = blockIdx.y * kThreads * kFwdUnroll + threadIdx.x;
+  float4 v[kFwdUnroll];
+#pragma unroll
+  for (int j = 0; j < kFwdUnroll; ++j)
+    if (i0 + j * kThreads < n4) v[j] = p4[i0 + j * kThreads];
+#pragma unroll
+  for (int j = 0; j < kFwdUnroll; ++j) {
+    if (i0 + j * kThreads >= n4) break;
+    v[j].x = bn_relu(v[j].x, ac, bc);
+    v[j].y = bn_relu(v[j].y, ac, bc);
+    v[j].z = bn_relu(v[j].z, ac, bc);
+    v[j].w = bn_relu(v[j].w, ac, bc);
+    p4[i0 + j * kThreads] = v[j];
+  }
+  if (blockIdx.y == 0) {
+    const int tail = hw - head - 4 * n4;
+    const int t = threadIdx.x;
+    const int i = t < head ? t : head + 4 * n4 + (t - head);
+    if (t < head + tail) p[i] = bn_relu(p[i], ac, bc);
   }
 }
 
@@ -1312,35 +1125,21 @@ int dispatch(int s, int k, F&& f) {
   return -1;
 }
 
-template <int S, int K, int MODE>
-int launch_fwd_type(const float* x, const float* w, const float* a,
-                    const float* b, float* y, float* p1, float* p2, int n,
-                    int cin, int h, int wd, int cout, cudaStream_t stream) {
-  const int smem = fwd_smem_floats<S, K>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_type_kernel<S, K, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((wd * S + kFTW - 1) / kFTW, (h * S + kFTH - 1) / kFTH,
-                  n * ((cout + kCob - 1) / kCob));
-  fwd_type_kernel<S, K, MODE><<<grid, kThreads, smem, stream>>>(
-      x, w, a, b, y, p1, p2, cin, h, wd, cout);
-  return (int)cudaGetLastError();
-}
-
+// the grids of the u GEMM (z: samples x 64-channel tiles, y: row tiles) and
+// of dx (z: samples x 64-channel tiles)
 bool dims_ok(int n, int cin, int h, int w, int cout) {
   return n > 0 && cin > 0 && h > 0 && w > 0 && cout > 0 &&
-         (long long)n * ((cout + kCob - 1) / kCob) <= 65535 &&
+         (long long)n * ((cout + kNT - 1) / kNT) <= 65535 &&
          (long long)n * ((cin + kNT - 1) / kNT) <= 65535 &&
          (h + kTH - 1) / kTH <= 65535;
 }
 
-// Ring depths of the three backward kernels (bwd1, dx, dW) for the widths.
+// Ring depths of the u GEMM (stats, bwd1), dx and dW for the widths.
 template <int S, int K>
 void bwd_stages(int cin, int cout, int (&st)[3]) {
   st[0] = with_rows(rup(cout < kNT ? cout : kNT, 8), [&](auto R) {
     return pick_stages(
-        [&](int s) { return bwd1_smem_floats<S, K, R.value>(cout, s); });
+        [&](int s) { return u_gemm_smem_floats<S, K, R.value>(cout, s); });
   });
   st[1] = with_rows(rup(cin < kNT ? cin : kNT, 8), [&](auto R) {
     return pick_stages(
@@ -1352,7 +1151,8 @@ void bwd_stages(int cin, int cout, int (&st)[3]) {
   });
 }
 
-// Shared memory of a block of bwd1 (which = 0), dx (1) or dW (2) in bytes.
+// Shared memory of a block of the u GEMM (which = 0: stats and bwd1), dx
+// (1) or dW (2) in bytes.
 template <int S, int K>
 int bwd_smem_bytes(int cin, int cout, int which) {
   int st[3];
@@ -1360,7 +1160,7 @@ int bwd_smem_bytes(int cin, int cout, int which) {
   int f;
   if (which == 0) {
     f = with_rows(rup(cout < kNT ? cout : kNT, 8), [&](auto R) {
-      return bwd1_smem_floats<S, K, R.value>(cout, st[0]);
+      return u_gemm_smem_floats<S, K, R.value>(cout, st[0]);
     });
   } else if (which == 1) {
     f = with_rows(rup(cin < kNT ? cin : kNT, 8), [&](auto R) {
@@ -1409,18 +1209,47 @@ cudaError_t set_smem(Kern kern, int bytes) {
                               bytes);
 }
 
+// The u GEMM's launch: stats (mean, inv, y and dy null) or bwd1.
+template <bool STATS>
+int launch_u_gemm(const void* x, const void* w, const void* mean,
+                  const void* inv, const void* y, const void* dy, void* u,
+                  void* p1, void* p2, int n, int cin, int h, int wd,
+                  int cout, int k, int s, void* stream) {
+  if (!dims_ok(n, cin, h, wd, cout)) return (int)cudaErrorInvalidValue;
+  const int r = dispatch(s, k, [&](auto S_, auto K_) {
+    constexpr int S = decltype(S_)::value;
+    constexpr int K = decltype(K_)::value;
+    int st[3];
+    bwd_stages<S, K>(cin, cout, st);
+    return with_rows(rup(cout < kNT ? cout : kNT, 8), [&](auto R_) {
+      constexpr int R = decltype(R_)::value;
+      const int smem =
+          u_gemm_smem_floats<S, K, R>(cout, st[0]) * (int)sizeof(float);
+      cudaError_t err = set_smem(u_gemm_kernel<S, K, R, STATS>, smem);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid(Bwd<S, K>::PH * ((wd + kTW - 1) / kTW),
+                      (h + kTH * R - 1) / (kTH * R),
+                      n * ((cout + kNT - 1) / kNT));
+      u_gemm_kernel<S, K, R, STATS><<<grid, kThreads, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(x), static_cast<const float*>(w),
+          static_cast<const float*>(mean), static_cast<const float*>(inv),
+          static_cast<const float*>(y), static_cast<const float*>(dy),
+          static_cast<float*>(u), static_cast<float*>(p1),
+          static_cast<float*>(p2), cin, h, wd, cout, st[0]);
+      return (int)cudaGetLastError();
+    });
+  });
+  return r < 0 ? (int)cudaErrorInvalidValue : r;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Spatial blocks a sample of the stats/fwd launches (the rows of their
-// partials per sample): (h, w) is the input, s the stride (1: "same" conv).
-int bpt_conv_bn_fwd_tiles(int h, int w, int s) {
-  return ((w * s + kFTW - 1) / kFTW) * ((h * s + kFTH - 1) / kFTH);
-}
-
-// Spatial blocks a sample of the bwd1 launch (the rows of its partials per
-// sample) for cout output channels; -1 for an unsupported (k, s).
+// Spatial blocks a sample of the u GEMM's launch, stats or bwd1 (the rows
+// of its partials per sample), for x (h, w) and cout output channels; -1
+// for an unsupported (k, s).
 int bpt_conv_bn_bwd1_tiles(int h, int w, int cout, int k, int s) {
   return dispatch(s, k, [&](auto S_, auto K_) {
     using B = Bwd<decltype(S_)::value, decltype(K_)::value>;
@@ -1439,8 +1268,8 @@ int bpt_conv_bn_bwd2_splits(int n, int cin, int h, int w, int cout, int k,
   });
 }
 
-// Shared memory of a block of the bwd1 (which = 0), dx (1) or dW (2)
-// launch in bytes; -1 for an unsupported (k, s) or which.
+// Shared memory of a block of the u GEMM (which = 0: stats and bwd1), dx
+// (1) or dW (2) launch in bytes; -1 for an unsupported (k, s) or which.
 int bpt_conv_bn_bwd_smem(int cin, int cout, int k, int s, int which) {
   if (which < 0 || which > 2) return -1;
   return dispatch(s, k, [&](auto S_, auto K_) {
@@ -1449,35 +1278,30 @@ int bpt_conv_bn_bwd_smem(int cin, int cout, int k, int s, int which) {
   });
 }
 
-// x (N, Cin, H, W), w OIHW (s == 1) or IOHW (s > 1); p1, p2 (N * tiles,
-// Cout) with tiles = bpt_conv_bn_fwd_tiles. All f32, contiguous. Returns the
-// cudaError_t of the launch (0 on success); asynchronous on `stream`.
-int bpt_conv_bn_stats(const void* x, const void* w, void* p1, void* p2, int n,
-                      int cin, int h, int wd, int cout, int k, int s,
-                      void* stream) {
-  if (!dims_ok(n, cin, h, wd, cout)) return (int)cudaErrorInvalidValue;
-  const int r = dispatch(s, k, [&](auto S_, auto K_) {
-    return launch_fwd_type<decltype(S_)::value, decltype(K_)::value, kStats>(
-        static_cast<const float*>(x), static_cast<const float*>(w), nullptr,
-        nullptr, nullptr, static_cast<float*>(p1), static_cast<float*>(p2), n,
-        cin, h, wd, cout, static_cast<cudaStream_t>(stream));
-  });
-  return r < 0 ? (int)cudaErrorInvalidValue : r;
+// stats: x (N, Cin, H, W), w OIHW (s == 1) or IOHW (s > 1). Writes u (N,
+// Cout, s H, s W) and the partial sums of u (p1) and u^2 (p2), (N * tiles,
+// Cout) with tiles = bpt_conv_bn_bwd1_tiles. All f32, contiguous. Returns
+// the cudaError_t of the launch (0 on success); asynchronous on `stream`.
+int bpt_conv_bn_stats(const void* x, const void* w, void* u, void* p1,
+                      void* p2, int n, int cin, int h, int wd, int cout,
+                      int k, int s, void* stream) {
+  return launch_u_gemm<true>(x, w, nullptr, nullptr, nullptr, nullptr, u, p1,
+                             p2, n, cin, h, wd, cout, k, s, stream);
 }
 
-// As above with a, b (Cout); writes y (N, Cout, s H, s W).
-int bpt_conv_bn_fwd(const void* x, const void* w, const void* a,
-                    const void* b, void* y, int n, int cin, int h, int wd,
-                    int cout, int k, int s, void* stream) {
-  if (!dims_ok(n, cin, h, wd, cout)) return (int)cudaErrorInvalidValue;
-  const int r = dispatch(s, k, [&](auto S_, auto K_) {
-    return launch_fwd_type<decltype(S_)::value, decltype(K_)::value, kFwd>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<float*>(y), nullptr, nullptr, n, cin, h, wd, cout,
-        static_cast<cudaStream_t>(stream));
-  });
-  return r < 0 ? (int)cudaErrorInvalidValue : r;
+// fwd: u (N, C, hw), a, b (C), f32, contiguous; u <- max(u a + b, 0).
+int bpt_conv_bn_fwd(void* u, const void* a, const void* b, int n, int c,
+                    int hw, void* stream) {
+  const long long groups = ((long long)hw / 4 + kThreads * kFwdUnroll - 1) /
+                           (kThreads * kFwdUnroll);
+  if (n <= 0 || c <= 0 || hw <= 0 || (long long)n * c > 2147483647LL ||
+      groups > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n * c, groups > 0 ? (int)groups : 1);
+  bn_relu_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(u), static_cast<const float*>(a),
+      static_cast<const float*>(b), c, hw);
+  return (int)cudaGetLastError();
 }
 
 // bwd1: x, w as stats; mean, inv (Cout); y, dy (N, Cout, s H, s W). Writes u
@@ -1487,32 +1311,8 @@ int bpt_conv_bn_bwd1(const void* x, const void* w, const void* mean,
                      const void* inv, const void* y, const void* dy, void* u,
                      void* p1, void* p2, int n, int cin, int h, int wd,
                      int cout, int k, int s, void* stream) {
-  if (!dims_ok(n, cin, h, wd, cout)) return (int)cudaErrorInvalidValue;
-  const int r = dispatch(s, k, [&](auto S_, auto K_) {
-    constexpr int S = decltype(S_)::value;
-    constexpr int K = decltype(K_)::value;
-    int st[3];
-    bwd_stages<S, K>(cin, cout, st);
-    return with_rows(rup(cout < kNT ? cout : kNT, 8), [&](auto R_) {
-      constexpr int R = decltype(R_)::value;
-      const int smem =
-          bwd1_smem_floats<S, K, R>(cout, st[0]) * (int)sizeof(float);
-      cudaError_t err = set_smem(bwd1_kernel<S, K, R>, smem);
-      if (err != cudaSuccess) return (int)err;
-      const dim3 grid(Bwd<S, K>::PH * ((wd + kTW - 1) / kTW),
-                      (h + kTH * R - 1) / (kTH * R),
-                      n * ((cout + kNT - 1) / kNT));
-      bwd1_kernel<S, K, R><<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w),
-          static_cast<const float*>(mean), static_cast<const float*>(inv),
-          static_cast<const float*>(y), static_cast<const float*>(dy),
-          static_cast<float*>(u), static_cast<float*>(p1),
-          static_cast<float*>(p2), cin, h, wd, cout, st[0]);
-      return (int)cudaGetLastError();
-    });
-  });
-  return r < 0 ? (int)cudaErrorInvalidValue : r;
+  return launch_u_gemm<false>(x, w, mean, inv, y, dy, u, p1, p2, n, cin, h,
+                              wd, cout, k, s, stream);
 }
 
 // bwd2: x, w as stats; a, mean, inv, s1n = S1 / count, s2n = S2 / count

@@ -1,18 +1,20 @@
 """What the compiler made of the tensor-core kernels: K1 (csrc/res_block.cu,
-f32 and bf16), K3-fwd and K3-bwd (csrc/head_stack.cu) and K4's backward
-(csrc/conv_bn.cu).
+f32 and bf16), K3-fwd and K3-bwd (csrc/head_stack.cu) and K4
+(csrc/conv_bn.cu: the u GEMM of stats and bwd1, dx, dW, and fwd's pass).
 
     python -m baryon_painter_tpu_torch.kernel_report
 
 Builds the kernel library afresh (nvcc with ``-Xptxas -v``), then prints for
 each of those kernels' instantiations (K1 f32 and bf16; K3-fwd and K3-bwd;
-K4's bwd1, dx and dW): ptxas' registers and spills, the number
+K4's stats, bwd1, dx and dW, and fwd): ptxas' registers and spills, the
+number
 of tensor-core instructions in its SASS (``HMMA`` from ``cuobjdump
 -sass``) by variant (``HMMA.1688.F32.TF32``, ``HMMA.16816.F32.BF16``) with
 one of them quoted, and each launch's shared memory per block in bytes (K1
-at C = 128, K3 at any shape, K4's backward at the four fused sites of the
-fiducial training step). The last line is the same as JSON. Needs nvcc and
-cuobjdump (the CUDA toolkit); no card.
+at C = 128, K3 at any shape, K4's GEMMs at the four fused sites of the
+fiducial training step; stats and bwd1 share one mainloop and one shared
+memory size). The last line is the same as JSON. Needs nvcc and cuobjdump
+(the CUDA toolkit); no card.
 """
 from __future__ import annotations
 
@@ -24,10 +26,12 @@ from pathlib import Path
 from baryon_painter_tpu_torch import smoke
 from baryon_painter_tpu_torch.ops import _build
 
-_KERNEL = re.compile(r"(bwd1_kernel|dx_kernel|dw_kernel)ILi(\d+)ELi(\d+)E"
+_KERNEL = re.compile(r"(dx_kernel|dw_kernel)ILi(\d+)ELi(\d+)E"
                      r"(?:Li(\d+)E)?")
+# K4's u GEMM: <S, K, R, STATS>, named stats_kernel or bwd1_kernel
+_U_GEMM = re.compile(r"u_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E")
 _K1 = re.compile(r"res_block_kernelI(f|13__nv_bfloat16)E")
-_K3 = re.compile(r"(head_fwd_kernel|head_bwd_kernel)")
+_K3 = re.compile(r"(head_fwd_kernel|head_bwd_kernel|bn_relu_kernel)")
 
 
 def _name(mangled: str):
@@ -38,6 +42,11 @@ def _name(mangled: str):
     m = _K3.search(mangled)
     if m is not None:
         return m.group(1)
+    m = _U_GEMM.search(mangled)
+    if m is not None:
+        s, k, r, stats = m.groups()
+        return (f"{'stats' if stats == '1' else 'bwd1'}_kernel"
+                f"<{s},{k},{r}>")
     m = _KERNEL.search(mangled)
     if m is None:
         return None
@@ -95,8 +104,9 @@ def sass_report(library: Path) -> dict:
 
 def smem_report() -> dict:
     """Shared memory per block (bytes, as the launches request it): K1 at
-    C = 128 in f32 and bf16, K3-fwd and K3-bwd, and the bwd1, dx and dW
-    launches of K4 at the fused sites."""
+    C = 128 in f32 and bf16, K3-fwd and K3-bwd, and the stats, bwd1, dx
+    and dW launches of K4 at the fused sites (stats and bwd1 run the same
+    mainloop, so they ask for the same; fwd uses none)."""
     lib = _build.load_library()
     c = smoke.K1_SHAPE[-1]
     out = {"res_block_kernel<float>": lib.bpt_res_block_smem(c, 0),
@@ -107,7 +117,8 @@ def smem_report() -> dict:
         s = site["stride"] if site["transposed"] else 1
         out[name] = {kind: lib.bpt_conv_bn_bwd_smem(site["cin"], site["cout"],
                                                     site["k"], s, which)
-                     for which, kind in enumerate(("bwd1", "dx", "dw"))}
+                     for which, kind in ((0, "stats"), (0, "bwd1"),
+                                         (1, "dx"), (2, "dw"))}
     return out
 
 

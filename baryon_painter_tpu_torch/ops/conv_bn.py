@@ -24,16 +24,19 @@ statistics (``_bwd_xla``):
 
 The ReLU mask is the forward's own (y > 0, y saved for the backward), so
 the backward's rounding cannot send a pre-activation near 0 to the other
-branch. Four kernels (``csrc/conv_bn.cu``): K4-stats (per-block partial
-sums of u and u^2) and K4-fwd (y), each computing u from x on the CUDA
-cores; K4-bwd1 (u, kept in a scratch tensor for K4-bwd2, and partial S1,
-S2) and K4-bwd2 (dx, and dW as partials over a fixed split of the pixels),
-implicit GEMMs on the tensor cores in 3xTF32. The partials are summed here
-in torch, so every result is deterministic. The kernels take two families:
-a stride-1 "same" conv with odd k in (1, 3, 5, 7), and a transposed conv
-with k = 2s, p = s/2, s in (2, 4); f32 only. On CUDA tensors anything else
-raises; on CPU tensors each wrapper is its plain version, which takes any
-stride and padding.
+branch. Four kernels (``csrc/conv_bn.cu``): K4-stats (u, written into the
+buffer that becomes y, and per-block partial sums of u and u^2), K4-fwd (y
+in place over u), K4-bwd1 (u again, kept in a scratch tensor for K4-bwd2,
+and partial S1, S2) and K4-bwd2 (dx, and dW as partials over a fixed split
+of the pixels). stats, bwd1 and bwd2 are implicit GEMMs on the tensor cores
+in 3xTF32; stats and bwd1 share one mainloop, so the u behind the batch
+statistics and the ReLU mask is, bit for bit, the u of the backward. The
+partials are summed here in torch, so every result is deterministic. The
+kernels take two families: a stride-1 "same" conv with odd k in (1, 3, 5,
+7), and a transposed conv with k = 2s, p = s/2, s in (2, 4); f32 only. On
+CUDA tensors anything else raises; on CPU tensors each wrapper is its plain
+version, which takes any stride and padding (K4-fwd in place, as on the
+card).
 """
 from __future__ import annotations
 
@@ -120,6 +123,35 @@ def _out_shape(x, w, transposed, stride):
     return n, cout, h * s, wd * s
 
 
+def _check_fwd(fn, u, a, b):
+    """Raise on anything K4-fwd does not take: u (N, C, H, W), a and b
+    (C,), all f32, contiguous and on one device (y is written over u, so
+    nothing is copied)."""
+    for name, t in {"u": u, "a": a, "b": b}.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {name} must be float32 (the kernels are "
+                            f"f32 only), got {t.dtype}")
+        if t.device != u.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, u on "
+                             f"{u.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous (y is "
+                             f"written over u in place)")
+    if u.ndim != 4:
+        raise ValueError(f"{fn}: u must be (N, C, H, W), got "
+                         f"{tuple(u.shape)}")
+    n, c, h, w = u.shape
+    for name, t in (("a", a), ("b", b)):
+        if tuple(t.shape) != (c,):
+            raise ValueError(f"{fn}: {name} must be ({c},), got "
+                             f"{tuple(t.shape)}")
+    # the grid: a block per (plane, run of 1024 float4 groups)
+    if u.numel() == 0 or n * c > 2**31 - 1 or h * w > 4 * 1024 * 65535:
+        raise ValueError(f"{fn}: u must be non-empty with N * C < 2^31 "
+                         f"and H * W <= 4 * 1024 * 65535, got "
+                         f"{tuple(u.shape)}")
+
+
 def _check(fn, x, w, transposed, stride, padding, vecs=None, outs=None):
     """Raise on anything the kernels do not take; returns (k, s). ``outs``
     (name: tensor) must have y's shape."""
@@ -148,8 +180,8 @@ def _check(fn, x, w, transposed, stride, padding, vecs=None, outs=None):
         if tuple(t.shape) != (n, cout, ho, wo):
             raise ValueError(f"{fn}: {name} must be {(n, cout, ho, wo)}, "
                              f"got {tuple(t.shape)}")
-    if n * -(-cout // 16) > 65535:
-        raise ValueError(f"{fn}: N * ceil(Cout / 16) must be at most 65535")
+    if n * -(-cout // 64) > 65535:
+        raise ValueError(f"{fn}: N * ceil(Cout / 64) must be at most 65535")
     if n * -(-cin // 64) > 65535:
         raise ValueError(f"{fn}: N * ceil(Cin / 64) must be at most 65535")
     return k, s
@@ -169,15 +201,15 @@ def _dims(x, w, transposed, k, s):
 
 def conv_bn_stats_ref(x, w, *, transposed: bool, stride: int,
                       padding: int):
-    """Plain version of K4-stats: the library's conv, then the sums."""
-    u = _conv(x, w, transposed, stride, padding).float()
-    return u.sum((0, 2, 3)), (u * u).sum((0, 2, 3))
-
-
-def conv_bn_fwd_ref(x, w, a, b, *, transposed: bool, stride: int,
-                    padding: int):
-    """Plain version of K4-fwd."""
+    """Plain version of K4-stats: (sum of u, sum of u^2, u) with u the
+    library's conv and the sums in f32."""
     u = _conv(x, w, transposed, stride, padding)
+    uf = u.float()
+    return uf.sum((0, 2, 3)), (uf * uf).sum((0, 2, 3)), u
+
+
+def conv_bn_fwd_ref(u, a, b):
+    """Plain version of K4-fwd: relu(u * a + b) per channel, a new tensor."""
     return torch.relu(u * _vec(a) + _vec(b))
 
 
@@ -207,46 +239,52 @@ def conv_bn_bwd2_ref(x, w, a, mean, inv, s1n, s2n, dy, *, transposed: bool,
 
 
 def conv_bn_stats(x, w, *, transposed: bool, stride: int, padding: int):
-    """K4-stats: (sum of u, sum of u^2) per output channel, f32.
+    """K4-stats: (sum of u, sum of u^2, u) per output channel, f32, with
+    u = conv(x, w) of y's shape (K4-fwd turns it into y in place).
 
     On CPU tensors the plain version. On CUDA tensors one launch on the
-    current stream (adds one to ``conv_bn_stats.launches``) writing per-block
-    partial sums, summed here."""
+    current stream (adds one to ``conv_bn_stats.launches``), the u GEMM of
+    K4-bwd1, writing u and per-block partial sums, summed here in f64 and
+    rounded once. The training step's gradients are sensitive to the
+    rounding of the batch statistics: with an f32 sum of the 3k to 25k
+    partial rows they stood ten times further from the plain step's than
+    with this one (``PERF.md`` §6)."""
     kw = dict(transposed=transposed, stride=stride, padding=padding)
     if not _device("conv_bn_stats", x):
         return conv_bn_stats_ref(x, w, **kw)
     k, s = _check("conv_bn_stats", x, w, transposed, stride, padding)
     from baryon_painter_tpu_torch.ops._build import load_library
     dims = _dims(x, w, transposed, k, s)
-    rows = x.shape[0] * load_library().bpt_conv_bn_fwd_tiles(
-        x.shape[2], x.shape[3], s)
+    rows = x.shape[0] * load_library().bpt_conv_bn_bwd1_tiles(
+        x.shape[2], x.shape[3], dims[4], k, s)
+    u = torch.empty(_out_shape(x, w, transposed, stride), dtype=torch.float32,
+                    device=x.device)
     p1 = torch.empty((rows, dims[4]), dtype=torch.float32, device=x.device)
     p2 = torch.empty_like(p1)
     _launch("conv_bn_stats", "bpt_conv_bn_stats", _operand(x), _operand(w),
-            p1, p2, *dims)
+            u, p1, p2, *dims)
     conv_bn_stats.launches += 1
-    return p1.sum(0), p2.sum(0)
+    return (p1.sum(0, dtype=torch.float64).float(),
+            p2.sum(0, dtype=torch.float64).float(), u)
 
 
 conv_bn_stats.launches = 0
 
 
-def conv_bn_fwd(x, w, a, b, *, transposed: bool, stride: int, padding: int):
-    """K4-fwd: y = relu(u * a + b).
+def conv_bn_fwd(u, a, b):
+    """K4-fwd: y = relu(u * a + b) per channel, u (N, C, H, W) as K4-stats
+    returns it, written over u in place; returns u.
 
-    On CPU tensors the plain version; on CUDA tensors one launch (adds one
-    to ``conv_bn_fwd.launches``)."""
-    if not _device("conv_bn_fwd", x):
-        return conv_bn_fwd_ref(x, w, a, b, transposed=transposed,
-                               stride=stride, padding=padding)
-    k, s = _check("conv_bn_fwd", x, w, transposed, stride, padding,
-                  {"a": a, "b": b})
-    y = torch.empty(_out_shape(x, w, transposed, stride), dtype=x.dtype,
-                    device=x.device)
-    _launch("conv_bn_fwd", "bpt_conv_bn_fwd", _operand(x), _operand(w),
-            _operand(a), _operand(b), y, *_dims(x, w, transposed, k, s))
+    On CPU tensors the plain version's operations in place (each rounded as
+    in ``conv_bn_fwd_ref``, so the two agree bit for bit). On CUDA tensors
+    one launch (adds one to ``conv_bn_fwd.launches``)."""
+    if not _device("conv_bn_fwd", u):
+        return u.mul_(_vec(a)).add_(_vec(b)).clamp_min_(0.0)
+    _check_fwd("conv_bn_fwd", u, a, b)
+    n, c, h, w = u.shape
+    _launch("conv_bn_fwd", "bpt_conv_bn_fwd", u, a, b, n, c, h * w)
     conv_bn_fwd.launches += 1
-    return y
+    return u
 
 
 conv_bn_fwd.launches = 0
@@ -330,10 +368,10 @@ def conv_bn_relu_ref(x, w, gamma, beta, *, transposed: bool, stride: int,
     """Plain PyTorch forward: (y, mean, var), the library's conv, the batch
     statistics in f32, the affine and the ReLU."""
     kw = dict(transposed=transposed, stride=stride, padding=padding)
-    mean, var = batch_stats(*conv_bn_stats_ref(x, w, **kw),
-                            _count(x, w, transposed, stride))
+    s1, s2, u = conv_bn_stats_ref(x, w, **kw)
+    mean, var = batch_stats(s1, s2, _count(x, w, transposed, stride))
     _, a, b = bn_affine(gamma, beta, mean, var, eps)
-    return conv_bn_fwd_ref(x, w, a, b, **kw), mean, var
+    return conv_bn_fwd_ref(u, a, b), mean, var
 
 
 def conv_bn_relu_bwd_ref(x, w, gamma, beta, mean, var, dy, *,
@@ -358,9 +396,10 @@ class _ConvBnRelu(torch.autograd.Function):
     def forward(ctx, x, w, gamma, beta, transposed, stride, padding, eps):
         kw = dict(transposed=transposed, stride=stride, padding=padding)
         count = _count(x, w, transposed, stride)
-        mean, var = batch_stats(*conv_bn_stats(x, w, **kw), count)
+        s1, s2, u = conv_bn_stats(x, w, **kw)
+        mean, var = batch_stats(s1, s2, count)
         inv, a, b = bn_affine(gamma, beta, mean, var, eps)
-        y = conv_bn_fwd(x, w, a, b, **kw)
+        y = conv_bn_fwd(u, a, b)   # in place over u
         # y carries the ReLU mask to the backward (the next layer keeps it)
         ctx.save_for_backward(x, w, a, mean, inv, y)
         ctx.kw, ctx.count = kw, count
@@ -383,9 +422,9 @@ def conv_bn_relu(x, w, gamma, beta, *, transposed: bool, stride: int,
 
     x (N, Cin, H, W); w OIHW (conv) or IOHW (``transposed``); gamma, beta
     (Cout,). Differentiable in x, w, gamma and beta; mean and var carry no
-    gradient. On CUDA tensors the forward is K4-stats then K4-fwd and the
-    backward K4-bwd1 then K4-bwd2 (u kept between them, y's mask); on CPU
-    tensors their plain versions. The
+    gradient. On CUDA tensors the forward is K4-stats then K4-fwd (y
+    written over stats' u) and the backward K4-bwd1 then K4-bwd2 (u kept
+    between them, y's mask); on CPU tensors their plain versions. The
     triple it fuses has a bias-free conv: a ``bias`` raises."""
     if bias is not None:
         raise ValueError("conv_bn_relu: the conv must be bias-free (a bias "

@@ -124,8 +124,9 @@ def _stage_times(trainer, idx, lr) -> dict:
     return out
 
 
-# device kernel names of K4 (csrc/conv_bn.cu)
-_K4_KERNEL_NAMES = ("fwd_type_kernel", "bwd1_kernel", "dx_kernel",
+# device kernel names of K4 (csrc/conv_bn.cu): the u GEMM of stats and bwd1,
+# fwd's pass, and bwd2's dx and dW
+_K4_KERNEL_NAMES = ("u_gemm_kernel", "bn_relu_kernel", "dx_kernel",
                     "dw_kernel")
 
 

@@ -28,13 +28,17 @@ that fails raises.
      kept), timed
  10. K4 (stats, fwd, bwd1, bwd2) against its plain version at the four
      fused sites of the fiducial training step (the backward on the raw
-     cotangent with K4's ReLU mask, and on a kink-zeroed one), the backward
-     pair's peak memory, timed with cuDNN's conv, the port's BatchNorm and
-     ReLU as the yardstick
+     cotangent with K4's ReLU mask, and on a kink-zeroed one); stats' u
+     against bwd1's (bit for bit: one mainloop); the forward and backward
+     pairs' peak memory; timed with cuDNN's conv, the port's BatchNorm and
+     ReLU as the yardstick; the bounds of the kernels' design (3xTF32 and
+     memory) beside the CUDA-core ones
  11. train with K4 as well (``fused_train_conv=True``: 4 launches of each
      K4 kernel per step at 512^2), timed beside phase 8's step, with its
      peak device memory; 11b a step
-     with every kernel against a plain step from the same start
+     with every kernel against a plain step from the same start whose four
+     sites' forward is computed in f64, within STEP_GRAD_TOL or no further
+     than the plain step (the sites in f32) lies from it
  12. repaint the golden with PyTorch's default TF32 setting (cuDNN TF32 on)
      for the record, and with the painter's pinned f32, which must pass
 """
@@ -464,6 +468,9 @@ K4_SITES = {
               h=256),
 }
 K4_KERNELS = ("stats", "fwd", "bwd1", "bwd2")
+# each K4 kernel's bound as it is designed (``k4_bounds``): the u GEMM, dx
+# and dW on the tensor cores at the 3xTF32 rate, fwd a pass over memory
+K4_BOUND = {k: f"{k}_tc" for k in K4_KERNELS}
 # operations per pixel and head: forward conv7 16->8, conv5 8->1, conv3 1->1
 _HEAD_FWD_OPS = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3)
 # backward, from the u1 the forward keeps: u2 recomputed and the input and
@@ -860,20 +867,16 @@ def _site_forward_f64(x, w, gamma, beta, transposed, stride, padding,
 
 
 class _PlainSite(torch.autograd.Function):
-    """A K4 site in plain PyTorch: the plain forward (``conv_bn_relu_ref``,
-    or with ``f64`` ``_site_forward_f64``), then the plain backward with the
-    ReLU's active set ``active`` when given (K4's, recorded in the kernels
-    step), else the forward's own (y > 0)."""
+    """A K4 site in plain PyTorch: the forward ``fwd`` (``conv_bn_relu_ref``'s
+    arguments and results), then the plain backward
+    (``conv_bn_relu_bwd_ref``) at its statistics, with the ReLU's active set
+    ``active`` when given, else the forward's own (y > 0)."""
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, transposed, stride, padding, eps,
-                active, f64):
+                fwd, active):
         kw = dict(transposed=transposed, stride=stride, padding=padding)
-        if f64:
-            y, mean, var = _site_forward_f64(x, w, gamma, beta, eps=eps,
-                                             **kw)
-        else:
-            y, mean, var = conv_bn_relu_ref(x, w, gamma, beta, eps=eps, **kw)
+        y, mean, var = fwd(x, w, gamma, beta, eps=eps, **kw)
         ctx.save_for_backward(x, w, gamma, beta, mean, var,
                               y > 0 if active is None else active)
         ctx.kw = dict(kw, eps=eps)
@@ -904,24 +907,46 @@ class _k4_sites:
         self._layers.conv_bn_relu = self._saved
 
 
-def _recording_k4(masks: list):
-    """``conv_bn_relu`` that appends each call's ReLU active set (y > 0) to
-    ``masks``."""
-    def site(x, w, gamma, beta, **kw):
-        y, mean, var = conv_bn_relu(x, w, gamma, beta, **kw)
-        masks.append(y.detach() > 0)
-        return y, mean, var
-    return site
-
-
-def _plain_k4(masks=None, f64: bool = False):
-    """``_PlainSite`` as a ``conv_bn_relu``: with ``masks``, each call takes
-    the next recorded active set."""
+def plain_k4(fwd=conv_bn_relu_ref, masks=None):
+    """``_PlainSite`` with the forward ``fwd`` as a ``conv_bn_relu``: with
+    ``masks``, each call takes the next active set off the list."""
     def site(x, w, gamma, beta, *, transposed, stride, padding, eps=1e-5):
         active = masks.pop(0) if masks is not None else None
         return _PlainSite.apply(x, w, gamma, beta, transposed, stride,
-                                padding, eps, active, f64)
+                                padding, eps, fwd, active)
     return site
+
+
+def step_gradients(device, dataset, idx, eps, kernels: bool,
+                   fused_train_conv: bool, site=None,
+                   n_res_blocks: int = N_RES_BLOCKS):
+    """One training step from the seeded initialisation on the batch
+    ``idx`` with the latent noise ``eps``, cuDNN on its deterministic
+    algorithms: (loss, each trainable parameter's gradient by name).
+    ``kernels``: K2's gather and K3's heads, else the plain versions and
+    cuDNN's heads; ``site`` runs in place of ``conv_bn_relu`` at the sites
+    ``fused_train_conv`` fuses."""
+    trainer = make_trainer(device, dataset, kernels, use_kernel=kernels,
+                           n_res_blocks=n_res_blocks,
+                           fused_train_conv=fused_train_conv)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _k4_sites(site or conv_bn_relu):
+            m = trainer.step_indices(idx, 1e-4, eps=eps)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return float(m["elbo"]), {
+        n: p.grad.detach().clone()
+        for n, p in trainer.model.named_parameters() if p.requires_grad}
+
+
+def parity_inputs(dataset, batch: int):
+    """The seeded batch and latent noise of ``train_parity``."""
+    idx = dataset.sample_indices(np.random.default_rng(2), batch)
+    hz = dataset.tile_size // 32
+    return idx, torch.randn((1, batch, 1, hz, hz),
+                            generator=torch.Generator().manual_seed(3))
 
 
 def _worst(errs: dict, ref: dict, n: int = 5) -> str:
@@ -933,63 +958,39 @@ def train_parity(device, dataset, batch: int = TRAIN_BATCH,
                  n_res_blocks: int = N_RES_BLOCKS,
                  fused_train_conv: bool = False) -> dict:
     """Phase 8b (11b with ``fused_train_conv``): one step with the kernels
-    (K2, K3, and with ``fused_train_conv`` K4) against one with the plain
-    versions (``use_kernel=False``, cuDNN heads and trunk) from the same
-    initialisation, batch and latent noise: the loss to STEP_LOSS_RTOL,
-    every parameter's gradient to STEP_GRAD_TOL of its largest entry
-    (``step_grad_errors``). Prints every parameter whose gradient lies under
-    STEP_GRAD_FLOOR of the largest entry of all.
+    (K2, K3, and with ``fused_train_conv`` K4) against steps with plain
+    versions from the same initialisation, batch and latent noise
+    (``step_gradients``). The loss to STEP_LOSS_RTOL of the plain step's
+    (``use_kernel=False``, cuDNN heads and trunk). The gradients
+    (``step_grad_errors``, worst over the parameters): in 8b against the
+    plain step, to STEP_GRAD_TOL. Prints every parameter whose gradient
+    lies under STEP_GRAD_FLOOR of the largest entry of all.
 
-    With K4 the plain step runs the fused sites in plain PyTorch
-    (``_PlainSite``: the library's conv, the batch statistics, the ReLU and
-    the closed-form backward), its forward wholly its own, and takes K4's
-    ReLU active sets at those sites, recorded in the kernels step: K4
-    recomputes u, so at a pre-activation within rounding of the kink it can
-    pass the ReLU where the plain forward does not. Printed beside, for the
-    record: the kernels step against the wholly plain step, and the witness
-    of how far rounding of the sites' forward alone moves the gradients,
-    the plain sites' step and the kernels step each against a step whose
-    sites' forward is computed in f64 (``_site_forward_f64``). cuDNN runs
-    its deterministic algorithms here, so the comparison reads the same in
-    every run."""
+    In 11b against the plain step with the four sites' forward computed in
+    f64 and rounded to f32 (``_site_forward_f64``) and the plain
+    closed-form backward there (``_PlainSite``): the step as exact as f32
+    can hold the sites. The gradients move by about STEP_GRAD_TOL under
+    the f32 rounding of the sites' batch statistics, so the K4 step is held
+    to STEP_GRAD_TOL of that step, or, where the plain step (the sites in
+    f32 plain PyTorch) lies further from it, to the plain step's distance:
+    K4 may round no worse than the plain version. Both readings and the
+    K4 step against the wholly plain step are printed.
+    ``scripts/step_parity_witness.py`` prints the other comparisons."""
     t0 = time.perf_counter()
     device = torch.device(device)
-    idx = dataset.sample_indices(np.random.default_rng(2), batch)
-    hz = dataset.tile_size // 32
-    eps = torch.randn((1, batch, 1, hz, hz),
-                      generator=torch.Generator().manual_seed(3))
-    masks = []
-    # (label, fused heads and gather kernel, fused sites, their function)
-    plans = [("kernels", True, fused_train_conv, _recording_k4(masks)),
-             ("plain", False, False, None)]
+    idx, eps = parity_inputs(dataset, batch)
+    # label: (fused heads and gather kernel, fused sites, their function)
+    plans = {"kernels": (True, fused_train_conv, None),
+             "plain": (False, False, None)}
     if fused_train_conv:
-        plans += [("plain_k4_active", False, True, _plain_k4(masks)),
-                  ("plain_sites", False, True, _plain_k4()),
-                  ("sites_f64", False, True, _plain_k4(f64=True))]
-    runs = {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        for label, kernels, k4, site in plans:
-            trainer = make_trainer(device, dataset, kernels,
-                                   use_kernel=kernels,
-                                   n_res_blocks=n_res_blocks,
-                                   fused_train_conv=k4)
-            with _k4_sites(site or conv_bn_relu):
-                m = trainer.step_indices(idx, 1e-4, eps=eps)
-            names = [n for n, p in trainer.model.named_parameters()
-                     if p.requires_grad]
-            runs[label] = (float(m["elbo"]), dict(zip(names, (
-                p.grad.detach().clone() for p in trainer.params))))
-            del trainer
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    if masks:
-        raise AssertionError(f"{len(masks)} recorded K4 active sets left "
-                             f"unused: the steps fused different sites")
+        plans["plain_sites"] = (False, True, plain_k4())
+        plans["sites_f64"] = (False, True, plain_k4(_site_forward_f64))
+    runs = {label: step_gradients(device, dataset, idx, eps, kernels, k4,
+                                  site, n_res_blocks)
+            for label, (kernels, k4, site) in plans.items()}
     loss_k, grads_k = runs["kernels"]
-    loss_p, grads_plain = runs["plain"]
-    ref = "plain_k4_active" if fused_train_conv else "plain"
+    loss_p = runs["plain"][0]
+    ref = "sites_f64" if fused_train_conv else "plain"
     grads_p = runs[ref][1]
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     grad_errs, under, top = step_grad_errors(grads_k, grads_p)
@@ -1002,29 +1003,31 @@ def train_parity(device, dataset, batch: int = TRAIN_BATCH,
               flush=True)
     worst = max(grad_errs, key=grad_errs.get)
     worst5 = _worst(grad_errs, grads_p)
-    witness = {}
+    witness, limit = {}, STEP_GRAD_TOL
     if fused_train_conv:
-        for a, b in (("kernels", "plain"), ("plain_sites", "sites_f64"),
-                     ("kernels", "sites_f64")):
-            errs, _, _ = step_grad_errors(runs[a][1], runs[b][1])
+        for a, b in (("plain_sites", "sites_f64"), ("kernels", "plain")):
+            errs = step_grad_errors(runs[a][1], runs[b][1])[0]
             witness[f"{a}_vs_{b}"] = max(errs.values())
             print(f"  {a} against {b}, worst gradients: "
                   f"{_worst(errs, runs[b][1])}", flush=True)
-    print(f"  worst gradients against {ref} (max|g| of all {top:.2e}): "
-          f"{worst5}", flush=True)
-    if not (loss_err <= STEP_LOSS_RTOL
-            and grad_errs[worst] <= STEP_GRAD_TOL):
-        raise AssertionError(f"kernels-vs-plain step: loss rel err "
+        limit = max(STEP_GRAD_TOL, witness["plain_sites_vs_sites_f64"])
+    print(f"  worst gradients against {ref} (max|g| of all {top:.2e}; "
+          f"limit {limit:.3e}): {worst5}", flush=True)
+    if not (loss_err <= STEP_LOSS_RTOL and grad_errs[worst] <= limit):
+        raise AssertionError(f"kernels step against {ref}: loss rel err "
                              f"{loss_err:.3e}; largest gradient entry "
-                             f"{top:.3e}; worst gradients {worst5}")
+                             f"{top:.3e}; gradient limit {limit:.3e}; "
+                             f"worst gradients {worst5}")
     _line(phase, "train_parity", t0, elbo_kernels=f"{loss_k:.6f}",
           elbo_plain=f"{loss_p:.6f}", loss_rel_err=f"{loss_err:.3e}",
-          worst_grad=worst, worst_grad_rel_err=f"{grad_errs[worst]:.3e}",
-          params=len(grad_errs), under_floor=len(under),
+          reference=ref, worst_grad=worst,
+          worst_grad_rel_err=f"{grad_errs[worst]:.3e}",
+          grad_limit=f"{limit:.3e}", params=len(grad_errs),
+          under_floor=len(under),
           **{k: f"{v:.3e}" for k, v in witness.items()})
-    return {"loss_rel_err": loss_err, "worst_grad": worst,
-            "worst_grad_rel_err": grad_errs[worst], "under_floor": under,
-            "witness": witness}
+    return {"loss_rel_err": loss_err, "reference": ref, "worst_grad": worst,
+            "worst_grad_rel_err": grad_errs[worst], "grad_limit": limit,
+            "under_floor": under, "witness": witness}
 
 
 def paint_fused_heads(device, card=None, heads_unfused_ms=None,
@@ -1077,6 +1080,17 @@ def k4_inputs(site: dict, batch: int, tile: int, device, seed: int = 0):
     return x, w, gamma, beta, dy
 
 
+def k4_stats_rows(site: dict, batch: int, tile: int) -> int:
+    """Partial rows K4-stats writes at a site: one a block of the u GEMM
+    (output phases x 16-column tiles x 8 R-row tiles of the input grid, R
+    = 2 up to 32 output channels, and per sample), as
+    ``bpt_conv_bn_bwd1_tiles`` counts them."""
+    h = k4_site_shape(site, batch, tile)["h"]
+    s = site["stride"] if site["transposed"] else 1
+    rows = 2 if -(-min(site["cout"], 64) // 8) * 8 <= 32 else 1
+    return batch * s * s * -(-h // 16) * -(-h // (8 * rows))
+
+
 def k4_bounds(site: dict, batch: int, tile: int) -> dict:
     """Least time of each K4 kernel at a site: its operations over the f32
     CUDA-core rate against its bytes over the memory rate. One conv pass is
@@ -1084,9 +1098,11 @@ def k4_bounds(site: dict, batch: int, tile: int) -> dict:
     transposed conv); stats, fwd and bwd1 need one pass and bwd2 three (u
     again, dx and dW), plus a few elementwise operations per output. Bytes:
     x and the weights read once, and y (fwd), dy (bwd1, bwd2), dx and dW
-    (bwd2) moved once. ``bwd1_tc`` and ``bwd2_tc`` bound the backward as
-    its kernels compute it, on the tensor cores at the 3xTF32 rate: bwd1
-    one pass (u), reading x, y and dy and writing u; bwd2 two (dx, dW),
+    (bwd2) moved once. The ``*_tc`` bounds are the kernels' design: the
+    u GEMM, dx and dW on the tensor cores at the 3xTF32 rate. ``stats_tc``
+    one pass, reading x and writing u and its partial sums; ``fwd_tc`` no
+    pass, u read and y written in place (bound by memory); ``bwd1_tc`` one
+    pass (u), reading x, y and dy and writing u; ``bwd2_tc`` two (dx, dW),
     reading x, u, y and dy and writing dx and dW. ``logical_fwd`` and
     ``logical_bwd`` bound the fused op as a whole, without the kernels'
     recomputes of u: one conv pass forward (x read, y written) and two
@@ -1098,11 +1114,15 @@ def k4_bounds(site: dict, batch: int, tile: int) -> dict:
     conv = 2.0 * out * cin * taps
     xb = 4.0 * batch * cin * sh["h"] * sh["h"]
     wb = 4.0 * cin * cout * k * k
+    partials = 2 * 4.0 * k4_stats_rows(site, batch, tile) * cout
     return {"conv_flops": conv,
             "stats": _bound(conv + 3 * out, xb + wb),
             "fwd": _bound(conv + 3 * out, xb + wb + 4 * out),
             "bwd1": _bound(conv + 6 * out, xb + wb + 4 * out),
             "bwd2": _bound(3 * conv + 8 * out, 2 * xb + 2 * wb + 4 * out),
+            "stats_tc": _bound(conv + 3 * out, xb + wb + 4 * out + partials,
+                               PEAK_3XTF32),
+            "fwd_tc": _bound(3 * out, 8 * out),
             "bwd1_tc": _bound(conv + 6 * out, xb + wb + 12 * out,
                               PEAK_3XTF32),
             "bwd2_tc": _bound(2 * conv + 8 * out, 2 * xb + 2 * wb + 12 * out,
@@ -1126,40 +1146,67 @@ def library_conv_bn_relu(x, w, gamma, beta, site):
     return (lambda xx, ww: torch.relu(bn(conv(xx, ww, **kw)))), bn
 
 
+def _peak_start(device) -> int:
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def _peak_since(device, base: int) -> int:
+    """Peak device memory since ``_peak_start`` beyond what was live then
+    (0 on the CPU: a device number)."""
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device) - base
+
+
+def _k4_forward(x, w, gamma, beta, kw, count):
+    """K4-stats then K4-fwd (the kernels on the card): y (written over
+    stats' u), mean, var, and the peak device memory of the pair beyond
+    what was live before it."""
+    base = _peak_start(x.device)
+    s1, s2, u = conv_bn_stats(x, w, **kw)
+    mean, var = batch_stats(s1, s2, count)
+    _, a, b = bn_affine(gamma, beta, mean, var)
+    y = conv_bn_fwd(u, a, b)
+    del u
+    return y, mean, var, _peak_since(x.device, base)
+
+
 def _k4_backward(x, w, gamma, beta, mean, var, y, dy, kw, count):
     """K4-bwd1 then K4-bwd2 (the kernels on the card): dx, dW, dgamma,
     dbeta, and the peak device memory of the pair beyond what was live
     before it (u is its transient)."""
     inv, a, _ = bn_affine(gamma, beta, mean, var)
-    if y.device.type == "cuda":
-        torch.cuda.synchronize(y.device)
-        base = torch.cuda.memory_allocated(y.device)
-        torch.cuda.reset_peak_memory_stats(y.device)
+    base = _peak_start(y.device)
     g1, g2, u = conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)
     dx, dw = conv_bn_bwd2(x, w, a, mean, inv, g1 / count, g2 / count, u, y,
                           dy, **kw)
     del u
-    peak = 0
-    if y.device.type == "cuda":
-        torch.cuda.synchronize(y.device)
-        peak = torch.cuda.max_memory_allocated(y.device) - base
-    return {"dx": dx, "dw": dw, "dgamma": g2, "dbeta": g1}, peak
+    return ({"dx": dx, "dw": dw, "dgamma": g2, "dbeta": g1},
+            _peak_since(y.device, base))
 
 
 def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
                   iters: int = 3, card=None) -> dict:
     """Phase 10: K4 against its plain version at each fused site of the
     fiducial training step (``K4_SITES``): y, mean and var from K4-stats and
-    K4-fwd against ``conv_bn_relu_ref``; dx, dW, dgamma and dbeta from
+    K4-fwd against ``conv_bn_relu_ref``; the u of K4-stats against the u
+    K4-bwd1 recomputes (equal: one mainloop); dx, dW, dgamma and dbeta from
     K4-bwd1 and K4-bwd2 against ``conv_bn_relu_bwd_ref`` on the raw
     cotangent, both with K4's statistics and K4's ReLU mask (y > 0 of
     K4-fwd), as the training step runs them; and, as before the mask was
     shared, against the plain backward with its own forward on a cotangent
     zeroed where it meets a pre-activation within KINK_REL of ReLU's kink.
-    The tolerances of K4_TOL. The peak device memory of the backward pair
-    (u's transient), each kernel, its plain version and the yardstick
+    The tolerances of K4_TOL. The peak device memory of the forward pair
+    (y, written over stats' u) and of the backward pair (u's transient),
+    each kernel, its plain version and the yardstick
     (``library_conv_bn_relu``, forward and autograd backward) timed with
-    CUDA events; the bounds beside."""
+    CUDA events; the bounds of the kernels' design (``K4_BOUND``) beside,
+    the f32 CUDA-core ones in the record."""
     t0 = time.perf_counter()
     device = torch.device(device)
     sites = {}
@@ -1168,9 +1215,14 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
         kw = {k: site[k] for k in ("transposed", "stride", "padding")}
         count = dy.shape[0] * dy.shape[2] * dy.shape[3]
         with torch.no_grad():
-            mean, var = batch_stats(*conv_bn_stats(x, w, **kw), count)
+            y, mean, var, fwd_peak = _k4_forward(x, w, gamma, beta, kw,
+                                                 count)
             inv, a, b = bn_affine(gamma, beta, mean, var)
-            y = conv_bn_fwd(x, w, a, b, **kw)
+            # stats' u and bwd1's: one GEMM code path, so equal bit for bit
+            u_s = conv_bn_stats(x, w, **kw)[2]
+            u_diff = (u_s - conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)[2]
+                      ).abs().max().item()
+            del u_s
             y_r, mean_r, var_r = conv_bn_relu_ref(x, w, gamma, beta, **kw)
             errs = {k: _rel_err(g, r) for k, g, r in (
                 ("y", y, y_r), ("mean", mean, mean_r), ("var", var, var_r))}
@@ -1211,14 +1263,18 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
         bad = {k: e for k, e in errs.items() if not e <= K4_TOL[k]}
         bad.update({f"{k}_kink_zeroed": e for k, e in errs_kink.items()
                     if not e <= K4_TOL[k]})
+        if u_diff != 0.0:
+            bad["u_stats_vs_bwd1_max_abs"] = u_diff
         u_gb = 4 * y.numel() / 1e9
         print(f"  K4 site {name}: raw cotangent, K4's mask: "
               + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
               + f"; cotangent zeroed near the kink ({zeroed:.3e}), plain "
               f"forward's own mask: "
               + ", ".join(f"{k} {e:.2e}" for k, e in errs_kink.items())
-              + f"; backward pair's peak memory {peak / 1e9:.3f} GB (u "
-              f"{u_gb:.3f} GB)", flush=True)
+              + f"; u_stats_vs_bwd1_max_abs {u_diff:.3e}; forward pair's "
+              f"peak memory {fwd_peak / 1e9:.3f} GB (y alone, the parent "
+              f"design's, {u_gb:.3f} GB); backward pair's peak memory "
+              f"{peak / 1e9:.3f} GB (u {u_gb:.3f} GB)", flush=True)
         if bad:
             raise AssertionError(f"K4 site {name} disagrees with its plain "
                                  f"version: {bad}")
@@ -1226,11 +1282,14 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
         s1, s2, u = conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)
         s1n, s2n = s1 / count, s2 / count
         u_p = conv_bn_bwd1_ref(x, w, mean, inv, dy, active=mask, **kw)[2]
+        # K4-fwd writes over its u: timed on a scratch copy, whose values
+        # the repeated calls change (the time does not depend on them)
+        u_t = u.clone()
         calls = {
             "stats": (lambda: conv_bn_stats(x, w, **kw),
                       lambda: conv_bn_stats_ref(x, w, **kw)),
-            "fwd": (lambda: conv_bn_fwd(x, w, a, b, **kw),
-                    lambda: conv_bn_fwd_ref(x, w, a, b, **kw)),
+            "fwd": (lambda: conv_bn_fwd(u_t, a, b),
+                    lambda: conv_bn_fwd_ref(u_t, a, b)),
             "bwd1": (lambda: conv_bn_bwd1(x, w, mean, inv, y, dy, **kw),
                      lambda: conv_bn_bwd1_ref(x, w, mean, inv, dy,
                                               active=mask, **kw)),
@@ -1241,6 +1300,7 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
         }
         rec = {"errors": errs, "abs_errors": abs_errs,
                "errors_kink_zeroed": errs_kink, "kink_zeroed": zeroed,
+               "u_stats_vs_bwd1": u_diff, "fwd_peak_bytes": fwd_peak,
                "bwd_peak_bytes": peak, "u_bytes": 4 * y.numel(),
                "bounds": k4_bounds(site, batch, tile), "ms": {},
                "plain_ms": {}}
@@ -1248,7 +1308,7 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
             for k, (kern, plain) in calls.items():
                 rec["ms"][k] = _time_ms(kern, device, 1, iters)
                 rec["plain_ms"][k] = _time_ms(plain, device, 1, iters)
-        del u, u_p, mask, calls
+        del u, u_p, u_t, mask, calls
         lib, bn = library_conv_bn_relu(x, w, gamma, beta, site)
         leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(),
                   bn.weight, bn.bias]
@@ -1261,31 +1321,42 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
             device, 1, iters)
         del y_l, leaves
         sites[name] = rec
-        b_ = rec["bounds"]
+        b_ = {k: rec["bounds"][K4_BOUND[k]] for k in K4_KERNELS}
+        pair = rec["ms"]["stats"] + rec["ms"]["fwd"]
+        pair_bound = b_["stats"]["bound_ms"] + b_["fwd"]["bound_ms"]
         print(f"  K4 site {name} ({card}): "
               + ", ".join(f"{k} {rec['ms'][k]:.3f} ms (plain "
                           f"{rec['plain_ms'][k]:.3f}, bound "
-                          f"{b_[k]['bound_ms']:.3f})" for k in K4_KERNELS)
-              + f"; 3xTF32 bounds bwd1 {b_['bwd1_tc']['bound_ms']:.3f} "
-              f"({b_['bwd1_tc']['bound_by']}), bwd2 "
-              f"{b_['bwd2_tc']['bound_ms']:.3f} "
-              f"({b_['bwd2_tc']['bound_by']}); library fwd "
-              f"{rec['library_fwd_ms']:.3f} ms, bwd "
+                          f"{b_[k]['bound_ms']:.3f} {b_[k]['bound_by']}, "
+                          f"share {b_[k]['bound_ms'] / rec['ms'][k]:.3f})"
+                          for k in K4_KERNELS)
+              + f"; stats + fwd {pair:.3f} ms against the library's fwd "
+              f"{rec['library_fwd_ms']:.3f} ms (bound {pair_bound:.3f}), "
+              f"bwd1 + bwd2 against the library's bwd "
               f"{rec['library_bwd_ms']:.3f} ms; conv pass "
-              f"{b_['conv_flops'] / 1e9:.2f} GFLOP", flush=True)
+              f"{rec['bounds']['conv_flops'] / 1e9:.2f} GFLOP", flush=True)
     total = {k: sum(r["ms"][k] for r in sites.values()) for k in K4_KERNELS}
     logical = {k: sum(r["bounds"][f"logical_{k}"]["bound_ms"]
                       for r in sites.values()) for k in ("fwd", "bwd")}
-    tc = sum(r["bounds"][k]["bound_ms"] for r in sites.values()
-             for k in ("bwd1_tc", "bwd2_tc"))
+    bound = {k: sum(r["bounds"][K4_BOUND[k]]["bound_ms"]
+                    for r in sites.values()) for k in K4_KERNELS}
+    fwd_tc = bound["stats"] + bound["fwd"]
+    tc = bound["bwd1"] + bound["bwd2"]
     _line(10, "k4_vs_plain", t0, sites=",".join(sites), batch=batch,
           card=json.dumps(card),
           **{f"{k}_ms_4_sites": f"{v:.3f}" for k, v in total.items()},
           logical_fwd_bound_ms=f"{logical['fwd']:.3f}",
           logical_bwd_bound_ms=f"{logical['bwd']:.3f}",
+          fwd_design_bound_ms=f"{fwd_tc:.3f}",
           bwd_3xtf32_bound_ms=f"{tc:.3f}",
           stats_fwd_share_of_logical=(
               f"{logical['fwd'] / (total['stats'] + total['fwd']):.4f}"),
+          stats_fwd_share_of_design_bound=(
+              f"{fwd_tc / (total['stats'] + total['fwd']):.4f}"),
+          u_stats_vs_bwd1_max_abs=(
+              f"{max(r['u_stats_vs_bwd1'] for r in sites.values()):.3e}"),
+          fwd_peak_gb_max=(
+              f"{max(r['fwd_peak_bytes'] for r in sites.values()) / 1e9:.3f}"),
           bwd1_bwd2_share_of_logical=(
               f"{logical['bwd'] / (total['bwd1'] + total['bwd2']):.4f}"),
           bwd1_bwd2_share_of_3xtf32=(
@@ -1334,15 +1405,17 @@ def k4_record(conv_bn: dict, training_k4: dict) -> list:
     launches of phase 11's timed steps. The yardstick times the library's
     forward (conv, BatchNorm, ReLU) and its autograd backward; they stand
     on K4-fwd and K4-bwd2, as the pairs stats + fwd and bwd1 + bwd2 compute
-    those functions. The backward kernels' bound is at the 3xTF32
-    tensor-core rate (their f32 CUDA-core bound beside it)."""
+    those functions. Each bound is that of the kernels' design
+    (``K4_BOUND``: the GEMMs at the 3xTF32 tensor-core rate, fwd bound by
+    memory), the f32 CUDA-core bound beside it; K4-stats carries its u's
+    difference from K4-bwd1's."""
     sites = conv_bn["sites"].values()
     out = []
     for k in K4_KERNELS:
-        # the backward kernels run on the tensor cores: their bound is the
-        # 3xTF32 one, the f32 CUDA-core one beside it
-        bk, peak = ((f"{k}_tc", PEAK_3XTF32) if k in ("bwd1", "bwd2")
-                    else (k, PEAK_FLOPS[torch.float32]))
+        # the bound of the kernels' design (K4_BOUND), the f32 CUDA-core
+        # one beside it
+        bk = K4_BOUND[k]
+        peak = PEAK_FLOPS[torch.float32] if k == "fwd" else PEAK_3XTF32
         t_ops = sum(r["bounds"][bk]["flops"] for r in sites) / peak
         t_bytes = sum(r["bounds"][bk]["bytes"] for r in sites) / HBM_BYTES_PER_S
         lib = _K4_LIBRARY.get(k)
@@ -1362,9 +1435,11 @@ def k4_record(conv_bn: dict, training_k4: dict) -> list:
         if lib is not None:
             entry["library_covers"] = ("stats+fwd" if k == "fwd"
                                        else "bwd1+bwd2")
-        if bk != k:
-            entry["bound_ms_f32_cuda_cores"] = sum(
-                r["bounds"][k]["bound_ms"] for r in sites)
+        if k == "stats":
+            entry["u_vs_bwd1_max_abs"] = max(r["u_stats_vs_bwd1"]
+                                             for r in sites)
+        entry["bound_ms_f32_cuda_cores"] = sum(r["bounds"][k]["bound_ms"]
+                                               for r in sites)
         out.append(entry)
     return out
 

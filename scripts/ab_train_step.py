@@ -2,10 +2,12 @@
 """A/B of the port's training step between checkouts, on one CUDA card.
 
     python3 scripts/ab_train_step.py ROOT_A ROOT_B [--iters 10] [--warmup 3]
+        [--fused-train-conv]
 
 Times ``CVAETrainer.step_indices`` of the fiducial CVAE at batch 24 and
 512^2 (``smoke.training_data``, ``smoke.make_trainer`` with K3's heads, K2's
-gather, ``fused_train_conv`` off) as the ``baryon_painter_tpu_torch`` found
+gather, and ``fused_train_conv`` (K4) off, or on with
+``--fused-train-conv``) as the ``baryon_painter_tpu_torch`` found
 under each ROOT computes it, and the peak device memory allocated over the
 timed steps. Each run is a process of its own that imports the package from
 its ROOT (and builds that checkout's kernels there), in turns: A, B, B, A.
@@ -26,6 +28,7 @@ import torch
 sys.path.insert(0, sys.argv[1])
 from baryon_painter_tpu_torch import smoke
 iters, warmup = int(sys.argv[2]), int(sys.argv[3])
+fused_train_conv = sys.argv[4] == "1"
 if not torch.cuda.is_available():
     raise SystemExit("ab_train_step: needs a CUDA device")
 assert smoke.__file__.startswith(sys.argv[1]), smoke.__file__
@@ -33,7 +36,8 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 device = torch.device("cuda", 0)
 ds = smoke.training_data()
-trainer = smoke.make_trainer(device, ds, True)
+trainer = smoke.make_trainer(device, ds, True,
+                             fused_train_conv=fused_train_conv)
 rng = np.random.default_rng(1)
 idx = [ds.sample_indices(rng, smoke.TRAIN_BATCH)
        for _ in range(warmup + iters)]
@@ -47,6 +51,7 @@ for i in range(iters):
 torch.cuda.synchronize()
 ms = (time.perf_counter() - t0) * 1e3 / iters
 print(json.dumps({"step_ms": ms, "batch": smoke.TRAIN_BATCH,
+                  "fused_train_conv": fused_train_conv,
                   "peak_memory_gb": torch.cuda.max_memory_allocated(device)
                   / 1e9}))
 """
@@ -57,6 +62,8 @@ def main():
     ap.add_argument("roots", nargs=2, type=Path)
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--fused-train-conv", action="store_true",
+                    help="train with K4 (the fused conv + BN + ReLU)")
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader", "--id=0"],
@@ -67,7 +74,8 @@ def main():
     for label, root in (("A", a), ("B", b), ("B", b), ("A", a)):
         out = subprocess.run(
             [sys.executable, "-c", _RUN, root, str(args.iters),
-             str(args.warmup)], capture_output=True, text=True,
+             str(args.warmup), str(int(args.fused_train_conv))],
+            capture_output=True, text=True,
             timeout=1200, cwd=root)
         if out.returncode != 0:
             raise SystemExit(f"ab_train_step: run {label} ({root}) failed:\n"
@@ -76,9 +84,13 @@ def main():
                **json.loads(out.stdout.strip().splitlines()[-1])}
         runs.append(rec)
         print(f"{label} {root}: {rec['step_ms']:.3f} ms per step of batch "
-              f"{rec['batch']}, peak device memory "
+              f"{rec['batch']}, K4 "
+              f"{'on' if args.fused_train_conv else 'off'}, peak device "
+              f"memory "
               f"{rec['peak_memory_gb']:.3f} GB ({card})", flush=True)
-    print(json.dumps({"card": card, "iters": args.iters, "runs": runs}))
+    print(json.dumps({"card": card, "iters": args.iters,
+                      "fused_train_conv": args.fused_train_conv,
+                      "runs": runs}))
 
 
 if __name__ == "__main__":

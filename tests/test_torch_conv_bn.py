@@ -162,11 +162,17 @@ def test_kernel_wrappers_on_the_cpu_are_the_plain_pieces():
     before = {f: f.launches for f in (k4.conv_bn_stats, k4.conv_bn_fwd,
                                       k4.conv_bn_bwd1, k4.conv_bn_bwd2)}
     y, mean, var = k4.conv_bn_relu_ref(xt, wt, gt, bt, **kw)
-    s1, s2 = k4.conv_bn_stats(xt, wt, **kw)
+    s1, s2, u = k4.conv_bn_stats(xt, wt, **kw)
+    torch.testing.assert_close(u, k4._conv(xt, wt, **kw), rtol=0, atol=0)
     n = y.shape[0] * y.shape[2] * y.shape[3]
     torch.testing.assert_close(k4.batch_stats(s1, s2, n), (mean, var))
     inv, a, b = k4.bn_affine(gt, bt, mean, var)
-    torch.testing.assert_close(k4.conv_bn_fwd(xt, wt, a, b, **kw), y)
+    u_before = u.clone()
+    y_k = k4.conv_bn_fwd(u, a, b)
+    # in place, as on the card: y is u's storage, the plain version's values
+    assert y_k.data_ptr() == u.data_ptr()
+    assert torch.equal(y_k, k4.conv_bn_fwd_ref(u_before, a, b))
+    torch.testing.assert_close(y_k, y)
     dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(6))
     dx, dw, dg, db = k4.conv_bn_relu_bwd_ref(xt, wt, gt, bt, mean, var, dy,
                                              active=y > 0, **kw)
@@ -180,6 +186,31 @@ def test_kernel_wrappers_on_the_cpu_are_the_plain_pieces():
         assert f.launches == count   # the plain versions launch nothing
 
 
+@pytest.mark.parametrize("hw,off", [((7, 9), 0), ((7, 9), 3), ((1, 3), 1),
+                                    ((3, 1367), 2)])
+def test_fwd_on_the_cpu_writes_y_over_u_in_place(hw, off):
+    """K4-fwd's contract on the CPU is the card's: y written over u (here a
+    view at an offset into a larger buffer), bit for bit the plain version,
+    nothing outside u written (``test_torch_cuda.py``'s
+    ``test_k4_fwd_takes_any_plane_length_and_offset`` on the card)."""
+    g = torch.Generator().manual_seed(0)
+    n, c = 2, 5
+    size = n * c * hw[0] * hw[1]
+    flat = torch.randn(size + 8, generator=g)
+    before = flat.clone()
+    u = flat[off:off + size].view(n, c, *hw)
+    a = torch.rand(c, generator=g) + 0.5
+    b = torch.randn(c, generator=g)
+    want = k4.conv_bn_fwd_ref(u.clone(), a, b)
+    launches = k4.conv_bn_fwd.launches
+    y = k4.conv_bn_fwd(u, a, b)
+    assert torch.equal(y, want) and y.data_ptr() == u.data_ptr()
+    assert torch.equal(flat[off:off + size].view(n, c, *hw), want)
+    assert torch.equal(flat[:off], before[:off])
+    assert torch.equal(flat[off + size:], before[off + size:])
+    assert k4.conv_bn_fwd.launches == launches
+
+
 def _plain_pieces(kind, xs, ws, s, p, seed):
     """The port's plain forward and the backward's inputs: (x, w, gamma,
     beta, y, mean, var, inv, a, dy, kw)."""
@@ -191,6 +222,25 @@ def _plain_pieces(kind, xs, ws, s, p, seed):
     inv, a, _ = k4.bn_affine(gt, bt, mean, var)
     dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(seed))
     return xt, wt, gt, bt, y, mean, var, inv, a, dy, kw
+
+
+@pytest.mark.parametrize("kind,xs,ws,s,p", CASES, ids=IDS)
+def test_stats_returns_u_and_its_sums(kind, xs, ws, s, p):
+    """K4-stats writes u (y's buffer on the card) beside the sums of u and
+    u^2: the plain version (and the CPU wrapper) return the convolution
+    itself, the u K4-bwd1 returns, and K4-fwd of it is the plain y."""
+    xt, wt, gt, bt, y, mean, var, inv, _, dy, kw = _plain_pieces(kind, xs,
+                                                                 ws, s, p, 11)
+    s1, s2, u = k4.conv_bn_stats_ref(xt, wt, **kw)
+    torch.testing.assert_close(u, k4._conv(xt, wt, **kw), rtol=0, atol=0)
+    torch.testing.assert_close(s1, u.sum((0, 2, 3)), rtol=0, atol=0)
+    torch.testing.assert_close(s2, (u * u).sum((0, 2, 3)), rtol=0, atol=0)
+    _, _, u_bwd1 = k4.conv_bn_bwd1_ref(xt, wt, mean, inv, dy, active=y > 0,
+                                       **kw)
+    assert torch.equal(u, u_bwd1)
+    _, a, b = k4.bn_affine(gt, bt, mean, var)
+    assert torch.equal(k4.conv_bn_fwd_ref(u, a, b), y)
+    assert torch.equal(k4.conv_bn_stats(xt, wt, **kw)[2], u)
 
 
 @pytest.mark.parametrize("kind,xs,ws,s,p", CASES, ids=IDS)
@@ -268,6 +318,83 @@ def test_kernel_family(transposed, k, s, p, ok):
     else:
         with pytest.raises(ValueError, match="kernels take"):
             k4.kernel_family(None, w, transposed, s, p)
+
+
+def _fwd_operands(shape=(2, 5, 7, 9), c=5):
+    return (torch.zeros(shape), torch.ones(c), torch.zeros(c))
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("bf16_u", TypeError, "float32"),
+    ("f64_a", TypeError, "float32"),
+    ("strided_u", ValueError, "contiguous"),
+    ("strided_b", ValueError, "contiguous"),
+    ("a_elsewhere", ValueError, "is on meta"),
+    ("u_3d", ValueError, r"\(N, C, H, W\)"),
+    ("a_length", ValueError, r"a must be \(5,\)"),
+    ("b_2d", ValueError, r"b must be \(5,\)"),
+    ("empty_u", ValueError, "non-empty"),
+])
+def test_fwd_check_raises_on_what_k4_fwd_does_not_take(case, exc, match):
+    """K4-fwd's operand check (run before a launch on the card): u must be
+    f32, contiguous, 4-D and non-empty, a and b (C,) f32 contiguous vectors
+    on u's device. Nothing is copied: y is written over u."""
+    u, a, b = _fwd_operands()
+    if case == "bf16_u":
+        u = u.bfloat16()
+    elif case == "f64_a":
+        a = a.double()
+    elif case == "strided_u":
+        u = torch.zeros(2, 5, 7, 18)[..., ::2]
+    elif case == "strided_b":
+        b = torch.zeros(10)[::2]
+    elif case == "a_elsewhere":
+        a = torch.ones(5, device="meta")
+    elif case == "u_3d":
+        u = u[0]
+    elif case == "a_length":
+        a = torch.ones(4)
+    elif case == "b_2d":
+        b = b[:, None]
+    elif case == "empty_u":
+        u = torch.zeros(0, 5, 7, 9)
+    with pytest.raises(exc, match=match):
+        k4._check_fwd("conv_bn_fwd", u, a, b)
+
+
+def test_fwd_check_takes_the_sites_operands():
+    for shape in ((24, 16, 512, 512), (24, 64, 128, 128), (1, 5, 7, 9)):
+        u = torch.empty(shape, device="meta")
+        k4._check_fwd("conv_bn_fwd", u, torch.empty(shape[1], device="meta"),
+                      torch.empty(shape[1], device="meta"))
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("bf16_x", TypeError, "float32"),
+    ("channels", ValueError, "channels"),
+    ("family", ValueError, "kernels take"),
+    ("grid", ValueError, r"ceil\(Cout / 64\)"),
+])
+def test_stats_check_raises_on_what_k4_stats_does_not_take(case, exc, match):
+    """K4-stats' operand check (before a launch on the card), on meta
+    tensors: f32 only, x's channels those of w, the two families, and the
+    u GEMM's grid (N x ceil(Cout / 64) blocks in z)."""
+    x = torch.empty(2, 3, 16, 16, device="meta")
+    w = torch.empty(16, 3, 5, 5, device="meta")
+    kw = dict(transposed=False, stride=1, padding=2)
+    if case == "bf16_x":
+        x = x.bfloat16()
+    elif case == "channels":
+        x = torch.empty(2, 4, 16, 16, device="meta")
+    elif case == "family":
+        kw["padding"] = 1
+    elif case == "grid":
+        x = torch.empty(65536, 3, 1, 1, device="meta")
+    with pytest.raises(exc, match=match):
+        k4._check("conv_bn_stats", x, w, **kw)
+    if case == "grid":   # 65535 samples still fit at 64 channels a block
+        k4._check("conv_bn_stats", torch.empty(65535, 3, 1, 1, device="meta"),
+                  torch.empty(64, 3, 5, 5, device="meta"), **kw)
 
 
 def test_a_bias_raises():

@@ -22,7 +22,9 @@ PReLU's kink, where the two may take different branches.
 K4 as ``smoke.K4_TOL`` (summation order: 1e-4 for y, the statistics and dx,
 1e-3 for the sums over every pixel); its backward (3xTF32 on the tensor
 cores) on the raw cotangent, the plain version taking K4's statistics and
-the forward's ReLU mask (y > 0 of K4-fwd), as the kernels do.
+the forward's ReLU mask (y > 0 of K4-fwd), as the kernels do. K4-stats'
+u equals K4-bwd1's bit for bit (one mainloop), and K4-fwd writes y over it
+in place, bit for bit as the plain affine + ReLU of that u.
 """
 from pathlib import Path
 
@@ -324,9 +326,11 @@ def _k4_run(site, batch, device, seed=0):
     y_r, mean_r, var_r = k4.conv_bn_relu_ref(x, w, gamma, beta, **kw)
     before = {f: f.launches for f in (k4.conv_bn_stats, k4.conv_bn_fwd,
                                       k4.conv_bn_bwd1, k4.conv_bn_bwd2)}
-    mean, var = k4.batch_stats(*k4.conv_bn_stats(x, w, **kw), count)
+    s1, s2, u_s = k4.conv_bn_stats(x, w, **kw)
+    mean, var = k4.batch_stats(s1, s2, count)
     inv, a, b = k4.bn_affine(gamma, beta, mean, var)
-    y = k4.conv_bn_fwd(x, w, a, b, **kw)
+    u_stats = u_s.clone()
+    y = k4.conv_bn_fwd(u_s, a, b)
     g1, g2, u = k4.conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)
     dx, dw = k4.conv_bn_bwd2(x, w, a, mean, inv, g1 / count, g2 / count, u,
                              y, dy, **kw)
@@ -335,7 +339,8 @@ def _k4_run(site, batch, device, seed=0):
     torch.cuda.synchronize()
     launches = {f: f.launches - n for f, n in before.items()}
     got = {"y": (y, y_r), "mean": (mean, mean_r), "var": (var, var_r),
-           "u": (u, k4._conv(x, w, **kw))}
+           "u": (u, k4._conv(x, w, **kw)),
+           "u_stats": (u_stats, k4._conv(x, w, **kw))}
     got.update(zip(("dx", "dw", "dgamma", "dbeta"),
                    zip((dx, dw, g2, g1), want)))
     return got, launches
@@ -360,16 +365,64 @@ def test_k4_matches_plain_version(cuda_device, site, batch):
     assert set(launches.values()) == {1}
     for name, (a, b) in got.items():
         assert a.shape == b.shape, name
-        # u, the conv that K4-bwd1 keeps, to y's tolerance
-        tol = smoke.K4_TOL["y" if name == "u" else name]
+        # u, the conv that K4-stats writes and K4-bwd1 keeps, to y's
+        # tolerance
+        tol = smoke.K4_TOL["y" if name.startswith("u") else name]
         assert _max_rel_err(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("site", [
+    _k4_site(False, 3, 16, 40, k=5), _k4_site(False, 5, 20, 37, k=3),
+    _k4_site(False, 4, 12, 29, k=1), _k4_site(False, 6, 16, 33, k=7),
+    _k4_site(True, 12, 18, 9), _k4_site(True, 6, 70, 11, s=4),
+], ids=["same_k5", "same_k3", "same_k1", "same_k7", "transp_s2",
+        "transp_s4_two_groups"])
+def test_k4_stats_u_is_bwd1_u_bit_for_bit(cuda_device, site):
+    """One mainloop for K4-stats and K4-bwd1: the u behind the batch
+    statistics and the forward's ReLU mask is the u of the backward; and
+    K4-fwd writes y over it in place, bit for bit the plain affine + ReLU
+    of that u."""
+    x, w, gamma, beta, dy = smoke.k4_inputs(site, 2, smoke.TRAIN_TILE,
+                                            cuda_device)
+    kw = {k: site[k] for k in ("transposed", "stride", "padding")}
+    count = dy.shape[0] * dy.shape[2] * dy.shape[3]
+    s1, s2, u = k4.conv_bn_stats(x, w, **kw)
+    mean, var = k4.batch_stats(s1, s2, count)
+    inv, a, b = k4.bn_affine(gamma, beta, mean, var)
+    u_stats = u.clone()
+    y = k4.conv_bn_fwd(u, a, b)
+    assert y.data_ptr() == u.data_ptr()
+    assert torch.equal(y, k4.conv_bn_fwd_ref(u_stats, a, b))
+    _, _, u_bwd1 = k4.conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)
+    assert torch.equal(u_stats, u_bwd1)
+
+
+def test_k4_fwd_takes_any_plane_length_and_offset(cuda_device):
+    """Planes whose length is not a multiple of 4 and u starting past a
+    16-byte boundary (a view into a larger buffer): K4-fwd in place, bit
+    for bit the plain version, nothing outside u written."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for hw, off in (((7, 9), 0), ((7, 9), 3), ((1, 3), 1), ((3, 1367), 2)):
+        n, c = 2, 5
+        size = n * c * hw[0] * hw[1]
+        flat = torch.randn(size + 8, generator=g, device=cuda_device)
+        before = flat.clone()
+        u = flat[off:off + size].view(n, c, *hw)
+        a = torch.rand(c, generator=g, device=cuda_device) + 0.5
+        b = torch.randn(c, generator=g, device=cuda_device)
+        want = k4.conv_bn_fwd_ref(u.clone(), a, b)
+        y = k4.conv_bn_fwd(u, a, b)
+        assert torch.equal(y, want) and y.data_ptr() == u.data_ptr()
+        assert torch.equal(flat[:off], before[:off])
+        assert torch.equal(flat[off + size:], before[off + size:])
 
 
 def test_k4_is_deterministic(cuda_device):
     site = _k4_site(True, 64, 32, 128)
     first, _ = _k4_run(site, 2, cuda_device)
     again, _ = _k4_run(site, 2, cuda_device)
-    for name in ("mean", "var", "dw", "dgamma", "dbeta", "y", "dx", "u"):
+    for name in ("mean", "var", "dw", "dgamma", "dbeta", "y", "dx", "u",
+                 "u_stats"):
         assert torch.equal(first[name][0], again[name][0]), name
 
 
@@ -409,6 +462,12 @@ def test_k4_wrapper_raises_on_what_the_kernels_do_not_take(cuda_device):
     wt = torch.zeros((3, 16, 3, 3), device=cuda_device)
     with pytest.raises(ValueError, match="kernels take"):
         k4.conv_bn_stats(x, wt, transposed=True, stride=2, padding=1)
+    # K4-fwd writes over u: a u that is not contiguous raises, uncopied
+    u = torch.zeros((1, 16, 16, 32), device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.conv_bn_fwd(u, gamma, beta)
+    with pytest.raises(ValueError, match=r"a must be \(16,\)"):
+        k4.conv_bn_fwd(u.contiguous(), gamma[:8], beta)
     # the backward tiles both channel counts (64 a block), so its shared
     # memory stays inside a block's 232448 bytes at any width; what it
     # refuses is a grid past 65535 blocks in z (N x ceil(Cin / 64))

@@ -123,14 +123,26 @@ def test_timing_phase_and_kernels_record(cpu_run, cpu_train_run,
     by_name = {k["name"]: k for k in rec["kernels"]}
     assert by_name["res_block_infer"]["bf16_library_ms"] > 0
     for name in ("res_block_infer", "head_stack_fwd", "head_stack_bwd",
-                 "conv_bn_bwd1", "conv_bn_bwd2"):
-        # the tensor-core bound, the f32 CUDA-core one beside it
+                 "conv_bn_stats", "conv_bn_fwd", "conv_bn_bwd1",
+                 "conv_bn_bwd2"):
+        # the bound of the kernel's design (the tensor cores; K4-fwd:
+        # memory), the f32 CUDA-core one beside it
         k = by_name[name]
         assert k["bound_ms"] > 0 and k["bound_ms_f32_cuda_cores"] > 0, name
     # K3-fwd is timed keeping u1, as the training steps run it; painting's
     # variant (no u1) beside it
     fwd = by_name["head_stack_fwd"]
     assert fwd["ms_without_u1"] > 0 and fwd["u1_max_abs_err"] == 0.0
+    # K4's record: the sums of the design bounds of phase 10's sites
+    sites = conv_bn["sites"].values()
+    for k in smoke.K4_KERNELS:
+        entry = by_name[f"conv_bn_{k}"]
+        assert entry["bound_ms"] == pytest.approx(sum(
+            r["bounds"][smoke.K4_BOUND[k]]["bound_ms"] for r in sites))
+        assert entry["bound_ms_f32_cuda_cores"] == pytest.approx(sum(
+            r["bounds"][k]["bound_ms"] for r in sites))
+    assert by_name["conv_bn_stats"]["u_vs_bwd1_max_abs"] == 0.0
+    assert by_name["conv_bn_fwd"]["library_covers"] == "stats+fwd"
 
 
 def test_training_phases_on_cpu(cpu_train_run):
@@ -147,6 +159,8 @@ def test_training_phases_on_cpu(cpu_train_run):
     assert training["peak_bytes"] is None   # a device number: card only
     assert parity["loss_rel_err"] <= smoke.STEP_LOSS_RTOL
     assert parity["worst_grad_rel_err"] <= smoke.STEP_GRAD_TOL
+    assert parity["reference"] == "plain" and parity["witness"] == {}
+    assert parity["grad_limit"] == smoke.STEP_GRAD_TOL
     assert fused_paint["launches"] == fused_paint["k3_fwd_launches"] == 0
     assert fused_paint["worst_err_over_tol"] <= 1.0
 
@@ -165,15 +179,40 @@ def test_k4_phases_on_cpu(cpu_k4_run):
                                                   "dbeta"}
         assert all(v == 0.0 for v in rec["errors_kink_zeroed"].values())
         assert rec["bwd_peak_bytes"] == 0 and rec["u_bytes"] > 0
+        # stats' u is bwd1's; the peaks are device numbers (0 on the CPU)
+        assert rec["u_stats_vs_bwd1"] == 0.0 and rec["fwd_peak_bytes"] == 0
         assert set(rec["ms"]) == set(smoke.K4_KERNELS)
         assert rec["library_fwd_ms"] > 0 and rec["library_bwd_ms"] > 0
     assert set(training_k4["launches"].values()) == {0}
     assert parity_k4["loss_rel_err"] <= smoke.STEP_LOSS_RTOL
     assert parity_k4["worst_grad_rel_err"] <= smoke.STEP_GRAD_TOL
     assert set(smoke.STEP_GRAD_ZERO) <= set(parity_k4["under_floor"])
-    assert set(parity_k4["witness"]) == {"kernels_vs_plain",
-                                         "plain_sites_vs_sites_f64",
-                                         "kernels_vs_sites_f64"}
+    # 11b holds the step to the one whose sites' forward is f64, within
+    # STEP_GRAD_TOL or the plain step's own distance from it
+    assert parity_k4["reference"] == "sites_f64"
+    assert parity_k4["grad_limit"] == max(
+        smoke.STEP_GRAD_TOL, parity_k4["witness"]["plain_sites_vs_sites_f64"])
+    assert set(parity_k4["witness"]) == {"plain_sites_vs_sites_f64",
+                                         "kernels_vs_plain"}
+
+
+def test_step_parity_witness_script_on_cpu():
+    """``scripts/step_parity_witness.py`` at a tiny size on the CPU: every
+    comparison read, finite, and (K4 being its plain version here) far
+    under STEP_GRAD_TOL."""
+    out = subprocess.run(
+        [sys.executable, "scripts/step_parity_witness.py", "--cpu", "--tile",
+         "32", "--batch", "2", "--n-res-blocks", "1"], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["card"] is None and got["tile"] == 32
+    assert set(got["readings"]) == {
+        "kernels_vs_plain_k4_active", "plain_sites_vs_sites_stats_f64",
+        "plain_sites_vs_sites_f64", "kernels_vs_sites_f64",
+        "kernels_vs_plain_sites"}
+    assert all(0 <= v <= smoke.STEP_GRAD_TOL
+               for v in got["readings"].values())
 
 
 @pytest.mark.parametrize("site,gflop", [("A", 15.1), ("B", 25.8),
@@ -191,6 +230,21 @@ def test_k4_sites_and_bounds_at_the_training_shape(site, gflop):
     assert b["logical_fwd"]["bound_ms"] == b["fwd"]["bound_ms"]
     assert 2 * b["conv_flops"] < b["logical_bwd"]["flops"] \
         < b["bwd2"]["flops"]
+    # the forward as its kernels compute it: stats one conv pass at the
+    # 3xTF32 rate (x read, u and the partials written), bound by memory at
+    # A and D; fwd a pass over u in place, bound by memory everywhere
+    want_stats = {"A": 0.143, "B": 0.156, "C": 0.157, "D": 0.181}
+    want_fwd = {"A": 0.240, "B": 0.060, "C": 0.120, "D": 0.240}
+    assert b["stats_tc"]["bound_ms"] == pytest.approx(want_stats[site],
+                                                      abs=1e-3)
+    assert b["fwd_tc"]["bound_ms"] == pytest.approx(want_fwd[site], abs=1e-3)
+    assert b["stats_tc"]["bound_by"] == ("bytes" if site in ("A", "D")
+                                         else "operations")
+    assert b["fwd_tc"]["bound_by"] == "bytes"
+    assert b["fwd_tc"]["bytes"] == 2 * 4 * b["fwd_tc"]["flops"] / 3
+    rows = smoke.k4_stats_rows(smoke.K4_SITES[site], smoke.TRAIN_BATCH,
+                               smoke.TRAIN_TILE)
+    assert rows == {"A": 24576, "B": 3072, "C": 6144, "D": 24576}[site]
     # the backward as its tensor-core kernels compute it: three conv passes
     # at the 3xTF32 rate, u written by bwd1 and read by bwd2; the pair bound
     # by memory at A and D, by the tensor cores at B and C
