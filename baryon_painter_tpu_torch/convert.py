@@ -101,9 +101,12 @@ def load_jax_variables(model: CVAE, variables: dict) -> CVAE:
 
 
 def from_jax_variables(variables: dict, architecture: dict,
-                       fused_heads: bool = False) -> CVAE:
-    """An eval-mode CVAE (on the CPU) carrying the JAX variables."""
-    model = CVAE(architecture, fused_heads=fused_heads)
+                       fused_heads: bool = False, dtype=None) -> CVAE:
+    """An eval-mode CVAE (on the CPU) carrying the JAX variables, computing
+    in ``dtype`` (``CVAE``'s). The weights stay f32 whatever the dtype, as
+    the JAX package keeps them, so a bf16 JAX model's variables load
+    unchanged."""
+    model = CVAE(architecture, fused_heads=fused_heads, dtype=dtype)
     return load_jax_variables(model, variables).eval()
 
 

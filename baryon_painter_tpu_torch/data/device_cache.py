@@ -12,6 +12,12 @@ bytes; ``fits`` checks that against a budget and ``create_if_fits`` returns
 None (with a warning) when the stacks do not fit, so the trainer uses the
 host batch path.
 
+The stacks and the batches stay f32 whatever the model's compute dtype,
+bf16 included: the JAX trainer builds its cache in f32 too
+(``baryon_painter_tpu/train/trainer.py:225-226``,
+``baryon_painter_tpu/data/device_cache.py:70``) and the model casts the
+transformed batch where its first convolution does.
+
 The mesh (z-sharded) mode waits for multi-GPU training.
 """
 from __future__ import annotations

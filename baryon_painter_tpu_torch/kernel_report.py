@@ -1,20 +1,19 @@
 """What the compiler made of the tensor-core kernels: K1 (csrc/res_block.cu,
-f32 and bf16), K3-fwd and K3-bwd (csrc/head_stack.cu) and K4
+f32 and bf16), K3-fwd and K3-bwd (csrc/head_stack.cu, f32 and bf16) and K4
 (csrc/conv_bn.cu: the u GEMM of stats and bwd1, dx, dW, and fwd's pass).
 
     python -m baryon_painter_tpu_torch.kernel_report
 
 Builds the kernel library afresh (nvcc with ``-Xptxas -v``), then prints for
-each of those kernels' instantiations (K1 f32 and bf16; K3-fwd and K3-bwd;
-K4's stats, bwd1, dx and dW, and fwd): ptxas' registers and spills, the
-number
-of tensor-core instructions in its SASS (``HMMA`` from ``cuobjdump
--sass``) by variant (``HMMA.1688.F32.TF32``, ``HMMA.16816.F32.BF16``) with
-one of them quoted, and each launch's shared memory per block in bytes (K1
-at C = 128, K3 at any shape, K4's GEMMs at the four fused sites of the
-fiducial training step; stats and bwd1 share one mainloop and one shared
-memory size). The last line is the same as JSON. Needs nvcc and cuobjdump
-(the CUDA toolkit); no card.
+each of those kernels' instantiations (K1, K3-fwd and K3-bwd in f32 and
+bf16; K4's stats, bwd1, dx and dW, and fwd): ptxas' registers and spills,
+the number of tensor-core instructions in its SASS (``HMMA`` from
+``cuobjdump -sass``) by variant (``HMMA.1688.F32.TF32``,
+``HMMA.16816.F32.BF16``) with one of them quoted, and each launch's
+shared memory per block in bytes (K1 at C = 128, K3 at any shape, K4's
+GEMMs at the four fused sites of the fiducial training step; stats and
+bwd1 share one mainloop and one shared memory size). The last line is the
+same as JSON. Needs nvcc and cuobjdump (the CUDA toolkit); no card.
 """
 from __future__ import annotations
 
@@ -31,7 +30,8 @@ _KERNEL = re.compile(r"(dx_kernel|dw_kernel)ILi(\d+)ELi(\d+)E"
 # K4's u GEMM: <S, K, R, STATS>, named stats_kernel or bwd1_kernel
 _U_GEMM = re.compile(r"u_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E")
 _K1 = re.compile(r"res_block_kernelI(f|13__nv_bfloat16)E")
-_K3 = re.compile(r"(head_fwd_kernel|head_bwd_kernel|bn_relu_kernel)")
+_K3 = re.compile(r"(head_fwd_kernel|head_bwd_kernel)I(f|13__nv_bfloat16)E")
+_BN_RELU = re.compile(r"bn_relu_kernel")
 
 
 def _name(mangled: str):
@@ -41,7 +41,10 @@ def _name(mangled: str):
                                       else "bf16") + ">"
     m = _K3.search(mangled)
     if m is not None:
-        return m.group(1)
+        return (m.group(1) + "<" + ("float" if m.group(2) == "f" else "bf16")
+                + ">")
+    if _BN_RELU.search(mangled):
+        return "bn_relu_kernel"
     m = _U_GEMM.search(mangled)
     if m is not None:
         s, k, r, stats = m.groups()
@@ -104,15 +107,17 @@ def sass_report(library: Path) -> dict:
 
 def smem_report() -> dict:
     """Shared memory per block (bytes, as the launches request it): K1 at
-    C = 128 in f32 and bf16, K3-fwd and K3-bwd, and the stats, bwd1, dx
+    C = 128, K3-fwd and K3-bwd, each in f32 and bf16, and the stats, bwd1, dx
     and dW launches of K4 at the fused sites (stats and bwd1 run the same
     mainloop, so they ask for the same; fwd uses none)."""
     lib = _build.load_library()
     c = smoke.K1_SHAPE[-1]
     out = {"res_block_kernel<float>": lib.bpt_res_block_smem(c, 0),
            "res_block_kernel<bf16>": lib.bpt_res_block_smem(c, 1),
-           "head_fwd_kernel": lib.bpt_head_stack_smem(0),
-           "head_bwd_kernel": lib.bpt_head_stack_smem(1)}
+           "head_fwd_kernel<float>": lib.bpt_head_stack_smem(0, 0),
+           "head_fwd_kernel<bf16>": lib.bpt_head_stack_smem(0, 1),
+           "head_bwd_kernel<float>": lib.bpt_head_stack_smem(1, 0),
+           "head_bwd_kernel<bf16>": lib.bpt_head_stack_smem(1, 1)}
     for name, site in smoke.K4_SITES.items():
         s = site["stride"] if site["transposed"] else 1
         out[name] = {kind: lib.bpt_conv_bn_bwd_smem(site["cin"], site["cout"],
@@ -130,7 +135,7 @@ def main():
               "smem_bytes": smem_report()}
     for k in sorted(record["sass"]):
         p = record["ptxas"].get(k, {})
-        print(f"{k:18s} registers {p.get('registers')}, spill stores "
+        print(f"{k:24s} registers {p.get('registers')}, spill stores "
               f"{p.get('spill_stores')} B, HMMA {record['sass'][k]['hmma']} "
               f"{record['sass'][k]['variants']}: "
               f"{record['sass'][k]['example']}")

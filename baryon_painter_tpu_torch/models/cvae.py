@@ -18,6 +18,14 @@ through K4 (``ops/conv_bn.py``, ``SpecSequential``); in the fiducial
 architecture those are ``p_y_z_in``'s input conv and its three up-convs.
 Both switches are off by default, as in the JAX package.
 
+``dtype`` is the JAX package's compute dtype (``CVAE(..., dtype=
+jnp.bfloat16)``): every subnet's convolutions and the activations between
+them run in it, with the JAX package's rounding points
+(``models/layers.py``); the latent heads' KL and reparameterisation and the
+likelihood terms stay f32 in training, and the painted prior sample is
+drawn in the latent's dtype. Parameters and their gradients stay f32.
+``None`` is f32, bit for bit as without it.
+
 The model is built in eval mode (painting); ``.train()`` switches batch norm
 to batch statistics for ``forward``.
 """
@@ -27,12 +35,12 @@ import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from baryon_painter_tpu_torch.models import dsl
 from baryon_painter_tpu_torch.models.layers import (SpecSequential,
-                                                    merge_aux_label)
+                                                    merge_aux_label,
+                                                    softplus)
 from baryon_painter_tpu_torch.ops.head_stack import head_stack
 
 __all__ = ["CVAE", "fiducial_cvae_architecture"]
@@ -50,7 +58,7 @@ class CVAE(nn.Module):
     """CVAE built from the architecture dict of a checkpoint."""
 
     def __init__(self, architecture: dict, fused_heads: bool = False,
-                 fused_train_conv: bool = False):
+                 fused_train_conv: bool = False, dtype=None):
         super().__init__()
         arch = architecture
         if arch.get("type", "Type-1") != "Type-1":
@@ -58,6 +66,7 @@ class CVAE(nn.Module):
                 f"Architecture {arch.get('type')} not supported yet!")
         self.architecture = arch
         self.fused_heads = fused_heads
+        self.dtype = dtype
         self.dim_z = tuple(arch["dim_z"])  # channel-first (C,H,W)
         self.L = arch.get("L", 1)
         self.use_aux_label = arch.get("aux_label", False)
@@ -67,7 +76,7 @@ class CVAE(nn.Module):
         fused = arch.get("fused_res_blocks", False)
         seq = lambda spec, res=False: SpecSequential(
             _strip_unflatten(spec), fused_res_blocks=res,
-            fused_train_conv=fused_train_conv)
+            fused_train_conv=fused_train_conv, dtype=dtype)
         mk = lambda key: seq(arch.get(key), fused)
         self.q_x_in = mk("q_x_in")
         self.q_y_in = mk("q_y_in")
@@ -116,9 +125,10 @@ class CVAE(nn.Module):
         return self._split_heads(self.prior_network(y))
 
     def sample_z(self, z_mu, z_log_var, eps):
-        """Reparameterized sample z = mu + eps*(exp(logvar/2) + min_z_var).
-        ``eps`` is standard normal noise of z_mu's shape, or (L, *z_mu.shape)
-        for L samples, returned as (L*N, ...) with the sample index major."""
+        """Reparameterized sample z = mu + eps*(exp(logvar/2) + min_z_var),
+        in z_mu's dtype. ``eps`` is standard normal noise of z_mu's shape,
+        or (L, *z_mu.shape) for L samples, returned as (L*N, ...) with the
+        sample index major."""
         z = z_mu + eps * (torch.exp(z_log_var / 2) + self.min_z_var)
         return z.reshape(-1, *z_mu.shape[1:])
 
@@ -155,7 +165,8 @@ class CVAE(nn.Module):
     def _fused_heads(self, h):
         """Both output heads through K3, reading the parameters of the
         unfused heads' modules (so the parameters are the same either way).
-        Softplus on head 0 and the identity on head 1 stay outside."""
+        Softplus on head 0 and the identity on head 1 stay outside; both
+        come back in h's dtype, as K3 computes in it."""
         heads = (self.p_mu_out.layers, self.p_var_out.layers)
         hwio = lambda w: w.permute(2, 3, 1, 0)
         w1, w2, w3 = (torch.stack([hwio(m[name].weight) for m in heads])
@@ -165,7 +176,8 @@ class CVAE(nn.Module):
                               for m in heads])
         out = head_stack(h.permute(0, 2, 3, 1).contiguous(), w1, w2, w3,
                          alphas)
-        return F.softplus(out[:, 0:1]), out[:, 1:2]
+        return (softplus(out[:, 0:1]).to(h.dtype),
+                out[:, 1:2].to(h.dtype))
 
     def P(self, z, y, aux_label=None, L: int = 1):
         """Decoder: (x_mu, x_log_var) or (x_mu,), each (L*N,C_x,H,W)."""
@@ -247,13 +259,15 @@ class CVAE(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  return_var: bool = False):
         """Paint: draw z from the prior (noise ``eps``, else drawn from
-        ``generator``) unless ``z`` is given, and decode."""
+        ``generator``, in the latent's dtype) unless ``z`` is given, and
+        decode."""
         if z is None:
             z_mu, z_log_var = self.prior(y, aux_label)
             if eps is None:
                 eps = torch.randn(z_mu.shape, generator=generator,
                                   dtype=z_mu.dtype, device=z_mu.device)
-            z = self.sample_z(z_mu, z_log_var, eps)
+            z = self.sample_z(z_mu, z_log_var, torch.as_tensor(
+                eps, dtype=z_mu.dtype, device=z_mu.device))
         p = self.P(z, y, aux_label)
         if return_var and self.predict_var:
             return p[0], torch.exp(p[1])

@@ -21,6 +21,14 @@ and is inference-only, as K1 has no backward. With
 ``fused_train_conv=True`` (the JAX package's ``BPT_FUSED_TRAIN_CONV=1``) a
 train-mode (conv | transposed conv, batch norm, ReLU) triple that passes the
 JAX package's gate runs as one K4 call (``ops/conv_bn.py``).
+
+``dtype`` (None or ``torch.bfloat16``) is the JAX package's compute dtype
+and rounds where it rounds (``baryon_painter_tpu/models/layers.py``): a
+convolution casts x and its weight to it, and its f32 bias promotes the sum
+to f32; batch norm casts x to it, keeps its statistics and affine in f32
+and returns x's dtype; PReLU casts its slope to x's dtype; the fused block
+casts x to it. Parameters, running statistics and gradients of parameters
+stay f32. ``None`` computes in x's dtype: f32 as before, bit for bit.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from baryon_painter_tpu_torch.ops.res_block import fold_bn, res_block_infer
 
 __all__ = ["Conv2d", "ConvTranspose2d", "BatchNorm", "PReLU",
            "ResidualBlock", "FusedResBlock", "SpecSequential",
-           "merge_aux_label"]
+           "merge_aux_label", "softplus"]
 
 _BN_EPS = 1e-5
 # the fraction of the running statistics kept per training step: every
@@ -52,11 +60,29 @@ def _frozen(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(*shape), requires_grad=False)
 
 
+def _conv(fn, x, weight, bias, dtype, **kw):
+    """``fn`` (a conv) in ``dtype`` (None: x's): x and the weight rounded to
+    it, the products summed in f32 and the sum rounded to it; an f32 bias
+    is added after a low-precision conv, which promotes the sum to f32 as
+    in JAX. On the card cuDNN computes exactly that in bf16. On the CPU
+    the bf16 conv runs in f32 on the rounded values (the products of two
+    bf16 numbers are exact in f32): PyTorch's CPU bf16 convolution is
+    wrong at some shapes (a stride-4 8 -> 16 conv at 64^2 misses by 100 %)."""
+    dt = dtype or x.dtype
+    if x.dtype == weight.dtype == dt and (bias is None or bias.dtype == dt):
+        return fn(x, weight, bias, **kw)
+    if x.device.type == "cpu":
+        out = fn(x.to(dt).float(), weight.to(dt).float(), None, **kw).to(dt)
+    else:
+        out = fn(x.to(dt), weight.to(dt), None, **kw)
+    return out if bias is None else out + bias[:, None, None]
+
+
 class Conv2d(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, bias=True):
+                 padding=0, bias=True, dtype=None):
         super().__init__()
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dtype = stride, padding, dtype
         self.weight = _param(out_channels, in_channels, kernel_size,
                              kernel_size)                          # OIHW
         self.bias = _param(out_channels) if bias else None
@@ -69,25 +95,27 @@ class Conv2d(nn.Module):
                 f"Conv2d(k={k}, s={self.stride}, p={self.padding}) on a "
                 f"{x.shape[2]}x{x.shape[3]} input produces a {out_h}-pixel "
                 f"output; the tile is too small for this architecture.")
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        return _conv(F.conv2d, x, self.weight, self.bias, self.dtype,
+                     stride=self.stride, padding=self.padding)
 
 
 class ConvTranspose2d(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, output_padding=0, bias=True):
+                 padding=0, output_padding=0, bias=True, dtype=None):
         super().__init__()
         if kernel_size - 1 - padding < 0:
             raise ValueError(f"Unsupported transp-conv padding: "
                              f"k={kernel_size}, p={padding}.")
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dtype = stride, padding, dtype
         self.output_padding = output_padding
         self.weight = _param(in_channels, out_channels, kernel_size,
                              kernel_size)                          # IOHW
         self.bias = _param(out_channels) if bias else None
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
-                                  self.padding, self.output_padding)
+        return _conv(F.conv_transpose2d, x, self.weight, self.bias,
+                     self.dtype, stride=self.stride, padding=self.padding,
+                     output_padding=self.output_padding)
 
 
 class BatchNorm(nn.Module):
@@ -95,10 +123,14 @@ class BatchNorm(nn.Module):
 
     Both modes compute ``x * a + b`` with a = scale / sqrt(var + eps) and
     b = bias - mean * a, as the JAX package does; train mode takes mean and
-    var from the batch (f32) and the gradient flows through them."""
+    var from the batch (f32) and the gradient flows through them. x is cast
+    to ``dtype`` (None: kept), the affine computed in f32 and the result
+    returned in that dtype; in train mode the gradient reaching x is
+    rounded to it too."""
 
-    def __init__(self, num_features):
+    def __init__(self, num_features, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.weight = _param(num_features)
         self.bias = _param(num_features)
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -112,28 +144,55 @@ class BatchNorm(nn.Module):
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
     def forward(self, x):
+        dt = self.dtype or x.dtype
+        xf = x.to(dt).float()
         if self.training:
-            xf = x.float()
             mean = xf.mean(dim=(0, 2, 3))
             var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
             self.update_running(mean, var)
-            x = xf
         else:
             mean, var = self.running_mean, self.running_var
         a = self.weight * torch.rsqrt(var + _BN_EPS)
         b = self.bias - mean * a
-        return x * a[:, None, None] + b[:, None, None]
+        return (xf * a[:, None, None] + b[:, None, None]).to(dt)
 
 
 class PReLU(nn.Module):
-    """Single learnable slope, as torch's default PReLU."""
+    """Single learnable slope, as torch's default PReLU, in x's dtype (the
+    slope is cast to it, as the JAX package casts it)."""
 
     def __init__(self):
         super().__init__()
         self.weight = nn.Parameter(torch.full((), 0.25))
 
     def forward(self, x):
-        return torch.where(x >= 0, x, self.weight * x)
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+
+
+class _LowPrecisionSoftplus(torch.autograd.Function):
+    """The JAX package's softplus (``jnp.logaddexp(x, 0)``) in x's dtype,
+    each operation rounded to it: max(x, 0) + log1p(exp(-|x|)), and its
+    JVP's gradient g * exp(x - softplus(x))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * torch.exp(x - out)
+
+
+def softplus(x):
+    """Softplus in x's dtype: PyTorch's in f32, the JAX package's rounding
+    points below it (PyTorch's bf16 softplus rounds once, JAX's after each
+    of its operations; about one bf16 output in six differs)."""
+    if x.dtype == torch.float32:
+        return F.softplus(x)
+    return _LowPrecisionSoftplus.apply(x)
 
 
 def _act_slope(layer):
@@ -163,7 +222,7 @@ def _activation(name, config=None):
     if name == "sigmoid":
         return torch.sigmoid
     if name == "softplus":
-        return F.softplus
+        return softplus
     raise NotImplementedError(f"Activation {name} not supported yet!")
 
 
@@ -195,10 +254,11 @@ def canonical_res_block_slopes(config):
 class ResidualBlock(nn.Module):
     """x -> act(inner(x) + x)."""
 
-    def __init__(self, inner_spec, activation, fused_train_conv=False):
+    def __init__(self, inner_spec, activation, fused_train_conv=False,
+                 dtype=None):
         super().__init__()
         self.SpecSequential_0 = SpecSequential(
-            inner_spec, fused_train_conv=fused_train_conv)
+            inner_spec, fused_train_conv=fused_train_conv, dtype=dtype)
         act = tuple(activation)
         self._act = _activation(act[0], act[1] if len(act) > 1 else None)
 
@@ -212,11 +272,14 @@ class FusedResBlock(nn.Module):
 
     The NHWC view of a ``channels_last`` tensor is free; the output comes
     back ``channels_last``, so consecutive blocks pass it on without a copy.
+    x is cast to ``dtype`` (None: kept), in which K1 computes and returns.
     """
 
-    def __init__(self, features, inner_slope=0.0, outer_slope=0.0):
+    def __init__(self, features, inner_slope=0.0, outer_slope=0.0,
+                 dtype=None):
         super().__init__()
         c = features
+        self.dtype = dtype
         self.inner_slope, self.outer_slope = inner_slope, outer_slope
         self.conv1_kernel = _frozen(3, 3, c, c)                    # HWIO
         self.conv2_kernel = _frozen(3, 3, c, c)
@@ -236,6 +299,7 @@ class FusedResBlock(nn.Module):
                          self.bn1_var, _BN_EPS)
         s2, b2 = fold_bn(self.bn2_scale, self.bn2_bias, self.bn2_mean,
                          self.bn2_var, _BN_EPS)
+        x = x.to(self.dtype or x.dtype)
         out = res_block_infer(x.permute(0, 2, 3, 1).contiguous(),
                               self.conv1_kernel, s1, b1,
                               self.conv2_kernel, s2, b2,
@@ -266,11 +330,22 @@ class SpecSequential(nn.Module):
     (``baryon_painter_tpu/models/layers.py:491-531``, rules in
     ``ops/conv_rules.py``); the triple's modules and names stay as they are,
     and the batch norm's running statistics move as they would unfused.
+
+    ``dtype`` is every layer's compute dtype (module docstring). K4 has no
+    bf16 kernels yet, so ``fused_train_conv`` with a bfloat16 ``dtype``
+    raises rather than run the sites in f32.
     """
 
     def __init__(self, spec: Optional[Sequence], fused_res_blocks=False,
-                 fused_train_conv=False):
+                 fused_train_conv=False, dtype=None):
         super().__init__()
+        if fused_train_conv and dtype not in (None, torch.float32):
+            raise TypeError(
+                f"fused_train_conv=True with dtype={dtype}: K4 (the fused "
+                f"train-mode conv + batch norm + ReLU) is f32 only; its "
+                f"bf16 kernels are the next port slice (ROADMAP.md, "
+                f"section 2: K4 in bf16). Train with fused_train_conv="
+                f"False in bf16.")
         self.fused_train_conv = fused_train_conv
         self.layers = nn.ModuleDict()
         self._steps = []   # module names and elementwise callables, in order
@@ -294,16 +369,17 @@ class SpecSequential(nn.Module):
             if lname == "conv":
                 add(Conv2d(config["in_channels"], config["out_channels"],
                            config["kernel_size"], config.get("stride", 1),
-                           config.get("padding", 0), config.get("bias", True)))
+                           config.get("padding", 0), config.get("bias", True),
+                           dtype=dtype))
             elif lname == "transp conv":
                 add(ConvTranspose2d(
                     config["in_channels"], config["out_channels"],
                     config["kernel_size"], config.get("stride", 1),
                     config.get("padding", 0),
                     config.get("output_padding", 0),
-                    config.get("bias", True)))
+                    config.get("bias", True), dtype=dtype))
             elif lname == "batchnorm":
-                add(BatchNorm(config["num_features"]))
+                add(BatchNorm(config["num_features"], dtype=dtype))
             elif lname == "prelu":
                 add(PReLU())
             elif lname in ("relu", "leaky relu", "tanh", "sigmoid",
@@ -314,9 +390,10 @@ class SpecSequential(nn.Module):
                 slopes = (canonical_res_block_slopes(config)
                           if fused_res_blocks else None)
                 if slopes is not None:
-                    add(FusedResBlock(inner[0][1]["out_channels"], *slopes))
+                    add(FusedResBlock(inner[0][1]["out_channels"], *slopes,
+                                      dtype=dtype))
                 else:
-                    add(ResidualBlock(inner, act, fused_train_conv))
+                    add(ResidualBlock(inner, act, fused_train_conv, dtype))
             elif lname == "upsample nearest":
                 s = config["scale"]
                 self._steps.append(lambda x, s=s: _upsample_nearest(x, s))

@@ -140,13 +140,13 @@ def load_library() -> ctypes.CDLL:
     lib.bpt_res_block_infer.restype = ctypes.c_int
     lib.bpt_gather_tiles.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.bpt_gather_tiles.restype = ctypes.c_int
-    lib.bpt_head_stack_fwd.argtypes = [p] * 7 + [i, i, i, p]
+    lib.bpt_head_stack_fwd.argtypes = [p] * 7 + [i, i, i, i, p]
     lib.bpt_head_stack_fwd.restype = ctypes.c_int
-    lib.bpt_head_stack_bwd.argtypes = [p] * 12 + [i, i, i, p]
+    lib.bpt_head_stack_bwd.argtypes = [p] * 12 + [i, i, i, i, p]
     lib.bpt_head_stack_bwd.restype = ctypes.c_int
     lib.bpt_head_stack_bwd_blocks.argtypes = [i, i, i]
     lib.bpt_head_stack_bwd_blocks.restype = ctypes.c_int
-    lib.bpt_head_stack_smem.argtypes = [i]
+    lib.bpt_head_stack_smem.argtypes = [i, i]   # which, dtype
     lib.bpt_head_stack_smem.restype = ctypes.c_int
     lib.bpt_res_block_smem.argtypes = [i, i]
     lib.bpt_res_block_smem.restype = ctypes.c_int

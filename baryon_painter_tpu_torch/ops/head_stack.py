@@ -25,6 +25,18 @@ that requires a gradient, so painting (``torch.inference_mode``) allocates
 none. On CPU tensors the functions are the plain versions,
 ``head_stack_ref`` and ``head_stack_bwd_ref``, which are also the tests'
 oracles and ``chip_smoke.py``'s comparison.
+
+x and dy are float32 or bfloat16 (the JAX package's kernels run in the input
+dtype); the weights, the slopes and the kept u1 stay f32, and so do the
+weight and slope gradients. In bf16 the functions round where the JAX
+kernels round (``pallas_head_stack.py`` ``_chain_fwd``, ``_bwd_kernel``):
+every convolution's inputs (x, the weights, v1, v2, dy, du2, du1) are cast to
+bf16 and their products summed in f32 (the products of two bf16 values are
+exact in f32), PReLU and its masks and slope gradients are f32, y is
+returned in bf16, and dx is each head's input gradient cast to bf16 and
+summed over the heads in bf16. u1 is kept in f32 in bf16 too: the JAX
+backward recomputes it in f32, and a bf16 u1 would move PReLU1's mask and
+dalpha1.
 """
 from __future__ import annotations
 
@@ -32,9 +44,11 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv2d_input, conv2d_weight
 
-__all__ = ["head_stack", "head_stack_fwd", "head_stack_bwd",
+__all__ = ["head_stack", "head_stack_fwd", "head_stack_bwd", "rounder",
            "head_stack_ref", "head_stack_bwd_ref"]
 
+# the dtypes of x, y, dy and dx the kernels take, and their codes
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the shapes the kernels are written for: the fiducial heads
 _KERNEL_SHAPES = {"w1": (2, 7, 7, 16, 8), "w2": (2, 5, 5, 8, 1),
                   "w3": (2, 3, 3, 1, 1), "alphas": (2, 2)}
@@ -49,28 +63,48 @@ def _oihw(w):
     return w.permute(3, 2, 0, 1)
 
 
-def _chain(xc, w1, w2, a1, a2, u1=None):
-    """One head's u1, act1, u2, act2 in NCHW; u1 computed unless given."""
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def rounder(dtype):
+    """v -> v rounded to ``dtype`` and held in f32 where ``dtype`` is a
+    16-bit float; the identity otherwise (f32, or f64 in the tests)."""
+    if dtype not in _LOW:
+        return lambda v: v
+    return lambda v: v.to(dtype).float()
+
+
+def _compute_dtype(dtype):
+    """The dtype the plain versions sum in: f32 for 16-bit inputs."""
+    return torch.float32 if dtype in _LOW else dtype
+
+
+def _chain(xc, w1, w2, a1, a2, u1=None, r=rounder(torch.float32)):
+    """One head's u1, act1, u2, act2 in NCHW, f32, each conv's inputs
+    rounded by ``r``; u1 computed unless given."""
     if u1 is None:
-        u1 = F.conv2d(xc, _oihw(w1), padding=w1.shape[0] // 2)
+        u1 = F.conv2d(xc, _oihw(r(w1)), padding=w1.shape[0] // 2)
     v1 = _prelu(u1, a1)
-    u2 = F.conv2d(v1, _oihw(w2), padding=w2.shape[0] // 2)
+    u2 = F.conv2d(r(v1), _oihw(r(w2)), padding=w2.shape[0] // 2)
     return u1, v1, u2, _prelu(u2, a2)
 
 
 def head_stack_ref(x, w1, w2, w3, alphas, keep_u1: bool = False):
     """Plain PyTorch version of K3's forward: x (N, H, W, Cin) ->
-    (N, n_heads, H, W), a chain of ``F.conv2d`` per head. With ``keep_u1``
-    returns (y, u1): u1 (N, H, W, n_heads * C1) the heads' conv7
-    pre-activations, channel C1 * h + c, in K3-fwd's layout."""
-    xc = x.permute(0, 3, 1, 2)
+    (N, n_heads, H, W) in x's dtype, a chain of ``F.conv2d`` per head in
+    f32 on inputs rounded to x's dtype. With ``keep_u1`` returns (y, u1):
+    u1 (N, H, W, n_heads * C1) f32 the heads' conv7 pre-activations,
+    channel C1 * h + c, in K3-fwd's layout."""
+    r = rounder(x.dtype)
+    xc = x.permute(0, 3, 1, 2).to(_compute_dtype(x.dtype))
     out, u1s = [], []
     for h in range(w1.shape[0]):
-        u1, _, _, v2 = _chain(xc, w1[h], w2[h], alphas[h, 0], alphas[h, 1])
+        u1, _, _, v2 = _chain(xc, w1[h], w2[h], alphas[h, 0], alphas[h, 1],
+                              r=r)
         u1s.append(u1)
-        out.append(F.conv2d(v2, _oihw(w3[h]),
+        out.append(F.conv2d(r(v2), _oihw(r(w3[h])),
                             padding=w3.shape[1] // 2)[:, 0])
-    y = torch.stack(out, dim=1)
+    y = torch.stack(out, dim=1).to(x.dtype)
     if not keep_u1:
         return y
     return y, torch.cat(u1s, dim=1).permute(0, 2, 3, 1).contiguous()
@@ -82,8 +116,12 @@ def head_stack_bwd_ref(x, w1, w2, w3, alphas, dy, u1=None):
     keep_u1=True)`` returns it, or recomputed when None), then per head the
     input and weight gradients of conv3, prelu2, conv5, prelu1 and conv7, dx
     summed over the heads. PReLU1's mask and conv5's input come from that
-    u1. Returns (dx, dw1, dw2, dw3, dalphas) in the inputs' shapes."""
-    xc = x.permute(0, 3, 1, 2)
+    u1. Returns (dx, dw1, dw2, dw3, dalphas) in the inputs' shapes, dx in
+    x's dtype, the rest f32; in bf16 with the rounding points of the module
+    docstring."""
+    r = rounder(x.dtype)
+    xc = x.permute(0, 3, 1, 2).to(_compute_dtype(x.dtype))
+    dy = r(dy.to(xc.dtype))
     dx = torch.zeros_like(xc)
     dws = ([], [], [])
     dal = []
@@ -93,36 +131,43 @@ def head_stack_bwd_ref(x, w1, w2, w3, alphas, dy, u1=None):
         al1, al2 = alphas[h, 0], alphas[h, 1]
         kept = (None if u1 is None
                 else u1[..., c1 * h:c1 * (h + 1)].permute(0, 3, 1, 2))
-        u1h, v1, u2, v2 = _chain(xc, k1, k2, al1, al2, kept)
+        u1h, v1, u2, v2 = _chain(xc, k1, k2, al1, al2, kept, r=r)
         g = dy[:, h:h + 1]
+        k1, k2, k3 = r(k1), r(k2), r(k3)
         p1, p2, p3 = k1.shape[0] // 2, k2.shape[0] // 2, k3.shape[0] // 2
-        dw3 = conv2d_weight(v2, _oihw(k3).shape, g, padding=p3)
+        dw3 = conv2d_weight(r(v2), _oihw(k3).shape, g, padding=p3)
         dv2 = conv2d_input(v2.shape, _oihw(k3), g, padding=p3)
         du2 = torch.where(u2 >= 0, dv2, al2 * dv2)
         dal2 = torch.where(u2 < 0, dv2 * u2, 0.0).sum()
-        dw2 = conv2d_weight(v1, _oihw(k2).shape, du2, padding=p2)
-        dv1 = conv2d_input(v1.shape, _oihw(k2), du2, padding=p2)
+        dw2 = conv2d_weight(r(v1), _oihw(k2).shape, r(du2), padding=p2)
+        dv1 = conv2d_input(v1.shape, _oihw(k2), r(du2), padding=p2)
         du1 = torch.where(u1h >= 0, dv1, al1 * dv1)
         dal1 = torch.where(u1h < 0, dv1 * u1h, 0.0).sum()
-        dw1 = conv2d_weight(xc, _oihw(k1).shape, du1, padding=p1)
-        dx = dx + conv2d_input(xc.shape, _oihw(k1), du1, padding=p1)
+        dw1 = conv2d_weight(xc, _oihw(k1).shape, r(du1), padding=p1)
+        # each head's dx in x's dtype, summed over the heads in it
+        dx = r(dx + r(conv2d_input(xc.shape, _oihw(k1), r(du1),
+                                   padding=p1)))
         for lst, dw in zip(dws, (dw1, dw2, dw3)):
             lst.append(dw.permute(2, 3, 1, 0))                 # OIHW -> HWIO
         dal.append(torch.stack([dal1, dal2]))
-    return (dx.permute(0, 2, 3, 1), *(torch.stack(d) for d in dws),
-            torch.stack(dal))
+    return (dx.permute(0, 2, 3, 1).to(x.dtype),
+            *(torch.stack(d) for d in dws), torch.stack(dal))
 
 
 def _check_operands(fn, x, w1, w2, w3, alphas, dy=None, u1=None):
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernels do not take: x (and dy, in x's dtype)
+    float32 or bfloat16; the weights, slopes and u1 float32."""
     tensors = {"x": x, "w1": w1, "w2": w2, "w3": w3, "alphas": alphas}
     for name, t in (("dy", dy), ("u1", u1)):
         if t is not None:
             tensors[name] = t
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn}: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} must be float32 (the kernels are "
-                            f"f32 only), got {t.dtype}")
+        want = x.dtype if name in ("x", "dy") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{fn}: {name} must be {want}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{fn}: {name} is on {t.device}, x on "
                              f"{x.device}")
@@ -182,21 +227,26 @@ def head_stack_fwd(x, w1, w2, w3, alphas, keep_u1: bool = False):
 
     On CPU tensors this is ``head_stack_ref``. On CUDA tensors it launches
     the kernel on the current stream without synchronising and adds one to
-    ``head_stack_fwd.launches``, and with ``keep_u1`` one to
-    ``head_stack_fwd.kept_u1``; anything the kernel does not take (another
-    dtype, channel count or number of heads) raises."""
+    ``head_stack_fwd.launches`` (and in bf16 to ``.bf16_launches``), and
+    with ``keep_u1`` one to ``head_stack_fwd.kept_u1``; anything the kernel
+    does not take (another dtype, channel count or number of heads)
+    raises. y is in x's dtype, u1 f32."""
     if x.device.type == "cpu":
         return head_stack_ref(x, w1, w2, w3, alphas, keep_u1=keep_u1)
     if x.device.type != "cuda":
         raise ValueError(f"head_stack_fwd: unsupported device {x.device}")
     _check_operands("head_stack_fwd", x, w1, w2, w3, alphas)
     n, h, w, _ = x.shape
-    ops = [_operand(t) for t in (x, _wu(w1), w2, w3, alphas)]
-    dev = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty((n, 2, h, w), **dev)
-    u1 = torch.empty((n, h, w, 16), **dev) if keep_u1 else None
-    _launch("head_stack_fwd", "bpt_head_stack_fwd", *ops, y, u1, n, h, w)
+    r = rounder(x.dtype)
+    ops = [_operand(t) for t in (x, _wu(w1).to(x.dtype), r(w2), r(w3),
+                                 alphas)]
+    y = torch.empty((n, 2, h, w), dtype=x.dtype, device=x.device)
+    u1 = (torch.empty((n, h, w, 16), dtype=torch.float32, device=x.device)
+          if keep_u1 else None)
+    _launch("head_stack_fwd", "bpt_head_stack_fwd", *ops, y, u1, n, h, w,
+            _DTYPE_CODES[x.dtype])
     head_stack_fwd.launches += 1
+    head_stack_fwd.bf16_launches += x.dtype == torch.bfloat16
     if not keep_u1:
         return y
     head_stack_fwd.kept_u1 += 1
@@ -204,6 +254,7 @@ def head_stack_fwd(x, w1, w2, w3, alphas, keep_u1: bool = False):
 
 
 head_stack_fwd.launches = 0
+head_stack_fwd.bf16_launches = 0
 head_stack_fwd.kept_u1 = 0
 
 
@@ -215,8 +266,11 @@ def head_stack_bwd(x, w1, w2, w3, alphas, dy, u1=None):
     gradients, summed here (deterministic: no atomics). On CPU tensors this
     is ``head_stack_bwd_ref``, which recomputes u1 when none is given. On
     CUDA tensors u1 is required; the kernel launches on the current stream
-    without synchronising and adds one to ``head_stack_bwd.launches``;
-    anything the kernel does not take raises."""
+    without synchronising and adds one to ``head_stack_bwd.launches`` (and
+    in bf16 to ``.bf16_launches``); anything the kernel does not take
+    raises. dy is cast to x's dtype, as the JAX package casts it; dx comes
+    back in x's dtype, the weight and slope gradients in f32."""
+    dy = dy.to(x.dtype)
     if x.device.type == "cpu":
         return head_stack_bwd_ref(x, w1, w2, w3, alphas, dy, u1=u1)
     if x.device.type != "cuda":
@@ -227,7 +281,9 @@ def head_stack_bwd(x, w1, w2, w3, alphas, dy, u1=None):
                          "keep_u1=True) keeps)")
     _check_operands("head_stack_bwd", x, w1, w2, w3, alphas, dy, u1)
     n, h, w, _ = x.shape
-    ops = [_operand(t) for t in (x, u1, _wdx(w1), w2, w3, alphas, dy)]
+    r = rounder(x.dtype)
+    ops = [_operand(t) for t in (x, u1, _wdx(w1).to(x.dtype), r(w2), r(w3),
+                                 alphas, dy)]
     from baryon_painter_tpu_torch.ops._build import load_library
     blocks = load_library().bpt_head_stack_bwd_blocks(n, h, w)
     dev = dict(dtype=torch.float32, device=x.device)
@@ -237,12 +293,14 @@ def head_stack_bwd(x, w1, w2, w3, alphas, dy, u1=None):
     dw3p = torch.empty((blocks,) + tuple(w3.shape), **dev)
     dalp = torch.empty((blocks,) + tuple(alphas.shape), **dev)
     _launch("head_stack_bwd", "bpt_head_stack_bwd", *ops, dx, dw1p, dw2p,
-            dw3p, dalp, n, h, w)
+            dw3p, dalp, n, h, w, _DTYPE_CODES[x.dtype])
     head_stack_bwd.launches += 1
+    head_stack_bwd.bf16_launches += x.dtype == torch.bfloat16
     return dx, dw1p.sum(0), dw2p.sum(0), dw3p.sum(0), dalp.sum(0)
 
 
 head_stack_bwd.launches = 0
+head_stack_bwd.bf16_launches = 0
 
 
 class _HeadStack(torch.autograd.Function):

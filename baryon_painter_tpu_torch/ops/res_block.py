@@ -72,8 +72,9 @@ def res_block_infer(x, w1, scale1, bias1, w2, scale2, bias2,
     HWIO (cast to x's type); scale/bias: (C,) folded BN (see ``fold_bn``).
     On a CPU tensor this is ``res_block_infer_ref``. On a CUDA tensor it
     launches K1 on the current stream without synchronising and adds one to
-    ``res_block_infer.launches``; anything the kernel does not take (C not
-    a multiple of 4 or above 128, another dtype, layout or device) raises.
+    ``res_block_infer.launches`` (and in bf16 to ``.bf16_launches``);
+    anything the kernel does not take (C not a multiple of 4 or above 128,
+    another dtype, layout or device) raises.
     """
     if x.device.type == "cpu":
         return res_block_infer_ref(x, w1, scale1, bias1, w2, scale2, bias2,
@@ -125,7 +126,9 @@ def res_block_infer(x, w1, scale1, bias1, w2, scale2, bias2,
         raise RuntimeError(f"res_block_infer: kernel launch failed: "
                            f"{lib.bpt_error_string(err).decode()} ({err})")
     res_block_infer.launches += 1
+    res_block_infer.bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
 res_block_infer.launches = 0
+res_block_infer.bf16_launches = 0

@@ -12,8 +12,12 @@ Transform -> prior sample -> decode -> inverse transform, on ``device``
 there is none raises). ``fused_inference=True`` renames the canonical residual
 blocks into the fused layout, so each runs as one K1 launch;
 ``fused_heads=True`` runs the two output heads as one K3 launch (the JAX
-package's ``BPT_FUSED_HEADS=1``). A call paints in f32 whatever the
-caller's TF32 setting (``utils/platform.f32_convolutions``).
+package's ``BPT_FUSED_HEADS=1``). ``dtype=torch.bfloat16`` is the JAX
+package's ``dtype=jnp.bfloat16``, the compute dtype its fidelity gates were
+scored in: the model computes in it (K1 and K3 in bf16), the prior noise is
+drawn in the latent's dtype, and the painted output is f32, as the JAX
+painter's is. An f32 call paints in f32 whatever the caller's TF32 setting
+(``utils/platform.f32_convolutions``).
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ class CVAEPainter:
                  seed: int = 0,
                  fused_inference: bool = False,
                  fused_heads: bool = False,
+                 dtype=None,
                  device=None):
         """Construct from a checkpoint base path (``filename``), or from
         ``variables`` (``{"params", "batch_stats"}`` as nested numpy dicts)
@@ -47,8 +52,10 @@ class CVAEPainter:
 
         ``seed`` seeds the painter's own ``torch.Generator`` on ``device``,
         which draws the prior noise when a call passes neither
-        ``generator`` nor ``eps``."""
+        ``generator`` nor ``eps``. ``dtype`` is the model's compute dtype
+        (None: f32), kept when ``fused_inference`` rebuilds the model."""
         self.device = resolve_device(device)
+        self.dtype = dtype
         self._fused_inference = fused_inference
         self._fused_heads = fused_heads
         if filename is not None:
@@ -66,7 +73,8 @@ class CVAEPainter:
             variables, arch = fuse_cvae_variables(variables, arch)
             meta = {**meta, "model_architecture": arch}
         self.model = from_jax_variables(
-            variables, arch, fused_heads=self._fused_heads).to(self.device)
+            variables, arch, fused_heads=self._fused_heads,
+            dtype=self.dtype).to(self.device)
         self.meta = meta
         self.architecture = arch
         self.input_field = meta["input_field"]
@@ -105,10 +113,11 @@ class CVAEPainter:
             return out[0][0].cpu().numpy(), out[1][0].cpu().numpy()
         return out[0].cpu().numpy()
 
-    def _latent_noise(self, eps, shape):
-        """``eps`` as a tensor of the latent's (N, Cz, h, w) shape; (N, h, w)
-        is accepted for a one-channel latent."""
-        eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
+    def _latent_noise(self, eps, like):
+        """``eps`` as a tensor of the latent ``like``'s (N, Cz, h, w) shape
+        and dtype; (N, h, w) is accepted for a one-channel latent."""
+        shape = like.shape
+        eps = torch.as_tensor(eps, dtype=like.dtype, device=self.device)
         if tuple(eps.shape) == tuple(shape):
             return eps
         if shape[1] == 1 and tuple(eps.shape) == (shape[0],) + tuple(
@@ -145,7 +154,10 @@ class CVAEPainter:
         y = tiles
         if transform:
             y = self.transforms[in_field].forward(y, self.stats[in_field], zs)
-        y = y[:, None].contiguous(memory_format=torch.channels_last)
+        # one field (N, H, W) gains its channel axis; a transform that
+        # emits channels (N, C, H, W) keeps them, as in the JAX painter
+        y = y[:, None] if y.ndim == 3 else y
+        y = y.contiguous(memory_format=torch.channels_last)
 
         z_mu, z_log_var = self.model.prior(y, zs)
         if z_mode == "sample":
@@ -155,7 +167,7 @@ class CVAEPainter:
                 eps = torch.randn(z_mu.shape, dtype=z_mu.dtype,
                                   device=self.device, generator=generator)
             z = self.model.sample_z(z_mu, z_log_var,
-                                    self._latent_noise(eps, z_mu.shape))
+                                    self._latent_noise(eps, z_mu))
         else:
             z = z_mu if z_mode == "mean" else torch.zeros_like(z_mu)
         res = self.model.sample_P(y, zs, z=z, return_var=return_var)

@@ -1,7 +1,7 @@
 """Where the time of the port's training step goes, on one CUDA card.
 
     python -m baryon_painter_tpu_torch.profile_train [--batch 24] [--iters 10]
-        [--fused-train-conv]
+        [--fused-train-conv] [--dtype bf16]
 
 Trains the fiducial CVAE (512^2 tiles, 4 residual blocks, the synthetic
 stacks and transforms of ``smoke.training_data``) with ``step_indices``:
@@ -11,8 +11,10 @@ first, the second, the second, the first), each ``iters`` steps after
 through K3 (``fused_heads=True``); or, with ``--fused-train-conv``, both
 with K3's heads, the train-mode conv + batch norm + ReLU triples through
 cuDNN and the port's BatchNorm (``fused_train_conv=False``) and through K4
-(``fused_train_conv=True``). For
-each it prints ms per step (host clock around steps that end in a
+(``fused_train_conv=True``). ``--dtype bf16`` trains both variants'
+models in bf16 (``CVAE(..., dtype=torch.bfloat16)``, the JAX package's
+default compute dtype; K4 has no bf16 kernels, so not with
+``--fused-train-conv``). For each it prints ms per step (host clock around steps that end in a
 synchronise), samples/s and the peak device memory allocated over the run
 (both variants' trainers are resident); then, per variant, from one torch.profiler
 window (CUDA activity only) over ``iters`` steps, the device time by kernel
@@ -139,7 +141,10 @@ def main():
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--fused-train-conv", action="store_true",
                     help="compare K4 off and on (both with K3's heads)")
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                    help="the models' compute dtype")
     args = ap.parse_args()
+    dtype = torch.bfloat16 if args.dtype == "bf16" else None
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
@@ -155,7 +160,7 @@ def main():
                 if args.fused_train_conv else
                 {"cudnn_heads": (False, False), "k3_heads": (True, False)})
     trainers = {label: smoke.make_trainer(device, ds, heads,
-                                          fused_train_conv=k4)
+                                          fused_train_conv=k4, dtype=dtype)
                 for label, (heads, k4) in variants.items()}
     rng = np.random.default_rng(1)
     draw = lambda k: [ds.sample_indices(rng, args.batch) for _ in range(k)]
@@ -163,7 +168,7 @@ def main():
         _steps(trainer, draw(args.warmup), args.lr)
     torch.cuda.synchronize()
     record = {"card": card, "batch": args.batch, "iters": args.iters,
-              "torch": torch.__version__, "runs": []}
+              "dtype": args.dtype, "torch": torch.__version__, "runs": []}
     first, second = variants
     for label in (first, second, second, first):
         idx = draw(args.iters)
@@ -178,7 +183,8 @@ def main():
                "samples_per_s": args.batch / ms * 1e3,
                "peak_memory_gb": torch.cuda.max_memory_allocated(device)
                / 1e9}
-        print(f"{label} (fused_heads={heads}, fused_train_conv={k4}): "
+        print(f"{label} (fused_heads={heads}, fused_train_conv={k4}, "
+              f"{args.dtype}): "
               f"{ms:.3f} ms per step of batch {args.batch}, "
               f"{run['samples_per_s']:.2f} samples/s, peak device memory "
               f"{run['peak_memory_gb']:.3f} GB ({card})", flush=True)

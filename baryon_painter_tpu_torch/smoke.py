@@ -41,6 +41,20 @@ that fails raises.
      than the plain step (the sites in f32) lies from it
  12. repaint the golden with PyTorch's default TF32 setting (cuDNN TF32 on)
      for the record, and with the painter's pinned f32, which must pass
+
+and the bf16 configuration (the JAX package's default compute dtype):
+
+ 7b. K3-fwd and K3-bwd in bf16 against their plain bf16 versions, as phase
+     7 (tolerances K3_TOL_BF16), timed beside cuDNN's bf16 heads; the
+     bounds on the bf16 tensor cores
+ 13. train in bf16 (one K2 and one bf16 K3-fwd and K3-bwd launch a step),
+     timed beside phase 8's f32 step, with its peak device memory; 13b a
+     bf16 step with the kernels against the bf16 step with their plain
+     versions, within BF16_STEP_RATIO of the plain bf16 step's distance
+     from the plain f32 step
+ 14. paint the golden input in bf16 (4 bf16 K1 and 1 bf16 K3-fwd launches)
+     at the prior mean against the committed JAX bf16 paint
+     (BF16_REFERENCE), then timed beside phase 9's f32 paint
 """
 from __future__ import annotations
 
@@ -62,7 +76,7 @@ from baryon_painter_tpu_torch.ops.gather import (gather_tiles,
 from baryon_painter_tpu_torch.ops.head_stack import (head_stack_bwd,
                                                      head_stack_bwd_ref,
                                                      head_stack_fwd,
-                                                     head_stack_ref)
+                                                     head_stack_ref, rounder)
 from baryon_painter_tpu_torch.ops.res_block import (fold_bn, res_block_infer,
                                                     res_block_infer_ref)
 
@@ -226,16 +240,25 @@ _COUNTED = {"k1": res_block_infer, "k2": gather_tiles,
             "k3_fwd": head_stack_fwd, "k3_bwd": head_stack_bwd,
             "k4_stats": conv_bn_stats, "k4_fwd": conv_bn_fwd,
             "k4_bwd1": conv_bn_bwd1, "k4_bwd2": conv_bn_bwd2}
+# the kernels with a bf16 variant: of their launches, those in bf16
+_COUNTED_BF16 = {"k1": res_block_infer, "k3_fwd": head_stack_fwd,
+                 "k3_bwd": head_stack_bwd}
 
 
 def _reset_launches():
     for fn in _COUNTED.values():
         fn.launches = 0
+    for fn in _COUNTED_BF16.values():
+        fn.bf16_launches = 0
     head_stack_fwd.kept_u1 = 0
 
 
 def _launches() -> dict:
     return {key: fn.launches for key, fn in _COUNTED.items()}
+
+
+def _bf16_launches() -> dict:
+    return {key: fn.bf16_launches for key, fn in _COUNTED_BF16.items()}
 
 
 def _expect_launches(path: str, got: dict, want: dict):
@@ -399,9 +422,9 @@ def time_main_path(device, painter, card=None, n_tiles: int = 16,
                         s2.to(dtype), b2.to(dtype))
             out[f"library_ms_{key}"] = _time_ms(
                 lambda: library_block(*lib_args), device, 3, k1_iters)
-        args = k1_inputs(k1_shape, torch.float32, device)
-        out["plain_ms"] = _time_ms(lambda: res_block_infer_ref(*args),
-                                   device, 3, k1_iters)
+            out[f"plain_ms_{key}"] = _time_ms(
+                lambda: res_block_infer_ref(*args), device, 3, k1_iters)
+        out["plain_ms"] = out["plain_ms_float32"]
         out["library_ms"] = out["library_ms_float32"]
     out["k1_share_of_bound_float32"] = (
         out["bound_float32"]["tc"]["bound_ms"] / out["k1_ms_float32"])
@@ -437,6 +460,13 @@ N_RES_BLOCKS = 4
 # 6.3 M pixels
 K3_TOL = {"y": 1e-4, "u1": 1e-4, "dx": 1e-4, "dw1": 1e-3, "dw2": 1e-3,
           "dw3": 1e-3, "dalphas": 1e-3}
+# in bf16: y, dx and the rounded intermediates (a1, a2, du2, du1) are bf16,
+# and a sum that lands next to a rounding boundary rounds the other way for
+# another summation order, one bf16 step (2^-8 of the value) apart, which
+# carries into what is computed from it; u1 is f32 (bf16 products are exact
+# in f32, so only the order of its sums differs)
+K3_TOL_BF16 = {"y": 2e-2, "u1": 1e-4, "dx": 2e-2, "dw1": 2e-2, "dw2": 2e-2,
+               "dw3": 2e-2, "dalphas": 2e-2}
 # the kernels-vs-plain training step: the loss, relative; every parameter's
 # gradient as the weight gradients above, relative to its own largest entry;
 # only the parameters of STEP_GRAD_ZERO are held instead to STEP_GRAD_FLOOR
@@ -581,9 +611,11 @@ def head_inputs(n: int, h: int, w: int, device, seed: int = 0):
 KINK_REL = 1e-5
 
 
-def kink_free_cotangent(x, w1, w2, w3, alphas, dy, rel: float = KINK_REL):
+def kink_free_cotangent(x, w1, w2, w3, alphas, dy, rel: float = KINK_REL,
+                        dtype=torch.float32):
     """``dy`` with zeros wherever a cotangent would reach a pre-activation at
-    PReLU's kink, and the fraction zeroed.
+    PReLU's kink, and the fraction zeroed; the pre-activations as K3
+    computes them in ``dtype`` (each conv's inputs rounded to it).
 
     PReLU's derivative jumps at 0, so where u1 or u2 is within summation
     noise of 0 the kernel and the plain version, both right to f32, may
@@ -592,19 +624,20 @@ def kink_free_cotangent(x, w1, w2, w3, alphas, dy, rel: float = KINK_REL):
     pre-activations are that close to 0. u2 at q is reached from dy on
     q +- 1 (conv3) and u1 at r from dy on r +- 3 (conv5, conv3), per head,
     so dy is zeroed on those windows; everything else is compared."""
-    xc = x.permute(0, 3, 1, 2)
+    r = rounder(dtype)
+    xc = r(x.permute(0, 3, 1, 2))
     keep = []
     for h in range(w1.shape[0]):
-        u1 = F.conv2d(xc, w1[h].permute(3, 2, 0, 1), padding=3)
+        u1 = F.conv2d(xc, r(w1[h]).permute(3, 2, 0, 1), padding=3)
         v1 = torch.where(u1 >= 0, u1, alphas[h, 0] * u1)
-        u2 = F.conv2d(v1, w2[h].permute(3, 2, 0, 1), padding=2)
+        u2 = F.conv2d(r(v1), r(w2[h]).permute(3, 2, 0, 1), padding=2)
         near1 = (u1.abs() <= rel * u1.abs().max()).any(1, keepdim=True)
         near2 = u2.abs() <= rel * u2.abs().max()
         reach = (F.max_pool2d(near1.float(), 7, 1, 3)
                  + F.max_pool2d(near2.float(), 3, 1, 1))
         keep.append(reach == 0)
     keep = torch.cat(keep, dim=1)
-    return dy * keep, 1.0 - keep.float().mean().item()
+    return (dy * keep).to(dy.dtype), 1.0 - keep.float().mean().item()
 
 
 # K3-bwd's blocks: a tile row of 16 x 16 tiles is walked by blocks of up
@@ -623,29 +656,33 @@ def k3_bwd_blocks(n: int, h: int, w: int) -> int:
     return n * -(-h // K3_TILE) * -(-tiles_x // K3_WALK)
 
 
-def k3_bounds(n: int, h: int, w: int, keep_u1: bool = True) -> dict:
-    """Least times of K3-fwd and K3-bwd: their operations (both heads) over
-    the f32 CUDA-core rate, against x, dy, y, dx, the kept u1 (written by
-    the forward when ``keep_u1``, as in training; read by the backward) and
-    the weights moved once. ``fwd_tc`` and ``bwd_tc`` bound the kernels as
-    they compute: the 7x7 GEMMs per pixel (the forward's u1; the
-    backward's dx and dw1) at the 3xTF32 tensor-core rate plus the rest
-    (the 5x5 and 3x3 convs, their gradients) on the CUDA cores; the
-    backward's bytes also count each block's weight-gradient partials."""
+def k3_bounds(n: int, h: int, w: int, keep_u1: bool = True,
+              dtype=torch.float32) -> dict:
+    """Least times of K3-fwd and K3-bwd in ``dtype``: their operations (both
+    heads) over the f32 CUDA-core rate, against x, dy, y, dx (in the dtype),
+    the kept u1 (f32; written by the forward when ``keep_u1``, as in
+    training; read by the backward) and the weights moved once. ``fwd_tc``
+    and ``bwd_tc`` bound the kernels as they compute: the 7x7 GEMMs per
+    pixel (the forward's u1; the backward's dx and dw1) on the tensor cores
+    (3xTF32 in f32, bf16 in bf16) plus the rest (the 5x5 and 3x3 convs,
+    their gradients) on the CUDA cores; the backward's bytes also count
+    each block's weight-gradient partials."""
     pix = n * h * w
+    elt = torch.empty((), dtype=dtype).element_size()
     weights = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3 + 2) * 4
-    fwd_bytes = pix * (16 + 2 + (16 if keep_u1 else 0)) * 4 + weights
-    bwd_bytes = pix * (16 + 16 + 2 + 16) * 4 + weights
+    fwd_bytes = pix * ((16 + 2) * elt + (16 * 4 if keep_u1 else 0)) + weights
+    bwd_bytes = pix * ((16 + 16 + 2) * elt + 16 * 4) + weights
     fwd_gemm = 2 * pix * _HEAD_FWD_GEMM_OPS
     bwd_gemm = 2 * pix * _HEAD_BWD_GEMM_OPS
     f32 = PEAK_FLOPS[torch.float32]
+    tc = PEAK_3XTF32 if dtype == torch.float32 else PEAK_FLOPS[dtype]
     return {"fwd": _bound(2 * pix * _HEAD_FWD_OPS, fwd_bytes),
             "fwd_tc": _mixed_bound(
-                [(fwd_gemm, PEAK_3XTF32),
+                [(fwd_gemm, tc),
                  (2 * pix * _HEAD_FWD_OPS - fwd_gemm, f32)], fwd_bytes),
             "bwd": _bound(2 * pix * _HEAD_BWD_OPS, bwd_bytes + weights),
             "bwd_tc": _mixed_bound(
-                [(bwd_gemm, PEAK_3XTF32),
+                [(bwd_gemm, tc),
                  (2 * pix * _HEAD_BWD_OPS - bwd_gemm, f32)],
                 bwd_bytes + k3_bwd_blocks(n, h, w) * weights)}
 
@@ -666,47 +703,63 @@ def library_heads(xc, w1, w2, w3, alphas):
 
 
 def check_heads(device, shape=(TRAIN_BATCH, TRAIN_TILE, TRAIN_TILE),
-                iters: int = 5) -> dict:
-    """Phase 7: K3-fwd (y and the u1 it keeps) and K3-bwd (from that u1)
-    against their plain versions at the training shape, with the
-    tolerances of K3_TOL: the plain backward takes the kernel's u1, so both
-    take PReLU1's branch from the same pre-activation; the cotangent is free
-    of u2's kink (``kink_free_cotangent``), which both recompute. The
-    forward without u1 (painting) must give the same y. Each timed, the
-    forward with and without u1 kept, beside cuDNN's unfused heads forward
-    and (under autograd) backward."""
+                iters: int = 5, dtype=torch.float32) -> dict:
+    """Phase 7 (7b in bf16): K3-fwd (y and the u1 it keeps) and K3-bwd
+    (from that u1) against their plain versions at the training shape, x
+    and dy in ``dtype``, with the tolerances of K3_TOL (K3_TOL_BF16): the
+    plain backward takes the kernel's u1, so both take PReLU1's branch from
+    the same pre-activation; the cotangent is free of u2's kink
+    (``kink_free_cotangent``), which both recompute. The forward without u1
+    (painting) must give the same y. Each timed, the forward with and
+    without u1 kept, beside cuDNN's unfused heads forward and (under
+    autograd) backward in the same dtype (bf16: on ``channels_last``)."""
     t0 = time.perf_counter()
     device = torch.device(device)
+    bf16 = dtype == torch.bfloat16
+    tols = K3_TOL_BF16 if bf16 else K3_TOL
     x, w1, w2, w3, al, dy = head_inputs(*shape, device)
+    x, dy = x.to(dtype), dy.to(dtype)
     with torch.no_grad():
-        dy_check, zeroed = kink_free_cotangent(x, w1, w2, w3, al, dy)
+        dy_check, zeroed = kink_free_cotangent(x, w1, w2, w3, al, dy,
+                                               dtype=dtype)
     y, u1 = head_stack_fwd(x, w1, w2, w3, al, keep_u1=True)
     y_paint = head_stack_fwd(x, w1, w2, w3, al)
-    got = dict(zip(K3_TOL, (y, u1, *head_stack_bwd(x, w1, w2, w3, al,
-                                                   dy_check, u1=u1))))
+    got = dict(zip(tols, (y, u1, *head_stack_bwd(x, w1, w2, w3, al,
+                                                 dy_check, u1=u1))))
     y_ref, u1_ref = head_stack_ref(x, w1, w2, w3, al, keep_u1=True)
-    want = dict(zip(K3_TOL, (y_ref, u1_ref, *head_stack_bwd_ref(
+    want = dict(zip(tols, (y_ref, u1_ref, *head_stack_bwd_ref(
         x, w1, w2, w3, al, dy_check, u1=u1))))
     _sync(device)
     same_y = torch.equal(y_paint, y)
-    errs = {k: _rel_err(got[k], want[k]) for k in K3_TOL}
-    abs_errs = {k: (got[k] - want[k]).abs().max().item() for k in K3_TOL}
+    dtypes = {k: str(v.dtype).replace("torch.", "") for k, v in got.items()}
+    errs = {k: _rel_err(got[k], want[k]) for k in tols}
+    abs_errs = {k: (got[k].float() - want[k].float()).abs().max().item()
+                for k in tols}
     del got, want, y_paint, y_ref, u1_ref
-    print(f"  K3 cotangent zeroed near PReLU's kink: {zeroed:.3e} of dy",
-          flush=True)
+    print(f"  K3 {dtype}: cotangent zeroed near PReLU's kink: {zeroed:.3e} "
+          f"of dy; outputs {json.dumps(dtypes)}", flush=True)
     for name, err in errs.items():
         print(f"  K3 {name}: max|k-ref|/max|ref|={err:.3e} "
-              f"tol={K3_TOL[name]:.0e}", flush=True)
-    bad = {k: v for k, v in errs.items() if not v <= K3_TOL[k]}
-    if bad or not same_y:
-        raise AssertionError(f"K3 disagrees with its plain version: {bad}; "
-                             f"y without u1 kept equals y with: {same_y}")
-    oihw = lambda w: w.permute(0, 4, 3, 1, 2).contiguous()
-    xc = x.permute(0, 3, 1, 2).contiguous()
+              f"tol={tols[name]:.0e}", flush=True)
+    bad = {k: v for k, v in errs.items() if not v <= tols[k]}
+    want_dt = str(dtype).replace("torch.", "")
+    bad_dt = {k: v for k, v in dtypes.items()
+              if v != (want_dt if k in ("y", "dx") else "float32")}
+    if bad or not same_y or bad_dt:
+        raise AssertionError(f"K3 ({dtype}) disagrees with its plain "
+                             f"version: {bad}; y without u1 kept equals y "
+                             f"with: {same_y}; wrong output dtypes {bad_dt}")
+    oihw = lambda w: w.permute(0, 4, 3, 1, 2).to(dtype).contiguous()
+    xc = x.permute(0, 3, 1, 2)
+    xc = xc if bf16 else xc.contiguous()   # bf16: channels_last
     lib_args = [t.clone().requires_grad_() for t in
                 (xc, oihw(w1), oihw(w2), oihw(w3), al)]
-    out = {"errors": errs, "abs_errors": abs_errs, "kink_zeroed": zeroed,
-           **{f"{k}_bound": v for k, v in k3_bounds(*shape).items()}}
+    if bf16:
+        lib_args[0] = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    out = {"dtype": want_dt, "errors": errs, "abs_errors": abs_errs,
+           "kink_zeroed": zeroed,
+           **{f"{k}_bound": v
+              for k, v in k3_bounds(*shape, dtype=dtype).items()}}
     with torch.no_grad():
         out["fwd_ms"] = _time_ms(
             lambda: head_stack_fwd(x, w1, w2, w3, al, keep_u1=True), device,
@@ -729,24 +782,25 @@ def check_heads(device, shape=(TRAIN_BATCH, TRAIN_TILE, TRAIN_TILE),
         lambda: torch.autograd.grad(y, lib_args, dy, retain_graph=True),
         device, 1, iters)
     del y
-    _line(7, "k3_vs_plain", t0, shape=list(shape),
-          fwd_ms=f"{out['fwd_ms']:.3f}",
+    tc = "bf16" if bf16 else "3xtf32"
+    _line("7b" if bf16 else 7, "k3_vs_plain_bf16" if bf16 else "k3_vs_plain",
+          t0, shape=list(shape), fwd_ms=f"{out['fwd_ms']:.3f}",
           fwd_without_u1_ms=f"{out['fwd_without_u1_ms']:.3f}",
           fwd_plain_ms=f"{out['fwd_plain_ms']:.3f}",
           fwd_library_ms=f"{out['fwd_library_ms']:.3f}",
-          fwd_bound_ms_3xtf32=f"{out['fwd_tc_bound']['bound_ms']:.3f}",
+          **{f"fwd_bound_ms_{tc}": f"{out['fwd_tc_bound']['bound_ms']:.3f}"},
           fwd_bound_ms_cuda_cores=f"{out['fwd_bound']['bound_ms']:.3f}",
           bwd_ms=f"{out['bwd_ms']:.3f}",
           bwd_plain_ms=f"{out['bwd_plain_ms']:.3f}",
           bwd_library_ms=f"{out['bwd_library_ms']:.3f}",
-          bwd_bound_ms_3xtf32=f"{out['bwd_tc_bound']['bound_ms']:.3f}",
+          **{f"bwd_bound_ms_{tc}": f"{out['bwd_tc_bound']['bound_ms']:.3f}"},
           bwd_bound_ms_cuda_cores=f"{out['bwd_bound']['bound_ms']:.3f}")
     return out
 
 
 def make_trainer(device, dataset, fused_heads: bool, use_kernel="auto",
                  n_res_blocks: int = N_RES_BLOCKS, seed: int = 0,
-                 fused_train_conv: bool = False):
+                 fused_train_conv: bool = False, dtype=None):
     from baryon_painter_tpu_torch.models.cvae import (
         CVAE, fiducial_cvae_architecture)
     from baryon_painter_tpu_torch.train.trainer import (CVAETrainer,
@@ -754,7 +808,7 @@ def make_trainer(device, dataset, fused_heads: bool, use_kernel="auto",
     arch = fiducial_cvae_architecture(dataset.tile_size,
                                       n_res_blocks=n_res_blocks)
     model = CVAE(arch, fused_heads=fused_heads,
-                 fused_train_conv=fused_train_conv)
+                 fused_train_conv=fused_train_conv, dtype=dtype)
     return CVAETrainer(model, dataset, config=TrainConfig(seed=seed),
                        device_data=True, device=device, use_kernel=use_kernel)
 
@@ -768,20 +822,24 @@ def k4_sites_per_step(tile: int) -> int:
 def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
           iters: int = 10, n_res_blocks: int = N_RES_BLOCKS,
           lr: float = 1e-4, card=None, fused_train_conv: bool = False,
-          k4_off_ms=None) -> dict:
-    """Phase 8 (and 11 with ``fused_train_conv``), a main path: ``warmup``
+          k4_off_ms=None, dtype=None, f32_ms=None) -> dict:
+    """Phase 8 (11 with ``fused_train_conv``, 13 in bf16), a main path:
+    ``warmup``
     then ``iters`` timed training steps (``step_indices``: batch gathered on
     the device through K2, heads through K3, and with ``fused_train_conv``
     the gated conv + batch norm + ReLU triples through K4) from the port's
-    own initialisation. Per timed step on the card exactly one K2, K3-fwd
-    (keeping u1) and K3-bwd launch and, with K4, ``k4_sites_per_step`` of
+    own initialisation, the model computing in ``dtype``. Per timed step
+    on the card exactly one K2, K3-fwd (keeping u1) and K3-bwd launch (in
+    bf16 both K3 launches in bf16) and, with K4, ``k4_sites_per_step`` of
     each K4 kernel; finite metrics; the parameters change. Host clock
     around steps that end in a synchronise; the peak device memory of the
-    timed steps; ``k4_off_ms`` (phase 8's step) is printed beside."""
+    timed steps; ``k4_off_ms`` (phase 8's step) or ``f32_ms`` is printed
+    beside."""
     t0 = time.perf_counter()
     device = torch.device(device)
+    bf16 = dtype == torch.bfloat16
     trainer = make_trainer(device, dataset, True, n_res_blocks=n_res_blocks,
-                           fused_train_conv=fused_train_conv)
+                           fused_train_conv=fused_train_conv, dtype=dtype)
     rng = np.random.default_rng(1)
     idx = [dataset.sample_indices(rng, batch) for _ in range(warmup + iters)]
     before = [p.detach().clone() for p in trainer.params]
@@ -801,6 +859,9 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
     counts = _launches()
     n = iters if device.type == "cuda" else 0
     want = {"k2": n, "k3_fwd": n, "k3_bwd": n}
+    bf16_counts = _bf16_launches()
+    _expect_launches("train (bf16 launches)", bf16_counts,
+                     {"k3_fwd": n, "k3_bwd": n} if bf16 else {})
     if fused_train_conv:
         sites = k4_sites_per_step(dataset.tile_size)
         want.update({f"k4_{k}": sites * n for k in K4_KERNELS})
@@ -818,11 +879,17 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
     out = {"step_ms": step_ms, "samples_per_s": batch / step_ms * 1e3,
            "batch": batch, "launches": counts, "peak_bytes": peak,
            "elbo": [float(m["elbo"]) for m in metrics]}
+    out["dtype"] = "bfloat16" if bf16 else "float32"
+    out["bf16_launches"] = bf16_counts
     extra = {}
     if fused_train_conv and k4_off_ms is not None:
         extra = dict(step_ms_k4_off=f"{k4_off_ms:.3f}",
                      samples_per_s_k4_off=f"{batch / k4_off_ms * 1e3:.2f}")
-    _line(11 if fused_train_conv else 8,
+    if f32_ms is not None:
+        extra = dict(step_ms_f32=f"{f32_ms:.3f}",
+                     samples_per_s_f32=f"{batch / f32_ms * 1e3:.2f}")
+    _line(13 if bf16 else 11 if fused_train_conv else 8,
+          "train_bf16" if bf16 else
           "train_k4" if fused_train_conv else "train", t0,
           clock="host_clock_after_sync", card=json.dumps(card), batch=batch,
           steps=iters, step_ms=f"{step_ms:.3f}",
@@ -830,6 +897,7 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
           peak_memory_gb=(f"{peak / 1e9:.3f}" if peak is not None
                           else "not_measured_on_cpu"),
           launches=json.dumps(counts),
+          bf16_launches=json.dumps(out["bf16_launches"]),
           elbo_first_last=f"{out['elbo'][0]:.4f},{out['elbo'][-1]:.4f}")
     return out
 
@@ -917,22 +985,58 @@ def plain_k4(fwd=conv_bn_relu_ref, masks=None):
     return site
 
 
+class _PlainHeads(torch.autograd.Function):
+    """``head_stack`` through K3's plain versions on any device: the
+    forward keeps u1 and the backward reads it, as the kernels do."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2, w3, alphas):
+        y, u1 = head_stack_ref(x, w1, w2, w3, alphas, keep_u1=True)
+        ctx.save_for_backward(x, w1, w2, w3, alphas, u1)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w2, w3, alphas, u1 = ctx.saved_tensors
+        return head_stack_bwd_ref(x, w1, w2, w3, alphas,
+                                  dy.to(x.dtype), u1=u1)
+
+
+class _plain_heads:
+    """Within the block the CVAE's fused heads run through ``_PlainHeads``
+    in place of K3 (``kernels=False`` leaves them as they are)."""
+
+    def __init__(self, active: bool):
+        self._active = active
+
+    def __enter__(self):
+        from baryon_painter_tpu_torch.models import cvae
+        self._cvae, self._saved = cvae, cvae.head_stack
+        if self._active:
+            cvae.head_stack = _PlainHeads.apply
+
+    def __exit__(self, *exc):
+        self._cvae.head_stack = self._saved
+
+
 def step_gradients(device, dataset, idx, eps, kernels: bool,
                    fused_train_conv: bool, site=None,
-                   n_res_blocks: int = N_RES_BLOCKS):
+                   n_res_blocks: int = N_RES_BLOCKS, dtype=None,
+                   plain_heads: bool = False):
     """One training step from the seeded initialisation on the batch
-    ``idx`` with the latent noise ``eps``, cuDNN on its deterministic
-    algorithms: (loss, each trainable parameter's gradient by name).
-    ``kernels``: K2's gather and K3's heads, else the plain versions and
-    cuDNN's heads; ``site`` runs in place of ``conv_bn_relu`` at the sites
-    ``fused_train_conv`` fuses."""
-    trainer = make_trainer(device, dataset, kernels, use_kernel=kernels,
-                           n_res_blocks=n_res_blocks,
-                           fused_train_conv=fused_train_conv)
+    ``idx`` with the latent noise ``eps``, the model in ``dtype``, cuDNN on
+    its deterministic algorithms: (loss, each trainable parameter's
+    gradient by name). ``kernels``: K2's gather and K3's heads, else the
+    plain versions and cuDNN's heads; ``plain_heads``: the plain gather
+    and the fused heads through K3's plain versions; ``site`` runs in place
+    of ``conv_bn_relu`` at the sites ``fused_train_conv`` fuses."""
+    trainer = make_trainer(device, dataset, kernels or plain_heads,
+                           use_kernel=kernels, n_res_blocks=n_res_blocks,
+                           fused_train_conv=fused_train_conv, dtype=dtype)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        with _k4_sites(site or conv_bn_relu):
+        with _k4_sites(site or conv_bn_relu), _plain_heads(plain_heads):
             m = trainer.step_indices(idx, 1e-4, eps=eps)
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -1028,6 +1132,158 @@ def train_parity(device, dataset, batch: int = TRAIN_BATCH,
     return {"loss_rel_err": loss_err, "reference": ref, "worst_grad": worst,
             "worst_grad_rel_err": grad_errs[worst], "grad_limit": limit,
             "under_floor": under, "witness": witness}
+
+
+# ---------------------------------------------------------------------- #
+# bf16 (the JAX package's default compute dtype): painting and training
+
+# the JAX package's bf16 paint of the golden input at the prior mean, in
+# the transformed space, op by op, its f32 paint, their distance
+# d_bf16_f32 and the distance d_bf16_jit of the package's own jitted bf16
+# paint from it (scripts/make_bf16_paint_reference.py)
+BF16_REFERENCE = "tests/goldens/bf16_paint_reference.npz"
+# The port's bf16 paint lies no further from the JAX bf16 paint than
+# max(BF16_PAINT_HALF * d_bf16_f32, d_bf16_jit), and at least
+# BF16_REAL_RATIO * d_bf16_f32 from the port's f32 paint (a paint that is
+# not bf16 fails). Two bf16 computations with the same rounding points but
+# sums in another order drift apart by a bf16 step wherever a sum lands
+# next to a rounding boundary, and the next layers carry that on: the
+# JAX package's jitted paint lies 0.84 of d_bf16_f32 from its op-by-op one
+BF16_PAINT_HALF = 0.5
+BF16_REAL_RATIO = 0.5
+# the kernels-vs-plain bf16 training step: the concatenated gradient's
+# relative L2 distance from the plain step's, against the plain bf16
+# step's distance from the plain f32 step
+BF16_STEP_RATIO = 0.5
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in f64, of tensors or arrays."""
+    a = torch.as_tensor(a).double().cpu()
+    b = torch.as_tensor(b).double().cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def paint_bf16(device, repo: Path = REPO, card=None, f32_ms=None,
+               n_tiles: int = 16, warmup: int = 2, iters: int = 10,
+               check: bool = True) -> dict:
+    """Phase 14, a main path: the golden input painted in bf16 through
+    ``CVAEPainter(dtype=torch.bfloat16, fused_inference=True,
+    fused_heads=True)`` at the prior mean in the transformed space: on the
+    card exactly 4 K1 and 1 K3-fwd launches, all in bf16, no u1 kept; held
+    to the committed JAX bf16 paint (``BF16_REFERENCE``) within
+    max(BF16_PAINT_HALF * its bf16-f32 distance, its jitted paint's
+    distance), and at least BF16_REAL_RATIO of the bf16-f32 distance from
+    the port's own f32 paint. Then
+    ``paint_batch`` at ``n_tiles`` timed as phase 9 times it in f32
+    (``f32_ms``)."""
+    from baryon_painter_tpu_torch.painter import CVAEPainter
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    kw = dict(fused_inference=True, fused_heads=True, device=device)
+    painter = CVAEPainter(str(repo / CHECKPOINT), dtype=torch.bfloat16, **kw)
+    painter_f32 = CVAEPainter(str(repo / CHECKPOINT), **kw)
+    with np.load(repo / BF16_REFERENCE) as r:
+        jax_bf16, jax_f32 = r["jax_bf16"], r["jax_f32"]
+        gap, d_jit = float(r["d_bf16_f32"]), float(r["d_bf16_jit"])
+    limit = max(BF16_PAINT_HALF * gap, d_jit)
+    tiles, zs = golden_inputs(512, 1), np.zeros(1, np.float32)
+    paint = lambda p: p.paint_batch(tiles, zs, z_mode="mean",
+                                    inverse_transform=False)
+    _reset_launches()
+    out = paint(painter)
+    _sync(device)
+    counts, bf16_counts = _launches(), _bf16_launches()
+    kept = head_stack_fwd.kept_u1
+    on_card = device.type == "cuda"
+    _expect_launches("paint (bf16)", counts, {"k1": 4 if on_card else 0,
+                                              "k3_fwd": 1 if on_card else 0})
+    _expect_launches("paint (bf16 launches)", bf16_counts,
+                     {"k1": 4, "k3_fwd": 1} if on_card else {})
+    out_f32 = paint(painter_f32)
+    got = out.float().cpu().numpy()
+    d_ref = rel_l2(got, jax_bf16)
+    d_real = rel_l2(got, out_f32)
+    d_f32 = rel_l2(out_f32, jax_f32)
+    res = {"dtype": str(out.dtype), "d_jax_bf16": d_ref, "d_port_f32": d_real,
+           "d_f32_vs_jax_f32": d_f32, "gap": gap, "d_jax_jit": d_jit,
+           "limit": limit, "ratio": d_ref / gap, "real_ratio": d_real / gap,
+           "launches": counts, "bf16_launches": bf16_counts}
+    ok = (out.dtype == torch.bfloat16 and got.shape == jax_bf16.shape
+          and bool(np.all(np.isfinite(got))) and kept == 0
+          and d_ref <= limit
+          and d_real >= BF16_REAL_RATIO * gap)
+    if check and not ok:
+        raise AssertionError(f"bf16 paint against the JAX bf16 reference: "
+                             f"{res}, u1 kept {kept}")
+    ms = paint_time_ms(device, painter, n_tiles, warmup, iters)
+    res.update(paint_ms=ms, tiles_per_s=n_tiles / ms * 1e3, painter=painter)
+    _line(14, "paint_bf16", t0, card=json.dumps(card),
+          launches=json.dumps(counts), bf16_launches=json.dumps(bf16_counts),
+          d_jax_bf16=f"{d_ref:.4e}", jax_bf16_f32_gap=f"{gap:.4e}",
+          ratio=f"{d_ref / gap:.4f}", limit_ratio=f"{limit / gap:.4f}",
+          jax_jit_ratio=f"{d_jit / gap:.4f}",
+          real_ratio=f"{d_real / gap:.4f}", f32_vs_jax_f32=f"{d_f32:.2e}",
+          paint_ms=f"{ms:.3f}", n_tiles=n_tiles,
+          tiles_per_s=f"{n_tiles / ms * 1e3:.2f}",
+          paint_ms_f32=(f"{f32_ms:.3f}" if f32_ms is not None else None),
+          tiles_per_s_f32=(f"{n_tiles / f32_ms * 1e3:.2f}"
+                           if f32_ms is not None else None))
+    return res
+
+
+def _grad_vector(grads: dict) -> torch.Tensor:
+    return torch.cat([grads[k].detach().double().flatten().cpu()
+                      for k in sorted(grads)])
+
+
+def train_parity_bf16(device, dataset, batch: int = TRAIN_BATCH,
+                      n_res_blocks: int = N_RES_BLOCKS,
+                      check: bool = True) -> dict:
+    """Phase 13b: one bf16 step with the kernels (K2, K3 in bf16) against
+    the bf16 step with their plain versions (the plain gather; the fused
+    heads through ``head_stack_ref``/``head_stack_bwd_ref``), from the same
+    initialisation, batch and latent noise: the concatenated gradient's
+    relative L2 distance within BF16_STEP_RATIO of the plain bf16 step's
+    distance from the plain f32 step. The worst parameters (each to its own
+    largest entry) and the step with cuDNN's bf16 heads are printed."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    idx, eps = parity_inputs(dataset, batch)
+    plans = {"kernels": dict(kernels=True, dtype=torch.bfloat16),
+             "plain": dict(kernels=False, plain_heads=True,
+                           dtype=torch.bfloat16),
+             "plain_f32": dict(kernels=False, plain_heads=True),
+             "cudnn_heads": dict(kernels=False, dtype=torch.bfloat16)}
+    runs = {label: step_gradients(device, dataset, idx, eps,
+                                  fused_train_conv=False,
+                                  n_res_blocks=n_res_blocks, **kw)
+            for label, kw in plans.items()}
+    vec = {k: _grad_vector(v[1]) for k, v in runs.items()}
+    d_kp = rel_l2(vec["kernels"], vec["plain"])
+    gap = rel_l2(vec["plain"], vec["plain_f32"])
+    d_cudnn = rel_l2(vec["cudnn_heads"], vec["plain"])
+    loss = {k: v[0] for k, v in runs.items()}
+    loss_err = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
+    errs = step_grad_errors(runs["kernels"][1], runs["plain"][1])[0]
+    worst5 = _worst(errs, runs["plain"][1])
+    print(f"  bf16 step, worst gradients against the plain bf16 step: "
+          f"{worst5}", flush=True)
+    res = {"d_kernels_plain": d_kp, "d_plain_bf16_f32": gap,
+           "ratio": d_kp / gap if gap > 0 else 0.0,
+           "d_cudnn_heads_plain": d_cudnn, "loss": loss,
+           "loss_rel_err": loss_err,
+           "worst_grad": max(errs, key=errs.get) if errs else None}
+    if check and not d_kp <= BF16_STEP_RATIO * gap:
+        raise AssertionError(f"bf16 kernels step against the plain bf16 "
+                             f"step: {res}; worst gradients {worst5}")
+    _line("13b", "train_parity_bf16", t0, d_kernels_plain=f"{d_kp:.4e}",
+          d_plain_bf16_f32=f"{gap:.4e}", ratio=f"{res['ratio']:.4f}",
+          limit_ratio=BF16_STEP_RATIO,
+          d_cudnn_heads_plain=f"{d_cudnn:.4e}",
+          loss_rel_err=f"{loss_err:.3e}", worst_grad=res["worst_grad"])
+    return res
 
 
 def paint_fused_heads(device, card=None, heads_unfused_ms=None,
@@ -1420,7 +1676,8 @@ def k4_record(conv_bn: dict, training_k4: dict) -> list:
         t_bytes = sum(r["bounds"][bk]["bytes"] for r in sites) / HBM_BYTES_PER_S
         lib = _K4_LIBRARY.get(k)
         entry = {
-            "name": f"conv_bn_{k}", "route": "cuda", "source": K4_SOURCE,
+            "name": f"conv_bn_{k}", "dtype": "float32", "route": "cuda",
+            "source": K4_SOURCE,
             "replaces": K4_REPLACES[k],
             "launches": training_k4["launches"][f"k4_{k}"],
             "max_abs_err": max(r["abs_errors"][e] for r in sites
@@ -1446,21 +1703,27 @@ def k4_record(conv_bn: dict, training_k4: dict) -> list:
 
 def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                    heads: dict, training: dict, conv_bn: dict,
-                   training_k4: dict) -> dict:
-    """The ``{"kernels": [...]}`` record of the run: K1 at the main path's
-    dtype (f32), its bf16 numbers beside it; K2, K3-fwd and K3-bwd with
-    their launches in the timed training steps; K4's four kernels
-    (``k4_record``). K1 and K3 run on the tensor cores: their bound is the
+                   training_k4: dict, heads_bf16: dict = None,
+                   paint_bf16: dict = None,
+                   training_bf16: dict = None) -> dict:
+    """The ``{"kernels": [...]}`` record of the run, each entry with its
+    ``dtype``: K1 in f32, its bf16 numbers beside it; K2, K3-fwd and K3-bwd
+    with their launches in the timed training steps; K4's four kernels
+    (``k4_record``); given the bf16 phases, K1 in bf16 with its launches
+    in the bf16 paint, K3-fwd and K3-bwd in bf16 with theirs in the bf16
+    training steps. K1 and K3 run on the tensor cores: their bound is the
     tensor-core one (``k1_bound``'s ``tc``, ``k3_bounds``' ``fwd_tc`` and
     ``bwd_tc``), the f32 CUDA-core one beside it. K3-fwd's times are with
     u1 kept, as the training steps that count its launches run it; without
     u1 (painting) beside them."""
     f32 = next(c for c in checks if c["dtype"] == "float32")
     bf16 = next(c for c in checks if c["dtype"] == "bfloat16")
-    def k3(name, key, replaces):
+    def k3(name, key, replaces, heads=heads, launches=None):
         d = key[3:]
-        return {"name": name, "route": "cuda", "source": K3_SOURCE,
-                "replaces": replaces, "launches": training["launches"][key],
+        launches = training["launches"] if launches is None else launches
+        return {"name": name, "dtype": heads.get("dtype", "float32"),
+                "route": "cuda", "source": K3_SOURCE,
+                "replaces": replaces, "launches": launches[key],
                 "max_abs_err": heads["abs_errors"][
                     "y" if key == "k3_fwd" else "dx"],
                 "ms": heads[f"{d}_ms"],
@@ -1474,8 +1737,30 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     k3_fwd["u1_max_abs_err"] = heads["abs_errors"]["u1"]
     k3_fwd["ms_without_u1"] = heads["fwd_without_u1_ms"]
     k1_f32 = timing["bound_float32"]
+    bf16_entries = []
+    if paint_bf16 is not None:
+        k1_b = timing["bound_bfloat16"]
+        bf16_entries.append({
+            "name": "res_block_infer", "dtype": "bfloat16", "route": "cuda",
+            "source": K1_SOURCE, "replaces": K1_REPLACES,
+            "launches": paint_bf16["bf16_launches"]["k1"],
+            "max_abs_err": bf16["max_abs_err"],
+            "ms": timing["k1_ms_bfloat16"],
+            "plain_ms": timing["plain_ms_bfloat16"],
+            "bound_ms": k1_b["tc"]["bound_ms"],
+            "bound_by": k1_b["tc"]["bound_by"],
+            "library_ms": timing["library_ms_bfloat16"]})
+    if heads_bf16 is not None and training_bf16 is not None:
+        launches = training_bf16["bf16_launches"]
+        fwd_b = k3("head_stack_fwd", "k3_fwd", K3_FWD_REPLACES, heads_bf16,
+                   launches)
+        fwd_b["u1_max_abs_err"] = heads_bf16["abs_errors"]["u1"]
+        fwd_b["ms_without_u1"] = heads_bf16["fwd_without_u1_ms"]
+        bf16_entries += [fwd_b, k3("head_stack_bwd", "k3_bwd",
+                                   K3_BWD_REPLACES, heads_bf16, launches)]
     return {"kernels": [{
-        "name": "res_block_infer", "route": "cuda", "source": K1_SOURCE,
+        "name": "res_block_infer", "dtype": "float32", "route": "cuda",
+        "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": paint["launches"],
         "max_abs_err": f32["max_abs_err"], "ms": timing["k1_ms_float32"],
         "plain_ms": timing["plain_ms"],
@@ -1487,10 +1772,11 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         "bf16_bound_ms": timing["bound_bfloat16"]["bound_ms"],
         "bf16_library_ms": timing["library_ms_bfloat16"],
         "bf16_max_abs_err": bf16["max_abs_err"]}, {
-        "name": "gather_tiles", "route": "cuda", "source": K2_SOURCE,
+        "name": "gather_tiles", "dtype": "float32", "route": "cuda",
+        "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": training["launches"]["k2"],
         "max_abs_err": gather["max_abs_err"], "ms": gather["ms"],
         "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
         "bound_by": gather["bound_by"], "library_ms": gather["library_ms"]},
         k3_fwd, k3("head_stack_bwd", "k3_bwd", K3_BWD_REPLACES),
-        *k4_record(conv_bn, training_k4)]}
+        *k4_record(conv_bn, training_k4), *bf16_entries]}

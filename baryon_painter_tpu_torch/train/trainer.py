@@ -8,8 +8,12 @@ the stack cache (``step_indices``, ``step_scan``; ``device_data=True``), the
 tile gather through K2. With ``CVAE(..., fused_heads=True)`` the output heads
 run through K3, forward and backward; with ``CVAE(...,
 fused_train_conv=True)`` the gated train-mode conv + batch norm + ReLU
-triples run through K4. A step trains in f32 whatever the caller's TF32
-setting (``utils/platform.f32_convolutions``).
+triples run through K4. The step computes in the model's dtype
+(``CVAE(..., dtype=torch.bfloat16)`` is the JAX package's bf16 training):
+the batch is prepared in f32 and the parameters, their gradients, the Adam
+state and the batch statistics stay f32, as in the JAX trainer. An f32
+step trains in f32 whatever the caller's TF32 setting
+(``utils/platform.f32_convolutions``).
 
     trainer = CVAETrainer(CVAE(arch, fused_heads=True), dataset,
                           config=TrainConfig(seed=0), device_data=True)
@@ -149,13 +153,18 @@ class CVAETrainer:
                 ds, config.device_cache_budget_bytes, device=self.device,
                 use_kernel=use_kernel)
 
+    def _channels(self, field, arr, z):
+        """A raw (N,H,W) field transformed, as NCHW: one channel, or the
+        (N,C,H,W) a transform emits (the JAX trainer's ``_to_channels``)."""
+        out = self._transforms[field].forward(arr, self._stats[field], z)
+        return out[:, None] if out.ndim == 3 else out
+
     def _prepare(self, raw_input, raw_labels, z):
         """Raw tiles (N,H,W) and labels (n_label,N,H,W) -> transformed
-        (x, y) in NCHW."""
-        fwd = lambda f, a: self._transforms[f].forward(a, self._stats[f], z)
-        y = fwd(self._input_field, raw_input)[:, None]
-        x = torch.stack([fwd(f, raw_labels[j])
-                         for j, f in enumerate(self._label_fields)], dim=1)
+        (x, y) in NCHW, f32 whatever the model's dtype."""
+        y = self._channels(self._input_field, raw_input, z)
+        x = torch.cat([self._channels(f, raw_labels[j], z)
+                       for j, f in enumerate(self._label_fields)], dim=1)
         return x.float(), y.float()
 
     def _bn_state(self):

@@ -18,7 +18,13 @@ training step; then K4 (the fused train-mode conv + batch
 norm + ReLU, four kernels) against its plain version at its four sites, the
 same training with K4 too (exactly 4 launches of each K4 kernel per step)
 and its kernels-vs-plain step, and the golden repainted with PyTorch's
-default TF32 setting. Everything is timed. The phases live in
+default TF32 setting; then the bf16 configuration (the JAX package's
+default compute dtype): K3-fwd and K3-bwd in bf16 against their plain bf16
+versions, training in bf16 (exactly one K2 and one bf16 K3-fwd and K3-bwd
+launch per step) with a kernels-vs-plain bf16 step, and the golden input
+painted in bf16 (exactly 4 bf16 K1 and 1 bf16 K3-fwd launches) against the
+committed JAX bf16 paint (tests/goldens/bf16_paint_reference.npz), then
+timed. Everything is timed. The phases live in
 ``baryon_painter_tpu_torch/smoke.py``; each prints one line with its
 seconds. The last lines are the kernels record (JSON), the card's name and
 power limit as nvidia-smi gives them, and the result (JSON). Any failed phase
@@ -59,19 +65,28 @@ def main() -> int:
     heads = smoke.check_heads(device)
     training = smoke.train(device, dataset, card=card)
     smoke.train_parity(device, dataset)
-    smoke.paint_fused_heads(device, card=card,
-                            heads_unfused_ms=timing["paint_ms"])
+    fused_paint = smoke.paint_fused_heads(device, card=card,
+                                          heads_unfused_ms=timing["paint_ms"])
     conv_bn = smoke.check_conv_bn(device, card=card)
     training_k4 = smoke.train(device, dataset, card=card,
                               fused_train_conv=True,
                               k4_off_ms=training["step_ms"])
     smoke.train_parity(device, dataset, fused_train_conv=True)
     smoke.paint_tf32(device)
+    # bf16, the JAX package's default compute dtype
+    heads_bf16 = smoke.check_heads(device, dtype=torch.bfloat16)
+    training_bf16 = smoke.train(device, dataset, card=card,
+                                dtype=torch.bfloat16,
+                                f32_ms=training["step_ms"])
+    smoke.train_parity_bf16(device, dataset)
+    paint_bf16 = smoke.paint_bf16(device, card=card,
+                                  f32_ms=fused_paint["paint_ms"])
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
-    print(json.dumps(smoke.kernels_record(checks, paint, timing, gather,
-                                          heads, training, conv_bn,
-                                          training_k4)))
+    print(json.dumps(smoke.kernels_record(
+        checks, paint, timing, gather, heads, training, conv_bn, training_k4,
+        heads_bf16=heads_bf16, paint_bf16=paint_bf16,
+        training_bf16=training_bf16)))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

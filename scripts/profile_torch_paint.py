@@ -2,7 +2,7 @@
 """Where the time of the port's paint path goes, on one CUDA card.
 
     python3 scripts/profile_torch_paint.py [--n-tiles 16] [--iters 10]
-                                           [--fused-heads]
+                                           [--fused-heads] [--dtype bf16]
 
 Paints n 512^2 tiles (redshifts over the checkpoint's 11-point grid) with
 ``CVAEPainter(trained_models/CVAE/fiducial-512/model)`` of the PyTorch port,
@@ -15,7 +15,10 @@ intervals per call) / (ms per call from the CUDA events); then the device
 time of each layer module, from CUDA events in forward hooks. With
 ``--fused-heads`` both painters run the two output heads as one K3-fwd
 launch (``fused_heads=True``); the heads are then no layer module, and
-their time is ``head_fwd_kernel``'s in the table by kernel. TF32 is off.
+their time is ``head_fwd_kernel``'s in the table by kernel. ``--dtype
+bf16`` paints with both painters in bf16 (``CVAEPainter(...,
+dtype=torch.bfloat16)``, the JAX package's default compute dtype). TF32 is
+off.
 The full record is printed as the last line (JSON).
 """
 import argparse
@@ -137,6 +140,8 @@ def main():
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--fused-heads", action="store_true",
                     help="run the output heads through K3 (fused_heads)")
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                    help="the painters' compute dtype")
     args = ap.parse_args()
 
     import numpy as np
@@ -155,8 +160,10 @@ def main():
                           check=True).stdout.strip()
     device = torch.device("cuda")
     base = os.path.join(REPO, smoke.CHECKPOINT)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else None
     painters = {f: CVAEPainter(base, fused_inference=f,
-                               fused_heads=args.fused_heads, device=device)
+                               fused_heads=args.fused_heads, dtype=dtype,
+                               device=device)
                 for f in (False, True)}
     z_grid = np.asarray(painters[True].meta["stats"]["dm"]["z_grid"],
                         np.float32)
@@ -165,7 +172,8 @@ def main():
     zs = torch.as_tensor(z_grid[np.arange(args.n_tiles) % len(z_grid)],
                          device=device)
     record = {"card": card, "n_tiles": args.n_tiles, "iters": args.iters,
-              "fused_heads": args.fused_heads, "torch": torch.__version__,
+              "fused_heads": args.fused_heads, "dtype": args.dtype,
+              "torch": torch.__version__,
               "runs": []}
     for fused in (False, True, True, False):
         paint = lambda: painters[fused].paint_batch(tiles, zs)
@@ -178,7 +186,7 @@ def main():
         run = {"fused": fused, "paint_ms": ms,
                "tiles_per_s": args.n_tiles / ms * 1e3,
                "k1_launches_per_paint": launches}
-        print(f"fused={fused}: {ms:.3f} ms per paint_batch of "
+        print(f"fused={fused} ({args.dtype}): {ms:.3f} ms per paint_batch of "
               f"{args.n_tiles} tiles, {run['tiles_per_s']:.1f} tiles/s, "
               f"{launches:.0f} K1 launches per call ({card})", flush=True)
         record["runs"].append(run)

@@ -18,7 +18,10 @@ for bit. K3's outputs, the u1 it keeps and dx differ by summation order
 (1e-4 of the largest entry), its weight and slope gradients sum over every
 pixel (1e-3); its backward is compared with the plain backward given the
 kernel's u1, on a cotangent that reaches no u2 within summation noise of
-PReLU's kink, where the two may take different branches.
+PReLU's kink, where the two may take different branches. In bf16 (x, y,
+dy, dx bf16) K3's outputs and gradients to 2e-2 of their largest entry (a
+sum in another order rounds the other way next to a bf16 boundary) and u1
+(f32) to 1e-4 (``smoke.K3_TOL_BF16``).
 K4 as ``smoke.K4_TOL`` (summation order: 1e-4 for y, the statistics and dx,
 1e-3 for the sums over every pixel); its backward (3xTF32 on the tensor
 cores) on the raw cotangent, the plain version taking K4's statistics and
@@ -268,7 +271,9 @@ def test_k3_bwd_is_deterministic(cuda_device):
 def test_k3_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     x, w1, w2, w3, al, dy = smoke.head_inputs(1, 16, 16, cuda_device)
     with pytest.raises(TypeError, match="float32"):
-        k3.head_stack_fwd(x.bfloat16(), w1, w2, w3, al)
+        k3.head_stack_fwd(x.half(), w1, w2, w3, al)
+    with pytest.raises(TypeError, match="w1"):
+        k3.head_stack_fwd(x.bfloat16(), w1.bfloat16(), w2, w3, al)
     with pytest.raises(ValueError, match="16"):
         k3.head_stack_fwd(x[..., :8], w1[..., :8, :], w2, w3, al)
     with pytest.raises(ValueError, match="w1"):
@@ -282,6 +287,60 @@ def test_k3_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1[..., :8])
     with pytest.raises(TypeError, match="u1"):
         k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1.double())
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32), (3, 37, 45), (1, 12, 20),
+                                   (4, 512, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_k3_bf16_matches_plain_version(cuda_device, shape):
+    """K3-fwd and K3-bwd in bf16 against the plain bf16 versions, as the
+    f32 test holds them, with the bf16 tolerances; each launch counted in
+    bf16."""
+    x, w1, w2, w3, al, dy = smoke.head_inputs(*shape, cuda_device)
+    x, dy = x.bfloat16(), dy.bfloat16()
+    dy, _ = smoke.kink_free_cotangent(x, w1, w2, w3, al, dy,
+                                      dtype=torch.bfloat16)
+    f0, b0 = k3.head_stack_fwd.bf16_launches, k3.head_stack_bwd.bf16_launches
+    y, u1 = k3.head_stack_fwd(x, w1, w2, w3, al, keep_u1=True)
+    y_paint = k3.head_stack_fwd(x, w1, w2, w3, al)
+    got = (y, u1, *k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1))
+    want = (*k3.head_stack_ref(x, w1, w2, w3, al, keep_u1=True),
+            *k3.head_stack_bwd_ref(x, w1, w2, w3, al, dy, u1=u1))
+    torch.cuda.synchronize()
+    assert k3.head_stack_fwd.bf16_launches == f0 + 2
+    assert k3.head_stack_bwd.bf16_launches == b0 + 1
+    assert torch.equal(y_paint, y)
+    assert y.dtype == got[2].dtype == torch.bfloat16
+    assert u1.dtype == torch.float32
+    for name, a, b in zip(smoke.K3_TOL_BF16, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert _max_rel_err(a, b) <= smoke.K3_TOL_BF16[name], name
+
+
+def test_k3_bf16_bwd_is_deterministic(cuda_device):
+    x, w1, w2, w3, al, dy = smoke.head_inputs(2, 40, 300, cuda_device, seed=5)
+    x, dy = x.bfloat16(), dy.bfloat16()
+    _, u1 = k3.head_stack_fwd(x, w1, w2, w3, al, keep_u1=True)
+    a = k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1)
+    b = k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1)
+    for s, t in zip(a, b):
+        assert torch.equal(s, t)
+
+
+def test_bf16_training_and_painting_on_the_card(cuda_device):
+    """bf16 training steps launch K2 and K3 in bf16 once each a step and
+    match the plain bf16 step (``smoke.train_parity_bf16``); the bf16
+    paint of the golden input launches 4 bf16 K1 and 1 bf16 K3-fwd and
+    meets the committed JAX bf16 reference (``smoke.paint_bf16``)."""
+    ds = smoke.training_data(tile=64)
+    out = smoke.train(cuda_device, ds, batch=4, warmup=1, iters=3,
+                      n_res_blocks=1, dtype=torch.bfloat16)
+    assert out["bf16_launches"] == {"k1": 0, "k3_fwd": 3, "k3_bwd": 3}
+    res = smoke.train_parity_bf16(cuda_device, ds, batch=4, n_res_blocks=1)
+    assert res["ratio"] <= smoke.BF16_STEP_RATIO
+    paint = smoke.paint_bf16(cuda_device, n_tiles=2, warmup=1, iters=1)
+    assert paint["bf16_launches"] == {"k1": 4, "k3_fwd": 1, "k3_bwd": 0}
+    assert paint["d_jax_bf16"] <= paint["limit"]
 
 
 def test_training_steps_with_kernels_match_plain_steps(cuda_device):

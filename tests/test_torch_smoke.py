@@ -65,6 +65,21 @@ def cpu_k4_run(cpu_train_run):
     return conv_bn, training_k4, parity_k4
 
 
+@pytest.fixture(scope="module")
+def cpu_bf16_run(cpu_train_run):
+    d = torch.device("cpu")
+    ds, _, _, training, _, fused_paint = cpu_train_run
+    heads = smoke.check_heads(d, shape=(2, 32, 32), iters=1,
+                              dtype=torch.bfloat16)
+    training_bf16 = smoke.train(d, ds, batch=2, warmup=1, iters=2,
+                                n_res_blocks=1, dtype=torch.bfloat16,
+                                f32_ms=training["step_ms"])
+    parity = smoke.train_parity_bf16(d, ds, batch=2, n_res_blocks=1)
+    paint = smoke.paint_bf16(d, n_tiles=1, warmup=0, iters=1,
+                             f32_ms=fused_paint["paint_ms"])
+    return heads, training_bf16, parity, paint
+
+
 def test_environment_and_build_phases_on_cpu(cpu_run):
     env, build, *_ = cpu_run
     assert env["nvidia_smi"] is None and env["kind"] == "cpu"
@@ -143,6 +158,52 @@ def test_timing_phase_and_kernels_record(cpu_run, cpu_train_run,
             r["bounds"][k]["bound_ms"] for r in sites))
     assert by_name["conv_bn_stats"]["u_vs_bwd1_max_abs"] == 0.0
     assert by_name["conv_bn_fwd"]["library_covers"] == "stats+fwd"
+
+
+def test_bf16_phases_and_kernels_record_on_cpu(cpu_run, cpu_train_run,
+                                               cpu_k4_run, cpu_bf16_run):
+    """Phases 7b, 13, 13b and 14 on the CPU (the plain versions: K3 against
+    itself, no launches, the kernels and plain bf16 steps equal, the
+    committed JAX bf16 reference met) and the kernels record with the bf16
+    entries: K1 with its bf16 paint launches, K3-fwd and K3-bwd with their
+    bf16 training launches, every entry with its dtype and the keys of the
+    record."""
+    _, _, checks, paint, timing = cpu_run
+    _, gather, heads, training, _, _ = cpu_train_run
+    conv_bn, training_k4, _ = cpu_k4_run
+    heads_bf16, training_bf16, parity, paint_bf16 = cpu_bf16_run
+    assert heads_bf16["dtype"] == "bfloat16"
+    assert set(heads_bf16["errors"]) == set(smoke.K3_TOL_BF16)
+    assert all(v == 0.0 for v in heads_bf16["errors"].values())
+    assert heads_bf16["fwd_tc_bound"] == smoke.k3_bounds(
+        2, 32, 32, dtype=torch.bfloat16)["fwd_tc"]
+    assert training_bf16["dtype"] == "bfloat16"
+    assert all(v == 0 for v in training_bf16["launches"].values())
+    assert training_bf16["bf16_launches"] == {"k1": 0, "k3_fwd": 0,
+                                              "k3_bwd": 0}
+    assert parity["d_kernels_plain"] == 0.0 and parity["ratio"] == 0.0
+    assert parity["d_plain_bf16_f32"] > 1e-3
+    assert paint_bf16["d_jax_bf16"] <= paint_bf16["limit"]
+    rec = smoke.kernels_record(checks, paint, timing, gather, heads,
+                               training, conv_bn, training_k4,
+                               heads_bf16=heads_bf16, paint_bf16=paint_bf16,
+                               training_bf16=training_bf16)
+    json.dumps(rec)
+    names = [(k["name"], k["dtype"]) for k in rec["kernels"]]
+    assert names[-3:] == [("res_block_infer", "bfloat16"),
+                          ("head_stack_fwd", "bfloat16"),
+                          ("head_stack_bwd", "bfloat16")]
+    assert all(d == "float32" for _, d in names[:-3])
+    for k in rec["kernels"]:
+        for key in ("name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            assert key in k, (k["name"], key)
+    k1 = rec["kernels"][-3]
+    assert k1["bound_ms"] == timing["bound_bfloat16"]["tc"]["bound_ms"]
+    assert k1["plain_ms"] == timing["plain_ms_bfloat16"] > 0
+    for k in rec["kernels"][-2:]:
+        assert k["bound_ms"] > 0 and k["launches"] == 0
 
 
 def test_training_phases_on_cpu(cpu_train_run):
