@@ -79,6 +79,28 @@
 //     which the wrapper sums. Where the (m16, n8) tiles are few the warps
 //     split the chunk's K steps and add their sums at the end.
 //
+// bf16 (the JAX package's default compute dtype), the same four kernels
+// templated on the element type T of x, w, y, dy and dx, with the JAX
+// kernels' rounding points: u, its sums, S1 and S2 and the dW partials stay
+// f32; K4-fwd writes y = bf16(max(u a + b, 0)) from the f32 u into a new
+// bf16 tensor (y is 2 bytes an element, u 4, so it cannot take u's
+// buffer); du is rounded to bf16 where it is formed, before both of its
+// products; dx is rounded once from its f32 sum. The GEMMs run one pass of
+// mma.sync m16n8k16 bf16 (the products of two bf16 values are exact in
+// f32), each k16 step summed from zero and added in f32 as above. A bf16
+// fragment register holds two adjacent K elements in one 32-bit word, so
+// each GEMM orders K in pairs and stages the pairs as words:
+//   - u GEMM: K = (tap, channel pair), channel pairs fastest; x is staged
+//     raw, then converted into planes of channel pairs (a word per
+//     footprint position, Cin = 3 padded to 4 with zeros in shared memory),
+//     8 mod 32 words apart; the weights as (K pair, column) words.
+//   - dx: K = (tap, output-channel pair); du is formed from the staged u,
+//     y and dy into planes of channel pairs.
+//   - dW: K = pixels; a chunk's rows are an even number of pixels, so a
+//     pixel pair is one word of du; x is converted into a word at every
+//     footprint position holding it and its right neighbour, so the pair
+//     at any tap offset, even or odd, is one aligned word.
+//
 // Plain C interface, no PyTorch header: built with nvcc into a shared
 // library and called through ctypes (baryon_painter_tpu_torch/ops/_build.py).
 
@@ -90,6 +112,13 @@
 #include "ptx.cuh"
 
 namespace {
+
+// a bfloat16 tensor element, read and written as its 16 bits (the top half
+// of an f32)
+typedef uint16_t bf16;
+
+template <typename T>
+constexpr bool kIsF32 = std::is_same<T, float>::value;
 
 // wait until at most n (0 to 3) copy groups are in flight
 __device__ __forceinline__ void cp_async_wait_n(int n) {
@@ -291,6 +320,126 @@ __device__ __forceinline__ void stage_window(float* dst, int nch, int ay,
 
 __device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
 
+// v rounded to bf16 to nearest even, as Tensor.to(torch.bfloat16) rounds
+// (a NaN stays a NaN): its 16 bits in the low half of the word
+__device__ __forceinline__ uint32_t bf16_rne(float v) {
+  const uint32_t b = __float_as_uint(v);
+  if ((b & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;
+  return (b + 0x7fffu + ((b >> 16) & 1u)) >> 16;
+}
+
+__device__ __forceinline__ float bf16_f32(uint32_t h) {
+  return __uint_as_float(h << 16);
+}
+
+// element i of a T tensor as f32, through the read-only cache
+__device__ __forceinline__ float ld_f32(const float* p, size_t i) {
+  return __ldg(p + i);
+}
+__device__ __forceinline__ float ld_f32(const bf16* p, size_t i) {
+  return bf16_f32(__ldg(p + i));
+}
+
+// p[i] = v in T (bf16: rounded to nearest even)
+__device__ __forceinline__ void st_t(float* p, size_t i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void st_t(bf16* p, size_t i, float v) {
+  p[i] = (bf16)bf16_rne(v);
+}
+
+// The bf16 GEMMs' K chunks, in pairs of K elements (8 pairs a k16 step):
+// the u GEMM's K = taps x channel pairs of CIC channels (even), dx's K =
+// taps x pairs of COC output channels (even); padded to whole k16 steps.
+template <int S, int K>
+struct BwdB {
+  using B = Bwd<S, K>;
+  static constexpr int CIC = S == 1 ? rup(clampi(100 / B::T1, 1, 16), 2) : 16;
+  static constexpr int NP1 = CIC / 2 * B::T1;
+  static constexpr int KP1 = rup(NP1, 8);
+  static constexpr int COC = S == 1 ? rup(clampi(104 / B::T2, 1, 8), 2) : 2;
+  static constexpr int NP2 = COC / 2 * B::T2;
+  static constexpr int KP2 = rup(NP2, 8);
+  // a staged bf16 row of n columns: from the multiple of 8 at or before its
+  // first column, whole 16-byte groups
+  __host__ __device__ static constexpr int wa8(int n) { return rup(n + 7, 8); }
+  // words of a pair plane of n positions, 8 mod 32: the planes a warp's
+  // four tig read start 8 banks apart
+  __host__ __device__ static constexpr int plane(int n) {
+    return n + (40 - n % 32) % 32;
+  }
+};
+
+// stage_window for bf16 planes: FH rows x 8 NG8 columns from (ay, ax), ax a
+// multiple of 8, into dst[c][FH][8 NG8], zero outside the image. Rows of a
+// w % 8 == 0 image take one 16-byte copy a group of 8 columns; others are
+// read an element at a time by plain loads (the ring's barrier orders them
+// as it orders the copies).
+template <int FH, int NG8, class Plane>
+__device__ __forceinline__ void stage_window_bf(bf16* dst, int nch, int ay,
+                                                int ax, int h, int w,
+                                                Plane&& plane) {
+  const bool wide = (w & 7) == 0;
+  for (int i = threadIdx.x; i < nch * FH * NG8; i += kThreads) {
+    const int r = i / NG8;
+    const int gy = ay + r % FH;
+    const int gx = ax + 8 * (i % NG8);
+    const bf16* p = plane(r / FH);
+    bf16* d = dst + 8 * i;
+    const bool row = gy >= 0 && gy < h;
+    if (wide) {
+      const bool ok = row && gx >= 0 && gx < w;
+      cp_async16(d, ok ? p + (size_t)gy * w + gx : p, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const bool ok = row && gx + e >= 0 && gx + e < w;
+        d[e] = ok ? p[(size_t)gy * w + gx + e] : (bf16)0;
+      }
+    }
+  }
+}
+
+// One K chunk of a bf16 GEMM whose rows are 16 pixels of a tile row (the u
+// GEMM, dx), R rows a warp: acc[R == 1 ? j : 4 r + j] += A B for each n8
+// tile j < nj (at most 4 where R = 2). A's pair (row's pixel, K pair k) is
+// the word ap[pix[row] + koff[k]], B's (K pair k, column n) bp[k ld + n];
+// kp pairs, each k16 step summed from zero and added in f32 (mma3_add).
+template <int R>
+__device__ __forceinline__ void pair_rows_mma(
+    float (&acc)[8][4], const uint32_t* ap, const int* koff,
+    const uint32_t* bp, int ld, int kp, const int (&p0)[R],
+    const int (&p1)[R], int nj, int g, int tig) {
+  constexpr int NJ = R == 1 ? 8 : 4;
+  for (int kk = 0; kk < kp; kk += 8) {
+    const int o0 = koff[kk + tig];
+    const int o1 = koff[kk + tig + 4];
+    uint32_t a[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      a[r][0] = ap[p0[r] + o0];
+      a[r][1] = ap[p1[r] + o0];
+      a[r][2] = ap[p0[r] + o1];
+      a[r][3] = ap[p1[r] + o1];
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j < nj) {
+        const int b0 = (kk + tig) * ld + 8 * j + g;
+        const uint32_t b[2] = {bp[b0], bp[b0 + 4 * ld]};
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(t, a[r], b);
+          float(&c)[4] = acc[R == 1 ? j : 4 * r + j];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[e] += t[e];
+        }
+      }
+    }
+  }
+}
+
 // i / d and i % d for 0 <= i < 2^20 and a runtime d, through d's float
 // reciprocal (exact in that range; an integer division is ~20 instructions)
 __device__ __forceinline__ int div_by(int i, float rd, int d, int& rem) {
@@ -437,12 +586,21 @@ int pick_stages(Floats&& floats) {
 
 // ---- the u GEMM: K4-stats and K4-bwd1 ------------------------------------ //
 
-template <int S, int K, int R>
+template <typename T, int S, int K, int R>
 int u_gemm_smem_floats(int cout, int stages) {
   using B = Bwd<S, K>;
   const int ld = ldb(rup(cout < kNT ? cout : kNT, 8));
-  return (stages + 2) * (B::CIC * B::fx1(R) + B::KC1 * ld) + 8 * kNT * 2 +
-         B::KC1;
+  if constexpr (kIsF32<T>) {
+    return (stages + 2) * (B::CIC * B::fx1(R) + B::KC1 * ld) + 8 * kNT * 2 +
+           B::KC1;
+  } else {
+    using C = BwdB<S, K>;
+    constexpr int FH = B::fx(kTH * R);
+    constexpr int FXW = B::fx(kTW);
+    return stages * C::CIC * FH * C::wa8(FXW) / 2 +
+           C::CIC / 2 * C::plane(FH * FXW) + C::KP1 * ld + 8 * kNT * 2 +
+           C::KP1;
+  }
 }
 
 // One block per (phase x 16-column tile, 8 R-row tile, sample x 64 output
@@ -451,33 +609,21 @@ int u_gemm_smem_floats(int cout, int stages) {
 // one partial row of two per-channel sums over its pixels inside the image:
 // K4-stats (STATS): u and u^2, from x and w alone (mean, inv, y and dy are
 // not read); K4-bwd1: dv and dv * uhat, with dv = dy where the forward's
-// y > 0. The mainloop is the same code for both.
-template <int S, int K, int R, bool STATS>
+// y > 0. The mainloop is the same code for both. T = float: 3xTF32;
+// T = bf16: one bf16 pass, x converted into channel-pair planes.
+template <typename T, int S, int K, int R, bool STATS>
 __global__ void __launch_bounds__(kThreads, 2)
-    u_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+    u_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const float* __restrict__ mean,
-                  const float* __restrict__ inv, const float* __restrict__ y,
-                  const float* __restrict__ dy, float* __restrict__ u,
+                  const float* __restrict__ inv, const T* __restrict__ y,
+                  const T* __restrict__ dy, float* __restrict__ u,
                   float* __restrict__ p1, float* __restrict__ p2, int cin,
                   int H, int W, int cout, int stages) {
   using B = Bwd<S, K>;
-  constexpr int FH = B::fx(kTH * R);
-  constexpr int FW = B::wa(B::fx(kTW));  // staged row, 16-byte groups
-  constexpr int FX = B::fx1(R);
-  constexpr int CIC = B::CIC;
-  constexpr int KC = B::KC1;
   const int ntv = rup(cout < kNT ? cout : kNT, 8);
   const float rntv = 1.f / ntv;
   const int ld = ldb(ntv);
   extern __shared__ __align__(16) float smem[];
-  float* xraw = smem;                     // [stages][CIC][FX]
-  float* xhi = xraw + stages * CIC * FX;  // [CIC][FX]
-  float* xlo = xhi + CIC * FX;
-  float* wraw = xlo + CIC * FX;           // [stages][KC][ld]
-  float* whi = wraw + stages * KC * ld;   // [KC][ld]
-  float* wlo = whi + KC * ld;
-  float* red = wlo + KC * ld;         // [8 warps][kNT][2]
-  int* koff = reinterpret_cast<int*>(red + 8 * kNT * 2);  // [KC]
 
   const Phase<S, K> ph(blockIdx.x % B::PH);
   const int qx0 = (blockIdx.x / B::PH) * kTW;
@@ -487,79 +633,173 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int co0 = (blockIdx.z % cot) * kNT;
   const int orgy = S == 1 ? q0 - B::P : q0 + ph.offy - 1;
   const int orgx = S == 1 ? qx0 - B::P : qx0 + ph.offx - 1;
-  const int lead = orgx & 3;  // the footprint's first column in its row
-  const float* xn = x + (size_t)n * cin * H * W;
-  const int nchunks = (cin + CIC - 1) / CIC;
-
-  auto issue = [&](int c, int slot) {
-    const int ci0 = c * CIC;
-    const int nci = min(CIC, cin - ci0);
-    stage_window<FH, FW / 4>(xraw + slot * CIC * FX, nci, orgy, orgx - lead,
-                             H, W, [&](int ch) {
-                               return xn + (size_t)(ci0 + ch) * H * W;
-                             });
-    float* wr = wraw + slot * KC * ld;
-    for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
-      int col;
-      const int k = div_by(i, rntv, ntv, col);
-      const int co = co0 + col;
-      const int t = k % B::T1;
-      const bool ok = k < nci * B::T1 && co < cout;
-      cp_async4(wr + k * ld + col,
-                ok ? w + w_index<S, K>(co, ci0 + k / B::T1, ph.ky(t),
-                                       ph.kx(t), cin, cout)
-                   : w,
-                ok);
-    }
-  };
-  auto convert = [&](int slot, int nci) {
-    const float* xr = xraw + slot * CIC * FX;
-    for (int i = threadIdx.x; i < nci * FX / 4; i += kThreads) {
-      float v[4];
-      load4(xr, i, v);
-      split_store4(v, xhi, xlo, i);
-    }
-    const float* wr = wraw + slot * KC * ld;
-    for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
-      int col;
-      const int k = div_by(i, rntv, ntv, col);
-      split_store(wr[k * ld + col], whi, wlo, k * ld + col);
-    }
-    // padded K columns read tap 0 of channel 0 (finite) against zero weights
-    for (int k = threadIdx.x; k < KC; k += kThreads)
-      koff[k] = k < nci * B::T1
-                    ? (k / B::T1) * FX + x_tap<S, K>(k % B::T1, FW)
-                    : 0;
-  };
+  const T* xn = x + (size_t)n * cin * H * W;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tig = lane & 3;
-  int pix0[R], pix1[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    pix0[r] = x_pix<S>(warp + 8 * r, g, FW) + lead;
-    pix1[r] = x_pix<S>(warp + 8 * r, g + 8, FW) + lead;
-  }
   const int nj = (min(kNT, cout - co0) + 7) / 8;
   float acc[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float* red;  // [8 warps][kNT][2], past the K loop's buffers
 
-  pipeline(0, nchunks, stages, issue, [&](int c, int slot) {
-    const int nci = min(CIC, cin - c * CIC);
-    convert(slot, nci);
-    __syncthreads();
-    if constexpr (R == 1)
-      pixel_row_mma(acc, xhi, xlo, koff, whi, wlo, ld, rup(nci * B::T1, 8),
-                    pix0[0], pix1[0], nj, g, tig);
-    else
-      pixel_rows2_mma(acc, xhi, xlo, koff, whi, wlo, ld,
-                      rup(nci * B::T1, 8), pix0, pix1, nj, g, tig);
-  });
+  if constexpr (kIsF32<T>) {
+    constexpr int FH = B::fx(kTH * R);
+    constexpr int FW = B::wa(B::fx(kTW));  // staged row, 16-byte groups
+    constexpr int FX = B::fx1(R);
+    constexpr int CIC = B::CIC;
+    constexpr int KC = B::KC1;
+    float* xraw = smem;                     // [stages][CIC][FX]
+    float* xhi = xraw + stages * CIC * FX;  // [CIC][FX]
+    float* xlo = xhi + CIC * FX;
+    float* wraw = xlo + CIC * FX;           // [stages][KC][ld]
+    float* whi = wraw + stages * KC * ld;   // [KC][ld]
+    float* wlo = whi + KC * ld;
+    red = wlo + KC * ld;
+    int* koff = reinterpret_cast<int*>(red + 8 * kNT * 2);  // [KC]
+    const int lead = orgx & 3;  // the footprint's first column in its row
+    const int nchunks = (cin + CIC - 1) / CIC;
+
+    auto issue = [&](int c, int slot) {
+      const int ci0 = c * CIC;
+      const int nci = min(CIC, cin - ci0);
+      stage_window<FH, FW / 4>(xraw + slot * CIC * FX, nci, orgy,
+                               orgx - lead, H, W, [&](int ch) {
+                                 return xn + (size_t)(ci0 + ch) * H * W;
+                               });
+      float* wr = wraw + slot * KC * ld;
+      for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
+        int col;
+        const int k = div_by(i, rntv, ntv, col);
+        const int co = co0 + col;
+        const int t = k % B::T1;
+        const bool ok = k < nci * B::T1 && co < cout;
+        cp_async4(wr + k * ld + col,
+                  ok ? w + w_index<S, K>(co, ci0 + k / B::T1, ph.ky(t),
+                                         ph.kx(t), cin, cout)
+                     : w,
+                  ok);
+      }
+    };
+    auto convert = [&](int slot, int nci) {
+      const float* xr = xraw + slot * CIC * FX;
+      for (int i = threadIdx.x; i < nci * FX / 4; i += kThreads) {
+        float v[4];
+        load4(xr, i, v);
+        split_store4(v, xhi, xlo, i);
+      }
+      const float* wr = wraw + slot * KC * ld;
+      for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
+        int col;
+        const int k = div_by(i, rntv, ntv, col);
+        split_store(wr[k * ld + col], whi, wlo, k * ld + col);
+      }
+      // padded K columns read tap 0 of channel 0 (finite) against zero
+      // weights
+      for (int k = threadIdx.x; k < KC; k += kThreads)
+        koff[k] = k < nci * B::T1
+                      ? (k / B::T1) * FX + x_tap<S, K>(k % B::T1, FW)
+                      : 0;
+    };
+
+    int pix0[R], pix1[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      pix0[r] = x_pix<S>(warp + 8 * r, g, FW) + lead;
+      pix1[r] = x_pix<S>(warp + 8 * r, g + 8, FW) + lead;
+    }
+    pipeline(0, nchunks, stages, issue, [&](int c, int slot) {
+      const int nci = min(CIC, cin - c * CIC);
+      convert(slot, nci);
+      __syncthreads();
+      if constexpr (R == 1)
+        pixel_row_mma(acc, xhi, xlo, koff, whi, wlo, ld, rup(nci * B::T1, 8),
+                      pix0[0], pix1[0], nj, g, tig);
+      else
+        pixel_rows2_mma(acc, xhi, xlo, koff, whi, wlo, ld,
+                        rup(nci * B::T1, 8), pix0, pix1, nj, g, tig);
+    });
+  } else {
+    using C = BwdB<S, K>;
+    constexpr int FH = B::fx(kTH * R);
+    constexpr int FXW = B::fx(kTW);  // footprint columns
+    constexpr int FW = C::wa8(FXW);  // staged row, 16-byte groups
+    constexpr int FR = FH * FW;      // a staged channel
+    constexpr int CIC = C::CIC;
+    constexpr int CP = CIC / 2;      // channel pairs a chunk
+    constexpr int PL = C::plane(FH * FXW);
+    constexpr int KP = C::KP1;
+    bf16* xraw = reinterpret_cast<bf16*>(smem);  // [stages][CIC][FR]
+    uint32_t* xp =
+        reinterpret_cast<uint32_t*>(xraw + stages * CIC * FR);  // [CP][PL]
+    uint32_t* wb = xp + CP * PL;                                // [KP][ld]
+    red = reinterpret_cast<float*>(wb + KP * ld);
+    int* koff = reinterpret_cast<int*>(red + 8 * kNT * 2);  // [KP]
+    const int lead = orgx & 7;
+    const int nchunks = (cin + CIC - 1) / CIC;
+    // K pair k: tap k / CP, channels 2 (k % CP) + {0, 1}; padded pairs read
+    // position 0 (finite) against zero weights
+    for (int k = threadIdx.x; k < KP; k += kThreads)
+      koff[k] = k < C::NP1 ? (k % CP) * PL + x_tap<S, K>(k / CP, FXW) : 0;
+
+    auto issue = [&](int c, int slot) {
+      const int ci0 = c * CIC;
+      stage_window_bf<FH, FW / 8>(xraw + slot * CIC * FR, min(CIC, cin - ci0),
+                                  orgy, orgx - lead, H, W, [&](int ch) {
+                                    return xn + (size_t)(ci0 + ch) * H * W;
+                                  });
+    };
+    // x into channel-pair planes (channels past the chunk's, and Cin = 3's
+    // fourth, are zero); the weights as pair words, read from device memory
+    auto convert = [&](int c, int slot) {
+      const int ci0 = c * CIC;
+      const int nci = min(CIC, cin - ci0);
+      const bf16* xr = xraw + slot * CIC * FR;
+      for (int i = threadIdx.x; i < CP * FH * FXW; i += kThreads) {
+        const int cp = i / (FH * FXW);
+        const int p = i % (FH * FXW);
+        const int e = (p / FXW) * FW + p % FXW + lead;
+        const uint32_t lo = 2 * cp < nci ? xr[2 * cp * FR + e] : 0u;
+        const uint32_t hi = 2 * cp + 1 < nci ? xr[(2 * cp + 1) * FR + e] : 0u;
+        xp[cp * PL + p] = lo | hi << 16;
+      }
+      for (int i = threadIdx.x; i < KP * ntv; i += kThreads) {
+        int col;
+        const int k = div_by(i, rntv, ntv, col);
+        const int co = co0 + col;
+        const int t = k / CP;
+        const int cl = 2 * (k % CP);
+        uint32_t v = 0;
+        if (k < C::NP1 && co < cout) {
+          if (cl < nci)
+            v = __ldg(w + w_index<S, K>(co, ci0 + cl, ph.ky(t), ph.kx(t),
+                                        cin, cout));
+          if (cl + 1 < nci)
+            v |= (uint32_t)__ldg(w + w_index<S, K>(co, ci0 + cl + 1,
+                                                   ph.ky(t), ph.kx(t), cin,
+                                                   cout))
+                 << 16;
+        }
+        wb[k * ld + col] = v;
+      }
+    };
+
+    int pix0[R], pix1[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      pix0[r] = x_pix<S>(warp + 8 * r, g, FXW);
+      pix1[r] = x_pix<S>(warp + 8 * r, g + 8, FXW);
+    }
+    pipeline(0, nchunks, stages, issue, [&](int c, int slot) {
+      convert(c, slot);
+      __syncthreads();
+      pair_rows_mma<R>(acc, xp, koff, wb, ld, KP, pix0, pix1, nj, g, tig);
+    });
+  }
 
   // epilogue: write u; the two sums over the block's pixels inside the
   // image (stats: u, u^2; bwd1: dv, dv * uhat with the forward's mask
@@ -596,7 +836,7 @@ __global__ void __launch_bounds__(kThreads, 2)
             s1[j][e] += uv;
             s2[j][e] += uv * uv;
           } else {
-            const float dv = __ldg(y + idx) > 0.f ? __ldg(dy + idx) : 0.f;
+            const float dv = ld_f32(y, idx) > 0.f ? ld_f32(dy, idx) : 0.f;
             s1[j][e] += dv;
             s2[j][e] += dv * ((uv - mc) * ic);
           }
@@ -689,6 +929,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K4-fwd in bf16: y = bf16(max(u a + b, 0)) (rounded to nearest even) from
+// the f32 u into a new bf16 y of u's shape; one block per (plane, run of
+// kThreads x kFwdUnroll groups of 4 elements), as bn_relu_kernel. Planes of
+// hw % 4 == 0 elements read float4s and write 8-byte groups; others go an
+// element at a time.
+__global__ void __launch_bounds__(kThreads)
+    bn_relu_bf16_kernel(const float* __restrict__ u,
+                        const float* __restrict__ a,
+                        const float* __restrict__ b, bf16* __restrict__ y,
+                        int C, int hw) {
+  const int c = blockIdx.x % C;
+  const float ac = __ldg(a + c);
+  const float bc = __ldg(b + c);
+  const float* p = u + (size_t)blockIdx.x * hw;
+  bf16* q = y + (size_t)blockIdx.x * hw;
+  if ((hw & 3) == 0) {
+    const int n4 = hw >> 2;
+    const int i0 = blockIdx.y * kThreads * kFwdUnroll + threadIdx.x;
+    float4 v[kFwdUnroll];
+#pragma unroll
+    for (int j = 0; j < kFwdUnroll; ++j)
+      if (i0 + j * kThreads < n4)
+        v[j] = reinterpret_cast<const float4*>(p)[i0 + j * kThreads];
+#pragma unroll
+    for (int j = 0; j < kFwdUnroll; ++j) {
+      if (i0 + j * kThreads >= n4) break;
+      uint2 o;
+      o.x = bf16_rne(bn_relu(v[j].x, ac, bc)) |
+            bf16_rne(bn_relu(v[j].y, ac, bc)) << 16;
+      o.y = bf16_rne(bn_relu(v[j].z, ac, bc)) |
+            bf16_rne(bn_relu(v[j].w, ac, bc)) << 16;
+      reinterpret_cast<uint2*>(q)[i0 + j * kThreads] = o;
+    }
+  } else {
+    const int e0 = blockIdx.y * kThreads * kFwdUnroll * 4;
+    const int e1 = min(hw, e0 + kThreads * kFwdUnroll * 4);
+    for (int e = e0 + threadIdx.x; e < e1; e += kThreads)
+      q[e] = (bf16)bf16_rne(bn_relu(p[e], ac, bc));
+  }
+}
+
 // ---- K4-bwd2 ------------------------------------------------------------ //
 
 // The per-channel constants du = a (dv - s1n - (u - mean) inv s2n) needs.
@@ -717,40 +998,38 @@ __device__ __forceinline__ float form_du(float uv, float yv, float dyv,
   return k[0] * (dv - k[3] - (uv - k[1]) * k[2] * k[4]);
 }
 
-template <int S, int K, int R>
+template <typename T, int S, int K, int R>
 int dx_smem_floats(int cin, int stages) {
   using B = Bwd<S, K>;
   const int ld = ldb(rup(cin < kNT ? cin : kNT, 8));
-  return stages * (3 * B::COC * B::fdd(R) + B::KC2 * ld + B::COC * 5) +
-         2 * (B::COC * B::fdd(R) + B::KC2 * ld) + B::KC2;
+  if constexpr (kIsF32<T>) {
+    return stages * (3 * B::COC * B::fdd(R) + B::KC2 * ld + B::COC * 5) +
+           2 * (B::COC * B::fdd(R) + B::KC2 * ld) + B::KC2;
+  } else {
+    using C = BwdB<S, K>;
+    constexpr int FH = B::fd(kTH * R);
+    constexpr int FR = FH * C::wa8(B::fd(kTW));
+    // u (f32) and y, dy (bf16) staged; du's pair planes; the weights
+    return stages * (2 * C::COC * FR + C::COC * 5) +
+           C::COC / 2 * C::plane(FH * B::fd(kTW)) + C::KP2 * ld + C::KP2;
+  }
 }
 
 // dx: one block per (16-column tile, 8 R-row tile, sample x 64 input
-// channels) of the input grid; warp w owns rows w + 8 r, r < R.
-template <int S, int K, int R>
+// channels) of the input grid; warp w owns rows w + 8 r, r < R. T = float:
+// 3xTF32; T = bf16: du formed in channel-pair planes and rounded to bf16,
+// one bf16 pass, dx rounded once.
+template <typename T, int S, int K, int R>
 __global__ void __launch_bounds__(kThreads, 2)
-    dx_kernel(const float* __restrict__ w, DuConsts kc,
-              const float* __restrict__ u, const float* __restrict__ y,
-              const float* __restrict__ dy, float* __restrict__ dx, int cin,
-              int H, int W, int cout, int stages) {
+    dx_kernel(const T* __restrict__ w, DuConsts kc,
+              const float* __restrict__ u, const T* __restrict__ y,
+              const T* __restrict__ dy, T* __restrict__ dx, int cin, int H,
+              int W, int cout, int stages) {
   using B = Bwd<S, K>;
-  constexpr int FH = B::fd(kTH * R);
-  constexpr int FW = B::wa(B::fd(kTW));  // staged row, 16-byte groups
-  constexpr int FD = B::fdd(R);
-  constexpr int COC = B::COC;
-  constexpr int KC = B::KC2;
   const int ntv = rup(cin < kNT ? cin : kNT, 8);
   const float rntv = 1.f / ntv;
   const int ld = ldb(ntv);
   extern __shared__ __align__(16) float smem[];
-  float* raw = smem;                        // [stages][3][COC][FD]: u, y, dy
-  float* dhi = raw + stages * 3 * COC * FD; // [COC][FD]
-  float* dlo = dhi + COC * FD;
-  float* wraw = dlo + COC * FD;             // [stages][KC][ld]
-  float* whi = wraw + stages * KC * ld;
-  float* wlo = whi + KC * ld;
-  float* cst = wlo + KC * ld;               // [stages][COC][5]
-  int* koff = reinterpret_cast<int*>(cst + stages * COC * 5);  // [KC]
 
   const int p0x = blockIdx.x * kTW;
   const int p0y = blockIdx.y * kTH * R;
@@ -761,88 +1040,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int Wo = W * S;
   // du footprint: S == 1: du at p - k + P; S > 1: du at S p + k - P
   const int orgy = S == 1 ? p0y + B::P - (K - 1) : S * p0y - B::P;
-  const int lead = (S == 1 ? p0x + B::P - (K - 1) : S * p0x - B::P) & 3;
-  const int orgx = (S == 1 ? p0x + B::P - (K - 1) : S * p0x - B::P) - lead;
-  const int nchunks = (cout + COC - 1) / COC;
-
-  auto issue = [&](int c, int slot) {
-    const int co0 = c * COC;
-    const int nco = min(COC, cout - co0);
-    float* rr = raw + slot * 3 * COC * FD;
-    const float* ts[3] = {u, y, dy};
-#pragma unroll
-    for (int t = 0; t < 3; ++t)
-      stage_window<FH, FW / 4>(rr + t * COC * FD, nco, orgy, orgx, Ho, Wo,
-                               [&](int ch) {
-                                 return ts[t] + ((size_t)n * cout + co0 + ch) *
-                                                    Ho * Wo;
-                               });
-    float* wr = wraw + slot * KC * ld;
-    for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
-      int col;
-      const int k = div_by(i, rntv, ntv, col);
-      const int ci = ci0 + col;
-      const int t = k % B::T2;
-      const bool ok = k < nco * B::T2 && ci < cin;
-      cp_async4(wr + k * ld + col,
-                ok ? w + w_index<S, K>(co0 + k / B::T2, ci, t / K, t % K,
-                                       cin, cout)
-                   : w,
-                ok);
-    }
-    if (threadIdx.x < nco)
-      load_consts(kc, co0 + threadIdx.x, cst + (slot * COC + threadIdx.x) * 5);
-  };
-  auto convert = [&](int slot, int nco) {
-    const float* rr = raw + slot * 3 * COC * FD;
-    for (int i = threadIdx.x; i < nco * FD / 4; i += kThreads) {
-      const int r = i / (FW / 4);
-      const int gy = orgy + r % FH;
-      const int gx = orgx + 4 * (i % (FW / 4));
-      const float* k = cst + (slot * COC + r / FH) * 5;
-      float uv[4], yv[4], dyv[4], du[4];
-      load4(rr, i, uv);
-      load4(rr + COC * FD, i, yv);
-      load4(rr + 2 * COC * FD, i, dyv);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)  // 0 outside: the adjoint's zero padding
-        du[e] = gy >= 0 && gy < Ho && gx + e >= 0 && gx + e < Wo
-                    ? form_du(uv[e], yv[e], dyv[e], k)
-                    : 0.f;
-      split_store4(du, dhi, dlo, i);
-    }
-    const float* wr = wraw + slot * KC * ld;
-    for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
-      int col;
-      const int k = div_by(i, rntv, ntv, col);
-      split_store(wr[k * ld + col], whi, wlo, k * ld + col);
-    }
-    for (int k = threadIdx.x; k < KC; k += kThreads) {
-      int off = 0;
-      if (k < nco * B::T2) {
-        const int t = k % B::T2;
-        const int tap = (t / K) * FW + t % K;
-        off = (k / B::T2) * FD + (S == 1 ? -tap : tap);
-      }
-      koff[k] = off;
-    }
-  };
+  const int fx0 = S == 1 ? p0x + B::P - (K - 1) : S * p0x - B::P;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tig = lane & 3;
-  // a pixel's du offset at tap 0: S == 1 (r + K - 1, c + K - 1); S > 1
-  // (S r, S c)
-  int pix0[R], pix1[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = warp + 8 * r;
-    pix0[r] = (S == 1 ? (row + K - 1) * FW + g + K - 1
-                      : S * row * FW + S * g) +
-              lead;
-    pix1[r] = pix0[r] + 8 * S;
-  }
   const int nj = (min(kNT, cin - ci0) + 7) / 8;
   float acc[8][4];
 #pragma unroll
@@ -850,17 +1053,228 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  pipeline(0, nchunks, stages, issue, [&](int c, int slot) {
-    const int nco = min(COC, cout - c * COC);
-    convert(slot, nco);
-    __syncthreads();
-    if constexpr (R == 1)
-      pixel_row_mma(acc, dhi, dlo, koff, whi, wlo, ld, rup(nco * B::T2, 8),
-                    pix0[0], pix1[0], nj, g, tig);
-    else
-      pixel_rows2_mma(acc, dhi, dlo, koff, whi, wlo, ld,
-                      rup(nco * B::T2, 8), pix0, pix1, nj, g, tig);
-  });
+  if constexpr (kIsF32<T>) {
+    constexpr int FH = B::fd(kTH * R);
+    constexpr int FW = B::wa(B::fd(kTW));  // staged row, 16-byte groups
+    constexpr int FD = B::fdd(R);
+    constexpr int COC = B::COC;
+    constexpr int KC = B::KC2;
+    float* raw = smem;                         // [stages][3][COC][FD]
+    float* dhi = raw + stages * 3 * COC * FD;  // [COC][FD]
+    float* dlo = dhi + COC * FD;
+    float* wraw = dlo + COC * FD;              // [stages][KC][ld]
+    float* whi = wraw + stages * KC * ld;
+    float* wlo = whi + KC * ld;
+    float* cst = wlo + KC * ld;                // [stages][COC][5]
+    int* koff = reinterpret_cast<int*>(cst + stages * COC * 5);  // [KC]
+    const int lead = fx0 & 3;
+    const int orgx = fx0 - lead;
+    const int nchunks = (cout + COC - 1) / COC;
+
+    auto issue = [&](int c, int slot) {
+      const int co0 = c * COC;
+      const int nco = min(COC, cout - co0);
+      float* rr = raw + slot * 3 * COC * FD;
+      const float* ts[3] = {u, y, dy};
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        stage_window<FH, FW / 4>(rr + t * COC * FD, nco, orgy, orgx, Ho, Wo,
+                                 [&](int ch) {
+                                   return ts[t] +
+                                          ((size_t)n * cout + co0 + ch) * Ho *
+                                              Wo;
+                                 });
+      float* wr = wraw + slot * KC * ld;
+      for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
+        int col;
+        const int k = div_by(i, rntv, ntv, col);
+        const int ci = ci0 + col;
+        const int t = k % B::T2;
+        const bool ok = k < nco * B::T2 && ci < cin;
+        cp_async4(wr + k * ld + col,
+                  ok ? w + w_index<S, K>(co0 + k / B::T2, ci, t / K, t % K,
+                                         cin, cout)
+                     : w,
+                  ok);
+      }
+      if (threadIdx.x < nco)
+        load_consts(kc, co0 + threadIdx.x,
+                    cst + (slot * COC + threadIdx.x) * 5);
+    };
+    auto convert = [&](int slot, int nco) {
+      const float* rr = raw + slot * 3 * COC * FD;
+      for (int i = threadIdx.x; i < nco * FD / 4; i += kThreads) {
+        const int r = i / (FW / 4);
+        const int gy = orgy + r % FH;
+        const int gx = orgx + 4 * (i % (FW / 4));
+        const float* k = cst + (slot * COC + r / FH) * 5;
+        float uv[4], yv[4], dyv[4], du[4];
+        load4(rr, i, uv);
+        load4(rr + COC * FD, i, yv);
+        load4(rr + 2 * COC * FD, i, dyv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // 0 outside: the adjoint's zero padding
+          du[e] = gy >= 0 && gy < Ho && gx + e >= 0 && gx + e < Wo
+                      ? form_du(uv[e], yv[e], dyv[e], k)
+                      : 0.f;
+        split_store4(du, dhi, dlo, i);
+      }
+      const float* wr = wraw + slot * KC * ld;
+      for (int i = threadIdx.x; i < KC * ntv; i += kThreads) {
+        int col;
+        const int k = div_by(i, rntv, ntv, col);
+        split_store(wr[k * ld + col], whi, wlo, k * ld + col);
+      }
+      for (int k = threadIdx.x; k < KC; k += kThreads) {
+        int off = 0;
+        if (k < nco * B::T2) {
+          const int t = k % B::T2;
+          const int tap = (t / K) * FW + t % K;
+          off = (k / B::T2) * FD + (S == 1 ? -tap : tap);
+        }
+        koff[k] = off;
+      }
+    };
+
+    // a pixel's du offset at tap 0: S == 1 (r + K - 1, c + K - 1); S > 1
+    // (S r, S c)
+    int pix0[R], pix1[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = warp + 8 * r;
+      pix0[r] = (S == 1 ? (row + K - 1) * FW + g + K - 1
+                        : S * row * FW + S * g) +
+                lead;
+      pix1[r] = pix0[r] + 8 * S;
+    }
+    pipeline(0, nchunks, stages, issue, [&](int c, int slot) {
+      const int nco = min(COC, cout - c * COC);
+      convert(slot, nco);
+      __syncthreads();
+      if constexpr (R == 1)
+        pixel_row_mma(acc, dhi, dlo, koff, whi, wlo, ld, rup(nco * B::T2, 8),
+                      pix0[0], pix1[0], nj, g, tig);
+      else
+        pixel_rows2_mma(acc, dhi, dlo, koff, whi, wlo, ld,
+                        rup(nco * B::T2, 8), pix0, pix1, nj, g, tig);
+    });
+  } else {
+    using C = BwdB<S, K>;
+    constexpr int FH = B::fd(kTH * R);
+    constexpr int FDW = B::fd(kTW);  // footprint columns
+    constexpr int FW = C::wa8(FDW);  // staged row, 16-byte groups
+    constexpr int FR = FH * FW;      // a staged channel
+    constexpr int COC = C::COC;
+    constexpr int CP = COC / 2;      // channel pairs a chunk
+    constexpr int PL = C::plane(FH * FDW);
+    constexpr int KP = C::KP2;
+    // u [stages][COC][FR]; y, dy [stages][2][COC][FR]; du's pair planes
+    // [CP][PL]; weight pairs [KP][ld]; constants [stages][COC][5]; [KP]
+    float* uraw = smem;
+    bf16* braw = reinterpret_cast<bf16*>(uraw + stages * COC * FR);
+    uint32_t* dp = reinterpret_cast<uint32_t*>(braw + stages * 2 * COC * FR);
+    uint32_t* wb = dp + CP * PL;
+    float* cst = reinterpret_cast<float*>(wb + KP * ld);
+    int* koff = reinterpret_cast<int*>(cst + stages * COC * 5);
+    const int lead = fx0 & 7;
+    const int orgx = fx0 - lead;
+    const int nchunks = (cout + COC - 1) / COC;
+    // K pair k: tap t = k / CP, output channels 2 (k % CP) + {0, 1}
+    for (int k = threadIdx.x; k < KP; k += kThreads) {
+      int off = 0;
+      if (k < C::NP2) {
+        const int t = k / CP;
+        const int tap = (t / K) * FDW + t % K;
+        off = (k % CP) * PL + (S == 1 ? -tap : tap);
+      }
+      koff[k] = off;
+    }
+
+    auto issue = [&](int c, int slot) {
+      const int co0 = c * COC;
+      const int nco = min(COC, cout - co0);
+      const size_t pl0 = ((size_t)n * cout + co0) * Ho * Wo;
+      stage_window<FH, FW / 4>(uraw + slot * COC * FR, nco, orgy, orgx, Ho,
+                               Wo, [&](int ch) {
+                                 return u + pl0 + (size_t)ch * Ho * Wo;
+                               });
+      bf16* br = braw + 2 * slot * COC * FR;
+      stage_window_bf<FH, FW / 8>(br, nco, orgy, orgx, Ho, Wo, [&](int ch) {
+        return y + pl0 + (size_t)ch * Ho * Wo;
+      });
+      stage_window_bf<FH, FW / 8>(br + COC * FR, nco, orgy, orgx, Ho, Wo,
+                                  [&](int ch) {
+                                    return dy + pl0 + (size_t)ch * Ho * Wo;
+                                  });
+      if (threadIdx.x < nco)
+        load_consts(kc, co0 + threadIdx.x,
+                    cst + (slot * COC + threadIdx.x) * 5);
+    };
+    // du, rounded to bf16, into channel-pair planes (0 outside the image:
+    // the adjoint's zero padding; 0 past the chunk's channels); the
+    // weights as pair words, read from device memory
+    auto convert = [&](int c, int slot) {
+      const int co0 = c * COC;
+      const int nco = min(COC, cout - co0);
+      const float* ur = uraw + slot * COC * FR;
+      const bf16* yr = braw + 2 * slot * COC * FR;
+      const bf16* dr = yr + COC * FR;
+      for (int i = threadIdx.x; i < CP * FH * FDW; i += kThreads) {
+        const int cp = i / (FH * FDW);
+        const int p = i % (FH * FDW);
+        const int r = p / FDW;
+        const int col = p % FDW;
+        const int gy = orgy + r;
+        const int gx = fx0 + col;
+        const int e = r * FW + col + lead;
+        uint32_t v = 0;
+        if (gy >= 0 && gy < Ho && gx >= 0 && gx < Wo) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int ch = 2 * cp + h;
+            if (ch < nco) {
+              const int j = ch * FR + e;
+              v |= bf16_rne(form_du(ur[j], bf16_f32(yr[j]), bf16_f32(dr[j]),
+                                    cst + (slot * COC + ch) * 5))
+                   << (16 * h);
+            }
+          }
+        }
+        dp[cp * PL + p] = v;
+      }
+      for (int i = threadIdx.x; i < KP * ntv; i += kThreads) {
+        int col;
+        const int k = div_by(i, rntv, ntv, col);
+        const int ci = ci0 + col;
+        const int t = k / CP;
+        const int co = co0 + 2 * (k % CP);
+        uint32_t v = 0;
+        if (k < C::NP2 && ci < cin) {
+          if (co < cout)
+            v = __ldg(w + w_index<S, K>(co, ci, t / K, t % K, cin, cout));
+          if (co + 1 < cout)
+            v |= (uint32_t)__ldg(w + w_index<S, K>(co + 1, ci, t / K, t % K,
+                                                   cin, cout))
+                 << 16;
+        }
+        wb[k * ld + col] = v;
+      }
+    };
+
+    int pix0[R], pix1[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = warp + 8 * r;
+      pix0[r] = S == 1 ? (row + K - 1) * FDW + g + K - 1
+                       : S * row * FDW + S * g;
+      pix1[r] = pix0[r] + 8 * S;
+    }
+    pipeline(0, nchunks, stages, issue, [&](int c, int slot) {
+      convert(c, slot);
+      __syncthreads();
+      pair_rows_mma<R>(acc, dp, koff, wb, ld, KP, pix0, pix1, nj, g, tig);
+    });
+  }
 
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -876,8 +1290,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int h = 0; h < 2; ++h) {
           const int ix = p0x + g + 8 * h;
           if (ix < W)
-            dx[(((size_t)n * cin + ci) * H + iy) * W + ix] =
-                acc[R == 1 ? j : 4 * r + j][2 * h + e];
+            st_t(dx, (((size_t)n * cin + ci) * H + iy) * W + ix,
+                 acc[R == 1 ? j : 4 * r + j][2 * h + e]);
         }
       }
   }
@@ -900,46 +1314,49 @@ int with_dw_cols(int cout, F&& f) {
   return f(std::integral_constant<int, kDwMid>{});
 }
 
-template <int S, int K, int DWC>
+template <typename T, int S, int K, int DWC>
 int dw_smem_floats(int cout, int stages) {
   using B = Bwd<S, K>;
   const int mw = dw_rows(cout);
-  const int lda = 2 * DWC + 4;
-  const int f = (stages * 3 + 2) * mw * lda +
-                (stages + 2) * B::CIW * B::fxw(DWC) + mw * 5 + B::NW +
-                2 * DWC;
+  int f;
+  if constexpr (kIsF32<T>) {
+    const int lda = 2 * DWC + 4;
+    f = (stages * 3 + 2) * mw * lda + (stages + 2) * B::CIW * B::fxw(DWC) +
+        mw * 5 + B::NW + 2 * DWC;
+  } else {
+    using C = BwdB<S, K>;
+    constexpr int px = 2 * DWC;
+    constexpr int FXR = B::fx(2);
+    constexpr int FXC = B::fx(DWC);
+    // u (f32), y and dy (bf16) and x (bf16) staged; du's pair words; x's
+    // words
+    f = stages * (mw * (px + 4) + mw * px + B::CIW * FXR * C::wa8(FXC) / 2) +
+        mw * (DWC + 4) + B::CIW * FXR * FXC + mw * 5 + B::NW + px;
+  }
   return f > kDwRed ? f : kDwRed;
 }
 
 // dW: one block per (phase x input-channel tile x output-channel tile,
 // split); the block walks its split's run of consecutive K chunks of 2 x
 // DWC pixels of the phase's grid (columns fastest, so consecutive chunks
-// read the same rows of u, y, dy and x) and writes its partial dW.
-template <int S, int K, int DWC>
+// read the same rows of u, y, dy and x) and writes its partial dW. T =
+// float: 3xTF32; T = bf16: du rounded to bf16 as pixel-pair words, x as a
+// word at every footprint position (it and its right neighbour), one bf16
+// pass.
+template <typename T, int S, int K, int DWC>
 __global__ void __launch_bounds__(kThreads, 2)
-    dw_kernel(const float* __restrict__ x, DuConsts kc,
-              const float* __restrict__ u, const float* __restrict__ y,
-              const float* __restrict__ dy, float* __restrict__ dwp,
+    dw_kernel(const T* __restrict__ x, DuConsts kc,
+              const float* __restrict__ u, const T* __restrict__ y,
+              const T* __restrict__ dy, float* __restrict__ dwp,
               int N, int cin, int H, int W, int cout, int stages) {
   using B = Bwd<S, K>;
-  constexpr int FW = B::wa(B::fx(DWC));  // staged x row, 16-byte groups
-  constexpr int FXW = B::fxw(DWC);
   constexpr int CIW = B::CIW;
   constexpr int T1 = B::T1;
   constexpr int dwc = DWC;
   constexpr int px = 2 * DWC;      // chunk pixels
-  constexpr int lda = px + 4;      // du row stride, 4 mod 32
+  constexpr int lda = px + 4;      // u (f32: also y, dy, du) row stride
   const int mw = dw_rows(cout);
   extern __shared__ __align__(16) float smem[];
-  float* raw = smem;                        // [stages][3][mw][lda]
-  float* dhi = raw + stages * 3 * mw * lda;  // [mw][lda]
-  float* dlo = dhi + mw * lda;
-  float* xraw = dlo + mw * lda;            // [stages][CIW][FXW]
-  float* xhi = xraw + stages * CIW * FXW;
-  float* xlo = xhi + CIW * FXW;
-  float* cst = xlo + CIW * FXW;             // [mw][5]
-  int* noff = reinterpret_cast<int*>(cst + mw * 5);  // [NW]
-  int* pxo = noff + B::NW;                           // [px]
 
   const int cit = (cin + CIW - 1) / CIW;
   const Phase<S, K> ph(blockIdx.x % B::PH);
@@ -957,16 +1374,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int c0 = min(nchunks, (int)blockIdx.y * per);
   const int c1 = min(nchunks, c0 + per);
 
-  for (int i = threadIdx.x; i < nco; i += kThreads)
-    load_consts(kc, co0 + i, cst + i * 5);
-  for (int k = threadIdx.x; k < B::NW; k += kThreads)
-    noff[k] = k < nci * T1 ? (k / T1) * FXW + x_tap<S, K>(k % T1, FW) : 0;
-  // chunks start at multiples of 16 columns: the x footprint's first column
-  // lies `lead` into its staged row in every chunk
-  const int lead = (S == 1 ? -B::P : ph.offx - 1) & 3;
-  for (int k = threadIdx.x; k < px; k += kThreads)
-    pxo[k] = x_pix<S>(k / dwc, k % dwc, FW) + lead;
-
   // chunk c: sample, first row (of 2) and first column (of dwc)
   auto where = [&](int c, int& n, int& q0, int& qx0) {
     n = c / (nrows * ncols);
@@ -974,10 +1381,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     q0 = 2 * (r / ncols);
     qx0 = dwc * (r % ncols);
   };
-  auto issue = [&](int c, int slot) {
+  // stage chunk c's u (f32) and, for T = float, y and dy at row j of
+  // rr[3][mw][lda] by asynchronous copies; bf16 y and dy go to by[2][mw][px]
+  // by plain loads
+  auto stage_du = [&](int c, float* rr, bf16* by) {
     int n, q0, qx0;
     where(c, n, q0, qx0);
-    float* rr = raw + slot * 3 * mw * lda;
     for (int i = threadIdx.x; i < nco * px; i += kThreads) {
       const int q = q0 + (i % px) / dwc;
       const int qx = qx0 + (i % px) % dwc;
@@ -988,38 +1397,16 @@ __global__ void __launch_bounds__(kThreads, 2)
           ok ? (((size_t)n * cout + co0 + i / px) * Ho + oy) * Wo + ox : 0;
       const int j = (i / px) * lda + i % px;
       cp_async4(rr + j, u + idx, ok);
-      cp_async4(rr + mw * lda + j, y + idx, ok);
-      cp_async4(rr + 2 * mw * lda + j, dy + idx, ok);
+      if constexpr (kIsF32<T>) {
+        cp_async4(rr + mw * lda + j, y + idx, ok);
+        cp_async4(rr + 2 * mw * lda + j, dy + idx, ok);
+      } else {
+        by[i] = ok ? y[idx] : (bf16)0;
+        by[mw * px + i] = ok ? dy[idx] : (bf16)0;
+      }
     }
-    const int orgy = S == 1 ? q0 - B::P : q0 + ph.offy - 1;
-    const int orgx = S == 1 ? qx0 - B::P : qx0 + ph.offx - 1;
-    const float* xn = x + (size_t)n * cin * H * W;
-    stage_window<B::fx(2), FW / 4>(xraw + slot * CIW * FXW, nci, orgy,
-                                   orgx - lead, H, W, [&](int ch) {
-                                     return xn + (size_t)(ci0 + ch) * H * W;
-                                   });
   };
   const int mt = (nco + 15) / 16;  // m16 tiles of output channels
-  auto convert = [&](int c, int slot) {
-    int n, q0, qx0;
-    where(c, n, q0, qx0);
-    const float* rr = raw + slot * 3 * mw * lda;
-    for (int i = threadIdx.x; i < mt * 16 * px; i += kThreads) {
-      const int cl = i / px;
-      const int j = cl * lda + i % px;
-      float du = 0.f;  // past the image or the channels
-      if (cl < nco && q0 + (i % px) / dwc < H && qx0 + (i % px) % dwc < W)
-        du = form_du(rr[j], rr[mw * lda + j], rr[2 * mw * lda + j],
-                     cst + cl * 5);
-      split_store(du, dhi, dlo, j);
-    }
-    const float* xr = xraw + slot * CIW * FXW;
-    for (int i = threadIdx.x; i < nci * FXW / 4; i += kThreads) {
-      float v[4];
-      load4(xr, i, v);
-      split_store4(v, xhi, xlo, i);
-    }
-  };
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1044,32 +1431,189 @@ __global__ void __launch_bounds__(kThreads, 2)
       part[i][e] = 0.f;
     }
 
-  pipeline(c0, c1, stages, issue, [&](int c, int slot) {
-    convert(c, slot);
-    __syncthreads();
-    for (int kk = 8 * wk; kk < px; kk += 8 * wk_n) {
-      const int x0 = pxo[kk + tig];
-      const int x1 = pxo[kk + tig + 4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int pr = wp + wp_n * i;
-        if (pr >= npairs) break;
-        const int a0 = (16 * (pr / nn8) + g) * lda + kk + tig;
-        const int ia[4] = {a0, a0 + 8 * lda, a0 + 4, a0 + 8 * lda + 4};
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          ah[r] = bits(dhi[ia[r]]);
-          al[r] = bits(dlo[ia[r]]);
-        }
-        const int no = noff[8 * (pr % nn8) + g];
-        const uint32_t bh[2] = {bits(xhi[x0 + no]), bits(xhi[x1 + no])};
-        const uint32_t bl[2] = {bits(xlo[x0 + no]), bits(xlo[x1 + no])};
-        mma3(part[i], ah, al, bh, bl);
+  if constexpr (kIsF32<T>) {
+    constexpr int FW = B::wa(B::fx(DWC));  // staged x row, 16-byte groups
+    constexpr int FXW = B::fxw(DWC);
+    float* raw = smem;                        // [stages][3][mw][lda]
+    float* dhi = raw + stages * 3 * mw * lda;  // [mw][lda]
+    float* dlo = dhi + mw * lda;
+    float* xraw = dlo + mw * lda;            // [stages][CIW][FXW]
+    float* xhi = xraw + stages * CIW * FXW;
+    float* xlo = xhi + CIW * FXW;
+    float* cst = xlo + CIW * FXW;             // [mw][5]
+    int* noff = reinterpret_cast<int*>(cst + mw * 5);  // [NW]
+    int* pxo = noff + B::NW;                           // [px]
+
+    for (int i = threadIdx.x; i < nco; i += kThreads)
+      load_consts(kc, co0 + i, cst + i * 5);
+    for (int k = threadIdx.x; k < B::NW; k += kThreads)
+      noff[k] = k < nci * T1 ? (k / T1) * FXW + x_tap<S, K>(k % T1, FW) : 0;
+    // chunks start at multiples of 16 columns: the x footprint's first
+    // column lies `lead` into its staged row in every chunk
+    const int lead = (S == 1 ? -B::P : ph.offx - 1) & 3;
+    for (int k = threadIdx.x; k < px; k += kThreads)
+      pxo[k] = x_pix<S>(k / dwc, k % dwc, FW) + lead;
+
+    auto issue = [&](int c, int slot) {
+      int n, q0, qx0;
+      where(c, n, q0, qx0);
+      stage_du(c, raw + slot * 3 * mw * lda, nullptr);
+      const int orgy = S == 1 ? q0 - B::P : q0 + ph.offy - 1;
+      const int orgx = S == 1 ? qx0 - B::P : qx0 + ph.offx - 1;
+      const float* xn = x + (size_t)n * cin * H * W;
+      stage_window<B::fx(2), FW / 4>(xraw + slot * CIW * FXW, nci, orgy,
+                                     orgx - lead, H, W, [&](int ch) {
+                                       return xn +
+                                              (size_t)(ci0 + ch) * H * W;
+                                     });
+    };
+    auto convert = [&](int c, int slot) {
+      int n, q0, qx0;
+      where(c, n, q0, qx0);
+      const float* rr = raw + slot * 3 * mw * lda;
+      for (int i = threadIdx.x; i < mt * 16 * px; i += kThreads) {
+        const int cl = i / px;
+        const int j = cl * lda + i % px;
+        float du = 0.f;  // past the image or the channels
+        if (cl < nco && q0 + (i % px) / dwc < H && qx0 + (i % px) % dwc < W)
+          du = form_du(rr[j], rr[mw * lda + j], rr[2 * mw * lda + j],
+                       cst + cl * 5);
+        split_store(du, dhi, dlo, j);
       }
-    }
-    add_chunk(acc, part);
-  });
+      const float* xr = xraw + slot * CIW * FXW;
+      for (int i = threadIdx.x; i < nci * FXW / 4; i += kThreads) {
+        float v[4];
+        load4(xr, i, v);
+        split_store4(v, xhi, xlo, i);
+      }
+    };
+
+    pipeline(c0, c1, stages, issue, [&](int c, int slot) {
+      convert(c, slot);
+      __syncthreads();
+      for (int kk = 8 * wk; kk < px; kk += 8 * wk_n) {
+        const int x0 = pxo[kk + tig];
+        const int x1 = pxo[kk + tig + 4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int pr = wp + wp_n * i;
+          if (pr >= npairs) break;
+          const int a0 = (16 * (pr / nn8) + g) * lda + kk + tig;
+          const int ia[4] = {a0, a0 + 8 * lda, a0 + 4, a0 + 8 * lda + 4};
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            ah[r] = bits(dhi[ia[r]]);
+            al[r] = bits(dlo[ia[r]]);
+          }
+          const int no = noff[8 * (pr % nn8) + g];
+          const uint32_t bh[2] = {bits(xhi[x0 + no]), bits(xhi[x1 + no])};
+          const uint32_t bl[2] = {bits(xlo[x0 + no]), bits(xlo[x1 + no])};
+          mma3(part[i], ah, al, bh, bl);
+        }
+      }
+      add_chunk(acc, part);
+    });
+  } else {
+    using C = BwdB<S, K>;
+    constexpr int ldw = DWC + 4;        // du words a row: 4 mod 8, so a
+                                        // warp's A loads hit 32 banks
+    constexpr int FXR = B::fx(2);       // x footprint rows
+    constexpr int FXC = B::fx(DWC);     // x footprint columns
+    constexpr int FWX = C::wa8(FXC);    // staged x row, 16-byte groups
+    constexpr int XPL = FXR * FXC;      // x words a channel
+    // u [stages][mw][lda]; y, dy [stages][2][mw][px]; du's pixel-pair
+    // words [mw][ldw]; x [stages][CIW][FXR][FWX]; x's words [CIW][XPL];
+    // constants [mw][5]; noff [NW]; pxo [px]
+    float* uraw = smem;
+    bf16* braw = reinterpret_cast<bf16*>(uraw + stages * mw * lda);
+    uint32_t* duw = reinterpret_cast<uint32_t*>(braw + stages * 2 * mw * px);
+    bf16* xraw = reinterpret_cast<bf16*>(duw + mw * ldw);
+    uint32_t* xw =
+        reinterpret_cast<uint32_t*>(xraw + stages * CIW * FXR * FWX);
+    float* cst = reinterpret_cast<float*>(xw + CIW * XPL);
+    int* noff = reinterpret_cast<int*>(cst + mw * 5);
+    int* pxo = noff + B::NW;
+
+    for (int i = threadIdx.x; i < nco; i += kThreads)
+      load_consts(kc, co0 + i, cst + i * 5);
+    for (int k = threadIdx.x; k < B::NW; k += kThreads)
+      noff[k] = k < nci * T1 ? (k / T1) * XPL + x_tap<S, K>(k % T1, FXC) : 0;
+    const int lead = (S == 1 ? -B::P : ph.offx - 1) & 7;
+    for (int k = threadIdx.x; k < px; k += kThreads)
+      pxo[k] = x_pix<S>(k / dwc, k % dwc, FXC);
+
+    auto issue = [&](int c, int slot) {
+      int n, q0, qx0;
+      where(c, n, q0, qx0);
+      stage_du(c, uraw + slot * mw * lda, braw + 2 * slot * mw * px);
+      const int orgy = S == 1 ? q0 - B::P : q0 + ph.offy - 1;
+      const int orgx = S == 1 ? qx0 - B::P : qx0 + ph.offx - 1;
+      const bf16* xn = x + (size_t)n * cin * H * W;
+      stage_window_bf<FXR, FWX / 8>(xraw + slot * CIW * FXR * FWX, nci, orgy,
+                                    orgx - lead, H, W, [&](int ch) {
+                                      return xn + (size_t)(ci0 + ch) * H * W;
+                                    });
+    };
+    auto convert = [&](int c, int slot) {
+      int n, q0, qx0;
+      where(c, n, q0, qx0);
+      const float* ur = uraw + slot * mw * lda;
+      const bf16* yr = braw + 2 * slot * mw * px;
+      const bf16* dr = yr + mw * px;
+      // du rounded to bf16, pixel pairs (2 pp, 2 pp + 1) of a row as words
+      for (int i = threadIdx.x; i < mt * 16 * dwc; i += kThreads) {
+        const int cl = i / dwc;
+        const int pp = i % dwc;
+        uint32_t v = 0;  // past the image or the channels
+        if (cl < nco) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = 2 * pp + h;
+            if (q0 + p / dwc < H && qx0 + p % dwc < W)
+              v |= bf16_rne(form_du(ur[cl * lda + p],
+                                    bf16_f32(yr[cl * px + p]),
+                                    bf16_f32(dr[cl * px + p]), cst + cl * 5))
+                   << (16 * h);
+          }
+        }
+        duw[cl * ldw + pp] = v;
+      }
+      // x: the word at (row, column) holds x there and at the next column
+      const bf16* xr = xraw + slot * CIW * FXR * FWX;
+      for (int i = threadIdx.x; i < nci * XPL; i += kThreads) {
+        const int ch = i / XPL;
+        const int p = i % XPL;
+        const int col = p % FXC;
+        const int e = (ch * FXR + p / FXC) * FWX + col + lead;
+        xw[i] = (uint32_t)xr[e] | (col + 1 < FXC ? (uint32_t)xr[e + 1] << 16
+                                                 : 0u);
+      }
+    };
+
+    pipeline(c0, c1, stages, issue, [&](int c, int slot) {
+      convert(c, slot);
+      __syncthreads();
+      // k16 steps: pixels kk + 2 tig, + 1 (b0) and kk + 2 tig + 8, + 9
+      // (b1), each pair in one row of the chunk
+      for (int kk = 16 * wk; kk < px; kk += 16 * wk_n) {
+        const int x0 = pxo[kk + 2 * tig];
+        const int x1 = pxo[kk + 2 * tig + 8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int pr = wp + wp_n * i;
+          if (pr >= npairs) break;
+          const int a0 = (16 * (pr / nn8) + g) * ldw + kk / 2 + tig;
+          const uint32_t a[4] = {duw[a0], duw[a0 + 8 * ldw], duw[a0 + 4],
+                                 duw[a0 + 8 * ldw + 4]};
+          const int no = noff[8 * (pr % nn8) + g];
+          const uint32_t b[2] = {xw[x0 + no], xw[x1 + no]};
+          mma_bf16(part[i], a, b);
+        }
+      }
+      add_chunk(acc, part);
+    });
+  }
 
   // the K-step groups' sums, in a fixed order, into the wk == 0 warps
   __syncthreads();
@@ -1135,40 +1679,41 @@ bool dims_ok(int n, int cin, int h, int w, int cout) {
 }
 
 // Ring depths of the u GEMM (stats, bwd1), dx and dW for the widths.
-template <int S, int K>
+template <typename T, int S, int K>
 void bwd_stages(int cin, int cout, int (&st)[3]) {
   st[0] = with_rows(rup(cout < kNT ? cout : kNT, 8), [&](auto R) {
-    return pick_stages(
-        [&](int s) { return u_gemm_smem_floats<S, K, R.value>(cout, s); });
+    return pick_stages([&](int s) {
+      return u_gemm_smem_floats<T, S, K, R.value>(cout, s);
+    });
   });
   st[1] = with_rows(rup(cin < kNT ? cin : kNT, 8), [&](auto R) {
     return pick_stages(
-        [&](int s) { return dx_smem_floats<S, K, R.value>(cin, s); });
+        [&](int s) { return dx_smem_floats<T, S, K, R.value>(cin, s); });
   });
   st[2] = with_dw_cols<S>(cout, [&](auto D) {
     return pick_stages(
-        [&](int s) { return dw_smem_floats<S, K, D.value>(cout, s); });
+        [&](int s) { return dw_smem_floats<T, S, K, D.value>(cout, s); });
   });
 }
 
 // Shared memory of a block of the u GEMM (which = 0: stats and bwd1), dx
 // (1) or dW (2) in bytes.
-template <int S, int K>
+template <typename T, int S, int K>
 int bwd_smem_bytes(int cin, int cout, int which) {
   int st[3];
-  bwd_stages<S, K>(cin, cout, st);
+  bwd_stages<T, S, K>(cin, cout, st);
   int f;
   if (which == 0) {
     f = with_rows(rup(cout < kNT ? cout : kNT, 8), [&](auto R) {
-      return u_gemm_smem_floats<S, K, R.value>(cout, st[0]);
+      return u_gemm_smem_floats<T, S, K, R.value>(cout, st[0]);
     });
   } else if (which == 1) {
     f = with_rows(rup(cin < kNT ? cin : kNT, 8), [&](auto R) {
-      return dx_smem_floats<S, K, R.value>(cin, st[1]);
+      return dx_smem_floats<T, S, K, R.value>(cin, st[1]);
     });
   } else {
     f = with_dw_cols<S>(cout, [&](auto D) {
-      return dw_smem_floats<S, K, D.value>(cout, st[2]);
+      return dw_smem_floats<T, S, K, D.value>(cout, st[2]);
     });
   }
   return f * (int)sizeof(float);
@@ -1210,7 +1755,7 @@ cudaError_t set_smem(Kern kern, int bytes) {
 }
 
 // The u GEMM's launch: stats (mean, inv, y and dy null) or bwd1.
-template <bool STATS>
+template <typename T, bool STATS>
 int launch_u_gemm(const void* x, const void* w, const void* mean,
                   const void* inv, const void* y, const void* dy, void* u,
                   void* p1, void* p2, int n, int cin, int h, int wd,
@@ -1220,23 +1765,69 @@ int launch_u_gemm(const void* x, const void* w, const void* mean,
     constexpr int S = decltype(S_)::value;
     constexpr int K = decltype(K_)::value;
     int st[3];
-    bwd_stages<S, K>(cin, cout, st);
+    bwd_stages<T, S, K>(cin, cout, st);
     return with_rows(rup(cout < kNT ? cout : kNT, 8), [&](auto R_) {
       constexpr int R = decltype(R_)::value;
       const int smem =
-          u_gemm_smem_floats<S, K, R>(cout, st[0]) * (int)sizeof(float);
-      cudaError_t err = set_smem(u_gemm_kernel<S, K, R, STATS>, smem);
+          u_gemm_smem_floats<T, S, K, R>(cout, st[0]) * (int)sizeof(float);
+      cudaError_t err = set_smem(u_gemm_kernel<T, S, K, R, STATS>, smem);
       if (err != cudaSuccess) return (int)err;
       const dim3 grid(Bwd<S, K>::PH * ((wd + kTW - 1) / kTW),
                       (h + kTH * R - 1) / (kTH * R),
                       n * ((cout + kNT - 1) / kNT));
-      u_gemm_kernel<S, K, R, STATS><<<grid, kThreads, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w),
+      u_gemm_kernel<T, S, K, R, STATS><<<grid, kThreads, smem,
+                                         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(x), static_cast<const T*>(w),
           static_cast<const float*>(mean), static_cast<const float*>(inv),
-          static_cast<const float*>(y), static_cast<const float*>(dy),
+          static_cast<const T*>(y), static_cast<const T*>(dy),
           static_cast<float*>(u), static_cast<float*>(p1),
           static_cast<float*>(p2), cin, h, wd, cout, st[0]);
+      return (int)cudaGetLastError();
+    });
+  });
+  return r < 0 ? (int)cudaErrorInvalidValue : r;
+}
+
+// bwd2's two launches, dx then dW.
+template <typename T>
+int launch_bwd2(const void* x, const void* w, const DuConsts& kc,
+                const void* u, const void* y, const void* dy, void* dx,
+                void* dwp, int n, int cin, int h, int wd, int cout, int k,
+                int s, int nsplit, cudaStream_t strm) {
+  const int r = dispatch(s, k, [&](auto S_, auto K_) {
+    constexpr int S = decltype(S_)::value;
+    constexpr int K = decltype(K_)::value;
+    const float* uf = static_cast<const float*>(u);
+    const T* yt = static_cast<const T*>(y);
+    const T* dyt = static_cast<const T*>(dy);
+    int st[3];
+    bwd_stages<T, S, K>(cin, cout, st);
+    cudaError_t err = (cudaError_t)with_rows(
+        rup(cin < kNT ? cin : kNT, 8), [&](auto R_) {
+          constexpr int R = decltype(R_)::value;
+          const int smem_dx =
+              dx_smem_floats<T, S, K, R>(cin, st[1]) * (int)sizeof(float);
+          cudaError_t e = set_smem(dx_kernel<T, S, K, R>, smem_dx);
+          if (e != cudaSuccess) return (int)e;
+          const dim3 grid_dx((wd + kTW - 1) / kTW,
+                             (h + kTH * R - 1) / (kTH * R),
+                             n * ((cin + kNT - 1) / kNT));
+          dx_kernel<T, S, K, R><<<grid_dx, kThreads, smem_dx, strm>>>(
+              static_cast<const T*>(w), kc, uf, yt, dyt, static_cast<T*>(dx),
+              cin, h, wd, cout, st[1]);
+          return (int)cudaGetLastError();
+        });
+    if (err != cudaSuccess) return (int)err;
+    return with_dw_cols<S>(cout, [&](auto D) {
+      constexpr int DWC = decltype(D)::value;
+      const int smem_dw =
+          dw_smem_floats<T, S, K, DWC>(cout, st[2]) * (int)sizeof(float);
+      cudaError_t e = set_smem(dw_kernel<T, S, K, DWC>, smem_dw);
+      if (e != cudaSuccess) return (int)e;
+      const dim3 grid_dw(dw_tiles<S, K>(cin, cout), nsplit);
+      dw_kernel<T, S, K, DWC><<<grid_dw, kThreads, smem_dw, strm>>>(
+          static_cast<const T*>(x), kc, uf, yt, dyt,
+          static_cast<float*>(dwp), n, cin, h, wd, cout, st[2]);
       return (int)cudaGetLastError();
     });
   });
@@ -1249,7 +1840,7 @@ extern "C" {
 
 // Spatial blocks a sample of the u GEMM's launch, stats or bwd1 (the rows
 // of its partials per sample), for x (h, w) and cout output channels; -1
-// for an unsupported (k, s).
+// for an unsupported (k, s). The same in both dtypes.
 int bpt_conv_bn_bwd1_tiles(int h, int w, int cout, int k, int s) {
   return dispatch(s, k, [&](auto S_, auto K_) {
     using B = Bwd<decltype(S_)::value, decltype(K_)::value>;
@@ -1259,7 +1850,8 @@ int bpt_conv_bn_bwd1_tiles(int h, int w, int cout, int k, int s) {
 }
 
 // Partial dW rows of the bwd2 call (its pixel splits) for x (n, cin, h, w)
-// and cout output channels; -1 for an unsupported (k, s).
+// and cout output channels; -1 for an unsupported (k, s). The same in both
+// dtypes.
 int bpt_conv_bn_bwd2_splits(int n, int cin, int h, int w, int cout, int k,
                             int s) {
   return dispatch(s, k, [&](auto S_, auto K_) {
@@ -1269,109 +1861,106 @@ int bpt_conv_bn_bwd2_splits(int n, int cin, int h, int w, int cout, int k,
 }
 
 // Shared memory of a block of the u GEMM (which = 0: stats and bwd1), dx
-// (1) or dW (2) launch in bytes; -1 for an unsupported (k, s) or which.
-int bpt_conv_bn_bwd_smem(int cin, int cout, int k, int s, int which) {
-  if (which < 0 || which > 2) return -1;
+// (1) or dW (2) launch in bytes, float32 (dtype 0) or bfloat16 (dtype 1);
+// -1 for an unsupported (k, s), which or dtype.
+int bpt_conv_bn_bwd_smem(int cin, int cout, int k, int s, int which,
+                         int dtype) {
+  if (which < 0 || which > 2 || dtype < 0 || dtype > 1) return -1;
   return dispatch(s, k, [&](auto S_, auto K_) {
-    return bwd_smem_bytes<decltype(S_)::value, decltype(K_)::value>(
-        cin, cout, which);
+    constexpr int S = decltype(S_)::value;
+    constexpr int K = decltype(K_)::value;
+    return dtype == 0 ? bwd_smem_bytes<float, S, K>(cin, cout, which)
+                      : bwd_smem_bytes<bf16, S, K>(cin, cout, which);
   });
 }
 
-// stats: x (N, Cin, H, W), w OIHW (s == 1) or IOHW (s > 1). Writes u (N,
-// Cout, s H, s W) and the partial sums of u (p1) and u^2 (p2), (N * tiles,
-// Cout) with tiles = bpt_conv_bn_bwd1_tiles. All f32, contiguous. Returns
-// the cudaError_t of the launch (0 on success); asynchronous on `stream`.
+// stats: x (N, Cin, H, W), w OIHW (s == 1) or IOHW (s > 1), float32 (dtype
+// 0) or bfloat16 (dtype 1). Writes u (N, Cout, s H, s W) and the partial
+// sums of u (p1) and u^2 (p2), (N * tiles, Cout) with tiles =
+// bpt_conv_bn_bwd1_tiles, f32. All contiguous. Returns the cudaError_t of
+// the launch (0 on success); asynchronous on `stream`.
 int bpt_conv_bn_stats(const void* x, const void* w, void* u, void* p1,
                       void* p2, int n, int cin, int h, int wd, int cout,
-                      int k, int s, void* stream) {
-  return launch_u_gemm<true>(x, w, nullptr, nullptr, nullptr, nullptr, u, p1,
-                             p2, n, cin, h, wd, cout, k, s, stream);
+                      int k, int s, int dtype, void* stream) {
+  if (dtype == 0)
+    return launch_u_gemm<float, true>(x, w, nullptr, nullptr, nullptr,
+                                      nullptr, u, p1, p2, n, cin, h, wd,
+                                      cout, k, s, stream);
+  if (dtype == 1)
+    return launch_u_gemm<bf16, true>(x, w, nullptr, nullptr, nullptr,
+                                     nullptr, u, p1, p2, n, cin, h, wd, cout,
+                                     k, s, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// fwd: u (N, C, hw), a, b (C), f32, contiguous; u <- max(u a + b, 0).
-int bpt_conv_bn_fwd(void* u, const void* a, const void* b, int n, int c,
-                    int hw, void* stream) {
-  const long long groups = ((long long)hw / 4 + kThreads * kFwdUnroll - 1) /
-                           (kThreads * kFwdUnroll);
+// fwd: u (N, C, hw), a, b (C), f32, contiguous; y = max(u a + b, 0):
+// dtype 0 over u in place (y must be u), dtype 1 into y (N, C, hw)
+// bfloat16.
+int bpt_conv_bn_fwd(void* u, const void* a, const void* b, void* y, int n,
+                    int c, int hw, int dtype, void* stream) {
+  // blocks a plane: ceil(hw / (4 kThreads kFwdUnroll)), which covers every
+  // element of bn_relu_bf16_kernel's element path (hw % 4 != 0) too; for
+  // hw % 4 == 0 it is ceil((hw / 4) / (kThreads kFwdUnroll))
+  const long long groups =
+      ((long long)hw + 4 * kThreads * kFwdUnroll - 1) /
+      (4 * kThreads * kFwdUnroll);
   if (n <= 0 || c <= 0 || hw <= 0 || (long long)n * c > 2147483647LL ||
-      groups > 65535)
+      groups > 65535 || (dtype == 0 && y != u) || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(n * c, groups > 0 ? (int)groups : 1);
-  bn_relu_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(u), static_cast<const float*>(a),
-      static_cast<const float*>(b), c, hw);
+  const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    bn_relu_kernel<<<grid, kThreads, 0, strm>>>(
+        static_cast<float*>(u), static_cast<const float*>(a),
+        static_cast<const float*>(b), c, hw);
+  else
+    bn_relu_bf16_kernel<<<grid, kThreads, 0, strm>>>(
+        static_cast<const float*>(u), static_cast<const float*>(a),
+        static_cast<const float*>(b), static_cast<bf16*>(y), c, hw);
   return (int)cudaGetLastError();
 }
 
-// bwd1: x, w as stats; mean, inv (Cout); y, dy (N, Cout, s H, s W). Writes u
-// (y's shape) and the partial sums of dv (p1) and dv * uhat (p2), (N *
-// tiles, Cout) with tiles = bpt_conv_bn_bwd1_tiles.
+// bwd1: x, w as stats; mean, inv (Cout) f32; y, dy (N, Cout, s H, s W) in
+// x's dtype. Writes u (y's shape, f32) and the partial sums of dv (p1) and
+// dv * uhat (p2), (N * tiles, Cout) with tiles = bpt_conv_bn_bwd1_tiles.
 int bpt_conv_bn_bwd1(const void* x, const void* w, const void* mean,
                      const void* inv, const void* y, const void* dy, void* u,
                      void* p1, void* p2, int n, int cin, int h, int wd,
-                     int cout, int k, int s, void* stream) {
-  return launch_u_gemm<false>(x, w, mean, inv, y, dy, u, p1, p2, n, cin, h,
-                              wd, cout, k, s, stream);
+                     int cout, int k, int s, int dtype, void* stream) {
+  if (dtype == 0)
+    return launch_u_gemm<float, false>(x, w, mean, inv, y, dy, u, p1, p2, n,
+                                       cin, h, wd, cout, k, s, stream);
+  if (dtype == 1)
+    return launch_u_gemm<bf16, false>(x, w, mean, inv, y, dy, u, p1, p2, n,
+                                      cin, h, wd, cout, k, s, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // bwd2: x, w as stats; a, mean, inv, s1n = S1 / count, s2n = S2 / count
-// (Cout); u (from bwd1), y, dy (N, Cout, s H, s W). Writes dx (N, Cin, H, W)
-// and dwp (nsplit, w's shape), nsplit = bpt_conv_bn_bwd2_splits: two
-// launches on `stream`, dx then dW.
+// (Cout) f32; u (from bwd1, f32), y, dy (N, Cout, s H, s W; x's dtype).
+// Writes dx (N, Cin, H, W; x's dtype) and dwp (nsplit, w's shape; f32),
+// nsplit = bpt_conv_bn_bwd2_splits: two launches on `stream`, dx then dW.
 int bpt_conv_bn_bwd2(const void* x, const void* w, const void* a,
                      const void* mean, const void* inv, const void* s1n,
                      const void* s2n, const void* u, const void* y,
                      const void* dy, void* dx, void* dwp, int n, int cin,
                      int h, int wd, int cout, int k, int s, int nsplit,
-                     void* stream) {
+                     int dtype, void* stream) {
   if (!dims_ok(n, cin, h, wd, cout) || nsplit < 1 || nsplit > kMaxSplit)
     return (int)cudaErrorInvalidValue;
-  const int r = dispatch(s, k, [&](auto S_, auto K_) {
-    constexpr int S = decltype(S_)::value;
-    constexpr int K = decltype(K_)::value;
-    using B = Bwd<S, K>;
-    const cudaStream_t strm = static_cast<cudaStream_t>(stream);
-    const DuConsts kc{static_cast<const float*>(a),
-                      static_cast<const float*>(mean),
-                      static_cast<const float*>(inv),
-                      static_cast<const float*>(s1n),
-                      static_cast<const float*>(s2n)};
-    const float* uf = static_cast<const float*>(u);
-    const float* yf = static_cast<const float*>(y);
-    const float* dyf = static_cast<const float*>(dy);
-    int st[3];
-    bwd_stages<S, K>(cin, cout, st);
-    cudaError_t err = (cudaError_t)with_rows(
-        rup(cin < kNT ? cin : kNT, 8), [&](auto R_) {
-          constexpr int R = decltype(R_)::value;
-          const int smem_dx =
-              dx_smem_floats<S, K, R>(cin, st[1]) * (int)sizeof(float);
-          cudaError_t e = set_smem(dx_kernel<S, K, R>, smem_dx);
-          if (e != cudaSuccess) return (int)e;
-          const dim3 grid_dx((wd + kTW - 1) / kTW,
-                             (h + kTH * R - 1) / (kTH * R),
-                             n * ((cin + kNT - 1) / kNT));
-          dx_kernel<S, K, R><<<grid_dx, kThreads, smem_dx, strm>>>(
-              static_cast<const float*>(w), kc, uf, yf, dyf,
-              static_cast<float*>(dx), cin, h, wd, cout, st[1]);
-          return (int)cudaGetLastError();
-        });
-    if (err != cudaSuccess) return (int)err;
-    return with_dw_cols<S>(cout, [&](auto D) {
-      constexpr int DWC = decltype(D)::value;
-      const int smem_dw =
-          dw_smem_floats<S, K, DWC>(cout, st[2]) * (int)sizeof(float);
-      cudaError_t e = set_smem(dw_kernel<S, K, DWC>, smem_dw);
-      if (e != cudaSuccess) return (int)e;
-      const dim3 grid_dw(dw_tiles<S, K>(cin, cout), nsplit);
-      dw_kernel<S, K, DWC><<<grid_dw, kThreads, smem_dw, strm>>>(
-          static_cast<const float*>(x), kc, uf, yf, dyf,
-          static_cast<float*>(dwp), n, cin, h, wd, cout, st[2]);
-      return (int)cudaGetLastError();
-    });
-  });
-  return r < 0 ? (int)cudaErrorInvalidValue : r;
+  const DuConsts kc{static_cast<const float*>(a),
+                    static_cast<const float*>(mean),
+                    static_cast<const float*>(inv),
+                    static_cast<const float*>(s1n),
+                    static_cast<const float*>(s2n)};
+  const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd2<float>(x, w, kc, u, y, dy, dx, dwp, n, cin, h, wd,
+                              cout, k, s, nsplit, strm);
+  if (dtype == 1)
+    return launch_bwd2<bf16>(x, w, kc, u, y, dy, dx, dwp, n, cin, h, wd,
+                             cout, k, s, nsplit, strm);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

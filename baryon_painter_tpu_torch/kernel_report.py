@@ -1,12 +1,14 @@
 """What the compiler made of the tensor-core kernels: K1 (csrc/res_block.cu,
 f32 and bf16), K3-fwd and K3-bwd (csrc/head_stack.cu, f32 and bf16) and K4
-(csrc/conv_bn.cu: the u GEMM of stats and bwd1, dx, dW, and fwd's pass).
+(csrc/conv_bn.cu, f32 and bf16: the u GEMM of stats and bwd1, dx, dW, and
+fwd's pass).
 
     python -m baryon_painter_tpu_torch.kernel_report
 
 Builds the kernel library afresh (nvcc with ``-Xptxas -v``), then prints for
 each of those kernels' instantiations (K1, K3-fwd and K3-bwd in f32 and
-bf16; K4's stats, bwd1, dx and dW, and fwd): ptxas' registers and spills,
+bf16; K4's stats, bwd1, dx and dW in f32 and bf16, and fwd's two
+kernels): ptxas' registers and spills,
 the number of tensor-core instructions in its SASS (``HMMA`` from
 ``cuobjdump -sass``) by variant (``HMMA.1688.F32.TF32``,
 ``HMMA.16816.F32.BF16``) with one of them quoted, and each launch's
@@ -25,13 +27,17 @@ from pathlib import Path
 from baryon_painter_tpu_torch import smoke
 from baryon_painter_tpu_torch.ops import _build
 
-_KERNEL = re.compile(r"(dx_kernel|dw_kernel)ILi(\d+)ELi(\d+)E"
+# K4's kernels take their element type first: f (float) or t (bf16, held
+# as its 16 bits in a uint16_t)
+_KERNEL = re.compile(r"(dx_kernel|dw_kernel)I([ft])Li(\d+)ELi(\d+)E"
                      r"(?:Li(\d+)E)?")
-# K4's u GEMM: <S, K, R, STATS>, named stats_kernel or bwd1_kernel
-_U_GEMM = re.compile(r"u_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E")
+# K4's u GEMM: <T, S, K, R, STATS>, named stats_kernel or bwd1_kernel
+_U_GEMM = re.compile(r"u_gemm_kernelI([ft])Li(\d+)ELi(\d+)ELi(\d+)E"
+                     r"Lb([01])E")
 _K1 = re.compile(r"res_block_kernelI(f|13__nv_bfloat16)E")
 _K3 = re.compile(r"(head_fwd_kernel|head_bwd_kernel)I(f|13__nv_bfloat16)E")
-_BN_RELU = re.compile(r"bn_relu_kernel")
+_BN_RELU = re.compile(r"bn_relu_(bf16_)?kernel")
+_K4_TYPE = {"f": "float", "t": "bf16"}
 
 
 def _name(mangled: str):
@@ -43,18 +49,20 @@ def _name(mangled: str):
     if m is not None:
         return (m.group(1) + "<" + ("float" if m.group(2) == "f" else "bf16")
                 + ">")
-    if _BN_RELU.search(mangled):
-        return "bn_relu_kernel"
+    m = _BN_RELU.search(mangled)
+    if m is not None:
+        return "bn_relu_bf16_kernel" if m.group(1) else "bn_relu_kernel"
     m = _U_GEMM.search(mangled)
     if m is not None:
-        s, k, r, stats = m.groups()
+        t, s, k, r, stats = m.groups()
         return (f"{'stats' if stats == '1' else 'bwd1'}_kernel"
-                f"<{s},{k},{r}>")
+                f"<{_K4_TYPE[t]},{s},{k},{r}>")
     m = _KERNEL.search(mangled)
     if m is None:
         return None
-    kind, s, k, extra = m.groups()
-    return f"{kind}<{s},{k}" + (f",{extra}>" if extra else ">")
+    kind, t, s, k, extra = m.groups()
+    return (f"{kind}<{_K4_TYPE[t]},{s},{k}"
+            + (f",{extra}>" if extra else ">"))
 
 
 def ptxas_report(log: str) -> dict:
@@ -108,8 +116,8 @@ def sass_report(library: Path) -> dict:
 def smem_report() -> dict:
     """Shared memory per block (bytes, as the launches request it): K1 at
     C = 128, K3-fwd and K3-bwd, each in f32 and bf16, and the stats, bwd1, dx
-    and dW launches of K4 at the fused sites (stats and bwd1 run the same
-    mainloop, so they ask for the same; fwd uses none)."""
+    and dW launches of K4 at the fused sites, in f32 and bf16 (stats and
+    bwd1 run the same mainloop, so they ask for the same; fwd uses none)."""
     lib = _build.load_library()
     c = smoke.K1_SHAPE[-1]
     out = {"res_block_kernel<float>": lib.bpt_res_block_smem(c, 0),
@@ -120,10 +128,11 @@ def smem_report() -> dict:
            "head_bwd_kernel<bf16>": lib.bpt_head_stack_smem(1, 1)}
     for name, site in smoke.K4_SITES.items():
         s = site["stride"] if site["transposed"] else 1
-        out[name] = {kind: lib.bpt_conv_bn_bwd_smem(site["cin"], site["cout"],
-                                                    site["k"], s, which)
-                     for which, kind in ((0, "stats"), (0, "bwd1"),
-                                         (1, "dx"), (2, "dw"))}
+        for code, label in ((0, name), (1, f"{name} bf16")):
+            out[label] = {kind: lib.bpt_conv_bn_bwd_smem(
+                site["cin"], site["cout"], site["k"], s, which, code)
+                for which, kind in ((0, "stats"), (0, "bwd1"), (1, "dx"),
+                                    (2, "dw"))}
     return out
 
 

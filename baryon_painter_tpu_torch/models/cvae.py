@@ -15,8 +15,10 @@ attribute names (``q_x_in``, ``q_out``, ``prior_network``, ``p_z_in``,
 ``fused_train_conv=True`` is the counterpart of ``BPT_FUSED_TRAIN_CONV=1``:
 every subnet runs its gated train-mode (conv, batch norm, ReLU) triples
 through K4 (``ops/conv_bn.py``, ``SpecSequential``); in the fiducial
-architecture those are ``p_y_z_in``'s input conv and its three up-convs.
-Both switches are off by default, as in the JAX package.
+architecture those are ``p_y_z_in``'s input conv and its three up-convs,
+in the model's dtype (in bf16 with u and the batch statistics f32, as the
+JAX kernel keeps them). Both switches are off by default, as in the JAX
+package.
 
 ``dtype`` is the JAX package's compute dtype (``CVAE(..., dtype=
 jnp.bfloat16)``): every subnet's convolutions and the activations between

@@ -27,8 +27,11 @@ and rounds where it rounds (``baryon_painter_tpu/models/layers.py``): a
 convolution casts x and its weight to it, and its f32 bias promotes the sum
 to f32; batch norm casts x to it, keeps its statistics and affine in f32
 and returns x's dtype; PReLU casts its slope to x's dtype; the fused block
-casts x to it. Parameters, running statistics and gradients of parameters
-stay f32. ``None`` computes in x's dtype: f32 as before, bit for bit.
+casts x to it; a K4 triple casts x and the conv's weight to it and keeps
+K4's rounding points (``ops/conv_bn.py``: u and the batch statistics f32,
+y in the dtype). Parameters, running statistics and gradients of
+parameters stay f32. ``None`` computes in x's dtype: f32 as before, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -331,21 +334,14 @@ class SpecSequential(nn.Module):
     ``ops/conv_rules.py``); the triple's modules and names stay as they are,
     and the batch norm's running statistics move as they would unfused.
 
-    ``dtype`` is every layer's compute dtype (module docstring). K4 has no
-    bf16 kernels yet, so ``fused_train_conv`` with a bfloat16 ``dtype``
-    raises rather than run the sites in f32.
+    ``dtype`` is every layer's compute dtype (module docstring); a fused
+    triple casts x and the conv's weight to it before K4, as the JAX
+    package does (``baryon_painter_tpu/models/layers.py:538-551``).
     """
 
     def __init__(self, spec: Optional[Sequence], fused_res_blocks=False,
                  fused_train_conv=False, dtype=None):
         super().__init__()
-        if fused_train_conv and dtype not in (None, torch.float32):
-            raise TypeError(
-                f"fused_train_conv=True with dtype={dtype}: K4 (the fused "
-                f"train-mode conv + batch norm + ReLU) is f32 only; its "
-                f"bf16 kernels are the next port slice (ROADMAP.md, "
-                f"section 2: K4 in bf16). Train with fused_train_conv="
-                f"False in bf16.")
         self.fused_train_conv = fused_train_conv
         self.layers = nn.ModuleDict()
         self._steps = []   # module names and elementwise callables, in order
@@ -441,9 +437,11 @@ class SpecSequential(nn.Module):
     def _fused_train_conv(self, triple, x):
         transposed, conv_name, bn_name = triple
         conv, bn = self.layers[conv_name], self.layers[bn_name]
-        y, mean, var = conv_bn_relu(x, conv.weight, bn.weight, bn.bias,
-                                    transposed=transposed, stride=conv.stride,
-                                    padding=conv.padding, eps=_BN_EPS)
+        dt = conv.dtype or x.dtype
+        y, mean, var = conv_bn_relu(x.to(dt), conv.weight.to(dt), bn.weight,
+                                    bn.bias, transposed=transposed,
+                                    stride=conv.stride, padding=conv.padding,
+                                    eps=_BN_EPS)
         bn.update_running(mean, var)
         return y
 

@@ -153,15 +153,18 @@ def load_library() -> ctypes.CDLL:
     dims = [i] * 7   # n, cin, h, w, cout, k, s
     for name, n_ptr in (("stats", 5), ("bwd1", 9)):
         fn = getattr(lib, f"bpt_conv_bn_{name}")
-        fn.argtypes = [p] * n_ptr + dims + [p]
+        fn.argtypes = [p] * n_ptr + dims + [i, p]   # ..., dtype
         fn.restype = ctypes.c_int
-    lib.bpt_conv_bn_fwd.argtypes = [p, p, p, i, i, i, p]   # u, a, b, n, c, hw
+    # u, a, b, y, n, c, hw, dtype
+    lib.bpt_conv_bn_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.bpt_conv_bn_fwd.restype = ctypes.c_int
-    lib.bpt_conv_bn_bwd2.argtypes = [p] * 12 + dims + [i, p]   # ..., splits
+    # ..., splits, dtype
+    lib.bpt_conv_bn_bwd2.argtypes = [p] * 12 + dims + [i, i, p]
     lib.bpt_conv_bn_bwd2.restype = ctypes.c_int
     lib.bpt_conv_bn_bwd1_tiles.argtypes = [i] * 5   # h, w, cout, k, s
     lib.bpt_conv_bn_bwd2_splits.argtypes = [i] * 7
-    lib.bpt_conv_bn_bwd_smem.argtypes = [i] * 5   # cin, cout, k, s, which
+    # cin, cout, k, s, which, dtype
+    lib.bpt_conv_bn_bwd_smem.argtypes = [i] * 6
     for name in ("bwd1_tiles", "bwd2_splits", "bwd_smem"):
         getattr(lib, f"bpt_conv_bn_{name}").restype = ctypes.c_int
     lib.bpt_error_string.argtypes = [ctypes.c_int]

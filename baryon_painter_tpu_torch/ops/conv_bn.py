@@ -24,19 +24,35 @@ statistics (``_bwd_xla``):
 
 The ReLU mask is the forward's own (y > 0, y saved for the backward), so
 the backward's rounding cannot send a pre-activation near 0 to the other
-branch. Four kernels (``csrc/conv_bn.cu``): K4-stats (u, written into the
-buffer that becomes y, and per-block partial sums of u and u^2), K4-fwd (y
-in place over u), K4-bwd1 (u again, kept in a scratch tensor for K4-bwd2,
-and partial S1, S2) and K4-bwd2 (dx, and dW as partials over a fixed split
-of the pixels). stats, bwd1 and bwd2 are implicit GEMMs on the tensor cores
-in 3xTF32; stats and bwd1 share one mainloop, so the u behind the batch
-statistics and the ReLU mask is, bit for bit, the u of the backward. The
-partials are summed here in torch, so every result is deterministic. The
+branch (in bf16, y > 0 is v > 0 but for a v below bf16's smallest
+subnormal, which rounds to a y of 0). Four kernels (``csrc/conv_bn.cu``):
+K4-stats (u, in f32 written into the buffer that becomes y, and per-block
+partial sums of u and u^2), K4-fwd (y, in f32 in place over u), K4-bwd1
+(u again, kept in a scratch tensor for K4-bwd2, and partial S1, S2) and
+K4-bwd2 (dx, and dW as partials over a fixed split of the pixels). stats,
+bwd1 and bwd2 are implicit GEMMs on the tensor cores, in 3xTF32 for f32 and
+one bf16 pass for bf16; stats and bwd1 share one mainloop, so the u behind
+the batch statistics and the ReLU mask is, bit for bit, the u of the
+backward. The partials are summed here in torch, so every result is
+deterministic. The
 kernels take two families: a stride-1 "same" conv with odd k in (1, 3, 5,
-7), and a transposed conv with k = 2s, p = s/2, s in (2, 4); f32 only. On
-CUDA tensors anything else raises; on CPU tensors each wrapper is its plain
-version, which takes any stride and padding (K4-fwd in place, as on the
-card).
+7), and a transposed conv with k = 2s, p = s/2, s in (2, 4), in float32 or
+bfloat16. On CUDA tensors anything else raises; on CPU tensors each wrapper
+is its plain version, which takes any stride and padding (K4-fwd in place in
+f32, as on the card).
+
+bfloat16 (the JAX package's default compute dtype) keeps the JAX kernels'
+rounding points (``pallas_conv_bn.py``): x, w, y, dy and dx are bf16; u is
+the f32 sum of the bf16 products (``preferred_element_type=f32``), and its
+sums, mean, var, a, b, S1, S2 and the dW partials are f32; y =
+bf16(relu(u a + b)) is a new bf16 tensor (it cannot take the 4-byte u's
+buffer); du is rounded to bf16 before both of its products; dx is rounded
+once from its f32 sum; dW is the f32 sum rounded once to bf16 (the dtype of
+w, whose cast's adjoint brings it to the f32 parameter). The plain versions
+compute u in f32 from the bf16 values and round where the kernels round;
+they never use PyTorch's CPU bf16 convolution (wrong at some shapes) nor, on
+the card, cuDNN's bf16 convolution (which would round u to bf16). Each
+wrapper counts its bf16 launches apart in ``.bf16_launches``.
 """
 from __future__ import annotations
 
@@ -44,7 +60,9 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv2d_input, conv2d_weight
 
-from baryon_painter_tpu_torch.ops.head_stack import _launch, _operand
+from baryon_painter_tpu_torch.ops.head_stack import (_DTYPE_CODES,
+                                                     _compute_dtype, _launch,
+                                                     _operand, rounder)
 
 __all__ = ["conv_bn_relu", "conv_bn_stats", "conv_bn_fwd", "conv_bn_bwd1",
            "conv_bn_bwd2", "conv_bn_stats_ref", "conv_bn_fwd_ref",
@@ -123,14 +141,21 @@ def _out_shape(x, w, transposed, stride):
     return n, cout, h * s, wd * s
 
 
-def _check_fwd(fn, u, a, b):
+def _check_dtype(fn, dtype):
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"{fn}: the kernels take float32 or bfloat16, got "
+                        f"{dtype}")
+
+
+def _check_fwd(fn, u, a, b, dtype=torch.float32):
     """Raise on anything K4-fwd does not take: u (N, C, H, W), a and b
-    (C,), all f32, contiguous and on one device (y is written over u, so
-    nothing is copied)."""
+    (C,), all f32, contiguous and on one device (in f32 y is written over
+    u, so nothing is copied), and y's ``dtype`` float32 or bfloat16."""
+    _check_dtype(fn, dtype)
     for name, t in {"u": u, "a": a, "b": b}.items():
         if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} must be float32 (the kernels are "
-                            f"f32 only), got {t.dtype}")
+            raise TypeError(f"{fn}: {name} must be float32 (u, a and b are "
+                            f"f32 in both dtypes), got {t.dtype}")
         if t.device != u.device:
             raise ValueError(f"{fn}: {name} is on {t.device}, u on "
                              f"{u.device}")
@@ -156,11 +181,14 @@ def _check(fn, x, w, transposed, stride, padding, vecs=None, outs=None):
     """Raise on anything the kernels do not take; returns (k, s). ``outs``
     (name: tensor) must have y's shape."""
     vecs, outs = vecs or {}, outs or {}
+    _check_dtype(fn, x.dtype)
     tensors = {"x": x, "w": w, **vecs, **outs}
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} must be float32 (the kernels are "
-                            f"f32 only), got {t.dtype}")
+        # u and the per-channel vectors are f32; w, y and dy x's dtype
+        want = x.dtype if name in ("x", "w", "y", "dy") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{fn}: {name} must be {want} (x is {x.dtype}; "
+                            f"u and the vectors are float32), got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{fn}: {name} is on {t.device}, x on "
                              f"{x.device}")
@@ -199,18 +227,25 @@ def _dims(x, w, transposed, k, s):
     return n, cin, h, wd, cout, k, s
 
 
+def _u(x, w, transposed, stride, padding):
+    """u = the library's conv, in f32 on the values of 16-bit x and w."""
+    dt = _compute_dtype(x.dtype)
+    return _conv(x.to(dt), w.to(dt), transposed, stride, padding)
+
+
 def conv_bn_stats_ref(x, w, *, transposed: bool, stride: int,
                       padding: int):
     """Plain version of K4-stats: (sum of u, sum of u^2, u) with u the
-    library's conv and the sums in f32."""
-    u = _conv(x, w, transposed, stride, padding)
+    library's conv (f32 for bf16 x and w) and the sums in f32."""
+    u = _u(x, w, transposed, stride, padding)
     uf = u.float()
     return uf.sum((0, 2, 3)), (uf * uf).sum((0, 2, 3)), u
 
 
-def conv_bn_fwd_ref(u, a, b):
-    """Plain version of K4-fwd: relu(u * a + b) per channel, a new tensor."""
-    return torch.relu(u * _vec(a) + _vec(b))
+def conv_bn_fwd_ref(u, a, b, dtype=None):
+    """Plain version of K4-fwd: relu(u * a + b) per channel, a new tensor,
+    rounded to ``dtype`` (None: u's)."""
+    return torch.relu(u * _vec(a) + _vec(b)).to(dtype or u.dtype)
 
 
 def _dv_uhat(u, mean, inv, dy, active):
@@ -221,8 +256,8 @@ def conv_bn_bwd1_ref(x, w, mean, inv, dy, *, transposed: bool, stride: int,
                      padding: int, active):
     """Plain version of K4-bwd1: (S1, S2, u) with u = the library's conv and
     ``active`` (y's shape, bool) the forward's ReLU mask, y > 0."""
-    u = _conv(x, w, transposed, stride, padding)
-    dv, uhat = _dv_uhat(u, mean, inv, dy, active)
+    u = _u(x, w, transposed, stride, padding)
+    dv, uhat = _dv_uhat(u, mean, inv, dy.to(u.dtype), active)
     return dv.sum((0, 2, 3)), (dv * uhat).sum((0, 2, 3)), u
 
 
@@ -230,20 +265,26 @@ def conv_bn_bwd2_ref(x, w, a, mean, inv, s1n, s2n, dy, *, transposed: bool,
                      stride: int, padding: int, active, u=None):
     """Plain version of K4-bwd2: du from u (given, as K4-bwd1 returns it, or
     recomputed), then the library's adjoints (``active`` as in
-    ``conv_bn_bwd1_ref``)."""
+    ``conv_bn_bwd1_ref``). In bf16 du is rounded to bf16 before both
+    products, which sum in f32; dx returns in x's dtype and dW in w's, each
+    rounded once."""
     if u is None:
-        u = _conv(x, w, transposed, stride, padding)
-    dv, uhat = _dv_uhat(u, mean, inv, dy, active)
-    du = _vec(a) * (dv - _vec(s1n) - uhat * _vec(s2n))
-    return _adjoints(x, w, du, transposed, stride, padding)
+        u = _u(x, w, transposed, stride, padding)
+    dv, uhat = _dv_uhat(u, mean, inv, dy.to(u.dtype), active)
+    du = rounder(x.dtype)(_vec(a) * (dv - _vec(s1n) - uhat * _vec(s2n)))
+    dt = _compute_dtype(x.dtype)
+    dx, dw = _adjoints(x.to(dt), w.to(dt), du, transposed, stride, padding)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def conv_bn_stats(x, w, *, transposed: bool, stride: int, padding: int):
     """K4-stats: (sum of u, sum of u^2, u) per output channel, f32, with
-    u = conv(x, w) of y's shape (K4-fwd turns it into y in place).
+    u = conv(x, w) of y's shape, f32 for bf16 x and w too (in f32 K4-fwd
+    turns it into y in place).
 
     On CPU tensors the plain version. On CUDA tensors one launch on the
-    current stream (adds one to ``conv_bn_stats.launches``), the u GEMM of
+    current stream (adds one to ``conv_bn_stats.launches``, and in bf16 to
+    ``.bf16_launches``), the u GEMM of
     K4-bwd1, writing u and per-block partial sums, summed here in f64 and
     rounded once. The training step's gradients are sensitive to the
     rounding of the batch statistics: with an f32 sum of the 3k to 25k
@@ -262,42 +303,55 @@ def conv_bn_stats(x, w, *, transposed: bool, stride: int, padding: int):
     p1 = torch.empty((rows, dims[4]), dtype=torch.float32, device=x.device)
     p2 = torch.empty_like(p1)
     _launch("conv_bn_stats", "bpt_conv_bn_stats", _operand(x), _operand(w),
-            u, p1, p2, *dims)
+            u, p1, p2, *dims, _DTYPE_CODES[x.dtype])
     conv_bn_stats.launches += 1
+    conv_bn_stats.bf16_launches += x.dtype == torch.bfloat16
     return (p1.sum(0, dtype=torch.float64).float(),
             p2.sum(0, dtype=torch.float64).float(), u)
 
 
 conv_bn_stats.launches = 0
+conv_bn_stats.bf16_launches = 0
 
 
-def conv_bn_fwd(u, a, b):
-    """K4-fwd: y = relu(u * a + b) per channel, u (N, C, H, W) as K4-stats
-    returns it, written over u in place; returns u.
+def conv_bn_fwd(u, a, b, dtype=torch.float32):
+    """K4-fwd: y = relu(u * a + b) per channel, u (N, C, H, W) f32 as
+    K4-stats returns it, y in ``dtype``: float32 written over u in place
+    (returns u), bfloat16 into a new tensor (rounded to nearest even).
 
-    On CPU tensors the plain version's operations in place (each rounded as
-    in ``conv_bn_fwd_ref``, so the two agree bit for bit). On CUDA tensors
-    one launch (adds one to ``conv_bn_fwd.launches``)."""
+    On CPU tensors the plain version's operations (in f32 in place, each
+    rounded as in ``conv_bn_fwd_ref``, so the two agree bit for bit). On
+    CUDA tensors one launch (adds one to ``conv_bn_fwd.launches``, and in
+    bf16 to ``.bf16_launches``)."""
     if not _device("conv_bn_fwd", u):
-        return u.mul_(_vec(a)).add_(_vec(b)).clamp_min_(0.0)
-    _check_fwd("conv_bn_fwd", u, a, b)
+        if dtype == torch.float32:
+            return u.mul_(_vec(a)).add_(_vec(b)).clamp_min_(0.0)
+        _check_dtype("conv_bn_fwd", dtype)
+        return conv_bn_fwd_ref(u, a, b, dtype)
+    _check_fwd("conv_bn_fwd", u, a, b, dtype)
     n, c, h, w = u.shape
-    _launch("conv_bn_fwd", "bpt_conv_bn_fwd", u, a, b, n, c, h * w)
+    y = u if dtype == torch.float32 else torch.empty_like(u, dtype=dtype)
+    _launch("conv_bn_fwd", "bpt_conv_bn_fwd", u, a, b, y, n, c, h * w,
+            _DTYPE_CODES[dtype])
     conv_bn_fwd.launches += 1
-    return u
+    conv_bn_fwd.bf16_launches += dtype == torch.bfloat16
+    return y
 
 
 conv_bn_fwd.launches = 0
+conv_bn_fwd.bf16_launches = 0
 
 
 def conv_bn_bwd1(x, w, mean, inv, y, dy, *, transposed: bool, stride: int,
                  padding: int):
     """K4-bwd1: (S1, S2, u), S1 = sum of dv, S2 = sum of dv * uhat per
-    channel with the forward's mask y > 0, and u = conv(x, w) for K4-bwd2.
+    channel with the forward's mask y > 0, and u = conv(x, w) (f32) for
+    K4-bwd2; y and dy in x's dtype.
 
     On CPU tensors the plain version; on CUDA tensors one launch (adds one
-    to ``conv_bn_bwd1.launches``) writing u into a tensor of y's shape and
-    per-block partials, summed here."""
+    to ``conv_bn_bwd1.launches``, and in bf16 to ``.bf16_launches``)
+    writing u into an f32 tensor of y's shape and per-block partials,
+    summed here."""
     if not _device("conv_bn_bwd1", x):
         return conv_bn_bwd1_ref(x, w, mean, inv, dy, transposed=transposed,
                                 stride=stride, padding=padding,
@@ -312,22 +366,27 @@ def conv_bn_bwd1(x, w, mean, inv, y, dy, *, transposed: bool, stride: int,
     p1 = torch.empty((rows, dims[4]), dtype=torch.float32, device=x.device)
     p2 = torch.empty_like(p1)
     _launch("conv_bn_bwd1", "bpt_conv_bn_bwd1", _operand(x), _operand(w),
-            *(_operand(t) for t in (mean, inv, y, dy)), u, p1, p2, *dims)
+            *(_operand(t) for t in (mean, inv, y, dy)), u, p1, p2, *dims,
+            _DTYPE_CODES[x.dtype])
     conv_bn_bwd1.launches += 1
+    conv_bn_bwd1.bf16_launches += x.dtype == torch.bfloat16
     return p1.sum(0), p2.sum(0), u
 
 
 conv_bn_bwd1.launches = 0
+conv_bn_bwd1.bf16_launches = 0
 
 
 def conv_bn_bwd2(x, w, a, mean, inv, s1n, s2n, u, y, dy, *, transposed: bool,
                  stride: int, padding: int):
     """K4-bwd2: (dx, dW) from du = a (dv - s1n - uhat s2n), with s1n = S1/n,
-    s2n = S2/n, u from K4-bwd1 and the forward's mask y > 0.
+    s2n = S2/n, u (f32) from K4-bwd1 and the forward's mask y > 0; dx in
+    x's dtype, dW in w's.
 
     On CPU tensors the plain version; on CUDA tensors one call (adds one to
-    ``conv_bn_bwd2.launches``) of two launches, dx and dW, writing dx and
-    one partial dW per split of the pixels, summed here."""
+    ``conv_bn_bwd2.launches``, and in bf16 to ``.bf16_launches``) of two
+    launches, dx and dW, writing dx and one f32 partial dW per split of the
+    pixels, summed here in f32 and rounded once to w's dtype."""
     if not _device("conv_bn_bwd2", x):
         return conv_bn_bwd2_ref(x, w, a, mean, inv, s1n, s2n, dy,
                                 transposed=transposed, stride=stride,
@@ -338,7 +397,8 @@ def conv_bn_bwd2(x, w, a, mean, inv, s1n, s2n, u, y, dy, *, transposed: bool,
     from baryon_painter_tpu_torch.ops._build import load_library
     lib = load_library()
     dims = _dims(x, w, transposed, k, s)
-    smem = max(lib.bpt_conv_bn_bwd_smem(dims[1], dims[4], k, s, which)
+    code = _DTYPE_CODES[x.dtype]
+    smem = max(lib.bpt_conv_bn_bwd_smem(dims[1], dims[4], k, s, which, code)
                for which in range(3))
     if not 0 < smem <= 232448:
         raise ValueError(f"conv_bn_bwd2: the backward kernels need {smem} "
@@ -350,12 +410,14 @@ def conv_bn_bwd2(x, w, a, mean, inv, s1n, s2n, u, y, dy, *, transposed: bool,
                       device=x.device)
     _launch("conv_bn_bwd2", "bpt_conv_bn_bwd2", _operand(x), _operand(w),
             *(_operand(t) for t in (a, mean, inv, s1n, s2n, u, y, dy)), dx,
-            dwp, *dims, splits)
+            dwp, *dims, splits, code)
     conv_bn_bwd2.launches += 1
-    return dx, dwp.sum(0)
+    conv_bn_bwd2.bf16_launches += x.dtype == torch.bfloat16
+    return dx, dwp.sum(0).to(w.dtype)
 
 
 conv_bn_bwd2.launches = 0
+conv_bn_bwd2.bf16_launches = 0
 
 
 def _count(x, w, transposed, stride):
@@ -366,12 +428,12 @@ def _count(x, w, transposed, stride):
 def conv_bn_relu_ref(x, w, gamma, beta, *, transposed: bool, stride: int,
                      padding: int, eps: float = EPS):
     """Plain PyTorch forward: (y, mean, var), the library's conv, the batch
-    statistics in f32, the affine and the ReLU."""
+    statistics in f32, the affine and the ReLU; y in x's dtype."""
     kw = dict(transposed=transposed, stride=stride, padding=padding)
     s1, s2, u = conv_bn_stats_ref(x, w, **kw)
     mean, var = batch_stats(s1, s2, _count(x, w, transposed, stride))
     _, a, b = bn_affine(gamma, beta, mean, var, eps)
-    return conv_bn_fwd_ref(u, a, b), mean, var
+    return conv_bn_fwd_ref(u, a, b, x.dtype), mean, var
 
 
 def conv_bn_relu_bwd_ref(x, w, gamma, beta, mean, var, dy, *,
@@ -380,7 +442,7 @@ def conv_bn_relu_bwd_ref(x, w, gamma, beta, mean, var, dy, *,
     """Plain PyTorch backward, the math of the JAX ``_bwd_xla`` on the
     logical convolution: (dx, dW, dgamma, dbeta) for the cotangent dy of y,
     given the forward's batch statistics and, as ``active``, where its ReLU
-    passed (y > 0)."""
+    passed (y > 0); dx in x's dtype, dW in w's, dgamma and dbeta f32."""
     kw = dict(transposed=transposed, stride=stride, padding=padding,
               active=active)
     inv, a, _ = bn_affine(gamma, beta, mean, var, eps)
@@ -399,7 +461,8 @@ class _ConvBnRelu(torch.autograd.Function):
         s1, s2, u = conv_bn_stats(x, w, **kw)
         mean, var = batch_stats(s1, s2, count)
         inv, a, b = bn_affine(gamma, beta, mean, var, eps)
-        y = conv_bn_fwd(u, a, b)   # in place over u
+        # f32: in place over u; bf16: a new tensor, u freed on return
+        y = conv_bn_fwd(u, a, b, x.dtype)
         # y carries the ReLU mask to the backward (the next layer keeps it)
         ctx.save_for_backward(x, w, a, mean, inv, y)
         ctx.kw, ctx.count = kw, count
@@ -409,7 +472,7 @@ class _ConvBnRelu(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, w, a, mean, inv, y = ctx.saved_tensors
-        dy = dy.contiguous()
+        dy = dy.to(x.dtype).contiguous()
         s1, s2, u = conv_bn_bwd1(x, w, mean, inv, y, dy, **ctx.kw)
         dx, dw = conv_bn_bwd2(x, w, a, mean, inv, s1 / ctx.count,
                               s2 / ctx.count, u, y, dy, **ctx.kw)
@@ -420,12 +483,14 @@ def conv_bn_relu(x, w, gamma, beta, *, transposed: bool, stride: int,
                  padding: int, eps: float = EPS, bias=None):
     """Fused train-mode ``relu(batch_norm(conv(x, w)))``: (y, mean, var).
 
-    x (N, Cin, H, W); w OIHW (conv) or IOHW (``transposed``); gamma, beta
-    (Cout,). Differentiable in x, w, gamma and beta; mean and var carry no
-    gradient. On CUDA tensors the forward is K4-stats then K4-fwd (y
-    written over stats' u) and the backward K4-bwd1 then K4-bwd2 (u kept
-    between them, y's mask); on CPU tensors their plain versions. The
-    triple it fuses has a bias-free conv: a ``bias`` raises."""
+    x (N, Cin, H, W) and w, OIHW (conv) or IOHW (``transposed``), both
+    float32 or both bfloat16; gamma, beta (Cout,) f32. Differentiable in x,
+    w, gamma and beta (dx in x's dtype, dW in w's, dgamma and dbeta f32);
+    y in x's dtype; mean and var f32, with no gradient. On CUDA tensors the
+    forward is K4-stats then K4-fwd (in f32 y written over stats' u) and
+    the backward K4-bwd1 then K4-bwd2 (u kept between them, y's mask); on
+    CPU tensors their plain versions. The triple it fuses has a bias-free
+    conv: a ``bias`` raises."""
     if bias is not None:
         raise ValueError("conv_bn_relu: the conv must be bias-free (a bias "
                          "before a batch norm cancels)")

@@ -13,10 +13,10 @@ with K3's heads, the train-mode conv + batch norm + ReLU triples through
 cuDNN and the port's BatchNorm (``fused_train_conv=False``) and through K4
 (``fused_train_conv=True``). ``--dtype bf16`` trains both variants'
 models in bf16 (``CVAE(..., dtype=torch.bfloat16)``, the JAX package's
-default compute dtype; K4 has no bf16 kernels, so not with
-``--fused-train-conv``). For each it prints ms per step (host clock around steps that end in a
-synchronise), samples/s and the peak device memory allocated over the run
-(both variants' trainers are resident); then, per variant, from one torch.profiler
+default compute dtype; with ``--fused-train-conv`` K4 runs its bf16
+kernels). For each it prints ms per step (host clock around steps that end
+in a synchronise), samples/s and the peak device memory allocated over the
+run (both variants' trainers are resident); then, per variant, from one torch.profiler
 window (CUDA activity only) over ``iters`` steps, the device time by kernel
 and the device's idle share, 1 - (union of device intervals per step) /
 (ms per step); and the device time of each stage (CUDA events: batch
@@ -127,9 +127,9 @@ def _stage_times(trainer, idx, lr) -> dict:
 
 
 # device kernel names of K4 (csrc/conv_bn.cu): the u GEMM of stats and bwd1,
-# fwd's pass, and bwd2's dx and dW
-_K4_KERNEL_NAMES = ("u_gemm_kernel", "bn_relu_kernel", "dx_kernel",
-                    "dw_kernel")
+# fwd's pass (f32 in place, bf16 into a new y), and bwd2's dx and dW
+_K4_KERNEL_NAMES = ("u_gemm_kernel", "bn_relu_kernel", "bn_relu_bf16_kernel",
+                    "dx_kernel", "dw_kernel")
 
 
 def main():

@@ -55,6 +55,19 @@ and the bf16 configuration (the JAX package's default compute dtype):
  14. paint the golden input in bf16 (4 bf16 K1 and 1 bf16 K3-fwd launches)
      at the prior mean against the committed JAX bf16 paint
      (BF16_REFERENCE), then timed beside phase 9's f32 paint
+ 10b. K4 in bf16 against its plain bf16 version at the four sites, as
+     phase 10 (tolerances K4_TOL_BF16; stats' u also against the plain f32
+     u of the bf16 values, and bit for bit against bwd1's), timed beside
+     cuDNN's bf16 conv, the port's bf16 BatchNorm and ReLU on
+     ``channels_last``; the bounds on the bf16 tensor cores
+ 15. train in bf16 with ``fused_train_conv=True`` (one K2, one bf16 K3-fwd
+     and K3-bwd and 4 bf16 launches of each K4 kernel a step), timed beside
+     phase 13's bf16 step without K4, with its peak device memory; 15b a
+     bf16 step with every kernel against the bf16 step with their plain
+     versions, within BF16_STEP_RATIO of the plain bf16 step's distance
+     from the plain f32 step (the fused sites in plain PyTorch in both),
+     printed beside the chaos floor: how far the plain bf16 step moves
+     when only the sites' sums change order
 """
 from __future__ import annotations
 
@@ -242,7 +255,9 @@ _COUNTED = {"k1": res_block_infer, "k2": gather_tiles,
             "k4_bwd1": conv_bn_bwd1, "k4_bwd2": conv_bn_bwd2}
 # the kernels with a bf16 variant: of their launches, those in bf16
 _COUNTED_BF16 = {"k1": res_block_infer, "k3_fwd": head_stack_fwd,
-                 "k3_bwd": head_stack_bwd}
+                 "k3_bwd": head_stack_bwd, "k4_stats": conv_bn_stats,
+                 "k4_fwd": conv_bn_fwd, "k4_bwd1": conv_bn_bwd1,
+                 "k4_bwd2": conv_bn_bwd2}
 
 
 def _reset_launches():
@@ -485,6 +500,12 @@ STEP_GRAD_ZERO = ("p_z_in.layers.BatchNorm_0.weight",
 # batch-norm parameter gradients sum over every output pixel
 K4_TOL = {"y": 1e-4, "mean": 1e-4, "var": 1e-4, "dx": 1e-4, "dw": 1e-3,
           "dgamma": 1e-3, "dbeta": 1e-3}
+# in bf16: y, dx and dW are bf16 and move by one bf16 step (2^-8 of the
+# value) where a sum in another order lands next to a rounding boundary, as
+# K3_TOL_BF16 allows; u, mean and var are f32 sums of exact bf16 products
+# (order only); dgamma and dbeta f32 sums over every output pixel
+K4_TOL_BF16 = {"y": 2e-2, "mean": 1e-4, "var": 1e-4, "u": 1e-4, "dx": 2e-2,
+               "dw": 2e-2, "dgamma": 1e-3, "dbeta": 1e-3}
 # the four sites K4 fuses in the fiducial training step at 512^2: the input
 # conv of p_y_z_in and its three up-convs; h is the input's edge at 512^2
 K4_SITES = {
@@ -499,7 +520,8 @@ K4_SITES = {
 }
 K4_KERNELS = ("stats", "fwd", "bwd1", "bwd2")
 # each K4 kernel's bound as it is designed (``k4_bounds``): the u GEMM, dx
-# and dW on the tensor cores at the 3xTF32 rate, fwd a pass over memory
+# and dW on the tensor cores at the 3xTF32 rate (bf16: the bf16 rate), fwd a
+# pass over memory
 K4_BOUND = {k: f"{k}_tc" for k in K4_KERNELS}
 # operations per pixel and head: forward conv7 16->8, conv5 8->1, conv3 1->1
 _HEAD_FWD_OPS = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3)
@@ -823,18 +845,18 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
           iters: int = 10, n_res_blocks: int = N_RES_BLOCKS,
           lr: float = 1e-4, card=None, fused_train_conv: bool = False,
           k4_off_ms=None, dtype=None, f32_ms=None) -> dict:
-    """Phase 8 (11 with ``fused_train_conv``, 13 in bf16), a main path:
-    ``warmup``
+    """Phase 8 (11 with ``fused_train_conv``, 13 in bf16, 15 in bf16 with
+    ``fused_train_conv``), a main path: ``warmup``
     then ``iters`` timed training steps (``step_indices``: batch gathered on
     the device through K2, heads through K3, and with ``fused_train_conv``
     the gated conv + batch norm + ReLU triples through K4) from the port's
     own initialisation, the model computing in ``dtype``. Per timed step
     on the card exactly one K2, K3-fwd (keeping u1) and K3-bwd launch (in
     bf16 both K3 launches in bf16) and, with K4, ``k4_sites_per_step`` of
-    each K4 kernel; finite metrics; the parameters change. Host clock
-    around steps that end in a synchronise; the peak device memory of the
-    timed steps; ``k4_off_ms`` (phase 8's step) or ``f32_ms`` is printed
-    beside."""
+    each K4 kernel (in bf16 all of them bf16 launches); finite metrics; the
+    parameters change. Host clock around steps that end in a synchronise;
+    the peak device memory of the timed steps; ``k4_off_ms`` (phase 8's or
+    13's step) and ``f32_ms`` are printed beside."""
     t0 = time.perf_counter()
     device = torch.device(device)
     bf16 = dtype == torch.bfloat16
@@ -859,12 +881,15 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
     counts = _launches()
     n = iters if device.type == "cuda" else 0
     want = {"k2": n, "k3_fwd": n, "k3_bwd": n}
-    bf16_counts = _bf16_launches()
-    _expect_launches("train (bf16 launches)", bf16_counts,
-                     {"k3_fwd": n, "k3_bwd": n} if bf16 else {})
+    want_bf16 = {"k3_fwd": n, "k3_bwd": n} if bf16 else {}
     if fused_train_conv:
         sites = k4_sites_per_step(dataset.tile_size)
-        want.update({f"k4_{k}": sites * n for k in K4_KERNELS})
+        k4 = {f"k4_{k}": sites * n for k in K4_KERNELS}
+        want.update(k4)
+        if bf16:
+            want_bf16.update(k4)
+    bf16_counts = _bf16_launches()
+    _expect_launches("train (bf16 launches)", bf16_counts, want_bf16)
     _expect_launches("train", counts, want)
     if head_stack_fwd.kept_u1 != n:
         raise AssertionError(f"train: K3-fwd kept u1 in "
@@ -883,14 +908,15 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
     out["bf16_launches"] = bf16_counts
     extra = {}
     if fused_train_conv and k4_off_ms is not None:
-        extra = dict(step_ms_k4_off=f"{k4_off_ms:.3f}",
+        extra.update(step_ms_k4_off=f"{k4_off_ms:.3f}",
                      samples_per_s_k4_off=f"{batch / k4_off_ms * 1e3:.2f}")
     if f32_ms is not None:
-        extra = dict(step_ms_f32=f"{f32_ms:.3f}",
+        extra.update(step_ms_f32=f"{f32_ms:.3f}",
                      samples_per_s_f32=f"{batch / f32_ms * 1e3:.2f}")
-    _line(13 if bf16 else 11 if fused_train_conv else 8,
-          "train_bf16" if bf16 else
-          "train_k4" if fused_train_conv else "train", t0,
+    phase = {(False, False): (8, "train"), (False, True): (11, "train_k4"),
+             (True, False): (13, "train_bf16"),
+             (True, True): (15, "train_bf16_k4")}[bf16, fused_train_conv]
+    _line(*phase, t0,
           clock="host_clock_after_sync", card=json.dumps(card), batch=batch,
           steps=iters, step_ms=f"{step_ms:.3f}",
           samples_per_s=f"{out['samples_per_s']:.2f}", **extra,
@@ -973,6 +999,21 @@ class _k4_sites:
 
     def __exit__(self, *exc):
         self._layers.conv_bn_relu = self._saved
+
+
+class _k4_u_in_f64:
+    """Within the block K4's plain versions sum u in f64 and round it to
+    f32: the same rounding points, the sums in another order."""
+
+    def __enter__(self):
+        from baryon_painter_tpu_torch.ops import conv_bn
+        self._mod, self._saved = conv_bn, conv_bn._u
+        real = self._saved
+        conv_bn._u = lambda x, w, *a: real(x.double(), w.double(),
+                                           *a).float()
+
+    def __exit__(self, *exc):
+        self._mod._u = self._saved
 
 
 def plain_k4(fwd=conv_bn_relu_ref, masks=None):
@@ -1240,30 +1281,46 @@ def _grad_vector(grads: dict) -> torch.Tensor:
 
 def train_parity_bf16(device, dataset, batch: int = TRAIN_BATCH,
                       n_res_blocks: int = N_RES_BLOCKS,
-                      check: bool = True) -> dict:
-    """Phase 13b: one bf16 step with the kernels (K2, K3 in bf16) against
-    the bf16 step with their plain versions (the plain gather; the fused
-    heads through ``head_stack_ref``/``head_stack_bwd_ref``), from the same
-    initialisation, batch and latent noise: the concatenated gradient's
-    relative L2 distance within BF16_STEP_RATIO of the plain bf16 step's
-    distance from the plain f32 step. The worst parameters (each to its own
-    largest entry) and the step with cuDNN's bf16 heads are printed."""
+                      check: bool = True,
+                      fused_train_conv: bool = False) -> dict:
+    """Phase 13b (15b with ``fused_train_conv``): one bf16 step with the
+    kernels (K2, K3 in bf16, and K4 in bf16 at the fused sites) against the
+    bf16 step with their plain versions (the plain gather; the fused heads
+    through ``head_stack_ref``/``head_stack_bwd_ref``; the fused sites
+    through ``conv_bn_relu_ref``/``conv_bn_relu_bwd_ref``, ``plain_k4``),
+    from the same initialisation, batch and latent noise: the concatenated
+    gradient's relative L2 distance within BF16_STEP_RATIO of the plain
+    bf16 step's distance from the plain f32 step (the same plain versions,
+    in f32). The worst parameters (each to its own largest entry) and, in
+    13b, the step with cuDNN's bf16 heads are printed; in 15b also the
+    chaos floor: how far the plain bf16 step moves when only the sites'
+    sums change order (their u summed in f64, ``_k4_u_in_f64``), against
+    the same distance."""
     t0 = time.perf_counter()
     device = torch.device(device)
     idx, eps = parity_inputs(dataset, batch)
+    k4 = fused_train_conv
+    site = {"site": plain_k4()} if k4 else {}
     plans = {"kernels": dict(kernels=True, dtype=torch.bfloat16),
              "plain": dict(kernels=False, plain_heads=True,
-                           dtype=torch.bfloat16),
-             "plain_f32": dict(kernels=False, plain_heads=True),
-             "cudnn_heads": dict(kernels=False, dtype=torch.bfloat16)}
+                           dtype=torch.bfloat16, **site),
+             "plain_f32": dict(kernels=False, plain_heads=True, **site)}
+    if not k4:
+        plans["cudnn_heads"] = dict(kernels=False, dtype=torch.bfloat16)
     runs = {label: step_gradients(device, dataset, idx, eps,
-                                  fused_train_conv=False,
+                                  fused_train_conv=k4,
                                   n_res_blocks=n_res_blocks, **kw)
             for label, kw in plans.items()}
+    if k4:
+        with _k4_u_in_f64():
+            runs["plain_order"] = step_gradients(
+                device, dataset, idx, eps, fused_train_conv=k4,
+                n_res_blocks=n_res_blocks, **plans["plain"])
     vec = {k: _grad_vector(v[1]) for k, v in runs.items()}
     d_kp = rel_l2(vec["kernels"], vec["plain"])
     gap = rel_l2(vec["plain"], vec["plain_f32"])
-    d_cudnn = rel_l2(vec["cudnn_heads"], vec["plain"])
+    d_order = rel_l2(vec["plain_order"], vec["plain"]) if k4 else None
+    d_cudnn = (None if k4 else rel_l2(vec["cudnn_heads"], vec["plain"]))
     loss = {k: v[0] for k, v in runs.items()}
     loss_err = abs(loss["kernels"] - loss["plain"]) / abs(loss["plain"])
     errs = step_grad_errors(runs["kernels"][1], runs["plain"][1])[0]
@@ -1272,16 +1329,21 @@ def train_parity_bf16(device, dataset, batch: int = TRAIN_BATCH,
           f"{worst5}", flush=True)
     res = {"d_kernels_plain": d_kp, "d_plain_bf16_f32": gap,
            "ratio": d_kp / gap if gap > 0 else 0.0,
-           "d_cudnn_heads_plain": d_cudnn, "loss": loss,
+           "d_cudnn_heads_plain": d_cudnn, "d_order": d_order,
+           "order_ratio": (d_order / gap if k4 and gap > 0 else None),
+           "loss": loss,
            "loss_rel_err": loss_err,
            "worst_grad": max(errs, key=errs.get) if errs else None}
     if check and not d_kp <= BF16_STEP_RATIO * gap:
         raise AssertionError(f"bf16 kernels step against the plain bf16 "
                              f"step: {res}; worst gradients {worst5}")
-    _line("13b", "train_parity_bf16", t0, d_kernels_plain=f"{d_kp:.4e}",
-          d_plain_bf16_f32=f"{gap:.4e}", ratio=f"{res['ratio']:.4f}",
-          limit_ratio=BF16_STEP_RATIO,
-          d_cudnn_heads_plain=f"{d_cudnn:.4e}",
+    extra = ({"d_order": f"{d_order:.4e}",
+              "order_ratio": f"{res['order_ratio']:.4f}"} if k4
+             else {"d_cudnn_heads_plain": f"{d_cudnn:.4e}"})
+    _line("15b" if k4 else "13b",
+          "train_parity_bf16_k4" if k4 else "train_parity_bf16", t0,
+          d_kernels_plain=f"{d_kp:.4e}", d_plain_bf16_f32=f"{gap:.4e}",
+          ratio=f"{res['ratio']:.4f}", limit_ratio=BF16_STEP_RATIO, **extra,
           loss_rel_err=f"{loss_err:.3e}", worst_grad=res["worst_grad"])
     return res
 
@@ -1347,17 +1409,20 @@ def k4_stats_rows(site: dict, batch: int, tile: int) -> int:
     return batch * s * s * -(-h // 16) * -(-h // (8 * rows))
 
 
-def k4_bounds(site: dict, batch: int, tile: int) -> dict:
-    """Least time of each K4 kernel at a site: its operations over the f32
-    CUDA-core rate against its bytes over the memory rate. One conv pass is
-    2 N Ho Wo Cout Cin taps operations (taps = k^2, or (k/s)^2 for the
-    transposed conv); stats, fwd and bwd1 need one pass and bwd2 three (u
-    again, dx and dW), plus a few elementwise operations per output. Bytes:
-    x and the weights read once, and y (fwd), dy (bwd1, bwd2), dx and dW
-    (bwd2) moved once. The ``*_tc`` bounds are the kernels' design: the
-    u GEMM, dx and dW on the tensor cores at the 3xTF32 rate. ``stats_tc``
-    one pass, reading x and writing u and its partial sums; ``fwd_tc`` no
-    pass, u read and y written in place (bound by memory); ``bwd1_tc`` one
+def k4_bounds(site: dict, batch: int, tile: int,
+              dtype=torch.float32) -> dict:
+    """Least time of each K4 kernel at a site, x, w, y, dy and dx in
+    ``dtype``: its operations over the f32 CUDA-core rate against its bytes
+    over the memory rate. One conv pass is 2 N Ho Wo Cout Cin taps
+    operations (taps = k^2, or (k/s)^2 for the transposed conv); stats, fwd
+    and bwd1 need one pass and bwd2 three (u again, dx and dW), plus a few
+    elementwise operations per output. Bytes: x and the weights read once,
+    and y (fwd), dy (bwd1, bwd2), dx and dW (bwd2) moved once, at dtype's
+    size; u and the partial sums are f32. The ``*_tc`` bounds are the
+    kernels' design: the u GEMM, dx and dW on the tensor cores at the
+    3xTF32 rate in f32 and the bf16 rate in bf16. ``stats_tc`` one pass,
+    reading x and writing u and its partial sums; ``fwd_tc`` no pass, u
+    read and y written (in place in f32; bound by memory); ``bwd1_tc`` one
     pass (u), reading x, y and dy and writing u; ``bwd2_tc`` two (dx, dW),
     reading x, u, y and dy and writing dx and dW. ``logical_fwd`` and
     ``logical_bwd`` bound the fused op as a whole, without the kernels'
@@ -1366,34 +1431,37 @@ def k4_bounds(site: dict, batch: int, tile: int) -> dict:
     sh = k4_site_shape(site, batch, tile)
     cin, cout, k = site["cin"], site["cout"], site["k"]
     taps = (k // site["stride"]) ** 2 if site["transposed"] else k * k
+    e = torch.empty((), dtype=dtype).element_size()
+    tc = PEAK_3XTF32 if dtype == torch.float32 else PEAK_FLOPS[dtype]
     out = batch * sh["ho"] * sh["ho"] * cout
     conv = 2.0 * out * cin * taps
-    xb = 4.0 * batch * cin * sh["h"] * sh["h"]
-    wb = 4.0 * cin * cout * k * k
+    xb = e * batch * cin * sh["h"] * sh["h"]
+    wb = e * cin * cout * k * k
+    yb = e * out
     partials = 2 * 4.0 * k4_stats_rows(site, batch, tile) * cout
     return {"conv_flops": conv,
             "stats": _bound(conv + 3 * out, xb + wb),
-            "fwd": _bound(conv + 3 * out, xb + wb + 4 * out),
-            "bwd1": _bound(conv + 6 * out, xb + wb + 4 * out),
-            "bwd2": _bound(3 * conv + 8 * out, 2 * xb + 2 * wb + 4 * out),
+            "fwd": _bound(conv + 3 * out, xb + wb + yb),
+            "bwd1": _bound(conv + 6 * out, xb + wb + yb),
+            "bwd2": _bound(3 * conv + 8 * out, 2 * xb + 2 * wb + yb),
             "stats_tc": _bound(conv + 3 * out, xb + wb + 4 * out + partials,
-                               PEAK_3XTF32),
-            "fwd_tc": _bound(3 * out, 8 * out),
-            "bwd1_tc": _bound(conv + 6 * out, xb + wb + 12 * out,
-                              PEAK_3XTF32),
-            "bwd2_tc": _bound(2 * conv + 8 * out, 2 * xb + 2 * wb + 12 * out,
-                              PEAK_3XTF32),
-            "logical_fwd": _bound(conv + 3 * out, xb + wb + 4 * out),
+                               tc),
+            "fwd_tc": _bound(3 * out, 4 * out + yb),
+            "bwd1_tc": _bound(conv + 6 * out, xb + wb + 4 * out + 2 * yb, tc),
+            "bwd2_tc": _bound(2 * conv + 8 * out,
+                              2 * xb + 2 * wb + 4 * out + 2 * yb, tc),
+            "logical_fwd": _bound(conv + 3 * out, xb + wb + yb),
             "logical_bwd": _bound(2 * conv + 8 * out,
-                                  2 * xb + 2 * wb + 8 * out)}
+                                  2 * xb + 2 * wb + 2 * yb)}
 
 
 def library_conv_bn_relu(x, w, gamma, beta, site):
     """cuDNN's conv or transposed conv, then the port's train-mode
-    BatchNorm and ReLU, as the unfused model runs them; a yardstick only.
-    Returns a callable of (x, w) and the BatchNorm module."""
+    BatchNorm and ReLU, as the unfused model runs them, in x's dtype; a
+    yardstick only. Returns a callable of (x, w) and the BatchNorm module."""
     from baryon_painter_tpu_torch.models.layers import BatchNorm
-    bn = BatchNorm(site["cout"]).to(x.device).train()
+    dt = None if x.dtype == torch.float32 else x.dtype
+    bn = BatchNorm(site["cout"], dtype=dt).to(x.device).train()
     with torch.no_grad():
         bn.weight.copy_(gamma)
         bn.bias.copy_(beta)
@@ -1420,14 +1488,14 @@ def _peak_since(device, base: int) -> int:
 
 
 def _k4_forward(x, w, gamma, beta, kw, count):
-    """K4-stats then K4-fwd (the kernels on the card): y (written over
-    stats' u), mean, var, and the peak device memory of the pair beyond
-    what was live before it."""
+    """K4-stats then K4-fwd (the kernels on the card): y (in f32 written
+    over stats' u; in bf16 a new tensor), mean, var, and the peak device
+    memory of the pair beyond what was live before it."""
     base = _peak_start(x.device)
     s1, s2, u = conv_bn_stats(x, w, **kw)
     mean, var = batch_stats(s1, s2, count)
     _, a, b = bn_affine(gamma, beta, mean, var)
-    y = conv_bn_fwd(u, a, b)
+    y = conv_bn_fwd(u, a, b, x.dtype)
     del u
     return y, mean, var, _peak_since(x.device, base)
 
@@ -1447,8 +1515,11 @@ def _k4_backward(x, w, gamma, beta, mean, var, y, dy, kw, count):
 
 
 def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
-                  iters: int = 3, card=None) -> dict:
-    """Phase 10: K4 against its plain version at each fused site of the
+                  iters: int = 3, card=None, dtype=torch.float32) -> dict:
+    """Phase 10 (10b in bf16: x, w and dy in ``dtype``, y, dx and dW
+    returned in it, K4_TOL_BF16, and stats' u against the plain f32 u of
+    the bf16 values within K4_TOL_BF16["u"]; the yardstick in bf16 on
+    ``channels_last``): K4 against its plain version at each fused site of the
     fiducial training step (``K4_SITES``): y, mean and var from K4-stats and
     K4-fwd against ``conv_bn_relu_ref``; the u of K4-stats against the u
     K4-bwd1 recomputes (equal: one mainloop); dx, dW, dgamma and dbeta from
@@ -1465,9 +1536,12 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
     the f32 CUDA-core ones in the record."""
     t0 = time.perf_counter()
     device = torch.device(device)
+    bf16 = dtype == torch.bfloat16
+    tols = K4_TOL_BF16 if bf16 else K4_TOL
     sites = {}
     for name, site in K4_SITES.items():
         x, w, gamma, beta, dy = k4_inputs(site, batch, tile, device)
+        x, w, dy = x.to(dtype), w.to(dtype), dy.to(dtype)
         kw = {k: site[k] for k in ("transposed", "stride", "padding")}
         count = dy.shape[0] * dy.shape[2] * dy.shape[3]
         with torch.no_grad():
@@ -1478,13 +1552,16 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
             u_s = conv_bn_stats(x, w, **kw)[2]
             u_diff = (u_s - conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)[2]
                       ).abs().max().item()
-            del u_s
             y_r, mean_r, var_r = conv_bn_relu_ref(x, w, gamma, beta, **kw)
-            errs = {k: _rel_err(g, r) for k, g, r in (
-                ("y", y, y_r), ("mean", mean, mean_r), ("var", var, var_r))}
-            abs_errs = {k: (g - r).abs().max().item() for k, g, r in (
-                ("y", y, y_r), ("mean", mean, mean_r), ("var", var, var_r))}
-            del y_r
+            pairs = [("y", y, y_r), ("mean", mean, mean_r),
+                     ("var", var, var_r)]
+            if bf16:
+                pairs.append(("u", u_s, conv_bn_stats_ref(x, w, **kw)[2]))
+            errs = {k: _rel_err(g, r) for k, g, r in pairs}
+            abs_errs = {k: (g.float() - r.float()).abs().max().item()
+                        for k, g, r in pairs}
+            y_neq = (y != y_r).float().mean().item()
+            del u_s, y_r, pairs
             # the raw cotangent, K4's statistics and mask on both sides
             got, peak = _k4_backward(x, w, gamma, beta, mean, var, y, dy, kw,
                                      count)
@@ -1493,14 +1570,21 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
                                                  var, dy, active=y > 0,
                                                  **kw)))
             _sync(device)
+            bad_dt = {k: str(v.dtype) for k, v in got.items()
+                      if v.dtype != (dtype if k in ("dx", "dw")
+                                     else torch.float32)}
+            if y.dtype != dtype:
+                bad_dt["y"] = str(y.dtype)
             for k in want:
                 errs[k] = _rel_err(got[k], want[k])
-                abs_errs[k] = (got[k] - want[k]).abs().max().item()
+                abs_errs[k] = (got[k].float() - want[k].float()
+                               ).abs().max().item()
             del got, want
             # the kink-zeroed comparison against the plain forward's own
             _, a_r, b_r = bn_affine(gamma, beta, mean_r, var_r)
             v = (F.conv_transpose2d if site["transposed"] else F.conv2d)(
-                x, w, stride=site["stride"], padding=site["padding"])
+                x.float(), w.float(), stride=site["stride"],
+                padding=site["padding"])
             v = v * a_r[:, None, None] + b_r[:, None, None]
             near = v.abs() <= KINK_REL * v.abs().max()
             dy_k = torch.where(near, 0.0, dy)
@@ -1516,24 +1600,28 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
             _sync(device)
             errs_kink = {k: _rel_err(got[k], want[k]) for k in want}
             del got, want, dy_k, active_r
-        bad = {k: e for k, e in errs.items() if not e <= K4_TOL[k]}
+        bad = {k: e for k, e in errs.items() if not e <= tols[k]}
         bad.update({f"{k}_kink_zeroed": e for k, e in errs_kink.items()
-                    if not e <= K4_TOL[k]})
+                    if not e <= tols[k]})
         if u_diff != 0.0:
             bad["u_stats_vs_bwd1_max_abs"] = u_diff
+        if bad_dt:
+            bad["dtypes"] = bad_dt
         u_gb = 4 * y.numel() / 1e9
-        print(f"  K4 site {name}: raw cotangent, K4's mask: "
+        print(f"  K4 {dtype} site {name}: raw cotangent, K4's mask: "
               + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
               + f"; cotangent zeroed near the kink ({zeroed:.3e}), plain "
               f"forward's own mask: "
               + ", ".join(f"{k} {e:.2e}" for k, e in errs_kink.items())
-              + f"; u_stats_vs_bwd1_max_abs {u_diff:.3e}; forward pair's "
-              f"peak memory {fwd_peak / 1e9:.3f} GB (y alone, the parent "
-              f"design's, {u_gb:.3f} GB); backward pair's peak memory "
-              f"{peak / 1e9:.3f} GB (u {u_gb:.3f} GB)", flush=True)
+              + f"; u_stats_vs_bwd1_max_abs {u_diff:.3e}; y differs from "
+              f"the plain y in {y_neq:.3e} of its elements; forward pair's "
+              f"peak memory {fwd_peak / 1e9:.3f} GB (u {u_gb:.3f} GB, y "
+              f"{y.element_size() * y.numel() / 1e9:.3f} GB); backward "
+              f"pair's peak memory {peak / 1e9:.3f} GB (u {u_gb:.3f} GB)",
+              flush=True)
         if bad:
-            raise AssertionError(f"K4 site {name} disagrees with its plain "
-                                 f"version: {bad}")
+            raise AssertionError(f"K4 ({dtype}) site {name} disagrees with "
+                                 f"its plain version: {bad}")
         mask = y > 0
         s1, s2, u = conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)
         s1n, s2n = s1 / count, s2 / count
@@ -1544,8 +1632,8 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
         calls = {
             "stats": (lambda: conv_bn_stats(x, w, **kw),
                       lambda: conv_bn_stats_ref(x, w, **kw)),
-            "fwd": (lambda: conv_bn_fwd(u_t, a, b),
-                    lambda: conv_bn_fwd_ref(u_t, a, b)),
+            "fwd": (lambda: conv_bn_fwd(u_t, a, b, dtype),
+                    lambda: conv_bn_fwd_ref(u_t, a, b, dtype)),
             "bwd1": (lambda: conv_bn_bwd1(x, w, mean, inv, y, dy, **kw),
                      lambda: conv_bn_bwd1_ref(x, w, mean, inv, dy,
                                               active=mask, **kw)),
@@ -1556,31 +1644,35 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
         }
         rec = {"errors": errs, "abs_errors": abs_errs,
                "errors_kink_zeroed": errs_kink, "kink_zeroed": zeroed,
-               "u_stats_vs_bwd1": u_diff, "fwd_peak_bytes": fwd_peak,
+               "u_stats_vs_bwd1": u_diff, "y_differs": y_neq,
+               "fwd_peak_bytes": fwd_peak,
                "bwd_peak_bytes": peak, "u_bytes": 4 * y.numel(),
-               "bounds": k4_bounds(site, batch, tile), "ms": {},
+               "bounds": k4_bounds(site, batch, tile, dtype), "ms": {},
                "plain_ms": {}}
         with torch.no_grad():
             for k, (kern, plain) in calls.items():
                 rec["ms"][k] = _time_ms(kern, device, 1, iters)
                 rec["plain_ms"][k] = _time_ms(plain, device, 1, iters)
         del u, u_p, u_t, mask, calls
-        lib, bn = library_conv_bn_relu(x, w, gamma, beta, site)
-        leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(),
+        # the yardstick: f32 NCHW; bf16 on channels_last, as phase 7b
+        fmt = torch.channels_last if bf16 else torch.contiguous_format
+        xl, wl, dyl = (t.contiguous(memory_format=fmt) for t in (x, w, dy))
+        lib, bn = library_conv_bn_relu(xl, wl, gamma, beta, site)
+        leaves = [xl.clone().requires_grad_(), wl.clone().requires_grad_(),
                   bn.weight, bn.bias]
         with torch.no_grad():
-            rec["library_fwd_ms"] = _time_ms(lambda: lib(x, w), device, 1,
+            rec["library_fwd_ms"] = _time_ms(lambda: lib(xl, wl), device, 1,
                                              iters)
         y_l = lib(leaves[0], leaves[1])
         rec["library_bwd_ms"] = _time_ms(
-            lambda: torch.autograd.grad(y_l, leaves, dy, retain_graph=True),
+            lambda: torch.autograd.grad(y_l, leaves, dyl, retain_graph=True),
             device, 1, iters)
-        del y_l, leaves
+        del y_l, leaves, xl, wl, dyl
         sites[name] = rec
         b_ = {k: rec["bounds"][K4_BOUND[k]] for k in K4_KERNELS}
         pair = rec["ms"]["stats"] + rec["ms"]["fwd"]
         pair_bound = b_["stats"]["bound_ms"] + b_["fwd"]["bound_ms"]
-        print(f"  K4 site {name} ({card}): "
+        print(f"  K4 {dtype} site {name} ({card}): "
               + ", ".join(f"{k} {rec['ms'][k]:.3f} ms (plain "
                           f"{rec['plain_ms'][k]:.3f}, bound "
                           f"{b_[k]['bound_ms']:.3f} {b_[k]['bound_by']}, "
@@ -1598,13 +1690,15 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
                     for r in sites.values()) for k in K4_KERNELS}
     fwd_tc = bound["stats"] + bound["fwd"]
     tc = bound["bwd1"] + bound["bwd2"]
-    _line(10, "k4_vs_plain", t0, sites=",".join(sites), batch=batch,
-          card=json.dumps(card),
+    rate = "bf16" if bf16 else "3xtf32"
+    _line("10b" if bf16 else 10,
+          "k4_vs_plain_bf16" if bf16 else "k4_vs_plain", t0,
+          sites=",".join(sites), batch=batch, card=json.dumps(card),
           **{f"{k}_ms_4_sites": f"{v:.3f}" for k, v in total.items()},
           logical_fwd_bound_ms=f"{logical['fwd']:.3f}",
           logical_bwd_bound_ms=f"{logical['bwd']:.3f}",
           fwd_design_bound_ms=f"{fwd_tc:.3f}",
-          bwd_3xtf32_bound_ms=f"{tc:.3f}",
+          **{f"bwd_{rate}_bound_ms": f"{tc:.3f}"},
           stats_fwd_share_of_logical=(
               f"{logical['fwd'] / (total['stats'] + total['fwd']):.4f}"),
           stats_fwd_share_of_design_bound=(
@@ -1615,13 +1709,13 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
               f"{max(r['fwd_peak_bytes'] for r in sites.values()) / 1e9:.3f}"),
           bwd1_bwd2_share_of_logical=(
               f"{logical['bwd'] / (total['bwd1'] + total['bwd2']):.4f}"),
-          bwd1_bwd2_share_of_3xtf32=(
-              f"{tc / (total['bwd1'] + total['bwd2']):.4f}"),
+          **{f"bwd1_bwd2_share_of_{rate}": (
+              f"{tc / (total['bwd1'] + total['bwd2']):.4f}")},
           bwd_peak_gb_max=(
               f"{max(r['bwd_peak_bytes'] for r in sites.values()) / 1e9:.3f}"),
           library_fwd_ms_4_sites=f"{sum(r['library_fwd_ms'] for r in sites.values()):.3f}",
           library_bwd_ms_4_sites=f"{sum(r['library_bwd_ms'] for r in sites.values()):.3f}")
-    return {"sites": sites}
+    return {"sites": sites, "dtype": str(dtype).replace("torch.", "")}
 
 
 def paint_tf32(device, repo: Path = REPO) -> dict:
@@ -1657,29 +1751,34 @@ _K4_LIBRARY = {"fwd": "library_fwd_ms", "bwd2": "library_bwd_ms"}
 
 def k4_record(conv_bn: dict, training_k4: dict) -> list:
     """K4's four entries of the kernels record, each summed over the four
-    sites of phase 10 (the per-site values are printed there), with the
-    launches of phase 11's timed steps. The yardstick times the library's
+    sites of phase 10 (10b in bf16; the per-site values are printed there),
+    with the launches of phase 11's timed steps (15's bf16 launches). The
+    yardstick times the library's
     forward (conv, BatchNorm, ReLU) and its autograd backward; they stand
     on K4-fwd and K4-bwd2, as the pairs stats + fwd and bwd1 + bwd2 compute
     those functions. Each bound is that of the kernels' design
     (``K4_BOUND``: the GEMMs at the 3xTF32 tensor-core rate, fwd bound by
-    memory), the f32 CUDA-core bound beside it; K4-stats carries its u's
-    difference from K4-bwd1's."""
+    memory; in bf16 the bf16 rate), the f32 CUDA-core bound beside it in
+    f32; K4-stats carries its u's difference from K4-bwd1's."""
     sites = conv_bn["sites"].values()
+    dtype = conv_bn.get("dtype", "float32")
+    bf16 = dtype == "bfloat16"
+    launches = training_k4["bf16_launches" if bf16 else "launches"]
     out = []
     for k in K4_KERNELS:
         # the bound of the kernels' design (K4_BOUND), the f32 CUDA-core
         # one beside it
         bk = K4_BOUND[k]
-        peak = PEAK_FLOPS[torch.float32] if k == "fwd" else PEAK_3XTF32
+        peak = (PEAK_FLOPS[torch.float32] if k == "fwd" else
+                PEAK_FLOPS[torch.bfloat16] if bf16 else PEAK_3XTF32)
         t_ops = sum(r["bounds"][bk]["flops"] for r in sites) / peak
         t_bytes = sum(r["bounds"][bk]["bytes"] for r in sites) / HBM_BYTES_PER_S
         lib = _K4_LIBRARY.get(k)
         entry = {
-            "name": f"conv_bn_{k}", "dtype": "float32", "route": "cuda",
+            "name": f"conv_bn_{k}", "dtype": dtype, "route": "cuda",
             "source": K4_SOURCE,
             "replaces": K4_REPLACES[k],
-            "launches": training_k4["launches"][f"k4_{k}"],
+            "launches": launches[f"k4_{k}"],
             "max_abs_err": max(r["abs_errors"][e] for r in sites
                                for e in _K4_ERRORS[k]),
             "ms": sum(r["ms"][k] for r in sites),
@@ -1695,8 +1794,9 @@ def k4_record(conv_bn: dict, training_k4: dict) -> list:
         if k == "stats":
             entry["u_vs_bwd1_max_abs"] = max(r["u_stats_vs_bwd1"]
                                              for r in sites)
-        entry["bound_ms_f32_cuda_cores"] = sum(r["bounds"][k]["bound_ms"]
-                                               for r in sites)
+        if not bf16:
+            entry["bound_ms_f32_cuda_cores"] = sum(
+                r["bounds"][k]["bound_ms"] for r in sites)
         out.append(entry)
     return out
 
@@ -1704,14 +1804,17 @@ def k4_record(conv_bn: dict, training_k4: dict) -> list:
 def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                    heads: dict, training: dict, conv_bn: dict,
                    training_k4: dict, heads_bf16: dict = None,
-                   paint_bf16: dict = None,
-                   training_bf16: dict = None) -> dict:
+                   paint_bf16: dict = None, training_bf16: dict = None,
+                   conv_bn_bf16: dict = None,
+                   training_bf16_k4: dict = None) -> dict:
     """The ``{"kernels": [...]}`` record of the run, each entry with its
     ``dtype``: K1 in f32, its bf16 numbers beside it; K2, K3-fwd and K3-bwd
     with their launches in the timed training steps; K4's four kernels
     (``k4_record``); given the bf16 phases, K1 in bf16 with its launches
     in the bf16 paint, K3-fwd and K3-bwd in bf16 with theirs in the bf16
-    training steps. K1 and K3 run on the tensor cores: their bound is the
+    training steps, and K4's four kernels in bf16 (phase 10b) with their
+    bf16 launches in phase 15's steps. K1 and K3 run on the tensor cores:
+    their bound is the
     tensor-core one (``k1_bound``'s ``tc``, ``k3_bounds``' ``fwd_tc`` and
     ``bwd_tc``), the f32 CUDA-core one beside it. K3-fwd's times are with
     u1 kept, as the training steps that count its launches run it; without
@@ -1758,6 +1861,8 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         fwd_b["ms_without_u1"] = heads_bf16["fwd_without_u1_ms"]
         bf16_entries += [fwd_b, k3("head_stack_bwd", "k3_bwd",
                                    K3_BWD_REPLACES, heads_bf16, launches)]
+    if conv_bn_bf16 is not None and training_bf16_k4 is not None:
+        bf16_entries += k4_record(conv_bn_bf16, training_bf16_k4)
     return {"kernels": [{
         "name": "res_block_infer", "dtype": "float32", "route": "cuda",
         "source": K1_SOURCE,

@@ -8,10 +8,11 @@ the stack cache (``step_indices``, ``step_scan``; ``device_data=True``), the
 tile gather through K2. With ``CVAE(..., fused_heads=True)`` the output heads
 run through K3, forward and backward; with ``CVAE(...,
 fused_train_conv=True)`` the gated train-mode conv + batch norm + ReLU
-triples run through K4. The step computes in the model's dtype
-(``CVAE(..., dtype=torch.bfloat16)`` is the JAX package's bf16 training):
-the batch is prepared in f32 and the parameters, their gradients, the Adam
-state and the batch statistics stay f32, as in the JAX trainer. An f32
+triples run through K4, in f32 or bf16. The step computes in the model's
+dtype (``CVAE(..., dtype=torch.bfloat16)`` is the JAX package's bf16
+training): the batch is prepared in f32 and the parameters, their
+gradients, the Adam state and the batch statistics stay f32, as in the JAX
+trainer. An f32
 step trains in f32 whatever the caller's TF32 setting
 (``utils/platform.f32_convolutions``).
 

@@ -24,7 +24,11 @@ versions, training in bf16 (exactly one K2 and one bf16 K3-fwd and K3-bwd
 launch per step) with a kernels-vs-plain bf16 step, and the golden input
 painted in bf16 (exactly 4 bf16 K1 and 1 bf16 K3-fwd launches) against the
 committed JAX bf16 paint (tests/goldens/bf16_paint_reference.npz), then
-timed. Everything is timed. The phases live in
+timed; then K4 in bf16 against its plain bf16 version at its four sites,
+training in bf16 with K4 (exactly 4 bf16 launches of each K4 kernel per
+step, beside one K2 and one bf16 K3-fwd and K3-bwd) and a kernels-vs-plain
+bf16 step with K4, beside how far the plain bf16 step moves when only its
+sites' sums change order. Everything is timed. The phases live in
 ``baryon_painter_tpu_torch/smoke.py``; each prints one line with its
 seconds. The last lines are the kernels record (JSON), the card's name and
 power limit as nvidia-smi gives them, and the result (JSON). Any failed phase
@@ -81,12 +85,21 @@ def main() -> int:
     smoke.train_parity_bf16(device, dataset)
     paint_bf16 = smoke.paint_bf16(device, card=card,
                                   f32_ms=fused_paint["paint_ms"])
+    conv_bn_bf16 = smoke.check_conv_bn(device, card=card,
+                                       dtype=torch.bfloat16)
+    training_bf16_k4 = smoke.train(device, dataset, card=card,
+                                   dtype=torch.bfloat16,
+                                   fused_train_conv=True,
+                                   k4_off_ms=training_bf16["step_ms"],
+                                   f32_ms=training_k4["step_ms"])
+    smoke.train_parity_bf16(device, dataset, fused_train_conv=True)
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
     print(json.dumps(smoke.kernels_record(
         checks, paint, timing, gather, heads, training, conv_bn, training_k4,
         heads_bf16=heads_bf16, paint_bf16=paint_bf16,
-        training_bf16=training_bf16)))
+        training_bf16=training_bf16, conv_bn_bf16=conv_bn_bf16,
+        training_bf16_k4=training_bf16_k4)))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

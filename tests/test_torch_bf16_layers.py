@@ -16,7 +16,9 @@ module, against the JAX package's ``dtype=jnp.bfloat16``.
   casts it to f32 (27 % of those outputs differ by one step from the
   package's op-by-op result); the port keeps the source's rounding point.
 * The port's own rules: PyTorch's CPU bf16 convolution is not used (it is
-  wrong at some shapes), f32 stays f32 bit for bit, K4 in bf16 raises.
+  wrong at some shapes), f32 stays f32 bit for bit, a bf16 model with
+  ``fused_train_conv=True`` routes its K4 sites through ``conv_bn_relu``
+  in bf16.
 """
 import jax
 import jax.numpy as jnp
@@ -235,11 +237,33 @@ def test_f32_layers_are_unchanged_by_the_dtype_argument():
     assert torch.equal(a(x), b(x))
 
 
-def test_fused_train_conv_in_bf16_raises():
-    arch = fiducial_cvae_architecture(32, n_res_blocks=1)
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        CVAE(arch, fused_train_conv=True, dtype=torch.bfloat16)
-    CVAE(arch, fused_train_conv=True)                   # f32: fine
+def test_fused_train_conv_in_bf16_raises(monkeypatch):
+    """The name is kept from when K4 had no bf16 kernels and this
+    configuration raised. It no longer does: a bf16 CVAE builds with
+    ``fused_train_conv=True``, and at 128^2 its ``p_y_z_in`` in train mode
+    routes the four sites (the 5x5 input conv, the three up-convs) through
+    ``conv_bn_relu`` with bf16 x and weight and f32 batch-norm parameters,
+    and returns bf16; f32 builds as before."""
+    arch = fiducial_cvae_architecture(128, n_res_blocks=1)
+    model = CVAE(arch, fused_train_conv=True, dtype=torch.bfloat16)
+    assert all(m.fused_train_conv for m in model.modules()
+               if isinstance(m, tlayers.SpecSequential))
+    calls, real = [], tlayers.conv_bn_relu
+
+    def counting(x, w, gamma, beta, **kw):
+        calls.append((kw["transposed"], int(gamma.shape[0]), x.dtype,
+                      w.dtype, gamma.dtype))
+        return real(x, w, gamma, beta, **kw)
+
+    monkeypatch.setattr(tlayers, "conv_bn_relu", counting)
+    x = torch.randn(2, 3, 128, 128, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        y = model.p_y_z_in.train()(x)
+    bf, f32 = torch.bfloat16, torch.float32
+    assert calls == [(t, c, bf, bf, f32) for t, c in
+                     ((False, 16), (True, 64), (True, 32), (True, 16))]
+    assert y.dtype == bf
+    CVAE(arch, fused_train_conv=True)                   # f32: as before
     CVAE(arch, fused_train_conv=True, dtype=torch.float32)
 
 

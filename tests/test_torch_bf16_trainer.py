@@ -32,6 +32,7 @@ from baryon_painter_tpu.transforms import RangeCompress as JaxRC
 from baryon_painter_tpu_torch.convert import to_jax_variables
 from baryon_painter_tpu_torch.data.dataset import BahamasTileDataset
 from baryon_painter_tpu_torch.data.synthetic import make_synthetic_stacks
+from baryon_painter_tpu_torch.models import layers as tlayers
 from baryon_painter_tpu_torch.models.cvae import (CVAE,
                                                   fiducial_cvae_architecture)
 from baryon_painter_tpu_torch.train import trainer as ttrainer
@@ -77,10 +78,16 @@ def _rel(a, b):
 @pytest.fixture(scope="module", params=[False, True],
                 ids=["heads_unfused", "heads_fused"])
 def steps(request, data):
+    return run_steps(data, request.param)
+
+
+def run_steps(data, fused, fused_train_conv=False):
     """For f32 and bf16: the JAX trainer's gradients (``jax.jit`` of its
     step's loss), loss and running statistics after its step, and the
-    port's, from the JAX trainer's initial weights, batch and noise."""
-    fused = request.param
+    port's, from the JAX trainer's initial weights, batch and noise; the
+    heads ``fused`` or not, the train-mode conv + batch norm + ReLU triples
+    through K4 with ``fused_train_conv`` (JAX ``BPT_FUSED_TRAIN_CONV=1``),
+    the port's K4 calls counted in ``k4_calls``."""
     jd, td = data
     arch = fiducial_cvae_architecture(TILE, n_res_blocks=1)
     eps = np.random.default_rng(5).standard_normal(
@@ -92,9 +99,14 @@ def steps(request, data):
         return z.reshape(-1, *z_mu.shape[1:])
 
     out = {}
+    k4_calls = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jcvae.CVAE, "sample_z", sample_z)
         mp.setenv("BPT_FUSED_HEADS", "1" if fused else "0")
+        mp.setenv("BPT_FUSED_TRAIN_CONV", "1" if fused_train_conv else "0")
+        counted = tlayers.conv_bn_relu
+        mp.setattr(tlayers, "conv_bn_relu", lambda *a, **kw: (
+            k4_calls.append(a[0].dtype), counted(*a, **kw))[1])
         for jdt, tdt in ((None, None), (jnp.bfloat16, torch.bfloat16)):
             jt = jtrainer.CVAETrainer(jcvae.CVAE(arch, dtype=jdt), jd,
                                       config=jtrainer.TrainConfig(seed=0),
@@ -113,7 +125,8 @@ def steps(request, data):
 
             grads = to_np(jax.jit(jax.grad(loss))(jt.state.params))
             metrics = to_np(jt.step_indices(idx, lr=LR))
-            model = CVAE(arch, fused_heads=fused, dtype=tdt)
+            model = CVAE(arch, fused_heads=fused,
+                         fused_train_conv=fused_train_conv, dtype=tdt)
             tr = ttrainer.CVAETrainer(model, td, device_data=True,
                                       device="cpu", variables=init)
             tm = tr.step_indices(idx, LR, eps=eps)
@@ -125,7 +138,9 @@ def steps(request, data):
                 port_loss=float(tm["elbo"]),
                 port_stats=_vec(to_jax_variables(tr.model)["batch_stats"]),
                 port_param_dtypes={p.dtype for p in tr.model.parameters()},
-                adam_dtypes={m.dtype for m in tr.optimizer.mu})
+                adam_dtypes={m.dtype for m in tr.optimizer.mu},
+                k4_calls=list(k4_calls))
+            k4_calls.clear()
     return out
 
 

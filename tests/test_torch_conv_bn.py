@@ -334,12 +334,15 @@ def _fwd_operands(shape=(2, 5, 7, 9), c=5):
     ("a_length", ValueError, r"a must be \(5,\)"),
     ("b_2d", ValueError, r"b must be \(5,\)"),
     ("empty_u", ValueError, "non-empty"),
+    ("f16_y", TypeError, "float16"),
 ])
 def test_fwd_check_raises_on_what_k4_fwd_does_not_take(case, exc, match):
     """K4-fwd's operand check (run before a launch on the card): u must be
-    f32, contiguous, 4-D and non-empty, a and b (C,) f32 contiguous vectors
-    on u's device. Nothing is copied: y is written over u."""
+    f32 (in bf16 too: y is bf16, u f32), contiguous, 4-D and non-empty, a
+    and b (C,) f32 contiguous vectors on u's device, y float32 or bfloat16
+    (float16 is refused). Nothing is copied: in f32 y is written over u."""
     u, a, b = _fwd_operands()
+    dtype = torch.float32
     if case == "bf16_u":
         u = u.bfloat16()
     elif case == "f64_a":
@@ -358,8 +361,10 @@ def test_fwd_check_raises_on_what_k4_fwd_does_not_take(case, exc, match):
         b = b[:, None]
     elif case == "empty_u":
         u = torch.zeros(0, 5, 7, 9)
+    elif case == "f16_y":
+        dtype = torch.float16
     with pytest.raises(exc, match=match):
-        k4._check_fwd("conv_bn_fwd", u, a, b)
+        k4._check_fwd("conv_bn_fwd", u, a, b, dtype)
 
 
 def test_fwd_check_takes_the_sites_operands():
@@ -374,16 +379,23 @@ def test_fwd_check_takes_the_sites_operands():
     ("channels", ValueError, "channels"),
     ("family", ValueError, "kernels take"),
     ("grid", ValueError, r"ceil\(Cout / 64\)"),
+    ("f16_x", TypeError, "float16"),
+    ("f16_x_and_w", TypeError, "float16"),
 ])
 def test_stats_check_raises_on_what_k4_stats_does_not_take(case, exc, match):
     """K4-stats' operand check (before a launch on the card), on meta
-    tensors: f32 only, x's channels those of w, the two families, and the
-    u GEMM's grid (N x ceil(Cout / 64) blocks in z)."""
+    tensors: x and w of one dtype, float32 or bfloat16 (a bf16 x with an
+    f32 w is refused, and float16), x's channels those of w, the two
+    families, and the u GEMM's grid (N x ceil(Cout / 64) blocks in z)."""
     x = torch.empty(2, 3, 16, 16, device="meta")
     w = torch.empty(16, 3, 5, 5, device="meta")
     kw = dict(transposed=False, stride=1, padding=2)
     if case == "bf16_x":
         x = x.bfloat16()
+    elif case == "f16_x":
+        x = x.half()
+    elif case == "f16_x_and_w":
+        x, w = x.half(), w.half()
     elif case == "channels":
         x = torch.empty(2, 4, 16, 16, device="meta")
     elif case == "family":
@@ -392,6 +404,8 @@ def test_stats_check_raises_on_what_k4_stats_does_not_take(case, exc, match):
         x = torch.empty(65536, 3, 1, 1, device="meta")
     with pytest.raises(exc, match=match):
         k4._check("conv_bn_stats", x, w, **kw)
+    if case == "bf16_x":   # with a bf16 w it is taken
+        k4._check("conv_bn_stats", x, w.bfloat16(), **kw)
     if case == "grid":   # 65535 samples still fit at 64 channels a block
         k4._check("conv_bn_stats", torch.empty(65535, 3, 1, 1, device="meta"),
                   torch.empty(64, 3, 5, 5, device="meta"), **kw)

@@ -27,7 +27,11 @@ K4 as ``smoke.K4_TOL`` (summation order: 1e-4 for y, the statistics and dx,
 cores) on the raw cotangent, the plain version taking K4's statistics and
 the forward's ReLU mask (y > 0 of K4-fwd), as the kernels do. K4-stats'
 u equals K4-bwd1's bit for bit (one mainloop), and K4-fwd writes y over it
-in place, bit for bit as the plain affine + ReLU of that u.
+in place, bit for bit as the plain affine + ReLU of that u. In bf16 (x, w,
+y, dy, dx and dW bf16; u and the statistics f32) K4 as
+``smoke.K4_TOL_BF16``: y, dx and dW to 2e-2 (one bf16 step), u, mean and
+var to 1e-4, dgamma and dbeta to 1e-3; K4-stats' u equals K4-bwd1's bit
+for bit, and K4-fwd's bf16 y is bit for bit the plain version of that u.
 """
 from pathlib import Path
 
@@ -335,11 +339,14 @@ def test_bf16_training_and_painting_on_the_card(cuda_device):
     ds = smoke.training_data(tile=64)
     out = smoke.train(cuda_device, ds, batch=4, warmup=1, iters=3,
                       n_res_blocks=1, dtype=torch.bfloat16)
-    assert out["bf16_launches"] == {"k1": 0, "k3_fwd": 3, "k3_bwd": 3}
+    no_k4 = {f"k4_{k}": 0 for k in smoke.K4_KERNELS}
+    assert out["bf16_launches"] == {"k1": 0, "k3_fwd": 3, "k3_bwd": 3,
+                                    **no_k4}
     res = smoke.train_parity_bf16(cuda_device, ds, batch=4, n_res_blocks=1)
     assert res["ratio"] <= smoke.BF16_STEP_RATIO
     paint = smoke.paint_bf16(cuda_device, n_tiles=2, warmup=1, iters=1)
-    assert paint["bf16_launches"] == {"k1": 4, "k3_fwd": 1, "k3_bwd": 0}
+    assert paint["bf16_launches"] == {"k1": 4, "k3_fwd": 1, "k3_bwd": 0,
+                                      **no_k4}
     assert paint["d_jax_bf16"] <= paint["limit"]
 
 
@@ -373,33 +380,36 @@ def _k4_site(transposed, cin, cout, h, k=None, s=2):
                 padding=(k - 1) // 2, h=h)
 
 
-def _k4_run(site, batch, device, seed=0):
+def _k4_run(site, batch, device, seed=0, dtype=torch.float32):
     """Kernels and plain versions on the same inputs: {name: (got, want)}
-    and the launches counted. The backward on the raw cotangent; its plain
-    version takes K4's statistics and K4-fwd's ReLU mask, as the kernels
-    do."""
+    and the launches counted (in bf16 the bf16 launches). The backward on
+    the raw cotangent; its plain version takes K4's statistics and
+    K4-fwd's ReLU mask, as the kernels do. x, w and dy in ``dtype``."""
     x, w, gamma, beta, dy = smoke.k4_inputs(site, batch, smoke.TRAIN_TILE,
                                             device, seed)
+    x, w, dy = x.to(dtype), w.to(dtype), dy.to(dtype)
     kw = {k: site[k] for k in ("transposed", "stride", "padding")}
     count = dy.shape[0] * dy.shape[2] * dy.shape[3]
     y_r, mean_r, var_r = k4.conv_bn_relu_ref(x, w, gamma, beta, **kw)
-    before = {f: f.launches for f in (k4.conv_bn_stats, k4.conv_bn_fwd,
-                                      k4.conv_bn_bwd1, k4.conv_bn_bwd2)}
+    counter = "bf16_launches" if dtype == torch.bfloat16 else "launches"
+    fns = (k4.conv_bn_stats, k4.conv_bn_fwd, k4.conv_bn_bwd1,
+           k4.conv_bn_bwd2)
+    before = {f: getattr(f, counter) for f in fns}
     s1, s2, u_s = k4.conv_bn_stats(x, w, **kw)
     mean, var = k4.batch_stats(s1, s2, count)
     inv, a, b = k4.bn_affine(gamma, beta, mean, var)
     u_stats = u_s.clone()
-    y = k4.conv_bn_fwd(u_s, a, b)
+    y = k4.conv_bn_fwd(u_s, a, b, dtype)
     g1, g2, u = k4.conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)
     dx, dw = k4.conv_bn_bwd2(x, w, a, mean, inv, g1 / count, g2 / count, u,
                              y, dy, **kw)
     want = k4.conv_bn_relu_bwd_ref(x, w, gamma, beta, mean, var, dy,
                                    active=y > 0, **kw)
     torch.cuda.synchronize()
-    launches = {f: f.launches - n for f, n in before.items()}
+    launches = {f: getattr(f, counter) - n for f, n in before.items()}
+    u_r = k4.conv_bn_stats_ref(x, w, **kw)[2]
     got = {"y": (y, y_r), "mean": (mean, mean_r), "var": (var, var_r),
-           "u": (u, k4._conv(x, w, **kw)),
-           "u_stats": (u_stats, k4._conv(x, w, **kw))}
+           "u": (u, u_r), "u_stats": (u_stats, u_r)}
     got.update(zip(("dx", "dw", "dgamma", "dbeta"),
                    zip((dx, dw, g2, g1), want)))
     return got, launches
@@ -428,6 +438,128 @@ def test_k4_matches_plain_version(cuda_device, site, batch):
         # tolerance
         tol = smoke.K4_TOL["y" if name.startswith("u") else name]
         assert _max_rel_err(a, b) <= tol, name
+
+
+K4_SHAPES = [
+    (_k4_site(False, 3, 16, 40, k=5), 2), (_k4_site(False, 5, 20, 37, k=3), 1),
+    (_k4_site(False, 3, 16, 512, k=5), 4), (_k4_site(True, 12, 18, 9), 2),
+    (_k4_site(True, 128, 64, 64), 4), (_k4_site(True, 32, 16, 256), 4),
+    (_k4_site(False, 4, 12, 29, k=1), 2), (_k4_site(False, 6, 16, 33, k=7), 2),
+    (_k4_site(True, 6, 10, 11, s=4), 2), (_k4_site(True, 16, 8, 40, s=4), 2)]
+
+
+@pytest.mark.parametrize("site,batch", K4_SHAPES,
+                         ids=["same_small", "same_groups", "same_512",
+                              "transp_small", "transp_64", "transp_256",
+                              "same_k1", "same_k7", "transp_s4_small",
+                              "transp_s4_40"])
+def test_k4_bf16_matches_plain_version(cuda_device, site, batch):
+    """The shapes of ``test_k4_matches_plain_version`` in bf16 (odd Cin and
+    Cout, ragged tiles, widths that are not a multiple of 8, two channel
+    groups): one bf16 launch of each kernel, y, dx and dW bf16 within a
+    bf16 step, u and the statistics f32 within summation order."""
+    got, launches = _k4_run(site, batch, cuda_device, dtype=torch.bfloat16)
+    assert set(launches.values()) == {1}
+    for name, (a, b) in got.items():
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        want_dt = (torch.bfloat16 if name in ("y", "dx", "dw")
+                   else torch.float32)
+        assert a.dtype == want_dt, name
+        tol = smoke.K4_TOL_BF16["u" if name.startswith("u") else name]
+        assert _max_rel_err(a, b) <= tol, name
+
+
+@pytest.mark.parametrize("site", [
+    _k4_site(False, 3, 16, 40, k=5), _k4_site(False, 5, 20, 37, k=3),
+    _k4_site(False, 4, 12, 29, k=1), _k4_site(False, 6, 16, 33, k=7),
+    _k4_site(True, 12, 18, 9), _k4_site(True, 6, 70, 11, s=4),
+], ids=["same_k5", "same_k3", "same_k1", "same_k7", "transp_s2",
+        "transp_s4_two_groups"])
+def test_k4_bf16_stats_u_is_bwd1_u_bit_for_bit(cuda_device, site):
+    """One bf16 mainloop for K4-stats and K4-bwd1: the f32 u behind the
+    batch statistics and the forward's bf16 y is the u of the backward;
+    K4-fwd's bf16 y is bit for bit the plain bf16 affine + ReLU of it, and
+    leaves u as it was."""
+    x, w, gamma, beta, dy = smoke.k4_inputs(site, 2, smoke.TRAIN_TILE,
+                                            cuda_device)
+    x, w, dy = x.bfloat16(), w.bfloat16(), dy.bfloat16()
+    kw = {k: site[k] for k in ("transposed", "stride", "padding")}
+    count = dy.shape[0] * dy.shape[2] * dy.shape[3]
+    s1, s2, u = k4.conv_bn_stats(x, w, **kw)
+    mean, var = k4.batch_stats(s1, s2, count)
+    inv, a, b = k4.bn_affine(gamma, beta, mean, var)
+    u_stats = u.clone()
+    y = k4.conv_bn_fwd(u, a, b, torch.bfloat16)
+    assert y.dtype == torch.bfloat16 and torch.equal(u, u_stats)
+    assert torch.equal(y, k4.conv_bn_fwd_ref(u_stats, a, b, torch.bfloat16))
+    _, _, u_bwd1 = k4.conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)
+    assert torch.equal(u_stats, u_bwd1)
+
+
+def test_k4_bf16_fwd_takes_any_plane_length(cuda_device):
+    """bf16 y from planes whose length is not a multiple of 4 (element by
+    element) and from ones that are (4 at a time): bit for bit the plain
+    version. A block covers 4096 elements of a plane, so 4097 and 8195
+    (hw % 4 != 0 with hw // 4 a multiple of 1024) need a block for their
+    last 1-3 elements; y's memory is filled with NaN first (through the
+    caching allocator), so an element never written shows."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for hw in ((7, 9), (1, 3), (3, 1367), (16, 16), (64, 4100), (17, 241),
+               (1, 4097), (1, 8195), (1, 4096), (1, 4095)):
+        u = torch.randn((2, 5) + hw, generator=g, device=cuda_device)
+        a = torch.rand(5, generator=g, device=cuda_device) + 0.5
+        b = torch.randn(5, generator=g, device=cuda_device)
+        torch.full_like(u, float("nan"), dtype=torch.bfloat16)
+        y = k4.conv_bn_fwd(u, a, b, torch.bfloat16)
+        assert torch.equal(y, k4.conv_bn_fwd_ref(u, a, b, torch.bfloat16)), \
+            hw
+
+
+def test_k4_bf16_is_deterministic(cuda_device):
+    site = _k4_site(True, 64, 32, 128)
+    first, _ = _k4_run(site, 2, cuda_device, dtype=torch.bfloat16)
+    again, _ = _k4_run(site, 2, cuda_device, dtype=torch.bfloat16)
+    for name in ("mean", "var", "dw", "dgamma", "dbeta", "y", "dx", "u",
+                 "u_stats"):
+        assert torch.equal(first[name][0], again[name][0]), name
+
+
+def test_k4_bf16_wrappers_refuse_float16_and_mixed_dtypes(cuda_device):
+    site = _k4_site(True, 16, 8, 24)
+    x, w, gamma, beta, dy = smoke.k4_inputs(site, 2, smoke.TRAIN_TILE,
+                                            cuda_device)
+    kw = dict(transposed=True, stride=2, padding=1)
+    for xx, ww in ((x.half(), w.half()), (x.bfloat16(), w),
+                   (x, w.bfloat16())):
+        with pytest.raises(TypeError):
+            k4.conv_bn_stats(xx, ww, **kw)
+    _, _, u = k4.conv_bn_stats(x.bfloat16(), w.bfloat16(), **kw)
+    with pytest.raises(TypeError, match="float16"):
+        k4.conv_bn_fwd(u, gamma, beta, torch.float16)
+    with pytest.raises(TypeError, match="float32"):
+        k4.conv_bn_fwd(u.bfloat16(), gamma, beta, torch.bfloat16)
+    y = k4.conv_bn_fwd(u, gamma, beta, torch.bfloat16)
+    with pytest.raises(TypeError):   # dy in another dtype than x
+        k4.conv_bn_bwd1(x.bfloat16(), w.bfloat16(), gamma, beta, y, dy,
+                        **kw)
+
+
+def test_training_steps_with_bf16_k4_match_plain_steps(cuda_device):
+    """At 64^2 three bf16 K4 calls a step (the up-convs), every K4 launch
+    in bf16; the bf16 step with every kernel within BF16_STEP_RATIO of the
+    plain bf16 step's distance from the plain f32 step (phase 15b)."""
+    ds = smoke.training_data(tile=64)
+    out = smoke.train(cuda_device, ds, batch=4, warmup=1, iters=2,
+                      n_res_blocks=1, fused_train_conv=True,
+                      dtype=torch.bfloat16)
+    k4_six = {f"k4_{k}": 6 for k in smoke.K4_KERNELS}
+    assert out["bf16_launches"] == {"k1": 0, "k3_fwd": 2, "k3_bwd": 2,
+                                    **k4_six}
+    assert out["launches"] == {"k1": 0, "k2": 2, "k3_fwd": 2, "k3_bwd": 2,
+                               **k4_six}
+    res = smoke.train_parity_bf16(cuda_device, ds, batch=4, n_res_blocks=1,
+                                  fused_train_conv=True)
+    assert res["ratio"] <= smoke.BF16_STEP_RATIO
 
 
 @pytest.mark.parametrize("site", [
@@ -510,7 +642,7 @@ def test_k4_wrapper_raises_on_what_the_kernels_do_not_take(cuda_device):
                                            cuda_device)
     kw = dict(transposed=False, stride=1, padding=2)
     with pytest.raises(TypeError, match="float32"):
-        k4.conv_bn_relu(x.bfloat16(), w.bfloat16(), gamma, beta, **kw)
+        k4.conv_bn_relu(x.half(), w.half(), gamma, beta, **kw)
     with pytest.raises(ValueError, match="bias-free"):
         k4.conv_bn_relu(x, w, gamma, beta, bias=torch.zeros_like(gamma),
                         **kw)
@@ -533,8 +665,9 @@ def test_k4_wrapper_raises_on_what_the_kernels_do_not_take(cuda_device):
     from baryon_painter_tpu_torch.ops._build import load_library
     for k, s in ((1, 1), (3, 1), (5, 1), (7, 1), (4, 2), (8, 4)):
         for which in range(3):   # bwd1, dx, dW
-            assert 0 < load_library().bpt_conv_bn_bwd_smem(
-                4096, 4096, k, s, which) <= 232448
+            for code in (0, 1):   # float32, bfloat16
+                assert 0 < load_library().bpt_conv_bn_bwd_smem(
+                    4096, 4096, k, s, which, code) <= 232448
     with pytest.raises(ValueError, match="65535"):
         n, cin = 1025, 4096
         wide = torch.zeros((16, cin, 5, 5), device=cuda_device)

@@ -80,6 +80,25 @@ def cpu_bf16_run(cpu_train_run):
     return heads, training_bf16, parity, paint
 
 
+@pytest.fixture(scope="module")
+def cpu_bf16_k4_run(cpu_train_run, cpu_k4_run, cpu_bf16_run):
+    """Phases 10b, 15 and 15b at 32^2 (three fused sites a step)."""
+    d = torch.device("cpu")
+    ds = cpu_train_run[0]
+    training_k4 = cpu_k4_run[1]
+    training_bf16 = cpu_bf16_run[1]
+    conv_bn = smoke.check_conv_bn(d, batch=2, tile=32, iters=1,
+                                  dtype=torch.bfloat16)
+    training = smoke.train(d, ds, batch=2, warmup=1, iters=2,
+                           n_res_blocks=1, dtype=torch.bfloat16,
+                           fused_train_conv=True,
+                           k4_off_ms=training_bf16["step_ms"],
+                           f32_ms=training_k4["step_ms"])
+    parity = smoke.train_parity_bf16(d, ds, batch=2, n_res_blocks=1,
+                                     fused_train_conv=True)
+    return conv_bn, training, parity
+
+
 def test_environment_and_build_phases_on_cpu(cpu_run):
     env, build, *_ = cpu_run
     assert env["nvidia_smi"] is None and env["kind"] == "cpu"
@@ -179,8 +198,10 @@ def test_bf16_phases_and_kernels_record_on_cpu(cpu_run, cpu_train_run,
         2, 32, 32, dtype=torch.bfloat16)["fwd_tc"]
     assert training_bf16["dtype"] == "bfloat16"
     assert all(v == 0 for v in training_bf16["launches"].values())
-    assert training_bf16["bf16_launches"] == {"k1": 0, "k3_fwd": 0,
-                                              "k3_bwd": 0}
+    assert set(training_bf16["bf16_launches"]) == {
+        "k1", "k3_fwd", "k3_bwd", "k4_stats", "k4_fwd", "k4_bwd1",
+        "k4_bwd2"}
+    assert set(training_bf16["bf16_launches"].values()) == {0}
     assert parity["d_kernels_plain"] == 0.0 and parity["ratio"] == 0.0
     assert parity["d_plain_bf16_f32"] > 1e-3
     assert paint_bf16["d_jax_bf16"] <= paint_bf16["limit"]
@@ -204,6 +225,81 @@ def test_bf16_phases_and_kernels_record_on_cpu(cpu_run, cpu_train_run,
     assert k1["plain_ms"] == timing["plain_ms_bfloat16"] > 0
     for k in rec["kernels"][-2:]:
         assert k["bound_ms"] > 0 and k["launches"] == 0
+
+
+def test_bf16_k4_phases_and_kernels_record_on_cpu(cpu_run, cpu_train_run,
+                                                  cpu_k4_run, cpu_bf16_run,
+                                                  cpu_bf16_k4_run):
+    """Phases 10b, 15 and 15b on the CPU (the plain bf16 versions against
+    themselves, no launches, the kernels and plain bf16 steps with K4
+    equal) and the kernels record with K4's four bf16 entries last, each
+    with its dtype, its bound on the bf16 tensor cores (fwd: memory) and
+    the library yardstick on fwd and bwd2."""
+    _, _, checks, paint, timing = cpu_run
+    _, gather, heads, training, _, _ = cpu_train_run
+    conv_bn, training_k4, _ = cpu_k4_run
+    heads_bf16, training_bf16, _, paint_bf16 = cpu_bf16_run
+    conv_bn_bf16, training_bf16_k4, parity = cpu_bf16_k4_run
+    assert conv_bn_bf16["dtype"] == "bfloat16"
+    for rec in conv_bn_bf16["sites"].values():
+        assert set(rec["errors"]) == set(smoke.K4_TOL_BF16)
+        assert all(v == 0.0 for v in rec["errors"].values())
+        assert rec["u_stats_vs_bwd1"] == 0.0 and rec["y_differs"] == 0.0
+        assert rec["library_fwd_ms"] > 0 and rec["library_bwd_ms"] > 0
+    assert training_bf16_k4["dtype"] == "bfloat16"
+    assert set(training_bf16_k4["launches"].values()) == {0}
+    assert set(training_bf16_k4["bf16_launches"].values()) == {0}
+    assert parity["d_kernels_plain"] == 0.0 and parity["ratio"] == 0.0
+    assert parity["d_plain_bf16_f32"] > 1e-3
+    assert parity["d_cudnn_heads_plain"] is None
+    # the chaos floor: the sites' sums in another order move the step
+    assert 0 < parity["d_order"] < parity["d_plain_bf16_f32"]
+    assert parity["order_ratio"] == parity["d_order"] / parity[
+        "d_plain_bf16_f32"]
+    rec = smoke.kernels_record(
+        checks, paint, timing, gather, heads, training, conv_bn, training_k4,
+        heads_bf16=heads_bf16, paint_bf16=paint_bf16,
+        training_bf16=training_bf16, conv_bn_bf16=conv_bn_bf16,
+        training_bf16_k4=training_bf16_k4)
+    json.dumps(rec)
+    names = [(k["name"], k["dtype"]) for k in rec["kernels"]]
+    assert names[-4:] == [(f"conv_bn_{k}", "bfloat16")
+                          for k in smoke.K4_KERNELS]
+    assert len(names) == 15
+    sites = conv_bn_bf16["sites"].values()
+    for k in smoke.K4_KERNELS:
+        entry = rec["kernels"][-4 + smoke.K4_KERNELS.index(k)]
+        for key in ("name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            assert key in entry, (k, key)
+        assert entry["replaces"] == smoke.K4_REPLACES[k]
+        assert entry["source"] == smoke.K4_SOURCE
+        assert entry["bound_ms"] == pytest.approx(sum(
+            r["bounds"][smoke.K4_BOUND[k]]["bound_ms"] for r in sites))
+        assert entry["launches"] == 0 and entry["max_abs_err"] == 0.0
+        assert (entry["library_ms"] is None) == (k in ("stats", "bwd1"))
+
+
+@pytest.mark.parametrize("site", ["A", "B", "C", "D"])
+def test_k4_bf16_bounds_at_the_training_shape(site):
+    """In bf16 the GEMMs are bounded at the bf16 tensor-core rate and x,
+    y, dy, dx and w move 2 bytes an element, u and the partials 4: below
+    the f32 design bounds, and bound by memory at every site."""
+    s = smoke.K4_SITES[site]
+    b32 = smoke.k4_bounds(s, smoke.TRAIN_BATCH, smoke.TRAIN_TILE)
+    b16 = smoke.k4_bounds(s, smoke.TRAIN_BATCH, smoke.TRAIN_TILE,
+                          torch.bfloat16)
+    assert b16["conv_flops"] == b32["conv_flops"]
+    sh = smoke.k4_site_shape(s, smoke.TRAIN_BATCH, smoke.TRAIN_TILE)
+    out = smoke.TRAIN_BATCH * sh["ho"] ** 2 * s["cout"]
+    assert b16["fwd_tc"]["bytes"] == 6 * out          # u read, y written
+    assert b32["fwd_tc"]["bytes"] == 8 * out
+    for k in smoke.K4_KERNELS:
+        tc = smoke.K4_BOUND[k]
+        assert b16[tc]["bytes"] < b32[tc]["bytes"], k
+        assert b16[tc]["bound_ms"] < b32[tc]["bound_ms"], k
+        assert b16[tc]["bound_by"] == "bytes", k
 
 
 def test_training_phases_on_cpu(cpu_train_run):
