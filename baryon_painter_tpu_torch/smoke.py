@@ -68,11 +68,32 @@ and the bf16 configuration (the JAX package's default compute dtype):
      from the plain f32 step (the fused sites in plain PyTorch in both),
      printed beside the chaos floor: how far the plain bf16 step moves
      when only the sites' sums change order
+
+and the paint path's consumer, the SLICS lightcone (``lightcone``), through
+the lightcone CLI's own ``run`` (scripts/create_lightcone_torch.py) on a
+synthetic line of sight written at real sizes (LC_Z: a 12288^2 massplane
+shell, 4 tiles of 7050^2 and 64 tiles of 1211^2; 6 paint calls), under
+PyTorch's default TF32 switches:
+
+ 16a. ``resize_spline`` against ``scipy.ndimage.zoom`` at the lightcone's
+     sizes with cuDNN's and matmul's TF32 on
+ 16b. the f32 lightcone with K1 and K3 against the plain f32 lightcone
+     (PyTorch's own convolutions, cuDNN off), every plane and the y map
+     within the golden's tolerance; cuDNN's f32 lightcone's distance from
+     the plain one beside it
+ 16c. the CLI's default, bf16 with K1 and K3 and the kappa cross-Cl:
+     exactly 24 bf16 K1 and 6 bf16 K3-fwd launches; e(bf16 kernels, bf16
+     cuDNN) <= LC_BF16_RATIO * e(bf16 cuDNN, f32 cuDNN) on the y map's
+     pseudo-Cl; then timed by stage (CUDA events) and whole (host clock)
 """
 from __future__ import annotations
 
+import contextlib
+import importlib.util
 import json
+import os
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -80,6 +101,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from baryon_painter_tpu_torch.angular_power import cl_fractional_error
+from baryon_painter_tpu_torch.lightcone import io as slics_io
+from baryon_painter_tpu_torch.lightcone.pipeline import StageTimes
+from baryon_painter_tpu_torch.lightcone.synthetic import (
+    TILE_SIZE, shell_sizes, write_synthetic_los)
+from baryon_painter_tpu_torch.lightcone.tiling import generate_tiling
 from baryon_painter_tpu_torch.ops.conv_bn import (
     batch_stats, bn_affine, conv_bn_bwd1, conv_bn_bwd1_ref, conv_bn_bwd2,
     conv_bn_bwd2_ref, conv_bn_fwd, conv_bn_fwd_ref, conv_bn_relu_bwd_ref,
@@ -92,6 +119,7 @@ from baryon_painter_tpu_torch.ops.head_stack import (head_stack_bwd,
                                                      head_stack_ref, rounder)
 from baryon_painter_tpu_torch.ops.res_block import (fold_bn, res_block_infer,
                                                     res_block_infer_ref)
+from baryon_painter_tpu_torch.ops.resample import resize_spline
 
 REPO = Path(__file__).resolve().parent.parent
 CHECKPOINT = "trained_models/CVAE/fiducial-512/model"
@@ -128,6 +156,29 @@ K1_CASES = ((torch.float32, 0.0, 1e-4), (torch.float32, 0.2, 1e-4),
             (torch.bfloat16, 0.0, 2e-2), (torch.bfloat16, 0.2, 2e-2))
 # the golden test's own tolerance (tests/test_paint_goldens.py)
 GOLDEN_RTOL = 5e-3
+
+
+@contextlib.contextmanager
+def _tf32(cudnn: bool, matmul: bool):
+    """cuDNN's and matmul's TF32 switches set for the block, restored
+    after."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def _golden_ratio(got, want) -> float:
+    """max |got - want| / (GOLDEN_RTOL * (mean|want| + |want|))."""
+    got = torch.as_tensor(got).double().cpu()
+    want = torch.as_tensor(want).double().cpu()
+    tol = GOLDEN_RTOL * (want.abs().mean() + want.abs())
+    return float(((got - want).abs() / tol).max())
 
 
 def _line(phase: int, name: str, t0: float, **fields):
@@ -324,9 +375,7 @@ def paint_golden(device, repo: Path = REPO, fused_heads: bool = False,
     if got.shape != want.shape or not np.all(np.isfinite(got)):
         raise AssertionError(f"painted {got.shape}, finite="
                              f"{np.all(np.isfinite(got))}")
-    atol = GOLDEN_RTOL * np.abs(want).mean()
-    ratio = float((np.abs(got - want)
-                   / (atol + GOLDEN_RTOL * np.abs(want))).max())
+    ratio = _golden_ratio(got, want)
     if check and not ratio <= 1.0:
         raise AssertionError(f"painted tile differs from the golden: worst "
                              f"|diff| / tolerance = {ratio:.3f}")
@@ -1725,22 +1774,384 @@ def paint_tf32(device, repo: Path = REPO) -> dict:
     through ``paint_batch``, which pins f32 and must pass; the caller's
     settings are restored after."""
     t0 = time.perf_counter()
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with _tf32(cudnn=True, matmul=False):
         default = paint_golden(device, repo, phase=12, caller_tf32=True,
                                check=False)["worst_err_over_tol"]
         pinned = paint_golden(device, repo, phase=12)["worst_err_over_tol"]
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
     _line(12, "paint_tf32", t0,
           worst_err_over_tol_library_default=f"{default:.4f}",
           worst_err_over_tol_pinned_f32=f"{pinned:.4f}",
           default_within_golden=default <= 1.0)
     return {"library_default": default, "pinned": pinned}
+
+
+# ---------------------------------------------------------------------- #
+# phase 16: the SLICS lightcone, through the lightcone CLI's own code
+
+CLI = REPO / "scripts" / "create_lightcone_torch.py"
+# a synthetic line of sight of three shells: the massplane shell (its delta
+# plane is 21.8 Mpc/h, under the 100 Mpc/h tile), the heaviest zoom (7050^2
+# native tiles, 4 tiles) and the most tiles (64, a 3273^2 plane)
+LC_Z = (0.042, 0.221, 2.007)
+LC_LOS = 74
+LC_OVERLAP = 0.2
+LC_RESOLUTION = 7745 // 5
+LC_PAINT_BATCH = 16
+N_PIXEL_TILE = 512
+# 16a: the resampler against scipy, the tolerance of tests/test_resample.py
+RESAMPLE_RTOL, RESAMPLE_ATOL = 2e-3, 2e-4
+# 16c: e(bf16 kernels, bf16 cuDNN) <= LC_BF16_RATIO * e(bf16 cuDNN, f32
+# cuDNN), e the largest bin of cl_fractional_error over the y map
+LC_BF16_RATIO = 0.5
+
+
+def lightcone_geometry(z=LC_Z, n_pixel_delta: int = slics_io.N_PIXEL_DELTA,
+                       resolution: int = LC_RESOLUTION) -> list:
+    """The lightcone CLI's shells: kind, painted plane and native tile
+    edges, tiles and paint calls (at LC_PAINT_BATCH tiles a call)."""
+    shells = []
+    for zz, size in zip(z, shell_sizes(z)):
+        if size < TILE_SIZE:
+            shells.append({"z": zz, "kind": "massplane", "tiles": 1,
+                           "calls": 1})
+            continue
+        n_plane = int(size / TILE_SIZE * N_PIXEL_TILE)
+        m = len(generate_tiling(n_plane, N_PIXEL_TILE, LC_OVERLAP)[0])
+        shells.append({"z": zz, "kind": "delta", "n_plane": n_plane,
+                       "n_nat": int(n_pixel_delta * (TILE_SIZE / size)),
+                       "tiles": m * m, "calls": -(-m * m // LC_PAINT_BATCH)})
+    return shells
+
+
+def lightcone_resample_cases(shells, resolution: int = LC_RESOLUTION):
+    """16a's cases, (edge in, edge out, order, mode): the native tile zooms
+    of the delta shell with the most tiles and of the one with the largest
+    tiles (order 3, reflect), and that first shell's painted plane to the
+    y map (order 5, mirror)."""
+    delta = [s for s in shells if s["kind"] == "delta"]
+    most = max(delta, key=lambda s: s["tiles"])
+    largest = max(delta, key=lambda s: s["n_nat"])
+    return [(most["n_nat"], N_PIXEL_TILE, 3, "reflect"),
+            (largest["n_nat"], N_PIXEL_TILE, 3, "reflect"),
+            (most["n_plane"], resolution, 5, "mirror")]
+
+
+@contextlib.contextmanager
+def _fused_heads_env(on: bool):
+    """BPT_FUSED_HEADS, which the lightcone CLI reads, for one call."""
+    prev = os.environ.pop("BPT_FUSED_HEADS", None)
+    if on:
+        os.environ["BPT_FUSED_HEADS"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("BPT_FUSED_HEADS", None)
+        if prev is not None:
+            os.environ["BPT_FUSED_HEADS"] = prev
+
+
+def _load_cli():
+    spec = importlib.util.spec_from_file_location("create_lightcone_torch",
+                                                  CLI)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_lightcone_cli(device, los: dict, dtype: str, fused: bool,
+                      kappa: bool = False, stage_times=None,
+                      n_pixel_delta: int = slics_io.N_PIXEL_DELTA,
+                      n_pixel_massplane: int = slics_io.N_PIXEL_MASSPLANE,
+                      resolution: int = LC_RESOLUTION) -> dict:
+    """One lightcone through ``scripts/create_lightcone_torch.py``'s
+    ``run``: ``fused`` adds ``--fused-paint`` and ``BPT_FUSED_HEADS=1``."""
+    base = str(Path(los["delta"]).parent)
+    argv = ["--CVAE-path", str((REPO / CHECKPOINT).parent),
+            "--SLICS-base-path", base, "--SLICS-LOS", str(LC_LOS),
+            "--output-file", os.path.join(base, f"y_{dtype}_{fused}"),
+            "--tile-overlap", str(LC_OVERLAP),
+            "--paint-batch-size", str(LC_PAINT_BATCH),
+            "--output-resolution", str(resolution),
+            "--paint-dtype", dtype, "--device", str(device),
+            "--n-pixel-delta", str(n_pixel_delta),
+            "--n-pixel-massplane", str(n_pixel_massplane)]
+    if fused:
+        argv.append("--fused-paint")
+    if kappa:
+        argv += ["--kappa-path", los["kappa"]]
+    with _fused_heads_env(fused):
+        out = _load_cli().run(argv, stage_times=stage_times)
+    _sync(torch.device(device))
+    return out
+
+
+def _max_cl_error(pred, truth, device) -> float:
+    """e(pred, truth): the largest bin of cl_fractional_error over the y
+    maps (10 degrees a side), skipping the bins without modes."""
+    frac, _ = cl_fractional_error(pred, truth, theta_deg=10.0, device=device)
+    return float(np.nanmax(frac))
+
+
+def _planes_vector(run: dict) -> torch.Tensor:
+    return torch.cat([torch.as_tensor(p).double().flatten().cpu()
+                      for p in run["planes"]])
+
+
+def check_resampler_lightcone(device, cases, seed: int = 0) -> list:
+    """Phase 16a: ``resize_spline`` at the lightcone's sizes against
+    ``scipy.ndimage.zoom`` in f64, with cuDNN's and matmul's TF32 on (so a
+    prefilter or an evaluation that does not pin f32 fails), within rtol
+    RESAMPLE_RTOL, atol RESAMPLE_ATOL * max|scipy|."""
+    from scipy.ndimage import zoom as scipy_zoom
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    out = []
+    with _tf32(True, True):
+        for n_in, n_out, order, mode in cases:
+            x = rng.gamma(2.0, 0.5, (n_in, n_in)).astype(np.float32)
+            got = resize_spline(torch.as_tensor(x, device=device),
+                                (n_out, n_out), order=order,
+                                mode=mode).cpu().numpy()
+            want = scipy_zoom(x.astype(np.float64), n_out / n_in,
+                              order=order, mode=mode)
+            tol = RESAMPLE_ATOL * np.abs(want).max() + RESAMPLE_RTOL * np.abs(
+                want)
+            ratio = (float((np.abs(got - want) / tol).max())
+                     if got.shape == want.shape else float("inf"))
+            rec = {"case": f"{n_in}->{n_out} order {order} {mode}",
+                   "err_over_tol": ratio}
+            out.append(rec)
+            print(f"  resample {rec['case']}: worst |port - scipy| / tol = "
+                  f"{ratio:.4f}", flush=True)
+            if not ratio <= 1.0:
+                raise AssertionError(f"resize_spline against scipy at "
+                                     f"{rec['case']}: {ratio:.4f} of its "
+                                     f"tolerance, shape {got.shape} vs "
+                                     f"{want.shape}")
+    _line("16a", "resample_vs_scipy", t0, cases=len(out),
+          cudnn_allow_tf32=True, matmul_allow_tf32=True,
+          worst_err_over_tol=f"{max(r['err_over_tol'] for r in out):.4f}")
+    return out
+
+
+@contextlib.contextmanager
+def _cudnn(enabled: bool):
+    prev = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = prev
+
+
+def lightcone_f32(device, los: dict, shells: list, **size) -> dict:
+    """Phase 16b: the lightcone CLI in f32 three times: with the kernels (K1's
+    fused blocks, K3's fused heads), with cuDNN's blocks and heads, and
+    plain (the same unfused painter with cuDNN off: PyTorch's own
+    convolutions, im2col and a GEMM, TF32 off). Every painted plane and the
+    y map of the kernels' run lie within the golden's tolerance (rtol
+    GOLDEN_RTOL, atol GOLDEN_RTOL * mean|plain|) of the plain run's; the
+    cuDNN run's distance from it, and the kernels' from cuDNN's, are
+    printed for the record: cuDNN's own f32 convolutions at 16 tiles a call
+    lie up to 1.3 of that tolerance from the plain run on an H100
+    (``PERF.md`` §6). All three painters draw the same prior noise from the
+    same seed.
+    On the card the kernels' run launches 4 K1 and 1 K3-fwd a paint call,
+    the others none."""
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    calls = sum(s["calls"] for s in shells)
+    runs, counts = {}, {}
+    for label, fused, cudnn in (("kernels", True, True),
+                                ("cudnn", False, True),
+                                ("plain", False, False)):
+        _reset_launches()
+        with _cudnn(cudnn):
+            runs[label] = run_lightcone_cli(device, los, "f32", fused,
+                                            **size)
+        counts[label] = _launches()
+        _expect_launches(f"lightcone f32 ({label})", counts[label],
+                         {"k1": 4 * calls, "k3_fwd": calls}
+                         if on_card and fused else {})
+
+    def ratios(a, b):
+        return ([_golden_ratio(p, q) for p, q in zip(runs[a]["planes"],
+                                                     runs[b]["planes"])],
+                _golden_ratio(runs[a]["y_map"], runs[b]["y_map"]))
+
+    kernels, kernels_y = ratios("kernels", "plain")
+    cudnn, cudnn_y = ratios("cudnn", "plain")
+    k_vs_c, k_vs_c_y = ratios("kernels", "cudnn")
+    finite = all(bool(torch.as_tensor(p).isfinite().all())
+                 for p in runs["kernels"]["planes"])
+    if not (finite and max(kernels) <= 1.0 and kernels_y <= 1.0):
+        raise AssertionError(f"lightcone f32, kernels against the plain "
+                             f"run: planes {kernels}, y map {kernels_y} of "
+                             f"the tolerance, finite={finite}")
+    fmt = lambda r: json.dumps([round(v, 4) for v in r])
+    _line("16b", "lightcone_f32_kernels_vs_plain", t0,
+          launches=json.dumps(counts["kernels"]),
+          planes_err_over_tol=fmt(kernels),
+          y_map_err_over_tol=f"{kernels_y:.4f}",
+          cudnn_planes_err_over_tol=fmt(cudnn),
+          cudnn_y_map_err_over_tol=f"{cudnn_y:.4f}",
+          kernels_vs_cudnn_planes=fmt(k_vs_c),
+          kernels_vs_cudnn_y_map=f"{k_vs_c_y:.4f}")
+    return {"runs": runs, "planes_err_over_tol": kernels,
+            "y_map_err_over_tol": kernels_y,
+            "cudnn_planes_err_over_tol": cudnn,
+            "cudnn_y_map_err_over_tol": cudnn_y,
+            "launches": counts["kernels"]}
+
+
+def lightcone_bf16(device, los: dict, shells: list, f32_cudnn: dict,
+                   **size) -> dict:
+    """Phase 16c, the main path: the lightcone CLI's default, bf16, with
+    ``--fused-paint``, ``BPT_FUSED_HEADS=1`` and ``--kappa-path``: on the card
+    exactly 4 bf16 K1 and 1 bf16 K3-fwd launches a paint call and no other
+    kernel; e(bf16 kernels, bf16 cuDNN) <= LC_BF16_RATIO * e(bf16 cuDNN,
+    f32 cuDNN) on the y map's angular power (``cl_fractional_error``);
+    the y x kappa cross-Cl finite in every bin with modes. The pixel-level
+    d(kernels, cuDNN) / d(bf16, f32) is printed for the record."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    calls = sum(s["calls"] for s in shells)
+    want = {"k1": 4 * calls, "k3_fwd": calls} if on_card else {}
+    _reset_launches()
+    kern = run_lightcone_cli(device, los, "bf16", True, kappa=True, **size)
+    counts, bf16_counts = _launches(), _bf16_launches()
+    _expect_launches("lightcone (bf16)", counts, want)
+    _expect_launches("lightcone (bf16 launches)", bf16_counts, want)
+    cudnn = run_lightcone_cli(device, los, "bf16", False, **size)
+    e_kc = _max_cl_error(kern["y_map"], cudnn["y_map"], device)
+    e_gap = _max_cl_error(cudnn["y_map"], f32_cudnn["y_map"], device)
+    d_planes = (rel_l2(_planes_vector(kern), _planes_vector(cudnn))
+                / rel_l2(_planes_vector(cudnn), _planes_vector(f32_cudnn)))
+    d_y = (rel_l2(kern["y_map"], cudnn["y_map"])
+           / rel_l2(cudnn["y_map"], f32_cudnn["y_map"]))
+    cl, _, _, n_mode = kern["cl_y_kappa"]
+    cross_finite = bool(np.all(np.isfinite(cl[n_mode > 0])))
+    ratio = e_kc / e_gap if e_gap > 0 else 0.0
+    res = {"e_kernels_cudnn": e_kc, "e_bf16_f32": e_gap, "ratio": ratio,
+           "d_planes_ratio": d_planes, "d_y_ratio": d_y,
+           "cross_cl_finite": cross_finite, "launches": counts,
+           "bf16_launches": bf16_counts,
+           "tiles": sum(s["tiles"] for s in shells),
+           "paint_calls": calls}
+    ok = (e_kc <= LC_BF16_RATIO * e_gap and cross_finite
+          and np.all(np.isfinite(kern["y_map"])))
+    if not ok:
+        raise AssertionError(f"lightcone bf16: {res}")
+    _line("16c", "lightcone_bf16", t0, launches=json.dumps(counts),
+          bf16_launches=json.dumps(bf16_counts), tiles=res["tiles"],
+          e_kernels_cudnn=f"{e_kc:.4e}", e_bf16_f32=f"{e_gap:.4e}",
+          ratio=f"{ratio:.4f}", limit_ratio=LC_BF16_RATIO,
+          pixel_d_planes_ratio=f"{d_planes:.4f}",
+          pixel_d_y_ratio=f"{d_y:.4f}",
+          cross_cl_finite_bins=int(np.sum(n_mode > 0)))
+    return res
+
+
+class _CountedStages(StageTimes):
+    """StageTimes that also keeps the bf16 launch counts at each mark."""
+
+    def __init__(self, device):
+        self.launches = []
+        super().__init__(device)
+
+    def mark(self, stage: str):
+        super().mark(stage)
+        self.launches.append(_bf16_launches())
+
+
+def time_lightcone(device, los: dict, card=None, paint_tiles_per_s=None,
+                   **size) -> dict:
+    """Phase 16, timed: the CLI's default bf16 lightcone again (16c was its
+    warm-up), its stages marked by CUDA events (``StageTimes``): per shell
+    read + upload, extract + zoom, paint, blend; then the y map and the
+    cross-Cl; the whole call by the host clock. Lightcone tiles/s is the
+    painted tiles over the shells' zoom + paint + blend time, beside
+    ``paint_batch``'s bf16 tiles/s (phase 14)."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    _reset_launches()
+    stages = _CountedStages(device)
+    t = time.perf_counter()
+    out = run_lightcone_cli(device, los, "bf16", True, kappa=True,
+                            stage_times=stages, **size)
+    wall_s = time.perf_counter() - t
+    shells, other = [], {}
+    for (stage, ms), now, prev in zip(stages.intervals(), stages.launches[1:],
+                                      stages.launches):
+        if stage == "upload":
+            shells.append({"start": prev})
+        if stage in ("upload", "zoom", "paint", "blend"):
+            shells[-1][stage] = ms
+            if stage == "blend":
+                start = shells[-1].pop("start")
+                shells[-1]["k1"] = now["k1"] - start["k1"]
+                shells[-1]["k3_fwd"] = now["k3_fwd"] - start["k3_fwd"]
+        else:
+            other[stage] = ms
+    device_ms = sum(s[k] for s in shells for k in ("zoom", "paint", "blend"))
+    tiles = sum(s["tiles"] for s in lightcone_geometry(out["z_SLICS"]))
+    tiles_per_s = tiles / device_ms * 1e3
+    clock = "cuda_events" if device.type == "cuda" else "host_clock_cpu"
+    for z, s in zip(out["z_SLICS"], shells):
+        print(f"  shell z={z:.3f}: upload {s['upload']:.3f} ms, zoom "
+              f"{s['zoom']:.3f}, paint {s['paint']:.3f}, blend "
+              f"{s['blend']:.3f}; K1 {s['k1']}, K3-fwd {s['k3_fwd']} "
+              f"(bf16)", flush=True)
+    _line(16, "lightcone_timing", t0, clock=clock, card=json.dumps(card),
+          los_s=f"{wall_s:.3f}", shells=len(shells), tiles=tiles,
+          shells_device_ms=f"{device_ms:.3f}",
+          upload_ms=f"{sum(s['upload'] for s in shells):.3f}",
+          setup_ms=f"{other.get('setup', 0.0):.3f}",
+          y_map_ms=f"{other.get('ymap', 0.0):.3f}",
+          cl_ms=f"{other.get('cl', 0.0):.3f}",
+          lightcone_tiles_per_s=f"{tiles_per_s:.2f}",
+          paint_batch_tiles_per_s=(f"{paint_tiles_per_s:.2f}"
+                                   if paint_tiles_per_s is not None
+                                   else None))
+    return {"los_s": wall_s, "shells": shells, "stages": other,
+            "shells_device_ms": device_ms, "tiles": tiles,
+            "tiles_per_s": tiles_per_s}
+
+
+def lightcone(device, card=None, paint_tiles_per_s=None, z=LC_Z,
+              n_pixel_delta: int = slics_io.N_PIXEL_DELTA,
+              n_pixel_massplane: int = slics_io.N_PIXEL_MASSPLANE,
+              resolution: int = LC_RESOLUTION) -> dict:
+    """Phase 16, a main path: a synthetic SLICS line of sight (``z``'s
+    shells at ``n_pixel_delta`` / ``n_pixel_massplane``, the real SLICS
+    sizes by default) written to a temporary directory, removed after;
+    16a, 16b, 16c and the timed run, under PyTorch's default TF32 switches
+    (cuDNN's on), as a user's process runs the CLI."""
+    device = torch.device(device)
+    size = dict(n_pixel_delta=n_pixel_delta,
+                n_pixel_massplane=n_pixel_massplane, resolution=resolution)
+    shells = lightcone_geometry(z, n_pixel_delta, resolution)
+    with tempfile.TemporaryDirectory(prefix="bpt_lightcone_") as base, \
+            _tf32(True, False):
+        t0 = time.perf_counter()
+        los = write_synthetic_los(base, z, LC_LOS, n_pixel_delta,
+                                  n_pixel_massplane, device=device)
+        _line(16, "lightcone_data", t0, shells=json.dumps(los["kinds"]),
+              n_pixel_delta=n_pixel_delta,
+              n_pixel_massplane=n_pixel_massplane,
+              tiles=json.dumps([s["tiles"] for s in shells]))
+        resample = check_resampler_lightcone(
+            device, lightcone_resample_cases(shells, resolution))
+        f32 = lightcone_f32(device, los, shells, **size)
+        bf16 = lightcone_bf16(device, los, shells, f32["runs"]["cudnn"],
+                              **size)
+        timing = time_lightcone(device, los, card=card,
+                                paint_tiles_per_s=paint_tiles_per_s, **size)
+    return {"resample": resample, "f32": {k: v for k, v in f32.items()
+                                          if k != "runs"},
+            "bf16": bf16, "timing": timing, "shells": shells}
 
 
 # what each K4 kernel's max_abs_err covers, and the yardstick it carries
@@ -1801,12 +2212,26 @@ def k4_record(conv_bn: dict, training_k4: dict) -> list:
     return out
 
 
+def _add_lightcone_launches(entries: list, lightcone: dict):
+    """Phase 16's bf16 launches of K1 and K3-fwd (16c's, and the timed
+    run's per shell) on their kernels-record entries."""
+    keys = {"res_block_infer": "k1", "head_stack_fwd": "k3_fwd"}
+    for entry in entries:
+        key = keys.get(entry["name"])
+        if key is not None:
+            entry["lightcone_launches"] = lightcone["bf16"][
+                "bf16_launches"][key]
+            entry["lightcone_launches_per_shell"] = [
+                s[key] for s in lightcone["timing"]["shells"]]
+
+
 def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                    heads: dict, training: dict, conv_bn: dict,
                    training_k4: dict, heads_bf16: dict = None,
                    paint_bf16: dict = None, training_bf16: dict = None,
                    conv_bn_bf16: dict = None,
-                   training_bf16_k4: dict = None) -> dict:
+                   training_bf16_k4: dict = None,
+                   lightcone: dict = None) -> dict:
     """The ``{"kernels": [...]}`` record of the run, each entry with its
     ``dtype``: K1 in f32, its bf16 numbers beside it; K2, K3-fwd and K3-bwd
     with their launches in the timed training steps; K4's four kernels
@@ -1818,7 +2243,9 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     tensor-core one (``k1_bound``'s ``tc``, ``k3_bounds``' ``fwd_tc`` and
     ``bwd_tc``), the f32 CUDA-core one beside it. K3-fwd's times are with
     u1 kept, as the training steps that count its launches run it; without
-    u1 (painting) beside them."""
+    u1 (painting) beside them. Given phase 16, the bf16 K1 and K3-fwd
+    entries also carry their launches in the bf16 lightcone (16c) and per
+    shell (the timed run)."""
     f32 = next(c for c in checks if c["dtype"] == "float32")
     bf16 = next(c for c in checks if c["dtype"] == "bfloat16")
     def k3(name, key, replaces, heads=heads, launches=None):
@@ -1861,6 +2288,8 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         fwd_b["ms_without_u1"] = heads_bf16["fwd_without_u1_ms"]
         bf16_entries += [fwd_b, k3("head_stack_bwd", "k3_bwd",
                                    K3_BWD_REPLACES, heads_bf16, launches)]
+    if lightcone is not None:
+        _add_lightcone_launches(bf16_entries, lightcone)
     if conv_bn_bf16 is not None and training_bf16_k4 is not None:
         bf16_entries += k4_record(conv_bn_bf16, training_bf16_k4)
     return {"kernels": [{

@@ -28,12 +28,19 @@ timed; then K4 in bf16 against its plain bf16 version at its four sites,
 training in bf16 with K4 (exactly 4 bf16 launches of each K4 kernel per
 step, beside one K2 and one bf16 K3-fwd and K3-bwd) and a kernels-vs-plain
 bf16 step with K4, beside how far the plain bf16 step moves when only its
-sites' sums change order. Everything is timed. The phases live in
-``baryon_painter_tpu_torch/smoke.py``; each prints one line with its
-seconds. The last lines are the kernels record (JSON), the card's name and
-power limit as nvidia-smi gives them, and the result (JSON). Any failed phase
-raises and the script exits non-zero; without a CUDA device, or without the
-package beside it, it exits non-zero and prints no result.
+sites' sums change order; then a synthetic SLICS line of sight at real sizes
+(three shells, a 12288^2 massplane) through the lightcone CLI's own code
+(scripts/create_lightcone_torch.py): the resampler against scipy at the
+lightcone's sizes with TF32 on, the f32 lightcone with the kernels against
+cuDNN's, and the CLI's default, bf16 with K1 and K3 (exactly 24 bf16 K1 and
+6 bf16 K3-fwd launches), held to the bf16 cuDNN lightcone on the y map's
+angular power spectrum, then timed stage by stage. Everything is timed.
+The phases live in ``baryon_painter_tpu_torch/smoke.py``; each prints one
+line with its seconds. The last lines are the kernels record (JSON), the
+card's name and power limit as nvidia-smi gives them, and the result (JSON).
+Any failed phase raises and the script exits non-zero; without a CUDA
+device, or without the package beside it, it exits non-zero and prints no
+result.
 
 Imports only torch, numpy and the port.
 """
@@ -93,13 +100,16 @@ def main() -> int:
                                    k4_off_ms=training_bf16["step_ms"],
                                    f32_ms=training_k4["step_ms"])
     smoke.train_parity_bf16(device, dataset, fused_train_conv=True)
+    # the paint path's consumer: a SLICS lightcone through the lightcone CLI
+    lightcone = smoke.lightcone(device, card=card,
+                                paint_tiles_per_s=paint_bf16["tiles_per_s"])
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
     print(json.dumps(smoke.kernels_record(
         checks, paint, timing, gather, heads, training, conv_bn, training_k4,
         heads_bf16=heads_bf16, paint_bf16=paint_bf16,
         training_bf16=training_bf16, conv_bn_bf16=conv_bn_bf16,
-        training_bf16_k4=training_bf16_k4)))
+        training_bf16_k4=training_bf16_k4, lightcone=lightcone)))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

@@ -705,3 +705,57 @@ def test_training_steps_with_k4_match_plain_steps(cuda_device):
     assert out["launches"] == {"k1": 0, "k2": 2, "k3_fwd": 2, "k3_bwd": 2,
                                "k4_stats": 6, "k4_fwd": 6, "k4_bwd1": 6,
                                "k4_bwd2": 6}
+
+
+# ---------------------------------------------------------------------- #
+# the lightcone's resampler and pipeline on the card, with TF32 on: they
+# pin f32 themselves (rtol 2e-3, atol 2e-4 * max|scipy|, as
+# tests/test_resample.py)
+
+
+@pytest.fixture
+def tf32_on(cuda_device):
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield cuda_device
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+@pytest.mark.parametrize("order", [0, 1, 3, 5])
+@pytest.mark.parametrize("mode", ["mirror", "reflect", "wrap"])
+@pytest.mark.parametrize("shape,out", [((24, 30), (41, 51)),
+                                       ((1211, 1211), (512, 512))],
+                         ids=["small", "lightcone_tile"])
+def test_resampler_on_the_card_matches_scipy_with_tf32_on(tf32_on, order,
+                                                          mode, shape, out):
+    from scipy.ndimage import zoom as scipy_zoom
+
+    from baryon_painter_tpu_torch.ops.resample import resize_spline
+    x = np.random.default_rng(0).gamma(2.0, 0.5, shape).astype(np.float32)
+    got = resize_spline(torch.as_tensor(x, device=tf32_on), out,
+                        order=order, mode=mode)
+    assert got.device.type == "cuda"
+    kw = (dict(mode="grid-wrap", grid_mode=True) if mode == "wrap"
+          else dict(mode=mode))
+    want = scipy_zoom(x.astype(np.float64),
+                      (out[0] / shape[0], out[1] / shape[1]), order=order,
+                      **kw)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-3,
+                               atol=2e-4 * np.abs(want).max())
+
+
+def test_power_spectrum_on_the_card_matches_the_cpu(cuda_device):
+    """The same f32 FFT and per-bin sums on either device: rtol 1e-5."""
+    from baryon_painter_tpu_torch.angular_power import pseudo_cl_2d
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (2, 256, 256)).astype(np.float32))
+    got = pseudo_cl_2d(x.to(cuda_device), theta_deg=10.0)
+    want = pseudo_cl_2d(x, theta_deg=10.0)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5 * w.abs().max().item())

@@ -517,7 +517,9 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE],
+    "path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE] + [
+        Path(REPO) / "scripts" / f for f in ("create_lightcone_torch.py",
+                                             "bench_torch_lightcone.py")],
     ids=lambda p: str(Path(p).relative_to(REPO)))
 def test_port_imports_nothing_of_jax(path):
     for name in _imports(path):
