@@ -1,7 +1,8 @@
 """baryon_painter_tpu_torch: the PyTorch/CUDA port of baryon_painter_tpu.
 
-Paints gas pressure onto dark-matter tiles with the committed CVAE
-checkpoints, and trains the CVAE, in PyTorch, on an NVIDIA H100. Three
+Paints gas pressure onto dark-matter tiles with the committed CVAE and
+CGAN checkpoints, tile by tile or as whole seamless planes, and trains the
+CVAE, in PyTorch, on an NVIDIA H100. Three
 hand-written CUDA kernels (``csrc/``) carry the parts the JAX package wrote
 in Pallas: the fused residual block (K1, ``ops/res_block.py``), the training
 batch's tile gather (K2, ``ops/gather.py``) and the output heads, forward and
@@ -22,10 +23,11 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    """Lazy top-level export of ``CVAEPainter`` (keeps
-    ``import baryon_painter_tpu_torch`` light: torch is imported on use)."""
-    if name == "CVAEPainter":
-        from baryon_painter_tpu_torch.painter import CVAEPainter
-        return CVAEPainter
+    """Lazy top-level export of ``CVAEPainter``, ``CGANPainter`` and
+    ``load_painter`` (keeps ``import baryon_painter_tpu_torch`` light:
+    torch is imported on use)."""
+    if name in ("CVAEPainter", "CGANPainter", "load_painter"):
+        from baryon_painter_tpu_torch import painter
+        return getattr(painter, name)
     raise AttributeError(f"module 'baryon_painter_tpu_torch' has no "
                          f"attribute '{name}'")

@@ -6,6 +6,8 @@ modules, both ways, and the port's own initialisation.
 ``train.checkpoint.load_checkpoint`` yields, or ``jax.tree.map(np.asarray,
 ...)`` of live flax variables) and returns an eval-mode ``CVAE`` carrying
 them; ``load_jax_variables`` loads them into an existing one.
+``generator_from_jax_variables(variables, architecture)`` does the same for
+the CGAN generator, with flax's spectral norm folded into its kernels.
 ``to_jax_variables`` goes the other way (the port's parameters, or their
 gradients, in the flax layout, as numpy), so the two packages can be
 compared. ``init_cvae`` draws the port's own initial weights from the
@@ -28,7 +30,9 @@ import math
 import numpy as np
 import torch
 
+from baryon_painter_tpu_torch.models.cgan import CGANGenerator
 from baryon_painter_tpu_torch.models.cvae import CVAE
+from baryon_painter_tpu_torch.models.fuse import fold_cgan_spectral_norm
 from baryon_painter_tpu_torch.models.layers import (BatchNorm, Conv2d,
                                                     ConvTranspose2d,
                                                     FusedResBlock, PReLU,
@@ -36,7 +40,7 @@ from baryon_painter_tpu_torch.models.layers import (BatchNorm, Conv2d,
                                                     SpecSequential)
 
 __all__ = ["from_jax_variables", "load_jax_variables", "load_spec_sequential",
-           "to_jax_variables", "init_cvae"]
+           "generator_from_jax_variables", "to_jax_variables", "init_cvae"]
 
 # the CVAE's subnets, by their flax scope names
 _CVAE_SUBNETS = ("q_x_in", "q_y_in", "q_out", "p_y_in", "p_z_in", "p_y_z_in",
@@ -108,6 +112,28 @@ def from_jax_variables(variables: dict, architecture: dict,
     unchanged."""
     model = CVAE(architecture, fused_heads=fused_heads, dtype=dtype)
     return load_jax_variables(model, variables).eval()
+
+
+def generator_from_jax_variables(variables: dict, architecture: dict,
+                                 dtype=None) -> CGANGenerator:
+    """An eval-mode ``CGANGenerator`` (on the CPU) carrying the JAX
+    generator's ``{"params", "batch_stats"}`` (a checkpoint's ``g_params``
+    and ``g_stats``), computing in ``dtype``. Spectral norm, where the
+    variables carry its state, is folded into the kernels first
+    (``models/fuse.fold_cgan_spectral_norm``); ``architecture``'s
+    ``fused_res_blocks`` says which layout the variables are in."""
+    variables = fold_cgan_spectral_norm(variables)
+    gen = CGANGenerator(
+        in_channels=architecture.get("in_channels", 2),
+        n_res_blocks=architecture.get("n_res_blocks", 9),
+        upsample=architecture.get("upsample", "transpose"),
+        fused_res_blocks=architecture.get("fused_res_blocks", False),
+        dtype=dtype)
+    params, stats = variables["params"], variables["batch_stats"]
+    for name in ("SpecSequential_0", "SpecSequential_1"):
+        load_spec_sequential(getattr(gen, name), params[name],
+                             stats.get(name))
+    return gen.eval()
 
 
 def _np(t):

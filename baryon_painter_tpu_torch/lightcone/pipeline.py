@@ -8,8 +8,9 @@ extracted, resampled, painted and blended as device batches:
   -> Gaussian-weight blend (in-order slice adds)
 
 on the painter's device (``painter.device``). File I/O stays in
-``lightcone/io.py``. One device: a ``mesh`` raises (``ROADMAP.md`` §1 item
-10), and so does seamless whole-plane painting (§1 item 4).
+``lightcone/io.py``. ``seamless=True`` paints each delta shell as one
+whole plane instead (``paint_plane_seamless``, ``parallel/spatial.py``).
+One device: a ``mesh`` raises (``ROADMAP.md`` §1 item 10).
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ from baryon_painter_tpu_torch.lightcone.tiling import (generate_tiling,
 from baryon_painter_tpu_torch.ops.resample import resize_spline
 from baryon_painter_tpu_torch.utils.platform import to_device
 
-__all__ = ["paint_plane", "paint_plane_from_massplane", "process_slics",
-           "blend_tiles", "StageTimes"]
+__all__ = ["paint_plane", "paint_plane_seamless",
+           "paint_plane_from_massplane", "process_slics", "blend_tiles",
+           "StageTimes"]
 
 _MESH = ("a mesh is multi-GPU painting, not ported yet (ROADMAP.md §1 "
          "item 10); pass mesh=None")
@@ -207,6 +209,33 @@ def paint_plane(painter, delta, z_slice: float,
     return result
 
 
+def paint_plane_seamless(painter, delta, z_slice: float, tile_size: float,
+                         delta_size: float, n_pixel_tile: int,
+                         zoom_order: int = 3, mesh=None,
+                         generator: Optional[torch.Generator] = None,
+                         z_mode: str = "sample", device_output: bool = False,
+                         stage_times: Optional[StageTimes] = None):
+    """Paint one high-z shell seam-free: zoom the whole plane to the model's
+    resolution once (periodic, ``mode="wrap"``: the plane is a slice of a
+    periodic box, and the paint wraps at the same edges) and paint it in
+    one fully convolutional pass (``parallel/spatial.paint_plane``; the
+    CVAE's noise from ``generator``). No tiles, no weight maps, every pixel
+    painted once plus the halo. Stages marked: ``zoom``, ``paint``."""
+    from baryon_painter_tpu_torch.parallel import spatial
+    if mesh is not None:
+        raise NotImplementedError(_MESH)
+    n_pixel_plane = int(delta_size / tile_size * n_pixel_tile)
+    plane = to_device(delta, painter.device, torch.float32)
+    if tuple(plane.shape) != (n_pixel_plane, n_pixel_plane):
+        plane = resize_spline(plane[None], (n_pixel_plane, n_pixel_plane),
+                              order=zoom_order, mode="wrap")[0]
+    _mark(stage_times, "zoom")
+    out = spatial.paint_plane(painter, plane, z_slice, generator=generator,
+                              z_mode=z_mode)
+    _mark(stage_times, "paint")
+    return _output(out, device_output)
+
+
 def paint_plane_from_massplane(painter, massplane, shift, z_slice: float,
                                tile_size: float, delta_size: float,
                                n_pixel_tile: int,
@@ -280,8 +309,13 @@ def process_slics(painter, tile_size: float, n_pixel_tile: int,
 
     While shell i paints, one worker thread reads shell i+1's file into
     host memory (pinned, on the card); the copy to the device is issued
-    from this thread, on its stream. ``mesh`` and ``seamless`` raise
-    ``NotImplementedError`` (``ROADMAP.md`` §1 items 10 and 4).
+    from this thread, on its stream. ``seamless=True`` paints each delta
+    shell as one whole plane (``paint_plane_seamless``), its CVAE noise
+    from a ``torch.Generator`` seeded with 1000 * LOS + the shell's index
+    (JAX keys the shell with ``PRNGKey(1000 * LOS + i)``): a line of sight
+    is reproducible, though not JAX's draw. It paints without the fused
+    residual blocks, as in JAX. ``mesh`` raises ``NotImplementedError``
+    (``ROADMAP.md`` §1 item 10).
     """
     if seamless and (regularise or return_problematic_tiles):
         raise ValueError("seamless painting has no tiles to regularise; "
@@ -292,10 +326,6 @@ def process_slics(painter, tile_size: float, n_pixel_tile: int,
                          "supported; use fused for the tiled path only")
     if len(z_SLICS) != len(z_slice):
         raise ValueError("Shapes of z_SLICS and z_slice need to match!")
-    if seamless:
-        raise NotImplementedError(
-            "seamless whole-plane painting is not ported yet (ROADMAP.md §1 "
-            "item 4); use the tiled path (seamless=False)")
     if mesh is not None:
         raise NotImplementedError(_MESH)
     _mark(stage_times, "setup")
@@ -364,6 +394,14 @@ def process_slics(painter, tile_size: float, n_pixel_tile: int,
                     massplane_size=massplane_size,
                     subtract_minimum=SLICS_density,
                     pre_extracted=True, device_output=device_output,
+                    stage_times=stage_times))
+                continue
+            if seamless:
+                gen = torch.Generator(device=device)
+                gen.manual_seed(1000 * LOS + i)
+                painted_planes.append(paint_plane_seamless(
+                    painter, plane, z_slice[i], tile_size, delta_size[i],
+                    n_pixel_tile, generator=gen, device_output=device_output,
                     stage_times=stage_times))
                 continue
             out = paint_plane(painter, plane, z_slice[i], tile_size,

@@ -70,11 +70,12 @@ def _conv(fn, x, weight, bias, dtype, **kw):
     in JAX. On the card cuDNN computes exactly that in bf16. On the CPU
     the bf16 conv runs in f32 on the rounded values (the products of two
     bf16 numbers are exact in f32): PyTorch's CPU bf16 convolution is
-    wrong at some shapes (a stride-4 8 -> 16 conv at 64^2 misses by 100 %)."""
+    wrong at some shapes (a stride-4 8 -> 16 conv at 64^2 misses by 100 %).
+    An f64 conv is f64 on both."""
     dt = dtype or x.dtype
     if x.dtype == weight.dtype == dt and (bias is None or bias.dtype == dt):
         return fn(x, weight, bias, **kw)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and dt.itemsize < 4:
         out = fn(x.to(dt).float(), weight.to(dt).float(), None, **kw).to(dt)
     else:
         out = fn(x.to(dt), weight.to(dt), None, **kw)
@@ -127,9 +128,9 @@ class BatchNorm(nn.Module):
     Both modes compute ``x * a + b`` with a = scale / sqrt(var + eps) and
     b = bias - mean * a, as the JAX package does; train mode takes mean and
     var from the batch (f32) and the gradient flows through them. x is cast
-    to ``dtype`` (None: kept), the affine computed in f32 and the result
-    returned in that dtype; in train mode the gradient reaching x is
-    rounded to it too."""
+    to ``dtype`` (None: kept), the affine computed in f32 (f64 for f64) and
+    the result returned in that dtype; in train mode the gradient reaching
+    x is rounded to it too."""
 
     def __init__(self, num_features, dtype=None):
         super().__init__()
@@ -148,7 +149,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         dt = self.dtype or x.dtype
-        xf = x.to(dt).float()
+        xf = x.to(dt).to(torch.promote_types(dt, torch.float32))
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
             var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean

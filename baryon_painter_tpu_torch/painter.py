@@ -1,6 +1,7 @@
 """Painter API: the user-facing painting surface, in PyTorch.
 
-Port of ``CVAEPainter`` from ``baryon_painter_tpu/painter.py``:
+Port of ``CVAEPainter``, ``CGANPainter`` and ``load_painter`` from
+``baryon_painter_tpu/painter.py``:
 
     painter = CVAEPainter("trained_models/CVAE/fiducial-512/model",
                           fused_inference=True)     # on the card
@@ -18,21 +19,29 @@ scored in: the model computes in it (K1 and K3 in bf16), the prior noise is
 drawn in the latent's dtype, and the painted output is f32, as the JAX
 painter's is. An f32 call paints in f32 whatever the caller's TF32 setting
 (``utils/platform.f32_convolutions``).
+
+``CGANPainter`` paints with the CGAN generator: transform -> generator ->
+inverse transform, no noise; ``fused_inference=True`` runs its canonical
+LeakyReLU(0.2) residual blocks as K1 launches. ``load_painter(filename,
+**kwargs)`` opens a checkpoint with the painter its ``model_kind`` names.
 """
 from __future__ import annotations
 
+import json
 from typing import Optional
 
 import numpy as np
 import torch
 
-from baryon_painter_tpu_torch.convert import from_jax_variables
-from baryon_painter_tpu_torch.models.fuse import fuse_cvae_variables
+from baryon_painter_tpu_torch.convert import (from_jax_variables,
+                                              generator_from_jax_variables)
+from baryon_painter_tpu_torch.models.fuse import (
+    fuse_cgan_generator_variables, fuse_cvae_variables)
 from baryon_painter_tpu_torch.train import checkpoint as ckpt
 from baryon_painter_tpu_torch.utils.platform import (f32_convolutions,
                                                      resolve_device)
 
-__all__ = ["CVAEPainter"]
+__all__ = ["CVAEPainter", "CGANPainter", "load_painter"]
 
 _Z_MODES = ("sample", "mean", "zero")
 
@@ -178,3 +187,120 @@ class CVAEPainter:
                 pred, self.stats[out_field], zs)
         pred = pred.contiguous()
         return (pred, var[:, 0].contiguous()) if return_var else pred
+
+
+class CGANPainter:
+    """Generator-only painting with the CGAN family (the JAX package's
+    ``CGANPainter``)::
+
+        painter = CGANPainter("trained_models/CGAN/fiducial/model",
+                              fused_inference=True)      # on the card
+        pressure = painter.paint_batch(tiles, zs)        # (N,256,256)
+
+    The generator's spectral norm is folded into its kernels at load
+    (``models/fuse.py``), in both layouts: the port only paints, and at
+    eval flax's spectral norm is that fixed division. ``fused_inference``
+    also renames the residual blocks into the fused layout (K1, slope
+    0.2). ``dtype=torch.bfloat16`` computes the generator in bf16 at the
+    JAX package's rounding points (the folded kernels are f32 and cast by
+    each conv, as flax's SpectralNorm returns f32). An f32 call paints in
+    f32 whatever the caller's TF32 setting.
+
+    The JAX painter's ``from_trainer`` and ``save_state_to_file`` are not
+    here: they wait for the port's checkpoint writing and CGAN training.
+    """
+
+    def __init__(self, filename: Optional[str] = None,
+                 variables: Optional[dict] = None,
+                 meta: Optional[dict] = None,
+                 fused_inference: bool = False,
+                 dtype=None,
+                 device=None):
+        """Construct from a checkpoint base path (``filename``), or from the
+        generator's ``variables`` (``{"params", "batch_stats"}`` as nested
+        numpy dicts, the JAX generator's layout) plus ``meta`` (the
+        checkpoint's metadata dict, whose ``model_architecture`` builds the
+        generator: the port's modules carry their weights, so these two
+        take the place of the JAX painter's generator, variables and
+        meta)."""
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self._fused_inference = fused_inference
+        if filename is not None:
+            self.load_state_from_file(filename)
+        elif variables is not None and meta is not None:
+            self._setup(variables, meta)
+        else:
+            raise ValueError("Provide filename or (variables, meta).")
+
+    def _setup(self, variables, meta):
+        arch = dict(meta["model_architecture"])
+        if self._fused_inference and not arch.get("fused_res_blocks"):
+            variables, kwargs = fuse_cgan_generator_variables(variables,
+                                                              arch)
+            arch = {**arch, **kwargs, "spectral_norm": False}
+            meta = {**meta, "model_architecture": arch}
+        self.generator = generator_from_jax_variables(
+            variables, arch, dtype=self.dtype).to(self.device)
+        self.meta = meta
+        self.architecture = arch
+        self.input_field = meta["input_field"]
+        self.label_fields = list(meta["label_fields"])
+        self.tile_L = meta["tile_L"]
+        self.tile_size = meta["tile_size"]
+        self.transforms, self.stats = ckpt.transforms_from_meta(
+            meta, device=self.device)
+
+    def load_state_from_file(self, filename: str):
+        """Load a (state.msgpack, meta.json) checkpoint pair by base path:
+        the generator's ``g_params`` and ``g_stats``."""
+        state, meta = ckpt.load_checkpoint(filename)
+        self._setup({"params": state["g_params"],
+                     "batch_stats": state.get("g_stats", {})}, meta)
+
+    def paint(self, input, z: float = 0.0, transform: bool = True,
+              inverse_transform: bool = True):
+        """Paint a single (H, W) tile; returns numpy."""
+        tile = torch.as_tensor(np.asarray(input, np.float32))
+        if tile.ndim != 2:
+            raise ValueError(f"paint expects a 2-D tile, got "
+                             f"{tuple(tile.shape)}.")
+        out = self.paint_batch(tile[None], torch.full((1,), float(z)),
+                               transform=transform,
+                               inverse_transform=inverse_transform)
+        return out[0].float().cpu().numpy()
+
+    @torch.inference_mode()
+    def paint_batch(self, tiles, zs, transform: bool = True,
+                    inverse_transform: bool = True, **_ignored):
+        """Paint a batch of tiles (N, H, W) with per-tile redshifts (N,);
+        returns a tensor on the painter's device. Other keyword arguments
+        (a CVAE painter's ``z_mode``, ``eps``) are accepted and ignored, as
+        the JAX painter ignores them: the generator draws no noise."""
+        with f32_convolutions():
+            return self._paint_batch(tiles, zs, transform, inverse_transform)
+
+    def _paint_batch(self, tiles, zs, transform, inverse_transform):
+        tiles = torch.as_tensor(tiles, dtype=torch.float32,
+                                device=self.device)
+        zs = torch.as_tensor(zs, dtype=torch.float32, device=self.device)
+        in_field, out_field = self.input_field, self.label_fields[0]
+        y = tiles
+        if transform:
+            y = self.transforms[in_field].forward(y, self.stats[in_field], zs)
+        y = y[:, None].contiguous(memory_format=torch.channels_last)
+        pred = self.generator(y, zs)[:, 0]
+        if inverse_transform:
+            pred = self.transforms[out_field].inverse(
+                pred, self.stats[out_field], zs)
+        return pred.contiguous()
+
+
+def load_painter(filename: str, **kwargs):
+    """Open a checkpoint pair and return the painter its ``model_kind``
+    names (``"cgan"``: ``CGANPainter``, else ``CVAEPainter``); ``kwargs``
+    (``fused_inference``, ``dtype``, ``device``, ...) go to that class."""
+    with open(filename + "_meta.json") as f:
+        kind = json.load(f).get("model_kind", "cvae")
+    cls = CGANPainter if kind == "cgan" else CVAEPainter
+    return cls(filename, **kwargs)

@@ -85,6 +85,34 @@ PyTorch's default TF32 switches:
      exactly 24 bf16 K1 and 6 bf16 K3-fwd launches; e(bf16 kernels, bf16
      cuDNN) <= LC_BF16_RATIO * e(bf16 cuDNN, f32 cuDNN) on the y map's
      pseudo-Cl; then timed by stage (CUDA events) and whole (host clock)
+
+then the CGAN painter (``cgan``), K1's heaviest path (9 LeakyReLU(0.2)
+blocks a paint), on the same line of sight:
+
+ 17a. K1 against its plain version at the CGAN's shapes, (2, 64, 64, 128)
+     (the goldens) and (16, 128, 128, 128) (the CLI's 512^2 tiles), slope
+     0.2, f32 and bf16, with K1_CASES' tolerances
+ 17b. both CGAN goldens through ``CGANPainter(fused_inference=True)``:
+     exactly 9 f32 K1 launches a paint call, the golden tolerance; the
+     unfused painter's distance printed
+ 17c. the bf16 CGAN paint (exactly 9 bf16 K1 launches) against the
+     committed JAX bf16 paint (BF16_CGAN_REFERENCE), phase 14's rule
+ 17d. ``paint_batch`` at 16 tiles of 512^2, f32 and bf16, with K1 and with
+     cuDNN's blocks, and K1 per launch at (16, 128, 128, 128) beside
+     cuDNN's LeakyReLU block and the bound; peak device memory
+ 17e. the CLI with ``--model-type CGAN --fused-paint`` (exactly 9 K1
+     launches a paint call) against the same run with cuDNN off, the
+     golden tolerance; then timed by stage
+
+and seamless whole-plane painting (``seamless``):
+
+ 18a. both painters' probe plane at ``required_halo`` and at twice it, f32
+     printed, held in f64 to rtol 1e-5, atol 1e-6; ``calibrate_halo``
+ 18b. a 1024^2 plane painted whole with cuDNN against cuDNN off, both
+     painters, the golden tolerance
+ 18c. the CLI with ``--seamless`` (the CVAE in bf16): timed by stage, its
+     peak memory and e(seamless, tiled) printed; ``--seamless
+     --fused-paint`` raises
 """
 from __future__ import annotations
 
@@ -274,28 +302,31 @@ def k1_inputs(shape, dtype, device, seed: int = 0):
     return x, w1, bn[0][0], bn[0][1], w2, bn[1][0], bn[1][1]
 
 
+def _check_k1(shape, dtype, slope, rel_tol, device) -> dict:
+    """K1 against res_block_infer_ref on seeded inputs of ``shape``; raises
+    beyond ``rel_tol`` of the plain version's largest value."""
+    args = k1_inputs(shape, dtype, device)
+    got = res_block_infer(*args, inner_slope=slope, outer_slope=slope)
+    want = res_block_infer_ref(*args, inner_slope=slope, outer_slope=slope)
+    _sync(device)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    rec = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+           "slope": slope, "max_abs_err": err, "max_abs_ref": scale,
+           "tol": rel_tol * scale}
+    print(f"  K1 {rec['dtype']} {list(shape)} slope={slope}: "
+          f"max|k-ref|={err:.3e} tol={rec['tol']:.3e}", flush=True)
+    if not (err <= rel_tol * scale) or not torch.isfinite(got).all():
+        raise AssertionError(f"K1 disagrees with its plain version: {rec}")
+    return rec
+
+
 def check_kernels(device, shape=K1_SHAPE, cases=K1_CASES) -> list:
     """Phase 2: K1 against res_block_infer_ref on the same inputs."""
     t0 = time.perf_counter()
     device = torch.device(device)
-    results = []
-    for dtype, slope, rel_tol in cases:
-        args = k1_inputs(shape, dtype, device)
-        got = res_block_infer(*args, inner_slope=slope, outer_slope=slope)
-        want = res_block_infer_ref(*args, inner_slope=slope,
-                                   outer_slope=slope)
-        _sync(device)
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
-        rec = {"dtype": str(dtype).replace("torch.", ""), "slope": slope,
-               "max_abs_err": err, "max_abs_ref": scale,
-               "tol": rel_tol * scale}
-        results.append(rec)
-        print(f"  K1 {rec['dtype']} slope={slope}: max|k-ref|={err:.3e} "
-              f"tol={rec['tol']:.3e}", flush=True)
-        if not (err <= rel_tol * scale) or not torch.isfinite(got).all():
-            raise AssertionError(f"K1 disagrees with its plain version: "
-                                 f"{rec}")
+    results = [_check_k1(shape, dtype, slope, rel_tol, device)
+               for dtype, slope, rel_tol in cases]
     _line(2, "k1_vs_plain", t0, shape=list(shape), cases=len(results))
     return results
 
@@ -450,12 +481,25 @@ def k1_bound(shape, dtype) -> dict:
             "tc": _bound(flops, nbytes, tc)}
 
 
-def library_block(x, w1, s1, b1, w2, s2, b2):
+def library_block(x, w1, s1, b1, w2, s2, b2, slope: float = 0.0):
     """The residual block as two library convolutions (cuDNN on the card)
-    plus the affine and the ReLUs, NCHW; a yardstick only."""
+    plus the affine and the (leaky, ``slope``) ReLUs, NCHW; a yardstick
+    only."""
     a = lambda v: v[:, None, None]
-    h = torch.relu(F.conv2d(x, w1, padding=1) * a(s1) + a(b1))
-    return torch.relu(F.conv2d(h, w2, padding=1) * a(s2) + a(b2) + x)
+    act = (torch.relu if slope == 0.0
+           else lambda v: F.leaky_relu(v, slope))
+    h = act(F.conv2d(x, w1, padding=1) * a(s1) + a(b1))
+    return act(F.conv2d(h, w2, padding=1) * a(s2) + a(b2) + x)
+
+
+def library_block_args(args, dtype):
+    """K1's operands (NHWC x, HWIO weights) as ``library_block``'s: x as
+    the NCHW view of its channels_last memory, OIHW weights, the folded
+    affine in ``dtype``."""
+    x, w1, s1, b1, w2, s2, b2 = args
+    return (x.permute(0, 3, 1, 2), w1.permute(3, 2, 0, 1).contiguous(),
+            s1.to(dtype), b1.to(dtype), w2.permute(3, 2, 0, 1).contiguous(),
+            s2.to(dtype), b2.to(dtype))
 
 
 def time_main_path(device, painter, card=None, n_tiles: int = 16,
@@ -479,11 +523,7 @@ def time_main_path(device, painter, card=None, n_tiles: int = 16,
                                            device, 3, k1_iters)
             out[f"bound_{key}"] = k1_bound(k1_shape, dtype)
             # the library yardstick on channels_last (NHWC) memory
-            x, w1, s1, b1, w2, s2, b2 = args
-            lib_args = (x.permute(0, 3, 1, 2),
-                        w1.permute(3, 2, 0, 1).contiguous(), s1.to(dtype),
-                        b1.to(dtype), w2.permute(3, 2, 0, 1).contiguous(),
-                        s2.to(dtype), b2.to(dtype))
+            lib_args = library_block_args(args, dtype)
             out[f"library_ms_{key}"] = _time_ms(
                 lambda: library_block(*lib_args), device, 3, k1_iters)
             out[f"plain_ms_{key}"] = _time_ms(
@@ -1862,13 +1902,20 @@ def run_lightcone_cli(device, los: dict, dtype: str, fused: bool,
                       kappa: bool = False, stage_times=None,
                       n_pixel_delta: int = slics_io.N_PIXEL_DELTA,
                       n_pixel_massplane: int = slics_io.N_PIXEL_MASSPLANE,
-                      resolution: int = LC_RESOLUTION) -> dict:
+                      resolution: int = LC_RESOLUTION,
+                      model_type: str = "CVAE",
+                      seamless: bool = False) -> dict:
     """One lightcone through ``scripts/create_lightcone_torch.py``'s
-    ``run``: ``fused`` adds ``--fused-paint`` and ``BPT_FUSED_HEADS=1``."""
+    ``run``: ``fused`` adds ``--fused-paint`` (and for the CVAE
+    ``BPT_FUSED_HEADS=1``); ``model_type="CGAN"`` paints with the CGAN
+    (``CGAN_PATH``), ``seamless`` adds ``--seamless``."""
     base = str(Path(los["delta"]).parent)
-    argv = ["--CVAE-path", str((REPO / CHECKPOINT).parent),
+    path = (REPO / CHECKPOINT if model_type == "CVAE"
+            else REPO / CGAN_PATH).parent
+    name = f"y_{model_type}_{dtype}_{fused}_{seamless}"
+    argv = ["--model-type", model_type, f"--{model_type}-path", str(path),
             "--SLICS-base-path", base, "--SLICS-LOS", str(LC_LOS),
-            "--output-file", os.path.join(base, f"y_{dtype}_{fused}"),
+            "--output-file", os.path.join(base, name),
             "--tile-overlap", str(LC_OVERLAP),
             "--paint-batch-size", str(LC_PAINT_BATCH),
             "--output-resolution", str(resolution),
@@ -1877,9 +1924,11 @@ def run_lightcone_cli(device, los: dict, dtype: str, fused: bool,
             "--n-pixel-massplane", str(n_pixel_massplane)]
     if fused:
         argv.append("--fused-paint")
+    if seamless:
+        argv.append("--seamless")
     if kappa:
         argv += ["--kappa-path", los["kappa"]]
-    with _fused_heads_env(fused):
+    with _fused_heads_env(fused and model_type == "CVAE"):
         out = _load_cli().run(argv, stage_times=stage_times)
     _sync(torch.device(device))
     return out
@@ -2036,6 +2085,7 @@ def lightcone_bf16(device, los: dict, shells: list, f32_cudnn: dict,
     ratio = e_kc / e_gap if e_gap > 0 else 0.0
     res = {"e_kernels_cudnn": e_kc, "e_bf16_f32": e_gap, "ratio": ratio,
            "d_planes_ratio": d_planes, "d_y_ratio": d_y,
+           "cudnn": {"y_map": cudnn["y_map"], "planes": cudnn["planes"]},
            "cross_cl_finite": cross_finite, "launches": counts,
            "bf16_launches": bf16_counts,
            "tiles": sum(s["tiles"] for s in shells),
@@ -2055,15 +2105,39 @@ def lightcone_bf16(device, los: dict, shells: list, f32_cudnn: dict,
 
 
 class _CountedStages(StageTimes):
-    """StageTimes that also keeps the bf16 launch counts at each mark."""
+    """StageTimes that also keeps the launch counts at each mark (``counts``:
+    the bf16 ones by default)."""
 
-    def __init__(self, device):
+    def __init__(self, device, counts=None):
         self.launches = []
+        self._counts = counts or _bf16_launches
         super().__init__(device)
 
     def mark(self, stage: str):
         super().mark(stage)
-        self.launches.append(_bf16_launches())
+        self.launches.append(self._counts())
+
+
+def _shell_stages(stages: _CountedStages, kernels=("k1", "k3_fwd")):
+    """A timed lightcone's marks per shell (each from its ``upload`` to the
+    next: upload, zoom, paint and, tiled, blend, in ms) with the launches
+    of ``kernels`` in it, and the marks outside the shells."""
+    shells, other = [], {}
+    marks = list(zip(stages.intervals(), stages.launches[1:],
+                     stages.launches))
+    for (stage, ms), now, prev in marks:
+        if stage == "upload":
+            shells.append({"start": prev})
+        if stage in ("upload", "zoom", "paint", "blend"):
+            shells[-1][stage] = ms
+            shells[-1]["end"] = now
+        else:
+            other[stage] = ms
+    for s in shells:
+        start, end = s.pop("start"), s.pop("end")
+        for k in kernels:
+            s[k] = end[k] - start[k]
+    return shells, other
 
 
 def time_lightcone(device, los: dict, card=None, paint_tiles_per_s=None,
@@ -2082,19 +2156,7 @@ def time_lightcone(device, los: dict, card=None, paint_tiles_per_s=None,
     out = run_lightcone_cli(device, los, "bf16", True, kappa=True,
                             stage_times=stages, **size)
     wall_s = time.perf_counter() - t
-    shells, other = [], {}
-    for (stage, ms), now, prev in zip(stages.intervals(), stages.launches[1:],
-                                      stages.launches):
-        if stage == "upload":
-            shells.append({"start": prev})
-        if stage in ("upload", "zoom", "paint", "blend"):
-            shells[-1][stage] = ms
-            if stage == "blend":
-                start = shells[-1].pop("start")
-                shells[-1]["k1"] = now["k1"] - start["k1"]
-                shells[-1]["k3_fwd"] = now["k3_fwd"] - start["k3_fwd"]
-        else:
-            other[stage] = ms
+    shells, other = _shell_stages(stages)
     device_ms = sum(s[k] for s in shells for k in ("zoom", "paint", "blend"))
     tiles = sum(s["tiles"] for s in lightcone_geometry(out["z_SLICS"]))
     tiles_per_s = tiles / device_ms * 1e3
@@ -2120,21 +2182,20 @@ def time_lightcone(device, los: dict, card=None, paint_tiles_per_s=None,
             "tiles_per_s": tiles_per_s}
 
 
-def lightcone(device, card=None, paint_tiles_per_s=None, z=LC_Z,
-              n_pixel_delta: int = slics_io.N_PIXEL_DELTA,
-              n_pixel_massplane: int = slics_io.N_PIXEL_MASSPLANE,
-              resolution: int = LC_RESOLUTION) -> dict:
-    """Phase 16, a main path: a synthetic SLICS line of sight (``z``'s
-    shells at ``n_pixel_delta`` / ``n_pixel_massplane``, the real SLICS
-    sizes by default) written to a temporary directory, removed after;
-    16a, 16b, 16c and the timed run, under PyTorch's default TF32 switches
-    (cuDNN's on), as a user's process runs the CLI."""
+@contextlib.contextmanager
+def synthetic_lightcone(device, z=LC_Z,
+                        n_pixel_delta: int = slics_io.N_PIXEL_DELTA,
+                        n_pixel_massplane: int = slics_io.N_PIXEL_MASSPLANE,
+                        resolution: int = LC_RESOLUTION):
+    """A synthetic SLICS line of sight (``z``'s shells at ``n_pixel_delta``
+    / ``n_pixel_massplane``, the real SLICS sizes by default) written to a
+    temporary directory for the block, removed after; yields ``{"los",
+    "shells", "size"}`` (``size``: the CLI runs' size arguments)."""
     device = torch.device(device)
     size = dict(n_pixel_delta=n_pixel_delta,
                 n_pixel_massplane=n_pixel_massplane, resolution=resolution)
     shells = lightcone_geometry(z, n_pixel_delta, resolution)
-    with tempfile.TemporaryDirectory(prefix="bpt_lightcone_") as base, \
-            _tf32(True, False):
+    with tempfile.TemporaryDirectory(prefix="bpt_lightcone_") as base:
         t0 = time.perf_counter()
         los = write_synthetic_los(base, z, LC_LOS, n_pixel_delta,
                                   n_pixel_massplane, device=device)
@@ -2142,8 +2203,19 @@ def lightcone(device, card=None, paint_tiles_per_s=None, z=LC_Z,
               n_pixel_delta=n_pixel_delta,
               n_pixel_massplane=n_pixel_massplane,
               tiles=json.dumps([s["tiles"] for s in shells]))
+        yield {"los": los, "shells": shells, "size": size}
+
+
+def lightcone(device, data: dict, card=None,
+              paint_tiles_per_s=None) -> dict:
+    """Phase 16, a main path: on ``data`` (``synthetic_lightcone``'s) 16a,
+    16b, 16c and the timed run, under PyTorch's default TF32 switches
+    (cuDNN's on), as a user's process runs the CLI."""
+    device = torch.device(device)
+    los, shells, size = data["los"], data["shells"], data["size"]
+    with _tf32(True, False):
         resample = check_resampler_lightcone(
-            device, lightcone_resample_cases(shells, resolution))
+            device, lightcone_resample_cases(shells, size["resolution"]))
         f32 = lightcone_f32(device, los, shells, **size)
         bf16 = lightcone_bf16(device, los, shells, f32["runs"]["cudnn"],
                               **size)
@@ -2152,6 +2224,526 @@ def lightcone(device, card=None, paint_tiles_per_s=None, z=LC_Z,
     return {"resample": resample, "f32": {k: v for k, v in f32.items()
                                           if k != "runs"},
             "bf16": bf16, "timing": timing, "shells": shells}
+
+
+# ---------------------------------------------------------------------- #
+# phase 17: the CGAN painter through K1 at slope 0.2
+
+CGAN_PATH = "trained_models/CGAN/fiducial/model"
+# the two CGAN goldens of tests/goldens/paint_goldens.npz, by checkpoint
+CGAN_GOLDENS = {"cgan_fiducial": CGAN_PATH,
+                "cgan_adv": "trained_models/CGAN/fiducial-adv/model"}
+CGAN_TILE, CGAN_N_TILES = 256, 2
+BF16_CGAN_REFERENCE = "tests/goldens/bf16_cgan_paint_reference.npz"
+CGAN_SLOPE = 0.2
+# K1's shapes on the CGAN's paths: the goldens' 2 tiles of 256^2 reach
+# the blocks at 64^2, the lightcone CLI's 16 tiles of 512^2 at 128^2
+K1_CGAN_SHAPES = ((2, 64, 64, 128), (16, 128, 128, 128))
+
+
+def k1_cgan_cases() -> list:
+    """17a's cases, (shape, dtype, slope, relative tolerance): both CGAN
+    shapes in f32 and bf16 at slope 0.2, with K1_CASES' tolerances."""
+    tol = {dtype: t for dtype, _, t in K1_CASES}
+    return [(shape, dtype, CGAN_SLOPE, tol[dtype])
+            for shape in K1_CGAN_SHAPES
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def check_k1_cgan(device, cases=None) -> list:
+    """Phase 17a: K1 against its plain version at the CGAN's shapes and
+    slope."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    out = [_check_k1(*case, device) for case in cases or k1_cgan_cases()]
+    _line("17a", "k1_cgan_vs_plain", t0, cases=len(out),
+          worst_err_over_tol=f"{max(r['max_abs_err'] / r['tol'] for r in out):.4f}")
+    return out
+
+
+def _cgan_painter(device, path=CGAN_PATH, repo: Path = REPO, **kw):
+    from baryon_painter_tpu_torch.painter import CGANPainter
+    return CGANPainter(str(repo / path), device=device, **kw)
+
+
+def _cgan_golden_batch():
+    return (golden_inputs(CGAN_TILE, CGAN_N_TILES),
+            np.linspace(0.0, 1.0, CGAN_N_TILES).astype(np.float32))
+
+
+def paint_cgan_goldens(device, repo: Path = REPO) -> dict:
+    """Phase 17b, a main path: both CGAN goldens repainted in f32 with
+    ``CGANPainter(fused_inference=True)``: on the card exactly one f32 K1
+    launch per residual block (9) a ``paint_batch`` and no other kernel;
+    within the golden test's tolerance. The same with cuDNN's blocks
+    (unfused: no launch), its distance printed."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    tiles, zs = _cgan_golden_batch()
+    with np.load(repo / GOLDENS) as g:
+        wants = {name: g[name].astype(np.float32) for name in CGAN_GOLDENS}
+    out = []
+    for name, path in CGAN_GOLDENS.items():
+        rec = {"name": name}
+        for fused in (True, False):
+            painter = _cgan_painter(device, path, repo,
+                                    fused_inference=fused)
+            blocks = painter.architecture["n_res_blocks"]
+            _reset_launches()
+            got = painter.paint_batch(tiles, zs)
+            _sync(device)
+            counts, bf16 = _launches(), _bf16_launches()
+            label = f"CGAN paint {name} ({'K1' if fused else 'cuDNN'})"
+            _expect_launches(label, counts,
+                             {"k1": blocks} if on_card and fused else {})
+            _expect_launches(label + " bf16", bf16, {})
+            got = got.cpu().numpy()
+            if got.shape != wants[name].shape or not np.isfinite(got).all():
+                raise AssertionError(f"{label}: {got.shape}, finite="
+                                     f"{np.isfinite(got).all()}")
+            key = "worst_err_over_tol" if fused else "cudnn_err_over_tol"
+            rec[key] = _golden_ratio(got, wants[name])
+            if fused:
+                rec["launches"] = counts["k1"]
+        print(f"  {name}: K1 {rec['launches']} launches, worst |diff| / "
+              f"tol {rec['worst_err_over_tol']:.4f}; cuDNN's blocks "
+              f"{rec['cudnn_err_over_tol']:.4f}", flush=True)
+        if not rec["worst_err_over_tol"] <= 1.0:
+            raise AssertionError(f"the CGAN painted through K1 differs from "
+                                 f"the golden: {rec}")
+        out.append(rec)
+    _line("17b", "paint_cgan_goldens", t0,
+          k1_launches_per_paint=json.dumps([r["launches"] for r in out]),
+          worst_err_over_tol=json.dumps(
+              [round(r["worst_err_over_tol"], 4) for r in out]),
+          cudnn_err_over_tol=json.dumps(
+              [round(r["cudnn_err_over_tol"], 4) for r in out]))
+    return {"goldens": out, "launches": out[0]["launches"]}
+
+
+def paint_cgan_bf16(device, repo: Path = REPO) -> dict:
+    """Phase 17c, a main path: the cgan_fiducial golden inputs painted in
+    bf16 through ``CGANPainter(dtype=torch.bfloat16,
+    fused_inference=True)`` in the transformed space: on the card exactly 9
+    K1 launches, all bf16; held to the committed JAX bf16 paint
+    (``BF16_CGAN_REFERENCE``) with phase 14's rule, d(port, JAX bf16) <=
+    max(BF16_PAINT_HALF * d(JAX f32, JAX bf16), d(JAX jitted, JAX op by
+    op)), and at least BF16_REAL_RATIO * d(JAX f32, JAX bf16) from the
+    port's own f32 paint."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    painter = _cgan_painter(device, repo=repo, fused_inference=True,
+                            dtype=torch.bfloat16)
+    painter_f32 = _cgan_painter(device, repo=repo, fused_inference=True)
+    blocks = painter.architecture["n_res_blocks"]
+    with np.load(repo / BF16_CGAN_REFERENCE) as r:
+        jax_bf16, jax_f32 = r["jax_bf16"], r["jax_f32"]
+        gap, d_jit = float(r["d_bf16_f32"]), float(r["d_bf16_jit"])
+    limit = max(BF16_PAINT_HALF * gap, d_jit)
+    tiles, zs = _cgan_golden_batch()
+    _reset_launches()
+    out = painter.paint_batch(tiles, zs, inverse_transform=False)
+    _sync(device)
+    counts, bf16_counts = _launches(), _bf16_launches()
+    want = {"k1": blocks} if on_card else {}
+    _expect_launches("CGAN paint (bf16)", counts, want)
+    _expect_launches("CGAN paint (bf16 launches)", bf16_counts, want)
+    got = out.float().cpu().numpy()
+    out_f32 = painter_f32.paint_batch(tiles, zs, inverse_transform=False)
+    d_ref, d_real = rel_l2(got, jax_bf16), rel_l2(got, out_f32)
+    d_f32 = rel_l2(out_f32, jax_f32)
+    res = {"dtype": str(out.dtype), "d_jax_bf16": d_ref, "d_port_f32": d_real,
+           "d_f32_vs_jax_f32": d_f32, "gap": gap, "d_jax_jit": d_jit,
+           "limit": limit, "launches": counts, "bf16_launches": bf16_counts}
+    ok = (out.dtype == torch.bfloat16 and got.shape == jax_bf16.shape
+          and bool(np.isfinite(got).all()) and d_ref <= limit
+          and d_real >= BF16_REAL_RATIO * gap)
+    if not ok:
+        raise AssertionError(f"CGAN bf16 paint against the JAX bf16 "
+                             f"reference: {res}")
+    _line("17c", "paint_cgan_bf16", t0, launches=json.dumps(counts),
+          bf16_launches=json.dumps(bf16_counts), d_jax_bf16=f"{d_ref:.4e}",
+          jax_bf16_f32_gap=f"{gap:.4e}", ratio=f"{d_ref / gap:.4f}",
+          limit_ratio=f"{limit / gap:.4f}",
+          jax_jit_ratio=f"{d_jit / gap:.4f}",
+          real_ratio=f"{d_real / gap:.4f}", f32_vs_jax_f32=f"{d_f32:.2e}")
+    return res
+
+
+def time_cgan(device, card=None, n_tiles: int = 16, warmup: int = 2,
+              iters: int = 10, k1_shape=K1_CGAN_SHAPES[1],
+              k1_iters: int = 20) -> dict:
+    """Phase 17d: ``paint_batch`` at ``n_tiles`` 512^2 tiles (the lightcone
+    CLI's calls) in f32 and bf16, with K1 and with cuDNN's blocks, CUDA
+    events over ``iters`` calls after ``warmup``, each with its peak device
+    memory; K1 per launch at ``k1_shape``, slope 0.2, beside its plain
+    version, cuDNN's unfused LeakyReLU block on ``channels_last`` and the
+    bound (``k1_bound``)."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    out = {"n_tiles": n_tiles, "paint_ms": {}, "tiles_per_s": {},
+           "peak_gb": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        d = str(dtype).replace("torch.", "")
+        for fused in (True, False):
+            key = f"{d}_{'k1' if fused else 'cudnn'}"
+            painter = _cgan_painter(
+                device, fused_inference=fused,
+                dtype=None if dtype == torch.float32 else dtype)
+            base = _peak_start(device)
+            ms = paint_time_ms(device, painter, n_tiles, warmup, iters)
+            out["peak_gb"][key] = _peak_since(device, base) / 1e9
+            out["paint_ms"][key] = ms
+            out["tiles_per_s"][key] = n_tiles / ms * 1e3
+            del painter
+    slope = dict(inner_slope=CGAN_SLOPE, outer_slope=CGAN_SLOPE)
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            d = str(dtype).replace("torch.", "")
+            args = k1_inputs(k1_shape, dtype, device)
+            lib_args = library_block_args(args, dtype)
+            out[f"k1_ms_{d}"] = _time_ms(
+                lambda: res_block_infer(*args, **slope), device, 3, k1_iters)
+            out[f"library_ms_{d}"] = _time_ms(
+                lambda: library_block(*lib_args, slope=CGAN_SLOPE), device,
+                3, k1_iters)
+            out[f"plain_ms_{d}"] = _time_ms(
+                lambda: res_block_infer_ref(*args, **slope), device, 3,
+                k1_iters)
+            out[f"bound_{d}"] = k1_bound(k1_shape, dtype)
+    clock = "cuda_events" if device.type == "cuda" else "host_clock_cpu"
+    f = lambda v: f"{v:.3f}"
+    _line("17d", "cgan_timing", t0, clock=clock, card=json.dumps(card),
+          n_tiles=n_tiles,
+          paint_ms=json.dumps({k: round(v, 3)
+                               for k, v in out["paint_ms"].items()}),
+          tiles_per_s=json.dumps({k: round(v, 2)
+                                  for k, v in out["tiles_per_s"].items()}),
+          peak_gb=json.dumps({k: round(v, 3)
+                              for k, v in out["peak_gb"].items()}),
+          k1_shape=json.dumps(list(k1_shape)),
+          k1_ms_f32=f"{out['k1_ms_float32']:.4f}",
+          k1_ms_bf16=f"{out['k1_ms_bfloat16']:.4f}",
+          cudnn_block_ms_f32=f"{out['library_ms_float32']:.4f}",
+          cudnn_block_ms_bf16=f"{out['library_ms_bfloat16']:.4f}",
+          plain_ms_f32=f"{out['plain_ms_float32']:.4f}",
+          plain_ms_bf16=f"{out['plain_ms_bfloat16']:.4f}",
+          bound_ms_f32_3xtf32=f"{out['bound_float32']['tc']['bound_ms']:.4f}",
+          bound_ms_bf16=f"{out['bound_bfloat16']['tc']['bound_ms']:.4f}",
+          paint_ms_f32_k1=f(out["paint_ms"]["float32_k1"]))
+    return out
+
+
+def lightcone_cgan(device, data: dict, card=None) -> dict:
+    """Phase 17e, a main path: the lightcone CLI with ``--model-type CGAN
+    --fused-paint`` (f32, its default) on phase 16's line of sight: on the
+    card exactly 9 K1 launches a paint call and no other kernel; every
+    painted plane and the y map within the golden's tolerance of the same
+    run with cuDNN off (plain convolutions, the unfused painter); cuDNN's
+    unfused run's distance printed. Then the K1 run again, timed by stage
+    (CUDA events) and whole (host clock)."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    los, shells, size = data["los"], data["shells"], data["size"]
+    on_card = device.type == "cuda"
+    calls = sum(s["calls"] for s in shells)
+    blocks = _load_meta(REPO / CGAN_PATH)["model_architecture"].get(
+        "n_res_blocks", 9)
+    runs, counts = {}, {}
+    with _tf32(True, False):
+        for label, fused, cudnn in (("kernels", True, True),
+                                    ("plain", False, False),
+                                    ("cudnn", False, True)):
+            _reset_launches()
+            with _cudnn(cudnn):
+                runs[label] = run_lightcone_cli(device, los, "f32", fused,
+                                                model_type="CGAN", **size)
+            counts[label] = _launches()
+            _expect_launches(f"CGAN lightcone ({label})", counts[label],
+                             {"k1": blocks * calls}
+                             if on_card and fused else {})
+        stages = _CountedStages(device, counts=_launches)
+        t = time.perf_counter()
+        run_lightcone_cli(device, los, "f32", True, model_type="CGAN",
+                          stage_times=stages, **size)
+        wall_s = time.perf_counter() - t
+
+    def ratios(a, b):
+        return ([_golden_ratio(p, q) for p, q in zip(runs[a]["planes"],
+                                                     runs[b]["planes"])],
+                _golden_ratio(runs[a]["y_map"], runs[b]["y_map"]))
+
+    kernels, kernels_y = ratios("kernels", "plain")
+    cudnn, cudnn_y = ratios("cudnn", "plain")
+    finite = all(bool(torch.as_tensor(p).isfinite().all())
+                 for p in runs["kernels"]["planes"])
+    if not (finite and max(kernels) <= 1.0 and kernels_y <= 1.0):
+        raise AssertionError(f"CGAN lightcone, kernels against the plain "
+                             f"run: planes {kernels}, y map {kernels_y}, "
+                             f"finite={finite}")
+    shell_ms, other = _shell_stages(stages, kernels=("k1",))
+    for z, s in zip(runs["kernels"]["z_SLICS"], shell_ms):
+        print(f"  CGAN shell z={z:.3f}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in s.items() if k != "k1")
+            + f"; K1 {s['k1']}", flush=True)
+    tiles = sum(s["tiles"] for s in shells)
+    device_ms = sum(s.get(k, 0.0) for s in shell_ms
+                    for k in ("zoom", "paint", "blend"))
+    fmt = lambda r: json.dumps([round(v, 4) for v in r])
+    _line("17e", "lightcone_cgan", t0, card=json.dumps(card),
+          launches=json.dumps(counts["kernels"]), paint_calls=calls,
+          planes_err_over_tol=fmt(kernels),
+          y_map_err_over_tol=f"{kernels_y:.4f}",
+          cudnn_planes_err_over_tol=fmt(cudnn),
+          cudnn_y_map_err_over_tol=f"{cudnn_y:.4f}", los_s=f"{wall_s:.3f}",
+          shells_device_ms=f"{device_ms:.3f}",
+          paint_ms=f"{sum(s['paint'] for s in shell_ms):.3f}",
+          upload_ms=f"{sum(s['upload'] for s in shell_ms):.3f}",
+          y_map_ms=f"{other.get('ymap', 0.0):.3f}",
+          lightcone_tiles_per_s=f"{tiles / device_ms * 1e3:.2f}")
+    return {"launches": counts["kernels"], "paint_calls": calls,
+            "planes_err_over_tol": kernels, "y_map_err_over_tol": kernels_y,
+            "cudnn_planes_err_over_tol": cudnn,
+            "cudnn_y_map_err_over_tol": cudnn_y, "los_s": wall_s,
+            "shells": shell_ms, "stages": other,
+            "tiles_per_s": tiles / device_ms * 1e3}
+
+
+def cgan(device, data: dict, card=None) -> dict:
+    """Phase 17: the CGAN painter, 17a-17e."""
+    return {"k1": check_k1_cgan(device),
+            "goldens": paint_cgan_goldens(device),
+            "bf16": paint_cgan_bf16(device),
+            "timing": time_cgan(device, card=card),
+            "lightcone": lightcone_cgan(device, data, card=card)}
+
+
+# ---------------------------------------------------------------------- #
+# phase 18: seamless whole-plane painting
+
+# test_halo_sufficiency's tolerance (tests/test_spatial_paint.py)
+HALO_RTOL, HALO_ATOL = 1e-5, 1e-6
+# 18a's f32 limits, in units of that tolerance: the f32 paint at
+# required_halo against the f64 paint at twice it. Set from
+# scripts/halo_readings_torch.py on an H100 (3 processes x 4 paints):
+# the largest reading CVAE 0.994, CGAN 5.41 (f32 is not exact, and cuDNN's
+# default engines move it by up to 0.99 between paints); a halo one step
+# below calibrate_halo reads 79.4 / 15.5
+HALO_F32_LIMIT = {"cvae": 2.0, "cgan": 9.0}
+HALO_PLANE = 512     # the probe plane's edge (18a)
+SEAMLESS_PLANE = 1024  # 18b: plain convolutions im2col the whole plane
+
+
+def _spatial_painters(device, dtype=None):
+    """(label, painter, model kind, z_mode) of the fiducial-512 CVAE (at
+    the prior mean) and the CGAN, computing in ``dtype``."""
+    from baryon_painter_tpu_torch.painter import CVAEPainter
+    return [("cvae", CVAEPainter(str(REPO / CHECKPOINT), device=device,
+                                 dtype=dtype), "cvae", "mean"),
+            ("cgan", _cgan_painter(device, dtype=dtype), "cgan", "mean")]
+
+
+def _halo_ratio(a, b) -> float:
+    """max |a - b| / (HALO_ATOL + HALO_RTOL |b|)."""
+    a = torch.as_tensor(a).double().cpu()
+    b = torch.as_tensor(b).double().cpu()
+    return float(((a - b).abs() / (HALO_ATOL + HALO_RTOL * b.abs())).max())
+
+
+def check_halo(device, n: int = HALO_PLANE, calibrate: bool = True) -> list:
+    """Phase 18a: for the fiducial-512 CVAE (z_mode 'mean') and the CGAN, a
+    probe plane (n^2 golden-style tiles) painted whole with ``paint_plane``
+    and held to the f64 paint at twice ``required_halo``, in units of rtol
+    1e-5, atol 1e-6 (the JAX package's halo test): the f64 paint at the
+    halo within 1; the f32 paint at the halo, as users paint, within
+    ``HALO_F32_LIMIT``. With ``calibrate``, ``calibrate_halo``'s measured
+    halo (f32) beside the analytic bound, and the f32 paint at one
+    alignment step below it must read above the limit, so that the f32
+    gate sees a halo that is too short."""
+    from baryon_painter_tpu_torch.parallel import spatial
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    plane = golden_inputs(n, 1)[0]
+    out = []
+    f64 = {label: p for label, p, _, _ in _spatial_painters(device,
+                                                            torch.float64)}
+    for label, painter, kind, z_mode in _spatial_painters(device):
+        arch = painter.meta["model_architecture"]
+        h = spatial.required_halo(arch, kind)
+
+        def paint(p, halo):
+            return spatial.paint_plane(p, plane, 0.5, halo=halo,
+                                       z_mode=z_mode)
+
+        ref = paint(f64[label], 2 * h)
+        at_h = paint(painter, h)
+        if not (torch.isfinite(at_h).all() and torch.isfinite(ref).all()):
+            raise AssertionError(f"paint_plane {label}: not finite")
+        rec = {"model": label, "halo": h, "limit": HALO_F32_LIMIT[label],
+               "err_over_tol": _halo_ratio(paint(f64[label], h), ref),
+               "f32_err_over_tol": _halo_ratio(at_h, ref),
+               "calibrated": None, "short_err_over_tol": None}
+        if calibrate:
+            rec["calibrated"] = spatial.calibrate_halo(painter, z=0.5)
+            step_below = rec["calibrated"] - spatial.latent_downsample(arch)
+            rec["short_err_over_tol"] = _halo_ratio(
+                paint(painter, step_below), ref)
+        short = rec["short_err_over_tol"]
+        print(f"  {label}: against f64 at halo {2 * h}, worst |diff| / tol:"
+              f" f64 at {h} {rec['err_over_tol']:.4f}, f32 at {h} "
+              f"{rec['f32_err_over_tol']:.4f} (limit {rec['limit']}); "
+              f"calibrate_halo {rec['calibrated']}, f32 one step below it "
+              f"{'-' if short is None else f'{short:.4f}'}", flush=True)
+        if not (rec["err_over_tol"] <= 1.0
+                and rec["f32_err_over_tol"] <= rec["limit"]
+                and (rec["short_err_over_tol"] is None
+                     or rec["short_err_over_tol"] > rec["limit"])):
+            raise AssertionError(f"paint_plane at the required halo against "
+                                 f"the f64 paint at twice it: {rec}")
+        out.append(rec)
+    by_model = lambda key: json.dumps({r["model"]: None if r[key] is None
+                                       else round(r[key], 4) for r in out})
+    _line("18a", "halo", t0, plane=n,
+          halo=json.dumps({r["model"]: r["halo"] for r in out}),
+          calibrated=json.dumps({r["model"]: r["calibrated"] for r in out}),
+          err_over_tol_f64=by_model("err_over_tol"),
+          err_over_tol_f32=by_model("f32_err_over_tol"),
+          f32_limit=json.dumps(HALO_F32_LIMIT),
+          short_err_over_tol_f32=by_model("short_err_over_tol"))
+    return out
+
+
+def seamless_vs_plain(device, n: int = SEAMLESS_PLANE) -> list:
+    """Phase 18b: an n^2 plane painted whole (``paint_plane``) in f32 by
+    both painters (the CVAE with one noise draw on the plane's latent grid)
+    with cuDNN and with cuDNN off (PyTorch's own convolutions): within the
+    golden's tolerance; each paint's peak device memory."""
+    from baryon_painter_tpu_torch.parallel import spatial
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    plane = golden_inputs(n, 1)[0]
+    out = []
+    for label, painter, kind, _ in _spatial_painters(device):
+        eps = None
+        if kind == "cvae":
+            gen = torch.Generator(device=device).manual_seed(0)
+            eps = torch.randn(spatial.latent_noise_shape(painter, plane.shape),
+                              generator=gen, device=device)
+        got = {}
+        for name, on in (("cudnn", True), ("plain", False)):
+            base = _peak_start(device)
+            with _cudnn(on):
+                got[name] = spatial.paint_plane(painter, plane, 0.5,
+                                                eps=eps).cpu()
+            got[name + "_peak_gb"] = _peak_since(device, base) / 1e9
+        rec = {"model": label, "err_over_tol": _golden_ratio(got["cudnn"],
+                                                             got["plain"]),
+               "peak_gb": got["cudnn_peak_gb"],
+               "plain_peak_gb": got["plain_peak_gb"]}
+        print(f"  {label}: {n}^2 seamless, cuDNN against plain: worst "
+              f"|diff| / tol {rec['err_over_tol']:.4f}; peak "
+              f"{rec['peak_gb']:.3f} GB (plain {rec['plain_peak_gb']:.3f})",
+              flush=True)
+        if not (rec["err_over_tol"] <= 1.0
+                and torch.isfinite(got["cudnn"]).all()):
+            raise AssertionError(f"seamless paint, cuDNN against plain: "
+                                 f"{rec}")
+        out.append(rec)
+    _line("18b", "seamless_vs_plain", t0, plane=n,
+          err_over_tol=json.dumps({r["model"]: round(r["err_over_tol"], 4)
+                                   for r in out}))
+    return out
+
+
+def _p9999(plane) -> float:
+    """The 99.99th percentile of a plane's values."""
+    x = torch.as_tensor(plane).float().flatten().cpu()
+    k = max(1, int(round(0.9999 * x.numel())))
+    return float(x.kthvalue(k).values)
+
+
+def lightcone_seamless(device, data: dict, tiled: dict, card=None) -> dict:
+    """Phase 18c: the lightcone CLI with ``--seamless``, the CVAE in bf16
+    (its default) and cuDNN's blocks (seamless paints without the fused
+    layout, as in JAX), on phase 16's line of sight: no kernel launches;
+    a warm-up run, then timed by stage (CUDA events) and whole (host
+    clock) with its peak device memory; e(seamless, tiled), the largest
+    bin of ``cl_fractional_error`` of its y map against ``tiled`` (phase
+    16c's tiled bf16 cuDNN run: its y map and planes), printed as a finding
+    (the two draw different prior noise, and the tiled planes carry the
+    tiles' zero-padding edges where the plane's border cuts them), beside
+    each delta plane's 99.99th percentile both ways.
+    ``--seamless --fused-paint`` must raise ``ValueError``."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    los, shells, size = data["los"], data["shells"], data["size"]
+    with _tf32(True, False):
+        _reset_launches()
+        run_lightcone_cli(device, los, "bf16", False, seamless=True, **size)
+        counts = _launches()
+        _expect_launches("seamless lightcone", counts, {})
+        stages = _CountedStages(device, counts=_launches)
+        base = _peak_start(device)
+        t = time.perf_counter()
+        run = run_lightcone_cli(device, los, "bf16", False, seamless=True,
+                                stage_times=stages, **size)
+        wall_s = time.perf_counter() - t
+        peak_gb = _peak_since(device, base) / 1e9
+        try:
+            run_lightcone_cli(device, los, "bf16", True, seamless=True,
+                              **size)
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("--seamless --fused-paint did not raise")
+    from baryon_painter_tpu_torch.parallel import spatial
+    arch = _load_meta(REPO / CHECKPOINT)["model_architecture"]
+    halo = spatial.required_halo(arch, "cvae")
+    f = spatial.latent_downsample(arch)
+    planes = [s["n_plane"] for s in shells if s["kind"] == "delta"]
+    extended = [-(-p // f) * f + 2 * halo for p in planes]
+    e = _max_cl_error(run["y_map"], tiled["y_map"], device)
+    delta = [i for i, s in enumerate(shells) if s["kind"] == "delta"]
+    p9999 = {"seamless": [_p9999(run["planes"][i]) for i in delta],
+             "tiled": [_p9999(tiled["planes"][i]) for i in delta]}
+    shell_ms, other = _shell_stages(stages, kernels=("k1",))
+    for z, s in zip(run["z_SLICS"], shell_ms):
+        print(f"  seamless shell z={z:.3f}: " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in s.items() if k != "k1"),
+            flush=True)
+    finite = bool(np.all(np.isfinite(run["y_map"])))
+    if not finite:
+        raise AssertionError("seamless lightcone: y map not finite")
+    _line("18c", "lightcone_seamless", t0, card=json.dumps(card),
+          launches=json.dumps(counts), planes=json.dumps(planes),
+          extended=json.dumps(extended), los_s=f"{wall_s:.3f}",
+          peak_gb=f"{peak_gb:.3f}",
+          paint_ms=f"{sum(s['paint'] for s in shell_ms):.3f}",
+          zoom_ms=f"{sum(s['zoom'] for s in shell_ms):.3f}",
+          upload_ms=f"{sum(s['upload'] for s in shell_ms):.3f}",
+          y_map_ms=f"{other.get('ymap', 0.0):.3f}",
+          e_seamless_tiled=f"{e:.4e}",
+          p9999=json.dumps({k: [round(v, 4) for v in vs]
+                            for k, vs in p9999.items()}),
+          fused_refused=json.dumps(refused))
+    return {"los_s": wall_s, "peak_gb": peak_gb, "shells": shell_ms,
+            "stages": other, "e_seamless_tiled": e, "planes": planes,
+            "extended": extended, "launches": counts, "p9999": p9999}
+
+
+def _load_meta(base: Path) -> dict:
+    with open(str(base) + "_meta.json") as f:
+        return json.load(f)
+
+
+def seamless(device, data: dict, tiled: dict, card=None) -> dict:
+    """Phase 18: seamless whole-plane painting, 18a-18c (``tiled``: phase
+    16c's tiled bf16 cuDNN run)."""
+    return {"halo": check_halo(device),
+            "plain": seamless_vs_plain(device),
+            "lightcone": lightcone_seamless(device, data, tiled, card=card)}
 
 
 # what each K4 kernel's max_abs_err covers, and the yardstick it carries
@@ -2225,13 +2817,31 @@ def _add_lightcone_launches(entries: list, lightcone: dict):
                 s[key] for s in lightcone["timing"]["shells"]]
 
 
+def _add_cgan(entry: dict, cgan: dict, dtype: str):
+    """Phase 17's K1 numbers on a K1 entry of ``dtype``."""
+    timing, shape = cgan["timing"], K1_CGAN_SHAPES[1]
+    err = max(r["max_abs_err"] for r in cgan["k1"] if r["dtype"] == dtype
+              and r["shape"] == list(shape))
+    entry.update({
+        "cgan_launches": (cgan["goldens"]["launches"] if dtype == "float32"
+                          else cgan["bf16"]["bf16_launches"]["k1"]),
+        "cgan_shape": list(shape), "cgan_slope": CGAN_SLOPE,
+        "cgan_max_abs_err": err, "cgan_ms": timing[f"k1_ms_{dtype}"],
+        "cgan_plain_ms": timing[f"plain_ms_{dtype}"],
+        "cgan_library_ms": timing[f"library_ms_{dtype}"],
+        "cgan_bound_ms": timing[f"bound_{dtype}"]["tc"]["bound_ms"],
+        "cgan_bound_by": timing[f"bound_{dtype}"]["tc"]["bound_by"]})
+    if dtype == "float32":
+        entry["cgan_lightcone_launches"] = cgan["lightcone"]["launches"]["k1"]
+
+
 def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                    heads: dict, training: dict, conv_bn: dict,
                    training_k4: dict, heads_bf16: dict = None,
                    paint_bf16: dict = None, training_bf16: dict = None,
                    conv_bn_bf16: dict = None,
                    training_bf16_k4: dict = None,
-                   lightcone: dict = None) -> dict:
+                   lightcone: dict = None, cgan: dict = None) -> dict:
     """The ``{"kernels": [...]}`` record of the run, each entry with its
     ``dtype``: K1 in f32, its bf16 numbers beside it; K2, K3-fwd and K3-bwd
     with their launches in the timed training steps; K4's four kernels
@@ -2245,7 +2855,10 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     u1 kept, as the training steps that count its launches run it; without
     u1 (painting) beside them. Given phase 16, the bf16 K1 and K3-fwd
     entries also carry their launches in the bf16 lightcone (16c) and per
-    shell (the timed run)."""
+    shell (the timed run). Given phase 17, both K1 entries carry the
+    CGAN's: its launches per paint call (17b in f32, 17c in bf16) and in
+    the f32 CGAN lightcone (17e), and K1 at the CLI's CGAN shape (slope
+    0.2; 17a's error, 17d's times and the bound there)."""
     f32 = next(c for c in checks if c["dtype"] == "float32")
     bf16 = next(c for c in checks if c["dtype"] == "bfloat16")
     def k3(name, key, replaces, heads=heads, launches=None):
@@ -2266,7 +2879,6 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     k3_fwd = k3("head_stack_fwd", "k3_fwd", K3_FWD_REPLACES)
     k3_fwd["u1_max_abs_err"] = heads["abs_errors"]["u1"]
     k3_fwd["ms_without_u1"] = heads["fwd_without_u1_ms"]
-    k1_f32 = timing["bound_float32"]
     bf16_entries = []
     if paint_bf16 is not None:
         k1_b = timing["bound_bfloat16"]
@@ -2290,9 +2902,8 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                                    K3_BWD_REPLACES, heads_bf16, launches)]
     if lightcone is not None:
         _add_lightcone_launches(bf16_entries, lightcone)
-    if conv_bn_bf16 is not None and training_bf16_k4 is not None:
-        bf16_entries += k4_record(conv_bn_bf16, training_bf16_k4)
-    return {"kernels": [{
+    k1_f32 = timing["bound_float32"]
+    k1_entry = {
         "name": "res_block_infer", "dtype": "float32", "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": paint["launches"],
@@ -2305,7 +2916,15 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         "bf16_ms": timing["k1_ms_bfloat16"],
         "bf16_bound_ms": timing["bound_bfloat16"]["bound_ms"],
         "bf16_library_ms": timing["library_ms_bfloat16"],
-        "bf16_max_abs_err": bf16["max_abs_err"]}, {
+        "bf16_max_abs_err": bf16["max_abs_err"]}
+    if cgan is not None:
+        _add_cgan(k1_entry, cgan, "float32")
+        for entry in bf16_entries:
+            if entry["name"] == "res_block_infer":
+                _add_cgan(entry, cgan, "bfloat16")
+    if conv_bn_bf16 is not None and training_bf16_k4 is not None:
+        bf16_entries += k4_record(conv_bn_bf16, training_bf16_k4)
+    return {"kernels": [k1_entry, {
         "name": "gather_tiles", "dtype": "float32", "route": "cuda",
         "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": training["launches"]["k2"],

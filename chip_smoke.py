@@ -34,7 +34,18 @@ sites' sums change order; then a synthetic SLICS line of sight at real sizes
 lightcone's sizes with TF32 on, the f32 lightcone with the kernels against
 cuDNN's, and the CLI's default, bf16 with K1 and K3 (exactly 24 bf16 K1 and
 6 bf16 K3-fwd launches), held to the bf16 cuDNN lightcone on the y map's
-angular power spectrum, then timed stage by stage. Everything is timed.
+angular power spectrum, then timed stage by stage; then the CGAN painter
+(phase 17): K1 against its plain version at the CGAN's shapes and slope
+0.2, both CGAN goldens repainted through
+``CGANPainter(fused_inference=True)`` (exactly 9 K1 launches a paint
+call), the bf16 CGAN paint (exactly 9 bf16 K1 launches) against the
+committed JAX bf16 paint (tests/goldens/bf16_cgan_paint_reference.npz),
+the CGAN's paint timed at 16 tiles of 512^2 with K1 and with cuDNN's
+blocks, and the lightcone CLI with ``--model-type CGAN --fused-paint``
+(exactly 9 K1 launches a paint call) against the same run with plain
+convolutions; then seamless whole-plane painting (phase 18): the halo
+against twice it, a 1024^2 plane with cuDNN against plain convolutions,
+and the lightcone CLI with ``--seamless``, timed. Everything is timed.
 The phases live in ``baryon_painter_tpu_torch/smoke.py``; each prints one
 line with its seconds. The last lines are the kernels record (JSON), the
 card's name and power limit as nvidia-smi gives them, and the result (JSON).
@@ -100,16 +111,21 @@ def main() -> int:
                                    k4_off_ms=training_bf16["step_ms"],
                                    f32_ms=training_k4["step_ms"])
     smoke.train_parity_bf16(device, dataset, fused_train_conv=True)
-    # the paint path's consumer: a SLICS lightcone through the lightcone CLI
-    lightcone = smoke.lightcone(device, card=card,
-                                paint_tiles_per_s=paint_bf16["tiles_per_s"])
+    # the paint path's consumer: a SLICS lightcone through the lightcone
+    # CLI, with the CVAE (16), the CGAN (17) and whole planes (18)
+    with smoke.synthetic_lightcone(device) as data:
+        lightcone = smoke.lightcone(
+            device, data, card=card,
+            paint_tiles_per_s=paint_bf16["tiles_per_s"])
+        cgan = smoke.cgan(device, data, card=card)
+        smoke.seamless(device, data, lightcone["bf16"]["cudnn"], card=card)
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
     print(json.dumps(smoke.kernels_record(
         checks, paint, timing, gather, heads, training, conv_bn, training_k4,
         heads_bf16=heads_bf16, paint_bf16=paint_bf16,
         training_bf16=training_bf16, conv_bn_bf16=conv_bn_bf16,
-        training_bf16_k4=training_bf16_k4, lightcone=lightcone)))
+        training_bf16_k4=training_bf16_k4, lightcone=lightcone, cgan=cgan)))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

@@ -4,7 +4,10 @@
 The twin of ``scripts/create_lightcone.py``, with its flags and defaults:
 paints the SLICS shells of one line of sight with a committed CVAE
 (``--CVAE-path``; bf16 by default, ``--fused-paint`` for K1's fused residual
-blocks, ``BPT_FUSED_HEADS=1`` for K3's fused output heads), assembles the
+blocks, ``BPT_FUSED_HEADS=1`` for K3's fused output heads) or CGAN
+(``--model-type CGAN --CGAN-path``; f32 by default, ``--fused-paint`` folds
+its spectral norm and runs its residual blocks through K1), tiled or, with
+``--seamless``, each delta shell as one whole plane; assembles the
 Compton-y map (``--output-file``, .npy) and, with ``--kappa-path``, its
 cross angular power spectrum with the SLICS convergence map
 (``<output-file>_y_x_kappa.npz``):
@@ -15,8 +18,8 @@ cross angular power spectrum with the SLICS convergence map
 
 ``<dir>`` holds ``delta/``, ``massplanes/`` and ``random_shifts/`` as the
 SLICS release lays them out. Runs on the card unless ``--device cpu``.
-Imports only torch, numpy and the port. ``--model-type CGAN``,
-``--mesh-devices`` and ``--seamless`` are not ported yet and raise.
+Imports only torch, numpy and the port. ``--mesh-devices`` (multi-GPU
+painting) is not ported yet and raises.
 """
 import argparse
 import glob
@@ -50,14 +53,17 @@ def parse_args(argv=None):
     parser.add_argument("--paint-dtype", default=None,
                         choices=["bf16", "f32"],
                         help="compute dtype for painting; default bf16 for "
-                             "the CVAE, the dtype its fidelity gates were "
-                             "scored in")
+                             "the CVAE, f32 for the CGAN: the dtypes their "
+                             "fidelity gates were scored in")
     parser.add_argument("--fused-paint", action="store_true",
                         help="paint the canonical residual blocks through "
-                             "the fused residual-block kernel (K1)")
+                             "the fused residual-block kernel (K1); the CGAN's "
+                             "spectral norm is folded into its weights")
     parser.add_argument("--seamless", action="store_true",
-                        help="whole-plane seam-free painting; not ported yet "
-                             "(ROADMAP.md §1 item 4)")
+                        help="paint each delta shell as one fully "
+                             "convolutional pass over the whole zoomed plane "
+                             "instead of overlap-tiling and blending: no "
+                             "seams, every pixel painted once")
     parser.add_argument("--bf16-transfer", action="store_true",
                         help="ship SLICS planes to the device as bfloat16 "
                              "(halves host-to-device bytes; promoted to f32 "
@@ -95,26 +101,26 @@ def run(argv=None, stage_times=None) -> dict:
     from baryon_painter_tpu_torch.cosmology import SLICS_COSMOLOGY
     from baryon_painter_tpu_torch.lightcone import (create_y_map,
                                                     process_slics)
-    from baryon_painter_tpu_torch.painter import CVAEPainter
+    from baryon_painter_tpu_torch.painter import CGANPainter, CVAEPainter
 
-    if args.model_type == "CGAN":
-        raise NotImplementedError("the CGAN painter is not ported yet "
-                                  "(ROADMAP.md §1 item 3)")
     if args.mesh_devices:
         raise NotImplementedError("--mesh-devices: multi-GPU painting is not "
                                   "ported yet (ROADMAP.md §1 item 10)")
-    if args.seamless:
-        raise NotImplementedError("--seamless: whole-plane painting is not "
-                                  "ported yet (ROADMAP.md §1 item 4)")
     if args.paint_dtype is None:
-        args.paint_dtype = "bf16"
-    print("Using CVAE.")
-    painter = CVAEPainter(
-        os.path.join(args.CVAE_path, "model"),
-        fused_inference=args.fused_paint,
-        fused_heads=os.environ.get("BPT_FUSED_HEADS") == "1",
-        dtype=torch.bfloat16 if args.paint_dtype == "bf16" else None,
-        device=args.device)
+        args.paint_dtype = "bf16" if args.model_type == "CVAE" else "f32"
+    paint_dtype = torch.bfloat16 if args.paint_dtype == "bf16" else None
+    if args.model_type == "CVAE":
+        print("Using CVAE.")
+        painter = CVAEPainter(
+            os.path.join(args.CVAE_path, "model"),
+            fused_inference=args.fused_paint,
+            fused_heads=os.environ.get("BPT_FUSED_HEADS") == "1",
+            dtype=paint_dtype, device=args.device)
+    else:
+        print("Using CGAN.")
+        painter = CGANPainter(os.path.join(args.CGAN_path, "model"),
+                              fused_inference=args.fused_paint,
+                              dtype=paint_dtype, device=args.device)
 
     LOS = int(args.SLICS_LOS)
     delta_path = os.path.join(args.SLICS_base_path, "delta")
@@ -150,6 +156,7 @@ def run(argv=None, stage_times=None) -> dict:
         n_pixel_delta=args.n_pixel_delta,
         n_pixel_massplane=args.n_pixel_massplane,
         transfer_dtype=torch.bfloat16 if args.bf16_transfer else None,
+        seamless=args.seamless,
         # keep the painted planes on the device unless they are written to
         # disk: create_y_map computes on the device
         device_output=not args.output_file_planes,

@@ -1,7 +1,8 @@
 """The port on the card: K1 (csrc/res_block.cu), K2 (csrc/gather_tiles.cu),
 K3 (csrc/head_stack.cu, forward and backward) and K4 (csrc/conv_bn.cu: stats,
 fwd, bwd1, bwd2) against their plain versions,
-the fused painter on CUDA against the same painter on the CPU and the golden,
+the fused painter on CUDA against the same painter on the CPU and the golden
+(the CVAE and the CGAN, whose K1 runs at slope 0.2), whole-plane painting,
 and training steps with the kernels against steps with the plain versions.
 
 Every test here needs a CUDA device and skips without one. The file imports
@@ -759,3 +760,37 @@ def test_power_spectrum_on_the_card_matches_the_cpu(cuda_device):
         assert g.device.type == "cuda"
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-5,
                                    atol=1e-5 * w.abs().max().item())
+
+
+def test_cgan_painter_on_the_card_matches_cpu_and_golden(cuda_device):
+    """Both CGAN goldens through K1 at slope 0.2 (9 launches a paint),
+    against the same painter on the CPU and the golden, and the unfused
+    painter (no launch) against the golden (``smoke.paint_cgan_goldens``);
+    the bf16 CGAN paint against the committed JAX bf16 reference
+    (``smoke.paint_cgan_bf16``)."""
+    out = smoke.paint_cgan_goldens(cuda_device)
+    assert [g["launches"] for g in out["goldens"]] == [9, 9]
+    assert all(g["worst_err_over_tol"] <= 1.0 and
+               g["cudnn_err_over_tol"] <= 1.0 for g in out["goldens"])
+    tiles, zs = smoke._cgan_golden_batch()
+    card = smoke._cgan_painter(cuda_device, fused_inference=True)
+    cpu = smoke._cgan_painter("cpu", fused_inference=True)
+    got = card.paint_batch(tiles, zs).cpu()
+    want = cpu.paint_batch(tiles, zs)
+    assert smoke._golden_ratio(got, want) <= 1.0
+    bf16 = smoke.paint_cgan_bf16(cuda_device)
+    assert bf16["bf16_launches"]["k1"] == 9
+
+
+def test_seamless_plane_on_the_card(cuda_device):
+    """``paint_plane`` on the card against the CPU at 128^2, both painters
+    (the CVAE at the prior mean), within the golden tolerance."""
+    from baryon_painter_tpu_torch.parallel import spatial
+    plane = smoke.golden_inputs(128, 1)[0]
+    for (_, card, _, z_mode), (_, cpu, _, _) in zip(
+            smoke._spatial_painters(cuda_device),
+            smoke._spatial_painters(torch.device("cpu"))):
+        got = spatial.paint_plane(card, plane, 0.5, z_mode=z_mode)
+        want = spatial.paint_plane(cpu, plane, 0.5, z_mode=z_mode)
+        assert got.device.type == "cuda"
+        assert smoke._golden_ratio(got.cpu(), want) <= 1.0

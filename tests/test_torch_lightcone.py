@@ -22,6 +22,9 @@ the JAX package's, on the CPU.
   512^2), ``create_y_map`` and ``pseudo_cl_2d``: planes and y map within
   the golden's rtol 5e-3, atol 5e-3 * mean|JAX|; the y map's Cl per bin
   within 1e-2 relative.
+* A delta shell of 3 x 3 tiles of 512^2 painted by both packages at the
+  prior mean: within that tolerance, and its border band (the tiles'
+  zero-padded edges alone) as bright in both.
 """
 import os
 
@@ -319,9 +322,6 @@ def test_process_slics_rejects_what_jax_rejects_and_what_is_not_ported(
     with pytest.raises(ValueError, match="fused"):
         pipeline.process_slics(stub, 100.0, 64, 7, [0.1], [1.0], "", "", "",
                                z_slice=[0.0], seamless=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pipeline.process_slics(TorchStub(), 100.0, 64, 7, [0.1], [1.0], "",
-                               "", "", z_slice=[0.0], seamless=True)
     with pytest.raises(NotImplementedError, match="item 10"):
         pipeline.process_slics(TorchStub(), 100.0, 64, 7, [0.1], [1.0], "",
                                "", "", z_slice=[0.0], mesh=object())
@@ -432,6 +432,49 @@ def test_lightcone_with_the_fiducial_cvae_matches_jax(tmp_path, rng):
     has = np.asarray(nm) > 0
     np.testing.assert_allclose(cl_got.numpy()[has], np.asarray(cl_want)[has],
                                rtol=1e-2)
+
+
+def _p9999_border_interior(plane, band: int = 32):
+    """The 99.99th percentile of a plane's border band of ``band`` pixels
+    and of its interior."""
+    plane = np.asarray(plane, np.float64)
+    border = np.zeros(plane.shape, bool)
+    border[:band] = border[-band:] = True
+    border[:, :band] = border[:, -band:] = True
+    return (float(np.quantile(plane[border], 0.9999)),
+            float(np.quantile(plane[~border], 0.9999)))
+
+
+def test_tiled_plane_border_band_matches_jax(rng):
+    """A delta shell tiled as the lightcone CLI tiles it (512^2 tiles,
+    overlap 0.2) on a 1280^2 plane: 3 x 3 tiles, the outer ones meeting the
+    plane's border as on the real shells. Both packages' f32 fiducial-512
+    CVAE at the prior mean paint it within the golden tolerance, and the
+    plane's border band, painted by the tiles' zero-padded edges alone,
+    is as bright in the port as in JAX (99.99th percentiles within
+    GOLDEN_RTOL), far brighter than the interior in both."""
+    from baryon_painter_tpu.painter import CVAEPainter as JaxPainter
+    from baryon_painter_tpu_torch.painter import CVAEPainter
+
+    delta = (rng.gamma(2.0, 48.0, (500, 500))
+             * slics_io.SLICS_NORM).astype(np.float32)
+    args = dict(z_slice=2.0, tile_size=100.0, delta_size=250.0,
+                n_pixel_tile=512, min_tile_overlap=0.2, paint_batch_size=3)
+    assert len(tiling.generate_tiling(1280, 512, 0.2)[0]) == 3
+    want = jax_pipe.paint_plane(MeanPainter(JaxPainter(CHECKPOINT)), delta,
+                                **args)
+    got = pipeline.paint_plane(
+        MeanPainter(CVAEPainter(CHECKPOINT, device="cpu"),
+                    torch.device("cpu")), delta, **args)
+    assert got.shape == (1280, 1280)
+    _golden_close(got, want)
+    (b_got, i_got), (b_want, i_want) = (_p9999_border_interior(got),
+                                        _p9999_border_interior(want))
+    print(f"99.99th percentile, border band / interior: port {b_got:.4f} / "
+          f"{i_got:.4f}, JAX {b_want:.4f} / {i_want:.4f}")
+    np.testing.assert_allclose([b_got, i_got], [b_want, i_want],
+                               rtol=GOLDEN_RTOL)
+    assert b_want > 5 * i_want
 
 
 def _golden_close(got, want):

@@ -6,9 +6,17 @@ synthetic line of sight, and chip_smoke.py's phase 16 on the CPU.
   synthetic line of sight (a massplane shell, a 4-tile delta shell) painted
   through the CLI's ``run`` in its default bf16 with ``--fused-paint`` and
   ``BPT_FUSED_HEADS=1``, the y map and the kappa cross-Cl.
-* What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
-  item: ``--model-type CGAN`` (§1 item 3), ``--mesh-devices`` (item 10),
-  ``--seamless`` (item 4).
+  The same run paints with the CGAN, whole-plane (``--model-type CGAN
+  --seamless``).
+* ``--model-type CGAN`` (tiled with ``--fused-paint``, and ``--seamless``)
+  on the committed tests/fixtures/slics line of sight against the JAX
+  package's pipeline with the same arguments (its CLI's tile size, 512^2
+  tiles, redshifts and shell sizes): every plane and the y map within the
+  golden's tolerance (rtol 5e-3, atol 5e-3 * mean|JAX|). The CGAN paints
+  in f32 by default, the CVAE in bf16, as the JAX CLI.
+* Multi-GPU painting, ``--mesh-devices``, raises ``NotImplementedError``
+  naming ROADMAP.md §1 item 10, whichever painter and mode;
+  ``--seamless --fused-paint`` raises ``ValueError``, as JAX's pipeline.
 * Phase 16 (``smoke.lightcone``) runs its control flow on the CPU at 300^2
   delta planes (the kernels' plain versions: no launches), and its
   geometry at the real sizes is the one the card run checks: 6 paint calls
@@ -16,6 +24,7 @@ synthetic line of sight, and chip_smoke.py's phase 16 on the CPU.
   1549^2.
 """
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -45,7 +54,9 @@ _BLOCKED_RUN = textwrap.dedent("""
     import baryon_painter_tpu_torch.angular_power
     import baryon_painter_tpu_torch.cosmology
     import baryon_painter_tpu_torch.lightcone.pipeline
+    import baryon_painter_tpu_torch.models.cgan
     import baryon_painter_tpu_torch.ops.resample
+    import baryon_painter_tpu_torch.parallel.spatial
     import baryon_painter_tpu_torch.power_spectrum
     import baryon_painter_tpu_torch.utils.constants
     from baryon_painter_tpu_torch.lightcone.synthetic import (
@@ -66,6 +77,16 @@ _BLOCKED_RUN = textwrap.dedent("""
             "--device", "cpu"])
         y = np.load(os.path.join(base, "y.npy"))
         cl = np.load(os.path.join(base, "y_y_x_kappa.npz"))["cl"]
+        gan = create_lightcone_torch.run([
+            "--model-type", "CGAN", "--CGAN-path",
+            "trained_models/CGAN/fiducial", "--seamless",
+            "--SLICS-base-path", base, "--SLICS-LOS", "74",
+            "--output-file", os.path.join(base, "y_gan"),
+            "--output-resolution", "96", "--n-pixel-delta", "200",
+            "--n-pixel-massplane", "300", "--device", "cpu"])
+    assert [tuple(p.shape) for p in gan["planes"]] == [(111, 111),
+                                                       (562, 562)]
+    assert np.isfinite(gan["y_map"]).all()
     assert y.shape == (96, 96) and np.isfinite(y).all()
     assert np.array_equal(y, out["y_map"])
     assert list(out["z_SLICS"]) == [0.042, 0.221]
@@ -91,14 +112,97 @@ def cli():
     return smoke._load_cli()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--model-type", "CGAN"], "item 3"), (["--mesh-devices", "2"], "item 10"),
-    (["--seamless"], "item 4")], ids=["cgan", "mesh", "seamless"])
-def test_cli_raises_for_what_is_not_ported(cli, tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flags", [
+    ["--model-type", "CGAN"], [], ["--seamless"]],
+    ids=["cgan", "mesh", "seamless"])
+def test_cli_raises_for_what_is_not_ported(cli, tmp_path, flags):
+    """Multi-GPU painting is not ported, with either painter or mode."""
+    with pytest.raises(NotImplementedError, match="item 10"):
         cli.run(["--CVAE-path", "x", "--SLICS-base-path", str(tmp_path),
-                 "--SLICS-LOS", "1", "--output-file",
-                 str(tmp_path / "y")] + flags)
+                 "--SLICS-LOS", "1", "--output-file", str(tmp_path / "y"),
+                 "--mesh-devices", "2"] + flags)
+
+
+def _fixture_los(tmp_path):
+    """tests/fixtures/slics's delta plane (z = 0.5, 5^2) laid out as the
+    SLICS release lays it out."""
+    name = "0.500delta.dat_bicubic_LOS9"
+    os.makedirs(tmp_path / "delta")
+    shutil.copy(os.path.join(REPO, "tests", "fixtures", "slics", name),
+                tmp_path / "delta" / name)
+    return ["--SLICS-base-path", str(tmp_path), "--SLICS-LOS", "9",
+            "--n-pixel-delta", "5", "--output-resolution", "64",
+            "--output-file", str(tmp_path / "y"), "--device", "cpu"]
+
+
+@pytest.mark.parametrize("model_type", ["CVAE", "CGAN"])
+def test_cli_seamless_with_fused_paint_raises(cli, tmp_path, model_type):
+    path = ("trained_models/CVAE/fiducial-512" if model_type == "CVAE"
+            else "trained_models/CGAN/fiducial")
+    with pytest.raises(ValueError, match="fused"):
+        cli.run(_fixture_los(tmp_path) + [
+            "--model-type", model_type, f"--{model_type}-path", path,
+            "--seamless", "--fused-paint"])
+
+
+@pytest.mark.parametrize("mode", ["fused", "seamless"])
+def test_cli_cgan_matches_the_jax_pipeline(cli, tmp_path, mode):
+    import jax.numpy as jnp
+    from baryon_painter_tpu.cosmology import SLICS_COSMOLOGY
+    from baryon_painter_tpu.lightcone import create_y_map, process_slics
+    from baryon_painter_tpu.painter import CGANPainter
+
+    path = "trained_models/CGAN/fiducial"
+    argv = _fixture_los(tmp_path) + ["--model-type", "CGAN", "--CGAN-path",
+                                     path, f"--{mode}-paint" if mode ==
+                                     "fused" else "--seamless"]
+    got = cli.run(argv)
+    cosmo = SLICS_COSMOLOGY()
+    z = np.array([0.5])
+    painter = CGANPainter(os.path.join(REPO, path, "model"),
+                          fused_inference=mode == "fused")
+    want = process_slics(
+        painter, tile_size=100.0, n_pixel_tile=512, LOS=9, z_SLICS=z,
+        delta_size=cosmo.comoving_angular_distance(z) * cosmo.h * 10 / 180
+        * np.pi, delta_path=str(tmp_path / "delta"), massplane_path="",
+        shifts_path="", z_slice=[cosmo.redshift_of_chi(0.0)],
+        min_tiling_overlap=0.2, verbose=False, n_pixel_delta=5,
+        seamless=mode == "seamless")
+    y_want = create_y_map(want, z, resolution=64, map_size=10.0,
+                          cosmo=cosmo, order=5)
+    assert [tuple(p.shape) for p in got["planes"]] == [
+        np.shape(p) for p in want]
+    for g, w in zip(got["planes"] + [got["y_map"]], list(want) + [y_want]):
+        g = np.asarray(torch.as_tensor(g).cpu(), np.float64)
+        w = np.asarray(w, np.float64)
+        assert np.all(np.isfinite(g))
+        np.testing.assert_allclose(g, w, rtol=5e-3,
+                                   atol=5e-3 * np.abs(w).mean())
+    assert all(torch.as_tensor(p).dtype == torch.float32
+               for p in got["planes"])
+    assert jnp.asarray(want[0]).dtype == jnp.float32
+
+
+@pytest.mark.parametrize("model_type,dtype", [("CVAE", torch.bfloat16),
+                                              ("CGAN", None)])
+def test_cli_paint_dtype_defaults_per_model(cli, tmp_path, monkeypatch,
+                                            model_type, dtype):
+    import baryon_painter_tpu_torch.painter as painter_mod
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def record(path, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(painter_mod, f"{model_type}Painter", record)
+    with pytest.raises(Stop):
+        cli.run(_fixture_los(tmp_path) + ["--model-type", model_type,
+                                          f"--{model_type}-path", "x"])
+    assert seen["dtype"] == dtype and seen["fused_inference"] is False
 
 
 def test_cli_defaults_are_the_jax_clis(cli):
@@ -149,9 +253,11 @@ def test_phase16_geometry_at_the_real_sizes():
 def phase16():
     before = (torch.backends.cudnn.allow_tf32,
               torch.backends.cuda.matmul.allow_tf32)
-    out = smoke.lightcone(torch.device("cpu"), z=(0.042, 0.221),
-                          n_pixel_delta=300, n_pixel_massplane=400,
-                          resolution=128)
+    cpu = torch.device("cpu")
+    with smoke.synthetic_lightcone(cpu, z=(0.042, 0.221), n_pixel_delta=300,
+                                   n_pixel_massplane=400,
+                                   resolution=128) as data:
+        out = smoke.lightcone(cpu, data)
     out["tf32_restored"] = before == (torch.backends.cudnn.allow_tf32,
                                       torch.backends.cuda.matmul.allow_tf32)
     return out
@@ -192,3 +298,58 @@ def test_phase16_in_the_kernels_record(phase16):
     assert entries[1]["lightcone_launches_per_shell"] == [1, 1, 4]
     smoke._add_lightcone_launches(entries[:1], phase16)
     assert entries[0]["lightcone_launches_per_shell"] == [0, 0]
+
+
+@pytest.fixture(scope="module")
+def phases17e_18():
+    """Phase 17e and phase 18 on the CPU: a massplane shell and a 4-tile
+    delta shell, small planes."""
+    cpu = torch.device("cpu")
+    with smoke.synthetic_lightcone(cpu, z=(0.042, 0.221), n_pixel_delta=200,
+                                   n_pixel_massplane=300,
+                                   resolution=96) as data:
+        tiled = smoke.run_lightcone_cli(cpu, data["los"], "bf16", False,
+                                        **data["size"])
+        return {"cgan": smoke.lightcone_cgan(cpu, data),
+                "halo": smoke.check_halo(cpu, n=64, calibrate=False),
+                "plain": smoke.seamless_vs_plain(cpu, n=64),
+                "seamless": smoke.lightcone_seamless(cpu, data, tiled)}
+
+
+def test_phase17e_cgan_lightcone_on_cpu(phases17e_18):
+    lc = phases17e_18["cgan"]
+    assert lc["paint_calls"] == 2 and set(lc["launches"].values()) == {0}
+    assert max(lc["planes_err_over_tol"]) <= 1.0
+    assert lc["y_map_err_over_tol"] <= 1.0
+    assert [sorted(s) for s in lc["shells"]] == [
+        ["blend", "k1", "paint", "upload", "zoom"]] * 2
+    assert "BPT_FUSED_HEADS" not in os.environ
+
+
+def test_phase18_seamless_on_cpu(phases17e_18):
+    assert [(r["model"], r["halo"]) for r in phases17e_18["halo"]] == [
+        ("cvae", 288), ("cgan", 92)]
+    assert all(r["err_over_tol"] <= 1.0 for r in phases17e_18["halo"])
+    assert all(r["f32_err_over_tol"] <= r["limit"]
+               for r in phases17e_18["halo"])
+    assert all(r["err_over_tol"] <= 1.0 for r in phases17e_18["plain"])
+    sl = phases17e_18["seamless"]
+    # the 0.221 shell: a 562^2 plane, padded to 576 and extended by 2 x 288
+    assert (sl["planes"], sl["extended"]) == ([562], [1152])
+    assert set(sl["launches"].values()) == {0}
+    assert [sorted(s) for s in sl["shells"]] == [
+        ["blend", "k1", "paint", "upload", "zoom"],
+        ["k1", "paint", "upload", "zoom"]]
+    assert np.isfinite(sl["e_seamless_tiled"])
+    assert [len(v) for v in sl["p9999"].values()] == [1, 1]
+
+
+def test_phase18_geometry_at_the_real_sizes():
+    """The z = 2.007 shell is one 3273^2 plane, padded to 3296 and extended
+    by 2 x 288: 3872^2."""
+    from baryon_painter_tpu_torch.parallel import spatial
+    shells = smoke.lightcone_geometry()
+    plane = shells[2]["n_plane"]
+    halo = spatial.required_halo(smoke._load_meta(
+        smoke.REPO / smoke.CHECKPOINT)["model_architecture"])
+    assert (plane, -(-plane // 32) * 32 + 2 * halo) == (3273, 3872)
