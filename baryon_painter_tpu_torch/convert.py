@@ -10,7 +10,9 @@ them; ``load_jax_variables`` loads them into an existing one.
 the CGAN generator, with flax's spectral norm folded into its kernels.
 ``to_jax_variables`` goes the other way (the port's parameters, or their
 gradients, in the flax layout, as numpy), so the two packages can be
-compared. ``init_cvae`` draws the port's own initial weights from the
+compared. ``train_state_to_jax`` and ``train_state_from_jax`` carry a
+trainer's whole state, Adam's moments included, to and from the JAX
+trainer's checkpoint tree. ``init_cvae`` draws the port's own initial weights from the
 distributions the JAX package initialises with, on a seeded
 ``torch.Generator``. Layer names match flax's per-class auto-names, so the
 mapping is one to one:
@@ -25,6 +27,7 @@ mapping is one to one:
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -40,7 +43,8 @@ from baryon_painter_tpu_torch.models.layers import (BatchNorm, Conv2d,
                                                     SpecSequential)
 
 __all__ = ["from_jax_variables", "load_jax_variables", "load_spec_sequential",
-           "generator_from_jax_variables", "to_jax_variables", "init_cvae"]
+           "generator_from_jax_variables", "to_jax_variables", "init_cvae",
+           "trainable", "train_state_to_jax", "train_state_from_jax"]
 
 # the CVAE's subnets, by their flax scope names
 _CVAE_SUBNETS = ("q_x_in", "q_y_in", "q_out", "p_y_in", "p_z_in", "p_y_z_in",
@@ -170,13 +174,14 @@ def _export_spec_sequential(seq: SpecSequential, value, params, stats):
             raise NotImplementedError(f"no export for {name}")
 
 
-def to_jax_variables(model: CVAE, grads: bool = False) -> dict:
+def to_jax_variables(model: CVAE, grads: bool = False, value=None) -> dict:
     """The model's ``{"params", "batch_stats"}`` in the flax layout, as
     nested numpy dicts; with ``grads=True`` the parameters' gradients in
-    place of the parameters (a parameter without one exports as zeros)."""
+    place of the parameters (a parameter without one exports as zeros);
+    with ``value`` what it maps each parameter to."""
     if grads:
         value = lambda p: p.grad if p.grad is not None else torch.zeros_like(p)
-    else:
+    elif value is None:
         value = lambda p: p
     params, stats = {}, {}
     for attr in _CVAE_SUBNETS:
@@ -189,6 +194,54 @@ def to_jax_variables(model: CVAE, grads: bool = False) -> dict:
         if s:
             stats[attr] = s
     return {"params": params, "batch_stats": stats}
+
+
+def trainable(model) -> list:
+    """The model's trainable parameters, in the order the trainer's
+    optimizer keeps its moments."""
+    return [p for p in model.parameters() if p.requires_grad]
+
+
+def train_state_to_jax(model: CVAE, mu, nu, count: int, step: int) -> dict:
+    """A trainer's state as the JAX trainer's checkpoint tree: the model's
+    ``params`` and ``batch_stats``, ``step``, and ``opt_state`` as optax's
+    ``chain(scale_by_adam, scale)`` state, ``{"0": {"count", "mu", "nu"},
+    "1": {}}``. ``mu`` and ``nu`` (aligned with ``trainable(model)``) take
+    the parameters' layout map: Adam's moments are elementwise, so a
+    transposed conv's are flipped as its kernel is."""
+    variables = to_jax_variables(model)
+    params = trainable(model)
+
+    def moments(tensors):
+        by_id = {id(p): t for p, t in zip(params, tensors)}
+        return to_jax_variables(model, value=lambda p: by_id[id(p)])[
+            "params"]
+
+    return {"params": variables["params"],
+            "batch_stats": variables["batch_stats"],
+            "step": np.asarray(step, np.int32),
+            "opt_state": {"0": {"count": np.asarray(count, np.int32),
+                                "mu": moments(mu), "nu": moments(nu)},
+                          "1": {}}}
+
+
+def train_state_from_jax(model: CVAE, state: dict) -> dict:
+    """Load a JAX trainer's checkpoint tree into ``model`` (``params`` and
+    ``batch_stats``) and return its optimizer state in the port's terms:
+    ``{"mu", "nu"}`` as lists aligned with ``trainable(model)`` (on the
+    model's device; absent without ``opt_state``), ``count`` and ``step``
+    as ints."""
+    load_jax_variables(model, state)
+    out = {"step": int(state["step"])}
+    if "opt_state" in state:
+        adam = state["opt_state"]["0"]
+        twin = copy.deepcopy(model)
+        for key in ("mu", "nu"):
+            load_jax_variables(twin, {"params": adam[key],
+                                      "batch_stats": state["batch_stats"]})
+            out[key] = [p.detach().clone() for p in trainable(twin)]
+        out["count"] = int(adam["count"])
+    return out
 
 
 @torch.no_grad()

@@ -7,15 +7,18 @@ of each depth, the SLICS rescaling of the input field, per-field redshift
 statistics, the bijective sample index of ``data/indexing.py``, and the
 numpy batch assembly. ``sample_indices`` and ``get_raw_batch`` draw from the
 caller's ``numpy.random.Generator`` exactly as the JAX package does, so the
-same seed gives the same batches in both.
+same seed gives the same batches in both. ``BatchLoader`` prefetches raw
+batches on a background thread.
 
-Not ported: the threaded ``BatchLoader`` (it waits for the ``train()``
-loop) and the reference-parity single-sample accessors.
+Not ported: the reference-parity accessors (``get_batch``, single samples,
+and the transformed batches ``BatchLoader(raw=False)`` would give).
 """
 from __future__ import annotations
 
 import os
 import pickle
+import queue
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -25,7 +28,8 @@ from baryon_painter_tpu_torch.data.indexing import (IndexScheme,
                                                     dihedral_transform)
 from baryon_painter_tpu_torch.transforms import FieldStats, Identity
 
-__all__ = ["BahamasTileDataset", "slics_scale_factor", "load_file_info"]
+__all__ = ["BahamasTileDataset", "BatchLoader", "slics_scale_factor",
+           "load_file_info"]
 
 
 def slics_scale_factor(n_grid: int) -> float:
@@ -212,6 +216,58 @@ class BahamasTileDataset:
                                  + self._read_tile(field, z, "150",
                                                    *args150))
         return {"input": out_in, "labels": out_lab, "z": zs, "idx": idx}
+
+
+class BatchLoader:
+    """Background-thread prefetcher of raw batches (``get_raw_batch``) over
+    a ``BahamasTileDataset``, drawing indices from a generator seeded
+    ``seed`` (of redshift ``z`` if given); ``close()`` stops the thread."""
+
+    def __init__(self, dataset: BahamasTileDataset, batch_size: int,
+                 seed: int = 0, z: Optional[float] = None, prefetch: int = 2,
+                 raw: bool = True):
+        if not raw:
+            raise NotImplementedError(
+                "BatchLoader(raw=False): transformed reference-parity "
+                "batches (get_batch) are not ported; the trainer "
+                "transforms raw batches on the device.")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.z = z
+        self._rng = np.random.default_rng(seed)
+        self._queue: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _make(self):
+        idx = self.dataset.sample_indices(self._rng, self.batch_size, self.z)
+        return self.dataset.get_raw_batch(idx)
+
+    def _worker(self):
+        while not self._stop.is_set():
+            batch = self._make()
+            while not self._stop.is_set():
+                try:
+                    self._queue.put(batch, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._queue.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=1.0)
 
 
 def load_file_info(path: str) -> List[dict]:

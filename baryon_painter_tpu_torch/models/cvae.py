@@ -275,6 +275,18 @@ class CVAE(nn.Module):
             return p[0], torch.exp(p[1])
         return p[0]
 
+    def get_stats_labels(self):
+        """The training-statistics columns: ELBO, KL term and the
+        likelihood terms per output feature (the JAX ``CVAE``'s)."""
+        n_x = self.architecture["n_x_features"]
+        predict_var = len(self.architecture["p_y_z_out"]) > 1
+        labels = ["ELBO", "KL_term"] + [
+            f"log_likelihood_{i}" for i in range(n_x)]
+        if predict_var:
+            labels += [f"log_likelihood_fixed_var_{i}" for i in range(n_x)]
+            labels += [f"log_likelihood_free_var_{i}" for i in range(n_x)]
+        return labels
+
 
 def fiducial_cvae_architecture(tile_size: int = 512, n_scale: int = 1,
                                n_aux_label: int = 1, n_label_fields: int = 1,

@@ -24,6 +24,12 @@ painter's is. An f32 call paints in f32 whatever the caller's TF32 setting
 inverse transform, no noise; ``fused_inference=True`` runs its canonical
 LeakyReLU(0.2) residual blocks as K1 launches. ``load_painter(filename,
 **kwargs)`` opens a checkpoint with the painter its ``model_kind`` names.
+
+A ``CVAEPainter`` also trains, as the JAX painter does: built from an
+architecture and datasets, ``train(...)`` runs ``CVAETrainer.train`` and
+then paints with what it trained; ``from_trainer`` paints a trainer's live
+state; ``save_state_to_file`` writes the painter's weights as a checkpoint
+the JAX package reads (``CGANPainter`` too).
 """
 from __future__ import annotations
 
@@ -34,7 +40,9 @@ import numpy as np
 import torch
 
 from baryon_painter_tpu_torch.convert import (from_jax_variables,
-                                              generator_from_jax_variables)
+                                              generator_from_jax_variables,
+                                              to_jax_variables)
+from baryon_painter_tpu_torch.models.cvae import CVAE
 from baryon_painter_tpu_torch.models.fuse import (
     fuse_cgan_generator_variables, fuse_cvae_variables)
 from baryon_painter_tpu_torch.train import checkpoint as ckpt
@@ -50,31 +58,107 @@ class CVAEPainter:
     def __init__(self, filename: Optional[str] = None,
                  variables: Optional[dict] = None,
                  meta: Optional[dict] = None,
+                 training_data_set=None, test_data_set=None,
+                 architecture: Optional[dict] = None,
                  seed: int = 0,
                  fused_inference: bool = False,
                  fused_heads: bool = False,
                  dtype=None,
                  device=None):
-        """Construct from a checkpoint base path (``filename``), or from
+        """Construct from a checkpoint base path (``filename``), from
         ``variables`` (``{"params", "batch_stats"}`` as nested numpy dicts)
-        plus ``meta`` (the checkpoint's metadata dict).
+        plus ``meta`` (the checkpoint's metadata dict), or from an
+        ``architecture`` dict and ``training_data_set`` (and
+        ``test_data_set`` for the validation loss), in which case
+        ``train()`` trains the model and the painter paints after it.
 
         ``seed`` seeds the painter's own ``torch.Generator`` on ``device``,
         which draws the prior noise when a call passes neither
         ``generator`` nor ``eps``. ``dtype`` is the model's compute dtype
-        (None: f32), kept when ``fused_inference`` rebuilds the model."""
+        (None: f32), kept when ``fused_inference`` rebuilds the model and
+        the dtype ``train()`` trains in."""
         self.device = resolve_device(device)
         self.dtype = dtype
         self._fused_inference = fused_inference
         self._fused_heads = fused_heads
+        self.training_data = training_data_set
+        self.test_data = test_data_set
+        self.trainer = None
         if filename is not None:
             self.load_state_from_file(filename)
         elif variables is not None and meta is not None:
             self._setup(variables, meta)
+        elif architecture is not None and training_data_set is not None:
+            self.architecture = architecture
+            self.model = CVAE(architecture, fused_heads=fused_heads,
+                              dtype=dtype)
         else:
-            raise ValueError("Provide filename or (variables, meta).")
+            raise ValueError("Provide filename, (variables, meta), or "
+                             "(architecture, training_data_set).")
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
+
+    def train(self, n_pepoch: int = 5, learning_rate: float = 1e-4,
+              batch_size: int = 1, adaptive_learning_rate=None,
+              adaptive_batch_size=None, validation_pepochs=(),
+              pepoch_size: int = 3136, var_anneal_fn=None, KL_anneal_fn=None,
+              output_path: Optional[str] = None, device_data: bool = False,
+              seed: int = 0, verbose: bool = False, **config_kw):
+        """Train on the constructor's datasets (``CVAETrainer.train``; the
+        other ``TrainConfig`` fields as ``config_kw``), then paint with the
+        trained weights. Returns ``(training_stats, validation_stats)``."""
+        from baryon_painter_tpu_torch.train.trainer import (CVAETrainer,
+                                                            TrainConfig)
+        if self.training_data is None:
+            raise RuntimeError("Trying to train but no training data "
+                               "specified.")
+        cfg = TrainConfig(learning_rate=learning_rate, batch_size=batch_size,
+                          n_pepoch=n_pepoch, pepoch_size=pepoch_size,
+                          adaptive_learning_rate=adaptive_learning_rate,
+                          adaptive_batch_size=adaptive_batch_size,
+                          var_anneal_fn=var_anneal_fn,
+                          KL_anneal_fn=KL_anneal_fn,
+                          output_path=output_path, seed=seed,
+                          verbose=verbose, **config_kw)
+        self.trainer = CVAETrainer(self.model, self.training_data,
+                                   test_data=self.test_data, config=cfg,
+                                   device_data=device_data,
+                                   device=self.device)
+        stats = self.trainer.train(validation_pepochs=validation_pepochs)
+        meta = ckpt.meta_from_dataset(self.training_data,
+                                      self.trainer.model.architecture)
+        self._setup(to_jax_variables(self.trainer.model), meta)
+        return stats
+
+    def validate(self, **kw):
+        """The attached trainer's ``validate`` (after ``train()``)."""
+        if self.trainer is None:
+            raise RuntimeError("validate() requires train() first.")
+        return self.trainer.validate(**kw)
+
+    @classmethod
+    def from_trainer(cls, trainer, seed: int = 0,
+                     fused_inference: bool = False, dtype="keep"):
+        """A painter over the trainer's current weights, on its device,
+        with its model's ``fused_heads``. ``dtype="keep"`` paints in the
+        trainer's model dtype, any other value (None: f32) in that one."""
+        model = trainer.model
+        meta = ckpt.meta_from_dataset(trainer.training_data,
+                                      model.architecture)
+        return cls(variables=to_jax_variables(model), meta=meta, seed=seed,
+                   fused_inference=fused_inference,
+                   fused_heads=model.fused_heads,
+                   dtype=model.dtype if dtype == "keep" else dtype,
+                   device=trainer.device)
+
+    def save_state_to_file(self, filename: str):
+        """Write the painter's weights and metadata as a checkpoint pair
+        (step 0, no optimizer state), as the JAX painter does."""
+        ckpt.save_checkpoint(filename,
+                             {"params": self.variables["params"],
+                              "batch_stats": self.variables["batch_stats"],
+                              "step": np.zeros((), np.int32)},
+                             self.meta)
 
     def _setup(self, variables, meta):
         arch = meta["model_architecture"]
@@ -84,6 +168,8 @@ class CVAEPainter:
         self.model = from_jax_variables(
             variables, arch, fused_heads=self._fused_heads,
             dtype=self.dtype).to(self.device)
+        self.variables = {"params": variables["params"],
+                          "batch_stats": variables.get("batch_stats", {})}
         self.meta = meta
         self.architecture = arch
         self.input_field = meta["input_field"]
@@ -206,8 +292,10 @@ class CGANPainter:
     each conv, as flax's SpectralNorm returns f32). An f32 call paints in
     f32 whatever the caller's TF32 setting.
 
-    The JAX painter's ``from_trainer`` and ``save_state_to_file`` are not
-    here: they wait for the port's checkpoint writing and CGAN training.
+    ``save_state_to_file`` writes the painter's generator variables (in
+    the fused layout after ``fused_inference``, with the architecture
+    marked so) as the JAX painter does. ``from_trainer`` waits for CGAN
+    training (ROADMAP.md, section 1, item 9).
     """
 
     def __init__(self, filename: Optional[str] = None,
@@ -242,6 +330,7 @@ class CGANPainter:
             meta = {**meta, "model_architecture": arch}
         self.generator = generator_from_jax_variables(
             variables, arch, dtype=self.dtype).to(self.device)
+        self.variables = variables
         self.meta = meta
         self.architecture = arch
         self.input_field = meta["input_field"]
@@ -257,6 +346,15 @@ class CGANPainter:
         state, meta = ckpt.load_checkpoint(filename)
         self._setup({"params": state["g_params"],
                      "batch_stats": state.get("g_stats", {})}, meta)
+
+    def save_state_to_file(self, filename: str):
+        """Write the generator's variables and metadata as a checkpoint pair
+        (``g_params``, ``g_stats``, step 0), as the JAX painter does."""
+        ckpt.save_checkpoint(filename,
+                             {"g_params": self.variables["params"],
+                              "g_stats": self.variables["batch_stats"],
+                              "step": np.zeros((), np.int32)},
+                             self.meta)
 
     def paint(self, input, z: float = 0.0, transform: bool = True,
               inverse_transform: bool = True):

@@ -113,6 +113,26 @@ and seamless whole-plane painting (``seamless``):
  18c. the CLI with ``--seamless`` (the CVAE in bf16): timed by stage, its
      peak memory and e(seamless, tiled) printed; ``--seamless
      --fused-paint`` raises
+
+and the training run, ``CVAETrainer.train`` (``train_loop``), through the
+training CLI's code (scripts/train_cvae_torch.py) at full width, f32, with
+``--device-data`` and ``BPT_FUSED_HEADS=1`` on phase 5's stacks:
+
+ 19a. with cuDNN's default algorithms, as the CLI runs: 3 pepochs of 96
+     samples at batch 24, validation and reports every 48 samples, a
+     checkpoint every 96: exactly one K2, one K3-fwd keeping u1 and one
+     K3-bwd launch a step (and one K3-fwd per validation loss); timed,
+     with its peak device memory and one checkpoint write's seconds and
+     bytes
+ 19b. the same steps through ``step_indices``, timed beside 19a; then the
+     run and its replay under cuDNN's deterministic algorithms, timed (the
+     deterministic algorithms' cost), the replay's final state's distance
+     from that run's (the repeat distance)
+ 19c. under the deterministic algorithms, ``run(--resume-from`` that run's
+     first periodic checkpoint``)``: the final state and the statistics
+     files equal to that run's
+ 19d. ``load_painter`` on the final checkpoint with ``fused_inference``: 16
+     tiles in one call, exactly 4 K1 launches, finite
 """
 from __future__ import annotations
 
@@ -1890,9 +1910,10 @@ def _fused_heads_env(on: bool):
             os.environ["BPT_FUSED_HEADS"] = prev
 
 
-def _load_cli():
-    spec = importlib.util.spec_from_file_location("create_lightcone_torch",
-                                                  CLI)
+def _load_cli(path: Path = CLI):
+    """A CLI script of the port (the lightcone CLI by default), as a
+    module."""
+    spec = importlib.util.spec_from_file_location(path.stem, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -2752,6 +2773,339 @@ _K4_ERRORS = {"stats": ("mean", "var"), "fwd": ("y",),
 _K4_LIBRARY = {"fwd": "library_fwd_ms", "bwd2": "library_bwd_ms"}
 
 
+# ---------------------------------------------------------------------- #
+# phase 19: the training run, train(), through the training CLI's code
+
+TRAIN_CLI = REPO / "scripts" / "train_cvae_torch.py"
+# the run: a constant batch of TRAIN_BATCH, LOOP_PEPOCHS pepochs of
+# LOOP_PEPOCH samples, validation and reports every 48 samples, a
+# checkpoint every 96; the metrics copied to the host every 16 steps
+LOOP_PEPOCH = 96
+LOOP_PEPOCHS = 3
+LOOP_RUN = dict(validation_loss_frequency=48, validation_loss_batch_size=24,
+                checkpoint_frequency=96, statistics_report_frequency=48,
+                stats_sync_every=16)
+LOOP_PAINT_TILES = 16
+
+
+@contextlib.contextmanager
+def _cudnn_algorithms(deterministic: bool):
+    """cuDNN's deterministic algorithms, or its default ones (as the
+    training CLI runs), for the block; no benchmark either way."""
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = deterministic
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+
+
+def held_out_data(dataset, seed: int = 1):
+    """Test data for the validation loss: one synthetic stack of the
+    training stacks' size and redshifts, drawn with another seed, with the
+    training data's transforms."""
+    from baryon_painter_tpu_torch.data.dataset import (BahamasTileDataset,
+                                                       load_file_info)
+    from baryon_painter_tpu_torch.data.synthetic import make_synthetic_stacks
+    with tempfile.TemporaryDirectory() as root:
+        info = make_synthetic_stacks(root, n_stack=1, n_grid=dataset.n_grid,
+                                     redshifts=tuple(dataset.redshifts),
+                                     seed=seed)
+        return BahamasTileDataset(
+            files=load_file_info(info), root_path=root,
+            n_tile=dataset.n_tile, tile_permutations=True, mmap_mode=None,
+            transforms=dataset.transforms)
+
+
+_MODEL_STATE = ("params", "batch_stats", "opt_state", "step")
+
+
+def state_distance(a: dict, b: dict) -> float:
+    """max |a - b| over the model's state in two trainer state trees:
+    parameters, running statistics, Adam's state and the step."""
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, np.asarray(v, np.float64)
+    la = dict(leaves({k: a[k] for k in _MODEL_STATE}))
+    lb = dict(leaves({k: b[k] for k in _MODEL_STATE}))
+    if set(la) != set(lb):
+        raise AssertionError(f"state trees differ in keys: "
+                             f"{sorted(set(la) ^ set(lb))[:5]}")
+    return max(float(np.abs(la[k] - lb[k]).max(initial=0.0)) for k in la)
+
+
+def train_loop(device, dataset, batch: int = TRAIN_BATCH,
+               n_res_blocks: int = N_RES_BLOCKS, pepoch: int = LOOP_PEPOCH,
+               run: dict = LOOP_RUN, paint_tiles: int = LOOP_PAINT_TILES,
+               card=None) -> dict:
+    """Phase 19, a main path: the training run of the training CLI
+    (scripts/train_cvae_torch.py: its ``parse_args``, ``build`` and
+    ``run``) at full width, f32, with ``--device-data`` and
+    ``BPT_FUSED_HEADS=1``, on phase 5's stacks with a held-out stack as the
+    test data, after a warm-up (two steps and a validation loss on a
+    trainer thrown away) under each of cuDNN's settings below:
+
+    19a ``train()`` with cuDNN's default algorithms, as the CLI runs:
+        LOOP_PEPOCHS pepochs of ``pepoch`` samples at a constant batch,
+        with ``run``'s validation, checkpoint and report frequencies, timed
+        (host clock, synchronised), and inside it the statistics flushes,
+        the validation losses (host batch included) and the checkpoint
+        writes, each counted and timed from the end of the steps queued
+        before it; on the card exactly one K2, one K3-fwd keeping u1 and
+        one K3-bwd launch a step, and one K3-fwd without u1 per validation
+        loss; peak device memory; one more checkpoint write timed on its
+        own, with its bytes;
+    19b the same steps (the indices and schedule ``train()`` passed) through
+        ``step_indices`` on a new trainer from the same seed, timed with the
+        default algorithms: the gap to 19a is what the loop adds
+        (statistics, validation, checkpoints). Then, under cuDNN's
+        deterministic algorithms, ``train()`` and its ``step_indices``
+        replay again, timed (their times against the default ones are the
+        deterministic algorithms' cost); the replay's final state against
+        that run's is the run's repeat distance;
+    19c under the deterministic algorithms, ``run(--resume-from <that run's
+        first periodic checkpoint>)`` into a copy of the first checkpoint
+        and the statistics files: the final state and both statistics files
+        must equal that run's (if the repeat distance is not 0, the resumed
+        state may lie no further from that run's than the repeat does);
+    19d ``load_painter`` on 19a's final ``model`` with ``fused_inference``:
+        ``paint_tiles`` tiles painted in one call, exactly 4 K1 launches
+        on the card, finite."""
+    from baryon_painter_tpu_torch.models.cvae import (
+        fiducial_cvae_architecture)
+    from baryon_painter_tpu_torch.painter import load_painter
+    from baryon_painter_tpu_torch.train.run_config import RunConfig
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    twin = _load_cli(TRAIN_CLI)
+    datasets = (dataset, held_out_data(dataset))
+    n_samples = LOOP_PEPOCHS * pepoch
+    n_steps = n_samples // batch
+    n_evals = n_samples // run["validation_loss_frequency"]
+    with tempfile.TemporaryDirectory() as tmp, _fused_heads_env(True):
+        root = Path(tmp)
+        config = root / "run_config.json"
+        RunConfig(architecture=fiducial_cvae_architecture(
+                      dataset.tile_size, n_res_blocks=n_res_blocks),
+                  transforms={f: t.to_dict()
+                              for f, t in dataset.transforms.items()},
+                  schedules={"batch_size_schedule": {"kind": "constant",
+                                                     "value": batch}},
+                  train=dict(run)).save(str(config))
+
+        def argv(out, *extra):
+            return ["--output-path", str(root / out), "--config",
+                    str(config), "--n-pepoch", str(LOOP_PEPOCHS),
+                    "--pepoch-size", str(pepoch), "--learning-rate",
+                    "1e-4", "--device-data", "--device", str(device),
+                    *extra]
+
+        # warm-ups, so that no timed run pays the process's first use of
+        # these convolutions under either setting
+        for deterministic in (False, True):
+            with _cudnn_algorithms(deterministic):
+                warm, _ = twin.build(twin.parse_args(argv("warm")), datasets)
+                warm.step_scan(np.stack([dataset.sample_indices(
+                    np.random.default_rng(0), batch) for _ in range(2)]),
+                    1e-4)
+                warm.stats_tuple(warm.eval_loss(datasets[1].get_raw_batch(
+                    np.arange(run["validation_loss_batch_size"]))))
+                del warm
+                _sync(device)
+
+        def train(out):
+            """``train()`` into ``out``, timed, with the steps it took and
+            the loop's own work counted and timed apart: each call waits
+            for the steps queued before it, then is timed to its end."""
+            trainer, _ = twin.build(twin.parse_args(argv(out)), datasets)
+            plan, scan = [], trainer.step_scan
+
+            def recording(idx, lr, alpha_var=1.0, beta_KL=1.0):
+                plan.append((idx, lr, alpha_var, beta_KL))
+                return scan(idx, lr, alpha_var, beta_KL)
+
+            spent = {"flush": 0.0, "validation": 0.0, "checkpoint": 0.0}
+            calls = {"flush": 0, "checkpoint": 0}
+
+            def timed(key, fn):
+                def call(*args, **kwargs):
+                    _sync(device)
+                    t = time.perf_counter()
+                    out = fn(*args, **kwargs)
+                    _sync(device)
+                    spent[key] += time.perf_counter() - t
+                    if key in calls:
+                        calls[key] += 1
+                    return out
+                return call
+
+            trainer.step_scan = recording
+            trainer._flush_stats = timed("flush", trainer._flush_stats)
+            trainer.eval_loss = timed("validation", trainer.eval_loss)
+            trainer.save = timed("checkpoint", trainer.save)
+            test_batch = datasets[1].get_raw_batch
+            datasets[1].get_raw_batch = timed("validation", test_batch)
+            _sync(device)
+            t = time.perf_counter()
+            try:
+                stats = trainer.train()
+            finally:
+                datasets[1].get_raw_batch = test_batch
+            _sync(device)
+            return (trainer, plan, time.perf_counter() - t, stats,
+                    dict(spent), dict(calls))
+
+        def replay(plan, out):
+            """The steps of ``plan`` through ``step_indices`` on a new
+            trainer, timed; returns its state tree and the seconds."""
+            trainer, _ = twin.build(twin.parse_args(argv(out)), datasets)
+            _sync(device)
+            t = time.perf_counter()
+            for idx, lr, alpha_var, beta_KL in plan:
+                for row in idx:
+                    trainer.step_indices(row, lr, alpha_var, beta_KL)
+            _sync(device)
+            return trainer.state_tree(), time.perf_counter() - t
+
+        # 19a
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        _reset_launches()
+        with _cudnn_algorithms(False):
+            trainer, plan, train_s, (tstats, vstats), in_train, calls = \
+                train("full")
+        counts, kept = _launches(), head_stack_fwd.kept_u1
+        peak = torch.cuda.max_memory_allocated(device) if cuda else None
+        n = n_steps if cuda else 0
+        _expect_launches("train_loop", counts,
+                         {"k2": n, "k3_fwd": n + (n_evals if cuda else 0),
+                          "k3_bwd": n})
+        if kept != n or sum(len(i) for i, *_ in plan) != n_steps:
+            raise AssertionError(f"train_loop: K3-fwd kept u1 {kept} times, "
+                                 f"{n} steps expected")
+        if (tstats.n_batches != n_steps or vstats.n_batches != n_evals
+                or not np.isfinite(tstats.loss_terms["ELBO"]["all"]).all()):
+            raise AssertionError(
+                f"train_loop: {tstats.n_batches} training and "
+                f"{vstats.n_batches} validation rows, expected {n_steps} "
+                f"and {n_evals}, finite ELBO")
+        _sync(device)
+        t1 = time.perf_counter()
+        ckpt_bytes = trainer.save(str(root / "timed"))
+        ckpt_s = time.perf_counter() - t1
+        full = trainer.state_tree()
+        del trainer
+        samples_per_s = n_samples / train_s
+        _line("19a", "train_loop", t0, clock="host_clock_after_sync",
+              card=json.dumps(card), cudnn="default", steps=n_steps,
+              evals=n_evals, train_s=f"{train_s:.3f}",
+              train_samples_per_s=f"{samples_per_s:.2f}",
+              checkpoint_write_s=f"{ckpt_s:.3f}",
+              checkpoint_bytes=ckpt_bytes,
+              **{f"in_train_{k}_s": f"{v:.3f}" for k, v in in_train.items()},
+              **{f"in_train_{k}_calls": v for k, v in calls.items()},
+              peak_memory_gb=(f"{peak / 1e9:.3f}" if peak is not None
+                              else "not_measured_on_cpu"),
+              launches=json.dumps(counts), k3_fwd_kept_u1=kept,
+              elbo_mavg_last=f"{tstats.loss_terms['ELBO']['mavg'][-1]:.4f}")
+
+        # 19b
+        t2 = time.perf_counter()
+        with _cudnn_algorithms(False):
+            default_state, replay_s = replay(plan, "replay")
+        default_repeat = state_distance(default_state, full)
+        del default_state
+        with _cudnn_algorithms(True):
+            det, det_plan, det_train_s, _, _, _ = train("det")
+            det_full = det.state_tree()
+            del det
+            det_state, det_replay_s = replay(det_plan, "det_replay")
+        repeat = state_distance(det_state, det_full)
+        del det_state
+        step_samples_per_s = n_samples / replay_s
+        loop_cost = train_s / replay_s - 1.0
+        rest = train_s - replay_s - sum(in_train.values())
+        _line("19b", "train_loop_vs_step_indices", t2,
+              clock="host_clock_after_sync", card=json.dumps(card),
+              step_indices_s=f"{replay_s:.3f}",
+              train_s=f"{train_s:.3f}", train_rest_s=f"{rest:.3f}",
+              step_indices_samples_per_s=f"{step_samples_per_s:.2f}",
+              train_samples_per_s=f"{samples_per_s:.2f}",
+              loop_cost_pct=f"{100 * loop_cost:.2f}",
+              deterministic_step_indices_samples_per_s=(
+                  f"{n_samples / det_replay_s:.2f}"),
+              deterministic_train_samples_per_s=(
+                  f"{n_samples / det_train_s:.2f}"),
+              deterministic_step_cost_pct=(
+                  f"{100 * (det_replay_s / replay_s - 1.0):.2f}"),
+              default_repeat_distance=f"{default_repeat:.3e}",
+              repeat_distance=f"{repeat:.3e}")
+
+        # 19c
+        t2 = time.perf_counter()
+        first = f"checkpoint_sample{run['checkpoint_frequency']:0>10}"
+        (root / "resumed").mkdir()
+        for f in os.listdir(root / "det"):
+            if f.startswith(first) or f.endswith(".txt"):
+                (root / "resumed" / f).write_bytes(
+                    (root / "det" / f).read_bytes())
+        with _cudnn_algorithms(True):
+            res = twin.run(argv("resumed", "--resume-from",
+                                str(root / "resumed" / first)), datasets)
+        resumed = state_distance(res["trainer"].state_tree(), det_full)
+        stats_equal = all(
+            (root / "resumed" / f).read_bytes()
+            == (root / "det" / f).read_bytes()
+            for f in ("training_stats.txt", "validation_stats.txt"))
+        del res
+        if (resumed > repeat or (repeat == 0 and not stats_equal)):
+            raise AssertionError(
+                f"train_loop: the resumed run lies {resumed:.3e} from the "
+                f"uninterrupted one (statistics files equal: "
+                f"{stats_equal}), its repeat distance is {repeat:.3e}")
+        _line("19c", "train_loop_resume", t2, cudnn="deterministic",
+              resumed_from=first, resumed_distance=f"{resumed:.3e}",
+              repeat_distance=f"{repeat:.3e}", stats_files_equal=stats_equal)
+
+        # 19d
+        t2 = time.perf_counter()
+        painter = load_painter(str(root / "full" / "model"),
+                               fused_inference=True, device=device)
+        tiles = golden_inputs(dataset.tile_size, paint_tiles)
+        zs = np.linspace(0.0, 1.0, paint_tiles).astype(np.float32)
+        _reset_launches()
+        painted = painter.paint_batch(tiles, zs)
+        _sync(device)
+        paint_counts = _launches()
+        _expect_launches("train_loop paint", paint_counts,
+                         {"k1": n_res_blocks if cuda else 0})
+        finite = bool(torch.isfinite(painted).all())
+        if not finite or tuple(painted.shape) != tiles.shape:
+            raise AssertionError(f"train_loop paint: shape "
+                                 f"{tuple(painted.shape)}, finite {finite}")
+        _line("19d", "train_loop_paint", t2, tiles=paint_tiles,
+              launches=json.dumps(paint_counts), finite=finite)
+    return {"launches": counts, "paint_launches": paint_counts,
+            "evals": n_evals, "steps": n_steps, "train_s": train_s,
+            "samples_per_s": samples_per_s,
+            "step_indices_samples_per_s": step_samples_per_s,
+            "deterministic_train_s": det_train_s,
+            "deterministic_step_indices_s": det_replay_s,
+            "loop_cost": loop_cost, "checkpoint_s": ckpt_s,
+            "in_train_s": in_train, "in_train_calls": calls,
+            "train_rest_s": rest, "checkpoint_bytes": ckpt_bytes,
+            "peak_bytes": peak, "default_repeat_distance": default_repeat,
+            "repeat_distance": repeat, "resumed_distance": resumed,
+            "stats_files_equal": stats_equal}
+
+
 def k4_record(conv_bn: dict, training_k4: dict) -> list:
     """K4's four entries of the kernels record, each summed over the four
     sites of phase 10 (10b in bf16; the per-site values are printed there),
@@ -2835,13 +3189,27 @@ def _add_cgan(entry: dict, cgan: dict, dtype: str):
         entry["cgan_lightcone_launches"] = cgan["lightcone"]["launches"]["k1"]
 
 
+def _add_train_loop_launches(entries: list, train_loop: dict):
+    """Phase 19's launches on the f32 entries of K1 (19d's paint), K2 and
+    K3 (19a's run; K3-fwd's include one per validation loss)."""
+    keys = {"res_block_infer": ("paint_launches", "k1"),
+            "gather_tiles": ("launches", "k2"),
+            "head_stack_fwd": ("launches", "k3_fwd"),
+            "head_stack_bwd": ("launches", "k3_bwd")}
+    for entry in entries:
+        if entry["dtype"] == "float32" and entry["name"] in keys:
+            group, key = keys[entry["name"]]
+            entry["train_loop_launches"] = train_loop[group][key]
+
+
 def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                    heads: dict, training: dict, conv_bn: dict,
                    training_k4: dict, heads_bf16: dict = None,
                    paint_bf16: dict = None, training_bf16: dict = None,
                    conv_bn_bf16: dict = None,
                    training_bf16_k4: dict = None,
-                   lightcone: dict = None, cgan: dict = None) -> dict:
+                   lightcone: dict = None, cgan: dict = None,
+                   train_loop: dict = None) -> dict:
     """The ``{"kernels": [...]}`` record of the run, each entry with its
     ``dtype``: K1 in f32, its bf16 numbers beside it; K2, K3-fwd and K3-bwd
     with their launches in the timed training steps; K4's four kernels
@@ -2858,7 +3226,9 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     shell (the timed run). Given phase 17, both K1 entries carry the
     CGAN's: its launches per paint call (17b in f32, 17c in bf16) and in
     the f32 CGAN lightcone (17e), and K1 at the CLI's CGAN shape (slope
-    0.2; 17a's error, 17d's times and the bound there)."""
+    0.2; 17a's error, 17d's times and the bound there). Given phase 19,
+    the f32 K1, K2 and K3 entries carry their launches in the training
+    run and its final checkpoint's paint (``train_loop_launches``)."""
     f32 = next(c for c in checks if c["dtype"] == "float32")
     bf16 = next(c for c in checks if c["dtype"] == "bfloat16")
     def k3(name, key, replaces, heads=heads, launches=None):
@@ -2924,7 +3294,7 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                 _add_cgan(entry, cgan, "bfloat16")
     if conv_bn_bf16 is not None and training_bf16_k4 is not None:
         bf16_entries += k4_record(conv_bn_bf16, training_bf16_k4)
-    return {"kernels": [k1_entry, {
+    entries = [k1_entry, {
         "name": "gather_tiles", "dtype": "float32", "route": "cuda",
         "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": training["launches"]["k2"],
@@ -2932,4 +3302,7 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
         "bound_by": gather["bound_by"], "library_ms": gather["library_ms"]},
         k3_fwd, k3("head_stack_bwd", "k3_bwd", K3_BWD_REPLACES),
-        *k4_record(conv_bn, training_k4), *bf16_entries]}
+        *k4_record(conv_bn, training_k4), *bf16_entries]
+    if train_loop is not None:
+        _add_train_loop_launches(entries, train_loop)
+    return {"kernels": entries}

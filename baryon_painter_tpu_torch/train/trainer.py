@@ -1,6 +1,6 @@
-"""CVAE training step, in PyTorch.
+"""CVAE training, in PyTorch: the step and the training run.
 
-Port of the step of ``baryon_painter_tpu/train/trainer.py``: raw tiles ->
+Port of ``baryon_painter_tpu/train/trainer.py``. The step: raw tiles ->
 transforms on the device -> CVAE forward -> ELBO -> gradients -> global-norm
 clip -> Adam, with the learning rate, alpha_var and beta_KL given per step.
 The batch comes from the host (``step``) or is assembled on the device from
@@ -17,54 +17,130 @@ step trains in f32 whatever the caller's TF32 setting
 (``utils/platform.f32_convolutions``).
 
     trainer = CVAETrainer(CVAE(arch, fused_heads=True), dataset,
-                          config=TrainConfig(seed=0), device_data=True)
-    metrics = trainer.step_indices(dataset.sample_indices(rng, 24), lr=1e-4)
+                          test_data=held_out, device_data=True,
+                          config=TrainConfig(n_pepoch=3, pepoch_size=96,
+                                             batch_size=24,
+                                             output_path="run"))
+    training_stats, validation_stats = trainer.train()
+    trainer.restore("run/checkpoint_sample0000000096")  # resume from there
+
+The run (``train``) is the JAX trainer's loop, draw for draw: the pepoch
+schedules of batch size, learning rate, alpha_var and beta_KL (the reactive
+``ReduceLROnPlateau`` fed the training ELBO's moving average), the
+validation loss on the test data, ``training_stats.txt`` and
+``validation_stats.txt``, periodic checkpoints with rotation and the final
+``model`` checkpoint in the JAX package's format, with the Adam state, the
+loop's progress, the data RNG and the schedule's state, so that either
+package resumes a run the other wrote. The metrics stay on the device
+between flushes, one copy to the host every ``stats_sync_every`` steps.
 
 Adam is the JAX package's ``optax.chain(scale_by_adam(b1, b2), scale(-1))``
 with the learning rate multiplied outside, written out here (``Adam``). The
-latent noise comes from the trainer's ``torch.Generator`` (seeded with
-``config.seed``), or from ``eps=`` where a test injects it.
+latent noise of step s comes from a ``torch.Generator`` seeded from
+``(config.seed, s)``, as the JAX trainer folds s into its key, so a run
+resumed from a checkpoint draws what the uninterrupted run drew; tests
+inject it with ``eps=``.
 
-Not ported yet: the ``train()`` loop with its schedules and statistics
-files, validation, checkpoint writing and resume, the spectral loss
-(``pk_loss_weight``) and the mesh (multi-device) mode.
+Not ported yet: the spectral loss (``pk_loss_weight``), the mesh
+(multi-device) mode, and ``validate``'s figures (ROADMAP.md, section 1,
+items 7, 10 and 11).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+import time
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from baryon_painter_tpu_torch.convert import init_cvae, load_jax_variables
+from baryon_painter_tpu_torch.convert import (init_cvae, load_jax_variables,
+                                              train_state_from_jax,
+                                              train_state_to_jax, trainable)
 from baryon_painter_tpu_torch.data.dataset import BahamasTileDataset
 from baryon_painter_tpu_torch.data.device_cache import DeviceStackCache
 from baryon_painter_tpu_torch.models.cvae import CVAE
 from baryon_painter_tpu_torch.models.layers import BatchNorm
+from baryon_painter_tpu_torch.train import checkpoint as ckpt
+from baryon_painter_tpu_torch.train.stats import TrainingStats
 from baryon_painter_tpu_torch.transforms import FieldStats
 from baryon_painter_tpu_torch.utils.platform import (f32_convolutions,
-                                                     resolve_device)
+                                                     resolve_device,
+                                                     to_device)
 
 __all__ = ["TrainConfig", "CVAETrainer", "Adam", "grad_norm",
            "clip_grads_by_global_norm"]
 
 
+def _encode_data_rng(rng: np.random.Generator) -> np.ndarray:
+    """PCG64 generator state -> uint64[6] (128-bit state/inc split hi/lo)."""
+    st = rng.bit_generator.state
+    s, inc = st["state"]["state"], st["state"]["inc"]
+    mask = (1 << 64) - 1
+    return np.array([s >> 64, s & mask, inc >> 64, inc & mask,
+                     st["has_uint32"], st["uinteger"]], dtype=np.uint64)
+
+
+def _decode_data_rng(arr) -> np.random.Generator:
+    a = [int(v) for v in np.asarray(arr, dtype=np.uint64)]
+    rng = np.random.default_rng(0)
+    rng.bit_generator.state = {
+        "bit_generator": "PCG64",
+        "state": {"state": (a[0] << 64) | a[1], "inc": (a[2] << 64) | a[3]},
+        "has_uint32": a[4], "uinteger": a[5]}
+    return rng
+
+
+_PROGRESS_KEYS = ("n_samples", "i_pepoch", "last_pepoch_samples",
+                  "last_val_loss", "last_ckpt", "last_report")
+
+
+def _step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s latent-noise generator."""
+    entropy = [seed & (2 ** 64 - 1), step]
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
+
+
 @dataclasses.dataclass
 class TrainConfig:
-    """The fields of the JAX package's ``TrainConfig`` that the step reads.
+    """The JAX package's ``TrainConfig``, field for field. Sample counts
+    (``pepoch_size``, the ``*_frequency`` fields) are in samples; the
+    ``adaptive_*`` and ``*_anneal_fn`` schedules map a pepoch to a value
+    (``train/schedules.py``, ``train/run_config.py``).
 
     ``freeze_bn_stats`` keeps the batch-norm running statistics at their
     values (fine-tunes: the painted field goes through them);
-    ``clip_grad_norm`` > 0 clips the gradients to that global norm."""
+    ``clip_grad_norm`` > 0 clips the gradients to that global norm. The
+    spectral loss is not ported: ``pk_loss_weight`` > 0 raises, and
+    ``pk_loss_n_bins`` and ``pk_loss_per_z`` are read by nothing."""
 
+    learning_rate: float = 1e-4
+    batch_size: int = 1
+    n_pepoch: int = 5
+    pepoch_size: int = 3136
+    adaptive_learning_rate: Optional[Callable[[int], float]] = None
+    adaptive_batch_size: Optional[Callable[[int], int]] = None
+    var_anneal_fn: Optional[Callable[[int], float]] = None
+    KL_anneal_fn: Optional[Callable[[int], float]] = None
+    validation_loss_frequency: int = 100
+    validation_loss_batch_size: int = 16
+    checkpoint_frequency: int = 1000
+    keep_last_checkpoints: int = 0             # 0 keeps every checkpoint
+    statistics_report_frequency: int = 50      # 0 = off
+    stats_sync_every: int = 16                 # steps between host copies
+    mavg_window_size: int = 20
+    output_path: Optional[str] = None
     seed: int = 0
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     device_cache_budget_bytes: int = 8 * 1024 ** 3
     pk_loss_weight: float = 0.0
+    pk_loss_n_bins: int = 12
+    pk_loss_per_z: bool = False
     freeze_bn_stats: bool = False
     clip_grad_norm: float = 0.0
+    verbose: bool = False
 
 
 def grad_norm(grads) -> torch.Tensor:
@@ -111,36 +187,40 @@ class Adam:
 
 class CVAETrainer:
     def __init__(self, model: CVAE, training_data: BahamasTileDataset,
+                 test_data: Optional[BahamasTileDataset] = None,
                  config: TrainConfig = TrainConfig(),
                  device_data: bool = False, device=None,
                  use_kernel="auto", variables: Optional[dict] = None):
         """Set up training of ``model`` on ``device`` (``cuda`` unless the
-        caller passes ``device="cpu"``).
+        caller passes ``device="cpu"``); ``test_data`` is what the
+        validation loss is computed on.
 
         The weights are drawn by ``convert.init_cvae`` from
         ``config.seed``, or loaded from ``variables`` (JAX-layout
         ``{"params", "batch_stats"}`` as numpy, e.g. the JAX trainer's
         initial state). ``device_data=True`` uploads the stacks to the
         device once (``DeviceStackCache``, the gather through K2 unless
-        ``use_kernel=False``) for ``step_indices``/``step_scan``."""
+        ``use_kernel=False``) for ``step_indices``/``step_scan``, which
+        ``train`` then uses."""
         if config.pk_loss_weight > 0:
             raise NotImplementedError(
                 "pk_loss_weight > 0: the spectral loss is not ported yet "
-                "(ROADMAP.md, section 1: the spectral loss).")
+                "(ROADMAP.md, section 1, item 7).")
         self.device = resolve_device(device)
         self.config = config
         self.training_data = training_data
+        self.test_data = test_data
         if variables is not None:
             load_jax_variables(model, variables)
         else:
             init_cvae(model, config.seed)
         self.model = model.to(self.device).train()
-        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        self.params = trainable(self.model)
         self.optimizer = Adam(self.params, config.adam_b1, config.adam_b2)
         self._bn = [m for m in self.model.modules()
                     if isinstance(m, BatchNorm)]
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(config.seed)
+        # steps taken: step s draws its latent noise from (seed, s)
+        self._host_step = 0
         ds = training_data
         self._input_field = ds.input_field
         self._label_fields = list(ds.label_fields)
@@ -153,6 +233,17 @@ class CVAETrainer:
             self.device_cache = DeviceStackCache.create_if_fits(
                 ds, config.device_cache_budget_bytes, device=self.device,
                 use_kernel=use_kernel)
+        # the loop's progress and data RNG, set by train() and restore()
+        self._progress = None
+        self._data_rng = None
+        # optional declarative RunConfig (train/run_config.py), stored in
+        # every checkpoint's meta
+        self.run_config = None
+
+    @property
+    def steps(self) -> int:
+        """The training steps taken (restored with a checkpoint)."""
+        return self._host_step
 
     def _channels(self, field, arr, z):
         """A raw (N,H,W) field transformed, as NCHW: one channel, or the
@@ -183,14 +274,22 @@ class CVAETrainer:
             return self._step_f(raw_input, raw_labels, z, lr, alpha_var,
                                 beta_KL, eps)
 
+    def _noise(self, step: int) -> torch.Generator:
+        """The latent-noise generator of step ``step``."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(_step_seed(self.config.seed, step))
+        return gen
+
     def _step_f(self, raw_input, raw_labels, z, lr, alpha_var, beta_KL,
                 eps):
         x, y = self._prepare(raw_input, raw_labels, z)
         frozen = self._bn_state() if self.config.freeze_bn_stats else None
         for p in self.params:
             p.grad = None
+        generator = self._noise(self._host_step)
+        self._host_step += 1
         out = self.model(x, y, z, alpha_var=alpha_var, beta_KL=beta_KL,
-                         eps=eps, generator=self.generator)
+                         eps=eps, generator=generator)
         (-out["elbo"]).backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
@@ -208,8 +307,7 @@ class CVAETrainer:
         return metrics
 
     def _to_device(self, batch):
-        as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32),
-                                         device=self.device)
+        as_t = lambda a: to_device(np.asarray(a, np.float32), self.device)
         return as_t(batch["input"]), as_t(batch["labels"]), as_t(batch["z"])
 
     def step(self, batch: dict, lr: float, alpha_var: float = 1.0,
@@ -247,10 +345,11 @@ class CVAETrainer:
 
     @torch.no_grad()
     def eval_loss(self, batch: dict, alpha_var: float = 1.0,
-                  beta_KL: float = 1.0, seed: int = 0) -> dict:
+                  beta_KL: float = 1.0, seed: int = 0, eps=None) -> dict:
         """The ELBO terms of a host batch with batch statistics, as in
         training, but nothing of the state changes (the JAX package's
-        ``eval_loss``); the latent noise from a generator seeded ``seed``."""
+        ``eval_loss``); the latent noise ``eps``, else from a generator
+        seeded ``seed``."""
         raw_input, raw_labels, z = self._to_device(batch)
         x, y = self._prepare(raw_input, raw_labels, z)
         state = self._bn_state()
@@ -258,6 +357,316 @@ class CVAETrainer:
         gen.manual_seed(seed)
         with f32_convolutions():
             out = self.model(x, y, z, alpha_var=alpha_var, beta_KL=beta_KL,
-                             generator=gen)
+                             eps=eps, generator=gen)
         self._restore_bn(state)
         return {k: v for k, v in out.items() if k not in ("x_mu", "x_var")}
+
+    # ------------------------------------------------------------------ #
+
+    @staticmethod
+    def _stats_parts(metrics) -> list:
+        """The tensors of one step's statistics row, flattened, on the
+        device: ELBO, KL term (negated) and the likelihood terms."""
+        parts = [metrics["elbo"], -metrics["kl"], metrics["log_likelihood"]]
+        if "log_likelihood_fixed_var" in metrics:
+            parts += [metrics["log_likelihood_fixed_var"],
+                      metrics["log_likelihood_free_var"]]
+        return [t.detach().float().reshape(-1) for t in parts]
+
+    def _host_rows(self, metrics_list) -> list:
+        """The statistics rows of several steps as host floats, in one
+        device-to-host copy."""
+        parts = [self._stats_parts(m) for m in metrics_list]
+        flat = torch.cat([t for row in parts for t in row]).cpu().numpy()
+        rows, pos = [], 0
+        for row in parts:
+            n = sum(t.numel() for t in row)
+            rows.append(tuple(float(v) for v in flat[pos:pos + n]))
+            pos += n
+        return rows
+
+    def stats_tuple(self, metrics) -> tuple:
+        """One step's (or evaluation's) statistics row: ELBO, KL term and
+        the likelihood terms, as host floats (the JAX trainer's)."""
+        return self._host_rows([metrics])[0]
+
+    def _flush_stats(self, pending, training_stats):
+        """Push the buffered steps' metrics to ``training_stats`` after one
+        copy to the host."""
+        if not pending:
+            return
+        rows = self._host_rows([m for _, m, _, _ in pending])
+        for (n_samples, _, lr, bs), row in zip(pending, rows):
+            training_stats.push_loss(n_samples, *row, lr, bs)
+        pending.clear()
+
+    def train(self, validation_pepochs: Sequence[int] = (),
+              on_validation: Optional[Callable] = None):
+        """The training run with pepoch schedules; returns
+        ``(training_stats, validation_stats)``. The JAX trainer's loop: the
+        same draws from the data RNG (seeded ``config.seed``, or restored),
+        the same schedule, validation, checkpoint and report points, the
+        same statistics files. With the stack cache, the steps up to the
+        next of those points run as one ``step_scan`` of at most
+        ``stats_sync_every`` steps, rounded down to a power of two, as the
+        JAX loop's scans are cut; without it, one ``step`` on a host batch
+        at a time. ``on_validation(trainer, pepoch)`` is called at the
+        pepochs of ``validation_pepochs``."""
+        cfg = self.config
+        ds = self.training_data
+
+        # the numeric channel suffix renamed to the label field's name
+        stats_labels = list(self.model.get_stats_labels())
+        for j, f in enumerate(self._label_fields):
+            suffix = f"_{j}"
+            stats_labels = [
+                l[:-len(suffix)] + f"_{f}_0" if l.endswith(suffix) else l
+                for l in stats_labels]
+        stats_labels += ["lr", "batch_size"]
+
+        out_path = cfg.output_path
+        train_fn = val_fn = ckpt_template = None
+        if out_path is not None:
+            os.makedirs(out_path, exist_ok=True)
+            train_fn = os.path.join(out_path, "training_stats.txt")
+            val_fn = os.path.join(out_path, "validation_stats.txt")
+            ckpt_template = os.path.join(
+                out_path, "checkpoint_sample{sample:0>10}")
+
+        # resume: restore() stashed the loop's progress and the data RNG;
+        # the schedules fast-forward and the stats files are re-loaded
+        progress = dict(self._progress or {})
+        resuming = bool(progress)
+        n_samples = progress.get("n_samples", 0)
+        i_pepoch = progress.get("i_pepoch", 0)
+        last_pepoch_samples = progress.get("last_pepoch_samples", 0)
+        last_val_loss = progress.get("last_val_loss", 0)
+        last_ckpt = progress.get("last_ckpt", 0)
+        last_report = progress.get("last_report", 0)
+        data_rng = (self._data_rng if resuming and self._data_rng is not None
+                    else np.random.default_rng(cfg.seed))
+
+        up_to = n_samples if resuming else None
+        training_stats = TrainingStats(stats_labels, cfg.mavg_window_size,
+                                       stats_filename=train_fn,
+                                       resume=resuming, resume_up_to=up_to)
+        validation_stats = TrainingStats(stats_labels, cfg.mavg_window_size,
+                                         stats_filename=val_fn,
+                                         resume_up_to=up_to,
+                                         dump_to_file_frequency=1,
+                                         resume=resuming)
+
+        batch_size = (cfg.adaptive_batch_size(i_pepoch)
+                      if cfg.adaptive_batch_size else cfg.batch_size)
+        lr_mult = (cfg.adaptive_learning_rate(i_pepoch)
+                   if cfg.adaptive_learning_rate else 1.0)
+        alpha_var = cfg.var_anneal_fn(i_pepoch) if cfg.var_anneal_fn else 1.0
+        beta_KL = cfg.KL_anneal_fn(i_pepoch) if cfg.KL_anneal_fn else 1.0
+
+        if not resuming and 0 in validation_pepochs and on_validation:
+            on_validation(self, 0)
+
+        t0 = time.time()
+        pending = []
+
+        def snapshot_progress():
+            self._progress = {"n_samples": n_samples, "i_pepoch": i_pepoch,
+                              "last_pepoch_samples": last_pepoch_samples,
+                              "last_val_loss": last_val_loss,
+                              "last_ckpt": last_ckpt,
+                              "last_report": last_report}
+            self._data_rng = data_rng
+
+        while i_pepoch < cfg.n_pepoch:
+            # ---- pepoch boundary -------------------------------------- #
+            if n_samples - cfg.pepoch_size >= last_pepoch_samples and n_samples:
+                i_pepoch += 1
+                last_pepoch_samples = n_samples
+                if i_pepoch >= cfg.n_pepoch:
+                    break
+                if cfg.adaptive_learning_rate:
+                    sched = cfg.adaptive_learning_rate
+                    if hasattr(sched, "observe"):
+                        # the reactive schedule sees the training ELBO's
+                        # moving average
+                        self._flush_stats(pending, training_stats)
+                        mavg = training_stats.loss_terms["ELBO"]["mavg"]
+                        lr_mult = (sched.observe(mavg[-1]) if mavg
+                                   else sched())
+                    else:
+                        lr_mult = sched(i_pepoch)
+                if cfg.var_anneal_fn:
+                    alpha_var = cfg.var_anneal_fn(i_pepoch)
+                if cfg.KL_anneal_fn:
+                    beta_KL = cfg.KL_anneal_fn(i_pepoch)
+                if cfg.adaptive_batch_size:
+                    batch_size = cfg.adaptive_batch_size(i_pepoch)
+                if i_pepoch in validation_pepochs and on_validation:
+                    on_validation(self, i_pepoch)
+
+            lr = cfg.learning_rate * lr_mult
+            if self.device_cache is not None:
+                # the steps up to the next pepoch / validation / checkpoint
+                # / report point, as one step_scan
+                horizons = [last_pepoch_samples + cfg.pepoch_size]
+                if (self.test_data is not None
+                        and cfg.validation_loss_frequency > 0):
+                    horizons.append(last_val_loss
+                                    + cfg.validation_loss_frequency)
+                if ckpt_template is not None:
+                    horizons.append(last_ckpt + cfg.checkpoint_frequency)
+                if cfg.statistics_report_frequency > 0:
+                    horizons.append(last_report
+                                    + cfg.statistics_report_frequency)
+                until = max(min(horizons) - n_samples, 1)
+                k = min(max(1, cfg.stats_sync_every),
+                        -(-until // batch_size))
+                k = 1 << (k.bit_length() - 1)
+                idx_matrix = np.stack(
+                    [ds.sample_indices(data_rng, batch_size)
+                     for _ in range(k)])
+                metrics_k = self.step_scan(idx_matrix, lr=lr,
+                                           alpha_var=alpha_var,
+                                           beta_KL=beta_KL)
+                for i in range(k):
+                    n_samples += batch_size
+                    pending.append(
+                        (n_samples, {key: v[i] for key, v in
+                                     metrics_k.items()}, lr, batch_size))
+            else:
+                idx = ds.sample_indices(data_rng, batch_size)
+                metrics = self.step(ds.get_raw_batch(idx), lr=lr,
+                                    alpha_var=alpha_var, beta_KL=beta_KL)
+                n_samples += batch_size
+                pending.append((n_samples, metrics, lr, batch_size))
+
+            # metrics stay on the device until stats_sync_every steps wait
+            if len(pending) >= max(1, cfg.stats_sync_every):
+                self._flush_stats(pending, training_stats)
+
+            if (self.test_data is not None
+                    and cfg.validation_loss_frequency > 0
+                    and n_samples - cfg.validation_loss_frequency
+                    >= last_val_loss):
+                self._flush_stats(pending, training_stats)
+                last_val_loss = n_samples
+                vidx = self.test_data.sample_indices(
+                    data_rng, cfg.validation_loss_batch_size)
+                vmetrics = self.eval_loss(self.test_data.get_raw_batch(vidx),
+                                          alpha_var, beta_KL)
+                validation_stats.push_loss(
+                    n_samples, *self.stats_tuple(vmetrics),
+                    cfg.learning_rate * lr_mult, batch_size)
+
+            if (ckpt_template is not None
+                    and n_samples - cfg.checkpoint_frequency >= last_ckpt):
+                last_ckpt = n_samples
+                # the stats files first, consistent with the checkpoint
+                self._flush_stats(pending, training_stats)
+                training_stats.flush_to_file()
+                validation_stats.flush_to_file()
+                snapshot_progress()
+                self.save(ckpt_template.format(sample=n_samples))
+                ckpt.rotate_checkpoints(out_path, cfg.keep_last_checkpoints)
+
+            if (cfg.statistics_report_frequency > 0
+                    and n_samples - cfg.statistics_report_frequency
+                    >= last_report):
+                last_report = n_samples
+                self._flush_stats(pending, training_stats)
+                if cfg.verbose:
+                    elbo = training_stats.loss_terms["ELBO"]["mavg"][-1]
+                    rate = n_samples / (time.time() - t0)
+                    print(f"P-Epoch [{i_pepoch}/{cfg.n_pepoch}] "
+                          f"samples {n_samples} ELBO(mavg) {elbo:.3e} "
+                          f"({rate:.1f} samples/s)")
+
+        self._flush_stats(pending, training_stats)
+        training_stats.flush_to_file()
+        validation_stats.flush_to_file()
+        snapshot_progress()
+        if out_path is not None:
+            self.save(os.path.join(out_path, "model"))
+        return training_stats, validation_stats
+
+    def validate(self, validation_batch_size: int = 8,
+                 validation_redshift: Optional[float] = None,
+                 compute_loss: bool = False, seed: int = 0, **figure_kw):
+        """The loss on a test batch (``compute_loss=True``): the statistics
+        row of ``stats_tuple`` for ``validation_batch_size`` samples of the
+        test data (of redshift ``validation_redshift`` if given), drawn from
+        a generator seeded ``seed``. The JAX trainer's figures (samples,
+        P(k), histograms; its other keyword arguments) need matplotlib and
+        are not ported: without ``compute_loss`` this raises."""
+        if self.test_data is None:
+            raise RuntimeError("Trying to validate but no test data "
+                               "specified.")
+        if not compute_loss:
+            raise NotImplementedError(
+                "validate's figures are not ported yet (ROADMAP.md, "
+                "section 1, item 11); pass compute_loss=True for the loss.")
+        ds = self.test_data
+        rng = np.random.default_rng(seed)
+        idx = ds.sample_indices(rng, validation_batch_size,
+                                z=validation_redshift)
+        return self.stats_tuple(self.eval_loss(ds.get_raw_batch(idx),
+                                               seed=seed))
+
+    # ------------------------------------------------------------------ #
+
+    def state_tree(self, include_opt_state: bool = True) -> dict:
+        """The trainer's state as the JAX trainer's checkpoint tree
+        (numpy, the JAX layout): params, batch_stats, step, opt_state and
+        what the loop needs to resume (progress, data_rng, lr_sched)."""
+        opt = self.optimizer
+        state = train_state_to_jax(self.model, opt.mu, opt.nu, opt.count,
+                                   self._host_step)
+        if not include_opt_state:
+            del state["opt_state"]
+        if self._progress is not None:
+            state["progress"] = np.array(
+                [self._progress[k] for k in _PROGRESS_KEYS], dtype=np.int64)
+        if self._data_rng is not None:
+            state["data_rng"] = _encode_data_rng(self._data_rng)
+        sched = self.config.adaptive_learning_rate
+        if hasattr(sched, "state_array"):
+            # a reactive schedule's state survives a resume mid-plateau
+            state["lr_sched"] = np.asarray(sched.state_array(), np.float64)
+        return state
+
+    def save(self, base_path: str, include_opt_state: bool = True) -> int:
+        """Write the checkpoint pair at ``base_path``; returns the state's
+        bytes."""
+        meta = ckpt.meta_from_dataset(self.training_data,
+                                      self.model.architecture)
+        if self.run_config is not None:
+            meta["run_config"] = self.run_config.to_dict()
+        return ckpt.save_checkpoint(base_path,
+                                    self.state_tree(include_opt_state), meta)
+
+    @torch.no_grad()
+    def restore(self, base_path: str) -> dict:
+        """Load a checkpoint written by this trainer or the JAX one: the
+        parameters, running statistics, Adam state and step exactly, and
+        the loop's progress, data RNG and reactive schedule state for
+        ``train`` to resume from. Returns the meta."""
+        raw, meta = ckpt.load_checkpoint(base_path, keep_optimizer=True)
+        loaded = train_state_from_jax(self.model, raw)
+        if "mu" in loaded:
+            for dst, src in zip(self.optimizer.mu, loaded["mu"]):
+                dst.copy_(src)
+            for dst, src in zip(self.optimizer.nu, loaded["nu"]):
+                dst.copy_(src)
+            self.optimizer.count = loaded["count"]
+        self._host_step = loaded["step"]
+        if "progress" in raw:
+            vals = np.asarray(raw["progress"], dtype=np.int64)
+            self._progress = {k: int(v)
+                              for k, v in zip(_PROGRESS_KEYS, vals)}
+        if "data_rng" in raw:
+            self._data_rng = _decode_data_rng(raw["data_rng"])
+        if "lr_sched" in raw and hasattr(self.config.adaptive_learning_rate,
+                                         "load_state_array"):
+            self.config.adaptive_learning_rate.load_state_array(
+                np.asarray(raw["lr_sched"], np.float64))
+        return meta

@@ -4,8 +4,9 @@ Port of ``baryon_painter_tpu/transforms.py``: the range-compression family,
 the density contrast and the identity, each a declarative spec with
 ``forward``/``inverse`` on tensors, plus per-field redshift statistics.
 The formulas are the JAX package's term for term, including the shift-log
-NaN floor. ``SplitScale``, ``ChainTransform`` and ``gaussian_filter_2d``
-are not ported yet: no committed CVAE checkpoint uses them.
+NaN floor; ``to_dict`` writes the spec a checkpoint's metadata holds.
+``SplitScale``, ``ChainTransform`` and ``gaussian_filter_2d`` are not
+ported yet: no committed CVAE checkpoint uses them.
 """
 from __future__ import annotations
 
@@ -39,6 +40,11 @@ class FieldStats:
         mean = self.mean[0] + (frac * torch.diff(self.mean)).sum(-1)
         var = self.var[0] + (frac * torch.diff(self.var)).sum(-1)
         return mean, var
+
+    def to_dict(self):
+        as_list = lambda t: t.detach().cpu().numpy().tolist()
+        return {"z_grid": as_list(self.z_grid), "mean": as_list(self.mean),
+                "var": as_list(self.var)}
 
     @classmethod
     def from_dict(cls, d, device=None):
@@ -132,6 +138,11 @@ class RangeCompress:
                                (2 / (x + 1.001) - 1) * std * mean * k, 0.0)
         raise AssertionError(mode)
 
+    def to_dict(self):
+        k = list(self.k) if isinstance(self.k, (tuple, list)) else self.k
+        return {"type": "range_compress", "mode": self.mode, "k": k,
+                "eps": self.eps, "sqrt_of_mean": self.sqrt_of_mean}
+
     @classmethod
     def from_dict(cls, d):
         k = tuple(d["k"]) if isinstance(d["k"], list) else d["k"]
@@ -151,6 +162,9 @@ class ToDelta:
         mean, _ = stats.at_z(z)
         return (x + 1) * _broadcast_stat(mean, x)
 
+    def to_dict(self):
+        return {"type": "to_delta"}
+
     @classmethod
     def from_dict(cls, d):
         return cls()
@@ -163,6 +177,9 @@ class Identity:
 
     def inverse(self, x, stats=None, z=None):
         return x
+
+    def to_dict(self):
+        return {"type": "identity"}
 
     @classmethod
     def from_dict(cls, d):

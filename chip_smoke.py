@@ -45,7 +45,14 @@ blocks, and the lightcone CLI with ``--model-type CGAN --fused-paint``
 (exactly 9 K1 launches a paint call) against the same run with plain
 convolutions; then seamless whole-plane painting (phase 18): the halo
 against twice it, a 1024^2 plane with cuDNN against plain convolutions,
-and the lightcone CLI with ``--seamless``, timed. Everything is timed.
+and the lightcone CLI with ``--seamless``, timed; then the training run
+(phase 19) through the training CLI's code (scripts/train_cvae_torch.py) at
+full width with K2 and K3: ``train()`` over 3 pepochs of 96 samples with
+validation, statistics, periodic checkpoints (exactly one K2, K3-fwd and
+K3-bwd launch a step), timed against ``step_indices`` over the same
+steps, a resume from the first checkpoint equal to the uninterrupted run,
+and the final checkpoint painted through ``load_painter`` and K1 (exactly 4
+launches). Everything is timed.
 The phases live in ``baryon_painter_tpu_torch/smoke.py``; each prints one
 line with its seconds. The last lines are the kernels record (JSON), the
 card's name and power limit as nvidia-smi gives them, and the result (JSON).
@@ -119,13 +126,16 @@ def main() -> int:
             paint_tiles_per_s=paint_bf16["tiles_per_s"])
         cgan = smoke.cgan(device, data, card=card)
         smoke.seamless(device, data, lightcone["bf16"]["cudnn"], card=card)
+    # the training run through the training CLI's code (19)
+    train_loop = smoke.train_loop(device, dataset, card=card)
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
     print(json.dumps(smoke.kernels_record(
         checks, paint, timing, gather, heads, training, conv_bn, training_k4,
         heads_bf16=heads_bf16, paint_bf16=paint_bf16,
         training_bf16=training_bf16, conv_bn_bf16=conv_bn_bf16,
-        training_bf16_k4=training_bf16_k4, lightcone=lightcone, cgan=cgan)))
+        training_bf16_k4=training_bf16_k4, lightcone=lightcone, cgan=cgan,
+        train_loop=train_loop)))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

@@ -492,6 +492,48 @@ def _run_chip_smoke(cwd):
                           timeout=120)
 
 
+def test_train_loop_phase_and_kernels_record_on_cpu(cpu_run, cpu_train_run,
+                                                    cpu_k4_run):
+    """Phase 19 at 32^2 (batch 2, pepochs of 8 samples): the run, the
+    step_indices replay at repeat distance 0, the resume from the first
+    periodic checkpoint equal to the uninterrupted run, and the paint of the
+    final checkpoint; its launches (0 on the CPU) on the kernels record."""
+    _, _, checks, paint, timing = cpu_run
+    ds, gather, heads, training, _, _ = cpu_train_run
+    conv_bn, training_k4, _ = cpu_k4_run
+    out = smoke.train_loop(torch.device("cpu"), ds, batch=2, n_res_blocks=1,
+                           pepoch=8, paint_tiles=2, run=dict(
+                               validation_loss_frequency=4,
+                               validation_loss_batch_size=2,
+                               checkpoint_frequency=8,
+                               statistics_report_frequency=4,
+                               stats_sync_every=4))
+    assert (out["steps"], out["evals"]) == (12, 6)
+    assert out["repeat_distance"] == out["resumed_distance"] == 0.0
+    assert out["stats_files_equal"] and out["checkpoint_bytes"] > 0
+    assert out["peak_bytes"] is None
+    rec = smoke.kernels_record(checks, paint, timing, gather, heads,
+                               training, conv_bn, training_k4,
+                               train_loop=out)
+    by_name = {(k["name"], k["dtype"]): k for k in rec["kernels"]}
+    for name in ("res_block_infer", "gather_tiles", "head_stack_fwd",
+                 "head_stack_bwd"):
+        assert by_name[name, "float32"]["train_loop_launches"] == 0
+    assert "train_loop_launches" not in by_name["conv_bn_fwd", "float32"]
+
+
+def test_state_distance_reads_the_model_state():
+    a = {"params": {"w": np.ones(3, np.float32)}, "batch_stats": {},
+         "opt_state": {"0": {"count": np.int32(2), "mu": {}}, "1": {}},
+         "step": np.int32(2), "progress": np.arange(6)}
+    b = {**a, "params": {"w": np.array([1, 1.5, 1], np.float32)},
+         "progress": np.zeros(6)}
+    assert smoke.state_distance(a, a) == 0.0
+    assert smoke.state_distance(a, b) == 0.5
+    with pytest.raises(AssertionError, match="keys"):
+        smoke.state_distance(a, {**b, "params": {"v": np.ones(3)}})
+
+
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -519,7 +561,8 @@ def _imports(path: Path):
 @pytest.mark.parametrize(
     "path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE] + [
         Path(REPO) / "scripts" / f for f in ("create_lightcone_torch.py",
-                                             "bench_torch_lightcone.py")],
+                                             "bench_torch_lightcone.py",
+                                             "train_cvae_torch.py")],
     ids=lambda p: str(Path(p).relative_to(REPO)))
 def test_port_imports_nothing_of_jax(path):
     for name in _imports(path):

@@ -301,7 +301,7 @@ def test_what_the_trainer_refuses(data):
 
 
 _BLOCKED_TRAIN = textwrap.dedent("""
-    import importlib, importlib.abc, pkgutil, sys
+    import importlib, importlib.abc, importlib.util, pkgutil, sys
     BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "optax",
                "baryon_painter_tpu")
 
@@ -321,6 +321,20 @@ _BLOCKED_TRAIN = textwrap.dedent("""
     tr = smoke.make_trainer("cpu", ds, True, n_res_blocks=1)
     m = tr.step_indices(ds.sample_indices(np.random.default_rng(0), 2), 1e-3)
     assert all(bool(v.isfinite().all()) for v in m.values())
+    # the training CLI twin: a run with a checkpoint, then a resume from it
+    import tempfile
+    spec = importlib.util.spec_from_file_location(
+        "twin", "scripts/train_cvae_torch.py")
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    with tempfile.TemporaryDirectory() as out:
+        args = ["--synthetic", "--synthetic-grid", "64", "--n-tile", "2",
+                "--n-training-stack", "1", "--n-validation-stack", "1",
+                "--n-pepoch", "1", "--pepoch-size", "8", "--n-res-blocks",
+                "1", "--output-path", out, "--device", "cpu"]
+        run = twin.run(args)
+        res = twin.run(args + ["--resume-from", out + "/model"])
+        assert run["trainer"].steps == res["trainer"].steps == 2
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("TRAINED", float(m["elbo"]) < 0)
