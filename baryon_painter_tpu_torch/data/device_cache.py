@@ -57,6 +57,9 @@ class DeviceStackCache:
         self.dataset = dataset
         self.tile_size = dataset.tile_size
         self.n_label = len(dataset.label_fields)
+        # one device holds every redshift, so the batches sample them
+        # uniformly (the JAX cache's z-sharded mesh may not)
+        self.uniform_z = True
 
         def stack_all(depth):
             arr = np.stack([np.stack([

@@ -138,8 +138,12 @@ class CVAE(nn.Module):
         """Both output heads match the canonical (conv k7, prelu, conv k5,
         prelu, conv k3[, softplus]) pattern at the shapes the JAX package
         fuses (its ``_heads_fusable``, whose %4 is its space-to-depth radix:
-        kept so that the same configurations take the fused path)."""
+        kept so that the same configurations take the fused path). K3
+        computes exactly two heads: any other count of ``p_y_z_out`` specs
+        stays unfused."""
         if not self.fused_heads or not self.predict_var:
+            return False
+        if len(self.architecture["p_y_z_out"]) != 2:
             return False
         if h.shape[2] % 4 or h.shape[3] % 4 or h.shape[2] < 32:
             return False

@@ -63,19 +63,32 @@ def _frozen(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(*shape), requires_grad=False)
 
 
+def _low_precision_in_f32(fn, x, weight) -> bool:
+    """Whether a low-precision ``fn`` of ``x`` with ``weight`` runs in f32
+    on the rounded operands instead of the library's low-precision path:
+    on the CPU always, on the card for an ``F.conv2d`` with one input and
+    one output channel (see ``_conv``)."""
+    if x.device.type == "cpu":
+        return True
+    return fn is F.conv2d and weight.shape[0] == weight.shape[1] == 1
+
+
 def _conv(fn, x, weight, bias, dtype, **kw):
     """``fn`` (a conv) in ``dtype`` (None: x's): x and the weight rounded to
     it, the products summed in f32 and the sum rounded to it; an f32 bias
     is added after a low-precision conv, which promotes the sum to f32 as
-    in JAX. On the card cuDNN computes exactly that in bf16. On the CPU
-    the bf16 conv runs in f32 on the rounded values (the products of two
-    bf16 numbers are exact in f32): PyTorch's CPU bf16 convolution is
+    in JAX. On the card cuDNN computes exactly that in bf16, except for a
+    1 -> 1 channel ``F.conv2d``, which on an H100 (cuDNN 9.22) is wrong
+    from 32^2 up whatever the layout (off by about its own size, or NaN
+    when the allocator's free memory holds NaN). There, and always on the
+    CPU, the bf16 conv runs in f32 on the rounded values (the products of
+    two bf16 numbers are exact in f32): PyTorch's CPU bf16 convolution is
     wrong at some shapes (a stride-4 8 -> 16 conv at 64^2 misses by 100 %).
     An f64 conv is f64 on both."""
     dt = dtype or x.dtype
     if x.dtype == weight.dtype == dt and (bias is None or bias.dtype == dt):
         return fn(x, weight, bias, **kw)
-    if x.device.type == "cpu" and dt.itemsize < 4:
+    if dt.itemsize < 4 and _low_precision_in_f32(fn, x, weight):
         out = fn(x.to(dt).float(), weight.to(dt).float(), None, **kw).to(dt)
     else:
         out = fn(x.to(dt), weight.to(dt), None, **kw)
@@ -156,6 +169,11 @@ class BatchNorm(nn.Module):
             self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
+            if torch.is_grad_enabled():
+                # a graph through the running statistics (the trainer's
+                # spectral term) keeps their values of this call: a
+                # train-mode call later in the step updates them in place
+                mean, var = mean.clone(), var.clone()
         a = self.weight * torch.rsqrt(var + _BN_EPS)
         b = self.bias - mean * a
         return (xf * a[:, None, None] + b[:, None, None]).to(dt)

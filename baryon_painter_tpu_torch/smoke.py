@@ -144,6 +144,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -931,7 +932,11 @@ def check_heads(device, shape=(TRAIN_BATCH, TRAIN_TILE, TRAIN_TILE),
 
 def make_trainer(device, dataset, fused_heads: bool, use_kernel="auto",
                  n_res_blocks: int = N_RES_BLOCKS, seed: int = 0,
-                 fused_train_conv: bool = False, dtype=None):
+                 fused_train_conv: bool = False, dtype=None,
+                 config: dict = None, variables: dict = None):
+    """The fiducial trainer on ``dataset`` with the stack cache; ``config``
+    adds ``TrainConfig`` fields, ``variables`` (JAX layout) replaces the
+    seeded initialisation."""
     from baryon_painter_tpu_torch.models.cvae import (
         CVAE, fiducial_cvae_architecture)
     from baryon_painter_tpu_torch.train.trainer import (CVAETrainer,
@@ -940,8 +945,10 @@ def make_trainer(device, dataset, fused_heads: bool, use_kernel="auto",
                                       n_res_blocks=n_res_blocks)
     model = CVAE(arch, fused_heads=fused_heads,
                  fused_train_conv=fused_train_conv, dtype=dtype)
-    return CVAETrainer(model, dataset, config=TrainConfig(seed=seed),
-                       device_data=True, device=device, use_kernel=use_kernel)
+    return CVAETrainer(model, dataset,
+                       config=TrainConfig(seed=seed, **(config or {})),
+                       device_data=True, device=device, use_kernel=use_kernel,
+                       variables=variables)
 
 
 def k4_sites_per_step(tile: int) -> int:
@@ -953,7 +960,8 @@ def k4_sites_per_step(tile: int) -> int:
 def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
           iters: int = 10, n_res_blocks: int = N_RES_BLOCKS,
           lr: float = 1e-4, card=None, fused_train_conv: bool = False,
-          k4_off_ms=None, dtype=None, f32_ms=None) -> dict:
+          k4_off_ms=None, dtype=None, f32_ms=None, config: dict = None,
+          variables: dict = None, phase=None, extra: dict = None) -> dict:
     """Phase 8 (11 with ``fused_train_conv``, 13 in bf16, 15 in bf16 with
     ``fused_train_conv``), a main path: ``warmup``
     then ``iters`` timed training steps (``step_indices``: batch gathered on
@@ -965,12 +973,18 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
     each K4 kernel (in bf16 all of them bf16 launches); finite metrics; the
     parameters change. Host clock around steps that end in a synchronise;
     the peak device memory of the timed steps; ``k4_off_ms`` (phase 8's or
-    13's step) and ``f32_ms`` are printed beside."""
+    13's step) and ``f32_ms`` are printed beside. ``config`` and
+    ``variables`` go to ``make_trainer``; with the spectral term
+    (``pk_loss_weight`` > 0, phase 20c) the heads run twice a step, K3-fwd
+    and K3-bwd launching twice, both K3-fwd launches keeping u1;
+    ``phase`` names the printed line, ``extra`` adds fields to it."""
     t0 = time.perf_counter()
     device = torch.device(device)
     bf16 = dtype == torch.bfloat16
+    heads = 2 if (config or {}).get("pk_loss_weight", 0) > 0 else 1
     trainer = make_trainer(device, dataset, True, n_res_blocks=n_res_blocks,
-                           fused_train_conv=fused_train_conv, dtype=dtype)
+                           fused_train_conv=fused_train_conv, dtype=dtype,
+                           config=config, variables=variables)
     rng = np.random.default_rng(1)
     idx = [dataset.sample_indices(rng, batch) for _ in range(warmup + iters)]
     before = [p.detach().clone() for p in trainer.params]
@@ -989,8 +1003,8 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
             if device.type == "cuda" else None)
     counts = _launches()
     n = iters if device.type == "cuda" else 0
-    want = {"k2": n, "k3_fwd": n, "k3_bwd": n}
-    want_bf16 = {"k3_fwd": n, "k3_bwd": n} if bf16 else {}
+    want = {"k2": n, "k3_fwd": heads * n, "k3_bwd": heads * n}
+    want_bf16 = {"k3_fwd": heads * n, "k3_bwd": heads * n} if bf16 else {}
     if fused_train_conv:
         sites = k4_sites_per_step(dataset.tile_size)
         k4 = {f"k4_{k}": sites * n for k in K4_KERNELS}
@@ -1000,9 +1014,10 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
     bf16_counts = _bf16_launches()
     _expect_launches("train (bf16 launches)", bf16_counts, want_bf16)
     _expect_launches("train", counts, want)
-    if head_stack_fwd.kept_u1 != n:
+    if head_stack_fwd.kept_u1 != heads * n:
         raise AssertionError(f"train: K3-fwd kept u1 in "
-                             f"{head_stack_fwd.kept_u1} of {n} launches")
+                             f"{head_stack_fwd.kept_u1} of {heads * n} "
+                             f"launches")
     finite = all(bool(torch.isfinite(v).all()) for m in metrics
                  for v in m.values())
     changed = any(not torch.equal(a, b) for a, b in zip(before,
@@ -1015,16 +1030,20 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
            "elbo": [float(m["elbo"]) for m in metrics]}
     out["dtype"] = "bfloat16" if bf16 else "float32"
     out["bf16_launches"] = bf16_counts
-    extra = {}
+    if heads == 2:
+        out["pk_loss"] = [float(m["pk_loss"]) for m in metrics]
+    extra = dict(extra or {})
     if fused_train_conv and k4_off_ms is not None:
         extra.update(step_ms_k4_off=f"{k4_off_ms:.3f}",
                      samples_per_s_k4_off=f"{batch / k4_off_ms * 1e3:.2f}")
     if f32_ms is not None:
         extra.update(step_ms_f32=f"{f32_ms:.3f}",
                      samples_per_s_f32=f"{batch / f32_ms * 1e3:.2f}")
-    phase = {(False, False): (8, "train"), (False, True): (11, "train_k4"),
-             (True, False): (13, "train_bf16"),
-             (True, True): (15, "train_bf16_k4")}[bf16, fused_train_conv]
+    phase = phase or {(False, False): (8, "train"),
+                      (False, True): (11, "train_k4"),
+                      (True, False): (13, "train_bf16"),
+                      (True, True): (15, "train_bf16_k4")}[
+                          bf16, fused_train_conv]
     _line(*phase, t0,
           clock="host_clock_after_sync", card=json.dumps(card), batch=batch,
           steps=iters, step_ms=f"{step_ms:.3f}",
@@ -1172,24 +1191,32 @@ class _plain_heads:
 def step_gradients(device, dataset, idx, eps, kernels: bool,
                    fused_train_conv: bool, site=None,
                    n_res_blocks: int = N_RES_BLOCKS, dtype=None,
-                   plain_heads: bool = False):
+                   plain_heads: bool = False, config: dict = None,
+                   variables: dict = None, pk_eps=None,
+                   metrics: dict = None):
     """One training step from the seeded initialisation on the batch
     ``idx`` with the latent noise ``eps``, the model in ``dtype``, cuDNN on
     its deterministic algorithms: (loss, each trainable parameter's
     gradient by name). ``kernels``: K2's gather and K3's heads, else the
     plain versions and cuDNN's heads; ``plain_heads``: the plain gather
     and the fused heads through K3's plain versions; ``site`` runs in place
-    of ``conv_bn_relu`` at the sites ``fused_train_conv`` fuses."""
+    of ``conv_bn_relu`` at the sites ``fused_train_conv`` fuses.
+    ``config``, ``variables`` go to ``make_trainer``, ``pk_eps`` is the
+    spectral term's prior noise; ``metrics`` receives the step's metrics
+    as floats."""
     trainer = make_trainer(device, dataset, kernels or plain_heads,
                            use_kernel=kernels, n_res_blocks=n_res_blocks,
-                           fused_train_conv=fused_train_conv, dtype=dtype)
+                           fused_train_conv=fused_train_conv, dtype=dtype,
+                           config=config, variables=variables)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         with _k4_sites(site or conv_bn_relu), _plain_heads(plain_heads):
-            m = trainer.step_indices(idx, 1e-4, eps=eps)
+            m = trainer.step_indices(idx, 1e-4, eps=eps, pk_eps=pk_eps)
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    if metrics is not None:
+        metrics.update({k: float(v.float().sum()) for k, v in m.items()})
     return float(m["elbo"]), {
         n: p.grad.detach().clone()
         for n, p in trainer.model.named_parameters() if p.requires_grad}
@@ -2786,6 +2813,7 @@ LOOP_RUN = dict(validation_loss_frequency=48, validation_loss_batch_size=24,
                 checkpoint_frequency=96, statistics_report_frequency=48,
                 stats_sync_every=16)
 LOOP_PAINT_TILES = 16
+LOOP_LR = 1e-4
 
 
 @contextlib.contextmanager
@@ -2823,9 +2851,7 @@ def held_out_data(dataset, seed: int = 1):
 _MODEL_STATE = ("params", "batch_stats", "opt_state", "step")
 
 
-def state_distance(a: dict, b: dict) -> float:
-    """max |a - b| over the model's state in two trainer state trees:
-    parameters, running statistics, Adam's state and the step."""
+def _state_leaves(a: dict, b: dict):
     def leaves(tree, prefix=""):
         for k, v in tree.items():
             if isinstance(v, dict):
@@ -2837,7 +2863,36 @@ def state_distance(a: dict, b: dict) -> float:
     if set(la) != set(lb):
         raise AssertionError(f"state trees differ in keys: "
                              f"{sorted(set(la) ^ set(lb))[:5]}")
+    return la, lb
+
+
+def state_distance(a: dict, b: dict) -> float:
+    """max |a - b| over the model's state in two trainer state trees:
+    parameters, running statistics, Adam's state and the step."""
+    la, lb = _state_leaves(a, b)
     return max(float(np.abs(la[k] - lb[k]).max(initial=0.0)) for k in la)
+
+
+def state_distance_detail(a: dict, b: dict) -> dict:
+    """Which leaf sets ``state_distance`` and that difference relative to
+    the leaf's own largest entry in ``b``; and the parameter leaf with the
+    largest such relative difference (``params/`` only: Adam's second
+    moments and the running variances are squares, whose relative
+    differences double)."""
+    la, lb = _state_leaves(a, b)
+
+    def rel(k):
+        scale = float(np.abs(lb[k]).max(initial=0.0))
+        diff = float(np.abs(la[k] - lb[k]).max(initial=0.0))
+        return diff / scale if scale > 0 else diff
+
+    absolute = {k: float(np.abs(la[k] - lb[k]).max(initial=0.0)) for k in la}
+    leaf = max(absolute, key=absolute.get)
+    params = [k for k in la if k.startswith("params/")]
+    worst = max(params, key=rel)
+    return {"distance": absolute[leaf], "leaf": leaf, "leaf_rel": rel(leaf),
+            "params_worst_leaf": worst, "params_worst_rel": rel(worst),
+            "params_max_abs": max(absolute[k] for k in params)}
 
 
 def train_loop(device, dataset, batch: int = TRAIN_BATCH,
@@ -2864,7 +2919,17 @@ def train_loop(device, dataset, batch: int = TRAIN_BATCH,
     19b the same steps (the indices and schedule ``train()`` passed) through
         ``step_indices`` on a new trainer from the same seed, timed with the
         default algorithms: the gap to 19a is what the loop adds
-        (statistics, validation, checkpoints). Then, under cuDNN's
+        (statistics, validation, checkpoints); the replay's state at the
+        default algorithms against 19a's, printed and not held: which leaf
+        sets the distance, relative to its own largest entry, and the
+        parameter leaf furthest apart. No limit can hold there: the default
+        algorithms sum the backward in an order that changes from run to
+        run, and Adam divides each step by the root of the second moment,
+        so a parameter whose gradient is at rounding level moves by up to
+        lr a step whichever sign the rounding takes (a batch norm bias
+        ahead of another batch norm lies 5.9e-2 of its size apart); a
+        limit loose enough for that cannot tell a wrong replay from a
+        right one. Then, under cuDNN's
         deterministic algorithms, ``train()`` and its ``step_indices``
         replay again, timed (their times against the default ones are the
         deterministic algorithms' cost); the replay's final state against
@@ -2876,7 +2941,9 @@ def train_loop(device, dataset, batch: int = TRAIN_BATCH,
         state may lie no further from that run's than the repeat does);
     19d ``load_painter`` on 19a's final ``model`` with ``fused_inference``:
         ``paint_tiles`` tiles painted in one call, exactly 4 K1 launches
-        on the card, finite."""
+        on the card, finite;
+    19e the run in bf16 with K3 and K4, resumed bit for bit
+        (``train_loop_bf16_k4``)."""
     from baryon_painter_tpu_torch.models.cvae import (
         fiducial_cvae_architecture)
     from baryon_painter_tpu_torch.painter import load_painter
@@ -2904,7 +2971,7 @@ def train_loop(device, dataset, batch: int = TRAIN_BATCH,
             return ["--output-path", str(root / out), "--config",
                     str(config), "--n-pepoch", str(LOOP_PEPOCHS),
                     "--pepoch-size", str(pepoch), "--learning-rate",
-                    "1e-4", "--device-data", "--device", str(device),
+                    str(LOOP_LR), "--device-data", "--device", str(device),
                     *extra]
 
         # warm-ups, so that no timed run pays the process's first use of
@@ -3020,7 +3087,8 @@ def train_loop(device, dataset, batch: int = TRAIN_BATCH,
         t2 = time.perf_counter()
         with _cudnn_algorithms(False):
             default_state, replay_s = replay(plan, "replay")
-        default_repeat = state_distance(default_state, full)
+        default_detail = state_distance_detail(default_state, full)
+        default_repeat = default_detail["distance"]
         del default_state
         with _cudnn_algorithms(True):
             det, det_plan, det_train_s, _, _, _ = train("det")
@@ -3046,6 +3114,14 @@ def train_loop(device, dataset, batch: int = TRAIN_BATCH,
               deterministic_step_cost_pct=(
                   f"{100 * (det_replay_s / replay_s - 1.0):.2f}"),
               default_repeat_distance=f"{default_repeat:.3e}",
+              default_repeat_leaf=default_detail["leaf"],
+              default_repeat_leaf_rel=f"{default_detail['leaf_rel']:.3e}",
+              default_repeat_params_worst_leaf=default_detail[
+                  "params_worst_leaf"],
+              default_repeat_params_worst_rel=(
+                  f"{default_detail['params_worst_rel']:.3e}"),
+              default_repeat_params_max_abs=(
+                  f"{default_detail['params_max_abs']:.3e}"),
               repeat_distance=f"{repeat:.3e}")
 
         # 19c
@@ -3092,6 +3168,9 @@ def train_loop(device, dataset, batch: int = TRAIN_BATCH,
                                  f"{tuple(painted.shape)}, finite {finite}")
         _line("19d", "train_loop_paint", t2, tiles=paint_tiles,
               launches=json.dumps(paint_counts), finite=finite)
+
+        bf16_leg = train_loop_bf16_k4(device, twin, datasets, root, batch,
+                                      n_res_blocks, run)
     return {"launches": counts, "paint_launches": paint_counts,
             "evals": n_evals, "steps": n_steps, "train_s": train_s,
             "samples_per_s": samples_per_s,
@@ -3103,7 +3182,425 @@ def train_loop(device, dataset, batch: int = TRAIN_BATCH,
             "train_rest_s": rest, "checkpoint_bytes": ckpt_bytes,
             "peak_bytes": peak, "default_repeat_distance": default_repeat,
             "repeat_distance": repeat, "resumed_distance": resumed,
-            "stats_files_equal": stats_equal}
+            "stats_files_equal": stats_equal,
+            "default_repeat_detail": default_detail, "bf16_k4": bf16_leg}
+
+
+# 19e: the bf16 run with K4, two pepochs of two steps, validation and a
+# checkpoint after each pepoch; resumed from the first checkpoint
+LOOP_BF16_PEPOCHS = 2
+
+
+def train_loop_bf16_k4(device, twin, datasets, root: Path,
+                       batch: int = TRAIN_BATCH,
+                       n_res_blocks: int = N_RES_BLOCKS,
+                       run: dict = LOOP_RUN) -> dict:
+    """Phase 19e: the training CLI's run in bf16 with K3 and K4
+    (``--dtype bfloat16``, ``BPT_FUSED_HEADS=1``, ``BPT_FUSED_TRAIN_CONV=1``)
+    under cuDNN's deterministic algorithms: LOOP_BF16_PEPOCHS pepochs of two
+    steps (``run``'s other settings), a validation loss and a checkpoint
+    after each pepoch;
+    on the card per step one K2 and, all in bf16, one K3-fwd keeping u1,
+    one K3-bwd and 4 launches of each K4 kernel, and per validation loss
+    (a train-mode forward without a gradient) one K3-fwd and 4 K4-stats
+    and K4-fwd; then ``run(--resume-from`` the first checkpoint``)`` into
+    a copy of it and the statistics files: the final state and both files
+    equal the uninterrupted run's bit for bit."""
+    from baryon_painter_tpu_torch.models.cvae import (
+        fiducial_cvae_architecture)
+    from baryon_painter_tpu_torch.train.run_config import RunConfig
+    t0 = time.perf_counter()
+    dataset = datasets[0]
+    cuda = torch.device(device).type == "cuda"
+    pepoch = 2 * batch
+    config = root / "run_config_bf16.json"
+    RunConfig(architecture=fiducial_cvae_architecture(
+                  dataset.tile_size, n_res_blocks=n_res_blocks),
+              transforms={f: t.to_dict()
+                          for f, t in dataset.transforms.items()},
+              schedules={"batch_size_schedule": {"kind": "constant",
+                                                 "value": batch}},
+              train=dict(run, validation_loss_frequency=pepoch,
+                         checkpoint_frequency=pepoch,
+                         statistics_report_frequency=pepoch)).save(
+                             str(config))
+
+    def argv(out, *extra):
+        return ["--output-path", str(root / out), "--config", str(config),
+                "--n-pepoch", str(LOOP_BF16_PEPOCHS), "--pepoch-size",
+                str(pepoch), "--learning-rate", str(LOOP_LR), "--device-data",
+                "--dtype", "bfloat16", "--device", str(device), *extra]
+
+    steps = LOOP_BF16_PEPOCHS * pepoch // batch
+    evals = LOOP_BF16_PEPOCHS
+    prev = os.environ.get("BPT_FUSED_TRAIN_CONV")
+    os.environ["BPT_FUSED_TRAIN_CONV"] = "1"
+    try:
+        with _fused_heads_env(True), _cudnn_algorithms(True):
+            _reset_launches()
+            full = twin.run(argv("bf16"), datasets)
+            _sync(device)
+            counts, bf16_counts = _launches(), _bf16_launches()
+            kept = head_stack_fwd.kept_u1
+            state = full["trainer"].state_tree()
+            del full
+            first = f"checkpoint_sample{pepoch:0>10}"
+            (root / "bf16_resumed").mkdir()
+            for f in os.listdir(root / "bf16"):
+                if f.startswith(first) or f.endswith(".txt"):
+                    (root / "bf16_resumed" / f).write_bytes(
+                        (root / "bf16" / f).read_bytes())
+            res = twin.run(argv("bf16_resumed", "--resume-from",
+                                str(root / "bf16_resumed" / first)),
+                           datasets)
+            resumed = state_distance(res["trainer"].state_tree(), state)
+            del res
+    finally:
+        if prev is None:
+            os.environ.pop("BPT_FUSED_TRAIN_CONV", None)
+        else:
+            os.environ["BPT_FUSED_TRAIN_CONV"] = prev
+    n, e = (steps, evals) if cuda else (0, 0)
+    sites = k4_sites_per_step(dataset.tile_size)
+    want = {"k2": n, "k3_fwd": n + e, "k3_bwd": n,
+            "k4_stats": sites * (n + e), "k4_fwd": sites * (n + e),
+            "k4_bwd1": sites * n, "k4_bwd2": sites * n}
+    _expect_launches("train_loop bf16 K4", counts, want)
+    _expect_launches("train_loop bf16 K4 (bf16 launches)", bf16_counts,
+                     {k: v for k, v in want.items() if k != "k2"})
+    stats_equal = all(
+        (root / "bf16_resumed" / f).read_bytes()
+        == (root / "bf16" / f).read_bytes()
+        for f in ("training_stats.txt", "validation_stats.txt"))
+    if kept != n or resumed != 0 or not stats_equal:
+        raise AssertionError(
+            f"train_loop bf16 K4: K3-fwd kept u1 {kept} times ({n} steps); "
+            f"the resumed run lies {resumed:.3e} from the uninterrupted "
+            f"one; statistics files equal: {stats_equal}")
+    _line("19e", "train_loop_bf16_k4", t0, cudnn="deterministic",
+          steps=steps, evals=evals, launches=json.dumps(counts),
+          bf16_launches=json.dumps(bf16_counts), k3_fwd_kept_u1=kept,
+          resumed_from=first, resumed_distance=f"{resumed:.3e}",
+          stats_files_equal=stats_equal)
+    return {"launches": counts, "bf16_launches": bf16_counts,
+            "resumed_distance": resumed, "stats_files_equal": stats_equal,
+            "steps": steps, "evals": evals}
+
+
+# ---------------------------------------------------------------------- #
+# Phase 20: the P(k) fidelity gate and the spectral training step
+
+SPREAD_CLI = REPO / "scripts" / "fidelity_spread_torch.py"
+# the JAX package's readings of phase 20's evaluations on the CPU and its
+# prior noise (scripts/make_gate_reference_torch.py)
+GATE_REFERENCE = (Path(__file__).resolve().parent / "data"
+                  / "gate_reference.npz")
+# the committed fiducial CVAE's gate evaluation (trained_models/README.md's
+# command; its meta records no fidelity_dataset)
+GATE_CVAE_DATASET = {
+    "tile": 512, "redshifts": "0,0.125,0.25,0.375,0.5,0.75,1,1.25,1.5,1.75,2",
+    "n_stack": 4, "physical": False, "pressure_noise": 0.1, "seed": 0}
+# 3 of its 11 redshifts (time): the first three, whose stacks the synthetic
+# generator draws first, so these alone give the committed tiles
+GATE_CVAE_Z = "0,0.125,0.25"
+GATE_TILES = 48
+# prior-noise seeds of the spread (the CGAN draws no noise: one reading)
+GATE_SEEDS = 4
+# |kernels - plain| of each median error, both f32 at the same noise
+GATE_KERNEL_TOL = 2e-3
+# the committed value within max(GATE_SIGMA * sigma, GATE_FLOOR) of the
+# mean over the noise seeds (scripts/fidelity_spread_torch.py)
+GATE_SIGMA = 3.0
+GATE_FLOOR = 5e-4
+# the spectral term's weight in the committed fine-tunes
+# (trained_models/README.md: --pk-loss-weight 2e4)
+PK_WEIGHT = 2e4
+PK_CONFIG = {"pk_loss_weight": PK_WEIGHT, "pk_loss_per_z": True}
+PK_LOSS_RTOL = 1e-5
+
+
+def _gate_reference() -> dict:
+    with np.load(GATE_REFERENCE) as ref:
+        return {k: ref[k] for k in ref.files}
+
+
+def gate_check(device, checkpoint: str, want_launches: dict, kind: str,
+               fallback: dict = None, redshifts: str = None,
+               seeds: int = GATE_SEEDS, card=None, phase="20a") -> dict:
+    """Phase 20a (20b): the gate twin (``scripts/fidelity_check_torch.py``,
+    ``--eval-only``) on a committed checkpoint at the committed
+    evaluation's tiles (``GATE_TILES`` per redshift; ``redshifts`` limits
+    them). One paint call launches exactly ``want_launches`` on the card.
+    Each median error (auto, cross) per redshift:
+
+    - f32 at the JAX package's prior noise (``GATE_REFERENCE``, a CVAE's
+      draw of PRNGKey(0)): the kernels' within GATE_KERNEL_TOL of the plain
+      paint's (cuDNN off), and within GATE_FLOOR of the committed report;
+    - over ``seeds`` noise seeds of the port's own generator, f32: the
+      committed value within max(GATE_SIGMA sigma, GATE_FLOOR) of the
+      port's mean (``scripts/fidelity_spread_torch.py``);
+    - bf16 at the JAX package's bf16 noise: the kernels' within
+      max(GATE_FLOOR, |JAX f32 - JAX bf16|, |JAX jitted - JAX pinned|) of
+      the JAX package's bf16 on the CPU with the source's rounding points
+      (``GATE_REFERENCE``): no further from JAX's bf16 than bf16 lies from
+      f32 there. bf16 is chaotic at this metric: the JAX package's own TPU
+      readings lie up to 0.63 of that distance from its CPU ones (the
+      fiducial CVAE), the CGAN's pixels move by about all of it when only
+      a sum's order changes (phase 17c); a bf16 paint gone wrong (NaN, or a
+      1 -> 1 channel convolution off by 350 %) lies orders beyond it;
+    - the committed report's bf16 ("model") values beside the port's
+      spread, printed and counted but not held: the TPU's bf16 readings
+      are not reproducible off the TPU, by the JAX package either (its CPU
+      bf16 lies up to 7e-3 from them, ``scripts/make_gate_reference_torch.py``).
+
+    The seconds of one evaluation (a paint of the tiles and its spectra)
+    are printed per leg. The rules' failures come back under ``fails``;
+    ``gate`` raises on them."""
+    spread = _load_cli(SPREAD_CLI)
+    gate = spread.gate
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    base = str(REPO / checkpoint)
+    ref = _gate_reference()
+    eps32 = ref.get(f"{kind}_eps_f32")
+    eps16 = ref.get(f"{kind}_eps_bf16")
+    committed = spread.committed_report(base)
+    with tempfile.TemporaryDirectory() as tmp:
+        flags = spread.dataset_flags(base, fallback)
+        if redshifts is not None:
+            flags += ["--redshifts", redshifts]
+        args = gate.parse_args(flags + [
+            "--eval-only", "--checkpoint", base, "--eval-tiles",
+            str(GATE_TILES), "--workdir", tmp, "--device", str(device)])
+        g = gate.setup(args)
+        setup_s = time.perf_counter() - t0
+        zs = list(g.val_ds.redshifts)
+        k32, p32 = g.make_painter(None), g.make_painter(None, fused=False)
+        k16 = g.make_painter(torch.bfloat16)
+        p16 = g.make_painter(torch.bfloat16, fused=False)
+        score = lambda p, z, eps: gate.pk_errors(
+            p, g.val_ds, GATE_TILES, z=z,
+            eps=None if eps is None else eps[:GATE_TILES])[:2]
+        score(k32, zs[0], eps32)  # the truth spectra, cached
+        _sync(device)
+        _reset_launches()
+        score(k32, zs[0], eps32)
+        _sync(device)
+        counts = _launches()
+        _expect_launches(f"gate {checkpoint}", counts,
+                         want_launches if device.type == "cuda" else {})
+        rows, fails = {}, []
+        for z in zs:
+            zk = f"{z:g}"
+            k = score(k32, z, eps32)
+            with _cudnn(False):
+                p = score(p32, z, eps32)
+            bk, bc = score(k16, z, eps16), score(p16, z, eps16)
+            jit = ref[f"{kind}_bf16_jit_z{zk}"]
+            pinned = ref[f"{kind}_bf16_pinned_z{zk}"]
+            jax32 = ref[f"{kind}_f32_z{zk}"]
+            for i, name in enumerate(("auto", "cross")):
+                r = {"f32": k[i], "f32_plain": p[i],
+                     "kernels_vs_plain": abs(k[i] - p[i]),
+                     "committed_f32": committed["f32"][zk][name],
+                     "bf16": bk[i], "bf16_cudnn": bc[i],
+                     "jax_bf16_jit": float(jit[i]),
+                     "jax_bf16_pinned": float(pinned[i]),
+                     "jax_f32": float(jax32[i]),
+                     "bf16_limit": max(GATE_FLOOR,
+                                       abs(jax32[i] - pinned[i]),
+                                       abs(jit[i] - pinned[i]))}
+                r["f32_vs_committed"] = abs(r["f32"] - r["committed_f32"])
+                r["bf16_vs_jax"] = abs(r["bf16"] - r["jax_bf16_pinned"])
+                rows[zk, name] = r
+                print(f"  {phase} z={zk} {name}: f32 {k[i]:.5f} (plain "
+                      f"{p[i]:.5f}, committed {r['committed_f32']}); bf16 "
+                      f"{bk[i]:.5f} (cuDNN {bc[i]:.5f}, JAX CPU pinned "
+                      f"{pinned[i]:.5f}, jitted {jit[i]:.5f}, limit "
+                      f"{r['bf16_limit']:.5f})", flush=True)
+                if r["kernels_vs_plain"] > GATE_KERNEL_TOL:
+                    fails.append(("kernels_vs_plain", zk, name,
+                                  r["kernels_vs_plain"]))
+                if r["f32_vs_committed"] > GATE_FLOOR:
+                    fails.append(("f32_vs_committed", zk, name,
+                                  r["f32_vs_committed"]))
+                if r["bf16_vs_jax"] > r["bf16_limit"]:
+                    fails.append(("bf16_vs_jax", zk, name,
+                                  r["bf16_vs_jax"]))
+        del p32, p16
+        eval_s, reads = {}, {}
+        for label, dtype in g.legs:
+            _sync(device)
+            t = time.perf_counter()
+            reads.update(spread.readings(
+                SimpleNamespace(**{**vars(g), "legs": [(label, dtype)]}),
+                zs, range(seeds), GATE_TILES, seed=args.seed))
+            _sync(device)
+            eval_s[label] = (time.perf_counter() - t) / (len(zs) * seeds)
+    summary = spread.summarise(reads, committed, GATE_SIGMA, GATE_FLOOR)
+    outside = {"f32": [], "model": []}
+    for leg, per_z in summary.items():
+        for z, kinds in per_z.items():
+            for name, r in kinds.items():
+                print(f"  {phase} spread {leg} z={z} {name}: port "
+                      f"{r['mean']:.5f} +- {r['std']:.5f} ({len(r['values'])}"
+                      f" seeds), committed {r['committed']}, limit "
+                      f"{r['limit']:.5f}", flush=True)
+                if r["within"] is False:
+                    outside[leg].append((z, name, abs(r["committed"]
+                                                      - r["mean"])))
+    fails += [("f32_spread", z, name, d) for z, name, d in outside["f32"]]
+    worst = lambda key: max(r[key] for r in rows.values())
+    _line(phase, "gate", t0, checkpoint=checkpoint, card=json.dumps(card),
+          redshifts=",".join(f"{z:g}" for z in zs), tiles=GATE_TILES,
+          seeds=seeds, launches=json.dumps(counts),
+          kernels_vs_plain_max=f"{worst('kernels_vs_plain'):.3e}",
+          f32_vs_committed_max=f"{worst('f32_vs_committed'):.3e}",
+          bf16_vs_jax_max=f"{worst('bf16_vs_jax'):.3e}",
+          bf16_over_limit_max=(
+              f"{max(r['bf16_vs_jax'] / r['bf16_limit'] for r in rows.values()):.3f}"),
+          f32_spread_outside=len(outside["f32"]),
+          bf16_committed_outside=len(outside["model"]),
+          setup_s=f"{setup_s:.3f}",
+          **{f"eval_s_{k}": f"{v:.4f}" for k, v in eval_s.items()})
+    return {"launches": counts, "rows": {f"{z}/{k}": v
+                                         for (z, k), v in rows.items()},
+            "summary": summary, "outside": outside, "fails": fails,
+            "eval_s": eval_s, "setup_s": setup_s}
+
+
+def gate(device, card=None) -> dict:
+    """Phase 20a on the fiducial CVAE (K1 4 and K3-fwd 1 a paint call) and
+    20b on the CGAN (K1 9 a call); raises on any failed rule."""
+    run = {"cvae": gate_check(device, CHECKPOINT, {"k1": N_RES_BLOCKS,
+                                                   "k3_fwd": 1}, "cvae",
+                              fallback=GATE_CVAE_DATASET,
+                              redshifts=GATE_CVAE_Z, card=card),
+           "cgan": gate_check(device, CGAN_PATH, {"k1": 9}, "cgan",
+                              seeds=1, card=card, phase="20b")}
+    fails = {k: r["fails"] for k, r in run.items() if r["fails"]}
+    if fails:
+        raise AssertionError(f"gate: {fails}")
+    return run
+
+
+def _fiducial_variables() -> dict:
+    from baryon_painter_tpu_torch.train import checkpoint as ckpt
+    state, _ = ckpt.load_checkpoint(str(REPO / CHECKPOINT))
+    return {"params": state["params"], "batch_stats": state["batch_stats"]}
+
+
+def pk_parity(device, dataset, variables: dict,
+              batch: int = TRAIN_BATCH) -> dict:
+    """20c's step rules: one spectral step (``PK_CONFIG``, from the
+    committed fiducial CVAE's weights: an initialised decoder paints an
+    almost constant field, whose spectrum is round-off) with the kernels
+    (K2, K3) against one with their plain versions, at the same batch, ELBO
+    noise and spectral noise, cuDNN deterministic. f32 (against the plain
+    gather and cuDNN's heads): the loss and ``pk_loss`` to PK_LOSS_RTOL, each
+    gradient to STEP_GRAD_TOL of its own largest entry (8b's rule). bf16
+    (the plain step with K3's plain versions, 13b's): d(kernels, plain) <=
+    BF16_STEP_RATIO d(plain bf16, plain f32) over the concatenated
+    gradient."""
+    idx, eps = parity_inputs(dataset, batch)
+    hz = dataset.tile_size // 32
+    pk_eps = torch.randn((batch, 1, hz, hz),
+                         generator=torch.Generator().manual_seed(4))
+    common = dict(fused_train_conv=False, config=PK_CONFIG,
+                  variables=variables, pk_eps=pk_eps)
+    plans = {"kernels": dict(kernels=True),
+             "plain": dict(kernels=False),
+             "kernels_bf16": dict(kernels=True, dtype=torch.bfloat16),
+             "plain_bf16": dict(kernels=False, plain_heads=True,
+                                dtype=torch.bfloat16),
+             "plain_heads_f32": dict(kernels=False, plain_heads=True)}
+    runs, metrics = {}, {}
+    for label, kw in plans.items():
+        metrics[label] = {}
+        runs[label] = step_gradients(device, dataset, idx, eps, **kw,
+                                     **common, metrics=metrics[label])[1]
+    loss = {k: -m["elbo"] + PK_WEIGHT * m["pk_loss"]
+            for k, m in metrics.items()}
+    rel = lambda a, b: abs(a - b) / abs(b)
+    loss_err = rel(loss["kernels"], loss["plain"])
+    pk_err = rel(metrics["kernels"]["pk_loss"], metrics["plain"]["pk_loss"])
+    grad_errs, under, top = step_grad_errors(runs["kernels"], runs["plain"])
+    worst = max(grad_errs, key=grad_errs.get)
+    vec = {k: _grad_vector(v) for k, v in runs.items()}
+    d_kp = rel_l2(vec["kernels_bf16"], vec["plain_bf16"])
+    gap = rel_l2(vec["plain_bf16"], vec["plain_heads_f32"])
+    res = {"loss_rel_err": loss_err, "pk_loss_rel_err": pk_err,
+           "pk_loss": metrics["plain"]["pk_loss"],
+           "pk_loss_bf16": metrics["plain_bf16"]["pk_loss"],
+           "worst_grad": worst, "worst_grad_rel_err": grad_errs[worst],
+           "bf16_d_kernels_plain": d_kp, "bf16_d_plain_bf16_f32": gap,
+           "bf16_ratio": d_kp / gap if gap > 0 else 0.0,
+           "under_floor": len(under)}
+    print(f"  20c f32 worst gradients: {_worst(grad_errs, runs['plain'])}",
+          flush=True)
+    if not (loss_err <= PK_LOSS_RTOL and pk_err <= PK_LOSS_RTOL
+                      and grad_errs[worst] <= STEP_GRAD_TOL
+                      and d_kp <= BF16_STEP_RATIO * gap):
+        raise AssertionError(f"spectral step, kernels against plain: {res}")
+    return res
+
+
+def pk_step(device, dataset, card=None, f32_ms=None, bf16_ms=None,
+            batch: int = TRAIN_BATCH, warmup: int = 3,
+            iters: int = 10) -> dict:
+    """Phase 20c, a main path: the spectral fine-tuning step
+    (``PK_CONFIG``, per redshift) at batch 24, 512^2, from the committed
+    fiducial CVAE's weights, through K2 and K3, timed in f32 and bf16 as
+    phases 8 and 13 are (``train``: per step one K2, two K3-fwd keeping u1
+    and two K3-bwd launches, the spectral forward's among them; the
+    running statistics the ELBO's alone); the peak device memory; phase 8's
+    and 13's step without the term beside; then ``pk_parity``."""
+    t0 = time.perf_counter()
+    variables = _fiducial_variables()
+    out = {}
+    for label, dtype, without in (("float32", None, f32_ms),
+                                  ("bfloat16", torch.bfloat16, bf16_ms)):
+        extra = ({"step_ms_without_pk": f"{without:.3f}",
+                  "samples_per_s_without_pk":
+                      f"{batch / without * 1e3:.2f}"}
+                 if without is not None else {})
+        out[label] = train(device, dataset, batch=batch, warmup=warmup,
+                           iters=iters, card=card, dtype=dtype,
+                           config=PK_CONFIG, variables=variables,
+                           phase=("20c", "train_pk" + (
+                               "_bf16" if dtype is not None else "")),
+                           extra=extra)
+    parity = pk_parity(device, dataset, variables, batch=batch)
+    _line("20c", "train_pk_parity", t0,
+          loss_rel_err=f"{parity['loss_rel_err']:.3e}",
+          pk_loss_rel_err=f"{parity['pk_loss_rel_err']:.3e}",
+          pk_loss=f"{parity['pk_loss']:.6f}",
+          worst_grad=parity["worst_grad"],
+          worst_grad_rel_err=f"{parity['worst_grad_rel_err']:.3e}",
+          bf16_ratio=f"{parity['bf16_ratio']:.4f}",
+          bf16_limit_ratio=BF16_STEP_RATIO)
+    out["parity"] = parity
+    return out
+
+
+def _add_gate_launches(entries: list, gate_run: dict, pk: dict):
+    """Phase 20's launches on their kernels-record entries: K1's and
+    K3-fwd's in one gate paint call (20a's CVAE, 20b's CGAN), K2's and
+    K3's in the spectral step's timed steps (20c, f32 and bf16)."""
+    for entry in entries:
+        name, bf16 = entry["name"], entry["dtype"] == "bfloat16"
+        if name == "res_block_infer" and not bf16:
+            entry["gate_launches"] = gate_run["cvae"]["launches"]["k1"]
+            entry["gate_cgan_launches"] = gate_run["cgan"]["launches"]["k1"]
+        if name == "head_stack_fwd" and not bf16:
+            entry["gate_launches"] = gate_run["cvae"]["launches"]["k3_fwd"]
+        keys = {"gather_tiles": "k2", "head_stack_fwd": "k3_fwd",
+                "head_stack_bwd": "k3_bwd"}
+        if name in keys:
+            run = pk["bfloat16" if bf16 else "float32"]
+            group = "bf16_launches" if bf16 and name != "gather_tiles" \
+                else "launches"
+            entry["pk_step_launches"] = run[group][keys[name]]
 
 
 def k4_record(conv_bn: dict, training_k4: dict) -> list:
@@ -3209,7 +3706,8 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                    conv_bn_bf16: dict = None,
                    training_bf16_k4: dict = None,
                    lightcone: dict = None, cgan: dict = None,
-                   train_loop: dict = None) -> dict:
+                   train_loop: dict = None, gate_run: dict = None,
+                   pk: dict = None) -> dict:
     """The ``{"kernels": [...]}`` record of the run, each entry with its
     ``dtype``: K1 in f32, its bf16 numbers beside it; K2, K3-fwd and K3-bwd
     with their launches in the timed training steps; K4's four kernels
@@ -3228,7 +3726,9 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     the f32 CGAN lightcone (17e), and K1 at the CLI's CGAN shape (slope
     0.2; 17a's error, 17d's times and the bound there). Given phase 19,
     the f32 K1, K2 and K3 entries carry their launches in the training
-    run and its final checkpoint's paint (``train_loop_launches``)."""
+    run and its final checkpoint's paint (``train_loop_launches``). Given
+    phase 20, K1 and K3-fwd carry their launches in a gate paint call and
+    K2 and K3 theirs in the spectral step (``_add_gate_launches``)."""
     f32 = next(c for c in checks if c["dtype"] == "float32")
     bf16 = next(c for c in checks if c["dtype"] == "bfloat16")
     def k3(name, key, replaces, heads=heads, launches=None):
@@ -3305,4 +3805,6 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         *k4_record(conv_bn, training_k4), *bf16_entries]
     if train_loop is not None:
         _add_train_loop_launches(entries, train_loop)
+    if gate_run is not None and pk is not None:
+        _add_gate_launches(entries, gate_run, pk)
     return {"kernels": entries}

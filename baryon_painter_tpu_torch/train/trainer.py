@@ -1,12 +1,13 @@
 """CVAE training, in PyTorch: the step and the training run.
 
 Port of ``baryon_painter_tpu/train/trainer.py``. The step: raw tiles ->
-transforms on the device -> CVAE forward -> ELBO -> gradients -> global-norm
-clip -> Adam, with the learning rate, alpha_var and beta_KL given per step.
-The batch comes from the host (``step``) or is assembled on the device from
-the stack cache (``step_indices``, ``step_scan``; ``device_data=True``), the
-tile gather through K2. With ``CVAE(..., fused_heads=True)`` the output heads
-run through K3, forward and backward; with ``CVAE(...,
+transforms on the device -> CVAE forward -> ELBO [+ spectral term] ->
+gradients -> global-norm clip -> Adam, with the learning rate, alpha_var
+and beta_KL given per step. The batch comes from the host (``step``) or is
+assembled on the device from the stack cache (``step_indices``,
+``step_scan``; ``device_data=True``), the tile gather through K2. With
+``CVAE(..., fused_heads=True)`` the output heads run through K3, forward
+and backward; with ``CVAE(...,
 fused_train_conv=True)`` the gated train-mode conv + batch norm + ReLU
 triples run through K4, in f32 or bf16. The step computes in the model's
 dtype (``CVAE(..., dtype=torch.bfloat16)`` is the JAX package's bf16
@@ -41,15 +42,25 @@ latent noise of step s comes from a ``torch.Generator`` seeded from
 resumed from a checkpoint draws what the uninterrupted run drew; tests
 inject it with ``eps=``.
 
-Not ported yet: the spectral loss (``pk_loss_weight``), the mesh
-(multi-device) mode, and ``validate``'s figures (ROADMAP.md, section 1,
-items 7, 10 and 11).
+The spectral term (``pk_loss_weight`` > 0, ``train/spectral.py``) paints
+the batch from the prior through the eval-mode decoder (batch norm on the
+running statistics, which it does not update; K3 forward and backward with
+``fused_heads``), clamps the paint to the truth's transformed range +- 1,
+inverts the transform in f32 and adds ``pk_loss_weight`` times the P(k)
+loss in physical space to the negative ELBO, one backward for both. Its
+prior noise comes from a second generator seeded from ``(config.seed, s,
+1)``, as the JAX trainer folds 1 into step s's key (tests inject it with
+``pk_eps=``).
+
+Not ported yet: the mesh (multi-device) mode and ``validate``'s figures
+(ROADMAP.md, section 1, items 10 and 11).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
+import warnings
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -63,6 +74,7 @@ from baryon_painter_tpu_torch.data.device_cache import DeviceStackCache
 from baryon_painter_tpu_torch.models.cvae import CVAE
 from baryon_painter_tpu_torch.models.layers import BatchNorm
 from baryon_painter_tpu_torch.train import checkpoint as ckpt
+from baryon_painter_tpu_torch.train.spectral import pk_fidelity_loss
 from baryon_painter_tpu_torch.train.stats import TrainingStats
 from baryon_painter_tpu_torch.transforms import FieldStats
 from baryon_painter_tpu_torch.utils.platform import (f32_convolutions,
@@ -96,9 +108,10 @@ _PROGRESS_KEYS = ("n_samples", "i_pepoch", "last_pepoch_samples",
                   "last_val_loss", "last_ckpt", "last_report")
 
 
-def _step_seed(seed: int, step: int) -> int:
-    """The seed of step ``step``'s latent-noise generator."""
-    entropy = [seed & (2 ** 64 - 1), step]
+def _step_seed(seed: int, step: int, stream: int = 0) -> int:
+    """The seed of step ``step``'s latent-noise generator: stream 0 draws
+    the ELBO's noise, stream 1 the spectral term's prior noise."""
+    entropy = [seed & (2 ** 64 - 1), step] + ([stream] if stream else [])
     return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
 
 
@@ -111,9 +124,11 @@ class TrainConfig:
 
     ``freeze_bn_stats`` keeps the batch-norm running statistics at their
     values (fine-tunes: the painted field goes through them);
-    ``clip_grad_norm`` > 0 clips the gradients to that global norm. The
-    spectral loss is not ported: ``pk_loss_weight`` > 0 raises, and
-    ``pk_loss_n_bins`` and ``pk_loss_per_z`` are read by nothing."""
+    ``clip_grad_norm`` > 0 clips the gradients to that global norm.
+    ``pk_loss_weight`` > 0 adds the spectral term over ``pk_loss_n_bins``
+    log-spaced k bins, per redshift with ``pk_loss_per_z`` (masked
+    batch-mean spectra, one term per training redshift) or pooled over the
+    batch."""
 
     learning_rate: float = 1e-4
     batch_size: int = 1
@@ -202,10 +217,12 @@ class CVAETrainer:
         device once (``DeviceStackCache``, the gather through K2 unless
         ``use_kernel=False``) for ``step_indices``/``step_scan``, which
         ``train`` then uses."""
-        if config.pk_loss_weight > 0:
-            raise NotImplementedError(
-                "pk_loss_weight > 0: the spectral loss is not ported yet "
-                "(ROADMAP.md, section 1, item 7).")
+        if (config.pk_loss_weight > 0
+                and model.architecture.get("fused_res_blocks")):
+            raise ValueError(
+                "pk_loss_weight requires fused_res_blocks=False: the loss "
+                "differentiates through the eval-mode paint path, and the "
+                "fused residual block (K1) has no backward.")
         self.device = resolve_device(device)
         self.config = config
         self.training_data = training_data
@@ -233,6 +250,15 @@ class CVAETrainer:
             self.device_cache = DeviceStackCache.create_if_fits(
                 ds, config.device_cache_budget_bytes, device=self.device,
                 use_kernel=use_kernel)
+            if (self.device_cache is not None and config.pk_loss_weight > 0
+                    and not config.pk_loss_per_z
+                    and not self.device_cache.uniform_z):
+                warnings.warn(
+                    "pooled spectral loss (pk_loss_per_z=False) on a "
+                    "z-skewed cache: batch-mean spectra over-represent the "
+                    "over-sampled redshifts and per-sample importance "
+                    "weights cannot correct a pooled loss; use "
+                    "pk_loss_per_z=True.", stacklevel=2)
         # the loop's progress and data RNG, set by train() and restore()
         self._progress = None
         self._data_rng = None
@@ -269,28 +295,64 @@ class CVAETrainer:
             m.running_mean.copy_(mean)
             m.running_var.copy_(var)
 
-    def _step(self, raw_input, raw_labels, z, lr, alpha_var, beta_KL, eps):
+    def _step(self, raw_input, raw_labels, z, lr, alpha_var, beta_KL, eps,
+              pk_eps=None):
         with f32_convolutions():
             return self._step_f(raw_input, raw_labels, z, lr, alpha_var,
-                                beta_KL, eps)
+                                beta_KL, eps, pk_eps)
 
-    def _noise(self, step: int) -> torch.Generator:
-        """The latent-noise generator of step ``step``."""
+    def _noise(self, step: int, stream: int = 0) -> torch.Generator:
+        """The generator of step ``step``'s latent noise (stream 0) or of
+        its spectral term's prior noise (stream 1)."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(_step_seed(self.config.seed, step))
+        gen.manual_seed(_step_seed(self.config.seed, step, stream))
         return gen
 
+    def _pk_loss(self, raw_input, raw_labels, z, x, y, pk_eps, generator):
+        """The spectral term: a prior sample painted through the eval-mode
+        decoder, clamped to the truth's transformed range +- 1 (so the
+        inverse transform's exp cannot overflow on early outliers),
+        inverted to physical space in f32, against the truth's auto- and
+        cross-P(k) (``train/spectral.py``)."""
+        self.model.eval()
+        try:
+            pred_t = self.model.sample_P(y, z, eps=pk_eps,
+                                         generator=generator)
+        finally:
+            self.model.train()
+        pred_t = pred_t[:, 0].float()
+        x0 = x[:, 0].float().detach()
+        pred_t = torch.clamp(pred_t, x0.min() - 1.0, x0.max() + 1.0)
+        field = self._label_fields[0]
+        pred = self._transforms[field].inverse(pred_t, self._stats[field], z)
+        cfg = self.config
+        return pk_fidelity_loss(
+            pred, raw_labels[0].float(), raw_input.float(),
+            L=float(self.training_data.tile_L), n_bins=cfg.pk_loss_n_bins,
+            z=z, redshifts=(list(self.training_data.redshifts)
+                            if cfg.pk_loss_per_z else None))
+
     def _step_f(self, raw_input, raw_labels, z, lr, alpha_var, beta_KL,
-                eps):
+                eps, pk_eps):
         x, y = self._prepare(raw_input, raw_labels, z)
         frozen = self._bn_state() if self.config.freeze_bn_stats else None
         for p in self.params:
             p.grad = None
-        generator = self._noise(self._host_step)
+        step = self._host_step
         self._host_step += 1
+        pk = None
+        if self.config.pk_loss_weight > 0:
+            # before the ELBO's forward, which moves the running
+            # statistics this term paints through
+            pk = self._pk_loss(raw_input, raw_labels, z, x, y, pk_eps,
+                               self._noise(step, stream=1))
         out = self.model(x, y, z, alpha_var=alpha_var, beta_KL=beta_KL,
-                         eps=eps, generator=generator)
-        (-out["elbo"]).backward()
+                         eps=eps, generator=self._noise(step))
+        loss = -out["elbo"]
+        if pk is not None:
+            out["pk_loss"] = pk
+            loss = loss + self.config.pk_loss_weight * pk
+        loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
         norm = grad_norm(grads)
@@ -311,22 +373,23 @@ class CVAETrainer:
         return as_t(batch["input"]), as_t(batch["labels"]), as_t(batch["z"])
 
     def step(self, batch: dict, lr: float, alpha_var: float = 1.0,
-             beta_KL: float = 1.0, eps=None) -> dict:
+             beta_KL: float = 1.0, eps=None, pk_eps=None) -> dict:
         """One training step on a raw host batch
-        (``BahamasTileDataset.get_raw_batch``)."""
+        (``BahamasTileDataset.get_raw_batch``); ``eps`` and ``pk_eps``
+        replace the ELBO's and the spectral term's drawn noise."""
         return self._step(*self._to_device(batch), lr, alpha_var, beta_KL,
-                          eps)
+                          eps, pk_eps)
 
     def step_indices(self, idx: np.ndarray, lr: float,
                      alpha_var: float = 1.0, beta_KL: float = 1.0,
-                     eps=None) -> dict:
+                     eps=None, pk_eps=None) -> dict:
         """One training step by sample index, the batch assembled on the
         device from the stack cache (``device_data=True``)."""
         if self.device_cache is None:
             raise RuntimeError("Construct the trainer with device_data=True "
                                "to use step_indices.")
         raw = self.device_cache.gather(self.device_cache.digits(idx))
-        return self._step(*raw, lr, alpha_var, beta_KL, eps)
+        return self._step(*raw, lr, alpha_var, beta_KL, eps, pk_eps)
 
     def step_scan(self, idx_matrix: np.ndarray, lr, alpha_var=1.0,
                   beta_KL=1.0) -> dict:

@@ -1,12 +1,12 @@
 """Invertible field transforms on tensors.
 
 Port of ``baryon_painter_tpu/transforms.py``: the range-compression family,
-the density contrast and the identity, each a declarative spec with
-``forward``/``inverse`` on tensors, plus per-field redshift statistics.
-The formulas are the JAX package's term for term, including the shift-log
-NaN floor; ``to_dict`` writes the spec a checkpoint's metadata holds.
-``SplitScale``, ``ChainTransform`` and ``gaussian_filter_2d`` are not
-ported yet: no committed CVAE checkpoint uses them.
+the density contrast, the identity, the split-scale (Gaussian pyramid)
+split and the chain of transforms, each a declarative spec with
+``forward``/``inverse`` on tensors of any device, plus per-field redshift
+statistics. The formulas are the JAX package's term for term, including
+the shift-log NaN floor; ``to_dict`` writes the spec a checkpoint's
+metadata holds, the JAX package's dict unchanged.
 """
 from __future__ import annotations
 
@@ -14,10 +14,15 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-__all__ = ["FieldStats", "RangeCompress", "ToDelta", "Identity",
-           "transform_from_dict"]
+from baryon_painter_tpu_torch.utils.platform import f32_convolutions
+
+__all__ = ["FieldStats", "RangeCompress", "ToDelta", "SplitScale",
+           "ChainTransform", "Identity", "transform_from_dict",
+           "gaussian_filter_2d"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +175,120 @@ class ToDelta:
         return cls()
 
 
+def _gaussian_kernel_1d(sigma: float, truncate: float = 3.0) -> np.ndarray:
+    """scipy.ndimage.gaussian_filter1d's kernel construction."""
+    radius = int(truncate * sigma + 0.5)
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    phi = np.exp(-0.5 * x * x / (sigma * sigma))
+    return (phi / phi.sum()).astype(np.float32)
+
+
+def _symmetric_index(n: int, r: int) -> np.ndarray:
+    """The source index of each of the n + 2r positions of numpy's
+    ``pad(mode="symmetric")`` (scipy.ndimage's 'reflect'): the edge sample
+    repeated, then mirrored, with period 2n for pads wider than n."""
+    j = np.arange(-r, n + r) % (2 * n)
+    return np.where(j >= n, 2 * n - 1 - j, j)
+
+
+def gaussian_filter_2d(x, sigma: float, truncate: float = 3.0):
+    """Separable Gaussian blur over the last two axes of (..., H, W).
+
+    The boundary is scipy.ndimage's default mode='reflect' (numpy's
+    'symmetric' pad); each axis is one f32 ``conv1d`` over the padded
+    rows (TF32 off), as the JAX package convolves at precision 'highest'.
+    Differentiable; on ``x``'s device."""
+    kernel = torch.as_tensor(_gaussian_kernel_1d(sigma, truncate),
+                             device=x.device).to(x.dtype)
+    r = kernel.shape[0] // 2
+
+    def blur_last(y):
+        shape = y.shape
+        idx = torch.as_tensor(_symmetric_index(shape[-1], r),
+                              device=y.device)
+        flat = y.index_select(-1, idx).reshape(-1, 1, shape[-1] + 2 * r)
+        return F.conv1d(flat, kernel.view(1, 1, -1)).reshape(shape)
+
+    with f32_convolutions():
+        y = blur_last(x.transpose(-1, -2)).transpose(-1, -2)
+        return blur_last(y)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitScale:
+    """Gaussian-pyramid split of a tile into frequency bands: channel 0
+    optionally carries the original; the other channels sum back to it.
+    Input (..., H, W) -> output (..., n_out, H, W)."""
+
+    n_scale: int = 3
+    step_size: int = 4
+    include_original: bool = True
+    truncate: float = 3.0
+
+    @property
+    def n_out(self):
+        return self.n_scale + 1 if self.include_original else self.n_scale
+
+    def forward(self, x, stats=None, z=None):
+        bands = []
+        d_in = x
+        for i in range(self.n_scale - 1, 0, -1):
+            smooth = gaussian_filter_2d(d_in, sigma=self.step_size ** i / 2,
+                                        truncate=self.truncate)
+            bands.append(smooth)
+            d_in = d_in - smooth
+        bands.append(d_in)
+        bands = bands[::-1]  # finest first, the reference's layout
+        if self.include_original:
+            bands = [x] + bands
+        return torch.stack(bands, dim=-3)
+
+    def inverse(self, x, stats=None, z=None):
+        if x.shape[-3] != self.n_out:
+            raise ValueError(f"Invalid shape: expected {self.n_out} scales, "
+                             f"got {x.shape[-3]}.")
+        if self.include_original:
+            return x[..., 0, :, :]
+        return x.sum(dim=-3)
+
+    def to_dict(self):
+        return {"type": "split_scale", "n_scale": self.n_scale,
+                "step_size": self.step_size,
+                "include_original": self.include_original,
+                "truncate": self.truncate}
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(n_scale=d["n_scale"], step_size=d["step_size"],
+                   include_original=d["include_original"],
+                   truncate=d.get("truncate", 3.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainTransform:
+    """Sequential composition; ``inverse`` applies the inverses in reverse
+    order."""
+
+    steps: tuple
+
+    def forward(self, x, stats: FieldStats, z):
+        for t in self.steps:
+            x = t.forward(x, stats, z)
+        return x
+
+    def inverse(self, x, stats: FieldStats, z):
+        for t in reversed(self.steps):
+            x = t.inverse(x, stats, z)
+        return x
+
+    def to_dict(self):
+        return {"type": "chain", "steps": [t.to_dict() for t in self.steps]}
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(steps=tuple(transform_from_dict(s) for s in d["steps"]))
+
+
 @dataclasses.dataclass(frozen=True)
 class Identity:
     def forward(self, x, stats=None, z=None):
@@ -189,6 +308,8 @@ class Identity:
 _REGISTRY = {
     "range_compress": RangeCompress,
     "to_delta": ToDelta,
+    "split_scale": SplitScale,
+    "chain": ChainTransform,
     "identity": Identity,
 }
 
@@ -196,9 +317,6 @@ _REGISTRY = {
 def transform_from_dict(d: dict):
     """Rebuild a transform from its declarative JSON dict."""
     kind = d.get("type")
-    if kind in ("split_scale", "chain"):
-        raise NotImplementedError(
-            f"Transform type '{kind}' is not ported yet.")
     try:
         cls = _REGISTRY[kind]
     except KeyError:

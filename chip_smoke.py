@@ -51,8 +51,21 @@ full width with K2 and K3: ``train()`` over 3 pepochs of 96 samples with
 validation, statistics, periodic checkpoints (exactly one K2, K3-fwd and
 K3-bwd launch a step), timed against ``step_indices`` over the same
 steps, a resume from the first checkpoint equal to the uninterrupted run,
-and the final checkpoint painted through ``load_painter`` and K1 (exactly 4
-launches). Everything is timed.
+the final checkpoint painted through ``load_painter`` and K1 (exactly 4
+launches), and a bf16 run with K3 and K4 (4 bf16 launches of each K4
+kernel a step) resumed bit for bit; then the P(k) fidelity gate (phase
+20) through the gate's CLI code (scripts/fidelity_check_torch.py
+``--eval-only``): the committed fiducial CVAE at 512^2 on 3 of its 11
+redshifts (K1 4 and K3-fwd 1 launches a paint call) and the committed CGAN
+(K1 9 a call), 48 tiles a redshift: the kernels' scores against plain
+convolutions', the f32 scores at the JAX package's prior noise and over
+noise seeds against the committed reports, the bf16 scores against the
+JAX package's bf16 on the CPU (baryon_painter_tpu_torch/data/
+gate_reference.npz), and the committed reports' bf16 scores printed
+beside the port's; and the spectral fine-tuning step at
+batch 24 from the fiducial weights (exactly one K2, two K3-fwd and two
+K3-bwd launches a step) in f32 and bf16, timed, against its plain version.
+Everything is timed.
 The phases live in ``baryon_painter_tpu_torch/smoke.py``; each prints one
 line with its seconds. The last lines are the kernels record (JSON), the
 card's name and power limit as nvidia-smi gives them, and the result (JSON).
@@ -128,6 +141,11 @@ def main() -> int:
         smoke.seamless(device, data, lightcone["bf16"]["cudnn"], card=card)
     # the training run through the training CLI's code (19)
     train_loop = smoke.train_loop(device, dataset, card=card)
+    # the P(k) fidelity gate (20a, 20b) and the spectral step (20c)
+    gate = smoke.gate(device, card=card)
+    pk = smoke.pk_step(device, dataset, card=card,
+                       f32_ms=training["step_ms"],
+                       bf16_ms=training_bf16["step_ms"])
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
     print(json.dumps(smoke.kernels_record(
@@ -135,7 +153,7 @@ def main() -> int:
         heads_bf16=heads_bf16, paint_bf16=paint_bf16,
         training_bf16=training_bf16, conv_bn_bf16=conv_bn_bf16,
         training_bf16_k4=training_bf16_k4, lightcone=lightcone, cgan=cgan,
-        train_loop=train_loop)))
+        train_loop=train_loop, gate_run=gate, pk=pk)))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

@@ -15,15 +15,15 @@ samples; ``--synthetic`` trains against generated stacks:
 (K2); ``BPT_FUSED_HEADS=1`` runs the output heads through K3 and
 ``BPT_FUSED_TRAIN_CONV=1`` the train-mode conv + batch norm + ReLU triples
 through K4, as the JAX package's switches do; ``--dtype bfloat16`` trains
-in bf16. ``--config`` reads a run-config JSON (``train/run_config.py``)
+in bf16. ``--pk-loss-weight W`` (with ``--pk-loss-per-z``) adds the
+spectral fine-tuning term, written into the run config. ``--config`` reads a run-config JSON (``train/run_config.py``)
 either package wrote; ``--resume-from`` continues a checkpoint of either
 package. Runs on the card unless ``--device cpu``. Imports only torch,
 numpy and the port.
 
 Not ported: the validation figures the JAX CLI saves at its validation
-pepochs (no figure is drawn here; ROADMAP.md, section 1, item 11),
-``--profile`` (item 11) and ``--pk-loss-weight`` > 0 (the spectral loss,
-item 7), which raise.
+pepochs (no figure is drawn here; ROADMAP.md, section 1, item 11) and
+``--profile`` (item 11), which raises.
 """
 import argparse
 import os
@@ -80,12 +80,13 @@ def parse_args(argv=None):
                         "training-ELBO moving average, resumed from "
                         "checkpoints mid-plateau")
     p.add_argument("--pk-loss-weight", type=float, default=None,
-                   help="spectral auxiliary loss weight; not ported "
-                        "(ROADMAP.md, section 1, item 7): > 0 raises")
+                   help="spectral auxiliary loss weight (see "
+                        "TrainConfig.pk_loss_weight)")
     p.add_argument("--pk-loss-per-z", action="store_true",
-                   help="per-redshift spectral loss "
-                        "(TrainConfig.pk_loss_per_z); read only with the "
-                        "spectral loss")
+                   help="per-redshift masked spectral loss instead of a "
+                        "pooled batch-mean (TrainConfig.pk_loss_per_z); "
+                        "the P(k) gate is per-z, a pooled loss can trade "
+                        "redshifts off against each other")
     p.add_argument("--clip-grad", type=float, default=None,
                    help="global-norm gradient clip, 0/None = off "
                         "(TrainConfig.clip_grad_norm)")
@@ -147,10 +148,6 @@ def build(args, datasets=None):
         raise NotImplementedError(
             "--profile: the device trace is not ported yet (ROADMAP.md, "
             "section 1, item 11).")
-    if args.pk_loss_weight:
-        raise NotImplementedError(
-            "--pk-loss-weight > 0: the spectral loss is not ported yet "
-            "(ROADMAP.md, section 1, item 7).")
 
     run_cfg = RunConfig.load(args.config) if args.config else None
     if run_cfg is not None and run_cfg.transforms:

@@ -294,3 +294,24 @@ def test_softplus_rounds_after_each_operation_as_jax():
         jnp.asarray(x.float().numpy()).astype(BF16))
     np.testing.assert_array_equal(xr.grad.float().numpy(),
                                   np.asarray(jg.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("fn, cout, cin, want", [
+    ("conv2d", 1, 1, True), ("conv2d", 1, 8, False),
+    ("conv2d", 16, 3, False), ("conv2d", 8, 16, False),
+    ("conv_transpose2d", 1, 1, False), ("conv2d", 128, 128, False)])
+def test_one_channel_low_precision_convs_run_in_f32_on_the_card(fn, cout,
+                                                               cin, want):
+    """On the card a bf16 conv goes to cuDNN's bf16 except a 1 -> 1
+    channel ``F.conv2d`` (it came back NaN or several times off inside the
+    decoder on an H100); that one, and every one on the CPU, runs in f32
+    on the rounded operands (a device-less tensor stands in for the card's
+    here)."""
+    import torch.nn.functional as F
+
+    from baryon_painter_tpu_torch.models import layers as tl
+    fn = getattr(F, fn)
+    w = torch.empty((cout, cin, 3, 3), device="meta")
+    assert tl._low_precision_in_f32(fn, torch.empty(1, device="meta"),
+                                    w) is want
+    assert tl._low_precision_in_f32(fn, torch.empty(1), w) is True

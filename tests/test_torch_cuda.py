@@ -794,3 +794,38 @@ def test_seamless_plane_on_the_card(cuda_device):
         want = spatial.paint_plane(cpu, plane, 0.5, z_mode=z_mode)
         assert got.device.type == "cuda"
         assert smoke._golden_ratio(got.cpu(), want) <= 1.0
+
+
+@pytest.mark.parametrize("fn, cin, cout, size", [
+    ("conv2d", 1, 1, 16), ("conv2d", 1, 1, 64), ("conv2d", 1, 1, 512),
+    ("conv2d", 8, 1, 256), ("conv2d", 2, 8, 512),
+    ("conv_transpose2d", 1, 1, 128)])
+def test_bf16_convolutions_with_one_channel_on_the_card(cuda_device, fn, cin,
+                                                        cout, size):
+    """The CVAE's bf16 convolutions with one channel on either side, at the
+    painters' shapes (batch 48), against the f64 conv of the same rounded
+    operands: within one bf16 step (2e-2 of the largest entry). cuDNN's bf16
+    1 -> 1 ``conv2d`` misses by ~100 % (or paints NaN) from 32^2 up, so the
+    port runs that one in f32 on the rounded operands (``layers._conv``)."""
+    import torch.nn.functional as F
+
+    from baryon_painter_tpu_torch.models import layers
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((48, cin, size, size), generator=g, device=cuda_device)
+    if fn == "conv2d":
+        mod = layers.Conv2d(cin, cout, 3, padding=1, bias=False,
+                            dtype=torch.bfloat16)
+        ref_fn = lambda a, w: F.conv2d(a, w, padding=1)
+    else:
+        mod = layers.ConvTranspose2d(cin, cout, 4, stride=2, padding=1,
+                                     bias=False, dtype=torch.bfloat16)
+        ref_fn = lambda a, w: F.conv_transpose2d(a, w, stride=2, padding=1)
+    mod = mod.to(cuda_device)
+    with torch.no_grad():
+        mod.weight.copy_(0.3 * torch.randn(mod.weight.shape, generator=g,
+                                           device=cuda_device))
+        got = mod(x.to(torch.bfloat16)).double()
+        want = ref_fn(x.to(torch.bfloat16).double(),
+                      mod.weight.to(torch.bfloat16).double())
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()

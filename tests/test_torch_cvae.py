@@ -218,3 +218,17 @@ def test_painter_sampling_uses_its_generator(setup, monkeypatch):
         painter.paint_batch(setup["y"], setup["zs"], z_mode="median")
     with pytest.raises(ValueError, match="eps"):
         painter.paint_batch(setup["y"], setup["zs"], eps=np.zeros((2, 3, 3)))
+
+
+@pytest.mark.parametrize("n_heads", [1, 2, 3])
+def test_heads_fuse_only_with_exactly_two_specs(n_heads):
+    """K3 computes two heads: ``_heads_fusable`` accepts the fiducial pair
+    and refuses a third spec after them (which a zip over two tails would
+    not look at), or a lone mean head."""
+    from baryon_painter_tpu_torch.models.cvae import CVAE
+    arch = fiducial_cvae_architecture(32, n_res_blocks=1)
+    heads = list(arch["p_y_z_out"])
+    arch["p_y_z_out"] = tuple((heads + [heads[1]])[:n_heads])
+    model = CVAE(arch, fused_heads=True)
+    h = torch.zeros(1, 16, 32, 32)
+    assert model._heads_fusable(h) is (n_heads == 2)

@@ -26,6 +26,17 @@ CHIP_SMOKE = Path(REPO) / "chip_smoke.py"
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "baryon_painter_tpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One PyTorch thread a process: the suite's other workers load every
+    core, and a thread pool per process then runs this file's many small
+    CPU ops many times slower than it does alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def cpu_run():
     d = torch.device("cpu")
@@ -512,6 +523,14 @@ def test_train_loop_phase_and_kernels_record_on_cpu(cpu_run, cpu_train_run,
     assert out["repeat_distance"] == out["resumed_distance"] == 0.0
     assert out["stats_files_equal"] and out["checkpoint_bytes"] > 0
     assert out["peak_bytes"] is None
+    detail = out["default_repeat_detail"]
+    assert detail["distance"] == out["default_repeat_distance"]
+    assert detail["leaf"].split("/")[0] in ("params", "batch_stats",
+                                            "opt_state", "step")
+    # 19e: the bf16 run with K4 and its bit-exact resume
+    bf16 = out["bf16_k4"]
+    assert (bf16["steps"], bf16["evals"]) == (4, 2)
+    assert bf16["resumed_distance"] == 0.0 and bf16["stats_files_equal"]
     rec = smoke.kernels_record(checks, paint, timing, gather, heads,
                                training, conv_bn, training_k4,
                                train_loop=out)
@@ -530,6 +549,10 @@ def test_state_distance_reads_the_model_state():
          "progress": np.zeros(6)}
     assert smoke.state_distance(a, a) == 0.0
     assert smoke.state_distance(a, b) == 0.5
+    detail = smoke.state_distance_detail(a, b)
+    assert detail == {"distance": 0.5, "leaf": "params/w",
+                      "leaf_rel": 0.5 / 1.5, "params_worst_leaf": "params/w",
+                      "params_worst_rel": 0.5 / 1.5, "params_max_abs": 0.5}
     with pytest.raises(AssertionError, match="keys"):
         smoke.state_distance(a, {**b, "params": {"v": np.ones(3)}})
 
@@ -562,7 +585,11 @@ def _imports(path: Path):
     "path", sorted(PORT.rglob("*.py")) + [CHIP_SMOKE] + [
         Path(REPO) / "scripts" / f for f in ("create_lightcone_torch.py",
                                              "bench_torch_lightcone.py",
-                                             "train_cvae_torch.py")],
+                                             "train_cvae_torch.py",
+                                             "fidelity_check_torch.py",
+                                             "fidelity_spread_torch.py",
+                                             "bf16_conv_probe_torch.py",
+                                             "smoke_phases_torch.py")],
     ids=lambda p: str(Path(p).relative_to(REPO)))
 def test_port_imports_nothing_of_jax(path):
     for name in _imports(path):

@@ -358,11 +358,26 @@ def test_cli_trains_checkpoints_and_resumes_on_the_cpu(twin, tmp_path,
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--profile", "trace"], "item 11"),
-    (["--pk-loss-weight", "0.1"], "item 7")], ids=["profile", "pk_loss"])
+    (["--profile", "trace"], "item 11")], ids=["profile"])
 def test_cli_refuses_what_is_not_ported(twin, tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         twin.run(_cli_args(tmp_path, *extra))
+
+
+def test_cli_trains_with_the_spectral_loss(twin, tmp_path):
+    """--pk-loss-weight and --pk-loss-per-z reach the trainer's config and
+    the run config in run_config.json and the checkpoint's meta, and the
+    run's steps carry a finite pk_loss."""
+    res = twin.run(_cli_args(tmp_path, "--pk-loss-weight", "2e4",
+                             "--pk-loss-per-z"))
+    cfg = res["trainer"].config
+    assert cfg.pk_loss_weight == 2e4 and cfg.pk_loss_per_z
+    for train in (RunConfig.load(str(tmp_path / "run_config.json")).train,
+                  ckpt.load_checkpoint(str(tmp_path / "model"))[1][
+                      "run_config"]["train"]):
+        assert train["pk_loss_weight"] == 2e4 and train["pk_loss_per_z"]
+    m = res["trainer"].step_indices(np.arange(2), 1e-4)
+    assert np.isfinite(m["pk_loss"].item()) and m["pk_loss"].item() > 0
 
 
 def test_what_the_loop_refuses(data):

@@ -290,8 +290,14 @@ def test_eval_loss_changes_nothing(data):
 
 def test_what_the_trainer_refuses(data):
     _, td = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trainer(data, pk_loss_weight=0.1)
+    # the spectral term differentiates through the paint: K1 (the fused
+    # residual blocks) has no backward
+    with pytest.raises(ValueError, match="fused_res_blocks"):
+        ttrainer.CVAETrainer(
+            CVAE(fiducial_cvae_architecture(TILE, n_res_blocks=1,
+                                            fused_res_blocks=True)), td,
+            config=ttrainer.TrainConfig(pk_loss_weight=0.1),
+            device_data=True, device="cpu")
     tr = ttrainer.CVAETrainer(CVAE(_arch()), td, device="cpu")
     with pytest.raises(RuntimeError, match="device_data"):
         tr.step_indices(np.arange(BATCH), LR)
