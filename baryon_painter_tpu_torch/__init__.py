@@ -2,11 +2,12 @@
 
 Paints gas pressure onto dark-matter tiles with the committed CVAE and
 CGAN checkpoints, tile by tile or as whole seamless planes, and trains the
-CVAE, in PyTorch, on an NVIDIA H100. Three
+CVAE and the CGAN, in PyTorch, on an NVIDIA H100. Four
 hand-written CUDA kernels (``csrc/``) carry the parts the JAX package wrote
 in Pallas: the fused residual block (K1, ``ops/res_block.py``), the training
-batch's tile gather (K2, ``ops/gather.py``) and the output heads, forward and
-backward (K3, ``ops/head_stack.py``); everything else is plain PyTorch. The
+batch's tile gather (K2, ``ops/gather.py``), the output heads, forward and
+backward (K3, ``ops/head_stack.py``) and the train-mode conv + batch norm +
+ReLU (K4, ``ops/conv_bn.py``); everything else is plain PyTorch. The
 JAX package ``baryon_painter_tpu`` is the reference this package is tested
 against; this package imports nothing of it, nor of JAX.
 
@@ -16,18 +17,29 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
     painter = CVAEPainter("trained_models/CVAE/fiducial-512/model",
                           fused_inference=True)
     pressure = painter.paint_batch(tiles, zs)   # (N,512,512) on the card
+
+    from baryon_painter_tpu_torch import CGANTrainer, CGANTrainConfig
+    trainer = CGANTrainer(dataset, device_data=True,
+                          config=CGANTrainConfig(output_path="run"))
+    trainer.train()
 """
 
 __version__ = "0.1.0"
 
+_LAZY = {"CVAEPainter": "painter", "CGANPainter": "painter",
+         "load_painter": "painter", "CVAETrainer": "train.trainer",
+         "TrainConfig": "train.trainer", "CGANTrainer": "train.cgan",
+         "CGANTrainConfig": "train.cgan"}
 
 
 def __getattr__(name):
-    """Lazy top-level export of ``CVAEPainter``, ``CGANPainter`` and
-    ``load_painter`` (keeps ``import baryon_painter_tpu_torch`` light:
-    torch is imported on use)."""
-    if name in ("CVAEPainter", "CGANPainter", "load_painter"):
-        from baryon_painter_tpu_torch import painter
-        return getattr(painter, name)
+    """Lazy top-level export of the painters, ``load_painter`` and the
+    trainers (keeps ``import baryon_painter_tpu_torch`` light: torch is
+    imported on use)."""
+    if name in _LAZY:
+        import importlib
+        module = importlib.import_module(f"baryon_painter_tpu_torch."
+                                         f"{_LAZY[name]}")
+        return getattr(module, name)
     raise AttributeError(f"module 'baryon_painter_tpu_torch' has no "
                          f"attribute '{name}'")

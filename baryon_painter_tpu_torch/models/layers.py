@@ -27,11 +27,25 @@ and rounds where it rounds (``baryon_painter_tpu/models/layers.py``): a
 convolution casts x and its weight to it, and its f32 bias promotes the sum
 to f32; batch norm casts x to it, keeps its statistics and affine in f32
 and returns x's dtype; PReLU casts its slope to x's dtype; the fused block
-casts x to it; a K4 triple casts x and the conv's weight to it and keeps
+casts x to it; a leaky ReLU's slope meets x in its dtype (in bf16 0.2 is
+0.2001953125, as JAX's weak-typed scalar becomes); a K4 triple casts x and
+the conv's weight to it and keeps
 K4's rounding points (``ops/conv_bn.py``: u and the batch statistics f32,
 y in the dtype). Parameters, running statistics and gradients of
 parameters stay f32. ``None`` computes in x's dtype: f32 as before, bit for
 bit.
+
+``spectral_norm=True`` (the CGAN's) gives every convolution and transposed
+convolution flax's ``SpectralNorm`` (``flax.linen.SpectralNorm``, one power
+iteration, epsilon 1e-12), as the JAX package wraps them
+(``baryon_painter_tpu/models/layers.py:486-489``): the kernel in flax's
+layout (HWIO, for a transposed conv as well) reshaped to (fan_in, C_out),
+v = l2n(u W^T) and u' = l2n(v W) from the stored u (1, C_out) without a
+gradient, sigma = v W u'^T with the gradient through W, and the kernel used
+is W / sigma (1 where sigma is 0). In train mode u' and sigma are stored in
+the layer's buffers ``sn_u`` and ``sn_sigma`` (flax's ``update_stats``); in
+eval mode the iteration still runs from the stored u, and nothing is
+stored. Biases and batch-norm parameters are not normalised.
 """
 from __future__ import annotations
 
@@ -53,6 +67,8 @@ _BN_EPS = 1e-5
 # the fraction of the running statistics kept per training step: every
 # batch norm of the JAX package's SpecSequential is built with momentum=0.9
 _BN_MOMENTUM = 0.9
+# flax.linen.SpectralNorm's epsilon inside the l2 normalisation's rsqrt
+_SN_EPS = 1e-12
 
 
 def _param(*shape) -> nn.Parameter:
@@ -95,14 +111,56 @@ def _conv(fn, x, weight, bias, dtype, **kw):
     return out if bias is None else out + bias[:, None, None]
 
 
-class Conv2d(nn.Module):
+def _l2_normalize(x):
+    """flax's ``_l2_normalize``: x * rsqrt(sum(x^2) + eps)."""
+    return x * torch.rsqrt((x * x).sum() + _SN_EPS)
+
+
+class _SpectralNormConv(nn.Module):
+    """A convolution's weight, spectrally normalised when built with
+    ``spectral_norm=True`` (module docstring)."""
+
+    def _init_spectral_norm(self, spectral_norm: bool, out_channels: int):
+        self.spectral_norm = spectral_norm
+        if spectral_norm:
+            self.register_buffer("sn_u", torch.zeros(1, out_channels))
+            self.register_buffer("sn_sigma", torch.ones(()))
+
+    def flax_matrix(self) -> torch.Tensor:
+        """The weight as flax's (fan_in, C_out) matrix (HWIO rows)."""
+        raise NotImplementedError
+
+    def normalized_weight(self) -> torch.Tensor:
+        """The weight the convolution uses: W / sigma with spectral norm
+        (storing u' and sigma in train mode), else the weight itself."""
+        if not self.spectral_norm:
+            return self.weight
+        w = self.flax_matrix()
+        with torch.no_grad():
+            v = _l2_normalize(self.sn_u @ w.T)
+            u = _l2_normalize(v @ w)
+        sigma = ((v @ w) @ u.T)[0, 0]
+        if self.training:
+            with torch.no_grad():
+                self.sn_u.copy_(u)
+                self.sn_sigma.copy_(sigma)
+        return self.weight / torch.where(sigma != 0, sigma,
+                                         torch.ones_like(sigma))
+
+
+class Conv2d(_SpectralNormConv):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, bias=True, dtype=None):
+                 padding=0, bias=True, dtype=None, spectral_norm=False):
         super().__init__()
         self.stride, self.padding, self.dtype = stride, padding, dtype
         self.weight = _param(out_channels, in_channels, kernel_size,
                              kernel_size)                          # OIHW
         self.bias = _param(out_channels) if bias else None
+        self._init_spectral_norm(spectral_norm, out_channels)
+
+    def flax_matrix(self):
+        return self.weight.permute(2, 3, 1, 0).reshape(
+            -1, self.weight.shape[0])
 
     def forward(self, x):
         k = self.weight.shape[-1]
@@ -112,13 +170,14 @@ class Conv2d(nn.Module):
                 f"Conv2d(k={k}, s={self.stride}, p={self.padding}) on a "
                 f"{x.shape[2]}x{x.shape[3]} input produces a {out_h}-pixel "
                 f"output; the tile is too small for this architecture.")
-        return _conv(F.conv2d, x, self.weight, self.bias, self.dtype,
-                     stride=self.stride, padding=self.padding)
+        return _conv(F.conv2d, x, self.normalized_weight(), self.bias,
+                     self.dtype, stride=self.stride, padding=self.padding)
 
 
-class ConvTranspose2d(nn.Module):
+class ConvTranspose2d(_SpectralNormConv):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, output_padding=0, bias=True, dtype=None):
+                 padding=0, output_padding=0, bias=True, dtype=None,
+                 spectral_norm=False):
         super().__init__()
         if kernel_size - 1 - padding < 0:
             raise ValueError(f"Unsupported transp-conv padding: "
@@ -128,10 +187,17 @@ class ConvTranspose2d(nn.Module):
         self.weight = _param(in_channels, out_channels, kernel_size,
                              kernel_size)                          # IOHW
         self.bias = _param(out_channels) if bias else None
+        self._init_spectral_norm(spectral_norm, out_channels)
+
+    def flax_matrix(self):
+        # the port's IOHW weight is flax's HWIO kernel flipped in space
+        return self.weight.flip(2, 3).permute(2, 3, 0, 1).reshape(
+            -1, self.weight.shape[1])
 
     def forward(self, x):
-        return _conv(F.conv_transpose2d, x, self.weight, self.bias,
-                     self.dtype, stride=self.stride, padding=self.padding,
+        return _conv(F.conv_transpose2d, x, self.normalized_weight(),
+                     self.bias, self.dtype, stride=self.stride,
+                     padding=self.padding,
                      output_padding=self.output_padding)
 
 
@@ -229,6 +295,15 @@ def _act_slope(layer):
     return None
 
 
+def _slope_in(slope: float, dtype) -> float:
+    """A leaky ReLU's slope as the JAX package applies it to x of
+    ``dtype``: a Python float meets a bf16 x as a bf16 number (0.2 becomes
+    0.2001953125), and the product is rounded once; f32 and f64 keep it."""
+    if dtype.itemsize >= 4:
+        return slope
+    return float(torch.tensor(slope, dtype=dtype))
+
+
 def _activation(name, config=None):
     """Elementwise activation for a spec name (None is the identity)."""
     if name is None:
@@ -238,7 +313,7 @@ def _activation(name, config=None):
         return F.relu
     if name == "leaky relu":
         slope = 0.2 if config is None else config
-        return lambda x: F.leaky_relu(x, slope)
+        return lambda x: F.leaky_relu(x, _slope_in(slope, x.dtype))
     if name == "tanh":
         return torch.tanh
     if name == "sigmoid":
@@ -277,10 +352,11 @@ class ResidualBlock(nn.Module):
     """x -> act(inner(x) + x)."""
 
     def __init__(self, inner_spec, activation, fused_train_conv=False,
-                 dtype=None):
+                 dtype=None, spectral_norm=False):
         super().__init__()
         self.SpecSequential_0 = SpecSequential(
-            inner_spec, fused_train_conv=fused_train_conv, dtype=dtype)
+            inner_spec, fused_train_conv=fused_train_conv, dtype=dtype,
+            spectral_norm=spectral_norm)
         act = tuple(activation)
         self._act = _activation(act[0], act[1] if len(act) > 1 else None)
 
@@ -356,11 +432,19 @@ class SpecSequential(nn.Module):
     ``dtype`` is every layer's compute dtype (module docstring); a fused
     triple casts x and the conv's weight to it before K4, as the JAX
     package does (``baryon_painter_tpu/models/layers.py:538-551``).
+
+    ``spectral_norm=True`` normalises every convolution and transposed
+    convolution, here and in the residual blocks (module docstring). As in
+    the JAX package it turns the fused residual blocks and the K4 triples
+    off (``baryon_painter_tpu/models/layers.py:499, 628``).
     """
 
     def __init__(self, spec: Optional[Sequence], fused_res_blocks=False,
-                 fused_train_conv=False, dtype=None):
+                 fused_train_conv=False, dtype=None, spectral_norm=False):
         super().__init__()
+        fused_res_blocks = fused_res_blocks and not spectral_norm
+        fused_train_conv = fused_train_conv and not spectral_norm
+        self.spectral_norm = spectral_norm
         self.fused_train_conv = fused_train_conv
         self.layers = nn.ModuleDict()
         self._steps = []   # module names and elementwise callables, in order
@@ -385,14 +469,15 @@ class SpecSequential(nn.Module):
                 add(Conv2d(config["in_channels"], config["out_channels"],
                            config["kernel_size"], config.get("stride", 1),
                            config.get("padding", 0), config.get("bias", True),
-                           dtype=dtype))
+                           dtype=dtype, spectral_norm=spectral_norm))
             elif lname == "transp conv":
                 add(ConvTranspose2d(
                     config["in_channels"], config["out_channels"],
                     config["kernel_size"], config.get("stride", 1),
                     config.get("padding", 0),
                     config.get("output_padding", 0),
-                    config.get("bias", True), dtype=dtype))
+                    config.get("bias", True), dtype=dtype,
+                    spectral_norm=spectral_norm))
             elif lname == "batchnorm":
                 add(BatchNorm(config["num_features"], dtype=dtype))
             elif lname == "prelu":
@@ -408,7 +493,8 @@ class SpecSequential(nn.Module):
                     add(FusedResBlock(inner[0][1]["out_channels"], *slopes,
                                       dtype=dtype))
                 else:
-                    add(ResidualBlock(inner, act, fused_train_conv, dtype))
+                    add(ResidualBlock(inner, act, fused_train_conv, dtype,
+                                      spectral_norm))
             elif lname == "upsample nearest":
                 s = config["scale"]
                 self._steps.append(lambda x, s=s: _upsample_nearest(x, s))

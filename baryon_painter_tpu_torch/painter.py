@@ -22,7 +22,8 @@ painter's is. An f32 call paints in f32 whatever the caller's TF32 setting
 
 ``CGANPainter`` paints with the CGAN generator: transform -> generator ->
 inverse transform, no noise; ``fused_inference=True`` runs its canonical
-LeakyReLU(0.2) residual blocks as K1 launches. ``load_painter(filename,
+LeakyReLU(0.2) residual blocks as K1 launches; ``from_trainer`` paints a
+``CGANTrainer``'s live generator. ``load_painter(filename,
 **kwargs)`` opens a checkpoint with the painter its ``model_kind`` names.
 
 A ``CVAEPainter`` also trains, as the JAX painter does: built from an
@@ -294,8 +295,10 @@ class CGANPainter:
 
     ``save_state_to_file`` writes the painter's generator variables (in
     the fused layout after ``fused_inference``, with the architecture
-    marked so) as the JAX painter does. ``from_trainer`` waits for CGAN
-    training (ROADMAP.md, section 1, item 9).
+    marked so) as the JAX painter does. ``from_trainer`` paints a
+    ``CGANTrainer``'s live generator: its spectral norm folded from the
+    trainer's current u, and with ``fused_inference`` its residual blocks
+    through K1.
     """
 
     def __init__(self, filename: Optional[str] = None,
@@ -339,6 +342,23 @@ class CGANPainter:
         self.tile_size = meta["tile_size"]
         self.transforms, self.stats = ckpt.transforms_from_meta(
             meta, device=self.device)
+
+    @classmethod
+    def from_trainer(cls, trainer, dtype="keep",
+                     fused_inference: bool = False):
+        """A painter over a ``CGANTrainer``'s current generator (its
+        parameters, batch statistics and spectral-norm state, exported to
+        the JAX layout and folded), on the trainer's device.
+        ``dtype="keep"`` paints in the trainer generator's compute dtype,
+        any other value (None: f32) in that one; ``fused_inference`` runs
+        the residual blocks through K1 (9 launches a call)."""
+        gen = trainer.generator
+        meta = ckpt.meta_from_dataset(trainer.training_data,
+                                      gen.architecture, model_kind="cgan")
+        return cls(variables=to_jax_variables(gen), meta=meta,
+                   fused_inference=fused_inference,
+                   dtype=gen.dtype if dtype == "keep" else dtype,
+                   device=trainer.device)
 
     def load_state_from_file(self, filename: str):
         """Load a (state.msgpack, meta.json) checkpoint pair by base path:

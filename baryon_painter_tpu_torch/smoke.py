@@ -133,6 +133,26 @@ training CLI's code (scripts/train_cvae_torch.py) at full width, f32, with
      files equal to that run's
  19d. ``load_painter`` on the final checkpoint with ``fused_inference``: 16
      tiles in one call, exactly 4 K1 launches, finite
+
+the P(k) fidelity gate (``gate``; 20a the fiducial CVAE, 20b both CGANs,
+fiducial and fiducial-adv, bf16 held to the JAX package's CPU bf16) and the
+spectral step (``pk_step``, 20c), and CGAN training (``cgan_train``) at full
+width, f32, from the committed fiducial-adv state (G, D, both Adams) on
+phase 5's stacks at batch 6:
+
+ 21a. ``step_indices`` timed, its peak memory, exactly one K2 launch a step
+ 21b. the f32 step against the same step in f64, from the committed state
+     and after ``reinit_discriminator(7)`` (CGAN_F64_RTOL, STEP_GRAD_TOL);
+     a K2 step against a plain-gather step, equal bit for bit
+ 21c. one step in each of CGAN_MODES, finite; calibration moves nothing of
+     D and none of G's state, ``freeze_bn_stats`` none of G's state
+ 21d. ``train()`` through the CGAN training CLI's code, timed beside
+     ``step_indices`` over the same steps, and resumed from its first
+     checkpoint bit for bit (cuDNN's deterministic algorithms)
+ 21e. ``CGANPainter.from_trainer(..., fused_inference=True)``: exactly 9 K1
+     launches a call, the golden tolerance from the unfused paint, equal to
+     ``load_painter`` on 21d's final checkpoint
+ 21f. the gate twin's CGAN training leg on 20b's fiducial-adv stacks
 """
 from __future__ import annotations
 
@@ -3466,18 +3486,23 @@ def gate_check(device, checkpoint: str, want_launches: dict, kind: str,
     return {"launches": counts, "rows": {f"{z}/{k}": v
                                          for (z, k), v in rows.items()},
             "summary": summary, "outside": outside, "fails": fails,
-            "eval_s": eval_s, "setup_s": setup_s}
+            "eval_s": eval_s, "setup_s": setup_s,
+            "data": (g.train_ds, g.val_ds)}
 
 
 def gate(device, card=None) -> dict:
     """Phase 20a on the fiducial CVAE (K1 4 and K3-fwd 1 a paint call) and
-    20b on the CGAN (K1 9 a call); raises on any failed rule."""
+    20b on the CGANs, fiducial and fiducial-adv (K1 9 a call); raises on
+    any failed rule."""
     run = {"cvae": gate_check(device, CHECKPOINT, {"k1": N_RES_BLOCKS,
                                                    "k3_fwd": 1}, "cvae",
                               fallback=GATE_CVAE_DATASET,
                               redshifts=GATE_CVAE_Z, card=card),
            "cgan": gate_check(device, CGAN_PATH, {"k1": 9}, "cgan",
-                              seeds=1, card=card, phase="20b")}
+                              seeds=1, card=card, phase="20b"),
+           "cgan_adv": gate_check(device, CGAN_ADV_PATH, {"k1": 9},
+                                  "cgan_adv", seeds=1, card=card,
+                                  phase="20b")}
     fails = {k: r["fails"] for k, r in run.items() if r["fails"]}
     if fails:
         raise AssertionError(f"gate: {fails}")
@@ -3583,6 +3608,575 @@ def pk_step(device, dataset, card=None, f32_ms=None, bf16_ms=None,
     return out
 
 
+# ---------------------------------------------------------------------- #
+# Phase 21: CGAN training
+
+CGAN_ADV_PATH = "trained_models/CGAN/fiducial-adv/model"
+TRAIN_CGAN_CLI = REPO / "scripts" / "train_cgan_torch.py"
+# the reference's batch (trained_models/README.md:130-139)
+CGAN_BATCH = 6
+# 21b: the f32 step against the same step in f64: the losses and the new
+# running state (batch norm and spectral norm) to CGAN_F64_RTOL relative
+# (of each state leaf's largest entry); D_real and D_fake, the mean
+# probabilities, to CGAN_F64_RTOL relative in their logarithm (a saturated
+# D's mean probability carries the logits' absolute f32 error as its
+# relative one: at the CPU test's batch, where D_fake = 5.3e-8, the JAX
+# package's own f32 discriminator lies 4.0e-5 from its f64 one,
+# scripts/cgan_step_conditioning.py); every gradient leaf to STEP_GRAD_TOL
+# of its own largest entry (8b's rule), the biases ahead of a batch norm
+# (``train.cgan.zero_gradient_leaves``, whose gradient is 0 analytically)
+# to STEP_GRAD_TOL of the network's largest
+CGAN_F64_RTOL = 1e-5
+# 21c: the spectral term's weight in fiducial-adv's fine-tunes
+CGAN_PK_WEIGHT = 1e4
+# 21d: two pepochs of 48 samples, validation every 24, a checkpoint every 48
+CGAN_LOOP_PEPOCH = 48
+CGAN_LOOP_PEPOCHS = 2
+CGAN_LOOP_VALIDATION = 24
+CGAN_LOOP_LR = 5e-5
+# 21e: the tiles of one from_trainer paint call
+CGAN_PAINT_TILES = 16
+
+
+def _cgan_trainer(device, dataset, base=CGAN_ADV_PATH, dtype=None,
+                  use_kernel="auto", test_data=None, **config):
+    """A ``CGANTrainer`` at full width (9 residual blocks) on ``dataset``
+    with the stack cache, restored from ``base`` (G, D, both Adams);
+    ``dtype=torch.float64`` builds both networks in f64 first."""
+    from baryon_painter_tpu_torch.models.cgan import (CGANDiscriminator,
+                                                      CGANGenerator)
+    from baryon_painter_tpu_torch.train.cgan import (CGANTrainConfig,
+                                                     CGANTrainer)
+    g = CGANGenerator(n_res_blocks=9, spectral_norm=True)
+    d = CGANDiscriminator()
+    if dtype is not None:
+        g, d = g.to(dtype), d.to(dtype)
+    trainer = CGANTrainer(dataset, test_data=test_data, generator=g,
+                          discriminator=d,
+                          config=CGANTrainConfig(
+                              batch_size=config.pop("batch_size",
+                                                    CGAN_BATCH),
+                              **config),
+                          device_data=True, device=device,
+                          use_kernel=use_kernel)
+    if base is not None:
+        trainer.restore(str(REPO / base))
+    return trainer
+
+
+def _cgan_idx(dataset, batch: int, seed: int = 1):
+    return dataset.sample_indices(np.random.default_rng(seed), batch)
+
+
+def cgan_step(device, dataset, batch: int = CGAN_BATCH, warmup: int = 2,
+              iters: int = 5, card=None) -> dict:
+    """Phase 21a, a main path: ``CGANTrainer.step_indices`` at full width
+    from the committed fiducial-adv state (G, D, both Adams) on phase 5's
+    stacks, f32: warm-ups, then ``iters`` steps timed on the host clock
+    after a synchronise, with the peak device memory; exactly one K2
+    launch a step on the card (and no other kernel)."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    trainer = _cgan_trainer(device, dataset, batch_size=batch)
+    rng = np.random.default_rng(0)
+    for _ in range(warmup):
+        trainer.step_indices(dataset.sample_indices(rng, batch), 5e-5)
+    base = _peak_start(device)
+    _reset_launches()
+    _sync(device)
+    t = time.perf_counter()
+    losses = []
+    for _ in range(iters):
+        m = trainer.step_indices(dataset.sample_indices(rng, batch), 5e-5)
+        losses.append(m)
+    _sync(device)
+    step_s = (time.perf_counter() - t) / iters
+    counts = _launches()
+    peak = _peak_since(device, base)
+    _expect_launches("cgan_step", counts, {"k2": iters} if cuda else {})
+    rows = trainer._host_rows(losses)
+    if not np.all(np.isfinite(rows)):
+        raise AssertionError(f"cgan_step: losses {rows}")
+    _line("21a", "cgan_step", t0, clock="host_clock_after_sync",
+          card=json.dumps(card), batch=batch, tile=dataset.tile_size,
+          n_res_blocks=9, steps=iters, step_ms=f"{1e3 * step_s:.3f}",
+          samples_per_s=f"{batch / step_s:.2f}",
+          peak_memory_gb=(f"{(peak + base) / 1e9:.3f}" if cuda
+                          else "not_measured_on_cpu"),
+          launches=json.dumps(counts),
+          loss_D=f"{rows[-1][0]:.4f}", D_fake=f"{rows[-1][4]:.3e}")
+    return {"step_ms": 1e3 * step_s, "samples_per_s": batch / step_s,
+            "peak_bytes": peak + base if cuda else None, "launches": counts,
+            "batch": batch}
+
+
+def _cgan_grads(trainer) -> dict:
+    """Each network's gradients of the last step, by flax path, as f64
+    tensors."""
+    from baryon_painter_tpu_torch.convert import to_jax_variables
+    out = {}
+    for net, model in (("g", trainer.generator),
+                       ("d", trainer.discriminator)):
+        tree = to_jax_variables(model, value=lambda p: p.grad.double())
+        out[net] = _flat_tree(tree["params"])
+    return out
+
+
+def _flat_tree(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v, np.float64)
+    return out
+
+
+def _cgan_stats(trainer) -> dict:
+    from baryon_painter_tpu_torch.convert import to_jax_variables
+    return {net: _flat_tree(to_jax_variables(model)["batch_stats"])
+            for net, model in (("g", trainer.generator),
+                               ("d", trainer.discriminator))}
+
+
+def cgan_f64_errors(f32, f64, m32: dict, m64: dict) -> dict:
+    """21b's readings: each loss's relative difference and each mean
+    probability's in its logarithm (CGAN_F64_RTOL's note), each gradient
+    leaf's (``step_grad_errors``' scaling with the analytically zero leaves
+    under the network's largest entry) and each running-state leaf's
+    relative to its own largest entry; f64 is the reference."""
+    from baryon_painter_tpu_torch.train.cgan import zero_gradient_leaves
+    rel = lambda k: abs(float(m32[k]) - float(m64[k])) / abs(float(m64[k]))
+    metrics = {k: rel(k) for k in ("loss_D", "loss_G_adv",
+                                   "loss_G_perceptual")}
+    for k in ("D_real", "D_fake"):
+        want = np.log(float(m64[k]))
+        metrics[k] = abs(np.log(float(m32[k])) - want) / abs(want)
+    g32, g64 = _cgan_grads(f32), _cgan_grads(f64)
+    zero = set(zero_gradient_leaves(f64.generator))
+    grads = {}
+    for net in ("g", "d"):
+        top = max(np.abs(v).max() for v in g64[net].values())
+        for k, want in g64[net].items():
+            scale = top if k in zero else np.abs(want).max()
+            grads[f"{net}/{k}"] = float(np.abs(g32[net][k] - want).max()
+                                        / scale)
+    s32, s64 = _cgan_stats(f32), _cgan_stats(f64)
+    stats = {f"{net}/{k}": float(np.abs(s32[net][k] - want).max()
+                                 / max(np.abs(want).max(), 1e-30))
+             for net in ("g", "d") for k, want in s64[net].items()}
+    # printed, not held: the mean probabilities' own relative distance
+    probs = {k: rel(k) for k in ("D_real", "D_fake")}
+    return {"metrics": metrics, "grads": grads, "stats": stats,
+            "probabilities_rel": probs}
+
+
+def cgan_parity(device, dataset, batch: int = CGAN_BATCH) -> dict:
+    """Phase 21b: the f32 step against the same step with both networks in
+    f64 (the batch and the state the same; the first whole-model f64
+    reference of a training step), from the committed fiducial-adv state
+    and again after ``reinit_discriminator(7)`` (a fresh D against a
+    trained G: the other regime of the game); held to CGAN_F64_RTOL and
+    STEP_GRAD_TOL (``cgan_f64_errors``). Then a step with K2 against a
+    step with the plain gather (``use_kernel=False``) from the same state,
+    under cuDNN's deterministic algorithms: every metric and the whole
+    state after it equal bit for bit."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    idx = _cgan_idx(dataset, batch)
+    regimes = {}
+    for regime in ("committed", "reinit_d"):
+        runs = {}
+        for label, dtype in (("f32", None), ("f64", torch.float64)):
+            tr = _cgan_trainer(device, dataset, dtype=dtype,
+                               batch_size=batch)
+            if regime == "reinit_d":
+                tr.reinit_discriminator(7)
+            runs[label] = (tr, tr.step_indices(idx, CGAN_LOOP_LR))
+        errs = cgan_f64_errors(runs["f32"][0], runs["f64"][0],
+                               runs["f32"][1], runs["f64"][1])
+        held = ("metrics", "grads", "stats")
+        worst = {k: max(errs[k], key=errs[k].get) for k in held}
+        reading = {k: (worst[k], errs[k][worst[k]]) for k in held}
+        regimes[regime] = {"errors": errs, "worst": reading,
+                           "D_fake": float(runs["f64"][1]["D_fake"])}
+        del runs
+        print(f"  21b {regime}: worst metric {reading['metrics']}, "
+              f"gradient {reading['grads']}, state {reading['stats']}; "
+              f"D_fake {regimes[regime]['D_fake']:.3e}, the mean "
+              f"probabilities' relative distance "
+              f"{errs['probabilities_rel']}", flush=True)
+        if not (reading["metrics"][1] <= CGAN_F64_RTOL
+                and reading["grads"][1] <= STEP_GRAD_TOL
+                and reading["stats"][1] <= CGAN_F64_RTOL):
+            raise AssertionError(f"cgan f32 step against f64 ({regime}): "
+                                 f"{reading}")
+    with _cudnn_algorithms(True):
+        pair = {}
+        for label, use_kernel in (("k2", "auto"), ("plain", False)):
+            tr = _cgan_trainer(device, dataset, use_kernel=use_kernel,
+                               batch_size=batch)
+            pair[label] = (tr, tr.step_indices(idx, CGAN_LOOP_LR))
+    (tk, mk), (tp, mp) = pair["k2"], pair["plain"]
+    equal = (all(torch.equal(mk[k], mp[k]) for k in mk)
+             and state_distance_gan(tk, tp) == 0)
+    del pair
+    if not equal:
+        raise AssertionError("cgan: the K2 step and the plain-gather step "
+                             "differ")
+    _line("21b", "cgan_parity", t0, batch=batch,
+          **{f"{r}_worst_{k}": f"{v[0]}:{v[1]:.3e}"
+             for r, res in regimes.items() for k, v in res["worst"].items()},
+          k2_vs_plain_gather_equal=equal)
+    return {"regimes": regimes, "k2_vs_plain_equal": equal}
+
+
+CGAN_MODES = {
+    "feature_matching": {"feature_matching": True},
+    "calibration": {"adversarial_weight": 0.0},
+    "freeze_bn_stats": {"freeze_bn_stats": True},
+    "pk_per_z": {"pk_loss_weight": CGAN_PK_WEIGHT, "pk_loss_per_z": True},
+    "reinit_d": {},
+}
+
+
+def cgan_modes(device, dataset, batch: int = CGAN_BATCH) -> dict:
+    """Phase 21c: one step from the committed fiducial-adv state in each
+    mode that changes the step's graph (``CGAN_MODES``; ``reinit_d`` the
+    default step after ``reinit_discriminator(7)``), each with finite
+    losses; calibration moves none of D's parameters and state and none of
+    G's state, ``freeze_bn_stats`` none of G's state (D's moves)."""
+    t0 = time.perf_counter()
+    idx = _cgan_idx(dataset, batch)
+    out = {}
+    for mode, config in CGAN_MODES.items():
+        tr = _cgan_trainer(device, dataset, batch_size=batch, **config)
+        if mode == "reinit_d":
+            tr.reinit_discriminator(7)
+        before = {net: {k: v.clone() for k, v in m.state_dict().items()}
+                  for net, m in (("g", tr.generator),
+                                 ("d", tr.discriminator))}
+        m = tr.step_indices(idx, CGAN_LOOP_LR)
+        after = {"g": tr.generator.state_dict(),
+                 "d": tr.discriminator.state_dict()}
+        buffers = {"g": {n for n, _ in tr.generator.named_buffers()},
+                   "d": {n for n, _ in tr.discriminator.named_buffers()}}
+        moved = {f"{net}_{kind}": any(
+            not torch.equal(before[net][k], after[net][k])
+            for k in before[net] if (k in buffers[net]) == (kind == "state"))
+            for net in ("g", "d") for kind in ("params", "state")}
+        row = dict(zip(("loss_D", "loss_G_adv", "loss_G_perceptual",
+                        "D_real", "D_fake"), tr.stats_tuple(m)))
+        row["pk_loss"] = float(m["pk_loss"])
+        out[mode] = {"metrics": row, "moved": moved}
+        print(f"  21c {mode}: " + " ".join(
+            f"{k}={v:.4e}" for k, v in row.items()) + f" moved={moved}",
+            flush=True)
+        del tr
+        ok = all(np.isfinite(v) for v in row.values())
+        if mode == "calibration":
+            ok = ok and not (moved["d_params"] or moved["d_state"]
+                             or moved["g_state"]) and moved["g_params"]
+        if mode == "freeze_bn_stats":
+            ok = ok and not moved["g_state"] and moved["d_state"]
+        if mode == "pk_per_z":
+            ok = ok and row["pk_loss"] > 0
+        if not ok:
+            raise AssertionError(f"cgan mode {mode}: {out[mode]}")
+    _line("21c", "cgan_modes", t0, modes=",".join(out))
+    return out
+
+
+def cgan_train_loop(device, dataset, batch: int = CGAN_BATCH,
+                    pepoch: int = CGAN_LOOP_PEPOCH,
+                    validation: int = CGAN_LOOP_VALIDATION,
+                    card=None) -> dict:
+    """Phase 21d, a main path: ``train()`` through the CGAN training CLI's
+    code (scripts/train_cgan_torch.py: ``parse_args``, ``build``, ``run``)
+    from the committed fiducial-adv state (``--resume-from``; it holds no
+    loop progress, so the run starts at sample 0), on phase 5's stacks with
+    a held-out stack as the test data, under cuDNN's deterministic
+    algorithms: CGAN_LOOP_PEPOCHS pepochs of ``pepoch`` samples at
+    ``batch``, validation every ``validation`` samples, a checkpoint
+    every pepoch; timed (host clock, synchronised), exactly one K2 launch a
+    step; the same steps through ``step_indices`` on a trainer from the
+    same state, timed; then ``run(--resume-from`` the first checkpoint``)``
+    into a copy of it and the statistics files: the final state (both
+    networks, their states and Adams), both statistics files and the final
+    checkpoint's bytes (loop progress and data RNG too), equal to the
+    uninterrupted run's bit for bit. Returns the final trainer and
+    checkpoint for 21e."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    twin = _load_cli(TRAIN_CGAN_CLI)
+    datasets = (dataset, held_out_data(dataset))
+    n_samples = CGAN_LOOP_PEPOCHS * pepoch
+    n_steps = n_samples // batch
+    n_evals = n_samples // validation
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+
+    def argv(out, resume_from):
+        return ["--output-path", str(root / out), "--n-pepoch",
+                str(CGAN_LOOP_PEPOCHS), "--pepoch-size", str(pepoch),
+                "--batch-size", str(batch), "--learning-rate",
+                str(CGAN_LOOP_LR), "--checkpoint-frequency", str(pepoch),
+                "--validation-loss-frequency", str(validation),
+                "--validation-loss-batch-size", str(batch),
+                "--device-data", "--device", str(device), "--resume-from",
+                str(resume_from)]
+
+    with _cudnn_algorithms(True):
+        warm = twin.build(twin.parse_args(argv("warm", REPO / CGAN_ADV_PATH)),
+                          datasets)
+        warm.step_indices(_cgan_idx(dataset, batch), CGAN_LOOP_LR)
+        warm.eval_loss(datasets[1].get_raw_batch(np.arange(batch)))
+        del warm
+        plan = []
+        scan = None
+
+        def recording(trainer):
+            nonlocal scan
+            scan = trainer.step_scan
+
+            def step_scan(idx, lr):
+                plan.append((idx, lr))
+                return scan(idx, lr)
+            trainer.step_scan = step_scan
+
+        build = twin.build
+
+        def build_recording(args, data=None):
+            trainer = build(args, data)
+            recording(trainer)
+            return trainer
+
+        twin.build = build_recording
+        _reset_launches()
+        _sync(device)
+        try:
+            full = twin.run(argv("full", REPO / CGAN_ADV_PATH), datasets)
+        finally:
+            twin.build = build
+        _sync(device)
+        train_s = full["seconds"]
+        counts = _launches()
+        trainer = full["trainer"]
+        tstats, vstats = full["training_stats"], full["validation_stats"]
+        _expect_launches("cgan_train_loop", counts,
+                         {"k2": n_steps} if cuda else {})
+        if (tstats.n_batches != n_steps or vstats.n_batches != n_evals
+                or sum(len(i) for i, _ in plan) != n_steps
+                or not np.isfinite(tstats.loss_terms["loss_D"]["all"]).all()):
+            raise AssertionError(
+                f"cgan_train_loop: {tstats.n_batches} training and "
+                f"{vstats.n_batches} validation rows, expected {n_steps} "
+                f"and {n_evals}")
+        replay = twin.build(twin.parse_args(argv("replay",
+                                                 REPO / CGAN_ADV_PATH)),
+                            datasets)
+        replay.restore(str(REPO / CGAN_ADV_PATH))
+        _sync(device)
+        t = time.perf_counter()
+        for idx, lr in plan:
+            for row in idx:
+                replay.step_indices(row, lr)
+        _sync(device)
+        replay_s = time.perf_counter() - t
+        replay_distance = state_distance_gan(replay, trainer)
+        del replay
+        first = f"checkpoint_sample{pepoch:0>10}"
+        (root / "resumed").mkdir()
+        for f in os.listdir(root / "full"):
+            if f.startswith(first) or f.endswith(".txt"):
+                (root / "resumed" / f).write_bytes(
+                    (root / "full" / f).read_bytes())
+        res = twin.run(argv("resumed", root / "resumed" / first), datasets)
+        resumed = state_distance_gan(res["trainer"], trainer)
+        del res
+    stats_equal = all((root / "resumed" / f).read_bytes()
+                      == (root / "full" / f).read_bytes()
+                      for f in ("training_stats.txt", "validation_stats.txt",
+                                "model_state.msgpack"))
+    if resumed != 0 or not stats_equal:
+        raise AssertionError(
+            f"cgan_train_loop: the resumed run lies {resumed:.3e} from the "
+            f"uninterrupted one; statistics files equal: {stats_equal}")
+    _line("21d", "cgan_train_loop", t0, clock="host_clock_after_sync",
+          card=json.dumps(card), cudnn="deterministic", steps=n_steps,
+          evals=n_evals, train_s=f"{train_s:.3f}",
+          train_samples_per_s=f"{n_samples / train_s:.2f}",
+          step_indices_s=f"{replay_s:.3f}",
+          step_indices_samples_per_s=f"{n_samples / replay_s:.2f}",
+          loop_cost_pct=f"{100 * (train_s / replay_s - 1):.2f}",
+          launches=json.dumps(counts),
+          replay_distance=f"{replay_distance:.3e}", resumed_from=first,
+          resumed_distance=f"{resumed:.3e}", stats_files_equal=stats_equal,
+          loss_D_mavg_last=f"{tstats.loss_terms['loss_D']['mavg'][-1]:.4f}")
+    return {"launches": counts, "steps": n_steps, "evals": n_evals,
+            "train_s": train_s, "samples_per_s": n_samples / train_s,
+            "step_indices_samples_per_s": n_samples / replay_s,
+            "replay_distance": replay_distance, "resumed_distance": resumed,
+            "stats_files_equal": stats_equal, "trainer": trainer,
+            "model": str(root / "full" / "model"), "tmp": tmp}
+
+
+_GAN_MODEL_STATE = ("g_params", "g_stats", "g_opt", "d_params", "d_stats",
+                    "d_opt", "step")
+
+
+def state_distance_gan(a, b) -> float:
+    """max |a - b| over two CGAN trainers' model state (both networks,
+    their states, Adams and the step)."""
+    pick = lambda t: {k: t[k] for k in _GAN_MODEL_STATE}
+    la = _flat_tree(pick(a.state_tree()))
+    lb = _flat_tree(pick(b.state_tree()))
+    if la.keys() != lb.keys():
+        raise AssertionError(f"state trees differ in keys: "
+                             f"{sorted(set(la) ^ set(lb))[:5]}")
+    return max(float(np.abs(la[k] - lb[k]).max(initial=0.0)) for k in la)
+
+
+def cgan_from_trainer(device, loop: dict,
+                      n_tiles: int = CGAN_PAINT_TILES) -> dict:
+    """Phase 21e: ``CGANPainter.from_trainer(trainer,
+    fused_inference=True)`` on 21d's final trainer, ``n_tiles`` tiles in one
+    call: exactly 9 K1 launches on the card; held to the same trainer's
+    unfused paint with cuDNN off at the golden tolerance, and equal to
+    ``load_painter`` on 21d's final checkpoint (both under cuDNN's
+    deterministic algorithms)."""
+    from baryon_painter_tpu_torch.painter import CGANPainter, load_painter
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    trainer = loop["trainer"]
+    tile = trainer.training_data.tile_size
+    tiles = golden_inputs(tile, n_tiles)
+    zs = np.linspace(0.0, 1.0, n_tiles).astype(np.float32)
+    fused = CGANPainter.from_trainer(trainer, fused_inference=True)
+    loaded = load_painter(loop["model"], fused_inference=True, device=device)
+    # cuDNN's default algorithms may differ from call to call; the
+    # comparison with load_painter's paint is bit for bit
+    with _cudnn_algorithms(True):
+        _reset_launches()
+        painted = fused.paint_batch(tiles, zs)
+        _sync(device)
+        counts = _launches()
+        loaded = loaded.paint_batch(tiles, zs)
+    _expect_launches("cgan from_trainer paint", counts,
+                     {"k1": 9} if device.type == "cuda" else {})
+    with _cudnn(False):
+        plain = CGANPainter.from_trainer(trainer).paint_batch(tiles, zs)
+    ratio = _golden_ratio(painted, plain)
+    equal = bool(torch.equal(loaded, painted))
+    finite = bool(torch.isfinite(painted).all())
+    if not (ratio <= 1.0 and equal and finite):
+        raise AssertionError(f"cgan from_trainer: {ratio:.4f} of the golden "
+                             f"tolerance from the unfused paint, "
+                             f"load_painter equal {equal}, finite {finite}")
+    _line("21e", "cgan_from_trainer", t0, tiles=n_tiles,
+          launches=json.dumps(counts), vs_unfused_ratio=f"{ratio:.4f}",
+          load_painter_equal=equal)
+    return {"launches": counts, "ratio": ratio, "load_painter_equal": equal}
+
+
+# 21f: the gate twin's CGAN training leg, short
+CGAN_GATE_ARGS = ("--model", "cgan", "--n-samples", "48", "--batch", "24",
+                  "--adv-weight", "1", "--pk-loss-weight", "1e4",
+                  "--freeze-bn")
+
+
+def cgan_gate_leg(device, gate_run: dict, args=CGAN_GATE_ARGS,
+                  card=None) -> dict:
+    """Phase 21f: the gate twin's CGAN training leg
+    (``scripts/fidelity_check_torch.py --model cgan --resume``, ``args``)
+    from a copy of fiducial-adv, on phase 20b's fiducial-adv datasets (its
+    stacks and cached truth spectra, so the gate's set-up is not paid
+    again): it trains (K2 one launch a step), paints through
+    ``CGANPainter.from_trainer`` and K1 (9 launches a paint call) and
+    prints its JSON line, whose readings must be finite."""
+    import io
+    spread = _load_cli(SPREAD_CLI)
+    gate = spread.gate
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    base = REPO / CGAN_ADV_PATH
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_base = Path(tmp) / "fiducial-adv"
+        for suffix in ("_state.msgpack", "_meta.json"):
+            (Path(tmp) / f"fiducial-adv{suffix}").write_bytes(
+                Path(f"{base}{suffix}").read_bytes())
+        argv = (spread.dataset_flags(str(base)) + list(args)
+                + ["--resume", "--checkpoint", str(ckpt_base), "--workdir",
+                   tmp, "--device", str(device)])
+        _reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            report = gate.main(argv, data=gate_run["cgan_adv"]["data"])
+        _sync(device)
+        counts = _launches()
+    line = out.getvalue().strip().splitlines()[-1]
+    print(line, flush=True)
+    n = int(args[list(args).index("--n-samples") + 1])
+    steps = n // int(args[list(args).index("--batch") + 1])
+    values = [v for d in report["per_z_by_dtype"].values()
+              for r in d.values() for v in r.values()]
+    cuda = device.type == "cuda"
+    ok = (json.loads(line) == report and all(np.isfinite(values))
+          and counts["k2"] == (steps if cuda else 0)
+          and counts["k1"] % 9 == 0 and (counts["k1"] > 0) == cuda
+          and all(v == 0 for k, v in counts.items()
+                  if k not in ("k1", "k2")))
+    if not ok:
+        raise AssertionError(f"cgan gate leg: launches {counts}, report "
+                             f"{report}")
+    _line("21f", "cgan_gate_leg", t0, card=json.dumps(card), steps=steps,
+          launches=json.dumps(counts), paint_calls=counts["k1"] // 9,
+          pass_5pct=report["pass_5pct"])
+    return {"launches": counts, "report": report, "steps": steps}
+
+
+def cgan_train(device, dataset, gate_run: dict, card=None,
+               batch: int = CGAN_BATCH, step_iters: int = 5,
+               loop: dict = None, paint_tiles: int = CGAN_PAINT_TILES,
+               gate_args=CGAN_GATE_ARGS) -> dict:
+    """Phase 21: CGAN training at full width from fiducial-adv (21a the
+    step, 21b f32 against f64 and K2 against the plain gather, 21c the
+    modes, 21d the run and its resume, 21e ``from_trainer``'s paint, 21f
+    the gate twin's training leg); ``loop`` takes ``cgan_train_loop``'s
+    ``pepoch`` and ``validation``."""
+    out = {"step": cgan_step(device, dataset, batch=batch, iters=step_iters,
+                             card=card),
+           "parity": cgan_parity(device, dataset, batch=batch),
+           "modes": cgan_modes(device, dataset, batch=batch)}
+    run = cgan_train_loop(device, dataset, batch=batch, card=card,
+                          **(loop or {}))
+    try:
+        out["paint"] = cgan_from_trainer(device, run, n_tiles=paint_tiles)
+    finally:
+        run.pop("tmp").cleanup()
+    run.pop("trainer")
+    out["loop"] = run
+    out["gate"] = cgan_gate_leg(device, gate_run, args=gate_args, card=card)
+    return out
+
+
+def _add_cgan_train_launches(entries: list, cgan_train: dict):
+    """Phase 21's launches on the f32 entries of K2 (21a's timed steps,
+    21d's run) and K1 (21e's ``from_trainer`` paint call)."""
+    for entry in entries:
+        if entry["dtype"] != "float32":
+            continue
+        if entry["name"] == "gather_tiles":
+            entry["cgan_step_launches"] = cgan_train["step"]["launches"]["k2"]
+            entry["cgan_train_loop_launches"] = cgan_train["loop"][
+                "launches"]["k2"]
+        if entry["name"] == "res_block_infer":
+            entry["cgan_from_trainer_launches"] = cgan_train["paint"][
+                "launches"]["k1"]
+
+
 def _add_gate_launches(entries: list, gate_run: dict, pk: dict):
     """Phase 20's launches on their kernels-record entries: K1's and
     K3-fwd's in one gate paint call (20a's CVAE, 20b's CGAN), K2's and
@@ -3592,6 +4186,8 @@ def _add_gate_launches(entries: list, gate_run: dict, pk: dict):
         if name == "res_block_infer" and not bf16:
             entry["gate_launches"] = gate_run["cvae"]["launches"]["k1"]
             entry["gate_cgan_launches"] = gate_run["cgan"]["launches"]["k1"]
+            entry["gate_cgan_adv_launches"] = gate_run["cgan_adv"][
+                "launches"]["k1"]
         if name == "head_stack_fwd" and not bf16:
             entry["gate_launches"] = gate_run["cvae"]["launches"]["k3_fwd"]
         keys = {"gather_tiles": "k2", "head_stack_fwd": "k3_fwd",
@@ -3707,7 +4303,7 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                    training_bf16_k4: dict = None,
                    lightcone: dict = None, cgan: dict = None,
                    train_loop: dict = None, gate_run: dict = None,
-                   pk: dict = None) -> dict:
+                   pk: dict = None, cgan_train: dict = None) -> dict:
     """The ``{"kernels": [...]}`` record of the run, each entry with its
     ``dtype``: K1 in f32, its bf16 numbers beside it; K2, K3-fwd and K3-bwd
     with their launches in the timed training steps; K4's four kernels
@@ -3728,7 +4324,10 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     the f32 K1, K2 and K3 entries carry their launches in the training
     run and its final checkpoint's paint (``train_loop_launches``). Given
     phase 20, K1 and K3-fwd carry their launches in a gate paint call and
-    K2 and K3 theirs in the spectral step (``_add_gate_launches``)."""
+    K2 and K3 theirs in the spectral step (``_add_gate_launches``). Given
+    phase 21, K2 carries its launches in the CGAN's timed steps and run,
+    and K1 in a ``from_trainer`` paint call
+    (``_add_cgan_train_launches``)."""
     f32 = next(c for c in checks if c["dtype"] == "float32")
     bf16 = next(c for c in checks if c["dtype"] == "bfloat16")
     def k3(name, key, replaces, heads=heads, launches=None):
@@ -3807,4 +4406,6 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         _add_train_loop_launches(entries, train_loop)
     if gate_run is not None and pk is not None:
         _add_gate_launches(entries, gate_run, pk)
+    if cgan_train is not None:
+        _add_cgan_train_launches(entries, cgan_train)
     return {"kernels": entries}

@@ -106,6 +106,10 @@ def _decode_data_rng(arr) -> np.random.Generator:
 
 _PROGRESS_KEYS = ("n_samples", "i_pepoch", "last_pepoch_samples",
                   "last_val_loss", "last_ckpt", "last_report")
+# the CGAN loop checkpoints no report counter (the JAX package's
+# _GAN_PROGRESS_KEYS)
+_GAN_PROGRESS_KEYS = ("n_samples", "i_pepoch", "last_pepoch_samples",
+                      "last_val_loss", "last_ckpt")
 
 
 def _step_seed(seed: int, step: int, stream: int = 0) -> int:

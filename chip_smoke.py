@@ -62,9 +62,20 @@ convolutions', the f32 scores at the JAX package's prior noise and over
 noise seeds against the committed reports, the bf16 scores against the
 JAX package's bf16 on the CPU (baryon_painter_tpu_torch/data/
 gate_reference.npz), and the committed reports' bf16 scores printed
-beside the port's; and the spectral fine-tuning step at
+beside the port's (both CGANs, fiducial and fiducial-adv); and the
+spectral fine-tuning step at
 batch 24 from the fiducial weights (exactly one K2, two K3-fwd and two
-K3-bwd launches a step) in f32 and bf16, timed, against its plain version.
+K3-bwd launches a step) in f32 and bf16, timed, against its plain version;
+then CGAN training (phase 21) at full width from the committed
+fiducial-adv state (G, D, both Adams) on the 512^2 stacks at batch 6, f32:
+the step timed with its peak memory (exactly one K2 launch a step), the
+f32 step against the same step in f64 and a K2 step against a
+plain-gather step, one step in each mode (feature matching, calibration,
+frozen statistics, the spectral term, a fresh discriminator), ``train()``
+through the CGAN training CLI's code (scripts/train_cgan_torch.py) timed
+beside ``step_indices`` and resumed bit for bit, the trained generator
+painted through ``CGANPainter.from_trainer`` and K1 (exactly 9 launches a
+call), and the gate twin's CGAN training leg.
 Everything is timed.
 The phases live in ``baryon_painter_tpu_torch/smoke.py``; each prints one
 line with its seconds. The last lines are the kernels record (JSON), the
@@ -146,6 +157,8 @@ def main() -> int:
     pk = smoke.pk_step(device, dataset, card=card,
                        f32_ms=training["step_ms"],
                        bf16_ms=training_bf16["step_ms"])
+    # CGAN training (21), its gate leg on 20b's fiducial-adv stacks
+    cgan_train = smoke.cgan_train(device, dataset, gate, card=card)
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
     print(json.dumps(smoke.kernels_record(
@@ -153,7 +166,8 @@ def main() -> int:
         heads_bf16=heads_bf16, paint_bf16=paint_bf16,
         training_bf16=training_bf16, conv_bn_bf16=conv_bn_bf16,
         training_bf16_k4=training_bf16_k4, lightcone=lightcone, cgan=cgan,
-        train_loop=train_loop, gate_run=gate, pk=pk)))
+        train_loop=train_loop, gate_run=gate, pk=pk,
+        cgan_train=cgan_train)))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

@@ -25,19 +25,27 @@ the CGAN's upsample mode from the checkpoint's meta (read with the port's
 msgpack reader). The paint runs on the card through K1 (the fused
 residual blocks) and, for the CVAE, K3 (the fused heads); the truth
 spectra of each (redshift, seed, tile count)
-are computed once and kept on the device. The training leg (CVAE only)
-trains through K2 (the stack cache) and, with ``BPT_FUSED_HEADS=1``, K3,
-and writes ``training_stats_cvae[_pkft].txt`` (the spectral fine-tune adds
-a ``pk_loss`` column) beside the checkpoint.
+are computed once and kept on the device. The training leg trains the
+CVAE through K2 (the stack cache) and, with ``BPT_FUSED_HEADS=1``, K3, or
+the CGAN (``--model cgan``, f32, as the JAX script trains it) through K2,
+from scratch or from a checkpoint (``--resume``, ``--reinit-d SEED`` with a
+fresh discriminator; ``--adv-weight``, ``--perc-weight``,
+``--feature-matching``, ``--freeze-bn``, ``--clip-grad``,
+``--pk-loss-weight``; the CGAN's lr decays 0.85 per 1568 samples unless
+the spectral term is on), and writes ``training_stats_<model>[_pkft].txt``
+(the spectral fine-tune adds a ``pk_loss`` column) beside the checkpoint;
+``--eval-every`` scores the gate during training and keeps the best state
+(``--select-within-run``: not seeded with the restored state's score). The
+CGAN's gate paints its trainer's live generator through
+``CGANPainter.from_trainer`` and K1.
 
 The prior's noise is drawn from a ``torch.Generator`` seeded ``--seed``
 (``pk_errors``' ``eps_seed``), so a score is not the JAX package's draw
 (``jax.random.PRNGKey``); ``scripts/fidelity_spread_torch.py`` measures how
 far the score moves with that draw.
 
-Not ported: CGAN training (``--model cgan`` without ``--eval-only``, and
-``--reinit-d``; ROADMAP.md, section 1, item 9) and ``--save-figures``
-(item 11), which raise. Imports only torch, numpy and the port.
+Not ported: ``--save-figures`` (ROADMAP.md, section 1, item 11), which
+raises. Imports only torch, numpy and the port.
 """
 import argparse
 import copy
@@ -248,16 +256,19 @@ def parse_args(argv=None):
                         "(bf16), 'f32' (pinned f32), 'both' (score and "
                         "select on the worst)")
     p.add_argument("--adv-weight", type=float, default=1.0,
-                   help="CGAN training only (not ported)")
+                   help="CGAN: weight of the adversarial term "
+                        "(CGANTrainConfig.adversarial_weight; 0 = the "
+                        "calibration mode)")
     p.add_argument("--perc-weight", type=float, default=2.5,
-                   help="CGAN training only (not ported)")
+                   help="CGAN: lambda_perceptual")
     p.add_argument("--z-boost", default=None,
                    help="z:shares batch weighting for the spectral "
                         "fine-tune, e.g. '0:2', or 'auto'/'auto:K'")
     p.add_argument("--feature-matching", action="store_true",
-                   help="CGAN training only (not ported)")
+                   help="CGAN: feature matching for G's adversarial term")
     p.add_argument("--reinit-d", type=int, default=None, metavar="SEED",
-                   help="CGAN --resume only (not ported): raises")
+                   help="CGAN --resume only: re-initialise the "
+                        "discriminator (and its Adam) after the restore")
     p.add_argument("--freeze-bn", action="store_true",
                    help="keep the batch-norm running statistics at their "
                         "restored values (TrainConfig.freeze_bn_stats)")
@@ -387,12 +398,13 @@ def gate_legs(args, model_dtype):
     return legs
 
 
-def setup(args):
+def setup(args, data=None):
     """What a gate run works on, as a namespace: the synthetic datasets of
-    ``args`` (``train_ds``, ``val_ds``), the model restored or built (the
-    checkpoint's meta sets the architecture, transforms and CGAN upsample
-    mode; ``trainer``), the painter factory ``make_painter(dtype)`` over
-    the model's current weights (``fused=False``: the library's
+    ``args`` (``train_ds``, ``val_ds``; ``data`` passes them in instead,
+    as a caller that holds them already does), the model restored or built
+    (the checkpoint's meta sets the architecture, transforms and CGAN
+    upsample mode; ``trainer``), the painter factory ``make_painter(dtype)``
+    over the model's current weights (``fused=False``: the library's
     convolutions in place of K1 and K3) and the gate's dtype ``legs``. With
     ``--eval-only`` no trainer is built: the painters take the
     checkpoint's weights and the training set's transform statistics, as
@@ -402,8 +414,11 @@ def setup(args):
     from baryon_painter_tpu_torch.convert import to_jax_variables
     from baryon_painter_tpu_torch.models.cvae import (
         CVAE, fiducial_cvae_architecture)
+    from baryon_painter_tpu_torch.models.cgan import CGANGenerator
     from baryon_painter_tpu_torch.painter import CGANPainter, CVAEPainter
     from baryon_painter_tpu_torch.train import checkpoint as ckpt
+    from baryon_painter_tpu_torch.train.cgan import (CGANTrainConfig,
+                                                     CGANTrainer)
     from baryon_painter_tpu_torch.train.trainer import (CVAETrainer,
                                                         TrainConfig)
     from baryon_painter_tpu_torch.transforms import transform_from_dict
@@ -427,7 +442,7 @@ def setup(args):
                  f"{ {f: t.to_dict() for f, t in restored.items()} } "
                  f"over the CLI flags")
         transforms = restored
-    train_ds, val_ds = datasets(args, transforms)
+    train_ds, val_ds = data or datasets(args, transforms)
     meta_arch = meta.get("model_architecture") if meta else None
     have_state = os.path.exists(ckpt_base + "_state.msgpack")
     if args.eval_only and not have_state:
@@ -439,6 +454,10 @@ def setup(args):
             f"it or --eval-only to score it (refusing to overwrite with a "
             f"fresh-seed run)")
     trainer = None
+    restoring = (args.resume or args.eval_only) and have_state
+    if restoring and args.reinit_d is not None and (
+            args.model != "cgan" or args.eval_only):
+        raise SystemExit("--reinit-d needs --model cgan --resume")
     if args.model == "cvae":
         arch = (meta_arch if meta_arch is not None else
                 fiducial_cvae_architecture(tile_size=args.tile,
@@ -473,24 +492,51 @@ def setup(args):
                                fused_inference=fused, fused_heads=fused,
                                dtype=dtype, seed=args.seed, device=device)
     else:
-        if args.reinit_d is not None:
-            raise NotImplementedError(
-                "--reinit-d re-initialises a CGAN discriminator for "
-                "training, which is not ported yet (ROADMAP.md, section 1, "
-                "item 9).")
-        state, _ = ckpt.load_checkpoint(ckpt_base)
-        arch = dict(meta_arch or {}, upsample=args.upsample)
-        variables = {"params": state["g_params"],
-                     "batch_stats": state.get("g_stats", {})}
-        paint_meta = ckpt.meta_from_dataset(train_ds, arch,
-                                            model_kind="cgan")
+        # the "model" leg paints the CGAN in bf16, as the committed reports
+        # score it; the CGAN trains in f32
         model_dtype = torch.bfloat16
-        _log("restored checkpoint")
+        if args.eval_only:
+            state, _ = ckpt.load_checkpoint(ckpt_base)
+            arch = dict(meta_arch or {}, upsample=args.upsample)
+            variables = {"params": state["g_params"],
+                         "batch_stats": state.get("g_stats", {})}
+            paint_meta = ckpt.meta_from_dataset(train_ds, arch,
+                                                model_kind="cgan")
+            _log("restored checkpoint")
 
-        def make_painter(dtype, fused=True):
-            return CGANPainter(variables=variables, meta=paint_meta,
-                               fused_inference=fused, dtype=dtype,
-                               device=device)
+            def make_painter(dtype, fused=True):
+                return CGANPainter(variables=variables, meta=paint_meta,
+                                   fused_inference=fused, dtype=dtype,
+                                   device=device)
+        else:
+            gen_kw = {"upsample": args.upsample}
+            if meta_arch is not None:
+                gen_kw.update(in_channels=meta_arch.get("in_channels", 2),
+                              n_res_blocks=meta_arch.get("n_res_blocks", 9))
+            trainer = CGANTrainer(
+                train_ds, test_data=val_ds,
+                generator=CGANGenerator(spectral_norm=True, **gen_kw),
+                config=CGANTrainConfig(
+                    seed=args.seed, batch_size=args.batch,
+                    pk_loss_weight=args.pk_loss_weight,
+                    pk_loss_per_z=args.pk_loss_weight > 0,
+                    adversarial_weight=args.adv_weight,
+                    lambda_perceptual=args.perc_weight,
+                    feature_matching=args.feature_matching,
+                    freeze_bn_stats=args.freeze_bn,
+                    clip_grad_norm=args.clip_grad),
+                device_data=True, device=device)
+            if restoring:
+                trainer.restore(ckpt_base)
+                _log("restored checkpoint")
+                if args.reinit_d is not None:
+                    trainer.reinit_discriminator(args.reinit_d)
+                    _log(f"discriminator re-initialised (seed "
+                         f"{args.reinit_d})")
+
+            def make_painter(dtype, fused=True):
+                return CGANPainter.from_trainer(trainer, dtype=dtype,
+                                                fused_inference=fused)
 
     return SimpleNamespace(train_ds=train_ds, val_ds=val_ds, trainer=trainer,
                            make_painter=make_painter, ckpt_base=ckpt_base,
@@ -498,7 +544,10 @@ def setup(args):
                            legs=gate_legs(args, model_dtype))
 
 
-def main(argv=None):
+def main(argv=None, data=None):
+    """Run the gate of ``argv``; ``data`` ((training, validation)
+    datasets) replaces the synthetic stacks the flags describe, as
+    ``setup`` takes it. Prints and returns the JSON report."""
     args = parse_args(argv)
     redshifts = redshifts_of(args)
     shares, auto_boost = validate_fine_tune_args(args, list(redshifts))
@@ -506,17 +555,12 @@ def main(argv=None):
         raise NotImplementedError(
             "--save-figures: the validation figures are not ported yet "
             "(ROADMAP.md, section 1, item 11).")
-    if args.model == "cgan" and not args.eval_only:
-        raise NotImplementedError(
-            "--model cgan trains the CGAN, which is not ported yet "
-            "(ROADMAP.md, section 1, item 9); --eval-only scores a CGAN "
-            "checkpoint.")
 
     import torch
 
     from baryon_painter_tpu_torch.train.stats import TrainingStats
 
-    g = setup(args)
+    g = setup(args, data)
     train_ds, val_ds, trainer = g.train_ds, g.val_ds, g.trainer
     make_painter, legs = g.make_painter, g.legs
     ckpt_base, have_state = g.ckpt_base, g.have_state
@@ -537,9 +581,14 @@ def main(argv=None):
         return np.concatenate([train_ds.sample_indices(rng, counts[z], z=z)
                                for z in zs])
 
+    cgan = args.model == "cgan"
+    # the CGAN's statistics columns: the trainer's own, less its lr and
+    # batch size
+    terms = list(trainer.stats_labels()[:-2]) if (cgan and trainer) else None
     stats = None
     if not args.eval_only:
-        labels = list(trainer.model.get_stats_labels())
+        labels = (list(terms) if cgan
+                  else list(trainer.model.get_stats_labels()))
         # a file per phase: the fine-tune adds a column, and a resumed
         # TrainingStats needs an identical header
         suffix = "_pkft" if stratify else ""
@@ -557,8 +606,11 @@ def main(argv=None):
     def record(m, k, done):
         if stats is None:
             return
-        parts = [m["elbo"].reshape(k, -1), -m["kl"].reshape(k, -1),
-                 m["log_likelihood"].reshape(k, -1)]
+        if cgan:
+            parts = [m[key].reshape(k, -1) for key in terms]
+        else:
+            parts = [m["elbo"].reshape(k, -1), -m["kl"].reshape(k, -1),
+                     m["log_likelihood"].reshape(k, -1)]
         if "log_likelihood_fixed_var" in m:
             parts += [m["log_likelihood_fixed_var"].reshape(k, -1),
                       m["log_likelihood_free_var"].reshape(k, -1)]
@@ -591,6 +643,8 @@ def main(argv=None):
         return "  boost-> " + ",".join(f"z={z:g}" for z in sorted(binding))
 
     def snapshot():
+        if cgan:
+            return trainer.state_tree()
         opt = trainer.optimizer
         return copy.deepcopy({
             "model": trainer.model.state_dict(), "mu": opt.mu, "nu": opt.nu,
@@ -598,6 +652,9 @@ def main(argv=None):
 
     @torch.no_grad()
     def load_snapshot(s):
+        if cgan:
+            trainer._load_state(s)
+            return
         trainer.model.load_state_dict(s["model"])
         for dst, src in zip(trainer.optimizer.mu + trainer.optimizer.nu,
                             s["mu"] + s["nu"]):
@@ -649,11 +706,20 @@ def main(argv=None):
     while done < n_steps:
         k = min(args.scan, n_steps - done)
         idx = np.stack([step_indices() for _ in range(k)])
-        # fiducial-style step decay over the run
-        lr = args.lr * (0.5 ** (4 * done // n_steps))
-        m = trainer.step_scan(idx, lr=lr, alpha_var=args.alpha_var,
-                              beta_KL=args.beta_kl)
-        record(m, k, done)
+        if cgan:
+            # lr 5e-5 decayed 0.85 per 1568-sample pepoch; with the
+            # spectral fine-tune on, --lr as it is
+            lr = (args.lr if stratify
+                  else args.lr * 0.85 ** (done * args.batch // 1568))
+            m = trainer.step_scan(idx, lr=lr)
+            record(m, k, done)
+            m = {"elbo": m["loss_G_adv"], "grad_norm": m["grad_norm"]}
+        else:
+            # fiducial-style step decay over the run
+            lr = args.lr * (0.5 ** (4 * done // n_steps))
+            m = trainer.step_scan(idx, lr=lr, alpha_var=args.alpha_var,
+                                  beta_KL=args.beta_kl)
+            record(m, k, done)
         done += k
         maybe_eval(done)
         gn_window_max = max(gn_window_max, float(m["grad_norm"].max()))

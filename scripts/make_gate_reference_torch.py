@@ -12,12 +12,16 @@ the committed evaluations that phase 20 repeats (``scripts/
 fidelity_check.py``'s ``pk_errors`` on the synthetic validation stacks):
 
 - the fiducial CVAE (512^2) at z = 0, 0.125, 0.25 (``smoke.GATE_CVAE_Z``),
-  and the CGAN (256^2) at its three redshifts, 48 tiles each;
+  and both CGANs (fiducial and fiducial-adv, 256^2) at their three
+  redshifts, 48 tiles each;
 - in f32 (``jax.default_matmul_precision("highest")``, as the JAX script's
-  f32 leg), in bf16 jitted (the JAX painter as it runs), and in bf16 with
+  f32 leg), in bf16 jitted (the JAX painter as it runs), in bf16 with
   the eval-mode batch norm's input pinned at its storage dtype by an
   optimization barrier (the source's rounding points, which ``jax.jit`` on
-  the CPU otherwise folds away);
+  the CPU otherwise folds away), and, for the CGANs, in bf16 through the
+  fused residual blocks (``fused_inference=True``: on the CPU the JAX
+  package's XLA version of K1, whose rounding points K1's are: the
+  products summed in f32, the inner activation rounded once);
 
 and stores the prior noise the CVAE paints with: the draws of
 ``PRNGKey(seed)`` in f32 and in bf16 (the bf16 model draws its noise in
@@ -25,7 +29,9 @@ bf16: other values), as (48, 16, 16), which the port's painter takes
 through ``eps``.
 
 Run: JAX_PLATFORMS=cpu python scripts/make_gate_reference_torch.py
-(about 4 minutes).
+(about 5 minutes). ``--case NAME`` (repeatable: ``cvae``, ``cgan``,
+``cgan_adv``) and ``--mode MODE`` (repeatable) score only those cases and
+modes and keep every other array of the existing file as it is.
 
 With ``--witness BASE --z Z`` it writes nothing and prints one JSON
 object instead: the JAX package's own noise spread of one committed f32
@@ -59,8 +65,10 @@ CASES = (
      (0.0, 0.125, 0.25), (0.0, 0.125, 0.25)),
     ("cgan", "trained_models/CGAN/fiducial/model", 256,
      (0.0, 0.5, 1.0), (0.0, 0.5, 1.0)),
+    ("cgan_adv", "trained_models/CGAN/fiducial-adv/model", 256,
+     (0.0, 0.5, 1.0), (0.0, 0.5, 1.0)),
 )
-MODES = ("f32", "bf16_jit", "bf16_pinned")
+MODES = ("f32", "bf16_jit", "bf16_pinned", "bf16_fused")
 
 
 def pinned_batch_norm():
@@ -105,9 +113,10 @@ def validation_set(tile, redshifts, root):
     return train, val
 
 
-def painter(kind, base, train, dtype):
+def painter(kind, base, train, dtype, fused=False):
     """The JAX gate's painter: the checkpoint's weights, the training
-    set's statistics (as ``from_trainer`` builds it)."""
+    set's statistics (as ``from_trainer`` builds it); ``fused`` (the
+    CGAN) with the fused residual blocks."""
     from baryon_painter_tpu.models.cgan import CGANGenerator
     from baryon_painter_tpu.models.cvae import CVAE
     from baryon_painter_tpu.painter import CGANPainter, CVAEPainter
@@ -123,7 +132,8 @@ def painter(kind, base, train, dtype):
     meta = dict(ckpt.meta_from_dataset(train, arch), model_kind="cgan")
     gen = CGANGenerator(dtype=dtype, **{k: arch[k] for k in (
         "in_channels", "n_res_blocks", "upsample") if k in arch})
-    return CGANPainter(generator=gen, variables=loaded.variables, meta=meta)
+    return CGANPainter(generator=gen, variables=loaded.variables, meta=meta,
+                       fused_inference=fused)
 
 
 def prior_noise(p, shape, dtype):
@@ -136,7 +146,10 @@ def prior_noise(p, shape, dtype):
     return np.asarray(eps[0, ..., 0].astype(np.float32))
 
 
-def main():
+def main(cases=None, modes=None):
+    """Score ``cases`` (names of ``CASES``; None: all) in ``modes`` (of
+    ``MODES``; None: all; ``bf16_fused`` for the CGANs only) and write them
+    into the reference file beside the other arrays."""
     import tempfile
 
     import jax
@@ -144,14 +157,24 @@ def main():
 
     import fidelity_check
     arrays = {}
+    if (cases is not None or modes is not None) and os.path.exists(OUT):
+        # the other cases' arrays as they are; the scored ones replaced
+        with np.load(OUT) as old:
+            arrays = {k: old[k] for k in old.files}
     for kind, base, tile, stack_z, zs in CASES:
+        if cases is not None and kind not in cases:
+            continue
         with tempfile.TemporaryDirectory() as root:
             train, val = validation_set(tile, stack_z, root)
             for mode in MODES:
+                if ((modes is not None and mode not in modes)
+                        or (mode == "bf16_fused" and kind == "cvae")):
+                    continue
                 dtype = None if mode == "f32" else jnp.bfloat16
                 undo = pinned_batch_norm() if mode == "bf16_pinned" else None
                 try:
-                    p = painter(kind, base, train, dtype)
+                    p = painter(kind, base, train, dtype,
+                                fused=mode == "bf16_fused")
                     if kind == "cvae":
                         h = tile // 32
                         arrays[f"{kind}_eps_{mode[:4]}"] = prior_noise(
@@ -254,8 +277,15 @@ if __name__ == "__main__":
                    help="a checkpoint base path (see the docstring)")
     p.add_argument("--z", type=float, default=None)
     p.add_argument("--seeds", type=int, default=8)
+    p.add_argument("--case", action="append", default=None,
+                   choices=[c[0] for c in CASES],
+                   help="score only this case (repeatable); the file's "
+                        "other arrays are kept")
+    p.add_argument("--mode", action="append", default=None, choices=MODES,
+                   help="score only this mode (repeatable); the file's "
+                        "other arrays are kept")
     a = p.parse_args()
     if a.witness:
         witness(a.witness, a.z, a.seeds)
     else:
-        main()
+        main(a.case, a.mode)

@@ -232,11 +232,57 @@ def test_training_leg_writes_pkft_stats_and_geometry(twin, tmp_path, capsys):
     capsys.readouterr()
 
 
+def test_cgan_training_leg(twin, tmp_path, capsys):
+    """The CGAN training leg: a fresh run, then a resumed spectral
+    fine-tune with a fresh discriminator; the statistics files carry the
+    trainer's columns (and pk_loss), the checkpoint the dataset geometry,
+    and the gate paints the trainer's live generator."""
+    common = ["--model", "cgan", "--tile", str(TILE), "--redshifts", "0,1",
+              "--n-stack", "2", "--batch", "2", "--scan", "2",
+              "--eval-tiles", "2", "--device", "cpu", "--workdir",
+              str(tmp_path)]
+    first = twin.main(common + ["--n-samples", "4"])
+    assert first["model"] == "cgan" and first["n_samples"] == 4
+    assert set(first["per_z_by_dtype"]) == {"f32", "model"}
+    header = (tmp_path / "training_stats_cgan.txt").read_text().splitlines()
+    assert header[0] == ("# Batch nr, sample nr, loss_D, loss_G_adv, "
+                         "loss_G_perceptual, D_real, D_fake")
+    assert len(header) == 3
+    report = twin.main(common + [
+        "--n-samples", "4", "--resume", "--reinit-d", "7",
+        "--pk-loss-weight", "1e4", "--eval-every", "2", "--freeze-bn",
+        "--feature-matching", "--adv-weight", "0.5", "--perc-weight", "2",
+        "--clip-grad", "10", "--select-within-run"])
+    rows = (tmp_path / "training_stats_cgan_pkft.txt").read_text(
+    ).splitlines()
+    assert rows[0].endswith(", D_fake, pk_loss") and len(rows) == 3
+    assert all(float(r.split()[-1]) > 0 for r in rows[1:])
+    assert all(np.isfinite(v["auto"]) for d in
+               report["per_z_by_dtype"].values() for v in d.values())
+    with open(tmp_path / "fidelity_model_cgan_meta.json") as f:
+        meta = json.load(f)
+    assert meta["model_kind"] == "cgan"
+    assert meta["fidelity_dataset"]["tile"] == TILE
+    g = twin.setup(twin.parse_args(common + [
+        "--resume", "--pk-loss-weight", "1e4", "--freeze-bn",
+        "--feature-matching", "--adv-weight", "0.5", "--perc-weight", "2",
+        "--clip-grad", "10"]))
+    cfg = g.trainer.config
+    assert (cfg.adversarial_weight, cfg.lambda_perceptual,
+            cfg.feature_matching, cfg.freeze_bn_stats, cfg.clip_grad_norm,
+            cfg.pk_loss_weight, cfg.pk_loss_per_z, cfg.batch_size) == (
+        0.5, 2.0, True, True, 10.0, 1e4, True, 2)
+    assert g.trainer.steps == 4 and g.trainer.device_cache is not None
+    capsys.readouterr()
+
+
 def test_what_the_gate_refuses(twin, tmp_path):
     base = ["--tile", str(TILE), "--device", "cpu", "--workdir",
             str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        twin.main(base + ["--model", "cgan"])
+    cgan = os.path.join(REPO, "trained_models/CGAN/fiducial/model")
+    with pytest.raises(SystemExit, match="--reinit-d needs"):
+        twin.main(base + ["--model", "cgan", "--eval-only", "--checkpoint",
+                          cgan, "--reinit-d", "7"])
     with pytest.raises(NotImplementedError, match="item 11"):
         twin.main(base + ["--save-figures"])
     with pytest.raises(SystemExit, match="no checkpoint"):

@@ -586,6 +586,7 @@ def _imports(path: Path):
         Path(REPO) / "scripts" / f for f in ("create_lightcone_torch.py",
                                              "bench_torch_lightcone.py",
                                              "train_cvae_torch.py",
+                                             "train_cgan_torch.py",
                                              "fidelity_check_torch.py",
                                              "fidelity_spread_torch.py",
                                              "bf16_conv_probe_torch.py",

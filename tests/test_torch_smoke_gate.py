@@ -1,5 +1,6 @@
 """Phase 20 of ``chip_smoke.py`` on the CPU, at small sizes: the gate on the
-committed CGAN and fiducial CVAE (2 tiles a redshift; the kernels are
+committed CGANs (fiducial and fiducial-adv) and fiducial CVAE (2 tiles a
+redshift; the kernels are
 their plain versions here, so the kernels-against-plain distance is the
 plain convolutions' against themselves with cuDNN's switch off), the
 spectral step at 32^2 from the fiducial weights with its parity rules,
@@ -33,7 +34,10 @@ def gate_run():
                     fallback=smoke.GATE_CVAE_DATASET, redshifts="0",
                     seeds=2),
                 "cgan": smoke.gate_check(CPU, smoke.CGAN_PATH, {"k1": 9},
-                                         "cgan", seeds=1, phase="20b")}
+                                         "cgan", seeds=1, phase="20b"),
+                "cgan_adv": smoke.gate_check(CPU, smoke.CGAN_ADV_PATH,
+                                             {"k1": 9}, "cgan_adv", seeds=1,
+                                             phase="20b")}
 
 
 def test_gate_phase_on_cpu(gate_run):
@@ -76,7 +80,8 @@ def test_gate_reference_is_the_jax_noise_and_the_committed_f32():
         want = jax.random.normal(key, (1, 48, 16, 16, 1), dtype)
         np.testing.assert_array_equal(
             ref[f"cvae_eps_{name}"], np.asarray(want[0, ..., 0], np.float32))
-    for kind, path in (("cvae", smoke.CHECKPOINT), ("cgan", smoke.CGAN_PATH)):
+    for kind, path in (("cvae", smoke.CHECKPOINT), ("cgan", smoke.CGAN_PATH),
+                       ("cgan_adv", smoke.CGAN_ADV_PATH)):
         with open(os.path.join(REPO, os.path.dirname(path),
                                "fidelity_report.json")) as f:
             committed = json.load(f)["per_z_by_dtype"]["f32"]
@@ -116,6 +121,8 @@ def test_gate_and_pk_launches_on_the_kernels_record(gate_run, pk_run):
     by_name = {(k["name"], k["dtype"]): k for k in entries}
     assert by_name["res_block_infer", "float32"]["gate_launches"] == 0
     assert by_name["res_block_infer", "float32"]["gate_cgan_launches"] == 0
+    assert by_name["res_block_infer", "float32"][
+        "gate_cgan_adv_launches"] == 0
     assert by_name["head_stack_fwd", "float32"]["gate_launches"] == 0
     for name in ("gather_tiles", "head_stack_fwd", "head_stack_bwd"):
         for dtype in ("float32", "bfloat16"):
