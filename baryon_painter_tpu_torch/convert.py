@@ -26,12 +26,16 @@ one to one:
   * transposed-conv kernels: spatial flip plus HWIO <-> IOHW, because the JAX
     package computes a transposed conv as an lhs-dilated correlation and
     PyTorch applies its weight as the gradient of a conv;
+  * dense (the DSL's ``linear``) kernels (in, out) <-> ``nn.Linear``'s
+    (out, in); the DSL's ``flatten`` flattens in flax's NHWC order, so the
+    features a kernel's rows index are the same in both;
   * batch norm scale/bias and running mean/var;
   * PReLU slopes;
   * fused residual blocks keep their HWIO kernels (K1 takes HWIO);
   * a spectrally normalised layer's u and sigma (``sn_u``, ``sn_sigma``)
     sit in the scope's batch statistics under ``SpectralNorm_k`` (k counts
-    the scope's convs and transposed convs together) as flat names,
+    the scope's convs, transposed convs and dense layers together) as
+    flat names,
     ``"Conv2d_0/kernel/u"`` and ``"Conv2d_0/kernel/sigma"``, as flax's
     ``SpectralNorm`` keeps them.
 """
@@ -48,7 +52,7 @@ from baryon_painter_tpu_torch.models.cgan import (CGANDiscriminator,
 from baryon_painter_tpu_torch.models.cvae import CVAE
 from baryon_painter_tpu_torch.models.fuse import fold_cgan_spectral_norm
 from baryon_painter_tpu_torch.models.layers import (BatchNorm, Conv2d,
-                                                    ConvTranspose2d,
+                                                    ConvTranspose2d, Dense,
                                                     FusedResBlock, PReLU,
                                                     ResidualBlock,
                                                     SpecSequential)
@@ -75,7 +79,7 @@ def _sn_layers(seq: SpecSequential):
     normalised layer of one scope, in flax's order."""
     layers = [(n, m) for n, m in seq.layers.items()
               if getattr(m, "spectral_norm", False)
-              and isinstance(m, (Conv2d, ConvTranspose2d))]
+              and isinstance(m, (Conv2d, ConvTranspose2d, Dense))]
     return [(f"SpectralNorm_{k}", n, m) for k, (n, m) in enumerate(layers)]
 
 
@@ -102,6 +106,10 @@ def load_spec_sequential(seq: SpecSequential, params: dict, stats: dict):
         elif isinstance(m, ConvTranspose2d):
             k = np.asarray(p["kernel"])
             _copy(m.weight, k[::-1, ::-1].transpose(2, 3, 0, 1))
+            if m.bias is not None:
+                _copy(m.bias, p["bias"])
+        elif isinstance(m, Dense):
+            _copy(m.weight, np.asarray(p["kernel"]).T)
             if m.bias is not None:
                 _copy(m.bias, p["bias"])
         elif isinstance(m, BatchNorm):
@@ -181,9 +189,10 @@ def _export_spec_sequential(seq: SpecSequential, value, params, stats):
     (the parameter itself, or its gradient), running statistics with it
     into ``stats``."""
     for name, m in seq.layers.items():
-        if isinstance(m, (Conv2d, ConvTranspose2d)):
+        if isinstance(m, (Conv2d, ConvTranspose2d, Dense)):
             w = _np(value(m.weight))
-            k = (w.transpose(2, 3, 1, 0) if isinstance(m, Conv2d)
+            k = (w.T if isinstance(m, Dense)
+                 else w.transpose(2, 3, 1, 0) if isinstance(m, Conv2d)
                  else w.transpose(2, 3, 0, 1)[::-1, ::-1])
             p = {"kernel": np.ascontiguousarray(k)}
             if m.bias is not None:
@@ -342,8 +351,21 @@ def _init_spec_sequential(seq: SpecSequential, gen: torch.Generator,
     C_out))))), biases U(+-1/sqrt(fan_in)), batch norm scale 1, bias 0,
     mean 0, var 1, PReLU 0.25, spectral norm u ~ N(0, 1) and sigma 1; a
     residual block's inner scope with the uniform kernels, as the JAX
-    package's ``ResidualBlock`` builds it."""
+    package's ``ResidualBlock`` builds it; a dense layer as flax's
+    ``nn.Dense`` defaults: ``lecun_normal`` (a normal of variance 1/fan_in
+    truncated at 2 standard deviations, rescaled) and a zero bias."""
     for m in seq.layers.values():
+        if isinstance(m, Dense):
+            # flax's variance_scaling(1, "fan_in", "truncated_normal")
+            std = math.sqrt(1.0 / m.weight.shape[1]) / .87962566103423978
+            torch.nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
+                                        b=2 * std, generator=gen)
+            if m.bias is not None:
+                m.bias.zero_()
+            if m.spectral_norm:
+                m.sn_u.copy_(torch.randn(m.sn_u.shape, generator=gen))
+                m.sn_sigma.fill_(1.0)
+            continue
         if isinstance(m, (Conv2d, ConvTranspose2d)):
             k = m.weight.shape[-1]
             cin, cout = ((m.weight.shape[1], m.weight.shape[0])

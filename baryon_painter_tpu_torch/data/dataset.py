@@ -8,10 +8,15 @@ statistics, the bijective sample index of ``data/indexing.py``, and the
 numpy batch assembly. ``sample_indices`` and ``get_raw_batch`` draw from the
 caller's ``numpy.random.Generator`` exactly as the JAX package does, so the
 same seed gives the same batches in both. ``BatchLoader`` prefetches raw
-batches on a background thread.
+batches, or with ``raw=False`` transformed ones (``get_batch``), on a
+background thread.
 
-Not ported: the reference-parity accessors (``get_batch``, single samples,
-and the transformed batches ``BatchLoader(raw=False)`` would give).
+The reference-parity surface (``get_batch``, ``__getitem__``, single
+samples, stacks and the per-(field, z) transform callables) transforms on
+the host, through the port's transforms on CPU tensors, and returns numpy
+as the JAX package's does; the trainers transform raw batches on the card.
+The transform callables take tensors (or arrays, as CPU tensors) and
+compute on the tensor's device.
 """
 from __future__ import annotations
 
@@ -164,6 +169,12 @@ class BahamasTileDataset:
     def __len__(self):
         return self.scheme.n_total
 
+    def sample_idx_to_redshift(self, idx):
+        zi = self.scheme.z_index(idx)
+        if np.ndim(zi) == 0:
+            return self.redshifts[int(zi)]
+        return np.asarray(self.redshifts, dtype=np.float32)[zi]
+
     def _read_tile(self, field, z, depth, stack, tx, ty, perm):
         arr = self.data[field][z][depth]
         t = self.tile_size
@@ -171,6 +182,90 @@ class BahamasTileDataset:
                               tx * t:(tx + 1) * t,
                               ty * t:(ty + 1) * t], dtype=np.float32)
         return dihedral_transform(tile, perm)
+
+    def get_stack(self, field, z, flat_idx):
+        """Raw 250 Mpc/h-equivalent tile for (field, z-agnostic index)
+        (datasets.py:305-344, with the corrected index decode)."""
+        s = self.scheme.decode(int(flat_idx))
+        d100 = self._read_tile(field, z, "100", int(s.s100), int(s.tx100),
+                               int(s.ty100), int(s.p100))
+        d150 = self._read_tile(field, z, "150", int(s.s150), int(s.tx150),
+                               int(s.ty150), int(s.p150))
+        return d100 + d150
+
+    def get_input_sample(self, idx, transform=True):
+        z = self.sample_idx_to_redshift(idx)
+        d = self.get_stack(self.input_field, z, idx)
+        if self.scale_to_SLICS:
+            d = d * slics_scale_factor(self.n_grid)
+        if self.subtract_minimum:
+            d = d - d.min()
+        if transform:
+            d = _numpy(self.transform(d, self.input_field, z))
+        return d
+
+    def get_label_sample(self, idx, transform=True):
+        z = self.sample_idx_to_redshift(idx)
+        out = []
+        for field in self.label_fields:
+            d = self.get_stack(field, z, idx)
+            if transform:
+                d = _numpy(self.transform(d, field, z))
+            out.append(d)
+        return out
+
+    def __getitem__(self, idx):
+        """([input] + labels, idx, z) — reference parity (datasets.py:483)."""
+        return ([self.get_input_sample(idx)] + self.get_label_sample(idx),
+                int(idx), self.sample_idx_to_redshift(idx))
+
+    # ------------------------------------------------------------------ #
+    # Transforms: on a tensor's device (arrays as CPU tensors)
+
+    def _stats_on(self, field, device) -> FieldStats:
+        st = self.stats[field]
+        if st.z_grid.device == device:
+            return st
+        return FieldStats(*(t.to(device) for t in (st.z_grid, st.mean,
+                                                   st.var)))
+
+    def _apply(self, x, field, z, inverse: bool):
+        x = torch.as_tensor(x)
+        z = torch.as_tensor(z, dtype=torch.float32, device=x.device)
+        t = self.transforms[field]
+        fn = t.inverse if inverse else t.forward
+        return fn(x, self._stats_on(field, x.device), z)
+
+    def transform(self, x, field, z):
+        return self._apply(x, field, z, inverse=False)
+
+    def inverse_transform(self, x, field, z):
+        return self._apply(x, field, z, inverse=True)
+
+    def create_transform(self, field, z):
+        """Callable f(x) bound to (field, z) (datasets.py:206-209)."""
+        return lambda x: self.transform(x, field, z)
+
+    def create_inverse_transform(self, field, z):
+        return lambda x: self.inverse_transform(x, field, z)
+
+    def get_transforms(self, idx=None, z=None):
+        """Per-field transform callables for a sample (datasets.py:216-243),
+        the input field's first."""
+        if idx is None and z is None:
+            raise ValueError("Either idx or z have to be specified.")
+        if z is None:
+            z = self.sample_idx_to_redshift(idx)
+        return [self.create_transform(f, z) for f in self.fields]
+
+    def get_inverse_transforms(self, idx=None, z=None):
+        if idx is None and z is None:
+            raise ValueError("Either idx or z have to be specified.")
+        if z is None:
+            z = self.sample_idx_to_redshift(idx)
+        return [self.create_inverse_transform(f, z) for f in self.fields]
+
+    # ------------------------------------------------------------------ #
 
     def sample_indices(self, rng: np.random.Generator, size: int,
                        z: Optional[float] = None) -> np.ndarray:
@@ -217,21 +312,43 @@ class BahamasTileDataset:
                                                    *args150))
         return {"input": out_in, "labels": out_lab, "z": zs, "idx": idx}
 
+    def get_batch(self, size=1, z=None, idx=None,
+                  rng: Optional[np.random.Generator] = None, transform=True):
+        """Reference-parity batch: ((1+n_label, N, C, H, W), idx, z) as
+        numpy (datasets.py:434-473), with explicit rng; transformed on the
+        host."""
+        if idx is None:
+            rng = rng or np.random.default_rng()
+            idx = self.sample_indices(rng, size, z)
+        raw = self.get_raw_batch(np.asarray(idx))
+        zs = raw["z"]
+        fields = [raw["input"]] + [raw["labels"][j]
+                                   for j in range(len(self.label_fields))]
+        if transform:
+            fields = [_numpy(self.transform(arr, name, zs))
+                      for name, arr in zip(self.fields, fields)]
+        # (F, N, C, H, W); single-channel transforms get C=1, split-scale
+        # transforms already emit a channel axis
+        fields = [f[:, None, :, :] if f.ndim == 3 else f for f in fields]
+        return np.stack(fields), np.asarray(idx), zs
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
 
 class BatchLoader:
-    """Background-thread prefetcher of raw batches (``get_raw_batch``) over
-    a ``BahamasTileDataset``, drawing indices from a generator seeded
-    ``seed`` (of redshift ``z`` if given); ``close()`` stops the thread."""
+    """Background-thread prefetcher over a ``BahamasTileDataset``: raw
+    batches (``get_raw_batch``), or with ``raw=False`` the transformed
+    reference-parity batches of ``get_batch(idx=...)`` for the same index
+    draws, from a generator seeded ``seed`` (of redshift ``z`` if given);
+    ``close()`` stops the thread."""
 
     def __init__(self, dataset: BahamasTileDataset, batch_size: int,
                  seed: int = 0, z: Optional[float] = None, prefetch: int = 2,
                  raw: bool = True):
-        if not raw:
-            raise NotImplementedError(
-                "BatchLoader(raw=False): transformed reference-parity "
-                "batches (get_batch) are not ported; the trainer "
-                "transforms raw batches on the device.")
         self.dataset = dataset
+        self.raw = raw
         self.batch_size = batch_size
         self.z = z
         self._rng = np.random.default_rng(seed)
@@ -242,7 +359,9 @@ class BatchLoader:
 
     def _make(self):
         idx = self.dataset.sample_indices(self._rng, self.batch_size, self.z)
-        return self.dataset.get_raw_batch(idx)
+        if self.raw:
+            return self.dataset.get_raw_batch(idx)
+        return self.dataset.get_batch(idx=idx)
 
     def _worker(self):
         while not self._stop.is_set():

@@ -26,7 +26,9 @@ them run in it, with the JAX package's rounding points
 (``models/layers.py``); the latent heads' KL and reparameterisation and the
 likelihood terms stay f32 in training, and the painted prior sample is
 drawn in the latent's dtype. Parameters and their gradients stay f32.
-``None`` is f32, bit for bit as without it.
+``None`` is f32, bit for bit as without it. ``torch.float64`` with the
+parameters in f64 (``.double()``) computes the whole ELBO in f64, the KL
+and the likelihood terms too: the reference a training step is held to.
 
 The model is built in eval mode (painting); ``.train()`` switches batch norm
 to batch statistics for ``forward``.
@@ -36,6 +38,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -45,7 +48,8 @@ from baryon_painter_tpu_torch.models.layers import (SpecSequential,
                                                     softplus)
 from baryon_painter_tpu_torch.ops.head_stack import head_stack
 
-__all__ = ["CVAE", "fiducial_cvae_architecture"]
+__all__ = ["CVAE", "fiducial_cvae_architecture", "count_parameters",
+           "print_model_statistics", "stats_from_outputs"]
 
 LOG_2PI = math.log(2 * math.pi)
 
@@ -214,7 +218,9 @@ class CVAE(nn.Module):
         L = self.L
         z_mu, z_log_var = self.Q(x, y, aux_label)
         # the KL and the reparameterisation in f32, as in the JAX package
-        z_mu, z_log_var = z_mu.float(), z_log_var.float()
+        # (in f64 for an f64 model: the reference step)
+        acc = torch.float64 if self.dtype == torch.float64 else torch.float32
+        z_mu, z_log_var = z_mu.to(acc), z_log_var.to(acc)
         if eps is None:
             eps = torch.randn((L, *z_mu.shape), generator=generator,
                               dtype=z_mu.dtype, device=z_mu.device)
@@ -222,14 +228,14 @@ class CVAE(nn.Module):
         z = self.sample_z(z_mu, z_log_var, eps.reshape(L, *z_mu.shape))
 
         prior_mu, prior_log_var = self.prior(y, aux_label)
-        prior_mu, prior_log_var = prior_mu.float(), prior_log_var.float()
+        prior_mu, prior_log_var = prior_mu.to(acc), prior_log_var.to(acc)
         prior_var = torch.exp(prior_log_var)
         kl_elem = ((prior_mu - z_mu) ** 2 / prior_var
                    + torch.exp(z_log_var) / prior_var
                    + prior_log_var - z_log_var - 1.0)
         w = None
         if sample_weight is not None:
-            w = torch.as_tensor(sample_weight, dtype=torch.float32,
+            w = torch.as_tensor(sample_weight, dtype=acc,
                                 device=x.device)
             kl = 0.5 / M * torch.sum(w * kl_elem.sum(dim=(1, 2, 3)))
         else:
@@ -261,19 +267,24 @@ class CVAE(nn.Module):
         out["elbo"] = -kl * beta_KL + self.likelihood_scaling * ll.sum()
         return out
 
+    def sample_prior(self, y, aux_label=None, eps=None,
+                     generator: Optional[torch.Generator] = None):
+        """A latent drawn from the prior p(z|y): noise ``eps``, else drawn
+        from ``generator``, in the latent's dtype."""
+        z_mu, z_log_var = self.prior(y, aux_label)
+        if eps is None:
+            eps = torch.randn(z_mu.shape, generator=generator,
+                              dtype=z_mu.dtype, device=z_mu.device)
+        return self.sample_z(z_mu, z_log_var, torch.as_tensor(
+            eps, dtype=z_mu.dtype, device=z_mu.device))
+
     def sample_P(self, y, aux_label=None, z=None, eps=None,
                  generator: Optional[torch.Generator] = None,
                  return_var: bool = False):
-        """Paint: draw z from the prior (noise ``eps``, else drawn from
-        ``generator``, in the latent's dtype) unless ``z`` is given, and
-        decode."""
+        """Paint: draw z from the prior (``sample_prior``) unless ``z`` is
+        given, and decode."""
         if z is None:
-            z_mu, z_log_var = self.prior(y, aux_label)
-            if eps is None:
-                eps = torch.randn(z_mu.shape, generator=generator,
-                                  dtype=z_mu.dtype, device=z_mu.device)
-            z = self.sample_z(z_mu, z_log_var, torch.as_tensor(
-                eps, dtype=z_mu.dtype, device=z_mu.device))
+            z = self.sample_prior(y, aux_label, eps=eps, generator=generator)
         p = self.P(z, y, aux_label)
         if return_var and self.predict_var:
             return p[0], torch.exp(p[1])
@@ -290,6 +301,67 @@ class CVAE(nn.Module):
             labels += [f"log_likelihood_fixed_var_{i}" for i in range(n_x)]
             labels += [f"log_likelihood_free_var_{i}" for i in range(n_x)]
         return labels
+
+
+def _flat_params(params, prefix=()) -> dict:
+    """{("scope", "layer", "kernel"): array} of a nested parameter dict."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.update(_flat_params(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _jax_params(params) -> dict:
+    """A model's parameters in the flax layout (``convert.to_jax_variables``,
+    flax's names), or a JAX-layout ``params`` dict as it is."""
+    if isinstance(params, nn.Module):
+        from baryon_painter_tpu_torch.convert import to_jax_variables
+        return to_jax_variables(params)["params"]
+    return params
+
+
+def count_parameters(params) -> int:
+    """Total trainable parameter count (cvae.py:182-183 equivalent) of a
+    model, or of a JAX-layout ``params`` dict."""
+    return sum(int(np.prod(np.shape(p)))
+               for p in _flat_params(_jax_params(params)).values())
+
+
+def print_model_statistics(params, percentile: float = 0.9):
+    """Parameter-count distribution report (cvae.py:185-194 equivalent) of
+    a model or a JAX-layout ``params`` dict, under the flax paths (for
+    example ``p_y_z_in/Conv2d_0/kernel``): the JAX package's text, line
+    for line."""
+    flat = _flat_params(_jax_params(params))
+    sizes = sorted(((int(np.prod(np.shape(p))), "/".join(k))
+                    for k, p in flat.items()), reverse=True)
+    total = sum(n for n, _ in sizes)
+    print(f"Total number of parameters: {total}")
+    print(f"Top {percentile * 100:.0f}% of all parameters are in the "
+          f"following layers")
+    cum = 0
+    for n, name in sizes:
+        if cum >= total * percentile:
+            break
+        cum += n
+        print(f"{name:<60s} {n:>10d}")
+    return total
+
+
+def stats_from_outputs(out: dict) -> tuple:
+    """Flatten a CVAE output dict (``CVAE.forward``'s) to the reference
+    stats tuple order (cvae.py:164-171): (ELBO, -KL, *ll[, *ll_fixed,
+    *ll_free]), as host floats."""
+    host = lambda t: torch.as_tensor(t).detach().float().reshape(-1).cpu()
+    vals = [float(host(out["elbo"])[0]), -float(host(out["kl"])[0])]
+    vals += [float(v) for v in host(out["log_likelihood"])]
+    if "log_likelihood_fixed_var" in out:
+        vals += [float(v) for v in host(out["log_likelihood_fixed_var"])]
+        vals += [float(v) for v in host(out["log_likelihood_free_var"])]
+    return tuple(vals)
 
 
 def fiducial_cvae_architecture(tile_size: int = 512, n_scale: int = 1,

@@ -59,7 +59,7 @@ from baryon_painter_tpu_torch.ops import conv_rules
 from baryon_painter_tpu_torch.ops.conv_bn import conv_bn_relu
 from baryon_painter_tpu_torch.ops.res_block import fold_bn, res_block_infer
 
-__all__ = ["Conv2d", "ConvTranspose2d", "BatchNorm", "PReLU",
+__all__ = ["Conv2d", "ConvTranspose2d", "Dense", "BatchNorm", "PReLU",
            "ResidualBlock", "FusedResBlock", "SpecSequential",
            "merge_aux_label", "softplus"]
 
@@ -199,6 +199,41 @@ class ConvTranspose2d(_SpectralNormConv):
                      self.bias, self.dtype, stride=self.stride,
                      padding=self.padding,
                      output_padding=self.output_padding)
+
+
+class Dense(_SpectralNormConv):
+    """The DSL's ``linear``: flax's ``nn.Dense`` on the features, the last
+    axis of a flattened (N, F) input or the channels of an (N, C, H, W)
+    one (flax's NHWC last axis). The weight is ``nn.Linear``'s (out, in),
+    flax's (in, out) kernel transposed (``convert.py``). In ``dtype``, as
+    flax's ``promote_dtype``: x, the weight and the bias rounded to it, the
+    products summed in f32 and the sum rounded. With ``spectral_norm`` the
+    kernel is normalised as flax's ``SpectralNorm`` wraps ``nn.Dense``."""
+
+    def __init__(self, in_features, out_features, bias=True, dtype=None,
+                 spectral_norm=False):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = _param(out_features, in_features)
+        self.bias = _param(out_features) if bias else None
+        self._init_spectral_norm(spectral_norm, out_features)
+
+    def flax_matrix(self):
+        return self.weight.t()
+
+    def forward(self, x):
+        channels = x.ndim == 4
+        if channels:
+            x = x.permute(0, 2, 3, 1)
+        w, b = self.normalized_weight(), self.bias
+        dt = self.dtype or x.dtype
+        if dt.itemsize < 4:
+            out = F.linear(x.to(dt).float(), w.to(dt).float()).to(dt)
+            out = out if b is None else out + b.to(dt)
+        else:
+            out = F.linear(x.to(dt), w.to(dt),
+                           None if b is None else b.to(dt))
+        return out.permute(0, 3, 1, 2) if channels else out
 
 
 class BatchNorm(nn.Module):
@@ -406,6 +441,14 @@ class FusedResBlock(nn.Module):
         return out.permute(0, 3, 1, 2)
 
 
+def _flatten_nhwc(x):
+    """The DSL's ``flatten`` in the JAX package's order: it flattens NHWC,
+    so a ``linear`` after it sees the features as (H, W, C)."""
+    if x.ndim == 4:
+        x = x.permute(0, 2, 3, 1)
+    return x.reshape(x.shape[0], -1)
+
+
 def _upsample_nearest(x, s: int):
     n, c, h, w = x.shape
     return x[:, :, :, None, :, None].expand(n, c, h, s, w, s).reshape(
@@ -433,8 +476,9 @@ class SpecSequential(nn.Module):
     triple casts x and the conv's weight to it before K4, as the JAX
     package does (``baryon_painter_tpu/models/layers.py:538-551``).
 
-    ``spectral_norm=True`` normalises every convolution and transposed
-    convolution, here and in the residual blocks (module docstring). As in
+    ``spectral_norm=True`` normalises every convolution, transposed
+    convolution and ``linear``, here and in the residual blocks (module
+    docstring). As in
     the JAX package it turns the fused residual blocks and the K4 triples
     off (``baryon_painter_tpu/models/layers.py:499, 628``).
     """
@@ -478,6 +522,16 @@ class SpecSequential(nn.Module):
                     config.get("output_padding", 0),
                     config.get("bias", True), dtype=dtype,
                     spectral_norm=spectral_norm))
+            elif lname == "linear":
+                if "in_features" not in config:
+                    raise ValueError(
+                        f"linear {config}: the port needs in_features (as "
+                        f"the reference's nn.Linear does); flax infers it")
+                add(Dense(config["in_features"], config["out_features"],
+                          config.get("bias", True), dtype=dtype,
+                          spectral_norm=spectral_norm))
+            elif lname == "flatten":
+                self._steps.append(_flatten_nhwc)
             elif lname == "batchnorm":
                 add(BatchNorm(config["num_features"], dtype=dtype))
             elif lname == "prelu":

@@ -38,7 +38,9 @@ that fails raises.
      peak device memory; 11b a step
      with every kernel against a plain step from the same start whose four
      sites' forward is computed in f64, within STEP_GRAD_TOL or no further
-     than the plain step (the sites in f32) lies from it
+     than the plain step (the sites in f32) lies from it; 8b and 11b hold
+     the kernels step to the whole-model f64 step too, each gradient leaf
+     within STEP_GRAD_TOL or STEP_F64_FACTOR times the plain step's distance
  12. repaint the golden with PyTorch's default TF32 setting (cuDNN TF32 on)
      for the record, and with the painter's pinned f32, which must pass
 
@@ -135,7 +137,8 @@ training CLI's code (scripts/train_cvae_torch.py) at full width, f32, with
      tiles in one call, exactly 4 K1 launches, finite
 
 the P(k) fidelity gate (``gate``; 20a the fiducial CVAE, 20b both CGANs,
-fiducial and fiducial-adv, bf16 held to the JAX package's CPU bf16) and the
+fiducial and fiducial-adv, bf16 held to the JAX package's CPU bf16, 20d the
+bf16 readings of the four committed CVAEs held the same way) and the
 spectral step (``pk_step``, 20c), and CGAN training (``cgan_train``) at full
 width, f32, from the committed fiducial-adv state (G, D, both Adams) on
 phase 5's stacks at batch 6:
@@ -153,6 +156,22 @@ phase 5's stacks at batch 6:
      launches a call, the golden tolerance from the unfused paint, equal to
      ``load_painter`` on 21d's final checkpoint
  21f. the gate twin's CGAN training leg on 20b's fiducial-adv stacks
+
+and the run tooling (``tooling``):
+
+ 22a. the training CLI's ``run`` with ``--profile`` (2 pepochs of 48
+     samples at batch 24, K2 and K3): the trace's kernels by name equal
+     the wrappers' counts, one K2, K3-fwd and K3-bwd a step (K3-fwd also
+     once a validation loss); the trace's bytes and samples/s with and
+     without it
+ 22b. ``validate`` on the CVAE (K3-fwd once a call) and the CGAN trainer:
+     its figures saved with matplotlib, an ImportError naming matplotlib
+     without it; the painted batch's P(k) fractional errors on the card
+     against the CPU's
+ 22c. ``scripts/compare_reference_stats_torch.py``: 19c's resumed
+     ``training_stats.txt`` against the uninterrupted one in absolute mode,
+     exactly 0; 19's run against the committed fiducial log in shape mode
+ 22d. ``BatchLoader(raw=False)`` equal to ``get_batch``
 """
 from __future__ import annotations
 
@@ -189,6 +208,7 @@ from baryon_painter_tpu_torch.ops.head_stack import (head_stack_bwd,
 from baryon_painter_tpu_torch.ops.res_block import (fold_bn, res_block_infer,
                                                     res_block_infer_ref)
 from baryon_painter_tpu_torch.ops.resample import resize_spline
+from baryon_painter_tpu_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent.parent
 CHECKPOINT = "trained_models/CVAE/fiducial-512/model"
@@ -208,10 +228,11 @@ K4_REPLACES = {"stats": "baryon_painter_tpu/ops/pallas_conv_bn.py:126",
                "bwd1": "baryon_painter_tpu/ops/pallas_conv_bn.py:166",
                "bwd2": "baryon_painter_tpu/ops/pallas_conv_bn.py:277"}
 
-# one H100 SXM at 700 W (NVIDIA's data sheet): f32 on the CUDA cores,
-# dense bf16 on the tensor cores, HBM3
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-HBM_BYTES_PER_S = 3.35e12
+# one H100 SXM at 700 W (NVIDIA's data sheet, utils/profiling.py): f32 on
+# the CUDA cores, dense bf16 on the tensor cores, HBM3
+PEAK_FLOPS = {torch.float32: profiling.H100_F32_FLOPS,
+              torch.bfloat16: profiling.PEAK_FLOPS[profiling.H100_SXM]}
+HBM_BYTES_PER_S = profiling.PEAK_BW[profiling.H100_SXM]
 # f32 products as 3xTF32 on the tensor cores: three TF32 products (dense
 # 495 TFLOP/s) for each f32 one
 PEAK_3XTF32 = 495e12 / 3
@@ -625,6 +646,13 @@ STEP_GRAD_TOL = 1e-3
 STEP_GRAD_FLOOR = 1e-3
 STEP_GRAD_ZERO = ("p_z_in.layers.BatchNorm_0.weight",
                   "p_z_in.layers.BatchNorm_1.weight")
+# against the whole-model f64 step (8b, 11b) each gradient leaf of the
+# kernels step lies within STEP_GRAD_TOL of its own largest entry, or no
+# further than STEP_F64_FACTOR times the plain f32 step's distance for the
+# same leaf: at 512^2 the plain step with cuDNN's f32 convolutions lies
+# 1.661e-2 from f64 and the kernels step 1.663e-2 (worst leaves,
+# scripts/step_f64_witness_torch.py, H100 SXM 700 W)
+STEP_F64_FACTOR = 1.5
 # K4 against its plain version, max|kernel - plain| / max|plain|: y, the
 # batch statistics and dx differ by summation order only; the weight and
 # batch-norm parameter gradients sum over every output pixel
@@ -1242,6 +1270,35 @@ def step_gradients(device, dataset, idx, eps, kernels: bool,
         for n, p in trainer.model.named_parameters() if p.requires_grad}
 
 
+def step_gradients_f64(device, dataset, idx, eps,
+                       n_res_blocks: int = N_RES_BLOCKS):
+    """The whole-model f64 reference of 8b and 11b: the same step (the
+    seeded initialisation, the batch ``idx``, the latent noise ``eps``)
+    with every module in f64 (``CVAE(dtype=torch.float64)``, its
+    parameters ``.double()``): the plain gather, cuDNN's heads and trunk
+    (deterministic), the batch norms' statistics and the ELBO in f64; it
+    uses none of the code under test. The batch is transformed in f32, as
+    every step's is. Returns (loss, each trainable parameter's gradient by
+    name), f64."""
+    trainer = make_trainer(device, dataset, False, use_kernel=False,
+                           n_res_blocks=n_res_blocks, dtype=torch.float64)
+    model = trainer.model.double()
+    cache = trainer.device_cache
+    raw_input, raw_labels, z = cache.gather(cache.digits(idx))
+    x, y = trainer._prepare(raw_input, raw_labels, z)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = model(x.double(), y.double(), z.double(),
+                    eps=torch.as_tensor(eps).double())
+        (-out["elbo"]).backward()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return float(out["elbo"].detach()), {
+        n: p.grad.detach().clone()
+        for n, p in model.named_parameters() if p.requires_grad}
+
+
 def parity_inputs(dataset, batch: int):
     """The seeded batch and latent noise of ``train_parity``."""
     idx = dataset.sample_indices(np.random.default_rng(2), batch)
@@ -1276,7 +1333,16 @@ def train_parity(device, dataset, batch: int = TRAIN_BATCH,
     f32 plain PyTorch) lies further from it, to the plain step's distance:
     K4 may round no worse than the plain version. Both readings and the
     K4 step against the wholly plain step are printed.
-    ``scripts/step_parity_witness.py`` prints the other comparisons."""
+    ``scripts/step_parity_witness.py`` prints the other comparisons.
+
+    Both phases also hold the kernels step against the whole-model f64
+    step (``step_gradients_f64``): its loss to STEP_LOSS_RTOL, and each
+    gradient leaf (STEP_GRAD_ZERO's to the floor, as above) to
+    max(STEP_GRAD_TOL, STEP_F64_FACTOR times the plain step's distance
+    from f64 for the same leaf). The plain f32 step itself lies 1.66e-2
+    from f64 at full size, with cuDNN's f32 convolutions (1.04e-3 with
+    PyTorch's own, ``scripts/step_f64_witness_torch.py``; ROADMAP.md
+    section 3): the kernels may round no worse than the plain version."""
     t0 = time.perf_counter()
     device = torch.device(device)
     idx, eps = parity_inputs(dataset, batch)
@@ -1289,6 +1355,7 @@ def train_parity(device, dataset, batch: int = TRAIN_BATCH,
     runs = {label: step_gradients(device, dataset, idx, eps, kernels, k4,
                                   site, n_res_blocks)
             for label, (kernels, k4, site) in plans.items()}
+    runs["f64"] = step_gradients_f64(device, dataset, idx, eps, n_res_blocks)
     loss_k, grads_k = runs["kernels"]
     loss_p = runs["plain"][0]
     ref = "sites_f64" if fused_train_conv else "plain"
@@ -1314,21 +1381,55 @@ def train_parity(device, dataset, batch: int = TRAIN_BATCH,
         limit = max(STEP_GRAD_TOL, witness["plain_sites_vs_sites_f64"])
     print(f"  worst gradients against {ref} (max|g| of all {top:.2e}; "
           f"limit {limit:.3e}): {worst5}", flush=True)
-    if not (loss_err <= STEP_LOSS_RTOL and grad_errs[worst] <= limit):
+    # against the whole-model f64 step: the kernels step, and the wholly
+    # plain f32 step beside it
+    loss64, grads64 = runs["f64"]
+    f64, errs64 = {}, {}
+    for label in ("kernels", "plain"):
+        errs64[label] = errs = step_grad_errors(runs[label][1], grads64)[0]
+        worst64 = max(errs, key=errs.get)
+        f64[label] = {"loss_rel_err": abs(runs[label][0] - loss64)
+                      / abs(loss64), "worst_grad": worst64,
+                      "worst_grad_rel_err": errs[worst64]}
+        print(f"  {label} against f64: loss {f64[label]['loss_rel_err']:.3e}"
+              f", worst gradients {_worst(errs, grads64)}", flush=True)
+    # each leaf's share of its limit against f64
+    share64 = {n: e / max(STEP_GRAD_TOL, STEP_F64_FACTOR * errs64["plain"][n])
+               for n, e in errs64["kernels"].items()}
+    worst_share = max(share64, key=share64.get)
+    f64["kernels"].update(limit_share=share64[worst_share],
+                          limit_share_leaf=worst_share)
+    print(f"  kernels against f64, worst shares of max(STEP_GRAD_TOL, "
+          f"{STEP_F64_FACTOR} x plain against f64): "
+          + ", ".join(f"{n}: {share64[n]:.3f}"
+                      for n in sorted(share64, key=share64.get)[-5:]),
+          flush=True)
+    if not (loss_err <= STEP_LOSS_RTOL and grad_errs[worst] <= limit
+            and f64["kernels"]["loss_rel_err"] <= STEP_LOSS_RTOL
+            and share64[worst_share] <= 1.0):
         raise AssertionError(f"kernels step against {ref}: loss rel err "
                              f"{loss_err:.3e}; largest gradient entry "
                              f"{top:.3e}; gradient limit {limit:.3e}; "
-                             f"worst gradients {worst5}")
+                             f"worst gradients {worst5}; against f64 "
+                             f"{f64['kernels']}")
     _line(phase, "train_parity", t0, elbo_kernels=f"{loss_k:.6f}",
           elbo_plain=f"{loss_p:.6f}", loss_rel_err=f"{loss_err:.3e}",
           reference=ref, worst_grad=worst,
           worst_grad_rel_err=f"{grad_errs[worst]:.3e}",
           grad_limit=f"{limit:.3e}", params=len(grad_errs),
           under_floor=len(under),
+          f64_loss_rel_err=f"{f64['kernels']['loss_rel_err']:.3e}",
+          f64_worst_grad=f64["kernels"]["worst_grad"],
+          f64_worst_grad_rel_err=(
+              f"{f64['kernels']['worst_grad_rel_err']:.3e}"),
+          plain_f64_worst_grad_rel_err=(
+              f"{f64['plain']['worst_grad_rel_err']:.3e}"),
+          f64_limit_share=f"{share64[worst_share]:.3f}",
+          f64_limit_share_leaf=worst_share,
           **{k: f"{v:.3e}" for k, v in witness.items()})
     return {"loss_rel_err": loss_err, "reference": ref, "worst_grad": worst,
             "worst_grad_rel_err": grad_errs[worst], "grad_limit": limit,
-            "under_floor": under, "witness": witness}
+            "under_floor": under, "witness": witness, "f64": f64}
 
 
 # ---------------------------------------------------------------------- #
@@ -3160,6 +3261,9 @@ def train_loop(device, dataset, batch: int = TRAIN_BATCH,
             (root / "resumed" / f).read_bytes()
             == (root / "det" / f).read_bytes()
             for f in ("training_stats.txt", "validation_stats.txt"))
+        stats_files = {name: (root / d / "training_stats.txt").read_bytes()
+                       for name, d in (("resumed", "resumed"),
+                                       ("uninterrupted", "det"))}
         del res
         if (resumed > repeat or (repeat == 0 and not stats_equal)):
             raise AssertionError(
@@ -3202,7 +3306,7 @@ def train_loop(device, dataset, batch: int = TRAIN_BATCH,
             "train_rest_s": rest, "checkpoint_bytes": ckpt_bytes,
             "peak_bytes": peak, "default_repeat_distance": default_repeat,
             "repeat_distance": repeat, "resumed_distance": resumed,
-            "stats_files_equal": stats_equal,
+            "stats_files_equal": stats_equal, "stats_files": stats_files,
             "default_repeat_detail": default_detail, "bf16_k4": bf16_leg}
 
 
@@ -3491,8 +3595,9 @@ def gate_check(device, checkpoint: str, want_launches: dict, kind: str,
 
 
 def gate(device, card=None) -> dict:
-    """Phase 20a on the fiducial CVAE (K1 4 and K3-fwd 1 a paint call) and
-    20b on the CGANs, fiducial and fiducial-adv (K1 9 a call); raises on
+    """Phase 20a on the fiducial CVAE (K1 4 and K3-fwd 1 a paint call), 20b
+    on the CGANs, fiducial and fiducial-adv (K1 9 a call), and 20d, the
+    bf16 readings of the four committed CVAEs (``gate_bf16``); raises on
     any failed rule."""
     run = {"cvae": gate_check(device, CHECKPOINT, {"k1": N_RES_BLOCKS,
                                                    "k3_fwd": 1}, "cvae",
@@ -3502,11 +3607,126 @@ def gate(device, card=None) -> dict:
                               seeds=1, card=card, phase="20b"),
            "cgan_adv": gate_check(device, CGAN_ADV_PATH, {"k1": 9},
                                   "cgan_adv", seeds=1, card=card,
-                                  phase="20b")}
+                                  phase="20b"),
+           "cvae_bf16": gate_bf16(device, card=card)}
     fails = {k: r["fails"] for k, r in run.items() if r["fails"]}
     if fails:
         raise AssertionError(f"gate: {fails}")
     return run
+
+
+# 20d: the bf16 gate readings of the four committed CVAEs, each against the
+# JAX package's CPU bf16 at its bf16 noise (GATE_REFERENCE, key prefix):
+# (prefix, checkpoint, dataset fallback, redshifts held)
+GATE_BF16_CASES = (
+    ("cvae", CHECKPOINT, GATE_CVAE_DATASET,
+     (0.0, 0.125, 0.25, 0.375, 0.5, 0.75, 1.0, 1.25, 1.5, 1.75, 2.0)),
+    ("cvae_resize", "trained_models/CVAE/fiducial-resize/model", None,
+     (0.5,)),
+    ("cvae_lt", "trained_models/CVAE/physical-512-lt-wip/model", None,
+     (0.25, 1.25, 1.75, 2.0)),
+    ("cvae_resize_wip", "trained_models/CVAE/physical-512-resize-wip/model",
+     None, (0.25, 1.0, 1.25, 1.5, 1.75, 2.0)))
+# the committed bf16 readings that lay outside the port's spread over
+# noise seeds (scripts/fidelity_spread_torch.py, ROADMAP.md section 3):
+# {prefix: {z: kinds}}
+GATE_BF16_OPEN = {
+    "cvae": {0.0: ("auto", "cross"), 0.125: ("auto", "cross"),
+             0.25: ("auto", "cross"), 0.375: ("auto", "cross"),
+             0.5: ("auto", "cross"), 0.75: ("auto",),
+             1.0: ("auto", "cross"), 1.25: ("auto",),
+             1.5: ("auto", "cross"), 1.75: ("auto",),
+             2.0: ("auto", "cross")},
+    "cvae_resize": {0.5: ("auto",)},
+    "cvae_lt": {0.25: ("auto",), 1.25: ("auto",), 1.75: ("auto",),
+                2.0: ("auto",)},
+    "cvae_resize_wip": {0.25: ("auto",), 1.0: ("auto", "cross"),
+                        1.25: ("auto", "cross"), 1.5: ("auto", "cross"),
+                        1.75: ("auto", "cross"), 2.0: ("auto", "cross")}}
+
+
+def gate_bf16(device, cases=GATE_BF16_CASES, card=None) -> dict:
+    """Phase 20d: the bf16 gate readings of the committed CVAEs at the
+    redshifts of ``cases``, through the gate twin's ``--eval-only`` code at
+    each committed evaluation's tiles (its dataset flags; ``GATE_TILES``
+    a redshift), painted through K1 and K3 in bf16 at the JAX package's
+    bf16 prior noise. Each median error (auto, cross) is held, as 20a/20b
+    hold theirs, within max(GATE_FLOOR, |JAX f32 - JAX bf16|, |JAX jitted
+    - JAX pinned|) of the JAX package's CPU bf16 (``GATE_REFERENCE``,
+    ``scripts/make_gate_reference_torch.py``). Prints, for each reading,
+    committed / JAX CPU bf16 / port / share of the limit, and whether it
+    is one of the committed readings outside the port's spread
+    (``GATE_BF16_OPEN``). The failures come back under ``fails``; the
+    caller raises on them."""
+    spread = _load_cli(SPREAD_CLI)
+    gate = spread.gate
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    ref = _gate_reference()
+    rows, fails, launches, setup_s, eval_s = [], [], {}, {}, {}
+    for prefix, checkpoint, fallback, zs in cases:
+        t = time.perf_counter()
+        base = str(REPO / checkpoint)
+        committed = spread.committed_report(base)["model"]
+        eps = ref[f"{prefix}_eps_bf16"][:GATE_TILES]
+        with tempfile.TemporaryDirectory() as tmp:
+            args = gate.parse_args(spread.dataset_flags(base, fallback) + [
+                "--eval-only", "--checkpoint", base, "--eval-tiles",
+                str(GATE_TILES), "--workdir", tmp, "--device", str(device)])
+            g = gate.setup(args)
+            painter = g.make_painter(torch.bfloat16)
+            setup_s[prefix] = time.perf_counter() - t
+            score = lambda z: gate.pk_errors(painter, g.val_ds, GATE_TILES,
+                                             z=z, eps=eps)[:2]
+            score(zs[0])  # the truth spectra, cached
+            _sync(device)
+            _reset_launches()
+            score(zs[0])
+            _sync(device)
+            launches[prefix] = _bf16_launches()
+            t = time.perf_counter()
+            for z in zs:
+                zk = f"{z:g}"
+                port = score(z)
+                jit = ref[f"{prefix}_bf16_jit_z{zk}"]
+                pinned = ref[f"{prefix}_bf16_pinned_z{zk}"]
+                jax32 = ref[f"{prefix}_f32_z{zk}"]
+                for i, kind in enumerate(("auto", "cross")):
+                    limit = max(GATE_FLOOR, abs(jax32[i] - pinned[i]),
+                                abs(jit[i] - pinned[i]))
+                    r = {"model": prefix, "checkpoint": checkpoint,
+                         "z": zk, "kind": kind,
+                         "committed": committed[zk][kind],
+                         "jax_bf16_pinned": float(pinned[i]),
+                         "jax_bf16_jit": float(jit[i]),
+                         "jax_f32": float(jax32[i]), "port": port[i],
+                         "limit": float(limit),
+                         "open": kind in GATE_BF16_OPEN.get(prefix, {}).get(
+                             z, ())}
+                    r["share"] = abs(r["port"] - r["jax_bf16_pinned"]) / limit
+                    rows.append(r)
+                    print(f"  20d {checkpoint} z={zk} {kind}: committed "
+                          f"{r['committed']} / JAX CPU bf16 "
+                          f"{r['jax_bf16_pinned']:.5f} / port "
+                          f"{r['port']:.5f}: {r['share']:.3f} of the limit "
+                          f"{limit:.5f}" + (" (open)" if r["open"] else ""),
+                          flush=True)
+                    if r["share"] > 1:
+                        fails.append((checkpoint, zk, kind, r["share"]))
+            _sync(device)
+            eval_s[prefix] = (time.perf_counter() - t) / len(zs)
+    open_rows = [r for r in rows if r["open"]]
+    _line("20d", "gate_bf16", t0, card=json.dumps(card),
+          readings=len(rows), open_readings=len(open_rows),
+          open_within=sum(r["share"] <= 1 for r in open_rows),
+          share_max=f"{max(r['share'] for r in rows):.3f}",
+          open_share_max=(f"{max(r['share'] for r in open_rows):.3f}"
+                          if open_rows else "-"),
+          launches=json.dumps(launches),
+          **{f"setup_s_{k}": f"{v:.3f}" for k, v in setup_s.items()},
+          **{f"eval_s_{k}": f"{v:.4f}" for k, v in eval_s.items()})
+    return {"rows": rows, "fails": fails, "launches": launches,
+            "setup_s": setup_s, "eval_s": eval_s}
 
 
 def _fiducial_variables() -> dict:
@@ -4162,6 +4382,338 @@ def cgan_train(device, dataset, gate_run: dict, card=None,
     return out
 
 
+# ---------------------------------------------------------------------- #
+# Phase 22: the run tooling (profile, validate's figures, the stats twin,
+# the reference-parity batches)
+
+STATS_CLI = REPO / "scripts" / "compare_reference_stats_torch.py"
+# 22a: the training twin with --profile, 2 pepochs of 48 samples
+PROFILE_PEPOCH = 48
+PROFILE_PEPOCHS = 2
+# the kernels' symbols in a trace (csrc/*.cu)
+TRACE_KERNELS = {"k2": "gather_tiles_kernel", "k3_fwd": "head_fwd_kernel",
+                 "k3_bwd": "head_bwd_kernel"}
+# 22b: the test batch of validate (the JAX CLI's validation_batch_size)
+VALIDATE_BATCH = 8
+# the P(k) fractional errors of one painted batch, card against CPU:
+# max|card - cpu| / max|cpu|
+VALIDATE_PK_RTOL = 1e-5
+# 22c: the committed run whose shape phase 19's run is printed against
+REFERENCE_STATS = "trained_models/CVAE/fiducial-512/training_stats.txt"
+# 22d: the batches of BatchLoader(raw=False) compared with get_batch
+LOADER_BATCHES = 2
+LOADER_BATCH = 4
+
+
+def _have_matplotlib() -> bool:
+    from baryon_painter_tpu_torch.utils.validation_plotting import \
+        require_matplotlib
+    try:
+        require_matplotlib()
+        return True
+    except ImportError:
+        return False
+
+
+def profile_run(device, dataset, batch: int = TRAIN_BATCH,
+                pepoch: int = PROFILE_PEPOCH, pepochs: int = PROFILE_PEPOCHS,
+                n_res_blocks: int = N_RES_BLOCKS, card=None) -> dict:
+    """22a: ``scripts/train_cvae_torch.py``'s ``run`` at full width with
+    K2 and K3 (``BPT_FUSED_HEADS=1``), ``pepochs`` pepochs of ``pepoch``
+    samples at ``batch``, validation every ``pepoch`` samples, once with
+    ``--profile`` and once without (after a warm-up run). The trace's
+    device kernels counted by name (``TRACE_KERNELS``) must equal the
+    wrappers' counts, which must be one K2 and one K3-bwd launch a step
+    and one K3-fwd a step and a validation loss (or figure). Prints the
+    trace's size and the profiler's cost on this short run: the whole
+    block's seconds traced over untraced (the profiler's stop and the
+    trace's export included); beside it both runs' samples/s over
+    ``train()`` alone (host clock), which a few steps cannot resolve."""
+    from baryon_painter_tpu_torch.models.cvae import (
+        fiducial_cvae_architecture)
+    from baryon_painter_tpu_torch.train.run_config import RunConfig
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    twin = _load_cli(TRAIN_CLI)
+    datasets = (dataset, held_out_data(dataset))
+    n_samples = pepochs * pepoch
+    n_steps = n_samples // batch
+    run = dict(LOOP_RUN, validation_loss_frequency=pepoch,
+               statistics_report_frequency=pepoch,
+               checkpoint_frequency=n_samples)
+    n_evals = n_samples // pepoch
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, _fused_heads_env(True):
+        root = Path(tmp)
+        config = root / "run_config.json"
+        RunConfig(architecture=fiducial_cvae_architecture(
+                      dataset.tile_size, n_res_blocks=n_res_blocks),
+                  transforms={f: t.to_dict()
+                              for f, t in dataset.transforms.items()},
+                  schedules={"batch_size_schedule": {"kind": "constant",
+                                                     "value": batch}},
+                  train=run).save(str(config))
+        argv = lambda name, *extra: [
+            "--output-path", str(root / name), "--config", str(config),
+            "--n-pepoch", str(pepochs), "--pepoch-size", str(pepoch),
+            "--learning-rate", str(LOOP_LR), "--device-data", "--device",
+            str(device), *extra]
+        twin.run(argv("warm"), datasets)
+        for label, extra in (("traced", ("--profile", str(root / "trace"))),
+                             ("untraced", ())):
+            _sync(device)
+            _reset_launches()
+            res = twin.run(argv(label, *extra), datasets)
+            _sync(device)
+            out[label] = {"launches": _launches(),
+                          "samples_per_s": n_samples / res["seconds"],
+                          "block_s": res["block_seconds"],
+                          "trace": res["trace"]}
+        trace = out["traced"]["trace"]
+        trace_bytes = os.path.getsize(trace)
+        by_name = profiling.trace_kernel_counts(trace,
+                                                TRACE_KERNELS.values())
+    counts = out["traced"]["launches"]
+    figures = n_evals if _have_matplotlib() else 0
+    want = {"k2": n_steps, "k3_fwd": n_steps + n_evals + figures,
+            "k3_bwd": n_steps} if cuda else {}
+    _expect_launches("profile_run", counts, want)
+    traced = {k: by_name[v] for k, v in TRACE_KERNELS.items()}
+    if cuda and traced != {k: counts[k] for k in TRACE_KERNELS}:
+        raise AssertionError(f"profile_run: the trace counts {traced}, the "
+                             f"wrappers {counts}")
+    per_step = {k: (v - (n_evals + figures if k == "k3_fwd" else 0))
+                / n_steps for k, v in traced.items()}
+    cost = out["traced"]["block_s"] / out["untraced"]["block_s"]
+    _line("22a", "profile_run", t0, card=json.dumps(card), steps=n_steps,
+          evals=n_evals, figures=figures, launches=json.dumps(counts),
+          trace_kernels=json.dumps(traced),
+          trace_per_step=json.dumps(per_step), trace_bytes=trace_bytes,
+          samples_per_s_traced=f"{out['traced']['samples_per_s']:.2f}",
+          samples_per_s_untraced=f"{out['untraced']['samples_per_s']:.2f}",
+          traced_block_s=f"{out['traced']['block_s']:.3f}",
+          untraced_block_s=f"{out['untraced']['block_s']:.3f}",
+          profiler_cost_x=f"{cost:.3f}")
+    return {"launches": counts, "trace_kernels": traced,
+            "trace_per_step": per_step, "trace_bytes": trace_bytes,
+            "steps": n_steps, "evals": n_evals, "figures": figures,
+            "samples_per_s": {k: v["samples_per_s"] for k, v in out.items()},
+            "block_s": {k: v["block_s"] for k, v in out.items()},
+            "profiler_cost": cost}
+
+
+def _pk_errors_card_cpu(sample: dict, ds, device) -> dict:
+    """The P(k) fractional errors (auto, cross) of a painted test batch
+    (``validation_sample``'s) computed on ``device`` and on the CPU, and
+    max|device - cpu| / max|cpu| of each."""
+    from baryon_painter_tpu_torch.utils.validation_plotting import \
+        power_spectrum_fractional_error
+    inv = [ds.get_inverse_transforms(z=float(z)) for z in sample["z"]]
+    out = {}
+    for mode in ("auto", "cross"):
+        devs = {}
+        for dev in (device, torch.device("cpu")):
+            move = lambda t: t.to(dev)
+            devs[dev.type] = power_spectrum_fractional_error(
+                move(sample["x"]), move(sample["pred"]), move(sample["y"]),
+                ds.tile_L, mode=mode,
+                output_inverse_transforms=[t[1:] for t in inv],
+                input_inverse_transforms=[t[0] for t in inv],
+                device=dev)[1]
+        cpu = devs["cpu"]
+        out[mode] = float(np.abs(devs[device.type] - cpu).max()
+                          / np.abs(cpu).max())
+    return out
+
+
+def validate_figures(device, dataset, batch: int = VALIDATE_BATCH,
+                     card=None) -> dict:
+    """22b: ``validate`` on the CVAE trainer (K3 heads, the committed
+    fiducial weights: an untrained decoder paints a near-constant field)
+    and on the CGAN trainer (fiducial-adv; spectral norm keeps K1 off),
+    both on 512^2 held-out stacks. With matplotlib: the figures of one
+    call (the JAX CLI's: sample with variance, auto and cross P(k), log
+    histogram), saved, each file not empty, the call timed. Without: the
+    call raises an ImportError naming matplotlib, and the line says so.
+    Either way ``validation_sample``'s painted batch (one K3-fwd launch a
+    CVAE call on the card, as a ``validate`` call makes) and its P(k)
+    fractional errors on the card against the CPU's, within
+    VALIDATE_PK_RTOL."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    test = held_out_data(dataset)
+    mpl = _have_matplotlib()
+    cvae = make_trainer(device, dataset, True, variables=_fiducial_variables())
+    cvae.test_data = test
+    gan = _cgan_trainer(device, dataset, test_data=test)
+    out, fails = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, trainer, kw, want in (
+                ("cvae", cvae, dict(plot_sample_var=True,
+                                    plot_power_spectra=["auto", "cross"],
+                                    plot_histogram=["log"]),
+                 {"k3_fwd": 1}),
+                ("cgan", gan, dict(plot_power_spectra=["auto", "cross"],
+                                   plot_histogram=["log"]), {})):
+            r = {}
+            if mpl:
+                import matplotlib.pyplot as plt
+                template = os.path.join(tmp, f"{label}_{{plot_type}}.png")
+                _sync(device)
+                _reset_launches()
+                t = time.perf_counter()
+                figs = trainer.validate(validation_batch_size=batch,
+                                        save_plots=True,
+                                        filename_template=template, **kw)
+                _sync(device)
+                r["validate_s"] = time.perf_counter() - t
+                r["validate_launches"] = _launches()
+                _expect_launches(f"validate {label}", r["validate_launches"],
+                                 want if cuda else {})
+                r["figures"] = sorted(figs)
+                sizes = {k: os.path.getsize(template.format(plot_type=k))
+                         for k in figs}
+                r["figure_bytes"] = sizes
+                for fig in figs.values():
+                    plt.close(fig)
+                if not all(sizes.values()):
+                    fails.append((label, "empty figure", sizes))
+            else:
+                try:
+                    trainer.validate(validation_batch_size=batch, **kw)
+                    fails.append((label, "validate drew without matplotlib"))
+                except ImportError as e:
+                    if "matplotlib" not in str(e):
+                        raise
+            _sync(device)
+            _reset_launches()
+            t = time.perf_counter()
+            sample = trainer.validation_sample(batch, **(
+                {"return_var": True} if label == "cvae" else {}))
+            _sync(device)
+            r["sample_s"] = time.perf_counter() - t
+            r["sample_launches"] = _launches()
+            _expect_launches(f"validation_sample {label}",
+                             r["sample_launches"], want if cuda else {})
+            r["pk_card_vs_cpu"] = _pk_errors_card_cpu(sample, test, device)
+            worst = max(r["pk_card_vs_cpu"].values())
+            if not (np.isfinite(worst) and worst <= VALIDATE_PK_RTOL):
+                fails.append((label, "pk card vs cpu", r["pk_card_vs_cpu"]))
+            out[label] = r
+            _line("22b", f"validate_{label}", t0, card=json.dumps(card),
+                  matplotlib=mpl,
+                  figures=("not drawn: matplotlib is not installed" if not mpl
+                           else json.dumps(r["figure_bytes"])),
+                  validate_s=(f"{r['validate_s']:.3f}" if mpl
+                              else "not measured"),
+                  sample_s=f"{r['sample_s']:.3f}",
+                  launches=json.dumps(r["sample_launches"]),
+                  pk_card_vs_cpu=json.dumps(
+                      {k: f"{v:.3e}" for k, v in r["pk_card_vs_cpu"].items()}),
+                  limit=VALIDATE_PK_RTOL)
+    del cvae, gan
+    if fails:
+        raise AssertionError(f"validate_figures: {fails}")
+    out["matplotlib"] = mpl
+    return out
+
+
+def stats_twin(train_loop: dict, card=None) -> dict:
+    """22c: ``scripts/compare_reference_stats_torch.py`` on phase 19c's
+    statistics: in absolute mode the resumed run's ``training_stats.txt``
+    against the uninterrupted run's (cuDNN deterministic) must read a
+    maximum deviation of exactly 0, and the CLI exit 0 at ``--band 0``;
+    in shape mode the uninterrupted run against the committed fiducial
+    run's log (``REFERENCE_STATS``), printed with no band (other data: a
+    number, not a gate)."""
+    t0 = time.perf_counter()
+    cli = _load_cli(STATS_CLI)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, data in train_loop["stats_files"].items():
+            paths[name] = os.path.join(tmp, f"{name}_training_stats.txt")
+            with open(paths[name], "wb") as f:
+                f.write(data)
+        absolute_out = os.path.join(tmp, "absolute.json")
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            rc = cli.main(["--reference", paths["uninterrupted"], "--ours",
+                           paths["resumed"], "--mode", "absolute",
+                           "--band", "0", "--out", absolute_out])
+            shape = cli.main(["--reference", str(REPO / REFERENCE_STATS),
+                              "--ours", paths["uninterrupted"],
+                              "--out", os.path.join(tmp, "shape.json")])
+        with open(absolute_out) as f:
+            absolute = json.load(f)
+        with open(os.path.join(tmp, "shape.json")) as f:
+            shape_report = json.load(f)
+    if rc != 0 or absolute["max_deviation"] != 0.0 or shape != 0:
+        raise AssertionError(f"stats twin: exit {rc}, absolute max deviation "
+                             f"{absolute['max_deviation']}")
+    _line("22c", "stats_twin", t0,
+          absolute_max_deviation=repr(absolute["max_deviation"]),
+          absolute_exit=rc,
+          shape_max_deviation=f"{shape_report['max_deviation']:.4f}",
+          shape_final_deviation=f"{shape_report['final_deviation']:.4f}",
+          shape_overlap=json.dumps(shape_report["overlap"]),
+          reference=REFERENCE_STATS)
+    return {"absolute_max_deviation": absolute["max_deviation"],
+            "shape_max_deviation": shape_report["max_deviation"],
+            "shape_final_deviation": shape_report["final_deviation"]}
+
+
+def loader_batches(dataset, n: int = LOADER_BATCHES,
+                   batch: int = LOADER_BATCH, seed: int = 7) -> dict:
+    """22d: ``BatchLoader(raw=False)`` on the 512^2 synthetic stacks: its
+    first ``n`` batches equal ``get_batch`` for the same index draws."""
+    from baryon_painter_tpu_torch.data.dataset import BatchLoader
+    t0 = time.perf_counter()
+    loader = BatchLoader(dataset, batch, seed=seed, raw=False)
+    try:
+        got = [next(loader) for _ in range(n)]
+    finally:
+        loader.close()
+    rng = np.random.default_rng(seed)
+    want = [dataset.get_batch(idx=dataset.sample_indices(rng, batch))
+            for _ in range(n)]
+    equal = all(np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+                and np.array_equal(g[2], w[2]) for g, w in zip(got, want))
+    shape = tuple(got[0][0].shape)
+    if not equal:
+        raise AssertionError("BatchLoader(raw=False) differs from get_batch")
+    _line("22d", "loader_batches", t0, batches=n, batch=batch,
+          shape=json.dumps(shape), equal=equal)
+    return {"equal": equal, "shape": shape}
+
+
+def tooling(device, dataset, train_loop: dict, card=None) -> dict:
+    """Phase 22: 22a ``profile_run``, 22b ``validate_figures``, 22c
+    ``stats_twin``, 22d ``loader_batches``."""
+    return {"profile": profile_run(device, dataset, card=card),
+            "validate": validate_figures(device, dataset, card=card),
+            "stats": stats_twin(train_loop, card=card),
+            "loader": loader_batches(dataset)}
+
+
+def _add_tooling_launches(entries: list, tooling: dict):
+    """Phase 22's launches on the f32 entries of K2 and K3: 22a's profiled
+    run (the wrappers' counts, the trace's beside) and 22b's CVAE
+    ``validation_sample`` call (K3-fwd)."""
+    prof = tooling["profile"]
+    for entry in entries:
+        if entry["dtype"] != "float32":
+            continue
+        for key, name in (("k2", "gather_tiles"), ("k3_fwd", "head_stack_fwd"),
+                          ("k3_bwd", "head_stack_bwd")):
+            if entry["name"] == name:
+                entry["profile_run_launches"] = prof["launches"][key]
+                entry["profile_trace_launches"] = prof["trace_kernels"][key]
+        if entry["name"] == "head_stack_fwd":
+            entry["validate_launches"] = tooling["validate"]["cvae"][
+                "sample_launches"]["k3_fwd"]
+
+
 def _add_cgan_train_launches(entries: list, cgan_train: dict):
     """Phase 21's launches on the f32 entries of K2 (21a's timed steps,
     21d's run) and K1 (21e's ``from_trainer`` paint call)."""
@@ -4303,7 +4855,8 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                    training_bf16_k4: dict = None,
                    lightcone: dict = None, cgan: dict = None,
                    train_loop: dict = None, gate_run: dict = None,
-                   pk: dict = None, cgan_train: dict = None) -> dict:
+                   pk: dict = None, cgan_train: dict = None,
+                   tooling: dict = None) -> dict:
     """The ``{"kernels": [...]}`` record of the run, each entry with its
     ``dtype``: K1 in f32, its bf16 numbers beside it; K2, K3-fwd and K3-bwd
     with their launches in the timed training steps; K4's four kernels
@@ -4408,4 +4961,6 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         _add_gate_launches(entries, gate_run, pk)
     if cgan_train is not None:
         _add_cgan_train_launches(entries, cgan_train)
+    if tooling is not None:
+        _add_tooling_launches(entries, tooling)
     return {"kernels": entries}

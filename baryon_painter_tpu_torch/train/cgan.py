@@ -49,8 +49,10 @@ checkpoints keyed by sample count with rotation, and the final ``model``.
 ``save`` and ``restore`` write and read the JAX trainer's checkpoint tree
 (``convert.gan_state_to_jax``), so either package resumes the other's run.
 
-Not ported yet: the mesh (multi-device) mode with its per-sample weights
-and ``validate``'s figures (ROADMAP.md, section 1, items 10 and 11).
+``validate`` draws the JAX trainer's figures (matplotlib) from a test
+batch painted by the eval-mode generator. Not ported yet: the mesh
+(multi-device) mode with its per-sample weights (ROADMAP.md, section 1,
+item 10).
 """
 from __future__ import annotations
 
@@ -80,6 +82,7 @@ from baryon_painter_tpu_torch.train.trainer import (_GAN_PROGRESS_KEYS, Adam,
                                                     _decode_data_rng,
                                                     _encode_data_rng,
                                                     clip_grads_by_global_norm,
+                                                    draw_test_batch,
                                                     grad_norm)
 from baryon_painter_tpu_torch.transforms import FieldStats
 from baryon_painter_tpu_torch.utils.platform import (f32_convolutions,
@@ -596,12 +599,53 @@ class CGANTrainer:
             self.save(os.path.join(out, "model"))
         return stats, validation_stats
 
-    def validate(self, *args, **kwargs):
-        """The JAX trainer's figures (samples, P(k), histograms) need
-        matplotlib and are not ported: raises."""
-        raise NotImplementedError(
-            "validate's figures are not ported yet (ROADMAP.md, section 1, "
-            "item 11).")
+    @torch.no_grad()
+    def validation_sample(self, validation_batch_size: int = 8,
+                          validation_redshift: Optional[float] = None,
+                          seed: int = 0) -> dict:
+        """``validate``'s painted test batch: ``validation_batch_size``
+        samples of the test data (of redshift ``validation_redshift`` if
+        given) drawn from a generator seeded ``seed``, painted by the
+        eval-mode generator. Returns the truth ``x``, the input ``y`` and
+        ``pred`` (N, 1, H, W), f32 on the trainer's device, and the
+        redshifts ``z`` (numpy)."""
+        batch = draw_test_batch(self.test_data, validation_batch_size,
+                                validation_redshift, seed)
+        raw_input, raw_label, z = self._to_device(batch)
+        x, y = self._prepare(raw_input, raw_label, z)
+        G = self.generator
+        was_training = G.training
+        G.eval()
+        try:
+            with f32_convolutions():
+                fake = G(y, z)
+        finally:
+            G.train(was_training)
+        return {"x": x.float(), "y": y.float(), "pred": fake.float(),
+                "z": batch["z"]}
+
+    def validate(self, validation_batch_size: int = 8,
+                 validation_redshift: Optional[float] = None,
+                 plot_power_spectra=("auto",), plot_histogram=("log",),
+                 save_plots: bool = False,
+                 filename_template: str = "{plot_type}.png", seed: int = 0):
+        """Sample / P(k) / histogram diagnostics on a test batch
+        (``validation_sample``), the same surface as
+        ``CVAETrainer.validate`` (reference painter.py:295-367): the
+        figures as a dict, saved when ``save_plots``. They need
+        matplotlib: without it this raises an ImportError before any
+        work."""
+        from baryon_painter_tpu_torch.utils import validation_plotting as vp
+        vp.require_matplotlib()
+        s = self.validation_sample(validation_batch_size, validation_redshift,
+                                   seed=seed)
+        figs = vp.validation_figures(
+            s["x"], s["pred"], s["y"], self.test_data, s["z"],
+            spectra=plot_power_spectra, histograms=plot_histogram,
+            device=self.device)
+        if save_plots:
+            vp.save_figures(figs, filename_template)
+        return figs
 
     # ------------------------------------------------------------------ #
 

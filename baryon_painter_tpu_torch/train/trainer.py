@@ -52,8 +52,9 @@ prior noise comes from a second generator seeded from ``(config.seed, s,
 1)``, as the JAX trainer folds 1 into step s's key (tests inject it with
 ``pk_eps=``).
 
-Not ported yet: the mesh (multi-device) mode and ``validate``'s figures
-(ROADMAP.md, section 1, items 10 and 11).
+``validate`` draws the JAX trainer's figures (matplotlib) from a test
+batch painted by the eval-mode ``sample_P``. Not ported yet: the mesh
+(multi-device) mode (ROADMAP.md, section 1, item 10).
 """
 from __future__ import annotations
 
@@ -160,6 +161,18 @@ class TrainConfig:
     freeze_bn_stats: bool = False
     clip_grad_norm: float = 0.0
     verbose: bool = False
+
+
+def draw_test_batch(test_data, batch_size: int,
+                    redshift: Optional[float], seed: int) -> dict:
+    """The raw batch a trainer validates on: ``batch_size`` samples of
+    ``test_data`` (of redshift ``redshift`` if given) drawn from a generator
+    seeded ``seed``."""
+    if test_data is None:
+        raise RuntimeError("Trying to validate but no test data specified.")
+    idx = test_data.sample_indices(np.random.default_rng(seed), batch_size,
+                                   z=redshift)
+    return test_data.get_raw_batch(idx)
 
 
 def grad_norm(grads) -> torch.Tensor:
@@ -656,28 +669,76 @@ class CVAETrainer:
             self.save(os.path.join(out_path, "model"))
         return training_stats, validation_stats
 
+    @torch.no_grad()
+    def validation_sample(self, validation_batch_size: int = 8,
+                          validation_redshift: Optional[float] = None,
+                          return_var: bool = False, seed: int = 0,
+                          eps=None) -> dict:
+        """``validate``'s painted test batch: ``validation_batch_size``
+        samples of the test data (of redshift ``validation_redshift`` if
+        given) drawn from a generator seeded ``seed``, painted by the
+        eval-mode ``sample_P`` (through K3-fwd with ``fused_heads``) with
+        the latent noise ``eps``, else drawn from a generator seeded
+        ``seed``. Returns the truth ``x``, the input ``y``, ``pred`` and
+        with ``return_var`` the predicted variance ``var`` (N, C, H, W), f32
+        on the trainer's device, and the redshifts ``z`` (numpy)."""
+        batch = draw_test_batch(self.test_data, validation_batch_size,
+                                validation_redshift, seed)
+        raw_input, raw_labels, z = self._to_device(batch)
+        x, y = self._prepare(raw_input, raw_labels, z)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with f32_convolutions():
+                pred = self.model.sample_P(y, z, eps=eps, generator=gen,
+                                           return_var=return_var)
+        finally:
+            self.model.train(was_training)
+        var = None
+        if return_var and isinstance(pred, tuple):
+            pred, var = pred
+        return {"x": x, "y": y, "pred": pred.float(),
+                "var": None if var is None else var.float(),
+                "z": batch["z"]}
+
     def validate(self, validation_batch_size: int = 8,
                  validation_redshift: Optional[float] = None,
-                 compute_loss: bool = False, seed: int = 0, **figure_kw):
-        """The loss on a test batch (``compute_loss=True``): the statistics
-        row of ``stats_tuple`` for ``validation_batch_size`` samples of the
-        test data (of redshift ``validation_redshift`` if given), drawn from
-        a generator seeded ``seed``. The JAX trainer's figures (samples,
-        P(k), histograms; its other keyword arguments) need matplotlib and
-        are not ported: without ``compute_loss`` this raises."""
-        if self.test_data is None:
-            raise RuntimeError("Trying to validate but no test data "
-                               "specified.")
-        if not compute_loss:
-            raise NotImplementedError(
-                "validate's figures are not ported yet (ROADMAP.md, "
-                "section 1, item 11); pass compute_loss=True for the loss.")
-        ds = self.test_data
-        rng = np.random.default_rng(seed)
-        idx = ds.sample_indices(rng, validation_batch_size,
-                                z=validation_redshift)
-        return self.stats_tuple(self.eval_loss(ds.get_raw_batch(idx),
-                                               seed=seed))
+                 compute_loss: bool = False,
+                 plot_sample_var: bool = False,
+                 plot_power_spectra: Sequence[str] = ("auto",),
+                 plot_histogram: Sequence[str] = ("log",),
+                 save_plots: bool = False,
+                 filename_template: str = "{plot_type}.png",
+                 seed: int = 0, eps=None):
+        """Diagnostics on a test batch (painter.py:295-367), the JAX
+        trainer's. With ``compute_loss=True`` the statistics row of
+        ``stats_tuple`` for ``validation_batch_size`` samples of the test
+        data (of redshift ``validation_redshift`` if given), drawn from a
+        generator seeded ``seed``. Otherwise the batch painted with the
+        prior (``validation_sample``; noise ``eps`` or seeded ``seed``) and
+        the sample / P(k) / histogram figures, returned as a dict (saved
+        when ``save_plots``, as ``filename_template.format(plot_type=...)``;
+        the spectra on the trainer's device). The figures need matplotlib:
+        without it this raises an ImportError before any work."""
+        if compute_loss:
+            batch = draw_test_batch(self.test_data,
+                                    validation_batch_size,
+                                    validation_redshift, seed)
+            return self.stats_tuple(self.eval_loss(batch, seed=seed))
+        from baryon_painter_tpu_torch.utils import validation_plotting as vp
+        vp.require_matplotlib()
+        s = self.validation_sample(validation_batch_size, validation_redshift,
+                                   return_var=plot_sample_var, seed=seed,
+                                   eps=eps)
+        figs = vp.validation_figures(
+            s["x"], s["pred"], s["y"], self.test_data, s["z"],
+            pred_var=s["var"], spectra=plot_power_spectra,
+            histograms=plot_histogram, device=self.device)
+        if save_plots:
+            vp.save_figures(figs, filename_template)
+        return figs
 
     # ------------------------------------------------------------------ #
 

@@ -159,6 +159,9 @@ def main() -> int:
                        bf16_ms=training_bf16["step_ms"])
     # CGAN training (21), its gate leg on 20b's fiducial-adv stacks
     cgan_train = smoke.cgan_train(device, dataset, gate, card=card)
+    # the run tooling (22): --profile, validate's figures, the stats twin
+    # on phase 19's run, BatchLoader(raw=False)
+    tooling = smoke.tooling(device, dataset, train_loop, card=card)
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
     print(json.dumps(smoke.kernels_record(
@@ -167,7 +170,7 @@ def main() -> int:
         training_bf16=training_bf16, conv_bn_bf16=conv_bn_bf16,
         training_bf16_k4=training_bf16_k4, lightcone=lightcone, cgan=cgan,
         train_loop=train_loop, gate_run=gate, pk=pk,
-        cgan_train=cgan_train)))
+        cgan_train=cgan_train, tooling=tooling)))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

@@ -44,8 +44,13 @@ The prior's noise is drawn from a ``torch.Generator`` seeded ``--seed``
 (``jax.random.PRNGKey``); ``scripts/fidelity_spread_torch.py`` measures how
 far the score moves with that draw.
 
-Not ported: ``--save-figures`` (ROADMAP.md, section 1, item 11), which
-raises. Imports only torch, numpy and the port.
+``--save-figures`` saves the trainer's validation figures (``validate``:
+samples, auto P(k), log histogram) as ``<workdir>/<model>_<plot_type>.png``
+before the final scores, as the JAX script does; with ``--eval-only`` a
+trainer is built from the checkpoint for them (the CVAE's heads through K3
+with ``BPT_FUSED_HEADS=1``). They need matplotlib: without it the flag
+raises an ImportError at once. Imports only torch, numpy and the port
+(matplotlib for ``--save-figures``).
 """
 import argparse
 import copy
@@ -295,8 +300,8 @@ def parse_args(argv=None):
                    help="checkpoint base path to restore (default: "
                         "<workdir>/fidelity_model_<model>)")
     p.add_argument("--save-figures", action="store_true",
-                   help="figures are not ported (ROADMAP.md, section 1, "
-                        "item 11): raises")
+                   help="save the validation figures (sample, P(k), "
+                        "histogram) into --workdir (needs matplotlib)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
@@ -470,6 +475,14 @@ def setup(args, data=None):
                        "batch_stats": state.get("batch_stats", {})}
             variables = lambda: weights
             _log("restored checkpoint")
+            if args.save_figures:
+                # the figures' trainer (validate), on the checkpoint
+                trainer = CVAETrainer(
+                    CVAE(arch, dtype=model_dtype, fused_heads=os.environ.get(
+                        "BPT_FUSED_HEADS") == "1"),
+                    train_ds, test_data=val_ds,
+                    config=TrainConfig(seed=args.seed), variables=weights,
+                    device=device)
         else:
             trainer = CVAETrainer(
                 CVAE(arch, dtype=model_dtype,
@@ -495,6 +508,10 @@ def setup(args, data=None):
         # the "model" leg paints the CGAN in bf16, as the committed reports
         # score it; the CGAN trains in f32
         model_dtype = torch.bfloat16
+        gen_kw = {"upsample": args.upsample}
+        if meta_arch is not None:
+            gen_kw.update(in_channels=meta_arch.get("in_channels", 2),
+                          n_res_blocks=meta_arch.get("n_res_blocks", 9))
         if args.eval_only:
             state, _ = ckpt.load_checkpoint(ckpt_base)
             arch = dict(meta_arch or {}, upsample=args.upsample)
@@ -503,16 +520,21 @@ def setup(args, data=None):
             paint_meta = ckpt.meta_from_dataset(train_ds, arch,
                                                 model_kind="cgan")
             _log("restored checkpoint")
+            if args.save_figures:
+                # the figures' trainer (validate), on the checkpoint
+                trainer = CGANTrainer(
+                    train_ds, test_data=val_ds,
+                    generator=CGANGenerator(spectral_norm=True, **gen_kw),
+                    config=CGANTrainConfig(seed=args.seed,
+                                           batch_size=args.batch),
+                    device=device)
+                trainer.restore(ckpt_base)
 
             def make_painter(dtype, fused=True):
                 return CGANPainter(variables=variables, meta=paint_meta,
                                    fused_inference=fused, dtype=dtype,
                                    device=device)
         else:
-            gen_kw = {"upsample": args.upsample}
-            if meta_arch is not None:
-                gen_kw.update(in_channels=meta_arch.get("in_channels", 2),
-                              n_res_blocks=meta_arch.get("n_res_blocks", 9))
             trainer = CGANTrainer(
                 train_ds, test_data=val_ds,
                 generator=CGANGenerator(spectral_norm=True, **gen_kw),
@@ -552,9 +574,9 @@ def main(argv=None, data=None):
     redshifts = redshifts_of(args)
     shares, auto_boost = validate_fine_tune_args(args, list(redshifts))
     if args.save_figures:
-        raise NotImplementedError(
-            "--save-figures: the validation figures are not ported yet "
-            "(ROADMAP.md, section 1, item 11).")
+        from baryon_painter_tpu_torch.utils.validation_plotting import \
+            require_matplotlib
+        require_matplotlib()
 
     import torch
 
@@ -742,6 +764,12 @@ def main(argv=None, data=None):
                 _log("  restored best-gate parameters")
         save_with_geometry(ckpt_base)
         stats.flush_to_file()
+    if args.save_figures:
+        if trainer.test_data is None:
+            trainer.test_data = val_ds
+        trainer.validate(save_plots=True, filename_template=os.path.join(
+            args.workdir, f"{args.model}_{{plot_type}}.png"))
+        _log(f"figures saved in {args.workdir}")
     painter = make_painter(legs[0][1])
     auto1, cross1, diag1 = pk_errors(painter, val_ds, seed=args.seed,
                                      n_sample=args.eval_tiles)

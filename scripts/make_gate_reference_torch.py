@@ -11,9 +11,13 @@ CVAE, 48 tiles). So this script scores, with the JAX package on the CPU,
 the committed evaluations that phase 20 repeats (``scripts/
 fidelity_check.py``'s ``pk_errors`` on the synthetic validation stacks):
 
-- the fiducial CVAE (512^2) at z = 0, 0.125, 0.25 (``smoke.GATE_CVAE_Z``),
-  and both CGANs (fiducial and fiducial-adv, 256^2) at their three
-  redshifts, 48 tiles each;
+- the fiducial CVAE (512^2) at z = 0, 0.125, 0.25 (``smoke.GATE_CVAE_Z``,
+  phase 20a) and at its other eight redshifts (``cvae_z11``, phase 20d),
+  both CGANs (fiducial and fiducial-adv, 256^2) at their three redshifts,
+  and the other three committed CVAEs (fiducial-resize at 256^2,
+  physical-512-lt-wip and physical-512-resize-wip at 512^2 with
+  ``--physical``, phase 20d) at the redshifts of the bf16 readings 20d
+  decides, 48 tiles each, through each checkpoint meta's transforms;
 - in f32 (``jax.default_matmul_precision("highest")``, as the JAX script's
   f32 leg), in bf16 jitted (the JAX painter as it runs), in bf16 with
   the eval-mode batch norm's input pinned at its storage dtype by an
@@ -23,15 +27,15 @@ fidelity_check.py``'s ``pk_errors`` on the synthetic validation stacks):
   package's XLA version of K1, whose rounding points K1's are: the
   products summed in f32, the inner activation rounded once);
 
-and stores the prior noise the CVAE paints with: the draws of
+and stores the prior noise each CVAE paints with: the draws of
 ``PRNGKey(seed)`` in f32 and in bf16 (the bf16 model draws its noise in
-bf16: other values), as (48, 16, 16), which the port's painter takes
-through ``eps``.
+bf16: other values), at the latent's shape (48, tile/32, tile/32), which
+the port's painter takes through ``eps``.
 
 Run: JAX_PLATFORMS=cpu python scripts/make_gate_reference_torch.py
-(about 5 minutes). ``--case NAME`` (repeatable: ``cvae``, ``cgan``,
-``cgan_adv``) and ``--mode MODE`` (repeatable) score only those cases and
-modes and keep every other array of the existing file as it is.
+(about 25 minutes). ``--case NAME`` (repeatable: the names of ``CASES``)
+and ``--mode MODE`` (repeatable) score only those cases and modes and
+keep every other array of the existing file as it is.
 
 With ``--witness BASE --z Z`` it writes nothing and prints one JSON
 object instead: the JAX package's own noise spread of one committed f32
@@ -57,16 +61,30 @@ OUT = os.path.join(REPO, "baryon_painter_tpu_torch", "data",
                    "gate_reference.npz")
 TILES = 48
 SEED = 0
-# (name, checkpoint, tile, redshifts of the committed evaluation's stacks,
-# redshifts scored); the synthetic stacks draw the redshifts in order, so
-# the first three of the fiducial CVAE's eleven are its committed tiles
+ALL_Z = (0.0, 0.125, 0.25, 0.375, 0.5, 0.75, 1.0, 1.25, 1.5, 1.75, 2.0)
+# (name, key prefix, checkpoint, tile, --physical, redshifts of the
+# committed evaluation's stacks, redshifts scored). The synthetic stacks
+# draw the redshifts in order, so the first three of the fiducial CVAE's
+# eleven are its committed tiles; ``cvae_z11`` scores its other eight on
+# all eleven stacks, under the same prefix. The other CVAEs are scored at
+# the redshifts whose bf16 readings phase 20d decides (ROADMAP.md §3 of
+# the PR that added them), with their meta's ``fidelity_dataset``.
 CASES = (
-    ("cvae", "trained_models/CVAE/fiducial-512/model", 512,
+    ("cvae", "cvae", "trained_models/CVAE/fiducial-512/model", 512, False,
      (0.0, 0.125, 0.25), (0.0, 0.125, 0.25)),
-    ("cgan", "trained_models/CGAN/fiducial/model", 256,
+    ("cgan", "cgan", "trained_models/CGAN/fiducial/model", 256, False,
      (0.0, 0.5, 1.0), (0.0, 0.5, 1.0)),
-    ("cgan_adv", "trained_models/CGAN/fiducial-adv/model", 256,
-     (0.0, 0.5, 1.0), (0.0, 0.5, 1.0)),
+    ("cgan_adv", "cgan_adv", "trained_models/CGAN/fiducial-adv/model", 256,
+     False, (0.0, 0.5, 1.0), (0.0, 0.5, 1.0)),
+    ("cvae_z11", "cvae", "trained_models/CVAE/fiducial-512/model", 512,
+     False, ALL_Z, ALL_Z[3:]),
+    ("cvae_resize", "cvae_resize", "trained_models/CVAE/fiducial-resize/model",
+     256, False, (0.0, 0.5, 1.0), (0.5,)),
+    ("cvae_lt", "cvae_lt", "trained_models/CVAE/physical-512-lt-wip/model",
+     512, True, ALL_Z, (0.25, 1.25, 1.75, 2.0)),
+    ("cvae_resize_wip", "cvae_resize_wip",
+     "trained_models/CVAE/physical-512-resize-wip/model", 512, True, ALL_Z,
+     (0.25, 1.0, 1.25, 1.5, 1.75, 2.0)),
 )
 MODES = ("f32", "bf16_jit", "bf16_pinned", "bf16_fused")
 
@@ -91,19 +109,26 @@ def pinned_batch_norm():
     return lambda: setattr(layers.BatchNorm, "__call__", call)
 
 
-def validation_set(tile, redshifts, root):
+def validation_set(tile, redshifts, root, base, physical=False):
     """The JAX script's validation set of the committed evaluation
-    (``--n-stack 4``, pressure noise 0.1, seed 0), and its training set,
-    whose statistics the gate's painter transforms with."""
+    (``--n-stack 4``, pressure noise 0.1, seed 0; ``physical`` as
+    ``--physical``), and its training set, whose statistics the gate's
+    painter transforms with; both through the checkpoint meta's
+    transforms, as the JAX script's ``--eval-only`` takes them."""
+    import json
+
     from baryon_painter_tpu.data.dataset import (BahamasTileDataset,
                                                  load_file_info)
     from baryon_painter_tpu.data.synthetic import make_synthetic_stacks
-    from baryon_painter_tpu.transforms import RangeCompress
+    from baryon_painter_tpu.transforms import transform_from_dict
+    physical_kw = (dict(spectrum="powerlaw", sigma0=1.2, pressure_smooth=2.0,
+                        pressure_noise_corr=2.0) if physical else {})
     info = make_synthetic_stacks(root, n_stack=4, n_grid=2 * tile,
                                  redshifts=redshifts, seed=SEED, name="fid",
-                                 pressure_noise=0.1)
-    tf = {f: RangeCompress("shift-log", 4.0, eps=1e-4)
-          for f in ("dm", "pressure")}
+                                 pressure_noise=0.1, **physical_kw)
+    with open(os.path.join(REPO, base) + "_meta.json") as f:
+        tf = {k: transform_from_dict(d)
+              for k, d in json.load(f)["transforms"].items()}
     train = BahamasTileDataset(files=load_file_info(info), root_path=root,
                                n_tile=2, n_stack=3, stack_offset=1,
                                tile_permutations=True, transforms=tf)
@@ -161,24 +186,30 @@ def main(cases=None, modes=None):
         # the other cases' arrays as they are; the scored ones replaced
         with np.load(OUT) as old:
             arrays = {k: old[k] for k in old.files}
-    for kind, base, tile, stack_z, zs in CASES:
-        if cases is not None and kind not in cases:
+    for name, kind, base, tile, physical, stack_z, zs in CASES:
+        if cases is not None and name not in cases:
             continue
+        cvae = "/CVAE/" in base
         with tempfile.TemporaryDirectory() as root:
-            train, val = validation_set(tile, stack_z, root)
+            train, val = validation_set(tile, stack_z, root, base, physical)
             for mode in MODES:
                 if ((modes is not None and mode not in modes)
-                        or (mode == "bf16_fused" and kind == "cvae")):
+                        or (mode == "bf16_fused" and cvae)):
                     continue
                 dtype = None if mode == "f32" else jnp.bfloat16
                 undo = pinned_batch_norm() if mode == "bf16_pinned" else None
                 try:
-                    p = painter(kind, base, train, dtype,
-                                fused=mode == "bf16_fused")
-                    if kind == "cvae":
+                    p = painter("cvae" if cvae else "cgan", base, train,
+                                dtype, fused=mode == "bf16_fused")
+                    if cvae:
                         h = tile // 32
-                        arrays[f"{kind}_eps_{mode[:4]}"] = prior_noise(
-                            p, (TILES, h, h), dtype or jnp.float32)
+                        key = f"{kind}_eps_{mode[:4]}"
+                        eps = prior_noise(p, (TILES, h, h),
+                                          dtype or jnp.float32)
+                        if key in arrays and not np.array_equal(
+                                arrays[key], eps):
+                            raise AssertionError(f"{key}: another draw")
+                        arrays[key] = eps
                     with jax.default_matmul_precision(
                             "highest" if mode == "f32" else "default"):
                         for z in zs:
@@ -186,7 +217,7 @@ def main(cases=None, modes=None):
                                 p, val, n_sample=TILES, seed=SEED, z=z)
                             arrays[f"{kind}_{mode}_z{z:g}"] = np.array(
                                 [auto, cross], np.float64)
-                            print(f"{kind} {mode} z={z:g}: auto {auto:.5f} "
+                            print(f"{name} {mode} z={z:g}: auto {auto:.5f} "
                                   f"cross {cross:.5f}", flush=True)
                 finally:
                     if undo is not None:

@@ -21,9 +21,14 @@ either package wrote; ``--resume-from`` continues a checkpoint of either
 package. Runs on the card unless ``--device cpu``. Imports only torch,
 numpy and the port.
 
-Not ported: the validation figures the JAX CLI saves at its validation
-pepochs (no figure is drawn here; ROADMAP.md, section 1, item 11) and
-``--profile`` (item 11), which raises.
+At the JAX CLI's validation pepochs the run saves its figures
+(``validate``: sample with variance, auto and cross P(k), log histogram)
+as ``<output-path>/<plot_type>_pepoch<N>.png``; they need matplotlib, and
+without it the run says so in one line at its start and goes on without
+them (``validation_stats.txt`` is written either way). ``--profile
+LOG_DIR`` wraps ``train()`` in a ``torch.profiler`` trace of the host and
+the card (``utils/profiling.device_trace``), written as
+``LOG_DIR/trace.json`` (chrome://tracing or Perfetto).
 """
 import argparse
 import os
@@ -37,11 +42,7 @@ FIDUCIAL_REDSHIFTS = [0.0, 0.125, 0.25, 0.375, 0.5, 0.75, 1.0, 1.25, 1.5,
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(
-        description=__doc__.splitlines()[0],
-        epilog="No validation figure is drawn (ROADMAP.md, section 1, "
-               "item 11): the validation loss is written to "
-               "validation_stats.txt.")
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--data-path", help="directory with stacks + files-info pickle")
     p.add_argument("--files-info", default="train_files_info.pickle")
     p.add_argument("--synthetic", action="store_true",
@@ -71,8 +72,8 @@ def parse_args(argv=None):
                         "covers architecture + transforms + schedules + "
                         "trainer scalars; CLI flags override its values")
     p.add_argument("--profile", metavar="LOG_DIR", default=None,
-                   help="the JAX CLI's device trace; not ported (ROADMAP.md, "
-                        "section 1, item 11): raises")
+                   help="wrap training in a torch.profiler trace of the "
+                        "host and the card, written to LOG_DIR/trace.json")
     p.add_argument("--adaptive-lr", default=None,
                    choices=["fiducial", "avoid_plateau"],
                    help="lr schedule: 'fiducial' = step decay; "
@@ -144,11 +145,6 @@ def build(args, datasets=None):
     from baryon_painter_tpu_torch.train.trainer import CVAETrainer
     from baryon_painter_tpu_torch.transforms import transform_from_dict
 
-    if args.profile:
-        raise NotImplementedError(
-            "--profile: the device trace is not ported yet (ROADMAP.md, "
-            "section 1, item 11).")
-
     run_cfg = RunConfig.load(args.config) if args.config else None
     if run_cfg is not None and run_cfg.transforms:
         transforms = run_cfg.build_transforms()
@@ -213,23 +209,71 @@ def build(args, datasets=None):
     return trainer, run_cfg
 
 
+# the JAX CLI's validation pepochs (scripts/train_cvae.py)
+VALIDATION_PEPOCHS = (0, 1, 2, 5, 10, 15, 20, 30, 40, 50, 60, 70, 80, 90,
+                      100, 120, 140, 160, 180, 200, 230)
+
+
+def on_validation(output_path):
+    """The JAX CLI's figures at a validation pepoch, under its file names;
+    None (and one line saying so) without matplotlib."""
+    from baryon_painter_tpu_torch.utils.validation_plotting import \
+        require_matplotlib
+    try:
+        require_matplotlib()
+    except ImportError:
+        print("validation figures are not drawn: matplotlib is not "
+              "installed (validation_stats.txt is written)")
+        return None
+
+    def draw(tr, pepoch):
+        import matplotlib.pyplot as plt
+        figs = tr.validate(validation_batch_size=8, plot_sample_var=True,
+                           plot_power_spectra=["auto", "cross"],
+                           plot_histogram=["log"], save_plots=True,
+                           filename_template=os.path.join(
+                               output_path,
+                               f"{{plot_type}}_pepoch{pepoch}.png"))
+        for fig in figs.values():
+            plt.close(fig)
+    return draw
+
+
 def run(argv=None, datasets=None) -> dict:
     """Parse ``argv``, build the trainer, restore ``--resume-from`` and
-    train. Returns the trainer, both statistics objects and the seconds
-    ``train()`` took (host clock, after the final checkpoint is written)."""
+    train, with the figures at the validation pepochs and, with
+    ``--profile``, inside the trace. Returns the trainer, both statistics
+    objects, the seconds ``train()`` took (host clock, after the final
+    checkpoint is written), the seconds of the whole block with the
+    profiler's start, stop and trace export (``block_seconds``) and the
+    trace's path (or None)."""
+    from baryon_painter_tpu_torch.utils.profiling import (TRACE_FILE,
+                                                          device_trace)
     args = parse_args(argv)
     trainer, _ = build(args, datasets)
     if args.resume_from:
         trainer.restore(args.resume_from)
         print(f"resumed from {args.resume_from} at step "
               f"{trainer.steps}")
-    t0 = time.perf_counter()
-    tstats, vstats = trainer.train()
-    seconds = time.perf_counter() - t0
+    draw = on_validation(args.output_path)
+    t_block = time.perf_counter()
+    with device_trace(args.profile):
+        t0 = time.perf_counter()
+        tstats, vstats = trainer.train(
+            validation_pepochs=VALIDATION_PEPOCHS if draw else (),
+            on_validation=draw)
+        seconds = time.perf_counter() - t0
+    block_seconds = time.perf_counter() - t_block
+    trace = None
+    if args.profile:
+        trace = os.path.join(args.profile, TRACE_FILE)
+        print(f"device trace written to {trace} (chrome://tracing or "
+              f"Perfetto)")
     print(f"done: {tstats.n_processed_samples[-1]} samples; final ELBO mavg "
           f"{tstats.loss_terms['ELBO']['mavg'][-1]:.4e}")
     return {"trainer": trainer, "training_stats": tstats,
-            "validation_stats": vstats, "seconds": seconds}
+            "validation_stats": vstats, "seconds": seconds,
+            "block_seconds": block_seconds, "trace": trace}
 
 
 def main():

@@ -19,6 +19,8 @@ norm, whose gradient is 0 analytically (the batch norm removes any shift;
 ``d_stats`` (batch norm and spectral norm) to 1e-5 of each leaf's largest
 entry.
 """
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -451,10 +453,15 @@ def test_reinit_discriminator(data):
     assert all(np.isfinite(float(v)) for v in m.values())
 
 
-def test_mesh_and_figures_refuse(data):
+def test_mesh_and_figures_refuse(data, monkeypatch):
+    """The mesh is item 10's; the figures need matplotlib, and without it
+    ``validate`` says so."""
     _, td = data
     with pytest.raises(NotImplementedError, match="item 10"):
         CGANTrainer(td, device="cpu", mesh=object())
     tr = _port(td, None)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    for name in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
         tr.validate()

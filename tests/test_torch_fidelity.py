@@ -276,15 +276,19 @@ def test_cgan_training_leg(twin, tmp_path, capsys):
     capsys.readouterr()
 
 
-def test_what_the_gate_refuses(twin, tmp_path):
+def test_what_the_gate_refuses(twin, tmp_path, monkeypatch):
     base = ["--tile", str(TILE), "--device", "cpu", "--workdir",
             str(tmp_path)]
     cgan = os.path.join(REPO, "trained_models/CGAN/fiducial/model")
     with pytest.raises(SystemExit, match="--reinit-d needs"):
         twin.main(base + ["--model", "cgan", "--eval-only", "--checkpoint",
                           cgan, "--reinit-d", "7"])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    for name in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
         twin.main(base + ["--save-figures"])
+    monkeypatch.undo()
     with pytest.raises(SystemExit, match="no checkpoint"):
         twin.main(base + ["--eval-only", "--checkpoint",
                           str(tmp_path / "missing")])

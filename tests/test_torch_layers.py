@@ -153,4 +153,4 @@ def test_conv_on_too_small_tile_raises():
 
 def test_unknown_layer_raises():
     with pytest.raises(NotImplementedError):
-        tl.SpecSequential([("linear", {"out_features": 3})])
+        tl.SpecSequential([("lstm", {"out_features": 3})])

@@ -329,6 +329,7 @@ def test_training_phases_on_cpu(cpu_train_run):
     assert parity["worst_grad_rel_err"] <= smoke.STEP_GRAD_TOL
     assert parity["reference"] == "plain" and parity["witness"] == {}
     assert parity["grad_limit"] == smoke.STEP_GRAD_TOL
+    assert parity["f64"]["kernels"]["limit_share"] <= 1.0
     assert fused_paint["launches"] == fused_paint["k3_fwd_launches"] == 0
     assert fused_paint["worst_err_over_tol"] <= 1.0
 
@@ -362,6 +363,7 @@ def test_k4_phases_on_cpu(cpu_k4_run):
         smoke.STEP_GRAD_TOL, parity_k4["witness"]["plain_sites_vs_sites_f64"])
     assert set(parity_k4["witness"]) == {"plain_sites_vs_sites_f64",
                                          "kernels_vs_plain"}
+    assert parity_k4["f64"]["kernels"]["limit_share"] <= 1.0
 
 
 def test_step_parity_witness_script_on_cpu():
@@ -590,7 +592,9 @@ def _imports(path: Path):
                                              "fidelity_check_torch.py",
                                              "fidelity_spread_torch.py",
                                              "bf16_conv_probe_torch.py",
-                                             "smoke_phases_torch.py")],
+                                             "smoke_phases_torch.py",
+                                             "compare_reference_stats_torch.py",
+                                             "step_f64_witness_torch.py")],
     ids=lambda p: str(Path(p).relative_to(REPO)))
 def test_port_imports_nothing_of_jax(path):
     for name in _imports(path):
