@@ -10,7 +10,15 @@ extracted, resampled, painted and blended as device batches:
 on the painter's device (``painter.device``). File I/O stays in
 ``lightcone/io.py``. ``seamless=True`` paints each delta shell as one
 whole plane instead (``paint_plane_seamless``, ``parallel/spatial.py``).
-One device: a ``mesh`` raises (``ROADMAP.md`` §1 item 10).
+
+With a ``DeviceMesh`` (``parallel/mesh.py``) each tile batch is split over
+the mesh's devices (the batch size rounded up to a multiple of the mesh's
+size), each shard painted by the painter's copy on its device, and the
+results gathered onto the painter's device in tile order for the blend;
+the CVAE's prior noise is drawn for the whole batch with the painter's
+generator and sliced, so the sharded paint is the unsharded one. The
+seamless path passes the mesh on to ``spatial.paint_plane``; the massplane
+shell's single tile is painted unsharded, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,14 +35,44 @@ from baryon_painter_tpu_torch.lightcone.tiling import (generate_tiling,
                                                        make_weight_map,
                                                        tile_origin_pixels)
 from baryon_painter_tpu_torch.ops.resample import resize_spline
+from baryon_painter_tpu_torch.parallel.mesh import DeviceMesh, replicate
 from baryon_painter_tpu_torch.utils.platform import to_device
 
 __all__ = ["paint_plane", "paint_plane_seamless",
            "paint_plane_from_massplane", "process_slics", "blend_tiles",
-           "StageTimes"]
+           "paint_batch_sharded", "StageTimes"]
 
-_MESH = ("a mesh is multi-GPU painting, not ported yet (ROADMAP.md §1 "
-         "item 10); pass mesh=None")
+
+def _check_mesh(mesh):
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"painting takes a DeviceMesh (one process, several "
+                        f"devices), got {type(mesh).__name__}")
+
+
+def paint_batch_sharded(painter, tiles, zs, mesh: DeviceMesh, eps=None):
+    """``painter.paint_batch(tiles, zs)`` split over ``mesh``'s devices:
+    rows ``mesh.split(N)`` painted by the painter's copy on each device
+    (``parallel.mesh.replicate``), every shard launched before any result
+    is gathered, then the shards gathered onto the painter's device in
+    order. A CVAE's prior noise is ``eps`` (N, Cz, h, w), else drawn for
+    all N tiles with the painter's generator (``CVAEPainter.latent_noise``),
+    and sliced."""
+    from baryon_painter_tpu_torch.painter import CVAEPainter
+    _check_mesh(mesh)
+    copies = replicate(painter, mesh)
+    if isinstance(painter, CVAEPainter) and eps is None:
+        eps = painter.latent_noise(tiles.shape[0], tuple(tiles.shape[1:]))
+    elif not isinstance(painter, CVAEPainter):
+        eps = None
+    shards = []
+    for dev, (lo, hi) in zip(mesh.devices, mesh.split(tiles.shape[0])):
+        if hi == lo:
+            continue
+        kw = {} if eps is None else {
+            "eps": torch.as_tensor(eps)[lo:hi].to(dev)}
+        shards.append(copies[dev].paint_batch(tiles[lo:hi].to(dev),
+                                              zs[lo:hi].to(dev), **kw))
+    return torch.cat([t.to(painter.device) for t in shards])
 
 
 class StageTimes:
@@ -142,11 +180,16 @@ def paint_plane(painter, delta, z_slice: float,
     ``collect_problematic`` also the list of (z, zoomed tile, painted tile)
     whose painted pixels lie more than ``regularise_std`` standard
     deviations (ddof 0) from the tile's mean; ``regularise`` gives those
-    pixels zero weight.
+    pixels zero weight. With a ``DeviceMesh`` each paint chunk is split over
+    its devices (``paint_batch_sharded``; ``paint_batch_size`` rounded up
+    to a multiple of the mesh's size).
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    _check_mesh(mesh)
     device = painter.device
+    paint = painter.paint_batch
+    if mesh is not None:
+        paint_batch_size = -(-paint_batch_size // mesh.size) * mesh.size
+        paint = lambda t, z: paint_batch_sharded(painter, t, z, mesh)
     n_pixel_plane = int(delta_size / tile_size * n_pixel_tile)
     origins, _ = generate_tiling(n_pixel_plane, n_pixel_tile,
                                  min_tile_overlap)
@@ -174,7 +217,7 @@ def paint_plane(painter, delta, z_slice: float,
     _mark(stage_times, "zoom")
 
     painted = torch.cat([
-        painter.paint_batch(tiles[lo:lo + paint_batch_size], torch.full(
+        paint(tiles[lo:lo + paint_batch_size], torch.full(
             (min(paint_batch_size, n_tiles - lo),), float(z_slice),
             dtype=torch.float32, device=device))
         for lo in range(0, n_tiles, paint_batch_size)])
@@ -220,18 +263,18 @@ def paint_plane_seamless(painter, delta, z_slice: float, tile_size: float,
     periodic box, and the paint wraps at the same edges) and paint it in
     one fully convolutional pass (``parallel/spatial.paint_plane``; the
     CVAE's noise from ``generator``). No tiles, no weight maps, every pixel
-    painted once plus the halo. Stages marked: ``zoom``, ``paint``."""
+    painted once plus the halo; with a ``DeviceMesh`` row-sharded over its
+    devices. Stages marked: ``zoom``, ``paint``."""
     from baryon_painter_tpu_torch.parallel import spatial
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    _check_mesh(mesh)
     n_pixel_plane = int(delta_size / tile_size * n_pixel_tile)
     plane = to_device(delta, painter.device, torch.float32)
     if tuple(plane.shape) != (n_pixel_plane, n_pixel_plane):
         plane = resize_spline(plane[None], (n_pixel_plane, n_pixel_plane),
                               order=zoom_order, mode="wrap")[0]
     _mark(stage_times, "zoom")
-    out = spatial.paint_plane(painter, plane, z_slice, generator=generator,
-                              z_mode=z_mode)
+    out = spatial.paint_plane(painter, plane, z_slice, mesh=mesh,
+                              generator=generator, z_mode=z_mode)
     _mark(stage_times, "paint")
     return _output(out, device_output)
 
@@ -314,8 +357,9 @@ def process_slics(painter, tile_size: float, n_pixel_tile: int,
     from a ``torch.Generator`` seeded with 1000 * LOS + the shell's index
     (JAX keys the shell with ``PRNGKey(1000 * LOS + i)``): a line of sight
     is reproducible, though not JAX's draw. It paints without the fused
-    residual blocks, as in JAX. ``mesh`` raises ``NotImplementedError``
-    (``ROADMAP.md`` §1 item 10).
+    residual blocks, as in JAX. ``mesh``: a ``DeviceMesh`` over which every
+    delta shell's tile batches (or seamless plane) are sharded; the
+    painter is copied to each of its devices once.
     """
     if seamless and (regularise or return_problematic_tiles):
         raise ValueError("seamless painting has no tiles to regularise; "
@@ -326,8 +370,9 @@ def process_slics(painter, tile_size: float, n_pixel_tile: int,
                          "supported; use fused for the tiled path only")
     if len(z_SLICS) != len(z_slice):
         raise ValueError("Shapes of z_SLICS and z_slice need to match!")
+    _check_mesh(mesh)
     if mesh is not None:
-        raise NotImplementedError(_MESH)
+        replicate(painter, mesh)
     _mark(stage_times, "setup")
     device = painter.device
     pin = device.type == "cuda"
@@ -401,14 +446,14 @@ def process_slics(painter, tile_size: float, n_pixel_tile: int,
                 gen.manual_seed(1000 * LOS + i)
                 painted_planes.append(paint_plane_seamless(
                     painter, plane, z_slice[i], tile_size, delta_size[i],
-                    n_pixel_tile, generator=gen, device_output=device_output,
-                    stage_times=stage_times))
+                    n_pixel_tile, mesh=mesh, generator=gen,
+                    device_output=device_output, stage_times=stage_times))
                 continue
             out = paint_plane(painter, plane, z_slice[i], tile_size,
                               delta_size[i], n_pixel_tile,
                               min_tile_overlap=min_tiling_overlap,
                               paint_batch_size=paint_batch_size,
-                              regularise=regularise,
+                              mesh=mesh, regularise=regularise,
                               regularise_std=regularise_std,
                               collect_problematic=return_problematic_tiles,
                               device_output=device_output,

@@ -36,7 +36,7 @@ to batch statistics for ``forward``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -204,17 +204,25 @@ class CVAE(nn.Module):
 
     def forward(self, x, y, aux_label=None, alpha_var: float = 1.0,
                 beta_KL: float = 1.0, sample_weight=None, eps=None,
-                generator: Optional[torch.Generator] = None) -> dict:
+                generator: Optional[torch.Generator] = None,
+                batch_rows: Optional[Tuple[int, int]] = None) -> dict:
         """ELBO and its terms, as the JAX ``CVAE.__call__`` computes them.
 
         x: (N,C_x,H,W) transformed target field(s); y: (N,C_y,H,W) input.
         ``eps``: the latent noise, (L, N, Cz, hz, wz) (or (N, Cz, hz, wz)
         for L = 1); drawn from ``generator`` when not given.
         ``sample_weight``: optional (N,) weights of each sample's KL and
-        log-likelihood. Returns a dict: elbo, kl, log_likelihood (per output
+        log-likelihood. ``batch_rows`` = (lo, B): these N rows are rows
+        lo..lo+N of a global batch of B split over ranks (a data-parallel
+        step): the terms are normalised by B, so the ranks' terms sum to
+        the global batch's, and drawn noise is rows lo..lo+N of the draw
+        for B rows. Returns a dict: elbo, kl, log_likelihood (per output
         channel), x_mu, and with a predicted variance
         log_likelihood_fixed_var, log_likelihood_free_var and x_var."""
         M = x.shape[0]
+        lo = 0
+        if batch_rows is not None:
+            lo, M = batch_rows
         L = self.L
         z_mu, z_log_var = self.Q(x, y, aux_label)
         # the KL and the reparameterisation in f32, as in the JAX package
@@ -222,8 +230,9 @@ class CVAE(nn.Module):
         acc = torch.float64 if self.dtype == torch.float64 else torch.float32
         z_mu, z_log_var = z_mu.to(acc), z_log_var.to(acc)
         if eps is None:
-            eps = torch.randn((L, *z_mu.shape), generator=generator,
-                              dtype=z_mu.dtype, device=z_mu.device)
+            eps = torch.randn((L, M, *z_mu.shape[1:]), generator=generator,
+                              dtype=z_mu.dtype, device=z_mu.device
+                              )[:, lo:lo + x.shape[0]]
         eps = torch.as_tensor(eps, dtype=z_mu.dtype, device=z_mu.device)
         z = self.sample_z(z_mu, z_log_var, eps.reshape(L, *z_mu.shape))
 
@@ -245,6 +254,9 @@ class CVAE(nn.Module):
         x_mu = params[0]
         sq = (x.repeat(L, 1, 1, 1) - x_mu.to(x.dtype)) ** 2
         norm = M * L
+        # the constant term, this process's share of it (all of it unless
+        # batch_rows splits the batch)
+        const = -0.5 * LOG_2PI * (x.shape[0] / M)
         if w is not None:
             w_rep = w.repeat(L)[:, None, None, None].to(x.dtype)
             wsum = lambda t: (w_rep * t).sum(dim=(0, 2, 3))
@@ -254,37 +266,43 @@ class CVAE(nn.Module):
         if self.predict_var:
             x_log_var = params[1].to(x.dtype)
             x_var = torch.exp(x_log_var)
-            ll_fixed = -0.5 * LOG_2PI + wsum(-0.5 * sq) / norm
-            ll_free = -0.5 * LOG_2PI + wsum(
+            ll_fixed = const + wsum(-0.5 * sq) / norm
+            ll_free = const + wsum(
                 -0.5 * x_log_var - 0.5 * sq / x_var) / norm
             ll = (1 - alpha_var) * ll_fixed + alpha_var * ll_free
             out.update(log_likelihood_fixed_var=ll_fixed,
                        log_likelihood_free_var=ll_free, x_var=x_var)
         else:
-            ll = -0.5 * LOG_2PI + wsum(-0.5 * sq) / norm
+            ll = const + wsum(-0.5 * sq) / norm
         out["log_likelihood"] = ll
         out["x_mu"] = x_mu
         out["elbo"] = -kl * beta_KL + self.likelihood_scaling * ll.sum()
         return out
 
     def sample_prior(self, y, aux_label=None, eps=None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     batch_rows: Optional[Tuple[int, int]] = None):
         """A latent drawn from the prior p(z|y): noise ``eps``, else drawn
-        from ``generator``, in the latent's dtype."""
+        from ``generator``, in the latent's dtype (with ``batch_rows`` =
+        (lo, B), rows lo..lo+N of the draw for B rows, as in ``forward``)."""
         z_mu, z_log_var = self.prior(y, aux_label)
         if eps is None:
-            eps = torch.randn(z_mu.shape, generator=generator,
-                              dtype=z_mu.dtype, device=z_mu.device)
+            lo, n = batch_rows or (0, z_mu.shape[0])
+            eps = torch.randn((n, *z_mu.shape[1:]), generator=generator,
+                              dtype=z_mu.dtype, device=z_mu.device
+                              )[lo:lo + z_mu.shape[0]]
         return self.sample_z(z_mu, z_log_var, torch.as_tensor(
             eps, dtype=z_mu.dtype, device=z_mu.device))
 
     def sample_P(self, y, aux_label=None, z=None, eps=None,
                  generator: Optional[torch.Generator] = None,
-                 return_var: bool = False):
+                 return_var: bool = False,
+                 batch_rows: Optional[Tuple[int, int]] = None):
         """Paint: draw z from the prior (``sample_prior``) unless ``z`` is
         given, and decode."""
         if z is None:
-            z = self.sample_prior(y, aux_label, eps=eps, generator=generator)
+            z = self.sample_prior(y, aux_label, eps=eps, generator=generator,
+                                  batch_rows=batch_rows)
         p = self.P(z, y, aux_label)
         if return_var and self.predict_var:
             return p[0], torch.exp(p[1])

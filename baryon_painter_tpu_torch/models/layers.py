@@ -58,6 +58,7 @@ from torch import nn
 from baryon_painter_tpu_torch.ops import conv_rules
 from baryon_painter_tpu_torch.ops.conv_bn import conv_bn_relu
 from baryon_painter_tpu_torch.ops.res_block import fold_bn, res_block_infer
+from baryon_painter_tpu_torch.parallel.mesh import active_mesh
 
 __all__ = ["Conv2d", "ConvTranspose2d", "Dense", "BatchNorm", "PReLU",
            "ResidualBlock", "FusedResBlock", "SpecSequential",
@@ -241,7 +242,10 @@ class BatchNorm(nn.Module):
 
     Both modes compute ``x * a + b`` with a = scale / sqrt(var + eps) and
     b = bias - mean * a, as the JAX package does; train mode takes mean and
-    var from the batch (f32) and the gradient flows through them. x is cast
+    var from the batch (f32) and the gradient flows through them. Inside a
+    ``ProcessMesh``'s ``active()`` block the batch is the global one: the
+    ranks' per-channel E[x] and E[x^2] are averaged (equal shares), and
+    the backward averages their gradients the same way. x is cast
     to ``dtype`` (None: kept), the affine computed in f32 (f64 for f64) and
     the result returned in that dtype; in train mode the gradient reaching
     x is rounded to it too."""
@@ -266,7 +270,13 @@ class BatchNorm(nn.Module):
         xf = x.to(dt).to(torch.promote_types(dt, torch.float32))
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
-            var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+            mean_sq = (xf * xf).mean(dim=(0, 2, 3))
+            mesh = active_mesh()
+            if mesh is not None:
+                # over the global batch: the ranks' equal shares averaged,
+                # differentiably (the backward all-reduces too)
+                mean, mean_sq = mesh.mean(torch.stack([mean, mean_sq]))
+            var = mean_sq - mean * mean
             self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

@@ -53,6 +53,12 @@ compute u in f32 from the bf16 values and round where the kernels round;
 they never use PyTorch's CPU bf16 convolution (wrong at some shapes) nor, on
 the card, cuDNN's bf16 convolution (which would round u to bf16). Each
 wrapper counts its bf16 launches apart in ``.bf16_launches``.
+
+Under a ``ProcessMesh`` (``parallel/mesh.py``, inside its ``active()``
+block) each rank's kernels run on its own rows, and ``conv_bn_relu``
+all-reduces between launches: K4-stats' (s1, s2) before the statistics,
+with the global count, and K4-bwd1's (S1, S2) before K4-bwd2. No kernel
+changes; dgamma and dbeta stay the rank's share.
 """
 from __future__ import annotations
 
@@ -63,6 +69,7 @@ from torch.nn.grad import conv2d_input, conv2d_weight
 from baryon_painter_tpu_torch.ops.head_stack import (_DTYPE_CODES,
                                                      _compute_dtype, _launch,
                                                      _operand, rounder)
+from baryon_painter_tpu_torch.parallel.mesh import active_mesh
 
 __all__ = ["conv_bn_relu", "conv_bn_stats", "conv_bn_fwd", "conv_bn_bwd1",
            "conv_bn_bwd2", "conv_bn_stats_ref", "conv_bn_fwd_ref",
@@ -459,6 +466,13 @@ class _ConvBnRelu(torch.autograd.Function):
         kw = dict(transposed=transposed, stride=stride, padding=padding)
         count = _count(x, w, transposed, stride)
         s1, s2, u = conv_bn_stats(x, w, **kw)
+        mesh = active_mesh()
+        if mesh is not None:
+            # the global batch's sums between K4-stats and K4-fwd; every
+            # rank holds an equal share
+            s1, s2 = mesh.all_reduce(torch.stack([s1, s2]))
+            count *= mesh.size
+        ctx.mesh = mesh
         mean, var = batch_stats(s1, s2, count)
         inv, a, b = bn_affine(gamma, beta, mean, var, eps)
         # f32: in place over u; bf16: a new tensor, u freed on return
@@ -474,8 +488,13 @@ class _ConvBnRelu(torch.autograd.Function):
         x, w, a, mean, inv, y = ctx.saved_tensors
         dy = dy.to(x.dtype).contiguous()
         s1, s2, u = conv_bn_bwd1(x, w, mean, inv, y, dy, **ctx.kw)
-        dx, dw = conv_bn_bwd2(x, w, a, mean, inv, s1 / ctx.count,
-                              s2 / ctx.count, u, y, dy, **ctx.kw)
+        g1, g2 = s1, s2
+        if ctx.mesh is not None:
+            # K4-bwd2 needs the global batch's sums; dgamma and dbeta stay
+            # this rank's share, summed with the other gradients
+            g1, g2 = ctx.mesh.all_reduce(torch.stack([s1, s2]))
+        dx, dw = conv_bn_bwd2(x, w, a, mean, inv, g1 / ctx.count,
+                              g2 / ctx.count, u, y, dy, **ctx.kw)
         return dx, dw, s2, s1, None, None, None, None
 
 

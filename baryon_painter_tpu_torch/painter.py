@@ -34,6 +34,7 @@ the JAX package reads (``CGANPainter`` too).
 """
 from __future__ import annotations
 
+import copy
 import json
 from typing import Optional
 
@@ -185,6 +186,32 @@ class CVAEPainter:
         state, meta = ckpt.load_checkpoint(filename)
         self._setup(state, meta)
 
+    def replica(self, device) -> "CVAEPainter":
+        """This painter on ``device`` (``parallel.mesh.replicate``): the
+        model deep-copied there, the transforms' statistics rebuilt there,
+        a generator of its own there (a sharded paint draws its noise with
+        this painter's)."""
+        new = copy.copy(self)
+        new.device = resolve_device(device)
+        new.model = copy.deepcopy(self.model).to(new.device)
+        new.transforms, new.stats = ckpt.transforms_from_meta(
+            self.meta, device=new.device)
+        new._generator = torch.Generator(device=new.device)
+        return new
+
+    def latent_noise(self, n: int, tile_shape):
+        """The prior noise a paint of ``n`` tiles of ``tile_shape`` (H, W)
+        draws from the painter's own generator: (n, Cz, H/f, W/f) in the
+        latent's dtype on this painter's device, the draw ``paint_batch``
+        makes for that batch."""
+        from baryon_painter_tpu_torch.parallel.spatial import \
+            latent_downsample
+        f = latent_downsample(self.architecture)
+        shape = (n, int(self.architecture["dim_z"][0]),
+                 tile_shape[0] // f, tile_shape[1] // f)
+        return torch.randn(shape, dtype=self.model.dtype or torch.float32,
+                           device=self.device, generator=self._generator)
+
     def paint(self, input, z: float = 0.0, transform: bool = True,
               inverse_transform: bool = True, return_var: bool = False,
               generator: Optional[torch.Generator] = None, eps=None):
@@ -323,6 +350,17 @@ class CGANPainter:
             self._setup(variables, meta)
         else:
             raise ValueError("Provide filename or (variables, meta).")
+
+    def replica(self, device) -> "CGANPainter":
+        """This painter on ``device`` (``parallel.mesh.replicate``): the
+        generator deep-copied there, the transforms' statistics rebuilt
+        there."""
+        new = copy.copy(self)
+        new.device = resolve_device(device)
+        new.generator = copy.deepcopy(self.generator).to(new.device)
+        new.transforms, new.stats = ckpt.transforms_from_meta(
+            self.meta, device=new.device)
+        return new
 
     def _setup(self, variables, meta):
         arch = dict(meta["model_architecture"])

@@ -1,1 +1,1 @@
-"""Whole-plane painting (``spatial.py``); one device, multi-GPU to come."""
+"""Meshes (``mesh.py``) and whole-plane painting (``spatial.py``)."""

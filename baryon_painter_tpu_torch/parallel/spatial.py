@@ -1,6 +1,7 @@
-"""Seam-free whole-plane painting on one device.
+"""Seam-free whole-plane painting, on one device or row-sharded over a
+``DeviceMesh``.
 
-Port of ``baryon_painter_tpu/parallel/spatial.py`` with ``mesh=None``. The
+Port of ``baryon_painter_tpu/parallel/spatial.py``. The
 painters are fully convolutional, so a SLICS plane can be painted in one
 pass instead of as overlapping tiles blended with weight maps: the plane is
 extended periodically by the network's receptive-field margin (the halo),
@@ -15,8 +16,15 @@ noise is drawn once on the global (Q/f, Wq/f, c_z) latent grid and
 extended periodically by halo/f, so painting at two halos draws the same
 latent everywhere.
 
-A ``mesh`` (the JAX package's row-sharded ``shard_map`` paint with its
-halo exchange) is multi-GPU work and raises (``ROADMAP.md`` §1 item 10).
+With a ``DeviceMesh`` (``parallel/mesh.py``) of n devices the plane's rows
+are split into n slabs, each painted by the painter's copy on its device
+with its halo (the JAX package's ``shard_map`` paint). When the periodic
+height Q splits into n slabs of a multiple of f and the halo fits one
+slab, each slab gets its halo rows from its ring neighbours by
+device-to-device copies (the JAX package's ``lax.ppermute`` ring);
+otherwise every device gets its halo-extended slab of the periodic plane
+by mod indexing. The noise is drawn once for the whole plane and sliced
+per slab, so every path paints the same plane.
 """
 from __future__ import annotations
 
@@ -32,8 +40,6 @@ from baryon_painter_tpu_torch.utils.platform import f32_convolutions, to_device
 __all__ = ["spec_receptive_margin", "required_halo", "latent_downsample",
            "paint_plane", "calibrate_halo"]
 
-_MESH = ("a mesh is multi-GPU whole-plane painting, not ported yet "
-         "(ROADMAP.md §1 item 10); pass mesh=None")
 
 
 # --------------------------------------------------------------------- #
@@ -203,12 +209,63 @@ def latent_noise_shape(painter, plane_shape) -> tuple:
 # --------------------------------------------------------------------- #
 # the public entry point
 
+def _paint_slab(painter, ext, zs, eps_ext, kind, z_mode, transform,
+                inverse_transform):
+    """One extended slab (rows, cols) painted on its painter's device;
+    ``eps_ext`` its latent noise (rows/f, cols/f, c_z) in 'sample' mode."""
+    if kind == "cgan":
+        return painter._paint_batch(ext[None], zs, transform,
+                                    inverse_transform)[0]
+    if eps_ext is not None:
+        eps_ext = eps_ext.permute(2, 0, 1)[None]
+    return _cvae_slab(painter, ext, zs, eps_ext, z_mode, transform,
+                      inverse_transform)
+
+
+def _mesh_slabs(plane, eps, n: int, halo: int, f: int):
+    """The n halo-extended slabs of the (Q, Wq)-periodic ``plane`` (and of
+    its noise ``eps``, or None), with the rows each slab's paint keeps:
+    (slabs, eps slabs, slab height Hl, ring). With equal slabs (Q a
+    multiple of n f, halo <= Q / n) each slab's halo rows come from its
+    ring neighbours' slabs (``ring`` True: the caller copies them between
+    devices); otherwise the extended slabs are gathered by mod indexing
+    (the last one wraps; its repeated rows fall off the crop)."""
+    Q = plane.shape[0]
+    hf = halo // f
+    if Q % (n * f) == 0 and halo <= Q // n:
+        Hl = Q // n
+        slabs = list(_periodic_extend(plane, 0, halo).split(Hl))
+        eps_pad = None if eps is None else _periodic_extend(eps, hf, hf)
+        eps_slabs = [None if eps is None else
+                     eps_pad[j * (Hl // f):j * (Hl // f) + Hl // f + 2 * hf]
+                     for j in range(n)]
+        return slabs, eps_slabs, Hl, True
+    Hl = _round_up(-(-Q // n), f)
+    dev = plane.device
+    cols = torch.arange(-halo, plane.shape[1] + halo, device=dev
+                        ) % plane.shape[1]
+    slabs, eps_slabs = [], []
+    for j in range(n):
+        rows = torch.arange(j * Hl - halo, (j + 1) * Hl + halo,
+                            device=dev) % Q
+        slabs.append(plane[rows[:, None], cols[None, :]])
+        if eps is None:
+            eps_slabs.append(None)
+            continue
+        zr = torch.arange(j * (Hl // f) - hf, (j + 1) * (Hl // f) + hf,
+                          device=dev) % eps.shape[0]
+        zc = torch.arange(-hf, eps.shape[1] + hf, device=dev) % eps.shape[1]
+        eps_slabs.append(eps[zr[:, None], zc[None, :]])
+    return slabs, eps_slabs, Hl, False
+
+
 @torch.inference_mode()
 def paint_plane(painter, plane, z: float, mesh=None,
                 halo: Optional[int] = None, z_mode: str = "sample",
                 generator: Optional[torch.Generator] = None, eps=None,
                 transform: bool = True, inverse_transform: bool = True):
-    """Paint a whole (H, W) plane seam-free, on the painter's device.
+    """Paint a whole (H, W) plane seam-free, on the painter's device or
+    row-sharded over a ``DeviceMesh``.
 
     ``painter``: a ``CVAEPainter`` or ``CGANPainter``. ``plane``: (H, W) in
     the painter's input-field units at its training resolution (resample
@@ -217,12 +274,17 @@ def paint_plane(painter, plane, z: float, mesh=None,
     The plane is treated as (Q, Wq)-periodic, Q and Wq rounded up to f.
     In 'sample' mode the CVAE's noise ``eps`` is (Q/f, Wq/f, c_z), as the
     JAX package draws it (``latent_noise_shape``); without it the noise is
-    drawn on that grid from ``generator``, else the painter's own. Returns
-    the painted (H, W) plane as a tensor on the painter's device. A
-    ``mesh`` raises ``NotImplementedError``.
+    drawn on that grid from ``generator``, else the painter's own, on the
+    painter's device. ``mesh``: a ``DeviceMesh`` whose devices each paint
+    one slab of rows (module docstring; the painter is copied to each
+    device once). Returns the painted (H, W) plane as a tensor on the
+    painter's device.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    from baryon_painter_tpu_torch.parallel.mesh import (DeviceMesh,
+                                                        replicate)
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"paint_plane takes a DeviceMesh, got "
+                        f"{type(mesh).__name__}")
     kind = _kind(painter)
     arch = _architecture(painter)
     f = latent_downsample(arch)
@@ -242,32 +304,45 @@ def paint_plane(painter, plane, z: float, mesh=None,
         c = torch.arange(Wq, device=device) % W
         plane = plane[r[:, None], c[None, :]]
     zs = torch.full((1,), float(z), dtype=torch.float32, device=device)
-    ext = _periodic_extend(plane, halo, halo)
+
+    if kind == "cvae" and z_mode == "sample":
+        shape = latent_noise_shape(painter, (H, W))
+        if eps is None:
+            eps = torch.randn(shape, dtype=torch.float32, device=device,
+                              generator=(generator if generator is not None
+                                         else painter._generator))
+        eps = to_device(eps, device, torch.float32)
+        if tuple(eps.shape) != shape:
+            raise ValueError(f"eps has shape {tuple(eps.shape)}, the latent "
+                             f"grid {shape}")
+    else:
+        eps = None
+    hf = halo // f
+    paint = lambda p, ext, e, zz: _paint_slab(
+        p, ext, zz, e, kind, z_mode, transform, inverse_transform)
 
     with f32_convolutions():
-        if kind == "cgan":
-            out = painter._paint_batch(ext[None], zs, transform,
-                                       inverse_transform)[0]
-        else:
-            eps_ext = None
-            if z_mode == "sample":
-                shape = latent_noise_shape(painter, (H, W))
-                if eps is None:
-                    eps = torch.randn(shape, dtype=torch.float32,
-                                      device=device,
-                                      generator=(generator if generator
-                                                 is not None else
-                                                 painter._generator))
-                eps = to_device(eps, device, torch.float32)
-                if tuple(eps.shape) != shape:
-                    raise ValueError(f"eps has shape {tuple(eps.shape)}, the "
-                                     f"latent grid {shape}")
-                hf = halo // f
-                eps_ext = _periodic_extend(eps, hf, hf).permute(
-                    2, 0, 1)[None]
-            out = _cvae_slab(painter, ext, zs, eps_ext, z_mode, transform,
-                             inverse_transform)
-    return out[halo:-halo, halo:-halo][:H, :W]
+        if mesh is None:
+            ext = _periodic_extend(plane, halo, halo)
+            e = None if eps is None else _periodic_extend(eps, hf, hf)
+            out = paint(painter, ext, e, zs)
+            return out[halo:-halo, halo:-halo][:H, :W]
+        copies = replicate(painter, mesh)
+        n = mesh.size
+        slabs, eps_slabs, Hl, ring = _mesh_slabs(plane, eps, n, halo, f)
+        slabs = [t.to(d) for t, d in zip(slabs, mesh.devices)]
+        if ring:
+            # each slab's halo rows from its ring neighbours, copied from
+            # their devices: the bottom rows of slab j - 1 above it, the
+            # top rows of slab j + 1 below it
+            slabs = [torch.cat([slabs[j - 1][-halo:].to(d), slabs[j],
+                                slabs[(j + 1) % n][:halo].to(d)])
+                     for j, d in enumerate(mesh.devices)]
+        outs = [paint(copies[d], ext, None if e is None else e.to(d),
+                      zs.to(d))[halo:-halo, halo:-halo]
+                for d, ext, e in zip(mesh.devices, slabs, eps_slabs)]
+        out = torch.cat([t.to(device) for t in outs])
+    return out[:H, :W]
 
 
 def calibrate_halo(painter, z: float = 0.5, tol: float = 1e-4,

@@ -981,10 +981,11 @@ def check_heads(device, shape=(TRAIN_BATCH, TRAIN_TILE, TRAIN_TILE),
 def make_trainer(device, dataset, fused_heads: bool, use_kernel="auto",
                  n_res_blocks: int = N_RES_BLOCKS, seed: int = 0,
                  fused_train_conv: bool = False, dtype=None,
-                 config: dict = None, variables: dict = None):
+                 config: dict = None, variables: dict = None, mesh=None):
     """The fiducial trainer on ``dataset`` with the stack cache; ``config``
     adds ``TrainConfig`` fields, ``variables`` (JAX layout) replaces the
-    seeded initialisation."""
+    seeded initialisation; ``mesh`` (a ``ProcessMesh``) trains data
+    parallel, the cache z-sharded."""
     from baryon_painter_tpu_torch.models.cvae import (
         CVAE, fiducial_cvae_architecture)
     from baryon_painter_tpu_torch.train.trainer import (CVAETrainer,
@@ -996,7 +997,7 @@ def make_trainer(device, dataset, fused_heads: bool, use_kernel="auto",
     return CVAETrainer(model, dataset,
                        config=TrainConfig(seed=seed, **(config or {})),
                        device_data=True, device=device, use_kernel=use_kernel,
-                       variables=variables)
+                       variables=variables, mesh=mesh)
 
 
 def k4_sites_per_step(tile: int) -> int:
@@ -2073,11 +2074,12 @@ def run_lightcone_cli(device, los: dict, dtype: str, fused: bool,
                       n_pixel_massplane: int = slics_io.N_PIXEL_MASSPLANE,
                       resolution: int = LC_RESOLUTION,
                       model_type: str = "CVAE",
-                      seamless: bool = False) -> dict:
+                      seamless: bool = False, mesh=None) -> dict:
     """One lightcone through ``scripts/create_lightcone_torch.py``'s
     ``run``: ``fused`` adds ``--fused-paint`` (and for the CVAE
     ``BPT_FUSED_HEADS=1``); ``model_type="CGAN"`` paints with the CGAN
-    (``CGAN_PATH``), ``seamless`` adds ``--seamless``."""
+    (``CGAN_PATH``), ``seamless`` adds ``--seamless``; ``mesh`` (a
+    ``DeviceMesh``) shards the paint over its devices."""
     base = str(Path(los["delta"]).parent)
     path = (REPO / CHECKPOINT if model_type == "CVAE"
             else REPO / CGAN_PATH).parent
@@ -2098,7 +2100,7 @@ def run_lightcone_cli(device, los: dict, dtype: str, fused: bool,
     if kappa:
         argv += ["--kappa-path", los["kappa"]]
     with _fused_heads_env(fused and model_type == "CVAE"):
-        out = _load_cli().run(argv, stage_times=stage_times)
+        out = _load_cli().run(argv, stage_times=stage_times, mesh=mesh)
     _sync(torch.device(device))
     return out
 
@@ -4714,6 +4716,24 @@ def _add_tooling_launches(entries: list, tooling: dict):
                 "sample_launches"]["k3_fwd"]
 
 
+def _add_mesh_launches(entries: list, mesh: dict):
+    """Phase 23's launches on the f32 entries: K2, K3 and K4's in one
+    step under the one-rank mesh (23a) and on each rank of the two-rank
+    mesh (23b); K1's and K3-fwd's in the sharded lightcone (23c)."""
+    keys = {"gather_tiles": "k2", "head_stack_fwd": "k3_fwd",
+            "head_stack_bwd": "k3_bwd", "res_block_infer": "k1"}
+    for entry in entries:
+        if entry["dtype"] != "float32":
+            continue
+        key = keys.get(entry["name"], "k4_" + entry["name"].split("_")[-1])
+        if key in mesh["one"]["launches"] and key != "k1":
+            entry["mesh_step_launches"] = mesh["one"]["launches"][key]
+            entry["mesh_rank_step_launches"] = [
+                r["launches"][key] for r in mesh["two"]["ranks"]]
+        if key in ("k1", "k3_fwd"):
+            entry["mesh_lightcone_launches"] = mesh["paint"]["launches"][key]
+
+
 def _add_cgan_train_launches(entries: list, cgan_train: dict):
     """Phase 21's launches on the f32 entries of K2 (21a's timed steps,
     21d's run) and K1 (21e's ``from_trainer`` paint call)."""
@@ -4856,7 +4876,7 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                    lightcone: dict = None, cgan: dict = None,
                    train_loop: dict = None, gate_run: dict = None,
                    pk: dict = None, cgan_train: dict = None,
-                   tooling: dict = None) -> dict:
+                   tooling: dict = None, mesh: dict = None) -> dict:
     """The ``{"kernels": [...]}`` record of the run, each entry with its
     ``dtype``: K1 in f32, its bf16 numbers beside it; K2, K3-fwd and K3-bwd
     with their launches in the timed training steps; K4's four kernels
@@ -4963,4 +4983,6 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
         _add_cgan_train_launches(entries, cgan_train)
     if tooling is not None:
         _add_tooling_launches(entries, tooling)
+    if mesh is not None:
+        _add_mesh_launches(entries, mesh)
     return {"kernels": entries}

@@ -50,12 +50,23 @@ checkpoints keyed by sample count with rotation, and the final ``model``.
 (``convert.gan_state_to_jax``), so either package resumes the other's run.
 
 ``validate`` draws the JAX trainer's figures (matplotlib) from a test
-batch painted by the eval-mode generator. Not ported yet: the mesh
-(multi-device) mode with its per-sample weights (ROADMAP.md, section 1,
-item 10).
+batch painted by the eval-mode generator.
+
+Data parallelism (``mesh=``, a ``parallel.mesh.ProcessMesh``) follows the
+CVAE trainer's scheme (``train/trainer.py``) for G and D: each rank steps
+on its rows of the global batch, the batch norms take global statistics,
+each loss term is the rank's share of the global mean (the spectral term
+and feature matching's batch-mean features are formed over the global
+batch), both networks' gradients and the metrics are summed over the
+ranks, and both Adams run identically everywhere; spectral norm's u stays
+the same on every rank because the weights do. With the stack cache
+z-sharded over the ranks, the cache's per-sample importance weights
+reweigh the D and G losses when the layout samples redshifts unevenly
+(the JAX trainer's ``_wmean``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -77,16 +88,16 @@ from baryon_painter_tpu_torch.models.layers import (BatchNorm, Conv2d,
                                                     ResidualBlock)
 from baryon_painter_tpu_torch.train import checkpoint as ckpt
 from baryon_painter_tpu_torch.train.spectral import pk_fidelity_loss
-from baryon_painter_tpu_torch.train.stats import TrainingStats
 from baryon_painter_tpu_torch.train.trainer import (_GAN_PROGRESS_KEYS, Adam,
                                                     _decode_data_rng,
                                                     _encode_data_rng,
+                                                    check_process_mesh,
                                                     clip_grads_by_global_norm,
                                                     draw_test_batch,
-                                                    grad_norm)
+                                                    grad_norm, local_rows,
+                                                    run_stats)
 from baryon_painter_tpu_torch.transforms import FieldStats
 from baryon_painter_tpu_torch.utils.platform import (f32_convolutions,
-                                                     resolve_device,
                                                      to_device)
 
 __all__ = ["CGANTrainConfig", "CGANTrainer", "zero_gradient_leaves"]
@@ -137,6 +148,17 @@ class CGANTrainConfig:
     adversarial_weight: float = 1.0
     freeze_bn_stats: bool = False
     clip_grad_norm: float = 0.0
+
+
+def _wmean(v, sample_weight=None, n_ranks: int = 1):
+    """This rank's share of the global batch's mean of per-sample means,
+    optionally importance-weighted along the batch axis (the JAX trainer's
+    ``_wmean``): the local mean over the ranks' count; the plain mean on
+    one rank."""
+    if sample_weight is None:
+        return v.mean() / n_ranks
+    per_sample = v.mean(dim=tuple(range(1, v.ndim)))
+    return (sample_weight.to(per_sample.dtype) * per_sample).mean() / n_ranks
 
 
 def zero_gradient_leaves(model) -> list:
@@ -205,15 +227,14 @@ class CGANTrainer:
         (``DeviceStackCache``, the gather through K2 unless
         ``use_kernel=False``) for ``step_indices`` and ``step_scan``,
         which ``train`` then uses. The networks compute in their parameter
-        dtype (f32; ``.double()`` them first for an f64 step)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device CGAN training is not ported yet "
-                "(ROADMAP.md, section 1, item 10).")
+        dtype (f32; ``.double()`` them first for an f64 step). ``mesh``: a
+        ``ProcessMesh`` for data-parallel training (module docstring); the
+        networks start from rank 0's weights and the cache is z-sharded."""
         ds = training_data
         if len(ds.label_fields) != 1:
             raise ValueError("CGAN supports exactly one label field.")
-        self.device = resolve_device(device)
+        self.device = check_process_mesh(mesh, device)
+        self.mesh = mesh
         self.config = config
         self.training_data = training_data
         self.test_data = test_data
@@ -225,6 +246,9 @@ class CGANTrainer:
             init_cgan(self.generator, self.discriminator, config.seed)
         self.generator.to(self.device)
         self.discriminator.to(self.device)
+        if mesh is not None and state is None:
+            mesh.broadcast_module_(self.generator)
+            mesh.broadcast_module_(self.discriminator)
         self.g_params = trainable(self.generator)
         self.d_params = trainable(self.discriminator)
         self.g_opt = Adam(self.g_params, config.adam_b1, config.adam_b2)
@@ -245,14 +269,16 @@ class CGANTrainer:
         if device_data:
             self.device_cache = DeviceStackCache.create_if_fits(
                 ds, config.device_cache_budget_bytes, device=self.device,
-                use_kernel=use_kernel)
+                use_kernel=use_kernel, mesh=mesh)
             if (self.device_cache is not None and config.pk_loss_weight > 0
                     and not config.pk_loss_per_z
                     and not self.device_cache.uniform_z):
                 warnings.warn(
                     "pooled spectral loss (pk_loss_per_z=False) on a "
-                    "z-skewed cache: batch-mean spectra over-represent the "
-                    "over-sampled redshifts; use pk_loss_per_z=True.",
+                    "z-skewed mesh: batch-mean spectra over-represent the "
+                    "over-sampled redshifts and per-sample importance "
+                    "weights cannot correct a pooled loss; use "
+                    "pk_loss_per_z=True.",
                     stacklevel=2)
         # the loop's progress and data RNG, set by train() and restore()
         self._progress = None
@@ -262,6 +288,24 @@ class CGANTrainer:
     def steps(self) -> int:
         """The training steps taken (restored with a checkpoint)."""
         return self._host_step
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def _n_ranks(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _active(self):
+        return (self.mesh.active() if self.mesh is not None
+                else contextlib.nullcontext())
+
+    def _batch_mean(self, t):
+        """The mean over the global batch of this rank's batch mean ``t``
+        (equal shares), differentiable."""
+        return t if self.mesh is None else self.mesh.mean(t)
 
     # ------------------------------------------------------------------ #
 
@@ -274,11 +318,13 @@ class CGANTrainer:
             raw_label, self._stats[self._label_field], z)[:, None]
         return x.float().to(self._dtype), y.float().to(self._dtype)
 
-    def _perc(self, fake, real):
+    def _perc(self, fake, real, sample_weight=None):
+        """This rank's share of the perceptual term (``_wmean``)."""
+        n = self._n_ranks
         if self.config.perceptual_loss == "l1":
-            return (fake - real).abs().mean()
+            return _wmean((fake - real).abs(), sample_weight, n)
         if self.config.perceptual_loss == "l2":
-            return ((fake - real) ** 2).mean()
+            return _wmean((fake - real) ** 2, sample_weight, n)
         raise ValueError(
             f"Unknown perceptual loss '{self.config.perceptual_loss}'.")
 
@@ -288,22 +334,30 @@ class CGANTrainer:
         cfg = self.config
         pred_t = fake_e[:, 0].float()
         x0 = x[:, 0].float().detach()
-        pred_t = torch.clamp(pred_t, x0.min() - 1.0, x0.max() + 1.0)
+        low, high = x0.min(), x0.max()
+        if self.mesh is not None:
+            low = self.mesh.all_reduce(low, "min")
+            high = self.mesh.all_reduce(high, "max")
+        pred_t = torch.clamp(pred_t, low - 1.0, high + 1.0)
         f = self._label_field
         pred = self._transforms[f].inverse(pred_t, self._stats[f], z)
         return pk_fidelity_loss(
             pred, raw_label.float(), raw_input.float(),
             L=float(self.training_data.tile_L), n_bins=cfg.pk_loss_n_bins,
             z=z, redshifts=(list(self.training_data.redshifts)
-                            if cfg.pk_loss_per_z else None))
+                            if cfg.pk_loss_per_z else None), mesh=self.mesh)
 
-    def _update(self, params, opt, loss, lr, clip):
+    def _update(self, params, opt, loss, lr, clip, metrics=()):
         """Gradients of ``loss`` in ``params`` (kept as their ``.grad``),
         their global norm before the clip, the clip, Adam and the update
-        ``p + lr * direction``; returns the norm."""
+        ``p + lr * direction``; returns the norm. Under a mesh the
+        gradients, and the metric tensors ``metrics`` with them, are summed
+        over the ranks in place first."""
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [g if g is not None else torch.zeros_like(p)
                  for p, g in zip(params, grads)]
+        if self.mesh is not None:
+            self.mesh.all_reduce_flat_(grads + list(metrics))
         for p, g in zip(params, grads):
             p.grad = g
         norm = grad_norm(grads)
@@ -314,13 +368,14 @@ class CGANTrainer:
                 p.add_(lr * d)
         return norm.detach()
 
-    def _step(self, raw_input, raw_label, z, lr):
-        with f32_convolutions():
-            return self._step_f(raw_input, raw_label, z, lr)
+    def _step(self, raw_input, raw_label, z, lr, sample_weight=None):
+        with f32_convolutions(), self._active():
+            return self._step_f(raw_input, raw_label, z, lr, sample_weight)
 
-    def _step_f(self, raw_input, raw_label, z, lr):
+    def _step_f(self, raw_input, raw_label, z, lr, sample_weight=None):
         cfg = self.config
         G, D = self.generator, self.discriminator
+        sw, n = sample_weight, self._n_ranks
         x, y = self._prepare(raw_input, raw_label, z)
         adv_on = cfg.adversarial_weight > 0
         g_state0 = _clone(self._g_state) if cfg.freeze_bn_stats else None
@@ -349,41 +404,65 @@ class CGANTrainer:
             kept = _clone(self._d_state)       # the real pass's u, sigma
             p_fake = D(y, z, fake.detach())
             _put(self._d_state, kept)
-            loss_d = -(torch.log(p_real + _EPS).mean()
-                       + torch.log(1 - p_fake + _EPS).mean())
+            loss_d = -(_wmean(torch.log(p_real + _EPS), sw, n)
+                       + _wmean(torch.log(1 - p_fake + _EPS), sw, n))
+            d_real = p_real.detach().mean() / n
+            d_fake = p_fake.detach().mean() / n
+            loss_d_value = loss_d.detach().clone()
             d_norm = self._update(self.d_params, self.d_opt, loss_d, lr,
-                                  cfg.clip_grad_norm)
-            d_real, d_fake = p_real.detach().mean(), p_fake.detach().mean()
-            loss_d = loss_d.detach()
+                                  cfg.clip_grad_norm,
+                                  (loss_d_value, d_real, d_fake))
+            loss_d = loss_d_value
         else:
             loss_d = d_real = d_fake = d_norm = zero
 
         # ---- generator update, against the updated D in eval mode ---- #
         D.eval()
         if not adv_on:
-            adv = zero
+            adv = adv_share = zero
         elif cfg.feature_matching:
             _, f_fake = D(y, z, fake, return_features=True)
             _, f_real = D(y, z, x, return_features=True)
-            fmean = lambda f: f.float().mean(dim=(2, 3)).mean(0)
-            adv = ((fmean(f_real.detach()) - fmean(f_fake)) ** 2).mean()
+            adv = ((self._feature_mean(f_real.detach(), sw)
+                    - self._feature_mean(f_fake, sw)) ** 2).mean()
+            # every rank holds the whole term: its share is 1/n of it
+            adv_share = adv / n
         else:
-            adv = -torch.log(D(y, z, fake) + _EPS).mean()
-        perc = self._perc(fake, x)
-        loss_g = cfg.adversarial_weight * adv + cfg.lambda_perceptual * perc
+            adv = adv_share = -_wmean(torch.log(D(y, z, fake) + _EPS), sw, n)
+        perc = self._perc(fake, x, sw)
+        loss_g = (cfg.adversarial_weight * adv_share
+                  + cfg.lambda_perceptual * perc)
         pk = zero
         if fake_e is not None:
             pk = self._pk_loss(fake_e, x, raw_input, raw_label, z)
-            loss_g = loss_g + cfg.pk_loss_weight * pk
+            loss_g = loss_g + cfg.pk_loss_weight * pk / n
+        # adv's share is summed with the gradients (feature matching's adv
+        # is whole on every rank already)
+        shares = [perc.detach().clone()]
+        if adv is adv_share:
+            shares.append(adv.detach().clone())
         g_norm = self._update(self.g_params, self.g_opt, loss_g, lr,
-                              cfg.clip_grad_norm)
+                              cfg.clip_grad_norm, shares)
+        adv = shares[1] if adv is adv_share else adv.detach()
         G.eval()
         if g_state0 is not None:
             _put(self._g_state, g_state0)
-        return {"loss_D": loss_d, "loss_G_adv": adv.detach(),
-                "pk_loss": pk.detach(), "loss_G_perceptual": perc.detach(),
+        return {"loss_D": loss_d, "loss_G_adv": adv,
+                "pk_loss": pk.detach(), "loss_G_perceptual": shares[0],
                 "D_real": d_real, "D_fake": d_fake, "grad_norm": g_norm,
                 "d_grad_norm": d_norm}
+
+    def _feature_mean(self, f, sample_weight=None):
+        """The global batch's mean of D's body features (N, C, H, W) -> (C,),
+        importance-weighted along the batch with ``sample_weight``."""
+        per = f.float().mean(dim=(2, 3))                       # (N, C)
+        if sample_weight is None:
+            return self._batch_mean(per.mean(0))
+        w = sample_weight.to(per.dtype)[:, None]
+        num, den = (per * w).sum(0), w.sum()
+        if self.mesh is not None:
+            num, den = self.mesh.sum(num), self.mesh.all_reduce(den)
+        return num / den
 
     def _to_device(self, batch):
         as_t = lambda a: to_device(np.asarray(a, np.float32), self.device)
@@ -392,19 +471,36 @@ class CGANTrainer:
 
     def step(self, batch: dict, lr: float) -> dict:
         """One training step on a raw host batch
-        (``BahamasTileDataset.get_raw_batch``); returns its metrics as
-        0-d device tensors."""
-        return self._step(*self._to_device(batch), lr)
+        (``BahamasTileDataset.get_raw_batch``; under a mesh the global
+        batch, of which each rank steps on its rows); returns its metrics
+        as 0-d device tensors."""
+        return self._step(*self._to_device(local_rows(self.mesh, batch)[0]),
+                          lr)
 
     def step_indices(self, idx: np.ndarray, lr: float) -> dict:
         """One training step by sample index, the batch assembled on the
-        device from the stack cache (``device_data=True``)."""
-        if self.device_cache is None:
+        device from the stack cache (``device_data=True``). Under a mesh
+        ``idx`` is the global batch (device-grouped with a z-sharded
+        cache: ``sample_mesh_indices``), its rows weighted by the cache's
+        importance weights where the layout samples redshifts unevenly."""
+        cache = self.device_cache
+        if cache is None:
             raise RuntimeError("Construct the trainer with device_data=True "
                                "to use step_indices.")
-        raw_input, raw_labels, z = self.device_cache.gather(
-            self.device_cache.digits(idx))
-        return self._step(raw_input, raw_labels[0], z, lr)
+        digits = cache.digits(idx)
+        weights = None
+        if self.mesh is not None:
+            lo, hi = self.mesh.rows(len(digits))
+            weights = cache.sample_weights(digits[lo:hi])
+        raw_input, raw_labels, z = cache.gather(cache.local_digits(digits))
+        return self._step(raw_input, raw_labels[0], z, lr, weights)
+
+    def _sample_indices(self, rng, n: int) -> np.ndarray:
+        """A global batch's indices: device-grouped when the stack cache is
+        z-sharded, else the dataset's own draw."""
+        if self.device_cache is not None and self.device_cache.mesh is not None:
+            return self.device_cache.sample_mesh_indices(rng, n)
+        return self.training_data.sample_indices(rng, n)
 
     def step_scan(self, idx_matrix: np.ndarray, lr) -> dict:
         """K steps of ``step_indices``: ``idx_matrix`` (K, B) sample
@@ -425,21 +521,26 @@ class CGANTrainer:
     def eval_loss(self, batch: dict) -> dict:
         """The step's D and G loss terms on a host batch with both networks
         in eval mode; nothing of the state changes (the JAX trainer's
-        ``eval_loss``)."""
-        raw_input, raw_label, z = self._to_device(batch)
+        ``eval_loss``). Under a mesh the global batch, shared over the
+        ranks as in ``step``."""
+        raw_input, raw_label, z = self._to_device(
+            local_rows(self.mesh, batch)[0])
         x, y = self._prepare(raw_input, raw_label, z)
         G, D = self.generator.eval(), self.discriminator.eval()
         with f32_convolutions():
             fake = G(y, z)
             p_real = D(y, z, x)
             p_fake = D(y, z, fake)
-        d_loss = -(torch.log(p_real + _EPS).mean()
-                   + torch.log(1 - p_fake + _EPS).mean())
-        return {"loss_D": d_loss,
-                "loss_G_adv": -torch.log(p_fake + _EPS).mean(),
-                "loss_G_perceptual": self._perc(fake, x),
-                "D_real": p_real.mean(), "D_fake": p_fake.mean(),
-                "pk_loss": torch.zeros((), device=self.device)}
+        n = self._n_ranks
+        out = {"loss_D": -(_wmean(torch.log(p_real + _EPS), None, n)
+                           + _wmean(torch.log(1 - p_fake + _EPS), None, n)),
+               "loss_G_adv": -_wmean(torch.log(p_fake + _EPS), None, n),
+               "loss_G_perceptual": self._perc(fake, x),
+               "D_real": p_real.mean() / n, "D_fake": p_fake.mean() / n}
+        if self.mesh is not None:
+            self.mesh.all_reduce_flat_(list(out.values()))
+        out["pk_loss"] = torch.zeros((), device=self.device)
+        return out
 
     # ------------------------------------------------------------------ #
 
@@ -483,7 +584,8 @@ class CGANTrainer:
         out = cfg.output_path
         train_fn = val_fn = None
         if out is not None:
-            os.makedirs(out, exist_ok=True)
+            if self.is_writer:
+                os.makedirs(out, exist_ok=True)
             train_fn = os.path.join(out, "training_stats.txt")
             val_fn = os.path.join(out, "validation_stats.txt")
 
@@ -498,15 +600,8 @@ class CGANTrainer:
                     else np.random.default_rng(cfg.seed))
 
         up_to = n_samples if resuming else None
-        stats = TrainingStats(self.stats_labels(), cfg.mavg_window_size,
-                              stats_filename=train_fn, resume=resuming,
-                              resume_up_to=up_to)
-        validation_stats = TrainingStats(self.stats_labels(),
-                                         cfg.mavg_window_size,
-                                         stats_filename=val_fn,
-                                         dump_to_file_frequency=1,
-                                         resume=resuming,
-                                         resume_up_to=up_to)
+        stats, validation_stats = run_stats(
+            self, self.stats_labels(), train_fn, val_fn, resuming, up_to)
         t0 = time.time()
         lr = cfg.learning_rate * cfg.lr_decay ** i_pepoch
         pending = []
@@ -543,7 +638,8 @@ class CGANTrainer:
                 k = min(max(1, cfg.stats_sync_every),
                         -(-until // cfg.batch_size))
                 k = 1 << (k.bit_length() - 1)
-                idx = np.stack([ds.sample_indices(data_rng, cfg.batch_size)
+                idx = np.stack([self._sample_indices(data_rng,
+                                                     cfg.batch_size)
                                 for _ in range(k)])
                 metrics_k = self.step_scan(idx, lr=lr)
                 for i in range(k):
@@ -578,7 +674,8 @@ class CGANTrainer:
                 snapshot_progress()
                 self.save(os.path.join(out,
                                        f"checkpoint_sample{n_samples:0>10}"))
-                ckpt.rotate_checkpoints(out, cfg.keep_last_checkpoints)
+                if self.is_writer:
+                    ckpt.rotate_checkpoints(out, cfg.keep_last_checkpoints)
             if (cfg.verbose and pending
                     and cfg.statistics_report_frequency > 0
                     and n_samples - cfg.statistics_report_frequency
@@ -588,9 +685,10 @@ class CGANTrainer:
                 rate = n_samples / (time.time() - t0)
                 d = stats.loss_terms["loss_D"]["mavg"][-1]
                 g = stats.loss_terms["loss_G_adv"]["mavg"][-1]
-                print(f"pepoch [{i_pepoch}/{cfg.n_pepoch}] samples "
-                      f"{n_samples} D {d:.3f} G_adv {g:.3f} "
-                      f"({rate:.1f} samples/s)")
+                if self.is_writer:
+                    print(f"pepoch [{i_pepoch}/{cfg.n_pepoch}] samples "
+                          f"{n_samples} D {d:.3f} G_adv {g:.3f} "
+                          f"({rate:.1f} samples/s)")
         self._flush_stats(pending, stats)
         stats.flush_to_file()
         validation_stats.flush_to_file()
@@ -671,12 +769,18 @@ class CGANTrainer:
 
     def save(self, base_path: str, include_opt_state: bool = True) -> int:
         """Write the checkpoint pair at ``base_path`` (meta
-        ``model_kind="cgan"``); returns the state's bytes."""
-        meta = ckpt.meta_from_dataset(self.training_data,
-                                      self.generator.architecture,
-                                      model_kind="cgan")
-        return ckpt.save_checkpoint(base_path,
-                                    self.state_tree(include_opt_state), meta)
+        ``model_kind="cgan"``); returns the state's bytes. Under a mesh
+        rank 0 writes (the others return 0) and every rank waits for it."""
+        nbytes = 0
+        if self.is_writer:
+            meta = ckpt.meta_from_dataset(self.training_data,
+                                          self.generator.architecture,
+                                          model_kind="cgan")
+            nbytes = ckpt.save_checkpoint(
+                base_path, self.state_tree(include_opt_state), meta)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return nbytes
 
     @torch.no_grad()
     def _load_state(self, state: dict):

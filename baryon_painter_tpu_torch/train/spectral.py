@@ -19,6 +19,11 @@ spectrum). A redshift absent from the batch adds no term.
 
 The spectra are ``power_spectrum.pseudo_pofk_2d``'s (``fft2``, a gather in
 bin order, per-bin sums): differentiable, and the same bits on every run.
+
+With a ``ProcessMesh`` each rank holds its rows of the global batch; the
+batch means are the global batch's (the per-z sums and counts, or the
+pooled means, summed over the ranks differentiably), so every rank returns
+the global loss.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ __all__ = ["pk_fidelity_loss"]
 
 
 def pk_fidelity_loss(pred, truth, dm, L: float, n_bins: int, z=None,
-                     redshifts: Optional[Sequence[float]] = None):
+                     redshifts: Optional[Sequence[float]] = None,
+                     mesh=None):
     """Spectral fidelity loss between painted and truth batches (a scalar
     f32 tensor, differentiable in ``pred``).
 
@@ -43,6 +49,8 @@ def pk_fidelity_loss(pred, truth, dm, L: float, n_bins: int, z=None,
       z: (N,) per-sample redshifts; required when ``redshifts`` is given.
       redshifts: the training redshifts for the per-z variant, or None for
         a pooled batch-mean.
+      mesh: a ``ProcessMesh`` whose ranks hold equal shares of the batch
+        (module docstring), or None.
     """
     def sample_pk(a, b=None):
         pk, _, _, nm = pseudo_pofk_2d(a, b, L=L, n_k_bin=n_bins)
@@ -60,11 +68,18 @@ def pk_fidelity_loss(pred, truth, dm, L: float, n_bins: int, z=None,
                           device=pk_p.device)
         w = (torch.as_tensor(z, device=pk_p.device).float()[None, :]
              == zs[:, None]).float()                 # (n_z, N)
-        cnt = w.sum(dim=1, keepdim=True).clamp(min=1.0)
-        mean = lambda pk: (w @ pk) / cnt             # (n_z, n_bins)
-        present = (w.sum(dim=1) > 0)[:, None]        # z's in this batch
+        total = w.sum(dim=1, keepdim=True)
+        wsum = lambda pk: w @ pk
+        if mesh is not None:
+            total = mesh.all_reduce(total)
+            wsum = lambda pk: mesh.sum(w @ pk)
+        cnt = total.clamp(min=1.0)
+        mean = lambda pk: wsum(pk) / cnt             # (n_z, n_bins)
+        present = total > 0                          # z's in this batch
     else:
         mean = lambda pk: pk.mean(dim=0, keepdim=True)
+        if mesh is not None:
+            mean = lambda pk: mesh.mean(pk.mean(dim=0, keepdim=True))
         present = torch.ones((1, 1), dtype=torch.bool, device=pk_p.device)
 
     m_p, m_t = mean(pk_p), mean(pk_t)

@@ -53,11 +53,27 @@ prior noise comes from a second generator seeded from ``(config.seed, s,
 ``pk_eps=``).
 
 ``validate`` draws the JAX trainer's figures (matplotlib) from a test
-batch painted by the eval-mode ``sample_P``. Not ported yet: the mesh
-(multi-device) mode (ROADMAP.md, section 1, item 10).
+batch painted by the eval-mode ``sample_P``.
+
+Data parallelism (``mesh=``, a ``parallel.mesh.ProcessMesh``: one process a
+device, as under ``torchrun``) is the JAX trainer's ``P("data")`` mesh:
+every rank draws the same global indices from the same data RNG and takes
+rows ``[r B/n, (r+1) B/n)`` (with the stack cache z-sharded over the ranks,
+its device-grouped rows: ``DeviceStackCache``, where the cache's
+importance weights reweigh each row when the layout samples redshifts
+unevenly); the batch norms and K4 take their statistics over the global
+batch (``models/layers.BatchNorm``, ``ops/conv_bn.conv_bn_relu``); each
+rank's ELBO terms are its rows' sums over the global B, and their
+gradients and metrics are summed over the ranks in one all-reduce before
+the global-norm clip and Adam, which then run identically everywhere. The
+latent noise of a rank's rows is those rows of the global draw, so the
+step equals the one-process step on the whole batch up to summation
+order. Rank 0 writes the statistics files and checkpoints; every rank
+restores from the same file. The initial weights are rank 0's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -74,6 +90,7 @@ from baryon_painter_tpu_torch.data.dataset import BahamasTileDataset
 from baryon_painter_tpu_torch.data.device_cache import DeviceStackCache
 from baryon_painter_tpu_torch.models.cvae import CVAE
 from baryon_painter_tpu_torch.models.layers import BatchNorm
+from baryon_painter_tpu_torch.parallel.mesh import ProcessMesh
 from baryon_painter_tpu_torch.train import checkpoint as ckpt
 from baryon_painter_tpu_torch.train.spectral import pk_fidelity_loss
 from baryon_painter_tpu_torch.train.stats import TrainingStats
@@ -175,6 +192,67 @@ def draw_test_batch(test_data, batch_size: int,
     return test_data.get_raw_batch(idx)
 
 
+def check_process_mesh(mesh, device):
+    """The device a trainer computes on under ``mesh``: a ``ProcessMesh``'s
+    own device (a ``device`` that differs raises), else ``device``
+    resolved. Any other kind of mesh raises."""
+    if mesh is None:
+        return resolve_device(device)
+    if not isinstance(mesh, ProcessMesh):
+        raise TypeError(f"training takes a ProcessMesh (one process a "
+                        f"device), got {type(mesh).__name__}; a DeviceMesh "
+                        f"is for painting")
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"{mesh.device}")
+    return mesh.device
+
+
+def local_rows(mesh, batch: dict):
+    """(this rank's rows of a raw host batch, (lo, B)); the whole batch and
+    None without a mesh."""
+    if mesh is None:
+        return batch, None
+    n = len(batch["input"])
+    lo, hi = mesh.rows(n)
+    out = dict(batch, input=np.asarray(batch["input"])[lo:hi],
+               z=np.asarray(batch["z"])[lo:hi],
+               labels=np.asarray(batch["labels"])[:, lo:hi])
+    return out, (lo, n)
+
+
+def local_noise(mesh, eps):
+    """This rank's rows of a global batch's noise ``eps``: (L, B, ...)
+    5-d latent noise along its second axis, else along its first (``eps``
+    unchanged without a mesh, or when None)."""
+    if eps is None or mesh is None:
+        return eps
+    eps = torch.as_tensor(eps)
+    axis = 1 if eps.ndim == 5 else 0
+    lo, hi = mesh.rows(eps.shape[axis])
+    return eps.narrow(axis, lo, hi - lo)
+
+
+def run_stats(trainer, labels, train_fn, val_fn, resuming: bool, up_to):
+    """A run's (training, validation) ``TrainingStats``: the writer (rank 0,
+    or the only process) writes the files, re-loading them on a resume; the
+    other ranks of a mesh re-load the same history after it, without
+    writing, so that every rank's moving averages agree."""
+    writer = trainer.is_writer
+    make = lambda fn, **kw: TrainingStats(
+        labels, trainer.config.mavg_window_size,
+        stats_filename=fn if writer else None,
+        resume=resuming, resume_up_to=up_to, **kw)
+    stats = (make(train_fn), make(val_fn, dump_to_file_frequency=1))
+    if trainer.mesh is not None:
+        trainer.mesh.barrier()
+        if not writer and resuming:
+            for st, fn in zip(stats, (train_fn, val_fn)):
+                if fn is not None and os.path.exists(fn):
+                    st._resume_from_file(fn, up_to)
+    return stats
+
+
 def grad_norm(grads) -> torch.Tensor:
     """Global L2 norm of a list of tensors (``optax.global_norm``)."""
     return torch.sqrt(sum(torch.sum(g * g) for g in grads))
@@ -222,10 +300,13 @@ class CVAETrainer:
                  test_data: Optional[BahamasTileDataset] = None,
                  config: TrainConfig = TrainConfig(),
                  device_data: bool = False, device=None,
-                 use_kernel="auto", variables: Optional[dict] = None):
+                 use_kernel="auto", variables: Optional[dict] = None,
+                 mesh: Optional[ProcessMesh] = None):
         """Set up training of ``model`` on ``device`` (``cuda`` unless the
         caller passes ``device="cpu"``); ``test_data`` is what the
-        validation loss is computed on.
+        validation loss is computed on. ``mesh``: a ``ProcessMesh`` for
+        data-parallel training on its device (module docstring); the stack
+        cache is then z-sharded over its ranks.
 
         The weights are drawn by ``convert.init_cvae`` from
         ``config.seed``, or loaded from ``variables`` (JAX-layout
@@ -240,7 +321,8 @@ class CVAETrainer:
                 "pk_loss_weight requires fused_res_blocks=False: the loss "
                 "differentiates through the eval-mode paint path, and the "
                 "fused residual block (K1) has no backward.")
-        self.device = resolve_device(device)
+        self.device = check_process_mesh(mesh, device)
+        self.mesh = mesh
         self.config = config
         self.training_data = training_data
         self.test_data = test_data
@@ -249,6 +331,8 @@ class CVAETrainer:
         else:
             init_cvae(model, config.seed)
         self.model = model.to(self.device).train()
+        if mesh is not None:
+            mesh.broadcast_module_(self.model)
         self.params = trainable(self.model)
         self.optimizer = Adam(self.params, config.adam_b1, config.adam_b2)
         self._bn = [m for m in self.model.modules()
@@ -266,13 +350,13 @@ class CVAETrainer:
         if device_data:
             self.device_cache = DeviceStackCache.create_if_fits(
                 ds, config.device_cache_budget_bytes, device=self.device,
-                use_kernel=use_kernel)
+                use_kernel=use_kernel, mesh=mesh)
             if (self.device_cache is not None and config.pk_loss_weight > 0
                     and not config.pk_loss_per_z
                     and not self.device_cache.uniform_z):
                 warnings.warn(
                     "pooled spectral loss (pk_loss_per_z=False) on a "
-                    "z-skewed cache: batch-mean spectra over-represent the "
+                    "z-skewed mesh: batch-mean spectra over-represent the "
                     "over-sampled redshifts and per-sample importance "
                     "weights cannot correct a pooled loss; use "
                     "pk_loss_per_z=True.", stacklevel=2)
@@ -312,11 +396,21 @@ class CVAETrainer:
             m.running_mean.copy_(mean)
             m.running_var.copy_(var)
 
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes the run's files (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _active(self):
+        return (self.mesh.active() if self.mesh is not None
+                else contextlib.nullcontext())
+
     def _step(self, raw_input, raw_labels, z, lr, alpha_var, beta_KL, eps,
-              pk_eps=None):
+              pk_eps=None, batch_rows=None, sample_weight=None):
         with f32_convolutions():
             return self._step_f(raw_input, raw_labels, z, lr, alpha_var,
-                                beta_KL, eps, pk_eps)
+                                beta_KL, eps, pk_eps, batch_rows,
+                                sample_weight)
 
     def _noise(self, step: int, stream: int = 0) -> torch.Generator:
         """The generator of step ``step``'s latent noise (stream 0) or of
@@ -325,21 +419,28 @@ class CVAETrainer:
         gen.manual_seed(_step_seed(self.config.seed, step, stream))
         return gen
 
-    def _pk_loss(self, raw_input, raw_labels, z, x, y, pk_eps, generator):
+    def _pk_loss(self, raw_input, raw_labels, z, x, y, pk_eps, generator,
+                 batch_rows=None):
         """The spectral term: a prior sample painted through the eval-mode
         decoder, clamped to the truth's transformed range +- 1 (so the
-        inverse transform's exp cannot overflow on early outliers),
-        inverted to physical space in f32, against the truth's auto- and
-        cross-P(k) (``train/spectral.py``)."""
+        inverse transform's exp cannot overflow on early outliers; the
+        global batch's range under a mesh), inverted to physical space in
+        f32, against the truth's auto- and cross-P(k)
+        (``train/spectral.py``, over the global batch)."""
         self.model.eval()
         try:
             pred_t = self.model.sample_P(y, z, eps=pk_eps,
-                                         generator=generator)
+                                         generator=generator,
+                                         batch_rows=batch_rows)
         finally:
             self.model.train()
         pred_t = pred_t[:, 0].float()
         x0 = x[:, 0].float().detach()
-        pred_t = torch.clamp(pred_t, x0.min() - 1.0, x0.max() + 1.0)
+        low, high = x0.min(), x0.max()
+        if self.mesh is not None:
+            low = self.mesh.all_reduce(low, "min")
+            high = self.mesh.all_reduce(high, "max")
+        pred_t = torch.clamp(pred_t, low - 1.0, high + 1.0)
         field = self._label_fields[0]
         pred = self._transforms[field].inverse(pred_t, self._stats[field], z)
         cfg = self.config
@@ -347,31 +448,49 @@ class CVAETrainer:
             pred, raw_labels[0].float(), raw_input.float(),
             L=float(self.training_data.tile_L), n_bins=cfg.pk_loss_n_bins,
             z=z, redshifts=(list(self.training_data.redshifts)
-                            if cfg.pk_loss_per_z else None))
+                            if cfg.pk_loss_per_z else None), mesh=self.mesh)
+
+    def _reduce(self, grads, metrics: dict):
+        """Sum this rank's gradients (in place) and metrics over the ranks,
+        in one all-reduce; the metrics of ``metrics`` hold each rank's
+        share, apart from ``pk_loss``, which every rank holds whole."""
+        keys = [k for k in metrics if k != "pk_loss"]
+        self.mesh.all_reduce_flat_(list(grads) + [metrics[k] for k in keys])
 
     def _step_f(self, raw_input, raw_labels, z, lr, alpha_var, beta_KL,
-                eps, pk_eps):
+                eps, pk_eps, batch_rows=None, sample_weight=None):
         x, y = self._prepare(raw_input, raw_labels, z)
         frozen = self._bn_state() if self.config.freeze_bn_stats else None
         for p in self.params:
             p.grad = None
         step = self._host_step
         self._host_step += 1
-        pk = None
-        if self.config.pk_loss_weight > 0:
-            # before the ELBO's forward, which moves the running
-            # statistics this term paints through
-            pk = self._pk_loss(raw_input, raw_labels, z, x, y, pk_eps,
-                               self._noise(step, stream=1))
-        out = self.model(x, y, z, alpha_var=alpha_var, beta_KL=beta_KL,
-                         eps=eps, generator=self._noise(step))
-        loss = -out["elbo"]
-        if pk is not None:
-            out["pk_loss"] = pk
-            loss = loss + self.config.pk_loss_weight * pk
-        loss.backward()
+        n_ranks = 1 if self.mesh is None else self.mesh.size
+        with self._active():
+            pk = None
+            if self.config.pk_loss_weight > 0:
+                # before the ELBO's forward, which moves the running
+                # statistics this term paints through
+                pk = self._pk_loss(raw_input, raw_labels, z, x, y, pk_eps,
+                                   self._noise(step, stream=1), batch_rows)
+            out = self.model(x, y, z, alpha_var=alpha_var, beta_KL=beta_KL,
+                             eps=eps, generator=self._noise(step),
+                             sample_weight=sample_weight,
+                             batch_rows=batch_rows)
+            loss = -out["elbo"]
+            if pk is not None:
+                out["pk_loss"] = pk
+                # every rank holds the whole term: its share of the sum of
+                # the ranks' losses
+                loss = loss + self.config.pk_loss_weight * pk / n_ranks
+            loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]
+        metrics = {k: v.detach() for k, v in out.items()
+                   if k not in ("x_mu", "x_var")}
+        if self.mesh is not None:
+            metrics = {k: v.clone() for k, v in metrics.items()}
+            self._reduce(grads, metrics)
         norm = grad_norm(grads)
         if self.config.clip_grad_norm > 0:
             clip_grads_by_global_norm(grads, self.config.clip_grad_norm)
@@ -380,8 +499,6 @@ class CVAETrainer:
                 p.add_(lr * d)
         if frozen is not None:
             self._restore_bn(frozen)
-        metrics = {k: v.detach() for k, v in out.items()
-                   if k not in ("x_mu", "x_var")}
         metrics["grad_norm"] = norm.detach()
         return metrics
 
@@ -393,20 +510,35 @@ class CVAETrainer:
              beta_KL: float = 1.0, eps=None, pk_eps=None) -> dict:
         """One training step on a raw host batch
         (``BahamasTileDataset.get_raw_batch``); ``eps`` and ``pk_eps``
-        replace the ELBO's and the spectral term's drawn noise."""
+        replace the ELBO's and the spectral term's drawn noise. Under a
+        mesh ``batch`` and the noise are the global batch's, and each rank
+        steps on its rows."""
+        batch, rows = local_rows(self.mesh, batch)
         return self._step(*self._to_device(batch), lr, alpha_var, beta_KL,
-                          eps, pk_eps)
+                          local_noise(self.mesh, eps),
+                          local_noise(self.mesh, pk_eps), rows)
 
     def step_indices(self, idx: np.ndarray, lr: float,
                      alpha_var: float = 1.0, beta_KL: float = 1.0,
                      eps=None, pk_eps=None) -> dict:
         """One training step by sample index, the batch assembled on the
-        device from the stack cache (``device_data=True``)."""
-        if self.device_cache is None:
+        device from the stack cache (``device_data=True``). Under a mesh
+        ``idx`` and the noise are the global batch's (device-grouped with a
+        z-sharded cache: ``sample_mesh_indices``)."""
+        cache = self.device_cache
+        if cache is None:
             raise RuntimeError("Construct the trainer with device_data=True "
                                "to use step_indices.")
-        raw = self.device_cache.gather(self.device_cache.digits(idx))
-        return self._step(*raw, lr, alpha_var, beta_KL, eps, pk_eps)
+        digits = cache.digits(idx)
+        rows = weights = None
+        if self.mesh is not None:
+            lo, hi = self.mesh.rows(len(digits))
+            rows = (lo, len(digits))
+            weights = cache.sample_weights(digits[lo:hi])
+        raw = cache.gather(cache.local_digits(digits))
+        return self._step(*raw, lr, alpha_var, beta_KL,
+                          local_noise(self.mesh, eps),
+                          local_noise(self.mesh, pk_eps), rows, weights)
 
     def step_scan(self, idx_matrix: np.ndarray, lr, alpha_var=1.0,
                   beta_KL=1.0) -> dict:
@@ -429,17 +561,23 @@ class CVAETrainer:
         """The ELBO terms of a host batch with batch statistics, as in
         training, but nothing of the state changes (the JAX package's
         ``eval_loss``); the latent noise ``eps``, else from a generator
-        seeded ``seed``."""
+        seeded ``seed``. Under a mesh the batch is the global one, shared
+        over the ranks as in ``step``."""
+        batch, rows = local_rows(self.mesh, batch)
         raw_input, raw_labels, z = self._to_device(batch)
         x, y = self._prepare(raw_input, raw_labels, z)
         state = self._bn_state()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        with f32_convolutions():
+        with f32_convolutions(), self._active():
             out = self.model(x, y, z, alpha_var=alpha_var, beta_KL=beta_KL,
-                             eps=eps, generator=gen)
+                             eps=local_noise(self.mesh, eps),
+                             generator=gen, batch_rows=rows)
         self._restore_bn(state)
-        return {k: v for k, v in out.items() if k not in ("x_mu", "x_var")}
+        out = {k: v for k, v in out.items() if k not in ("x_mu", "x_var")}
+        if self.mesh is not None:
+            self._reduce([], out)
+        return out
 
     # ------------------------------------------------------------------ #
 
@@ -480,6 +618,13 @@ class CVAETrainer:
             training_stats.push_loss(n_samples, *row, lr, bs)
         pending.clear()
 
+    def _sample_indices(self, rng, n: int) -> np.ndarray:
+        """A global batch's indices: device-grouped when the stack cache is
+        z-sharded, else the dataset's own draw."""
+        if self.device_cache is not None and self.device_cache.mesh is not None:
+            return self.device_cache.sample_mesh_indices(rng, n)
+        return self.training_data.sample_indices(rng, n)
+
     def train(self, validation_pepochs: Sequence[int] = (),
               on_validation: Optional[Callable] = None):
         """The training run with pepoch schedules; returns
@@ -491,7 +636,8 @@ class CVAETrainer:
         ``stats_sync_every`` steps, rounded down to a power of two, as the
         JAX loop's scans are cut; without it, one ``step`` on a host batch
         at a time. ``on_validation(trainer, pepoch)`` is called at the
-        pepochs of ``validation_pepochs``."""
+        pepochs of ``validation_pepochs``. Under a mesh every rank runs
+        this loop on the same draws; rank 0 writes the files."""
         cfg = self.config
         ds = self.training_data
 
@@ -507,7 +653,8 @@ class CVAETrainer:
         out_path = cfg.output_path
         train_fn = val_fn = ckpt_template = None
         if out_path is not None:
-            os.makedirs(out_path, exist_ok=True)
+            if self.is_writer:
+                os.makedirs(out_path, exist_ok=True)
             train_fn = os.path.join(out_path, "training_stats.txt")
             val_fn = os.path.join(out_path, "validation_stats.txt")
             ckpt_template = os.path.join(
@@ -527,14 +674,8 @@ class CVAETrainer:
                     else np.random.default_rng(cfg.seed))
 
         up_to = n_samples if resuming else None
-        training_stats = TrainingStats(stats_labels, cfg.mavg_window_size,
-                                       stats_filename=train_fn,
-                                       resume=resuming, resume_up_to=up_to)
-        validation_stats = TrainingStats(stats_labels, cfg.mavg_window_size,
-                                         stats_filename=val_fn,
-                                         resume_up_to=up_to,
-                                         dump_to_file_frequency=1,
-                                         resume=resuming)
+        training_stats, validation_stats = run_stats(
+            self, stats_labels, train_fn, val_fn, resuming, up_to)
 
         batch_size = (cfg.adaptive_batch_size(i_pepoch)
                       if cfg.adaptive_batch_size else cfg.batch_size)
@@ -603,7 +744,7 @@ class CVAETrainer:
                         -(-until // batch_size))
                 k = 1 << (k.bit_length() - 1)
                 idx_matrix = np.stack(
-                    [ds.sample_indices(data_rng, batch_size)
+                    [self._sample_indices(data_rng, batch_size)
                      for _ in range(k)])
                 metrics_k = self.step_scan(idx_matrix, lr=lr,
                                            alpha_var=alpha_var,
@@ -647,14 +788,16 @@ class CVAETrainer:
                 validation_stats.flush_to_file()
                 snapshot_progress()
                 self.save(ckpt_template.format(sample=n_samples))
-                ckpt.rotate_checkpoints(out_path, cfg.keep_last_checkpoints)
+                if self.is_writer:
+                    ckpt.rotate_checkpoints(out_path,
+                                            cfg.keep_last_checkpoints)
 
             if (cfg.statistics_report_frequency > 0
                     and n_samples - cfg.statistics_report_frequency
                     >= last_report):
                 last_report = n_samples
                 self._flush_stats(pending, training_stats)
-                if cfg.verbose:
+                if cfg.verbose and self.is_writer:
                     elbo = training_stats.loss_terms["ELBO"]["mavg"][-1]
                     rate = n_samples / (time.time() - t0)
                     print(f"P-Epoch [{i_pepoch}/{cfg.n_pepoch}] "
@@ -764,13 +907,19 @@ class CVAETrainer:
 
     def save(self, base_path: str, include_opt_state: bool = True) -> int:
         """Write the checkpoint pair at ``base_path``; returns the state's
-        bytes."""
-        meta = ckpt.meta_from_dataset(self.training_data,
-                                      self.model.architecture)
-        if self.run_config is not None:
-            meta["run_config"] = self.run_config.to_dict()
-        return ckpt.save_checkpoint(base_path,
-                                    self.state_tree(include_opt_state), meta)
+        bytes. Under a mesh rank 0 writes (the state is the same on every
+        rank; the others return 0) and every rank waits for the write."""
+        nbytes = 0
+        if self.is_writer:
+            meta = ckpt.meta_from_dataset(self.training_data,
+                                          self.model.architecture)
+            if self.run_config is not None:
+                meta["run_config"] = self.run_config.to_dict()
+            nbytes = ckpt.save_checkpoint(
+                base_path, self.state_tree(include_opt_state), meta)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return nbytes
 
     @torch.no_grad()
     def restore(self, base_path: str) -> dict:

@@ -75,7 +75,15 @@ frozen statistics, the spectral term, a fresh discriminator), ``train()``
 through the CGAN training CLI's code (scripts/train_cgan_torch.py) timed
 beside ``step_indices`` and resumed bit for bit, the trained generator
 painted through ``CGANPainter.from_trainer`` and K1 (exactly 9 launches a
-call), and the gate twin's CGAN training leg.
+call), and the gate twin's CGAN training leg; then the meshes (phase 23,
+``baryon_painter_tpu_torch/smoke_mesh.py``): the training step under a
+one-rank NCCL mesh equal bit for bit to the step without one, the same
+step on two ranks sharing the card over gloo through the z-sharded stack
+cache (12 rows a rank) held to the f64 step, each rank with the launches
+of one step, the lightcone's tile batches sharded over two copies of the
+painter on the card (K1 4 launches a shard), and a 1024^2 plane painted
+over meshes of 2 (the halo ring) and 3 (the gather path), both against
+the unsharded runs.
 Everything is timed.
 The phases live in ``baryon_painter_tpu_torch/smoke.py``; each prints one
 line with its seconds. The last lines are the kernels record (JSON), the
@@ -99,7 +107,7 @@ def main() -> int:
               "run needs a CUDA device", file=sys.stderr)
         return 2
     try:
-        from baryon_painter_tpu_torch import smoke
+        from baryon_painter_tpu_torch import smoke, smoke_mesh
     except ImportError as e:
         print(f"chip_smoke: the baryon_painter_tpu_torch package is not "
               f"importable here ({e}); run from the repository root",
@@ -150,6 +158,9 @@ def main() -> int:
             paint_tiles_per_s=paint_bf16["tiles_per_s"])
         cgan = smoke.cgan(device, data, card=card)
         smoke.seamless(device, data, lightcone["bf16"]["cudnn"], card=card)
+        # the meshes' painting on this LOS (23c) and a whole plane (23d)
+        mesh_paint = smoke_mesh.lightcone_sharded(device, data)
+        smoke_mesh.planes_sharded(device)
     # the training run through the training CLI's code (19)
     train_loop = smoke.train_loop(device, dataset, card=card)
     # the P(k) fidelity gate (20a, 20b) and the spectral step (20c)
@@ -162,6 +173,10 @@ def main() -> int:
     # the run tooling (22): --profile, validate's figures, the stats twin
     # on phase 19's run, BatchLoader(raw=False)
     tooling = smoke.tooling(device, dataset, train_loop, card=card)
+    # the meshes' training (23a: one rank over NCCL; 23b: two ranks on the
+    # card over gloo)
+    mesh_one = smoke_mesh.world_of_one(device, dataset)
+    mesh_two = smoke_mesh.two_ranks(device, dataset, card=card)
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
     print(json.dumps(smoke.kernels_record(
@@ -170,7 +185,8 @@ def main() -> int:
         training_bf16=training_bf16, conv_bn_bf16=conv_bn_bf16,
         training_bf16_k4=training_bf16_k4, lightcone=lightcone, cgan=cgan,
         train_loop=train_loop, gate_run=gate, pk=pk,
-        cgan_train=cgan_train, tooling=tooling)))
+        cgan_train=cgan_train, tooling=tooling,
+        mesh={"paint": mesh_paint, "one": mesh_one, "two": mesh_two})))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

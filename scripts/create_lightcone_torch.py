@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""SLICS lightcone painting CLI of the PyTorch port (one CUDA device).
+"""SLICS lightcone painting CLI of the PyTorch port.
 
 The twin of ``scripts/create_lightcone.py``, with its flags and defaults:
 paints the SLICS shells of one line of sight with a committed CVAE
@@ -18,8 +18,9 @@ cross angular power spectrum with the SLICS convergence map
 
 ``<dir>`` holds ``delta/``, ``massplanes/`` and ``random_shifts/`` as the
 SLICS release lays them out. Runs on the card unless ``--device cpu``.
-Imports only torch, numpy and the port. ``--mesh-devices`` (multi-GPU
-painting) is not ported yet and raises.
+``--mesh-devices N`` shards every shell's tile batches (or, with
+``--seamless``, its plane's rows) over the first N cards and raises when
+there are fewer. Imports only torch, numpy and the port.
 """
 import argparse
 import glob
@@ -48,8 +49,9 @@ def parse_args(argv=None):
     parser.add_argument("--output-file-planes")
     parser.add_argument("--paint-batch-size", default=16, type=int)
     parser.add_argument("--mesh-devices", default=0, type=int,
-                        help="multi-GPU painting; not ported yet (ROADMAP.md "
-                             "§1 item 10): only 0 is accepted")
+                        help="shard the tile batches (seamless: the plane's "
+                             "rows) over the first N cards; raises when "
+                             "there are fewer")
     parser.add_argument("--paint-dtype", default=None,
                         choices=["bf16", "f32"],
                         help="compute dtype for painting; default bf16 for "
@@ -88,13 +90,14 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def run(argv=None, stage_times=None) -> dict:
+def run(argv=None, stage_times=None, mesh=None) -> dict:
     """The CLI on an argument list; returns what it wrote and painted:
     ``y_map`` (numpy), ``planes`` (the painted planes: tensors on the
     device, numpy with ``--output-file-planes``), ``z_SLICS`` and, with
     ``--kappa-path``, ``cl_y_kappa`` (cl, ell, cl_var, n_mode as numpy). ``stage_times`` (a
     ``lightcone.pipeline.StageTimes``) marks each shell's stages, then
-    ``ymap`` and ``cl``."""
+    ``ymap`` and ``cl``. ``mesh``: a ``parallel.mesh.DeviceMesh`` to paint
+    over in place of ``--mesh-devices``' (its devices may repeat)."""
     args = parse_args(argv)
     import torch
 
@@ -103,9 +106,11 @@ def run(argv=None, stage_times=None) -> dict:
                                                     process_slics)
     from baryon_painter_tpu_torch.painter import CGANPainter, CVAEPainter
 
-    if args.mesh_devices:
-        raise NotImplementedError("--mesh-devices: multi-GPU painting is not "
-                                  "ported yet (ROADMAP.md §1 item 10)")
+    if mesh is None and args.mesh_devices:
+        from baryon_painter_tpu_torch.parallel.mesh import data_parallel_mesh
+        mesh = data_parallel_mesh(args.mesh_devices)
+    if mesh is not None:
+        print(f"Sharding the paint over {mesh.size} devices.")
     if args.paint_dtype is None:
         args.paint_dtype = "bf16" if args.model_type == "CVAE" else "f32"
     paint_dtype = torch.bfloat16 if args.paint_dtype == "bf16" else None
@@ -156,7 +161,7 @@ def run(argv=None, stage_times=None) -> dict:
         n_pixel_delta=args.n_pixel_delta,
         n_pixel_massplane=args.n_pixel_massplane,
         transfer_dtype=torch.bfloat16 if args.bf16_transfer else None,
-        seamless=args.seamless,
+        seamless=args.seamless, mesh=mesh,
         # keep the painted planes on the device unless they are written to
         # disk: create_y_map computes on the device
         device_output=not args.output_file_planes,

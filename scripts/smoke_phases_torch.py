@@ -14,6 +14,12 @@ are not multiples of 8 runs in f32 on the rounded operands) or ``both11``
 already built for the same sources. Prints the phases' lines and, last, a
 line ``PHASES {json}`` with their times.
 
+    python3 scripts/smoke_phases_torch.py ROOT mesh
+
+runs phase 23 alone instead (``baryon_painter_tpu_torch/smoke_mesh.py``:
+23c on a synthetic line of sight at the real sizes, 23d, 23a, 23b), and
+builds the kernels first if they are not built.
+
 Needs a CUDA device. Imports only torch and the port.
 """
 import json
@@ -25,7 +31,7 @@ sys.path.insert(0, os.path.abspath(root))
 
 import torch  # noqa: E402
 
-from baryon_painter_tpu_torch import smoke  # noqa: E402
+from baryon_painter_tpu_torch import smoke, smoke_mesh  # noqa: E402
 from baryon_painter_tpu_torch.models import layers  # noqa: E402
 from baryon_painter_tpu_torch.ops import _build  # noqa: E402
 
@@ -36,13 +42,23 @@ if rule == "align8":
 elif rule == "both11":
     layers._low_precision_in_f32 = lambda fn, x, w: (
         x.device.type == "cpu" or w.shape[0] == w.shape[1] == 1)
-elif rule != "tree":
+elif rule not in ("tree", "mesh"):
     raise SystemExit(f"unknown rule {rule!r}")
 dev = torch.device("cuda", 0)
 card = smoke.environment(dev)["nvidia_smi"]
 print("BUILD", _build.build_library()["path"], flush=True)
 _build.load_library()
 ds = smoke.training_data()
+if rule == "mesh":
+    with smoke.synthetic_lightcone(dev) as data:
+        c = smoke_mesh.lightcone_sharded(dev, data)
+    d = smoke_mesh.planes_sharded(dev)
+    a = smoke_mesh.world_of_one(dev, ds)
+    b = smoke_mesh.two_ranks(dev, ds, card=card)
+    print("PHASES", json.dumps({"root": root, "rule": rule, "card": card,
+          "23a": a["launches"], "23b": b["ranks"],
+          "23c": c["launches"], "23d": d}), flush=True)
+    sys.exit(0)
 t13 = smoke.train(dev, ds, card=card, dtype=torch.bfloat16)
 p14 = smoke.paint_bf16(dev, card=card)
 t15 = smoke.train(dev, ds, card=card, dtype=torch.bfloat16,

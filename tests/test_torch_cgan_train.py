@@ -454,10 +454,11 @@ def test_reinit_discriminator(data):
 
 
 def test_mesh_and_figures_refuse(data, monkeypatch):
-    """The mesh is item 10's; the figures need matplotlib, and without it
-    ``validate`` says so."""
+    """Training takes a ProcessMesh and refuses any other kind of mesh
+    (tests/test_torch_mesh_cgan.py trains under one); the figures need
+    matplotlib, and without it ``validate`` says so."""
     _, td = data
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="ProcessMesh"):
         CGANTrainer(td, device="cpu", mesh=object())
     tr = _port(td, None)
     for name in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:

@@ -322,10 +322,12 @@ def test_process_slics_rejects_what_jax_rejects_and_what_is_not_ported(
     with pytest.raises(ValueError, match="fused"):
         pipeline.process_slics(stub, 100.0, 64, 7, [0.1], [1.0], "", "", "",
                                z_slice=[0.0], seamless=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # painting takes a DeviceMesh (tests/test_torch_mesh_paint.py), and
+    # refuses any other kind of mesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pipeline.process_slics(TorchStub(), 100.0, 64, 7, [0.1], [1.0], "",
                                "", "", z_slice=[0.0], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pipeline.paint_plane(TorchStub(), np.zeros((64, 64), np.float32),
                              0.0, 100.0, 200.0, 32, mesh=object())
 

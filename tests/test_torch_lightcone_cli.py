@@ -14,8 +14,8 @@ synthetic line of sight, and chip_smoke.py's phase 16 on the CPU.
   tiles, redshifts and shell sizes): every plane and the y map within the
   golden's tolerance (rtol 5e-3, atol 5e-3 * mean|JAX|). The CGAN paints
   in f32 by default, the CVAE in bf16, as the JAX CLI.
-* Multi-GPU painting, ``--mesh-devices``, raises ``NotImplementedError``
-  naming ROADMAP.md §1 item 10, whichever painter and mode;
+* ``--mesh-devices N`` asks for N cards and raises when there are fewer
+  (here: none), whichever painter and mode;
   ``--seamless --fused-paint`` raises ``ValueError``, as JAX's pipeline.
 * Phase 16 (``smoke.lightcone``) runs its control flow on the CPU at 300^2
   delta planes (the kernels' plain versions: no launches), and its
@@ -116,8 +116,9 @@ def cli():
     ["--model-type", "CGAN"], [], ["--seamless"]],
     ids=["cgan", "mesh", "seamless"])
 def test_cli_raises_for_what_is_not_ported(cli, tmp_path, flags):
-    """Multi-GPU painting is not ported, with either painter or mode."""
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """``--mesh-devices 2`` needs two cards, with either painter or mode:
+    it never quietly paints on fewer."""
+    with pytest.raises(RuntimeError, match="needs 2 CUDA devices"):
         cli.run(["--CVAE-path", "x", "--SLICS-base-path", str(tmp_path),
                  "--SLICS-LOS", "1", "--output-file", str(tmp_path / "y"),
                  "--mesh-devices", "2"] + flags)

@@ -594,7 +594,9 @@ def _imports(path: Path):
                                              "bf16_conv_probe_torch.py",
                                              "smoke_phases_torch.py",
                                              "compare_reference_stats_torch.py",
-                                             "step_f64_witness_torch.py")],
+                                             "step_f64_witness_torch.py",
+                                             "lightcone_fanout_torch.py")]
+    + [Path(REPO) / "tests" / "torch_mesh_workers.py"],
     ids=lambda p: str(Path(p).relative_to(REPO)))
 def test_port_imports_nothing_of_jax(path):
     for name in _imports(path):

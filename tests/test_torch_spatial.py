@@ -22,7 +22,8 @@ seamless path against the JAX package's, on the CPU.
   for a model's lightcone (rtol 5e-3, atol 5e-3 * mean|JAX|); the shell
   equal to ``paint_plane`` of the port's own zoomed plane; the port's own
   draw reproducible.
-* A ``mesh`` raises ``NotImplementedError`` naming ROADMAP.md §1 item 10.
+* A mesh that is not a ``DeviceMesh`` raises ``TypeError`` (the sharded
+  paths: tests/test_torch_mesh_paint.py).
 """
 import json
 import os
@@ -287,9 +288,9 @@ def test_calibrate_halo_equals_jax(cvae_pair, cgan_pair, kind):
 
 
 def test_mesh_raises(cvae_pair):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         spatial.paint_plane(cvae_pair[1], _plane(64, 64), 0.5, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pipeline.paint_plane_seamless(cvae_pair[1], _plane(8, 8), 0.5, 100.0,
                                       250.0, TILE, mesh=object())
 
