@@ -6,7 +6,7 @@ parallelism from one global-view ``Mesh``; the port has two objects:
 
 * ``DeviceMesh`` -- one process driving a list of devices, for painting
   (``lightcone/pipeline.py``: a tile batch split over the devices;
-  ``parallel/spatial.py``: a plane split into row slabs with a halo ring).
+  ``parallel/spatial.py``: a plane split into halo-extended row slabs).
   ``data_parallel_mesh`` builds one; devices may repeat (``["cpu"] * 4``,
   ``["cuda:0"] * 2``), so the split, halo and merge logic runs on one card
   or on the CPU. ``replicate`` places one copy of a painter on each
@@ -292,7 +292,9 @@ def initialize_multihost(backend: str,
     tcp), with ``num_processes`` and ``process_id``. Without it the
     coordinates come from torchrun's environment (``MASTER_ADDR``,
     ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``). ``device``: this rank's
-    device; by default ``cuda:LOCAL_RANK`` for NCCL, else the CPU.
+    device; by default ``cuda:LOCAL_RANK`` whatever the backend, and
+    without a card that raises: a rank computes on the CPU only when the
+    caller passes ``device="cpu"``.
 
     Returns the mesh of an already initialised group unchanged; returns
     None for a plain single-process run (no arguments, no torchrun
@@ -300,7 +302,7 @@ def initialize_multihost(backend: str,
     does not complete within ``timeout`` does: nothing falls back to a
     single process."""
     if dist.is_initialized():
-        return ProcessMesh(backend, device or _default_device(backend))
+        return ProcessMesh(backend, device or _default_device())
     explicit = any(a is not None for a in
                    (coordinator_address, num_processes, process_id))
     if coordinator_address is not None:
@@ -321,12 +323,15 @@ def initialize_multihost(backend: str,
         rank, world = coords
     if not 0 <= rank < world:
         raise ValueError(f"process_id {rank} outside [0, {world})")
+    device = device or _default_device()
     dist.init_process_group(backend=backend, init_method=init,
                             world_size=world, rank=rank, timeout=timeout)
-    return ProcessMesh(backend, device or _default_device(backend))
+    return ProcessMesh(backend, device)
 
 
-def _default_device(backend: str) -> torch.device:
-    if str(backend).lower() == "nccl":
-        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-    return torch.device("cpu")
+def _default_device() -> torch.device:
+    """``cuda:LOCAL_RANK``; raises without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device for this rank: pass device='cpu' "
+                           "to compute on the CPU")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))

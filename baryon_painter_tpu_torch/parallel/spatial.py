@@ -17,14 +17,14 @@ extended periodically by halo/f, so painting at two halos draws the same
 latent everywhere.
 
 With a ``DeviceMesh`` (``parallel/mesh.py``) of n devices the plane's rows
-are split into n slabs, each painted by the painter's copy on its device
-with its halo (the JAX package's ``shard_map`` paint). When the periodic
-height Q splits into n slabs of a multiple of f and the halo fits one
-slab, each slab gets its halo rows from its ring neighbours by
-device-to-device copies (the JAX package's ``lax.ppermute`` ring);
-otherwise every device gets its halo-extended slab of the periodic plane
-by mod indexing. The noise is drawn once for the whole plane and sliced
-per slab, so every path paints the same plane.
+are split into n slabs of a multiple of f rows, each painted by the
+painter's copy on its device with its halo (the JAX package's
+``shard_map`` paint). The one process holds the whole plane on the
+painter's device, so each device gets its halo-extended slab of the
+periodic plane by mod indexing from there (the JAX package's gather path;
+its ``lax.ppermute`` ring serves devices that hold only their own slab,
+which the port's do not). The noise is drawn once for the whole plane and
+sliced per slab, so the sharded and unsharded paints see the same noise.
 """
 from __future__ import annotations
 
@@ -224,22 +224,12 @@ def _paint_slab(painter, ext, zs, eps_ext, kind, z_mode, transform,
 
 def _mesh_slabs(plane, eps, n: int, halo: int, f: int):
     """The n halo-extended slabs of the (Q, Wq)-periodic ``plane`` (and of
-    its noise ``eps``, or None), with the rows each slab's paint keeps:
-    (slabs, eps slabs, slab height Hl, ring). With equal slabs (Q a
-    multiple of n f, halo <= Q / n) each slab's halo rows come from its
-    ring neighbours' slabs (``ring`` True: the caller copies them between
-    devices); otherwise the extended slabs are gathered by mod indexing
-    (the last one wraps; its repeated rows fall off the crop)."""
+    its noise ``eps``, or None), gathered by mod indexing, each keeping
+    ``Hl`` rows, ``ceil(Q / n)`` rounded up to f: (slabs, eps slabs, Hl).
+    Where n f does not divide Q the last slab wraps; its repeated rows
+    fall off the crop."""
     Q = plane.shape[0]
     hf = halo // f
-    if Q % (n * f) == 0 and halo <= Q // n:
-        Hl = Q // n
-        slabs = list(_periodic_extend(plane, 0, halo).split(Hl))
-        eps_pad = None if eps is None else _periodic_extend(eps, hf, hf)
-        eps_slabs = [None if eps is None else
-                     eps_pad[j * (Hl // f):j * (Hl // f) + Hl // f + 2 * hf]
-                     for j in range(n)]
-        return slabs, eps_slabs, Hl, True
     Hl = _round_up(-(-Q // n), f)
     dev = plane.device
     cols = torch.arange(-halo, plane.shape[1] + halo, device=dev
@@ -256,7 +246,7 @@ def _mesh_slabs(plane, eps, n: int, halo: int, f: int):
                           device=dev) % eps.shape[0]
         zc = torch.arange(-hf, eps.shape[1] + hf, device=dev) % eps.shape[1]
         eps_slabs.append(eps[zr[:, None], zc[None, :]])
-    return slabs, eps_slabs, Hl, False
+    return slabs, eps_slabs, Hl
 
 
 @torch.inference_mode()
@@ -328,17 +318,8 @@ def paint_plane(painter, plane, z: float, mesh=None,
             out = paint(painter, ext, e, zs)
             return out[halo:-halo, halo:-halo][:H, :W]
         copies = replicate(painter, mesh)
-        n = mesh.size
-        slabs, eps_slabs, Hl, ring = _mesh_slabs(plane, eps, n, halo, f)
-        slabs = [t.to(d) for t, d in zip(slabs, mesh.devices)]
-        if ring:
-            # each slab's halo rows from its ring neighbours, copied from
-            # their devices: the bottom rows of slab j - 1 above it, the
-            # top rows of slab j + 1 below it
-            slabs = [torch.cat([slabs[j - 1][-halo:].to(d), slabs[j],
-                                slabs[(j + 1) % n][:halo].to(d)])
-                     for j, d in enumerate(mesh.devices)]
-        outs = [paint(copies[d], ext, None if e is None else e.to(d),
+        slabs, eps_slabs, _ = _mesh_slabs(plane, eps, mesh.size, halo, f)
+        outs = [paint(copies[d], ext.to(d), None if e is None else e.to(d),
                       zs.to(d))[halo:-halo, halo:-halo]
                 for d, ext, e in zip(mesh.devices, slabs, eps_slabs)]
         out = torch.cat([t.to(device) for t in outs])

@@ -10,20 +10,23 @@ path for real:
   identity), with phase 11's launches.
 * 23b -- two ranks on the one card over gloo (NCCL will not put two ranks
   on one device; gloo carries the all-reduces and broadcasts of CUDA
-  tensors): the same step, 12 rows a rank, through the z-sharded stack
+  tensors; each rank's mesh made with no device, so on the card by
+  default): the same step, 12 rows a rank, through the z-sharded stack
   cache, held to the whole-model f64 step on the same device-grouped
   batch: the loss to 1e-5, the worst gradient leaf's distance within
   max(1e-3, ``smoke.STEP_F64_FACTOR`` times the one-process K4 step's
-  worst leaf's; each leaf's distance printed beside the one-process and
-  the plain steps'), each rank with 23a's launches; each rank's
-  samples/s (two processes sharing one card, not a multi-card speed).
+  worst leaf's), and each leaf's within max(1e-3, ``STEP_F64_FACTOR``
+  times the largest of the one-process kernels, one-process plain and
+  two-rank plain steps' distances for that leaf); each rank with 23a's
+  launches; each rank's samples/s (two processes sharing one card, not a
+  multi-card speed).
 * 23c -- the lightcone CLI's tiled paint (f32, K1 + K3, phase 16's
   synthetic line of sight) sharded over ``DeviceMesh([card] * 2)`` against
   the same run without a mesh, golden tolerance on every plane and the y
   map; K1 launches 4 times a shard, 8 times a paint call of 16 tiles.
-* 23d -- ``paint_plane`` of a 1024^2 plane over meshes of 2 (the halo
-  ring) and 3 (the gather path) against ``mesh=None``, both painters,
-  golden tolerance.
+* 23d -- ``paint_plane`` of a 1024^2 plane over meshes of 2 (equal
+  slabs) and 3 (unequal, the last one wrapping) against ``mesh=None``,
+  both painters, golden tolerance.
 
 A collective that fails or a rank that does not finish in time fails the
 phase. The ranks of 23b are processes of their own:
@@ -50,7 +53,8 @@ import torch
 import torch.distributed as dist
 
 from baryon_painter_tpu_torch import smoke
-from baryon_painter_tpu_torch.parallel.mesh import DeviceMesh, ProcessMesh
+from baryon_painter_tpu_torch.parallel.mesh import (DeviceMesh,
+                                                    initialize_multihost)
 
 MESH_RANKS = 2
 GROUP_TIMEOUT = datetime.timedelta(seconds=120)
@@ -71,13 +75,22 @@ def _free_port() -> int:
 def process_group(backend: str, device, rank: int = 0, world: int = 1,
                   port: int = None):
     """A process group over ``tcp://localhost:port`` (a free port for a
-    world of one) and this rank's ``ProcessMesh``; destroyed on exit."""
+    world of one) and this rank's ``ProcessMesh`` on ``device``, made by
+    ``initialize_multihost`` with no device where ``device`` is the card
+    (its default); destroyed on exit."""
     port = _free_port() if port is None else port
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank,
-                            timeout=GROUP_TIMEOUT)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", 0)
+    mesh = initialize_multihost(
+        backend, f"tcp://localhost:{port}", world, rank,
+        device=None if device.type == "cuda" else device,
+        timeout=GROUP_TIMEOUT)
     try:
-        yield ProcessMesh(backend, device)
+        if mesh.device != device:
+            raise AssertionError(f"rank {rank}'s mesh is on {mesh.device}, "
+                                 f"not {device}")
+        yield mesh
     finally:
         dist.destroy_process_group()
 
@@ -249,14 +262,16 @@ def two_ranks(device, dataset, batch: int = smoke.TRAIN_BATCH,
     cuDNN's heads and convolutions), and this process the one-process
     kernels and plain steps and the f64 step on the same batch. Held: the
     kernels' data-parallel loss within STEP_LOSS_RTOL of f64, and its
-    gradient no further from f64 than the one-process kernels step is:
-    its worst leaf's distance within max(STEP_GRAD_TOL, STEP_F64_FACTOR
-    times the one-process step's worst leaf's). Printed beside: each
-    leaf's share of max(STEP_GRAD_TOL, STEP_F64_FACTOR times the
-    one-process step's distance for that leaf), and of the same with the
-    largest distance of the three other f32 steps; a leaf's f32 distance
-    from f64 moves by up to 4x between equally valid f32 executions of the
-    step (``PERF.md`` §6, PR 19), so no leaf-by-leaf limit holds."""
+    gradient no further from f64 than the f32 steps are: its worst leaf's
+    distance within max(STEP_GRAD_TOL, STEP_F64_FACTOR times the
+    one-process kernels step's worst leaf's), and each leaf's within
+    max(STEP_GRAD_TOL, STEP_F64_FACTOR times the largest distance of the
+    three other f32 steps for that leaf: one-process kernels, one-process
+    plain, data-parallel plain). A leaf's f32 distance from f64 moves by
+    up to 4x between equally valid f32 executions of the step
+    (``PERF.md`` §6), so each leaf is held to the spread of those
+    executions, not to the one-process kernels step's alone; that share
+    is printed beside."""
     t0 = time.perf_counter()
     device = torch.device(device)
     idx, eps = mesh_batch(dataset, batch)
@@ -303,12 +318,14 @@ def two_ranks(device, dataset, batch: int = smoke.TRAIN_BATCH,
               f"of its {batch // MESH_RANKS} rows ({r['samples_per_s']:.2f} "
               f"of the global batch; {MESH_RANKS} processes sharing one "
               f"card, not a multi-card speed)", flush=True)
-    if not (loss_err <= smoke.STEP_LOSS_RTOL and share <= 1.0):
-        raise AssertionError(f"23b: against f64 the loss {loss_err:.3e}, "
-                             f"the worst gradient leaf {worst} at "
-                             f"{share:.3f} of its limit")
     top_one = max(leaf_one, key=leaf_one.get)
     top_all = max(leaf_all, key=leaf_all.get)
+    if not (loss_err <= smoke.STEP_LOSS_RTOL and share <= 1.0
+            and leaf_all[top_all] <= 1.0):
+        raise AssertionError(f"23b: against f64 the loss {loss_err:.3e}, "
+                             f"the worst gradient leaf {worst} at "
+                             f"{share:.3f} of its limit, leaf {top_all} at "
+                             f"{leaf_all[top_all]:.3f} of its own")
     smoke._line(
         "23b", "mesh_two_ranks_one_card", t0, backend="gloo",
         card=json.dumps(card), ranks=MESH_RANKS, batch=batch,
@@ -385,24 +402,18 @@ def planes_sharded(device, n: int = MESH_PLANE,
                                                          plane.shape),
                               generator=gen, device=device)
         ref = spatial.paint_plane(painter, plane, 0.5, eps=eps).cpu()
-        f = spatial.latent_downsample(painter.architecture)
-        halo = spatial.required_halo(painter.architecture, kind)
         for m in meshes:
             got = spatial.paint_plane(painter, plane, 0.5, eps=eps,
                                       mesh=DeviceMesh([device] * m)).cpu()
-            ring = spatial._mesh_slabs(torch.zeros(n, n), None, m, halo,
-                                       f)[3]
             ratio = smoke._golden_ratio(got, ref)
-            out[f"{label}_{m}"] = {"path": "ring" if ring else "gather",
-                                   "err_over_tol": ratio}
+            out[f"{label}_{m}"] = {"err_over_tol": ratio}
             if not (ratio <= 1.0 and torch.isfinite(got).all()):
                 raise AssertionError(f"23d: {label} over {m} devices "
                                      f"against mesh=None: {ratio} of the "
                                      f"golden tolerance")
     smoke._line("23d", "mesh_paint_plane", t0, plane=n,
                 err_over_tol=json.dumps({k: round(v["err_over_tol"], 4)
-                                         for k, v in out.items()}),
-                paths=json.dumps({k: v["path"] for k, v in out.items()}))
+                                         for k, v in out.items()}))
     return out
 
 

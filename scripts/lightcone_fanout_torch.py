@@ -39,8 +39,11 @@ def main():
     if args.coordinator is not None or args.torchrun:
         from baryon_painter_tpu_torch.parallel.mesh import \
             initialize_multihost
+        # the group only agrees on the process indices: the painting runs
+        # in each line of sight's own create_lightcone_torch.py
         mesh = initialize_multihost("gloo", args.coordinator,
-                                    args.num_processes, args.process_id)
+                                    args.num_processes, args.process_id,
+                                    device="cpu")
         if mesh is None:
             raise RuntimeError("--torchrun: no torchrun environment found")
         pid, nproc = mesh.rank, mesh.size

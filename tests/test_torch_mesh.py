@@ -21,12 +21,16 @@ its test).
   seed, and its importance weights (``z_slot_weights``, ``uniform_z``)
   equal JAX's.
 * What a mesh refuses: ``data_parallel_mesh`` asked for more cards than
-  there are; ``initialize_multihost`` with coordinates but no coordinator;
+  there are; ``initialize_multihost`` with coordinates but no coordinator,
+  or with no device and no card (a rank is on the CPU only when asked);
   the wrong kind of mesh for a trainer or a paint.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from baryon_painter_tpu_torch.data import device_cache as tcache
 from baryon_painter_tpu_torch.models.layers import BatchNorm
@@ -250,6 +254,39 @@ def test_initialize_multihost_refuses_half_coordinates(monkeypatch):
         tmesh.initialize_multihost("gloo", "localhost:1")
     with pytest.raises(RuntimeError, match="initialised"):
         tmesh.ProcessMesh("gloo", "cpu")
+
+
+def test_initialize_multihost_defaults_to_the_card(monkeypatch, tmp_path):
+    """With no device a rank computes on ``cuda:LOCAL_RANK`` whatever the
+    backend; without a card that raises before the rank joins a group,
+    and the CPU is taken only when the caller names it."""
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tmesh._default_device() == torch.device("cuda", 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmesh.initialize_multihost("gloo", f"file://{tmp_path / 'a'}", 1, 0)
+    assert not dist.is_initialized()
+    mesh = tmesh.initialize_multihost("gloo", f"file://{tmp_path / 'b'}", 1,
+                                      0, device="cpu")
+    try:
+        assert mesh.device == torch.device("cpu") and mesh.backend == "gloo"
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_a_gloo_mesh_without_a_device_is_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the default device is the card")
+    mesh = tmesh.initialize_multihost("gloo", f"file://{tmp_path / 'rdv'}",
+                                      1, 0)
+    try:
+        want = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        assert mesh.device == want
+        assert mesh.all_reduce(torch.ones(3, device=want)).device == want
+    finally:
+        dist.destroy_process_group()
 
 
 def test_wrong_kind_of_mesh_raises(three_z):

@@ -15,10 +15,11 @@ as it does over cards.
 * ``parallel.spatial.paint_plane`` over 2, 3 and 4 devices on a 150 x 91
   plane (150 is not a multiple of the latent factor 4: the plane is
   treated as 152-periodic) equals ``mesh=None`` and the JAX package's
-  ``paint_plane(mesh)`` with the same noise; two devices take the halo
-  ring (152 splits into slabs of 76 rows, a multiple of 4, and the halo
-  fits one), three and four the gather path. The CGAN generator too,
-  against ``mesh=None``.
+  ``paint_plane(mesh)`` with the same noise (the JAX package's halo ring
+  over two devices, its gather path over three and four); the port's
+  slabs keep 76, 52 and 40 rows (ceil(152 / n) rounded up to 4), each
+  extended by the halo on both sides. The CGAN generator too, against
+  ``mesh=None``.
 
 Tolerance: tests/test_torch_spatial.py's (rtol 1e-5, atol 1e-5 of the
 largest value), in bf16 relative L2 1e-2 (bf16 chaos between batch sizes).
@@ -146,8 +147,10 @@ def test_paint_plane_over_a_mesh(cvae, n):
     eps = np.asarray(jax.random.normal(
         rng, spatial.latent_noise_shape(tp, plane.shape), jnp.float32))
     halo = spatial._round_up(spatial.required_halo(tp.architecture), f)
-    ring = spatial._mesh_slabs(torch.zeros(152, 92), None, n, halo, f)[3]
-    assert ring == (n == 2)
+    slabs, _, rows = spatial._mesh_slabs(torch.zeros(152, 92), None, n,
+                                         halo, f)
+    assert rows == {2: 76, 3: 52, 4: 40}[n]
+    assert [s.shape for s in slabs] == [(rows + 2 * halo, 92 + 2 * halo)] * n
     got = spatial.paint_plane(tp, plane, 0.5, mesh=_cpus(n), eps=eps)
     _close(got, spatial.paint_plane(tp, plane, 0.5, eps=eps))
     _close(got, want)

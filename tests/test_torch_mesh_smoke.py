@@ -29,6 +29,7 @@ def test_23b_two_ranks_against_f64(dataset):
     assert len(out["ranks"]) == 2
     assert out["loss_rel_err"] <= smoke.STEP_LOSS_RTOL
     assert out["limit_share"] <= 1.0
+    assert out["leaf_share_envelope"] <= 1.0
     assert all(r["samples_per_s"] > 0 for r in out["ranks"])
 
 

@@ -339,7 +339,7 @@ def main(argv):
     with open(arg_file, "rb") as f:
         args = pickle.load(f)
     mesh = initialize_multihost(
-        "gloo", "file://" + rdv, int(world), int(rank),
+        "gloo", "file://" + rdv, int(world), int(rank), device="cpu",
         timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
     try:
         result = CASES[case](mesh, args)
