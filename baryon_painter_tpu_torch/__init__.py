@@ -27,17 +27,27 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 __version__ = "0.1.0"
 
 _LAZY = {"CVAEPainter": "painter", "CGANPainter": "painter",
-         "load_painter": "painter", "CVAETrainer": "train.trainer",
-         "TrainConfig": "train.trainer", "CGANTrainer": "train.cgan",
-         "CGANTrainConfig": "train.cgan"}
+         "load_painter": "painter", "CVAE": "models.cvae",
+         "BahamasTileDataset": "data.dataset",
+         "CVAETrainer": "train.trainer", "TrainConfig": "train.trainer",
+         "CGANTrainer": "train.cgan", "CGANTrainConfig": "train.cgan",
+         "process_slics": "lightcone.pipeline",
+         "create_y_map": "lightcone.ymap",
+         "pseudo_pofk_2d": "power_spectrum"}
+# modules exported whole, as the JAX package exports ``transforms``
+_LAZY_MODULES = ("transforms",)
 
 
 def __getattr__(name):
-    """Lazy top-level export of the painters, ``load_painter`` and the
-    trainers (keeps ``import baryon_painter_tpu_torch`` light: torch is
-    imported on use)."""
+    """Lazy top-level export of the painters, ``load_painter``, the
+    trainers, the CVAE, the dataset, the lightcone's ``process_slics`` and
+    ``create_y_map``, ``pseudo_pofk_2d`` and the ``transforms`` module, the
+    JAX package's top-level names (keeps ``import baryon_painter_tpu_torch``
+    light: torch is imported on use)."""
+    import importlib
+    if name in _LAZY_MODULES:
+        return importlib.import_module(f"baryon_painter_tpu_torch.{name}")
     if name in _LAZY:
-        import importlib
         module = importlib.import_module(f"baryon_painter_tpu_torch."
                                          f"{_LAZY[name]}")
         return getattr(module, name)

@@ -3596,11 +3596,11 @@ def gate_check(device, checkpoint: str, want_launches: dict, kind: str,
             "data": (g.train_ds, g.val_ds)}
 
 
-def gate(device, card=None) -> dict:
+def gate(device, card=None, keep: dict = None) -> dict:
     """Phase 20a on the fiducial CVAE (K1 4 and K3-fwd 1 a paint call), 20b
     on the CGANs, fiducial and fiducial-adv (K1 9 a call), and 20d, the
-    bf16 readings of the four committed CVAEs (``gate_bf16``); raises on
-    any failed rule."""
+    bf16 readings of the four committed CVAEs (``gate_bf16``; ``keep`` as
+    there); raises on any failed rule."""
     run = {"cvae": gate_check(device, CHECKPOINT, {"k1": N_RES_BLOCKS,
                                                    "k3_fwd": 1}, "cvae",
                               fallback=GATE_CVAE_DATASET,
@@ -3610,7 +3610,7 @@ def gate(device, card=None) -> dict:
            "cgan_adv": gate_check(device, CGAN_ADV_PATH, {"k1": 9},
                                   "cgan_adv", seeds=1, card=card,
                                   phase="20b"),
-           "cvae_bf16": gate_bf16(device, card=card)}
+           "cvae_bf16": gate_bf16(device, card=card, keep=keep)}
     fails = {k: r["fails"] for k, r in run.items() if r["fails"]}
     if fails:
         raise AssertionError(f"gate: {fails}")
@@ -3647,7 +3647,8 @@ GATE_BF16_OPEN = {
                         1.75: ("auto", "cross"), 2.0: ("auto", "cross")}}
 
 
-def gate_bf16(device, cases=GATE_BF16_CASES, card=None) -> dict:
+def gate_bf16(device, cases=GATE_BF16_CASES, card=None,
+              keep: dict = None) -> dict:
     """Phase 20d: the bf16 gate readings of the committed CVAEs at the
     redshifts of ``cases``, through the gate twin's ``--eval-only`` code at
     each committed evaluation's tiles (its dataset flags; ``GATE_TILES``
@@ -3658,8 +3659,10 @@ def gate_bf16(device, cases=GATE_BF16_CASES, card=None) -> dict:
     ``scripts/make_gate_reference_torch.py``). Prints, for each reading,
     committed / JAX CPU bf16 / port / share of the limit, and whether it
     is one of the committed readings outside the port's spread
-    (``GATE_BF16_OPEN``). The failures come back under ``fails``; the
-    caller raises on them."""
+    (``GATE_BF16_OPEN``). ``keep`` maps a case's prefix to a directory in
+    which its synthetic stacks are written and kept (phase 24 reads
+    ``cvae_lt``'s); the others go to a temporary directory. The failures
+    come back under ``fails``; the caller raises on them."""
     spread = _load_cli(SPREAD_CLI)
     gate = spread.gate
     t0 = time.perf_counter()
@@ -3671,7 +3674,9 @@ def gate_bf16(device, cases=GATE_BF16_CASES, card=None) -> dict:
         base = str(REPO / checkpoint)
         committed = spread.committed_report(base)["model"]
         eps = ref[f"{prefix}_eps_bf16"][:GATE_TILES]
-        with tempfile.TemporaryDirectory() as tmp:
+        kept = (keep or {}).get(prefix)
+        with (contextlib.nullcontext(str(kept)) if kept is not None
+              else tempfile.TemporaryDirectory()) as tmp:
             args = gate.parse_args(spread.dataset_flags(base, fallback) + [
                 "--eval-only", "--checkpoint", base, "--eval-tiles",
                 str(GATE_TILES), "--workdir", tmp, "--device", str(device)])

@@ -11,7 +11,9 @@ returns: dicts, lists, Python scalars and read-only numpy arrays.
 
 flax's other leaf encodings (numpy scalars, ext 3; complex numbers, ext 2)
 and its "chunked" dict for arrays above 1 GiB occur in no committed
-checkpoint, and the decoder raises on them.
+checkpoint, and the decoder raises on them; ``numpy_scalars=True`` reads
+ext 3 as flax does (a numpy scalar), for a tree a caller serialised with
+numpy scalar leaves.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 __all__ = ["msgpack_restore", "unpackb"]
 
 _EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
 _CHUNKED_KEY = "__msgpack_chunked_array__"
 
 
@@ -142,9 +145,11 @@ def _ndarray_from_bytes(data: bytes) -> np.ndarray:
         shape, order="C")
 
 
-def _flax_ext_hook(code: int, data: bytes):
+def _flax_ext_hook(code: int, data: bytes, numpy_scalars: bool = False):
     if code == _EXT_NDARRAY:
         return _ndarray_from_bytes(data)
+    if numpy_scalars and code == _EXT_NPSCALAR:
+        return _ndarray_from_bytes(data)[()]
     raise ValueError(f"Unsupported flax msgpack ext type {code} (only "
                      f"ndarray leaves, ext {_EXT_NDARRAY}, are read)")
 
@@ -159,10 +164,12 @@ def _reject_chunked(tree):
             _reject_chunked(v)
 
 
-def msgpack_restore(encoded: bytes):
+def msgpack_restore(encoded: bytes, numpy_scalars: bool = False):
     """Decode a flax ``msgpack_serialize`` blob into nested Python
     containers with numpy array leaves (``flax.serialization.msgpack_restore``
-    without flax)."""
-    tree = unpackb(encoded, ext_hook=_flax_ext_hook)
+    without flax). ``numpy_scalars=True`` also reads flax's numpy-scalar
+    leaves (ext 3) into numpy scalars."""
+    tree = unpackb(encoded, ext_hook=lambda code, data: _flax_ext_hook(
+        code, data, numpy_scalars))
     _reject_chunked(tree)
     return tree

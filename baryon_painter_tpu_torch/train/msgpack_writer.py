@@ -16,7 +16,9 @@ same tree of string-keyed dicts and numpy arrays, without ``msgpack`` or
 
 What the reader refuses, the writer refuses: numpy scalars (flax's ext 3),
 complex numbers (ext 2), bfloat16 leaves and arrays above 1 GiB (flax's
-chunked form).
+chunked form). ``numpy_scalars=True`` writes a numpy scalar as flax does
+(ext 3, the payload of the 0-d array), as ``msgpack_restore`` reads it
+with the same flag.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import numpy as np
 __all__ = ["msgpack_serialize"]
 
 _EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
 # flax writes an array above this many bytes as a chunked dict
 MAX_CHUNK_SIZE = 2 ** 30
 
@@ -105,7 +108,7 @@ def _ndarray_payload(a: np.ndarray) -> bytes:
     return bytes(out)
 
 
-def _pack(out: bytearray, obj):
+def _pack(out: bytearray, obj, scalars: bool = False):
     # exact types, as flax's packer checks them (strict_types=True): a
     # numpy scalar is not a float, a tuple is not a list
     t = type(obj)
@@ -127,14 +130,16 @@ def _pack(out: bytearray, obj):
     elif t is list:
         _header(out, len(obj), 0x90, 0x0F, _ARRAY)
         for v in obj:
-            _pack(out, v)
+            _pack(out, v, scalars)
     elif t is dict:
         _header(out, len(obj), 0x80, 0x0F, _MAP)
         for key in sorted(obj):
             _pack(out, key)
-            _pack(out, obj[key])
+            _pack(out, obj[key], scalars)
     elif t is np.ndarray:
         _ext(out, _EXT_NDARRAY, _ndarray_payload(obj))
+    elif scalars and isinstance(obj, np.generic):
+        _ext(out, _EXT_NPSCALAR, _ndarray_payload(np.asarray(obj)))
     else:
         raise TypeError(
             f"Cannot serialize {t.__name__} (a checkpoint tree holds dicts "
@@ -142,10 +147,10 @@ def _pack(out: bytearray, obj):
             f"numpy scalars and complex numbers are not written)")
 
 
-def msgpack_serialize(tree) -> bytes:
+def msgpack_serialize(tree, numpy_scalars: bool = False) -> bytes:
     """The bytes ``flax.serialization.msgpack_serialize(tree)`` writes for a
     state tree: nested dicts (string keys) of numpy arrays, lists and
-    Python scalars."""
+    Python scalars (and numpy scalars, with ``numpy_scalars=True``)."""
     out = bytearray()
-    _pack(out, tree)
+    _pack(out, tree, numpy_scalars)
     return bytes(out)

@@ -83,7 +83,17 @@ cache (12 rows a rank) held to the f64 step, each rank with the launches
 of one step, the lightcone's tile batches sharded over two copies of the
 painter on the card (K1 4 launches a shard), and a 1024^2 plane painted
 over meshes of 2 (the halo ring) and 3 (the gather path), both against
-the unsharded runs.
+the unsharded runs; then the last user-facing script twins (phase 24,
+``baryon_painter_tpu_torch/smoke_scripts.py``): the gate's bootstrap
+(``scripts/gate_variance_torch.py``) painting 192 tiles of 512^2 a
+redshift in one call through K1 and K3-fwd (bf16, exactly 4 K1 and 1
+K3-fwd launches a call) on phase 20d's stacks of the physical-512-lt-wip
+CVAE, against the same calls with the kernels off; the per-bin P(k)
+diagnostic (``scripts/pk_diagnose_torch.py``) of a bf16 trainer
+checkpoint through K1 and K3-fwd; the transforms' examples on the card
+against the CPU; and the promotion of that checkpoint
+(``scripts/promote_checkpoint_torch.py``) with its re-evaluation on the
+card.
 Everything is timed.
 The phases live in ``baryon_painter_tpu_torch/smoke.py``; each prints one
 line with its seconds. The last lines are the kernels record (JSON), the
@@ -107,7 +117,7 @@ def main() -> int:
               "run needs a CUDA device", file=sys.stderr)
         return 2
     try:
-        from baryon_painter_tpu_torch import smoke, smoke_mesh
+        from baryon_painter_tpu_torch import smoke, smoke_mesh, smoke_scripts
     except ImportError as e:
         print(f"chip_smoke: the baryon_painter_tpu_torch package is not "
               f"importable here ({e}); run from the repository root",
@@ -163,30 +173,36 @@ def main() -> int:
         smoke_mesh.planes_sharded(device)
     # the training run through the training CLI's code (19)
     train_loop = smoke.train_loop(device, dataset, card=card)
-    # the P(k) fidelity gate (20a, 20b) and the spectral step (20c)
-    gate = smoke.gate(device, card=card)
-    pk = smoke.pk_step(device, dataset, card=card,
-                       f32_ms=training["step_ms"],
-                       bf16_ms=training_bf16["step_ms"])
-    # CGAN training (21), its gate leg on 20b's fiducial-adv stacks
-    cgan_train = smoke.cgan_train(device, dataset, gate, card=card)
-    # the run tooling (22): --profile, validate's figures, the stats twin
-    # on phase 19's run, BatchLoader(raw=False)
-    tooling = smoke.tooling(device, dataset, train_loop, card=card)
-    # the meshes' training (23a: one rank over NCCL; 23b: two ranks on the
-    # card over gloo)
-    mesh_one = smoke_mesh.world_of_one(device, dataset)
-    mesh_two = smoke_mesh.two_ranks(device, dataset, card=card)
+    # 20d keeps the lt-wip CVAE's stacks for phase 24
+    with smoke_scripts.gate_stacks() as keep:
+        # the P(k) fidelity gate (20a, 20b, 20d) and the spectral step (20c)
+        gate = smoke.gate(device, card=card, keep=keep)
+        pk = smoke.pk_step(device, dataset, card=card,
+                           f32_ms=training["step_ms"],
+                           bf16_ms=training_bf16["step_ms"])
+        # CGAN training (21), its gate leg on 20b's fiducial-adv stacks
+        cgan_train = smoke.cgan_train(device, dataset, gate, card=card)
+        # the run tooling (22): --profile, validate's figures, the stats
+        # twin on phase 19's run, BatchLoader(raw=False)
+        tooling = smoke.tooling(device, dataset, train_loop, card=card)
+        # the meshes' training (23a: one rank over NCCL; 23b: two ranks on
+        # the card over gloo)
+        mesh_one = smoke_mesh.world_of_one(device, dataset)
+        mesh_two = smoke_mesh.two_ranks(device, dataset, card=card)
+        # the last user-facing script twins (24) on 20d's stacks
+        scripts = smoke_scripts.scripts(device, keep=keep, card=card)
     print(f"total {time.perf_counter() - t_start:.3f} s (card: {card})",
           flush=True)
-    print(json.dumps(smoke.kernels_record(
+    record = smoke.kernels_record(
         checks, paint, timing, gather, heads, training, conv_bn, training_k4,
         heads_bf16=heads_bf16, paint_bf16=paint_bf16,
         training_bf16=training_bf16, conv_bn_bf16=conv_bn_bf16,
         training_bf16_k4=training_bf16_k4, lightcone=lightcone, cgan=cgan,
         train_loop=train_loop, gate_run=gate, pk=pk,
         cgan_train=cgan_train, tooling=tooling,
-        mesh={"paint": mesh_paint, "one": mesh_one, "two": mesh_two})))
+        mesh={"paint": mesh_paint, "one": mesh_one, "two": mesh_two})
+    smoke_scripts.add_launches(record, scripts)
+    print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True,
                       "device": {"platform": "gpu",

@@ -20,6 +20,12 @@ runs phase 23 alone instead (``baryon_painter_tpu_torch/smoke_mesh.py``:
 23c on a synthetic line of sight at the real sizes, 23d, 23a, 23b), and
 builds the kernels first if they are not built.
 
+    python3 scripts/smoke_phases_torch.py ROOT scripts
+
+runs phase 24 alone (``baryon_painter_tpu_torch/smoke_scripts.py``: the
+script twins, 24a-24d, on stacks it writes itself, since phase 20d's are
+not there), building the kernels first.
+
 Needs a CUDA device. Imports only torch and the port.
 """
 import json
@@ -31,7 +37,8 @@ sys.path.insert(0, os.path.abspath(root))
 
 import torch  # noqa: E402
 
-from baryon_painter_tpu_torch import smoke, smoke_mesh  # noqa: E402
+from baryon_painter_tpu_torch import (smoke, smoke_mesh,  # noqa: E402
+                                      smoke_scripts)
 from baryon_painter_tpu_torch.models import layers  # noqa: E402
 from baryon_painter_tpu_torch.ops import _build  # noqa: E402
 
@@ -42,12 +49,21 @@ if rule == "align8":
 elif rule == "both11":
     layers._low_precision_in_f32 = lambda fn, x, w: (
         x.device.type == "cpu" or w.shape[0] == w.shape[1] == 1)
-elif rule not in ("tree", "mesh"):
+elif rule not in ("tree", "mesh", "scripts"):
     raise SystemExit(f"unknown rule {rule!r}")
 dev = torch.device("cuda", 0)
 card = smoke.environment(dev)["nvidia_smi"]
 print("BUILD", _build.build_library()["path"], flush=True)
 _build.load_library()
+if rule == "scripts":
+    out = smoke_scripts.scripts(dev, card=card)
+    print("PHASES", json.dumps({
+        "root": root, "rule": rule, "card": card,
+        "24a": out["gate_variance"]["record"],
+        "24a_peak_bytes": out["gate_variance"]["peak_bytes"],
+        "24b": out["pk_diagnose"]["diff"],
+        "24d": out["promote"]["files"]}), flush=True)
+    sys.exit(0)
 ds = smoke.training_data()
 if rule == "mesh":
     with smoke.synthetic_lightcone(dev) as data:

@@ -595,7 +595,12 @@ def _imports(path: Path):
                                              "smoke_phases_torch.py",
                                              "compare_reference_stats_torch.py",
                                              "step_f64_witness_torch.py",
-                                             "lightcone_fanout_torch.py")]
+                                             "lightcone_fanout_torch.py",
+                                             "gate_variance_torch.py",
+                                             "pk_diagnose_torch.py",
+                                             "make_model_report_torch.py",
+                                             "promote_checkpoint_torch.py",
+                                             "transform_examples_torch.py")]
     + [Path(REPO) / "tests" / "torch_mesh_workers.py"],
     ids=lambda p: str(Path(p).relative_to(REPO)))
 def test_port_imports_nothing_of_jax(path):
