@@ -9,9 +9,11 @@ Builds the kernel library afresh (nvcc with ``-Xptxas -v``), then prints for
 each of those kernels' instantiations (K1, K3-fwd and K3-bwd in f32 and
 bf16; K4's stats, bwd1, dx and dW in f32 and bf16, and fwd's two
 kernels): ptxas' registers and spills,
-the number of tensor-core instructions in its SASS (``HMMA`` from
-``cuobjdump -sass``) by variant (``HMMA.1688.F32.TF32``,
-``HMMA.16816.F32.BF16``) with one of them quoted, and each launch's
+the number of tensor-core instructions in its SASS (from ``cuobjdump
+-sass``: ``HMMA``, the mma.sync products, and ``HGMMA``, Hopper's wgmma)
+by variant (``HMMA.1688.F32.TF32``, ``HMMA.16816.F32.BF16``,
+``HGMMA.64x128x16.F32.BF16``, ...) with one of them quoted, the TMA
+loads (``UTMALDG``) it issues, and each launch's
 shared memory per block in bytes (K1 at C = 128, K3 at any shape, K4's
 GEMMs at the four fused sites of the fiducial training step; stats and
 bwd1 share one mainloop and one shared memory size). The last line is the
@@ -87,25 +89,52 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
+def ptxas_warnings(log: str) -> list:
+    """ptxas' warnings and performance notes (e.g. C7518: wgmma products
+    serialized), each with the kernel it names where it is one of the
+    report's."""
+    out = []
+    for line in log.splitlines():
+        if "warning" not in line.lower() and "Performance Loss" not in line:
+            continue
+        m = re.search(r"function '(\S+)'", line)
+        name = _name(m.group(1)) if m else None
+        text = re.sub(r"^ptxas (info|warning)\s*:\s*", "", line.strip())
+        out.append(f"{name}: {text}" if name else text)
+    return out
+
+
 def sass_report(library: Path) -> dict:
-    """{kernel: {"hmma", "variants", "example"}} from ``cuobjdump -sass``:
-    the HMMA count, the count of each HMMA variant (its opcode with its
-    shape and types, e.g. ``HMMA.1688.F32.TF32``) and one quoted."""
+    """{kernel: {"hmma", "hgmma", "tma_loads", "variants", "example"}} from
+    ``cuobjdump -sass``: the count of mma.sync products (``HMMA``), of
+    wgmma products (``HGMMA``) and of TMA loads (``UTMALDG``), the count of
+    each tensor-core variant (its opcode with its shape and types, e.g.
+    ``HMMA.1688.F32.TF32``, ``HGMMA.64x128x8.F32.TF32``) and one quoted."""
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
                           capture_output=True, text=True, check=True,
                           timeout=600).stdout
+    return sass_counts(sass)
+
+
+def sass_counts(sass: str) -> dict:
+    """``sass_report``'s counts from the text of ``cuobjdump -sass``."""
     out, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = _name(m.group(1))
             if name:
-                out[name] = {"hmma": 0, "variants": {}, "example": None}
+                out[name] = {"hmma": 0, "hgmma": 0, "tma_loads": 0,
+                             "variants": {}, "example": None}
             continue
-        m = re.search(r"(HMMA[^;]*);", line)
-        if name and m:
-            out[name]["hmma"] += 1
+        if not name:
+            continue
+        if re.search(r"\bUTMALDG\b", line):
+            out[name]["tma_loads"] += 1
+        m = re.search(r"\b((H|HG)MMA[^;]*);", line)
+        if m:
+            out[name]["hgmma" if m.group(2) == "HG" else "hmma"] += 1
             op = m.group(1).split()[0]
             out[name]["variants"][op] = out[name]["variants"].get(op, 0) + 1
             if out[name]["example"] is None:
@@ -140,14 +169,18 @@ def main():
     build = _build.build_library(force=True)
     record = {"build_s": build["seconds"],
               "ptxas": ptxas_report(build["log"]),
+              "ptxas_warnings": ptxas_warnings(build["log"]),
               "sass": sass_report(build["path"]),
               "smem_bytes": smem_report()}
     for k in sorted(record["sass"]):
         p = record["ptxas"].get(k, {})
+        q = record["sass"][k]
         print(f"{k:24s} registers {p.get('registers')}, spill stores "
-              f"{p.get('spill_stores')} B, HMMA {record['sass'][k]['hmma']} "
-              f"{record['sass'][k]['variants']}: "
-              f"{record['sass'][k]['example']}")
+              f"{p.get('spill_stores')} B, HMMA {q['hmma']}, HGMMA "
+              f"{q['hgmma']}, TMA loads {q['tma_loads']} {q['variants']}: "
+              f"{q['example']}")
+    for w in record["ptxas_warnings"]:
+        print(f"ptxas: {w}")
     for site, v in record["smem_bytes"].items():
         if isinstance(v, int):
             print(f"{site}: shared memory per block {v} B")

@@ -57,7 +57,9 @@ from torch import nn
 
 from baryon_painter_tpu_torch.ops import conv_rules
 from baryon_painter_tpu_torch.ops.conv_bn import conv_bn_relu
-from baryon_painter_tpu_torch.ops.res_block import fold_bn, res_block_infer
+from baryon_painter_tpu_torch.ops.res_block import (K1Operands, fold_bn,
+                                                    res_block_infer,
+                                                    res_block_operands)
 from baryon_painter_tpu_torch.parallel.mesh import active_mesh
 
 __all__ = ["Conv2d", "ConvTranspose2d", "Dense", "BatchNorm", "PReLU",
@@ -416,6 +418,10 @@ class FusedResBlock(nn.Module):
     The NHWC view of a ``channels_last`` tensor is free; the output comes
     back ``channels_last``, so consecutive blocks pass it on without a copy.
     x is cast to ``dtype`` (None: kept), in which K1 computes and returns.
+    The kernel's operands (the weights in its layout, the folded BN) are
+    made once per weights, type and device (``kernel_operands``), not on
+    every call; the folded BN is also what the plain version takes on the
+    CPU.
     """
 
     def __init__(self, features, inner_slope=0.0, outer_slope=0.0,
@@ -431,6 +437,32 @@ class FusedResBlock(nn.Module):
         for name, init in (("bn1_mean", torch.zeros), ("bn1_var", torch.ones),
                            ("bn2_mean", torch.zeros), ("bn2_var", torch.ones)):
             self.register_buffer(name, init(c))
+        self._k1_key = None
+        self._k1_operands = None
+
+    def _folded(self):
+        return (*fold_bn(self.bn1_scale, self.bn1_bias, self.bn1_mean,
+                         self.bn1_var, _BN_EPS),
+                *fold_bn(self.bn2_scale, self.bn2_bias, self.bn2_mean,
+                         self.bn2_var, _BN_EPS))
+
+    def kernel_operands(self, dtype) -> K1Operands:
+        """K1's operands for x of ``dtype`` (``res_block_operands``), made
+        on the first call and again only when a weight or batch-norm tensor
+        changes (in place, as ``load_state_dict`` does, or by a move)."""
+        tensors = (self.conv1_kernel, self.conv2_kernel, self.bn1_scale,
+                   self.bn1_bias, self.bn2_scale, self.bn2_bias,
+                   self.bn1_mean, self.bn1_var, self.bn2_mean, self.bn2_var)
+        key = (dtype,) + tuple((t.device, t.data_ptr(), t._version)
+                               for t in tensors)
+        if key != self._k1_key:
+            with torch.no_grad():
+                s1, b1, s2, b2 = self._folded()
+                self._k1_operands = res_block_operands(
+                    self.conv1_kernel, s1, b1, self.conv2_kernel, s2, b2,
+                    dtype)
+            self._k1_key = key
+        return self._k1_operands
 
     def forward(self, x):
         if self.training:
@@ -438,16 +470,15 @@ class FusedResBlock(nn.Module):
                 "FusedResBlock is inference-only (K1 has no backward); train "
                 "the unfused layout (fused_res_blocks=False) and fuse the "
                 "trained weights for painting.")
-        s1, b1 = fold_bn(self.bn1_scale, self.bn1_bias, self.bn1_mean,
-                         self.bn1_var, _BN_EPS)
-        s2, b2 = fold_bn(self.bn2_scale, self.bn2_bias, self.bn2_mean,
-                         self.bn2_var, _BN_EPS)
         x = x.to(self.dtype or x.dtype)
-        out = res_block_infer(x.permute(0, 2, 3, 1).contiguous(),
-                              self.conv1_kernel, s1, b1,
-                              self.conv2_kernel, s2, b2,
+        xk = x.permute(0, 2, 3, 1).contiguous()
+        ops = self.kernel_operands(x.dtype)
+        c = xk.shape[-1]
+        out = res_block_infer(xk, self.conv1_kernel, ops.scale1[:c],
+                              ops.bias1[:c], self.conv2_kernel,
+                              ops.scale2[:c], ops.bias2[:c],
                               inner_slope=self.inner_slope,
-                              outer_slope=self.outer_slope)
+                              outer_slope=self.outer_slope, operands=ops)
         return out.permute(0, 3, 1, 2)
 
 

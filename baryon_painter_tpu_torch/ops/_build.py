@@ -135,8 +135,8 @@ def load_library() -> ctypes.CDLL:
     function's argument and result types."""
     lib = ctypes.CDLL(str(build_library()["path"]))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bpt_res_block_infer.argtypes = [p, p, p, p, p, p, p, p,
-                                        i, i, i, i, f, f, i, p]
+    # x, weights, s1, b1, s2, b2, out, n, h, w, c, slopes, dtype, stream
+    lib.bpt_res_block_infer.argtypes = [p] * 7 + [i, i, i, i, f, f, i, p]
     lib.bpt_res_block_infer.restype = ctypes.c_int
     lib.bpt_gather_tiles.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.bpt_gather_tiles.restype = ctypes.c_int

@@ -8,10 +8,12 @@ that fails raises.
 
   0. environment: card, power limit, versions; TF32 switched off
   1. build K1, K2, K3 and K4 from the sources (one library)
-  2. K1 against its plain version (f32 and bf16, each at both slopes)
+  2. K1 against its plain version (f32 and bf16, each at both slopes), at
+     the main path's shape and at the design's edges (``K1_EDGE_SHAPES``)
   3. paint the committed 512^2 golden through the fused painter (4 K1
      launches) and compare
-  4. time the painter, K1, its plain version and the library yardstick;
+  4. time the painter, K1 (its operands made ahead, as the painter's
+     blocks hold them), its plain version and the library yardstick;
      K1's bounds on the tensor cores (3xTF32 in f32) and the CUDA cores
   5. the training data: synthetic stacks and the tile dataset
   6. K2 against its plain version (bit for bit), timed with a library
@@ -206,7 +208,8 @@ from baryon_painter_tpu_torch.ops.head_stack import (head_stack_bwd,
                                                      head_stack_fwd,
                                                      head_stack_ref, rounder)
 from baryon_painter_tpu_torch.ops.res_block import (fold_bn, res_block_infer,
-                                                    res_block_infer_ref)
+                                                    res_block_infer_ref,
+                                                    res_block_operands)
 from baryon_painter_tpu_torch.ops.resample import resize_spline
 from baryon_painter_tpu_torch.utils import profiling
 
@@ -244,6 +247,12 @@ K1_SHAPE = (16, 64, 64, 128)
 # rounds to bf16; both slopes, the CVAE's 0 and the CGAN's 0.2, in both types
 K1_CASES = ((torch.float32, 0.0, 1e-4), (torch.float32, 0.2, 1e-4),
             (torch.bfloat16, 0.0, 2e-2), (torch.bfloat16, 0.2, 2e-2))
+# the edges of K1's design that phase 2 also holds, in both types at both
+# slopes with K1_CASES' tolerances: H and W not multiples of the 8 x 16
+# tile at N = 1; C = 4 and 12 (one channel group, mostly TMA's zero fill),
+# 124 (bf16: padded to 128 by the wrapper) and 128; the gate's N = 192
+K1_EDGE_SHAPES = ((1, 13, 21, 4), (1, 13, 21, 12), (1, 13, 21, 124),
+                  (1, 13, 21, 128), (192, 64, 64, 128))
 # the golden test's own tolerance (tests/test_paint_goldens.py)
 GOLDEN_RTOL = 5e-3
 
@@ -383,13 +392,19 @@ def _check_k1(shape, dtype, slope, rel_tol, device) -> dict:
     return rec
 
 
-def check_kernels(device, shape=K1_SHAPE, cases=K1_CASES) -> list:
-    """Phase 2: K1 against res_block_infer_ref on the same inputs."""
+def check_kernels(device, shape=K1_SHAPE, cases=K1_CASES,
+                  edges=K1_EDGE_SHAPES) -> list:
+    """Phase 2: K1 against res_block_infer_ref on the same inputs, at the
+    main path's shape and at the design's edges (``K1_EDGE_SHAPES``). The
+    records of the main path's shape come first, one per case."""
     t0 = time.perf_counter()
     device = torch.device(device)
-    results = [_check_k1(shape, dtype, slope, rel_tol, device)
+    results = [_check_k1(s, dtype, slope, rel_tol, device)
+               for s in (shape, *edges)
                for dtype, slope, rel_tol in cases]
-    _line(2, "k1_vs_plain", t0, shape=list(shape), cases=len(results))
+    _line(2, "k1_vs_plain", t0, shape=list(shape),
+          edges=json.dumps([list(s) for s in edges]), cases=len(results),
+          worst_err_over_tol=f"{max(r['max_abs_err'] / r['tol'] for r in results):.4f}")
     return results
 
 
@@ -543,6 +558,32 @@ def k1_bound(shape, dtype) -> dict:
             "tc": _bound(flops, nbytes, tc)}
 
 
+def time_k1(shape, dtype, device, slope: float = 0.0,
+            iters: int = 20) -> dict:
+    """K1 per launch at ``shape`` with its operands made ahead, as
+    ``FusedResBlock`` launches it (``res_block_operands``), beside the same
+    call making its operands from the HWIO weights and the folded BN
+    (``k1_per_call_ms``: the kernel and the weights' layout on every call),
+    its plain version, cuDNN's block (``library_block`` on
+    ``channels_last``) and its bound (``k1_bound``): ms by CUDA events on
+    the card."""
+    args = k1_inputs(shape, dtype, device)
+    ops = res_block_operands(*args[1:4], *args[4:], dtype)
+    kw = dict(inner_slope=slope, outer_slope=slope)
+    lib_args = library_block_args(args, dtype)
+    with torch.inference_mode():
+        return {"k1_ms": _time_ms(lambda: res_block_infer(
+                    *args, operands=ops, **kw), device, 3, iters),
+                "k1_per_call_ms": _time_ms(lambda: res_block_infer(
+                    *args, **kw), device, 3, iters),
+                "library_ms": _time_ms(
+                    lambda: library_block(*lib_args, slope=slope), device,
+                    3, iters),
+                "plain_ms": _time_ms(lambda: res_block_infer_ref(*args, **kw),
+                                     device, 3, iters),
+                "bound": k1_bound(shape, dtype)}
+
+
 def library_block(x, w1, s1, b1, w2, s2, b2, slope: float = 0.0):
     """The residual block as two library convolutions (cuDNN on the card)
     plus the affine and the (leaky, ``slope``) ReLUs, NCHW; a yardstick
@@ -577,21 +618,14 @@ def time_main_path(device, painter, card=None, n_tiles: int = 16,
     paint_ms = paint_time_ms(device, painter, n_tiles, warmup, iters)
     out = {"paint_ms": paint_ms, "n_tiles": n_tiles,
            "tiles_per_s": n_tiles / paint_ms * 1e3}
-    with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
-            key = str(dtype).replace("torch.", "")
-            args = k1_inputs(k1_shape, dtype, device)
-            out[f"k1_ms_{key}"] = _time_ms(lambda: res_block_infer(*args),
-                                           device, 3, k1_iters)
-            out[f"bound_{key}"] = k1_bound(k1_shape, dtype)
-            # the library yardstick on channels_last (NHWC) memory
-            lib_args = library_block_args(args, dtype)
-            out[f"library_ms_{key}"] = _time_ms(
-                lambda: library_block(*lib_args), device, 3, k1_iters)
-            out[f"plain_ms_{key}"] = _time_ms(
-                lambda: res_block_infer_ref(*args), device, 3, k1_iters)
-        out["plain_ms"] = out["plain_ms_float32"]
-        out["library_ms"] = out["library_ms_float32"]
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).replace("torch.", "")
+        t = time_k1(k1_shape, dtype, device, iters=k1_iters)
+        for name in ("k1_ms", "k1_per_call_ms", "library_ms", "plain_ms"):
+            out[f"{name}_{key}"] = t[name]
+        out[f"bound_{key}"] = t["bound"]
+    out["plain_ms"] = out["plain_ms_float32"]
+    out["library_ms"] = out["library_ms_float32"]
     out["k1_share_of_bound_float32"] = (
         out["bound_float32"]["tc"]["bound_ms"] / out["k1_ms_float32"])
     out["k1_share_of_bound_bfloat16"] = (out["bound_bfloat16"]["bound_ms"]
@@ -602,6 +636,8 @@ def time_main_path(device, painter, card=None, n_tiles: int = 16,
           tiles_per_s=f"{out['tiles_per_s']:.2f}",
           k1_ms_f32=f"{out['k1_ms_float32']:.4f}",
           k1_ms_bf16=f"{out['k1_ms_bfloat16']:.4f}",
+          k1_per_call_ms_f32=f"{out['k1_per_call_ms_float32']:.4f}",
+          k1_per_call_ms_bf16=f"{out['k1_per_call_ms_bfloat16']:.4f}",
           plain_ms=f"{out['plain_ms']:.4f}",
           library_ms=f"{out['library_ms']:.4f}",
           library_ms_bf16=f"{out['library_ms_bfloat16']:.4f}",
@@ -2569,21 +2605,13 @@ def time_cgan(device, card=None, n_tiles: int = 16, warmup: int = 2,
             out["paint_ms"][key] = ms
             out["tiles_per_s"][key] = n_tiles / ms * 1e3
             del painter
-    slope = dict(inner_slope=CGAN_SLOPE, outer_slope=CGAN_SLOPE)
-    with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
-            d = str(dtype).replace("torch.", "")
-            args = k1_inputs(k1_shape, dtype, device)
-            lib_args = library_block_args(args, dtype)
-            out[f"k1_ms_{d}"] = _time_ms(
-                lambda: res_block_infer(*args, **slope), device, 3, k1_iters)
-            out[f"library_ms_{d}"] = _time_ms(
-                lambda: library_block(*lib_args, slope=CGAN_SLOPE), device,
-                3, k1_iters)
-            out[f"plain_ms_{d}"] = _time_ms(
-                lambda: res_block_infer_ref(*args, **slope), device, 3,
-                k1_iters)
-            out[f"bound_{d}"] = k1_bound(k1_shape, dtype)
+    for dtype in (torch.float32, torch.bfloat16):
+        d = str(dtype).replace("torch.", "")
+        t = time_k1(k1_shape, dtype, device, slope=CGAN_SLOPE,
+                    iters=k1_iters)
+        for name in ("k1_ms", "k1_per_call_ms", "library_ms", "plain_ms"):
+            out[f"{name}_{d}"] = t[name]
+        out[f"bound_{d}"] = t["bound"]
     clock = "cuda_events" if device.type == "cuda" else "host_clock_cpu"
     f = lambda v: f"{v:.3f}"
     _line("17d", "cgan_timing", t0, clock=clock, card=json.dumps(card),
@@ -2597,6 +2625,8 @@ def time_cgan(device, card=None, n_tiles: int = 16, warmup: int = 2,
           k1_shape=json.dumps(list(k1_shape)),
           k1_ms_f32=f"{out['k1_ms_float32']:.4f}",
           k1_ms_bf16=f"{out['k1_ms_bfloat16']:.4f}",
+          k1_per_call_ms_f32=f"{out['k1_per_call_ms_float32']:.4f}",
+          k1_per_call_ms_bf16=f"{out['k1_per_call_ms_bfloat16']:.4f}",
           cudnn_block_ms_f32=f"{out['library_ms_float32']:.4f}",
           cudnn_block_ms_bf16=f"{out['library_ms_bfloat16']:.4f}",
           plain_ms_f32=f"{out['plain_ms_float32']:.4f}",

@@ -26,6 +26,14 @@ runs phase 24 alone (``baryon_painter_tpu_torch/smoke_scripts.py``: the
 script twins, 24a-24d, on stacks it writes itself, since phase 20d's are
 not there), building the kernels first.
 
+    python3 scripts/smoke_phases_torch.py ROOT k1
+
+runs K1's phases alone: 2 (K1 against its plain version at the main
+path's shape and the design's edges), 3 and 4 (the golden paint, then the
+paint and K1 timed beside cuDNN's block and the bound), 17a and 17d (the
+CGAN's shapes, its paint and K1 timed), building the kernels first; the
+checkout's own functions, so a parent's checkout runs its own kernel.
+
 Needs a CUDA device. Imports only torch and the port.
 """
 import json
@@ -49,7 +57,7 @@ if rule == "align8":
 elif rule == "both11":
     layers._low_precision_in_f32 = lambda fn, x, w: (
         x.device.type == "cpu" or w.shape[0] == w.shape[1] == 1)
-elif rule not in ("tree", "mesh", "scripts"):
+elif rule not in ("tree", "mesh", "scripts", "k1"):
     raise SystemExit(f"unknown rule {rule!r}")
 dev = torch.device("cuda", 0)
 card = smoke.environment(dev)["nvidia_smi"]
@@ -63,6 +71,22 @@ if rule == "scripts":
         "24a_peak_bytes": out["gate_variance"]["peak_bytes"],
         "24b": out["pk_diagnose"]["diff"],
         "24d": out["promote"]["files"]}), flush=True)
+    sys.exit(0)
+if rule == "k1":
+    checks = smoke.check_kernels(dev)
+    paint = smoke.paint_golden(dev)
+    timing = smoke.time_main_path(dev, paint["painter"], card=card)
+    cgan_checks = smoke.check_k1_cgan(dev)
+    cgan_timing = smoke.time_cgan(dev, card=card)
+    print("PHASES", json.dumps({
+        "root": root, "rule": rule, "card": card,
+        "2": [{k: c[k] for k in ("shape", "dtype", "slope", "max_abs_err",
+                                 "tol")} for c in checks + cgan_checks],
+        "4": {k: v for k, v in timing.items() if k.endswith("_ms")
+              or k.startswith(("k1_", "plain_ms_", "library_ms_"))
+              or k == "tiles_per_s"},
+        "17d": {k: v for k, v in cgan_timing.items()
+                if not k.startswith("bound")}}), flush=True)
     sys.exit(0)
 ds = smoke.training_data()
 if rule == "mesh":

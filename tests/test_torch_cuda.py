@@ -94,6 +94,41 @@ def test_kernel_matches_plain_version_bf16(cuda_device, shape):
     assert _max_rel_err(got, want) <= 2e-2
 
 
+@pytest.mark.parametrize("shape", [(1, 13, 21, 4), (1, 13, 21, 12),
+                                   (1, 13, 21, 124), (1, 13, 21, 128),
+                                   (192, 64, 64, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_at_the_edges_of_its_tiles_and_channels(cuda_device, shape,
+                                                       dtype):
+    """H and W not multiples of the 8 x 16 tile, N = 1 and the gate's
+    N = 192; C = 4 and 12 (one channel group, mostly TMA's zero fill), 124
+    (in bf16 padded to 128 by the wrapper: TMA's rows are 16 bytes) and
+    128; both slopes; with operands made per call and made ahead
+    (``res_block_operands``, as ``FusedResBlock`` does): the same launch,
+    the same output bit for bit. K1_CASES' tolerances."""
+    tol = {dt: t for dt, _, t in smoke.K1_CASES}[dtype]
+    args = smoke.k1_inputs(shape, dtype, cuda_device)
+    x = args[0]
+    ops = k1.res_block_operands(*args[1:4], *args[4:], dtype)
+    for slope in (0.0, 0.2):
+        before = k1.res_block_infer.launches
+        got = k1.res_block_infer(*args, inner_slope=slope, outer_slope=slope)
+        ahead = k1.res_block_infer(x, None, None, None, None, None,
+                                   None, inner_slope=slope,
+                                   outer_slope=slope, operands=ops)
+        want = k1.res_block_infer_ref(*args, inner_slope=slope,
+                                      outer_slope=slope)
+        torch.cuda.synchronize()
+        assert k1.res_block_infer.launches == before + 2
+        assert got.shape == want.shape and got.dtype == dtype
+        assert got.is_contiguous()
+        assert torch.equal(got, ahead)
+        assert torch.isfinite(got).all()
+        assert _max_rel_err(got, want) <= tol
+
+
 def test_kernel_runs_on_the_current_stream(cuda_device):
     args = smoke.k1_inputs((2, 16, 16, 8), torch.float32, cuda_device)
     want = k1.res_block_infer_ref(*args)
@@ -118,6 +153,9 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
         k1.res_block_infer(args[0].half(), *args[1:])
     with pytest.raises(ValueError, match="w1"):
         k1.res_block_infer(args[0], args[1].cpu(), *args[2:])
+    bf16_ops = k1.res_block_operands(*args[1:4], *args[4:], torch.bfloat16)
+    with pytest.raises(ValueError, match="operands"):
+        k1.res_block_infer(*args, operands=bf16_ops)
 
 
 def test_fused_painter_on_the_card_matches_cpu_and_golden(cuda_device):

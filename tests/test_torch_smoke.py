@@ -42,7 +42,8 @@ def cpu_run():
     d = torch.device("cpu")
     env = smoke.environment(d)
     build = smoke.build_kernels(d)
-    checks = smoke.check_kernels(d, shape=(2, 16, 16, 8))
+    checks = smoke.check_kernels(d, shape=(2, 16, 16, 8),
+                                 edges=((1, 13, 21, 4), (1, 3, 5, 12)))
     paint = smoke.paint_golden(d)
     timing = smoke.time_main_path(d, paint["painter"], n_tiles=2, warmup=0,
                                   iters=1, k1_shape=(2, 16, 16, 8),
@@ -119,11 +120,20 @@ def test_environment_and_build_phases_on_cpu(cpu_run):
 
 
 def test_kernel_check_phase_on_cpu(cpu_run):
+    """Phase 2: the main path's shape first, then each edge shape, each in
+    K1_CASES' four (dtype, slope) cases; on the card the edges are the
+    design's (N = 1 and the gate's 192, ragged tiles, C = 4, 12, 124,
+    128)."""
     checks = cpu_run[2]
-    assert [(c["dtype"], c["slope"]) for c in checks] == [
-        ("float32", 0.0), ("float32", 0.2), ("bfloat16", 0.0),
-        ("bfloat16", 0.2)]
+    cases = [("float32", 0.0), ("float32", 0.2), ("bfloat16", 0.0),
+             ("bfloat16", 0.2)]
+    assert [(c["dtype"], c["slope"]) for c in checks] == cases * 3
+    assert [tuple(c["shape"]) for c in checks[::4]] == [
+        (2, 16, 16, 8), (1, 13, 21, 4), (1, 3, 5, 12)]
     assert all(c["max_abs_err"] == 0.0 for c in checks)
+    assert smoke.K1_EDGE_SHAPES == ((1, 13, 21, 4), (1, 13, 21, 12),
+                                    (1, 13, 21, 124), (1, 13, 21, 128),
+                                    (192, 64, 64, 128))
 
 
 def test_golden_paint_phase_on_cpu(cpu_run):
@@ -138,6 +148,10 @@ def test_timing_phase_and_kernels_record(cpu_run, cpu_train_run,
     _, gather, heads, training, _, _ = cpu_train_run
     conv_bn, training_k4, _ = cpu_k4_run
     assert timing["n_tiles"] == 2 and timing["paint_ms"] > 0
+    # K1 timed with its operands made ahead and made on every call
+    for key in ("float32", "bfloat16"):
+        assert timing[f"k1_ms_{key}"] > 0
+        assert timing[f"k1_per_call_ms_{key}"] > 0
     rec = smoke.kernels_record(checks, paint, timing, gather, heads,
                                training, conv_bn, training_k4)
     json.dumps(rec)
