@@ -1,7 +1,7 @@
 // The inline PTX shared by the kernels: tensor-core products with mma.sync
-// and asynchronous copies to shared memory with cp.async (K3, K4's
-// backward), and Hopper's wgmma, TMA, mbarriers and ldmatrix (K1). Nothing
-// else in csrc/ holds inline assembly.
+// and asynchronous copies to shared memory with cp.async (K3), and Hopper's
+// wgmma, TMA, mbarriers and ldmatrix (K1, K4's GEMMs). Nothing else in
+// csrc/ holds inline assembly.
 //
 // Fragments of mma.sync.m16n8k8 (tf32) and m16n8k16 (bf16), lane = 4 g +
 // tig (g = lane / 4, tig = lane % 4), every register 32 bits:
@@ -97,7 +97,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 
 // ---------------------------------------------------------------------------
-// Hopper (sm_90a): wgmma, TMA and mbarriers, used by K1 (csrc/res_block.cu).
+// Hopper (sm_90a): wgmma, TMA and mbarriers, used by K1 (csrc/res_block.cu)
+// and K4's GEMMs (csrc/conv_bn.cu).
 //
 // wgmma.mma_async m64n128: one warpgroup (4 warps, 128 threads) multiplies
 // A (64 x k) by B (k x 128) into f32 sums held in registers, 64 a thread:
@@ -317,5 +318,152 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
+
+
+// wgmma.mma_async m64nN (N = 8, 16, 32, 64) for K4's GEMMs, A from
+// registers and B K-major from shared memory, as above, with N / 2 f32
+// sums a thread (d[4 j + e]: row g + 8 (e / 2), column 8 j + 2 tig + e % 2
+// of the warp's 16 rows). `accumulate` false overwrites d with a b (the
+// product of one k-step summed from zero); true adds it.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  __device__ __forceinline__ static void tf32(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"((int)accumulate));
+  }
+  __device__ __forceinline__ static void bf16(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"((int)accumulate));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  __device__ __forceinline__ static void tf32(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"((int)accumulate));
+  }
+  __device__ __forceinline__ static void bf16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"((int)accumulate));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void tf32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"((int)accumulate));
+  }
+  __device__ __forceinline__ static void bf16(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"((int)accumulate));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void tf32(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"((int)accumulate));
+  }
+  __device__ __forceinline__ static void bf16(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"((int)accumulate));
+  }
+};
 
 }  // namespace

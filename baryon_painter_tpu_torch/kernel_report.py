@@ -30,12 +30,11 @@ from baryon_painter_tpu_torch import smoke
 from baryon_painter_tpu_torch.ops import _build
 
 # K4's kernels take their element type first: f (float) or t (bf16, held
-# as its 16 bits in a uint16_t)
-_KERNEL = re.compile(r"(dx_kernel|dw_kernel)I([ft])Li(\d+)ELi(\d+)E"
-                     r"(?:Li(\d+)E)?")
-# K4's u GEMM: <T, S, K, R, STATS>, named stats_kernel or bwd1_kernel
-_U_GEMM = re.compile(r"u_gemm_kernelI([ft])Li(\d+)ELi(\d+)ELi(\d+)E"
-                     r"Lb([01])E")
+# as its 16 bits in a uint16_t), then N (the block's columns)
+_KERNEL = re.compile(r"(dx_kernel|dw_kernel)I([ft])Li(\d+)E")
+# K4's u GEMM: <T, N, STATS>, named stats_kernel or bwd1_kernel
+_U_GEMM = re.compile(r"u_gemm_kernelI([ft])Li(\d+)ELb([01])E")
+_DU = re.compile(r"du_kernelI([ft])E")
 _K1 = re.compile(r"res_block_kernelI(f|13__nv_bfloat16)E")
 _K3 = re.compile(r"(head_fwd_kernel|head_bwd_kernel)I(f|13__nv_bfloat16)E")
 _BN_RELU = re.compile(r"bn_relu_(bf16_)?kernel")
@@ -56,15 +55,17 @@ def _name(mangled: str):
         return "bn_relu_bf16_kernel" if m.group(1) else "bn_relu_kernel"
     m = _U_GEMM.search(mangled)
     if m is not None:
-        t, s, k, r, stats = m.groups()
+        t, nt, stats = m.groups()
         return (f"{'stats' if stats == '1' else 'bwd1'}_kernel"
-                f"<{_K4_TYPE[t]},{s},{k},{r}>")
+                f"<{_K4_TYPE[t]},{nt}>")
+    m = _DU.search(mangled)
+    if m is not None:
+        return f"du_kernel<{_K4_TYPE[m.group(1)]}>"
     m = _KERNEL.search(mangled)
     if m is None:
         return None
-    kind, t, s, k, extra = m.groups()
-    return (f"{kind}<{_K4_TYPE[t]},{s},{k}"
-            + (f",{extra}>" if extra else ">"))
+    kind, t, nt = m.groups()
+    return f"{kind}<{_K4_TYPE[t]},{nt}>"
 
 
 def ptxas_report(log: str) -> dict:
@@ -145,8 +146,9 @@ def sass_counts(sass: str) -> dict:
 def smem_report() -> dict:
     """Shared memory per block (bytes, as the launches request it): K1 at
     C = 128, K3-fwd and K3-bwd, each in f32 and bf16, and the stats, bwd1, dx
-    and dW launches of K4 at the fused sites, in f32 and bf16 (stats and
-    bwd1 run the same mainloop, so they ask for the same; fwd uses none)."""
+    and dW launches of K4 at the fused sites, in f32 and bf16, each under
+    the instantiation it launches (stats and bwd1 run the same mainloop, so
+    they ask for the same; fwd and du use none)."""
     lib = _build.load_library()
     c = smoke.K1_SHAPE[-1]
     out = {"res_block_kernel<float>": lib.bpt_res_block_smem(c, 0),
@@ -157,11 +159,20 @@ def smem_report() -> dict:
            "head_bwd_kernel<bf16>": lib.bpt_head_stack_smem(1, 1)}
     for name, site in smoke.K4_SITES.items():
         s = site["stride"] if site["transposed"] else 1
+        h = smoke.k4_site_shape(site, smoke.TRAIN_BATCH,
+                                smoke.TRAIN_TILE)["h"]
         for code, label in ((0, name), (1, f"{name} bf16")):
-            out[label] = {kind: lib.bpt_conv_bn_bwd_smem(
-                site["cin"], site["cout"], site["k"], s, which, code)
-                for which, kind in ((0, "stats"), (0, "bwd1"), (1, "dx"),
-                                    (2, "dw"))}
+            t = "float" if code == 0 else "bf16"
+            args = (smoke.TRAIN_BATCH, site["cin"], h, h, site["cout"],
+                    site["k"], s)
+            out[label] = {}
+            for which, kind in ((0, "stats"), (0, "bwd1"), (1, "dx"),
+                                (2, "dw")):
+                # the instantiation the launch runs: N as the library
+                # picks it
+                nt = lib.bpt_conv_bn_nt(*args, which, code)
+                out[label][f"{kind}_kernel<{t},{nt}>"] = \
+                    lib.bpt_conv_bn_bwd_smem(*args, which, code)
     return out
 
 

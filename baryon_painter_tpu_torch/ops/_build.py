@@ -150,22 +150,29 @@ def load_library() -> ctypes.CDLL:
     lib.bpt_head_stack_smem.restype = ctypes.c_int
     lib.bpt_res_block_smem.argtypes = [i, i]
     lib.bpt_res_block_smem.restype = ctypes.c_int
-    dims = [i] * 7   # n, cin, h, w, cout, k, s
+    # n, cin, h, w, x's pitch, cout, k, s, dtype
+    dims = [i] * 9
     for name, n_ptr in (("stats", 5), ("bwd1", 9)):
         fn = getattr(lib, f"bpt_conv_bn_{name}")
-        fn.argtypes = [p] * n_ptr + dims + [i, p]   # ..., dtype
+        fn.argtypes = [p] * n_ptr + dims + [p]
         fn.restype = ctypes.c_int
     # u, a, b, y, n, c, hw, dtype
     lib.bpt_conv_bn_fwd.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.bpt_conv_bn_fwd.restype = ctypes.c_int
-    # ..., splits, dtype
-    lib.bpt_conv_bn_bwd2.argtypes = [p] * 12 + dims + [i, i, p]
-    lib.bpt_conv_bn_bwd2.restype = ctypes.c_int
+    # u, y, dy, a, mean, inv, s1n, s2n, du, n, c, ho, wo, pitch, dtype
+    lib.bpt_conv_bn_du.argtypes = [p] * 9 + [i] * 6 + [p]
+    # du, wk, dx, n, cin, h, w, cout, du's pitch, k, s, dtype
+    lib.bpt_conv_bn_dx.argtypes = [p] * 3 + [i] * 9 + [p]
+    # x, du, dwp, n, cin, h, w, x's pitch, cout, du's pitch, k, s, splits,
+    # dtype
+    lib.bpt_conv_bn_dw.argtypes = [p] * 3 + [i] * 11 + [p]
     lib.bpt_conv_bn_bwd1_tiles.argtypes = [i] * 5   # h, w, cout, k, s
-    lib.bpt_conv_bn_bwd2_splits.argtypes = [i] * 7
-    # cin, cout, k, s, which, dtype
-    lib.bpt_conv_bn_bwd_smem.argtypes = [i] * 6
-    for name in ("bwd1_tiles", "bwd2_splits", "bwd_smem"):
+    # n, cin, h, w, cout, k, s, dtype
+    lib.bpt_conv_bn_bwd2_splits.argtypes = [i] * 8
+    # n, cin, h, w, cout, k, s, which, dtype
+    lib.bpt_conv_bn_nt.argtypes = [i] * 9
+    lib.bpt_conv_bn_bwd_smem.argtypes = [i] * 9
+    for name in ("stats", "bwd1", "fwd", "du", "dx", "dw", "bwd1_tiles",
+                 "bwd2_splits", "nt", "bwd_smem"):
         getattr(lib, f"bpt_conv_bn_{name}").restype = ctypes.c_int
     lib.bpt_error_string.argtypes = [ctypes.c_int]
     lib.bpt_error_string.restype = ctypes.c_char_p

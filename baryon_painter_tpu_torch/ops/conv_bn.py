@@ -26,15 +26,21 @@ The ReLU mask is the forward's own (y > 0, y saved for the backward), so
 the backward's rounding cannot send a pre-activation near 0 to the other
 branch (in bf16, y > 0 is v > 0 but for a v below bf16's smallest
 subnormal, which rounds to a y of 0). Four kernels (``csrc/conv_bn.cu``):
-K4-stats (u, in f32 written into the buffer that becomes y, and per-block
+K4-stats (u, in f32 written into the buffer that becomes y, and per-tile
 partial sums of u and u^2), K4-fwd (y, in f32 in place over u), K4-bwd1
 (u again, kept in a scratch tensor for K4-bwd2, and partial S1, S2) and
-K4-bwd2 (dx, and dW as partials over a fixed split of the pixels). stats,
-bwd1 and bwd2 are implicit GEMMs on the tensor cores, in 3xTF32 for f32 and
-one bf16 pass for bf16; stats and bwd1 share one mainloop, so the u behind
-the batch statistics and the ReLU mask is, bit for bit, the u of the
-backward. The partials are summed here in torch, so every result is
-deterministic. The
+K4-bwd2 (three launches: du formed once a pixel, in f32 over u, which it is
+the last to read; dW as partials over a split of the pixels; dx). K4-bwd2
+consumes u: on the card its contents are unspecified after the call, in
+either dtype, and a caller that needs u afterwards passes a clone. stats,
+bwd1 and bwd2's dx and dW are implicit GEMMs on Hopper's warpgroup
+products fed by TMA, in 3xTF32 for f32 and one bf16 pass for bf16; stats
+and bwd1 share one mainloop, so the u behind the batch statistics and the
+ReLU mask is, bit for bit, the u of the backward. The weights reach the
+kernels in their GEMM layouts (``_kernel_weights``, made per call: a few
+small tensors) and TMA reads rows whose pitch is a multiple of 16 bytes,
+so x and du are padded where the width is not (``_pitched``). The
+partials are summed here in torch, so every result is deterministic. The
 kernels take two families: a stride-1 "same" conv with odd k in (1, 3, 5,
 7), and a transposed conv with k = 2s, p = s/2, s in (2, 4), in float32 or
 bfloat16. On CUDA tensors anything else raises; on CPU tensors each wrapper
@@ -72,7 +78,7 @@ from baryon_painter_tpu_torch.ops.head_stack import (_DTYPE_CODES,
 from baryon_painter_tpu_torch.parallel.mesh import active_mesh
 
 __all__ = ["conv_bn_relu", "conv_bn_stats", "conv_bn_fwd", "conv_bn_bwd1",
-           "conv_bn_bwd2", "conv_bn_stats_ref", "conv_bn_fwd_ref",
+           "conv_bn_bwd2", "conv_bn_stats_ref", "conv_bn_fwd_ref", "du_ref",
            "conv_bn_bwd1_ref", "conv_bn_bwd2_ref", "conv_bn_relu_ref",
            "conv_bn_relu_bwd_ref", "batch_stats", "bn_affine",
            "kernel_family"]
@@ -215,10 +221,13 @@ def _check(fn, x, w, transposed, stride, padding, vecs=None, outs=None):
         if tuple(t.shape) != (n, cout, ho, wo):
             raise ValueError(f"{fn}: {name} must be {(n, cout, ho, wo)}, "
                              f"got {tuple(t.shape)}")
-    if n * -(-cout // 64) > 65535:
-        raise ValueError(f"{fn}: N * ceil(Cout / 64) must be at most 65535")
-    if n * -(-cin // 64) > 65535:
-        raise ValueError(f"{fn}: N * ceil(Cin / 64) must be at most 65535")
+    # the persistent grids number their tiles (phases x 16-column x 12-row
+    # tiles x samples x column blocks) in an int
+    h, wd = x.shape[2], x.shape[3]
+    if 16 * -(-wd // 16) * -(-h // 12) * n * -(-max(cin, cout) // 8) \
+            > 2**31 - 1:
+        raise ValueError(f"{fn}: 16 ceil(W / 16) ceil(H / 12) N "
+                         f"ceil(max(Cin, Cout) / 8) must be below 2^31")
     return k, s
 
 
@@ -233,6 +242,61 @@ def _dims(x, w, transposed, k, s):
     cout = w.shape[1] if transposed else w.shape[0]
     return n, cin, h, wd, cout, k, s
 
+
+
+# K elements a 128-byte row of a weight tile holds (a K chunk)
+_KCH = {torch.float32: 32, torch.bfloat16: 64}
+
+
+def _tf32(t):
+    """f32 rounded to tf32 (10 mantissa bits), to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 rounds (finite values)."""
+    return ((t.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def _split_tf32(t):
+    """(big, small) of an f32 tensor, the 3xTF32 halves the kernels
+    multiply: big = tf32(t), small = tf32(t - big), both rounded to
+    nearest (the tensor cores then truncate neither)."""
+    big = _tf32(t)
+    return big, _tf32(t - big)
+
+
+def _kernel_weights(w, transposed: bool, k: int, s: int, which: str):
+    """w in a GEMM's B layout, (phases, parts, N, Kp): ``which`` "u" (the
+    u GEMM of stats and bwd1: one phase per output phase (ry, rx) = (p // s,
+    p % s), N = Cout, K = (ci, tap) with the phase's taps (ty, tx) at kernel
+    entry ((ry + s/2) % s + s ty, ...), or (ci, ky, kx) for the "same"
+    conv) or "dx" (one phase, N = Cin, K = (co, ky, kx)); K zero-padded to
+    a whole number of 128-byte rows; parts (big, small) in f32, the raw
+    values in bf16."""
+    if which == "u":
+        if transposed:
+            p = s // 2
+            mats = [w[:, :, (ry + p) % s::s, (rx + p) % s::s]
+                    .permute(1, 0, 2, 3).reshape(w.shape[1], -1)
+                    for ry in range(s) for rx in range(s)]
+        else:
+            mats = [w.reshape(w.shape[0], -1)]
+    else:
+        wt = w if transposed else w.permute(1, 0, 2, 3)
+        mats = [wt.reshape(wt.shape[0], -1)]
+    m = torch.stack(mats)
+    m = F.pad(m, (0, -m.shape[-1] % _KCH[w.dtype]))
+    if w.dtype == torch.float32:
+        return torch.stack(_split_tf32(m.contiguous()), 1).contiguous()
+    return m[:, None].contiguous()
+
+
+def _pitched(t):
+    """(t, pitch): t's rows padded with zeros to a multiple of 16 bytes
+    (TMA's row pitch), and the pitch in elements; t itself where its rows
+    are already."""
+    al = 16 // t.element_size()
+    w = t.shape[-1]
+    if w % al == 0:
+        return t, w
+    return F.pad(t, (0, al - w % al)), w + al - w % al
 
 def _u(x, w, transposed, stride, padding):
     """u = the library's conv, in f32 on the values of 16-bit x and w."""
@@ -268,6 +332,13 @@ def conv_bn_bwd1_ref(x, w, mean, inv, dy, *, transposed: bool, stride: int,
     return dv.sum((0, 2, 3)), (dv * uhat).sum((0, 2, 3)), u
 
 
+def du_ref(u, dy, a, mean, inv, s1n, s2n, active, dtype):
+    """Plain du = a (dv - s1n - uhat s2n) from u (f32) and dy, rounded to
+    ``dtype`` (the value bwd2's products read)."""
+    dv, uhat = _dv_uhat(u, mean, inv, dy.to(u.dtype), active)
+    return rounder(dtype)(_vec(a) * (dv - _vec(s1n) - uhat * _vec(s2n)))
+
+
 def conv_bn_bwd2_ref(x, w, a, mean, inv, s1n, s2n, dy, *, transposed: bool,
                      stride: int, padding: int, active, u=None):
     """Plain version of K4-bwd2: du from u (given, as K4-bwd1 returns it, or
@@ -277,8 +348,7 @@ def conv_bn_bwd2_ref(x, w, a, mean, inv, s1n, s2n, dy, *, transposed: bool,
     rounded once."""
     if u is None:
         u = _u(x, w, transposed, stride, padding)
-    dv, uhat = _dv_uhat(u, mean, inv, dy.to(u.dtype), active)
-    du = rounder(x.dtype)(_vec(a) * (dv - _vec(s1n) - uhat * _vec(s2n)))
+    du = du_ref(u, dy, a, mean, inv, s1n, s2n, active, x.dtype)
     dt = _compute_dtype(x.dtype)
     dx, dw = _adjoints(x.to(dt), w.to(dt), du, transposed, stride, padding)
     return dx.to(x.dtype), dw.to(w.dtype)
@@ -292,7 +362,7 @@ def conv_bn_stats(x, w, *, transposed: bool, stride: int, padding: int):
     On CPU tensors the plain version. On CUDA tensors one launch on the
     current stream (adds one to ``conv_bn_stats.launches``, and in bf16 to
     ``.bf16_launches``), the u GEMM of
-    K4-bwd1, writing u and per-block partial sums, summed here in f64 and
+    K4-bwd1, writing u and per-tile partial sums, summed here in f64 and
     rounded once. The training step's gradients are sensitive to the
     rounding of the batch statistics: with an f32 sum of the 3k to 25k
     partial rows they stood ten times further from the plain step's than
@@ -302,15 +372,16 @@ def conv_bn_stats(x, w, *, transposed: bool, stride: int, padding: int):
         return conv_bn_stats_ref(x, w, **kw)
     k, s = _check("conv_bn_stats", x, w, transposed, stride, padding)
     from baryon_painter_tpu_torch.ops._build import load_library
-    dims = _dims(x, w, transposed, k, s)
-    rows = x.shape[0] * load_library().bpt_conv_bn_bwd1_tiles(
-        x.shape[2], x.shape[3], dims[4], k, s)
+    n, cin, h, wd, cout = _dims(x, w, transposed, k, s)[:5]
+    rows = n * load_library().bpt_conv_bn_bwd1_tiles(h, wd, cout, k, s)
     u = torch.empty(_out_shape(x, w, transposed, stride), dtype=torch.float32,
                     device=x.device)
-    p1 = torch.empty((rows, dims[4]), dtype=torch.float32, device=x.device)
+    p1 = torch.empty((rows, cout), dtype=torch.float32, device=x.device)
     p2 = torch.empty_like(p1)
-    _launch("conv_bn_stats", "bpt_conv_bn_stats", _operand(x), _operand(w),
-            u, p1, p2, *dims, _DTYPE_CODES[x.dtype])
+    xp, pitch = _pitched(_operand(x))
+    _launch("conv_bn_stats", "bpt_conv_bn_stats", xp,
+            _kernel_weights(_operand(w), transposed, k, s, "u"), u, p1, p2,
+            n, cin, h, wd, pitch, cout, k, s, _DTYPE_CODES[x.dtype])
     conv_bn_stats.launches += 1
     conv_bn_stats.bf16_launches += x.dtype == torch.bfloat16
     return (p1.sum(0, dtype=torch.float64).float(),
@@ -357,7 +428,7 @@ def conv_bn_bwd1(x, w, mean, inv, y, dy, *, transposed: bool, stride: int,
 
     On CPU tensors the plain version; on CUDA tensors one launch (adds one
     to ``conv_bn_bwd1.launches``, and in bf16 to ``.bf16_launches``)
-    writing u into an f32 tensor of y's shape and per-block partials,
+    writing u into an f32 tensor of y's shape and per-tile partials,
     summed here."""
     if not _device("conv_bn_bwd1", x):
         return conv_bn_bwd1_ref(x, w, mean, inv, dy, transposed=transposed,
@@ -366,15 +437,16 @@ def conv_bn_bwd1(x, w, mean, inv, y, dy, *, transposed: bool, stride: int,
     k, s = _check("conv_bn_bwd1", x, w, transposed, stride, padding,
                   {"mean": mean, "inv": inv}, {"y": y, "dy": dy})
     from baryon_painter_tpu_torch.ops._build import load_library
-    dims = _dims(x, w, transposed, k, s)
-    rows = x.shape[0] * load_library().bpt_conv_bn_bwd1_tiles(
-        x.shape[2], x.shape[3], dims[4], k, s)
+    n, cin, h, wd, cout = _dims(x, w, transposed, k, s)[:5]
+    rows = n * load_library().bpt_conv_bn_bwd1_tiles(h, wd, cout, k, s)
     u = torch.empty(y.shape, dtype=torch.float32, device=x.device)
-    p1 = torch.empty((rows, dims[4]), dtype=torch.float32, device=x.device)
+    p1 = torch.empty((rows, cout), dtype=torch.float32, device=x.device)
     p2 = torch.empty_like(p1)
-    _launch("conv_bn_bwd1", "bpt_conv_bn_bwd1", _operand(x), _operand(w),
-            *(_operand(t) for t in (mean, inv, y, dy)), u, p1, p2, *dims,
-            _DTYPE_CODES[x.dtype])
+    xp, pitch = _pitched(_operand(x))
+    _launch("conv_bn_bwd1", "bpt_conv_bn_bwd1", xp,
+            _kernel_weights(_operand(w), transposed, k, s, "u"),
+            *(_operand(t) for t in (mean, inv, y, dy)), u, p1, p2, n, cin, h,
+            wd, pitch, cout, k, s, _DTYPE_CODES[x.dtype])
     conv_bn_bwd1.launches += 1
     conv_bn_bwd1.bf16_launches += x.dtype == torch.bfloat16
     return p1.sum(0), p2.sum(0), u
@@ -384,16 +456,65 @@ conv_bn_bwd1.launches = 0
 conv_bn_bwd1.bf16_launches = 0
 
 
+def bwd2_du(u, y, dy, a, mean, inv, s1n, s2n):
+    """K4-bwd2's first launch: (du, pitch), du = a (dv - s1n - uhat s2n) in
+    y's dtype, (N, C, Ho, pitch) with zeros past the width; in f32 written
+    over u where u's rows need no padding (``conv_bn_bwd2`` consumes u)."""
+    n, c, ho, wo = y.shape
+    al = 16 // y.element_size()
+    pitch = -(-wo // al) * al
+    u = _operand(u)   # du over the very tensor the kernel reads
+    if y.dtype == torch.float32 and pitch == wo:
+        du = u
+    else:
+        du = torch.empty((n, c, ho, pitch), dtype=y.dtype, device=y.device)
+    _launch("conv_bn_bwd2", "bpt_conv_bn_du", u,
+            *(_operand(t) for t in (y, dy, a, mean, inv, s1n, s2n)), du, n,
+            c, ho, wo, pitch, _DTYPE_CODES[y.dtype])
+    return du, pitch
+
+
+def bwd2_dw(x, w, du, pitch, k, s):
+    """K4-bwd2's dW launch: dW in w's dtype, the f32 sum of the per-split
+    partials in a fixed order, rounded once."""
+    from baryon_painter_tpu_torch.ops._build import load_library
+    lib = load_library()
+    n, cin, h, wd = x.shape
+    cout = du.shape[1]
+    code = _DTYPE_CODES[x.dtype]
+    splits = lib.bpt_conv_bn_bwd2_splits(n, cin, h, wd, cout, k, s, code)
+    dwp = torch.empty((splits,) + tuple(w.shape), dtype=torch.float32,
+                      device=x.device)
+    xp, xpitch = _pitched(_operand(x))
+    _launch("conv_bn_bwd2", "bpt_conv_bn_dw", xp, du, dwp, n, cin, h, wd,
+            xpitch, cout, pitch, k, s, splits, code)
+    return dwp.sum(0).to(w.dtype)
+
+
+def bwd2_dx(x, w, du, pitch, transposed, k, s):
+    """K4-bwd2's dx launch: dx in x's dtype."""
+    n, cin, h, wd = x.shape
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    _launch("conv_bn_bwd2", "bpt_conv_bn_dx", du,
+            _kernel_weights(_operand(w), transposed, k, s, "dx"), dx, n, cin,
+            h, wd, du.shape[1], pitch, k, s, _DTYPE_CODES[x.dtype])
+    return dx
+
+
 def conv_bn_bwd2(x, w, a, mean, inv, s1n, s2n, u, y, dy, *, transposed: bool,
                  stride: int, padding: int):
     """K4-bwd2: (dx, dW) from du = a (dv - s1n - uhat s2n), with s1n = S1/n,
     s2n = S2/n, u (f32) from K4-bwd1 and the forward's mask y > 0; dx in
     x's dtype, dW in w's.
 
-    On CPU tensors the plain version; on CUDA tensors one call (adds one to
-    ``conv_bn_bwd2.launches``, and in bf16 to ``.bf16_launches``) of two
-    launches, dx and dW, writing dx and one f32 partial dW per split of the
-    pixels, summed here in f32 and rounded once to w's dtype."""
+    u is consumed: on CUDA tensors its contents are unspecified on return
+    (in f32 du is formed in u's buffer where its rows need no padding),
+    so a caller that needs u afterwards passes a clone. On CPU tensors the
+    plain version, which leaves u as it is; on CUDA tensors one call (adds
+    one to ``conv_bn_bwd2.launches``, and in bf16 to ``.bf16_launches``) of
+    three launches: du (``bwd2_du``), dW as f32 partials over a split of
+    the pixels, summed here in f32 and rounded once to w's dtype
+    (``bwd2_dw``), and dx (``bwd2_dx``)."""
     if not _device("conv_bn_bwd2", x):
         return conv_bn_bwd2_ref(x, w, a, mean, inv, s1n, s2n, dy,
                                 transposed=transposed, stride=stride,
@@ -401,26 +522,12 @@ def conv_bn_bwd2(x, w, a, mean, inv, s1n, s2n, u, y, dy, *, transposed: bool,
     vecs = {"a": a, "mean": mean, "inv": inv, "s1n": s1n, "s2n": s2n}
     k, s = _check("conv_bn_bwd2", x, w, transposed, stride, padding, vecs,
                   {"u": u, "y": y, "dy": dy})
-    from baryon_painter_tpu_torch.ops._build import load_library
-    lib = load_library()
-    dims = _dims(x, w, transposed, k, s)
-    code = _DTYPE_CODES[x.dtype]
-    smem = max(lib.bpt_conv_bn_bwd_smem(dims[1], dims[4], k, s, which, code)
-               for which in range(3))
-    if not 0 < smem <= 232448:
-        raise ValueError(f"conv_bn_bwd2: the backward kernels need {smem} "
-                         f"bytes of shared memory a block, more than the "
-                         f"232448 an H100 block may use")
-    splits = lib.bpt_conv_bn_bwd2_splits(*dims[:5], k, s)
-    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
-    dwp = torch.empty((splits,) + tuple(w.shape), dtype=torch.float32,
-                      device=x.device)
-    _launch("conv_bn_bwd2", "bpt_conv_bn_bwd2", _operand(x), _operand(w),
-            *(_operand(t) for t in (a, mean, inv, s1n, s2n, u, y, dy)), dx,
-            dwp, *dims, splits, code)
+    du, pitch = bwd2_du(u, y, dy, a, mean, inv, s1n, s2n)
+    dw = bwd2_dw(x, w, du, pitch, k, s)
+    dx = bwd2_dx(x, w, du, pitch, transposed, k, s)
     conv_bn_bwd2.launches += 1
     conv_bn_bwd2.bf16_launches += x.dtype == torch.bfloat16
-    return dx, dwp.sum(0).to(w.dtype)
+    return dx, dw
 
 
 conv_bn_bwd2.launches = 0

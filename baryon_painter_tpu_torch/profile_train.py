@@ -127,9 +127,9 @@ def _stage_times(trainer, idx, lr) -> dict:
 
 
 # device kernel names of K4 (csrc/conv_bn.cu): the u GEMM of stats and bwd1,
-# fwd's pass (f32 in place, bf16 into a new y), and bwd2's dx and dW
+# fwd's pass (f32 in place, bf16 into a new y), and bwd2's du, dW and dx
 _K4_KERNEL_NAMES = ("u_gemm_kernel", "bn_relu_kernel", "bn_relu_bf16_kernel",
-                    "dx_kernel", "dw_kernel")
+                    "du_kernel", "dx_kernel", "dw_kernel")
 
 
 def main():

@@ -33,8 +33,9 @@ that fails raises.
      cotangent with K4's ReLU mask, and on a kink-zeroed one); stats' u
      against bwd1's (bit for bit: one mainloop); the forward and backward
      pairs' peak memory; timed with cuDNN's conv, the port's BatchNorm and
-     ReLU as the yardstick; the bounds of the kernels' design (3xTF32 and
-     memory) beside the CUDA-core ones
+     ReLU as the yardstick, bwd2's three launches (du, dW, dx) apart
+     beside cuDNN's input and weight gradients from a given du; the bounds
+     of the kernels' design (3xTF32 and memory) beside the CUDA-core ones
  11. train with K4 as well (``fused_train_conv=True``: 4 launches of each
      K4 kernel per step at 512^2), timed beside phase 8's step, with its
      peak device memory; 11b a step
@@ -198,9 +199,11 @@ from baryon_painter_tpu_torch.lightcone.synthetic import (
     TILE_SIZE, shell_sizes, write_synthetic_los)
 from baryon_painter_tpu_torch.lightcone.tiling import generate_tiling
 from baryon_painter_tpu_torch.ops.conv_bn import (
-    batch_stats, bn_affine, conv_bn_bwd1, conv_bn_bwd1_ref, conv_bn_bwd2,
-    conv_bn_bwd2_ref, conv_bn_fwd, conv_bn_fwd_ref, conv_bn_relu_bwd_ref,
-    conv_bn_relu, conv_bn_relu_ref, conv_bn_stats, conv_bn_stats_ref)
+    _adjoints, batch_stats, bn_affine, bwd2_du, bwd2_dw, bwd2_dx,
+    conv_bn_bwd1, conv_bn_bwd1_ref, conv_bn_bwd2, conv_bn_bwd2_ref,
+    conv_bn_fwd, conv_bn_fwd_ref, conv_bn_relu_bwd_ref, conv_bn_relu,
+    conv_bn_relu_ref, conv_bn_stats, conv_bn_stats_ref, du_ref,
+    kernel_family)
 from baryon_painter_tpu_torch.ops.gather import (gather_tiles,
                                                  gather_tiles_ref)
 from baryon_painter_tpu_torch.ops.head_stack import (head_stack_bwd,
@@ -1693,14 +1696,14 @@ def k4_inputs(site: dict, batch: int, tile: int, device, seed: int = 0):
 
 
 def k4_stats_rows(site: dict, batch: int, tile: int) -> int:
-    """Partial rows K4-stats writes at a site: one a block of the u GEMM
-    (output phases x 16-column tiles x 8 R-row tiles of the input grid, R
-    = 2 up to 32 output channels, and per sample), as
-    ``bpt_conv_bn_bwd1_tiles`` counts them."""
+    """Partial rows K4-stats writes at a site: one a tile of the u GEMM
+    (output phases x 16-column tiles x row tiles of the input grid, per
+    sample; 24 rows for Cout <= 16, whose warpgroups take two m64 tiles,
+    else 12), as ``bpt_conv_bn_bwd1_tiles`` counts them."""
     h = k4_site_shape(site, batch, tile)["h"]
     s = site["stride"] if site["transposed"] else 1
-    rows = 2 if -(-min(site["cout"], 64) // 8) * 8 <= 32 else 1
-    return batch * s * s * -(-h // 16) * -(-h // (8 * rows))
+    rows = 24 if site["cout"] <= 16 else 12
+    return batch * s * s * -(-h // 16) * -(-h // rows)
 
 
 def k4_bounds(site: dict, batch: int, tile: int,
@@ -1721,7 +1724,10 @@ def k4_bounds(site: dict, batch: int, tile: int,
     reading x, u, y and dy and writing dx and dW. ``logical_fwd`` and
     ``logical_bwd`` bound the fused op as a whole, without the kernels'
     recomputes of u: one conv pass forward (x read, y written) and two
-    backward (dx and dW, from x, y and dy), at the f32 rate."""
+    backward (dx and dW, from x, y and dy), at the f32 rate. bwd2's three
+    launches apart: ``du`` a pass over memory (u, y and dy read, du written
+    in dtype), ``dx_tc`` one pass (du and the weights read, dx written)
+    and ``dw_tc`` one pass (x and du read, dW written in f32)."""
     sh = k4_site_shape(site, batch, tile)
     cin, cout, k = site["cin"], site["cout"], site["k"]
     taps = (k // site["stride"]) ** 2 if site["transposed"] else k * k
@@ -1744,6 +1750,9 @@ def k4_bounds(site: dict, batch: int, tile: int,
             "bwd1_tc": _bound(conv + 6 * out, xb + wb + 4 * out + 2 * yb, tc),
             "bwd2_tc": _bound(2 * conv + 8 * out,
                               2 * xb + 2 * wb + 4 * out + 2 * yb, tc),
+            "du": _bound(6 * out, 4 * out + 3 * yb),
+            "dx_tc": _bound(conv, yb + wb + xb, tc),
+            "dw_tc": _bound(conv, xb + yb + 4.0 * cin * cout * k * k, tc),
             "logical_fwd": _bound(conv + 3 * out, xb + wb + yb),
             "logical_bwd": _bound(2 * conv + 8 * out,
                                   2 * xb + 2 * wb + 2 * yb)}
@@ -1826,8 +1835,12 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
     (y, written over stats' u) and of the backward pair (u's transient),
     each kernel, its plain version and the yardstick
     (``library_conv_bn_relu``, forward and autograd backward) timed with
-    CUDA events; the bounds of the kernels' design (``K4_BOUND``) beside,
-    the f32 CUDA-core ones in the record."""
+    CUDA events; bwd2's three launches timed apart on the card (du over
+    u, then dW and dx from one du; ``bwd2_parts_ms``) beside cuDNN's
+    adjoints of the conv from the plain du (``library_adjoints_ms``); the
+    bounds of the kernels' design (``K4_BOUND``, and ``du``, ``dx_tc``,
+    ``dw_tc`` for bwd2's launches) beside, the f32 CUDA-core ones in the
+    record."""
     t0 = time.perf_counter()
     device = torch.device(device)
     bf16 = dtype == torch.bfloat16
@@ -1947,6 +1960,24 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
             for k, (kern, plain) in calls.items():
                 rec["ms"][k] = _time_ms(kern, device, 1, iters)
                 rec["plain_ms"][k] = _time_ms(plain, device, 1, iters)
+            # bwd2's three launches apart, on the card: du (over u, which
+            # the bwd2 calls above consumed: the time does not depend on
+            # the values), then dW and dx from one du
+            rec["bwd2_parts_ms"] = {}
+            if device.type == "cuda":
+                k_, s_ = kernel_family(x, w, site["transposed"],
+                                       site["stride"], site["padding"])
+                du, pitch = bwd2_du(u, y, dy, a, mean, inv, s1n, s2n)
+                parts = {
+                    "du": lambda: bwd2_du(u, y, dy, a, mean, inv, s1n, s2n),
+                    "dw": lambda: bwd2_dw(x, w, du, pitch, k_, s_),
+                    "dx": lambda: bwd2_dx(x, w, du, pitch,
+                                          site["transposed"], k_, s_)}
+                for k, fn in parts.items():
+                    rec["bwd2_parts_ms"][k] = _time_ms(fn, device, 1, iters)
+                del du, parts
+            du_p = du_ref(u_p, dy, a, mean, inv, s1n, s2n, mask,
+                          dtype).to(dtype)
         del u, u_p, u_t, mask, calls
         # the yardstick: f32 NCHW; bf16 on channels_last, as phase 7b
         fmt = torch.channels_last if bf16 else torch.contiguous_format
@@ -1961,7 +1992,18 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
         rec["library_bwd_ms"] = _time_ms(
             lambda: torch.autograd.grad(y_l, leaves, dyl, retain_graph=True),
             device, 1, iters)
-        del y_l, leaves, xl, wl, dyl
+        # bwd2's GEMMs as the library computes them from a given du:
+        # cuDNN's input and weight gradients of the conv (conv2d_input +
+        # conv2d_weight; for the transposed conv conv2d + conv2d_weight)
+        # (on the CPU in f32: its bf16 convolution refuses some shapes)
+        adj = [t.contiguous(memory_format=fmt) if device.type == "cuda"
+               else t.float() for t in (x, w, du_p)]
+        with torch.no_grad():
+            rec["library_adjoints_ms"] = _time_ms(
+                lambda: _adjoints(*adj, site["transposed"], site["stride"],
+                                  site["padding"]),
+                device, 1, iters)
+        del y_l, leaves, xl, wl, dyl, adj, du_p
         sites[name] = rec
         b_ = {k: rec["bounds"][K4_BOUND[k]] for k in K4_KERNELS}
         pair = rec["ms"]["stats"] + rec["ms"]["fwd"]
@@ -1977,6 +2019,18 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
               f"bwd1 + bwd2 against the library's bwd "
               f"{rec['library_bwd_ms']:.3f} ms; conv pass "
               f"{rec['bounds']['conv_flops'] / 1e9:.2f} GFLOP", flush=True)
+        parts = rec["bwd2_parts_ms"]
+        if parts:
+            bp = {"du": rec["bounds"]["du"], "dx": rec["bounds"]["dx_tc"],
+                  "dw": rec["bounds"]["dw_tc"]}
+            print(f"  K4 {dtype} site {name} ({card}): bwd2's launches "
+                  + ", ".join(f"{k} {v:.3f} ms (bound "
+                              f"{bp[k]['bound_ms']:.3f} {bp[k]['bound_by']},"
+                              f" share {bp[k]['bound_ms'] / v:.3f})"
+                              for k, v in parts.items())
+                  + f"; dx + dW {parts['dx'] + parts['dw']:.3f} ms against "
+                  f"cuDNN's adjoints from a given du "
+                  f"{rec['library_adjoints_ms']:.3f} ms", flush=True)
     total = {k: sum(r["ms"][k] for r in sites.values()) for k in K4_KERNELS}
     logical = {k: sum(r["bounds"][f"logical_{k}"]["bound_ms"]
                       for r in sites.values()) for k in ("fwd", "bwd")}
@@ -2007,6 +2061,11 @@ def check_conv_bn(device, batch: int = TRAIN_BATCH, tile: int = TRAIN_TILE,
               f"{tc / (total['bwd1'] + total['bwd2']):.4f}")},
           bwd_peak_gb_max=(
               f"{max(r['bwd_peak_bytes'] for r in sites.values()) / 1e9:.3f}"),
+          **{f"bwd2_{k}_ms_4_sites": (
+              f"{sum(r['bwd2_parts_ms'][k] for r in sites.values()):.3f}"
+              if all(r["bwd2_parts_ms"] for r in sites.values())
+              else "not measured") for k in ("du", "dw", "dx")},
+          library_adjoints_ms_4_sites=f"{sum(r['library_adjoints_ms'] for r in sites.values()):.3f}",
           library_fwd_ms_4_sites=f"{sum(r['library_fwd_ms'] for r in sites.values()):.3f}",
           library_bwd_ms_4_sites=f"{sum(r['library_bwd_ms'] for r in sites.values()):.3f}")
     return {"sites": sites, "dtype": str(dtype).replace("torch.", "")}

@@ -34,6 +34,15 @@ paint and K1 timed beside cuDNN's block and the bound), 17a and 17d (the
 CGAN's shapes, its paint and K1 timed), building the kernels first; the
 checkout's own functions, so a parent's checkout runs its own kernel.
 
+    python3 scripts/smoke_phases_torch.py ROOT k4
+
+runs K4's phases alone: 10 and 10b (K4 against its plain version at the
+four sites, f32 and bf16, each kernel timed with bwd2's launches apart,
+beside cuDNN's backward and its adjoints from a given du), 8 and 11 (the
+f32 step without and with K4), 11b, 13 and 15 (bf16 without and with
+K4), 15b and 23b; the checkout's own functions, so a parent's checkout
+runs its own kernels (its record may lack bwd2's launches apart).
+
 Needs a CUDA device. Imports only torch and the port.
 """
 import json
@@ -57,7 +66,7 @@ if rule == "align8":
 elif rule == "both11":
     layers._low_precision_in_f32 = lambda fn, x, w: (
         x.device.type == "cpu" or w.shape[0] == w.shape[1] == 1)
-elif rule not in ("tree", "mesh", "scripts", "k1"):
+elif rule not in ("tree", "mesh", "scripts", "k1", "k4"):
     raise SystemExit(f"unknown rule {rule!r}")
 dev = torch.device("cuda", 0)
 card = smoke.environment(dev)["nvidia_smi"]
@@ -98,6 +107,35 @@ if rule == "mesh":
     print("PHASES", json.dumps({"root": root, "rule": rule, "card": card,
           "23a": a["launches"], "23b": b["ranks"],
           "23c": c["launches"], "23d": d}), flush=True)
+    sys.exit(0)
+if rule == "k4":
+    bf16 = torch.bfloat16
+
+    def sites(rec):
+        keys = ("ms", "bwd2_parts_ms", "library_bwd_ms",
+                "library_adjoints_ms", "library_fwd_ms", "errors",
+                "u_stats_vs_bwd1")
+        return {n: {k: r.get(k) for k in keys}
+                for n, r in rec["sites"].items()}
+
+    c10 = smoke.check_conv_bn(dev, card=card)
+    c10b = smoke.check_conv_bn(dev, card=card, dtype=bf16)
+    t8 = smoke.train(dev, ds, card=card)
+    t11 = smoke.train(dev, ds, card=card, fused_train_conv=True,
+                      k4_off_ms=t8["step_ms"])
+    p11b = smoke.train_parity(dev, ds, fused_train_conv=True)
+    t13 = smoke.train(dev, ds, card=card, dtype=bf16, f32_ms=t8["step_ms"])
+    t15 = smoke.train(dev, ds, card=card, dtype=bf16, fused_train_conv=True,
+                      k4_off_ms=t13["step_ms"], f32_ms=t11["step_ms"])
+    p15b = smoke.train_parity_bf16(dev, ds, fused_train_conv=True)
+    b23 = smoke_mesh.two_ranks(dev, ds, card=card)
+    print("PHASES", json.dumps({
+        "root": root, "rule": rule, "card": card,
+        "10": sites(c10), "10b": sites(c10b),
+        "step8_ms": t8["step_ms"], "step11_ms": t11["step_ms"],
+        "step13_ms": t13["step_ms"], "step15_ms": t15["step_ms"],
+        "11b": p11b, "15b": p15b, "23b": b23["ranks"]}, default=str),
+        flush=True)
     sys.exit(0)
 t13 = smoke.train(dev, ds, card=card, dtype=torch.bfloat16)
 p14 = smoke.paint_bf16(dev, card=card)

@@ -378,7 +378,7 @@ def test_fwd_check_takes_the_sites_operands():
     ("bf16_x", TypeError, "float32"),
     ("channels", ValueError, "channels"),
     ("family", ValueError, "kernels take"),
-    ("grid", ValueError, r"ceil\(Cout / 64\)"),
+    ("grid", ValueError, r"below 2\^31"),
     ("f16_x", TypeError, "float16"),
     ("f16_x_and_w", TypeError, "float16"),
 ])
@@ -386,7 +386,8 @@ def test_stats_check_raises_on_what_k4_stats_does_not_take(case, exc, match):
     """K4-stats' operand check (before a launch on the card), on meta
     tensors: x and w of one dtype, float32 or bfloat16 (a bf16 x with an
     f32 w is refused, and float16), x's channels those of w, the two
-    families, and the u GEMM's grid (N x ceil(Cout / 64) blocks in z)."""
+    families, and the persistent grids' tile count (16 ceil(W / 16)
+    ceil(H / 12) N ceil(max(Cin, Cout) / 8) numbered in an int)."""
     x = torch.empty(2, 3, 16, 16, device="meta")
     w = torch.empty(16, 3, 5, 5, device="meta")
     kw = dict(transposed=False, stride=1, padding=2)
@@ -400,15 +401,16 @@ def test_stats_check_raises_on_what_k4_stats_does_not_take(case, exc, match):
         x = torch.empty(2, 4, 16, 16, device="meta")
     elif case == "family":
         kw["padding"] = 1
-    elif case == "grid":
-        x = torch.empty(65536, 3, 1, 1, device="meta")
+    elif case == "grid":   # 16 x 1 x 2 x N x 2 tiles at 16 x 16, Cout 16
+        x = torch.empty(2 ** 25, 3, 16, 16, device="meta")
     with pytest.raises(exc, match=match):
         k4._check("conv_bn_stats", x, w, **kw)
     if case == "bf16_x":   # with a bf16 w it is taken
         k4._check("conv_bn_stats", x, w.bfloat16(), **kw)
-    if case == "grid":   # 65535 samples still fit at 64 channels a block
-        k4._check("conv_bn_stats", torch.empty(65535, 3, 1, 1, device="meta"),
-                  torch.empty(64, 3, 5, 5, device="meta"), **kw)
+    if case == "grid":   # one sample fewer fits
+        k4._check("conv_bn_stats",
+                  torch.empty(2 ** 25 - 1, 3, 16, 16, device="meta"), w,
+                  **kw)
 
 
 def test_a_bias_raises():

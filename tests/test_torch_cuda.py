@@ -440,6 +440,7 @@ def _k4_run(site, batch, device, seed=0, dtype=torch.float32):
     u_stats = u_s.clone()
     y = k4.conv_bn_fwd(u_s, a, b, dtype)
     g1, g2, u = k4.conv_bn_bwd1(x, w, mean, inv, y, dy, **kw)
+    u_bwd1 = u.clone()   # K4-bwd2 forms du over u in f32
     dx, dw = k4.conv_bn_bwd2(x, w, a, mean, inv, g1 / count, g2 / count, u,
                              y, dy, **kw)
     want = k4.conv_bn_relu_bwd_ref(x, w, gamma, beta, mean, var, dy,
@@ -448,7 +449,7 @@ def _k4_run(site, batch, device, seed=0, dtype=torch.float32):
     launches = {f: getattr(f, counter) - n for f, n in before.items()}
     u_r = k4.conv_bn_stats_ref(x, w, **kw)[2]
     got = {"y": (y, y_r), "mean": (mean, mean_r), "var": (var, var_r),
-           "u": (u, u_r), "u_stats": (u_stats, u_r)}
+           "u": (u_bwd1, u_r), "u_stats": (u_stats, u_r)}
     got.update(zip(("dx", "dw", "dgamma", "dbeta"),
                    zip((dx, dw, g2, g1), want)))
     return got, launches
@@ -465,9 +466,14 @@ def _k4_run(site, batch, device, seed=0, dtype=torch.float32):
     (_k4_site(False, 6, 16, 33, k=7), 2),
     (_k4_site(True, 6, 10, 11, s=4), 2),       # stride 4, ragged
     (_k4_site(True, 16, 8, 40, s=4), 2),       # stride 4, many bwd2 rows
+    (_k4_site(True, 70, 70, 13), 1),           # N = 1, two column tiles
+    (_k4_site(False, 70, 9, 21, k=3), 1),      # N = 1, dx's two tiles
+    (_k4_site(True, 6, 70, 11, s=4), 1),       # dW's narrower N at s = 4
+    (_k4_site(False, 2048, 16, 8, k=7), 1),    # K = 2048 x 49
 ], ids=["same_small", "same_groups", "same_512", "transp_small",
         "transp_64", "transp_256", "same_k1", "same_k7", "transp_s4_small",
-        "transp_s4_40"])
+        "transp_s4_40", "n1_wide", "n1_same_wide", "n1_s4_cout70",
+        "same_k7_2048"])
 def test_k4_matches_plain_version(cuda_device, site, batch):
     got, launches = _k4_run(site, batch, cuda_device)
     assert set(launches.values()) == {1}
@@ -484,14 +490,18 @@ K4_SHAPES = [
     (_k4_site(False, 3, 16, 512, k=5), 4), (_k4_site(True, 12, 18, 9), 2),
     (_k4_site(True, 128, 64, 64), 4), (_k4_site(True, 32, 16, 256), 4),
     (_k4_site(False, 4, 12, 29, k=1), 2), (_k4_site(False, 6, 16, 33, k=7), 2),
-    (_k4_site(True, 6, 10, 11, s=4), 2), (_k4_site(True, 16, 8, 40, s=4), 2)]
+    (_k4_site(True, 6, 10, 11, s=4), 2), (_k4_site(True, 16, 8, 40, s=4), 2),
+    (_k4_site(True, 70, 70, 13), 1), (_k4_site(False, 70, 9, 21, k=3), 1),
+    (_k4_site(True, 6, 70, 11, s=4), 1),
+    (_k4_site(False, 2048, 16, 8, k=7), 1)]
 
 
 @pytest.mark.parametrize("site,batch", K4_SHAPES,
                          ids=["same_small", "same_groups", "same_512",
                               "transp_small", "transp_64", "transp_256",
                               "same_k1", "same_k7", "transp_s4_small",
-                              "transp_s4_40"])
+                              "transp_s4_40", "n1_wide", "n1_same_wide",
+                              "n1_s4_cout70", "same_k7_2048"])
 def test_k4_bf16_matches_plain_version(cuda_device, site, batch):
     """The shapes of ``test_k4_matches_plain_version`` in bf16 (odd Cin and
     Cout, ragged tiles, widths that are not a multiple of 8, two channel
@@ -698,23 +708,67 @@ def test_k4_wrapper_raises_on_what_the_kernels_do_not_take(cuda_device):
         k4.conv_bn_fwd(u, gamma, beta)
     with pytest.raises(ValueError, match=r"a must be \(16,\)"):
         k4.conv_bn_fwd(u.contiguous(), gamma[:8], beta)
-    # the backward tiles both channel counts (64 a block), so its shared
-    # memory stays inside a block's 232448 bytes at any width; what it
-    # refuses is a grid past 65535 blocks in z (N x ceil(Cin / 64))
+    # the u GEMM and dx keep only a chunk's table of K offsets (in its
+    # ring stage) and dW tiles both channel counts, so the backward's
+    # shared memory stays inside a block's 232448 bytes at any width; what
+    # the wrappers refuse is a tile count past an int (16 phases x column
+    # tiles x row tiles x N x ceil(max(Cin, Cout) / 8))
     from baryon_painter_tpu_torch.ops._build import load_library
     for k, s in ((1, 1), (3, 1), (5, 1), (7, 1), (4, 2), (8, 4)):
-        for which in range(3):   # bwd1, dx, dW
+        for which in range(3):   # the u GEMM, dx, dW
             for code in (0, 1):   # float32, bfloat16
-                assert 0 < load_library().bpt_conv_bn_bwd_smem(
-                    4096, 4096, k, s, which, code) <= 232448
-    with pytest.raises(ValueError, match="65535"):
-        n, cin = 1025, 4096
+                for n, h in ((24, 64), (1, 8)):
+                    assert 0 < load_library().bpt_conv_bn_bwd_smem(
+                        n, 4096, h, h, 4096, k, s, which, code) <= 232448
+    with pytest.raises(ValueError, match=r"below 2\^31"):
+        n, cin = 2 ** 20, 4096   # x and the outputs broadcast, unallocated
         wide = torch.zeros((16, cin, 5, 5), device=cuda_device)
         ones = torch.ones(16, device=cuda_device)
-        out = torch.zeros((n, 16, 1, 1), device=cuda_device)
-        k4.conv_bn_bwd2(torch.zeros((n, cin, 1, 1), device=cuda_device),
-                        wide, ones, ones, ones, ones, ones, out, out, out,
-                        **kw)
+        out = torch.zeros((1, 16, 1, 1), device=cuda_device).expand(n, -1,
+                                                                    -1, -1)
+        xw = torch.zeros((1, cin, 1, 1), device=cuda_device).expand(n, -1,
+                                                                    -1, -1)
+        k4.conv_bn_bwd2(xw, wide, ones, ones, ones, ones, ones, out, out,
+                        out, **kw)
+
+
+def test_k4_refused_launch_raises(cuda_device):
+    """A launch the library refuses (here dx and dW with a du pitch that is
+    not a multiple of 16 bytes, which TMA cannot read) raises with the
+    CUDA error, and runs nothing."""
+    site = _k4_site(True, 16, 8, 24)
+    x, w, *_ = smoke.k4_inputs(site, 1, smoke.TRAIN_TILE, cuda_device)
+    du = torch.zeros((1, 8, 48, 48), device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k4.bwd2_dx(x, w, du, 47, True, 4, 2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k4.bwd2_dw(x, w, du, 45, 4, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k4_partials_follow_the_tiling(cuda_device, dtype):
+    """The partial rows K4-stats writes are ``smoke.k4_stats_rows`` (one a
+    12 x 16 tile and phase) and dW's splits at the four sites fill the
+    card: at least one block an SM, more than 64 splits at site A (the
+    CPU model of the split rule is ``tests/test_torch_conv_bn_gemm.py``'s
+    ``dw_geo``)."""
+    from baryon_painter_tpu_torch.ops._build import load_library
+    lib = load_library()
+    code = 0 if dtype == torch.float32 else 1
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for name, site in smoke.K4_SITES.items():
+        s = site["stride"] if site["transposed"] else 1
+        h = site["h"]
+        assert smoke.TRAIN_BATCH * lib.bpt_conv_bn_bwd1_tiles(
+            h, h, site["cout"], site["k"], s) == smoke.k4_stats_rows(
+                site, smoke.TRAIN_BATCH, smoke.TRAIN_TILE)
+        splits = lib.bpt_conv_bn_bwd2_splits(
+            smoke.TRAIN_BATCH, site["cin"], h, h, site["cout"], site["k"], s,
+            code)
+        assert splits >= 1
+        if name == "A":
+            assert splits > 64 and splits >= sms
 
 
 def test_k4_runs_on_the_current_stream(cuda_device):

@@ -17,12 +17,25 @@ K1_BF16 = ("_ZN57_INTERNAL_res_block_cu_12345678_9_res_block_cu_abcdef12"
            "16res_block_kernelI13__nv_bfloat16EEv14CUtensorMap_stS2_PKT_"
            "PKfS7_S7_S7_PS3_iiiiff")
 K3_FWD = "_ZN12_GLOBAL__N_115head_fwd_kernelIfEEvPKT_PKfS5_S5_PS1_Pfiiii"
+# K4's GEMMs: <T, N> (the u GEMM <T, N, STATS>), T = f (float) or t (bf16
+# as uint16_t), and bwd2's du pass <T>
+K4_PREFIX = "_ZN43_GLOBAL__N__ae3193cd_10_conv_bn_cu_fc4f734f"
+K4_STATS = K4_PREFIX + "13u_gemm_kernelIfLi16ELb1EEEv14CUtensorMap_S1_"
+K4_BWD1 = K4_PREFIX + "13u_gemm_kernelItLi64ELb0EEEv14CUtensorMap_S1_"
+K4_DX = K4_PREFIX + "9dx_kernelIfLi8EEEv14CUtensorMap_S1_NS_6PixGeoEiPT_"
+K4_DW = K4_PREFIX + "9dw_kernelItLi32EEEv14CUtensorMap_S1_NS_5DwGeoEPf"
+K4_DU = K4_PREFIX + "9du_kernelItEEvPKfPKT_S5_NS_8DuConstsEPS3_iiii"
 
 
 @pytest.mark.parametrize("mangled,name", [
     (K1_F32, "res_block_kernel<float>"),
     (K1_BF16, "res_block_kernel<bf16>"),
     (K3_FWD, "head_fwd_kernel<float>"),
+    (K4_STATS, "stats_kernel<float,16>"),
+    (K4_BWD1, "bwd1_kernel<bf16,64>"),
+    (K4_DX, "dx_kernel<float,8>"),
+    (K4_DW, "dw_kernel<bf16,32>"),
+    (K4_DU, "du_kernel<bf16>"),
     ("_Z12other_kernelPf", None)])
 def test_names(mangled, name):
     assert kernel_report._name(mangled) == name

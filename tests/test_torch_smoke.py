@@ -428,7 +428,9 @@ def test_k4_sites_and_bounds_at_the_training_shape(site, gflop):
     assert b["fwd_tc"]["bytes"] == 2 * 4 * b["fwd_tc"]["flops"] / 3
     rows = smoke.k4_stats_rows(smoke.K4_SITES[site], smoke.TRAIN_BATCH,
                                smoke.TRAIN_TILE)
-    assert rows == {"A": 24576, "B": 3072, "C": 6144, "D": 24576}[site]
+    # a tile of the u GEMM a phase x 16 columns x 24 (Cout <= 16) or 12
+    # rows of x's grid
+    assert rows == {"A": 16896, "B": 2304, "C": 8448, "D": 16896}[site]
     # the backward as its tensor-core kernels compute it: three conv passes
     # at the 3xTF32 rate, u written by bwd1 and read by bwd2; the pair bound
     # by memory at A and D, by the tensor cores at B and C
