@@ -121,6 +121,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -314,12 +315,6 @@ __device__ __forceinline__ Smem smem_base() {
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   return {base, smem_raw + (base - raw)};
-}
-
-// warp-uniform in the compiler's eyes (a shuffle from lane 0), so the roles'
-// branches hold no divergent path around the wgmmas
-__device__ __forceinline__ int warp_id() {
-  return __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
 }
 
 // full[s] completes on `arrivals` arrivals and its TMA bytes
@@ -1327,38 +1322,6 @@ int with_nt(int nt, F&& f) {
     case 32: return f(IC<32>{});
     default: return f(IC<64>{});
   }
-}
-
-int sm_count() {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A 4-d tensor map of a contiguous tensor (dims innermost first, elements),

@@ -1,9 +1,10 @@
-// The inline PTX shared by the kernels: tensor-core products with mma.sync
-// and asynchronous copies to shared memory with cp.async (K3), and Hopper's
-// wgmma, TMA, mbarriers and ldmatrix (K1, K4's GEMMs). Nothing else in
-// csrc/ holds inline assembly.
+// The inline PTX shared by the kernels: Hopper's wgmma, TMA, mbarriers and
+// ldmatrix (K1, K3's GEMMs, K4's GEMMs), and loads and stores of shared
+// memory by 32-bit address (K3's dw1). Nothing else in csrc/ holds inline
+// assembly.
 //
-// Fragments of mma.sync.m16n8k8 (tf32) and m16n8k16 (bf16), lane = 4 g +
+// A warp's part of a wgmma's A operand in registers has the layout of
+// mma.sync's fragments, m16n8k8 (tf32) and m16n8k16 (bf16), lane = 4 g +
 // tig (g = lane / 4, tig = lane % 4), every register 32 bits:
 //   A (16 x K, row-major): a0 (row g), a1 (row g + 8), a2 (row g),
 //     a3 (row g + 8); tf32: columns tig (a0, a1) and tig + 4 (a2, a3);
@@ -38,67 +39,9 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big,
   small = __float_as_uint(v - __uint_as_float(big));
 }
 
-// c += a b, one m16n8k8 tile in TF32 with f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b in 3xTF32: small a x big b + big a x small b + big a x big b
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
-
-// c += a b, one m16n8k16 tile in bf16 with f32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 4-byte asynchronous copy to shared memory; zero-fills when !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-// 16-byte asynchronous copy (both addresses 16-byte aligned); zero-fills
-// when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// wait until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-
 // ---------------------------------------------------------------------------
-// Hopper (sm_90a): wgmma, TMA and mbarriers, used by K1 (csrc/res_block.cu)
-// and K4's GEMMs (csrc/conv_bn.cu).
+// Hopper (sm_90a): wgmma, TMA and mbarriers, used by K1 (csrc/res_block.cu),
+// K3's GEMMs (csrc/head_stack.cu) and K4's GEMMs (csrc/conv_bn.cu).
 //
 // wgmma.mma_async m64n128: one warpgroup (4 warps, 128 threads) multiplies
 // A (64 x k) by B (k x 128) into f32 sums held in registers, 64 a thread:
@@ -207,6 +150,41 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr)
       : "memory");
+}
+
+// ldmatrix_x4 with each 8 x 8 matrix transposed: lane l receives elements
+// 2 (l % 4) and 2 (l % 4) + 1 of column l / 4 (rows 2 (l % 4), 2 (l % 4) + 1
+// of the stored rows, each a lane's 16-byte row). With a stored row the 8
+// channels of one pixel, that is a bf16 A fragment whose rows are channels
+// and whose k is pixels (K3's dw1).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// Shared memory at a 32-bit shared-memory address (K3's dw1 keeps no 64-bit
+// generic pointers live: with them its consumers spilled)
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint32_t lds16(uint32_t addr) {
+  uint16_t v;
+  asm volatile("ld.shared.b16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v));
+}
+__device__ __forceinline__ void sts16(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr),
+               "h"((uint16_t)v));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

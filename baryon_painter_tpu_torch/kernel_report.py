@@ -1,20 +1,21 @@
 """What the compiler made of the tensor-core kernels: K1 (csrc/res_block.cu,
-f32 and bf16), K3-fwd and K3-bwd (csrc/head_stack.cu, f32 and bf16) and K4
-(csrc/conv_bn.cu, f32 and bf16: the u GEMM of stats and bwd1, dx, dW, and
-fwd's pass).
+f32 and bf16), K3 (csrc/head_stack.cu, f32 and bf16: K3-fwd's u1 GEMM and
+chain, K3-bwd's chain, dx and dw1) and K4 (csrc/conv_bn.cu, f32 and bf16:
+the u GEMM of stats and bwd1, dx, dW, and fwd's pass).
 
     python -m baryon_painter_tpu_torch.kernel_report
 
 Builds the kernel library afresh (nvcc with ``-Xptxas -v``), then prints for
-each of those kernels' instantiations (K1, K3-fwd and K3-bwd in f32 and
-bf16; K4's stats, bwd1, dx and dW in f32 and bf16, and fwd's two
+each of those kernels' instantiations (K1 and K3's five launches in f32
+and bf16; K4's stats, bwd1, dx and dW in f32 and bf16, and fwd's two
 kernels): ptxas' registers and spills,
 the number of tensor-core instructions in its SASS (from ``cuobjdump
 -sass``: ``HMMA``, the mma.sync products, and ``HGMMA``, Hopper's wgmma)
 by variant (``HMMA.1688.F32.TF32``, ``HMMA.16816.F32.BF16``,
 ``HGMMA.64x128x16.F32.BF16``, ...) with one of them quoted, the TMA
 loads (``UTMALDG``) it issues, and each launch's
-shared memory per block in bytes (K1 at C = 128, K3 at any shape, K4's
+shared memory per block in bytes (K1 at C = 128, K3's launches at any
+shape, K4's
 GEMMs at the four fused sites of the fiducial training step; stats and
 bwd1 share one mainloop and one shared memory size). The last line is the
 same as JSON. Needs nvcc and cuobjdump (the CUDA toolkit); no card.
@@ -36,7 +37,12 @@ _KERNEL = re.compile(r"(dx_kernel|dw_kernel)I([ft])Li(\d+)E")
 _U_GEMM = re.compile(r"u_gemm_kernelI([ft])Li(\d+)ELb([01])E")
 _DU = re.compile(r"du_kernelI([ft])E")
 _K1 = re.compile(r"res_block_kernelI(f|13__nv_bfloat16)E")
-_K3 = re.compile(r"(head_fwd_kernel|head_bwd_kernel)I(f|13__nv_bfloat16)E")
+# K3's kernels: the pixel GEMMs <T, KIND> (KIND 0 the u1 GEMM, 1 dx), dw1
+# and the two chains <T>
+_K3 = re.compile(r"head_(gemm|dw1|chain_fwd|chain_bwd)_kernelI"
+                 r"(f|13__nv_bfloat16)(?:Li([01])E)?E")
+_K3_NAME = {"gemm0": "u1", "gemm1": "dx", "dw1": "dw1",
+            "chain_fwd": "chain_fwd", "chain_bwd": "chain_bwd"}
 _BN_RELU = re.compile(r"bn_relu_(bf16_)?kernel")
 _K4_TYPE = {"f": "float", "t": "bf16"}
 
@@ -48,8 +54,9 @@ def _name(mangled: str):
                                       else "bf16") + ">"
     m = _K3.search(mangled)
     if m is not None:
-        return (m.group(1) + "<" + ("float" if m.group(2) == "f" else "bf16")
-                + ">")
+        kind, t, which = m.groups()
+        return (f"head_{_K3_NAME[kind + (which or '')]}_kernel<"
+                + ("float" if t == "f" else "bf16") + ">")
     m = _BN_RELU.search(mangled)
     if m is not None:
         return "bn_relu_bf16_kernel" if m.group(1) else "bn_relu_kernel"
@@ -145,18 +152,20 @@ def sass_counts(sass: str) -> dict:
 
 def smem_report() -> dict:
     """Shared memory per block (bytes, as the launches request it): K1 at
-    C = 128, K3-fwd and K3-bwd, each in f32 and bf16, and the stats, bwd1, dx
+    C = 128, K3's five launches (the u1 GEMM, the forward chain, the
+    backward chain, dx, dw1), each in f32 and bf16, and the stats, bwd1, dx
     and dW launches of K4 at the fused sites, in f32 and bf16, each under
     the instantiation it launches (stats and bwd1 run the same mainloop, so
     they ask for the same; fwd and du use none)."""
     lib = _build.load_library()
     c = smoke.K1_SHAPE[-1]
     out = {"res_block_kernel<float>": lib.bpt_res_block_smem(c, 0),
-           "res_block_kernel<bf16>": lib.bpt_res_block_smem(c, 1),
-           "head_fwd_kernel<float>": lib.bpt_head_stack_smem(0, 0),
-           "head_fwd_kernel<bf16>": lib.bpt_head_stack_smem(0, 1),
-           "head_bwd_kernel<float>": lib.bpt_head_stack_smem(1, 0),
-           "head_bwd_kernel<bf16>": lib.bpt_head_stack_smem(1, 1)}
+           "res_block_kernel<bf16>": lib.bpt_res_block_smem(c, 1)}
+    for which, kind in enumerate(("u1", "chain_fwd", "chain_bwd", "dx",
+                                  "dw1")):
+        for code, t in ((0, "float"), (1, "bf16")):
+            out[f"head_{kind}_kernel<{t}>"] = lib.bpt_head_stack_smem(which,
+                                                                      code)
     for name, site in smoke.K4_SITES.items():
         s = site["stride"] if site["transposed"] else 1
         h = smoke.k4_site_shape(site, smoke.TRAIN_BATCH,

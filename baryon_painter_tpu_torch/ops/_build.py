@@ -140,12 +140,16 @@ def load_library() -> ctypes.CDLL:
     lib.bpt_res_block_infer.restype = ctypes.c_int
     lib.bpt_gather_tiles.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     lib.bpt_gather_tiles.restype = ctypes.c_int
-    lib.bpt_head_stack_fwd.argtypes = [p] * 7 + [i, i, i, i, p]
-    lib.bpt_head_stack_fwd.restype = ctypes.c_int
-    lib.bpt_head_stack_bwd.argtypes = [p] * 12 + [i, i, i, i, p]
-    lib.bpt_head_stack_bwd.restype = ctypes.c_int
-    lib.bpt_head_stack_bwd_blocks.argtypes = [i, i, i]
-    lib.bpt_head_stack_bwd_blocks.restype = ctypes.c_int
+    # K3: pointers, then n, h, w (the chain's blocks, dw1's splits), dtype,
+    # stream
+    for name, n_ptr, n_int in (("u1_gemm", 3, 4), ("chain_fwd", 5, 4),
+                               ("chain_bwd", 9, 5), ("dx", 3, 4),
+                               ("dw1", 3, 5)):
+        fn = getattr(lib, f"bpt_head_{name}")
+        fn.argtypes = [p] * n_ptr + [i] * n_int + [p]
+        fn.restype = ctypes.c_int
+    lib.bpt_head_grid.argtypes = [i] * 5   # which, n, h, w, dtype
+    lib.bpt_head_grid.restype = ctypes.c_int
     lib.bpt_head_stack_smem.argtypes = [i, i]   # which, dtype
     lib.bpt_head_stack_smem.restype = ctypes.c_int
     lib.bpt_res_block_smem.argtypes = [i, i]

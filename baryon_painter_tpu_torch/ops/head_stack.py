@@ -15,16 +15,22 @@ with prelu(u, a) = u if u >= 0 else a * u. The head's final softplus or
 identity stays with the caller (``models/cvae.py``).
 
 ``head_stack`` is differentiable in all five inputs. On CUDA tensors its
-forward launches K3-fwd and its backward K3-bwd (``csrc/head_stack.cu``);
-anything the kernels do not take raises. K3-fwd runs conv7 of both heads as
-one GEMM on the tensor cores and, when a gradient will be taken, keeps u1,
-the conv7 pre-activation of both heads as (N, H, W, 16) f32 with channel
-8 h + c; K3-bwd reads that u1 (PReLU1's mask and conv5's input) instead of
-recomputing it. ``head_stack`` keeps u1 only under autograd with an input
-that requires a gradient, so painting (``torch.inference_mode``) allocates
-none. On CPU tensors the functions are the plain versions,
-``head_stack_ref`` and ``head_stack_bwd_ref``, which are also the tests'
-oracles and ``chip_smoke.py``'s comparison.
+forward runs K3-fwd and its backward K3-bwd (``csrc/head_stack.cu``); anything
+the kernels do not take raises. K3-fwd is two CUDA launches: conv7 of both
+heads as one GEMM on the tensor cores, which writes u1, the conv7
+pre-activation of both heads as (N, H, W, 16) f32 with channel 8 h + c, once a
+pixel; then the chain of small convs from u1 to y. When a gradient will be
+taken the forward keeps u1, and K3-bwd reads it (PReLU1's mask and conv5's
+input) instead of recomputing it; painting writes it into a scratch tensor that
+is freed on return. K3-bwd is three CUDA launches: the chain's adjoint from u1
+and dy, which writes du1 once a pixel into a scratch tensor in x's dtype, then
+dx and dw1 as GEMMs from it. ``head_stack`` keeps u1 only under autograd with
+an input that requires a gradient, so painting (``torch.inference_mode``) keeps
+none. On CPU tensors the functions are the plain versions, ``head_stack_ref``
+and ``head_stack_bwd_ref``, which are also the tests' oracles and
+``chip_smoke.py``'s comparison. Each wrapper counts its calls (``.launches``)
+and, in ``.cuda_launches``, every CUDA launch it makes, by the library's entry
+point.
 
 x and dy are float32 or bfloat16 (the JAX package's kernels run in the input
 dtype); the weights, the slopes and the kept u1 stay f32, and so do the
@@ -45,7 +51,7 @@ import torch.nn.functional as F
 from torch.nn.grad import conv2d_input, conv2d_weight
 
 __all__ = ["head_stack", "head_stack_fwd", "head_stack_bwd", "rounder",
-           "head_stack_ref", "head_stack_bwd_ref"]
+           "head_stack_ref", "head_stack_bwd_ref", "gemm_weights"]
 
 # the dtypes of x, y, dy and dx the kernels take, and their codes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -205,31 +211,58 @@ def _launch(fn, name, *args):
                            f"{lib.bpt_error_string(err).decode()} ({err})")
 
 
-def gemm_weights(w1):
-    """The B operands of K3's 7x7 GEMMs from w1 (2, 7, 7, 16, 8): K3-fwd's
-    u1 GEMM wu (16, 784) = [h, c][ky, kx, ci] and K3-bwd's dx GEMM
-    wdx (16, 784) = [ci][ky, kx, h, c]."""
-    return _wu(w1), _wdx(w1)
+def _launch_pass(wrapper, name, *args):
+    """``_launch`` of one of K3's passes, the library's entry point ``name``:
+    adds one to ``wrapper.cuda_launches[name]`` once it has launched."""
+    _launch(wrapper.__name__, name, *args)
+    wrapper.cuda_launches[name] += 1
 
 
-def _wu(w1):
-    return w1.permute(0, 4, 1, 2, 3).reshape(16, 784)
+def gemm_weights(w1, dtype=torch.float32):
+    """The B operands of K3's 7x7 GEMMs from w1 (2, 7, 7, 16, 8) in the
+    kernels' layouts, (parts, 16, Kp) in ``dtype``: K3-fwd's u1 GEMM wu =
+    [h, c][ky, kx, ci], K = 784 zero-padded to whole 128-byte rows (32 f32
+    or 64 bf16 values), and K3-bwd's dx GEMM wdx = [ci][h][ky, kx, c] with
+    each head's 392 zero-padded to whole rows. f32 has two parts, big = w
+    with its 13 low mantissa bits cleared and small = w - big (3xTF32);
+    bf16 one, the rounded weights."""
+    return _wu(w1, dtype), _wdx(w1, dtype)
 
 
-def _wdx(w1):
-    return w1.permute(3, 1, 2, 0, 4).reshape(16, 784)
+def _row(dtype):
+    """Values of a 128-byte row of K."""
+    return 32 if dtype == torch.float32 else 64
+
+
+def _parts(w, dtype):
+    if dtype != torch.float32:
+        return w.to(dtype)[None].contiguous()
+    w = w.float().contiguous()
+    big = (w.view(torch.int32) & -8192).view(torch.float32)  # 0xffffe000
+    return torch.stack([big, w - big]).contiguous()
+
+
+def _wu(w1, dtype):
+    wu = w1.permute(0, 4, 1, 2, 3).reshape(16, 784)
+    return _parts(F.pad(wu, (0, -784 % _row(dtype))), dtype)
+
+
+def _wdx(w1, dtype):
+    wdx = w1.permute(3, 0, 1, 2, 4).reshape(16, 2, 392)
+    return _parts(F.pad(wdx, (0, -392 % _row(dtype))).reshape(16, -1), dtype)
 
 
 def head_stack_fwd(x, w1, w2, w3, alphas, keep_u1: bool = False):
-    """K3-fwd: (N, 2, H, W) head outputs, one kernel launch on the card;
-    with ``keep_u1`` (y, u1), u1 (N, H, W, 16) as ``head_stack_ref``
-    returns it, for ``head_stack_bwd``.
+    """K3-fwd: (N, 2, H, W) head outputs; with ``keep_u1`` (y, u1), u1
+    (N, H, W, 16) as ``head_stack_ref`` returns it, for ``head_stack_bwd``.
 
     On CPU tensors this is ``head_stack_ref``. On CUDA tensors it launches
-    the kernel on the current stream without synchronising and adds one to
+    the u1 GEMM and the chain on the current stream without synchronising
+    (one each to ``head_stack_fwd.cuda_launches``) and adds one to
     ``head_stack_fwd.launches`` (and in bf16 to ``.bf16_launches``), and
-    with ``keep_u1`` one to ``head_stack_fwd.kept_u1``; anything the kernel
-    does not take (another dtype, channel count or number of heads)
+    with ``keep_u1`` one to ``head_stack_fwd.kept_u1``; without it u1 goes
+    into a scratch tensor, so y is the same either way. Anything the
+    kernels do not take (another dtype, channel count or number of heads)
     raises. y is in x's dtype, u1 f32."""
     if x.device.type == "cpu":
         return head_stack_ref(x, w1, w2, w3, alphas, keep_u1=keep_u1)
@@ -238,13 +271,14 @@ def head_stack_fwd(x, w1, w2, w3, alphas, keep_u1: bool = False):
     _check_operands("head_stack_fwd", x, w1, w2, w3, alphas)
     n, h, w, _ = x.shape
     r = rounder(x.dtype)
-    ops = [_operand(t) for t in (x, _wu(w1).to(x.dtype), r(w2), r(w3),
-                                 alphas)]
+    code = _DTYPE_CODES[x.dtype]
     y = torch.empty((n, 2, h, w), dtype=x.dtype, device=x.device)
-    u1 = (torch.empty((n, h, w, 16), dtype=torch.float32, device=x.device)
-          if keep_u1 else None)
-    _launch("head_stack_fwd", "bpt_head_stack_fwd", *ops, y, u1, n, h, w,
-            _DTYPE_CODES[x.dtype])
+    u1 = torch.empty((n, h, w, 16), dtype=torch.float32, device=x.device)
+    _launch_pass(head_stack_fwd, "bpt_head_u1_gemm", _operand(x),
+                 _wu(w1, x.dtype), u1, n, h, w, code)
+    _launch_pass(head_stack_fwd, "bpt_head_chain_fwd", u1,
+                 *(_operand(t) for t in (r(w2), r(w3), alphas)), y, n, h, w,
+                 code)
     head_stack_fwd.launches += 1
     head_stack_fwd.bf16_launches += x.dtype == torch.bfloat16
     if not keep_u1:
@@ -256,20 +290,24 @@ def head_stack_fwd(x, w1, w2, w3, alphas, keep_u1: bool = False):
 head_stack_fwd.launches = 0
 head_stack_fwd.bf16_launches = 0
 head_stack_fwd.kept_u1 = 0
+head_stack_fwd.cuda_launches = dict.fromkeys(("bpt_head_u1_gemm",
+                                              "bpt_head_chain_fwd"), 0)
 
 
 def head_stack_bwd(x, w1, w2, w3, alphas, dy, u1=None):
-    """K3-bwd: (dx, dw1, dw2, dw3, dalphas), one kernel launch on the card,
-    from u1 as ``head_stack_fwd(..., keep_u1=True)`` kept it.
+    """K3-bwd: (dx, dw1, dw2, dw3, dalphas) from u1 as
+    ``head_stack_fwd(..., keep_u1=True)`` kept it.
 
-    The kernel writes dx and per-block partial sums of the weight and slope
-    gradients, summed here (deterministic: no atomics). On CPU tensors this
-    is ``head_stack_bwd_ref``, which recomputes u1 when none is given. On
-    CUDA tensors u1 is required; the kernel launches on the current stream
-    without synchronising and adds one to ``head_stack_bwd.launches`` (and
-    in bf16 to ``.bf16_launches``); anything the kernel does not take
-    raises. dy is cast to x's dtype, as the JAX package casts it; dx comes
-    back in x's dtype, the weight and slope gradients in f32."""
+    The kernels write dx and partial sums of the weight and slope
+    gradients (the chain's per block, dw1's per split of the pixels),
+    summed here (deterministic: no atomics). On CPU tensors this is
+    ``head_stack_bwd_ref``, which recomputes u1 when none is given. On CUDA
+    tensors u1 is required; the chain, dx and dw1 launch on the current stream
+    without synchronising (one each to ``head_stack_bwd.cuda_launches``) and
+    the call adds one to ``head_stack_bwd.launches`` (and in bf16 to
+    ``.bf16_launches``); anything the kernels do not take raises. dy is cast to
+    x's dtype, as the JAX package casts it; dx comes back in x's dtype, the
+    weight and slope gradients in f32."""
     dy = dy.to(x.dtype)
     if x.device.type == "cpu":
         return head_stack_bwd_ref(x, w1, w2, w3, alphas, dy, u1=u1)
@@ -282,18 +320,29 @@ def head_stack_bwd(x, w1, w2, w3, alphas, dy, u1=None):
     _check_operands("head_stack_bwd", x, w1, w2, w3, alphas, dy, u1)
     n, h, w, _ = x.shape
     r = rounder(x.dtype)
-    ops = [_operand(t) for t in (x, u1, _wdx(w1).to(x.dtype), r(w2), r(w3),
-                                 alphas, dy)]
+    code = _DTYPE_CODES[x.dtype]
     from baryon_painter_tpu_torch.ops._build import load_library
-    blocks = load_library().bpt_head_stack_bwd_blocks(n, h, w)
+    lib = load_library()
+    blocks = lib.bpt_head_grid(2, n, h, w, code)
+    splits = lib.bpt_head_grid(4, n, h, w, code)
+    if blocks < 1 or splits < 1:
+        raise ValueError(f"head_stack_bwd: the kernels do not take x of "
+                         f"shape {tuple(x.shape)}")
     dev = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(ops[0])
-    dw1p = torch.empty((blocks,) + tuple(w1.shape), **dev)
+    xo = _operand(x)
+    du1 = torch.empty_like(xo)
     dw2p = torch.empty((blocks,) + tuple(w2.shape), **dev)
     dw3p = torch.empty((blocks,) + tuple(w3.shape), **dev)
     dalp = torch.empty((blocks,) + tuple(alphas.shape), **dev)
-    _launch("head_stack_bwd", "bpt_head_stack_bwd", *ops, dx, dw1p, dw2p,
-            dw3p, dalp, n, h, w, _DTYPE_CODES[x.dtype])
+    _launch_pass(head_stack_bwd, "bpt_head_chain_bwd", _operand(u1),
+                 _operand(dy), *(_operand(t) for t in (r(w2), r(w3), alphas)),
+                 du1, dw2p, dw3p, dalp, n, h, w, blocks, code)
+    dx = torch.empty_like(xo)
+    _launch_pass(head_stack_bwd, "bpt_head_dx", du1, _wdx(w1, x.dtype), dx,
+                 n, h, w, code)
+    dw1p = torch.empty((splits,) + tuple(w1.shape), **dev)
+    _launch_pass(head_stack_bwd, "bpt_head_dw1", xo, du1, dw1p, n, h, w,
+                 splits, code)
     head_stack_bwd.launches += 1
     head_stack_bwd.bf16_launches += x.dtype == torch.bfloat16
     return dx, dw1p.sum(0), dw2p.sum(0), dw3p.sum(0), dalp.sum(0)
@@ -301,6 +350,9 @@ def head_stack_bwd(x, w1, w2, w3, alphas, dy, u1=None):
 
 head_stack_bwd.launches = 0
 head_stack_bwd.bf16_launches = 0
+head_stack_bwd.cuda_launches = dict.fromkeys(("bpt_head_chain_bwd",
+                                              "bpt_head_dx", "bpt_head_dw1"),
+                                             0)
 
 
 class _HeadStack(torch.autograd.Function):

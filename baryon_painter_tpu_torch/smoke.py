@@ -420,6 +420,8 @@ _COUNTED_BF16 = {"k1": res_block_infer, "k3_fwd": head_stack_fwd,
                  "k3_bwd": head_stack_bwd, "k4_stats": conv_bn_stats,
                  "k4_fwd": conv_bn_fwd, "k4_bwd1": conv_bn_bwd1,
                  "k4_bwd2": conv_bn_bwd2}
+# the wrappers of more than one CUDA launch a call: each counts its passes
+_K3_PASSES = {"k3_fwd": head_stack_fwd, "k3_bwd": head_stack_bwd}
 
 
 def _reset_launches():
@@ -428,6 +430,8 @@ def _reset_launches():
     for fn in _COUNTED_BF16.values():
         fn.bf16_launches = 0
     head_stack_fwd.kept_u1 = 0
+    for fn in _K3_PASSES.values():
+        fn.cuda_launches = dict.fromkeys(fn.cuda_launches, 0)
 
 
 def _launches() -> dict:
@@ -436,6 +440,20 @@ def _launches() -> dict:
 
 def _bf16_launches() -> dict:
     return {key: fn.bf16_launches for key, fn in _COUNTED_BF16.items()}
+
+
+def _cuda_launches() -> dict:
+    """K3's CUDA launches by the library's entry point, per wrapper."""
+    return {key: dict(fn.cuda_launches) for key, fn in _K3_PASSES.items()}
+
+
+def _expect_cuda_launches(path: str, calls: dict, cuda: dict):
+    """Every pass of K3 (``_cuda_launches``) launched once a wrapper call
+    (``calls``, as ``_launches`` counts them)."""
+    want = {key: dict.fromkeys(cuda[key], calls[key]) for key in cuda}
+    if cuda != want:
+        raise AssertionError(f"{path}: K3's CUDA launches {cuda}, expected "
+                             f"{want}")
 
 
 def _expect_launches(path: str, got: dict, want: dict):
@@ -483,6 +501,7 @@ def paint_golden(device, repo: Path = REPO, fused_heads: bool = False,
     _expect_launches("paint", counts, {
         "k1": 4 if on_card else 0,
         "k3_fwd": 1 if on_card and fused_heads else 0})
+    _expect_cuda_launches("paint", counts, _cuda_launches())
     if got.shape != want.shape or not np.all(np.isfinite(got)):
         raise AssertionError(f"painted {got.shape}, finite="
                              f"{np.all(np.isfinite(got))}")
@@ -859,20 +878,32 @@ def kink_free_cotangent(x, w1, w2, w3, alphas, dy, rel: float = KINK_REL,
     return (dy * keep).to(dy.dtype), 1.0 - keep.float().mean().item()
 
 
-# K3-bwd's blocks: a tile row of 16 x 16 tiles is walked by blocks of up
-# to 16 tiles (csrc/head_stack.cu kT, kWalk); each writes one partial of
-# every weight gradient
-K3_TILE = 16
-K3_WALK = 16
+# K3-bwd's partials (csrc/head_stack.cu): the backward chain walks tiles of
+# K3_CHAIN_TILE pixels in at most K3_CHAIN_PER_SM blocks an SM, each
+# writing one partial of dw2, dw3 and dalpha (kCBH, kCBW, kChainBwdPerSm);
+# dw1 cuts the pixels into chunks of K3_DW1_ROWS rows by one 128-byte K row
+# of columns (32 f32, 64 bf16) and those into at most one split an SM, each
+# writing one partial of dw1 (kRD, dw_geo)
+K3_CHAIN_TILE = (16, 32)
+K3_CHAIN_PER_SM = 2
+K3_DW1_ROWS = 4
+H100_SMS = 132
 # the 7x7 GEMMs per pixel and head: K3-fwd's u1; K3-bwd's dx and dw1
 _HEAD_FWD_GEMM_OPS = 2 * 7 * 7 * 16 * 8
 _HEAD_BWD_GEMM_OPS = 2 * 2 * 7 * 7 * 16 * 8
 
 
-def k3_bwd_blocks(n: int, h: int, w: int) -> int:
-    """Blocks (and partials of each weight gradient) of a K3-bwd launch."""
-    tiles_x = -(-w // K3_TILE)
-    return n * -(-h // K3_TILE) * -(-tiles_x // K3_WALK)
+def k3_bwd_blocks(n: int, h: int, w: int, dtype=torch.float32) -> dict:
+    """The partials of a K3-bwd call on an H100 (``H100_SMS``): ``chain``,
+    the blocks of its chain's launch (each a partial of dw2, dw3 and
+    dalpha), and ``dw1``, the splits of dw1's (each a partial of dw1)."""
+    th, tw = K3_CHAIN_TILE
+    tiles = n * -(-h // th) * -(-w // tw)
+    cw = 32 if dtype == torch.float32 else 64
+    chunks = n * -(-h // K3_DW1_ROWS) * -(-w // cw)
+    per = -(-chunks // min(H100_SMS, chunks))
+    return {"chain": min(tiles, K3_CHAIN_PER_SM * H100_SMS),
+            "dw1": -(-chunks // per)}
 
 
 def k3_bounds(n: int, h: int, w: int, keep_u1: bool = True,
@@ -885,10 +916,13 @@ def k3_bounds(n: int, h: int, w: int, keep_u1: bool = True,
     pixel (the forward's u1; the backward's dx and dw1) on the tensor cores
     (3xTF32 in f32, bf16 in bf16) plus the rest (the 5x5 and 3x3 convs,
     their gradients) on the CUDA cores; the backward's bytes also count
-    each block's weight-gradient partials."""
+    its weight-gradient partials (``k3_bwd_blocks``)."""
     pix = n * h * w
     elt = torch.empty((), dtype=dtype).element_size()
     weights = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3 + 2) * 4
+    parts = k3_bwd_blocks(n, h, w, dtype)
+    partials = (parts["chain"] * 2 * (5 * 5 * 8 + 3 * 3 + 2) * 4
+                + parts["dw1"] * 2 * 7 * 7 * 16 * 8 * 4)
     fwd_bytes = pix * ((16 + 2) * elt + (16 * 4 if keep_u1 else 0)) + weights
     bwd_bytes = pix * ((16 + 16 + 2) * elt + 16 * 4) + weights
     fwd_gemm = 2 * pix * _HEAD_FWD_GEMM_OPS
@@ -903,7 +937,7 @@ def k3_bounds(n: int, h: int, w: int, keep_u1: bool = True,
             "bwd_tc": _mixed_bound(
                 [(bwd_gemm, tc),
                  (2 * pix * _HEAD_BWD_OPS - bwd_gemm, f32)],
-                bwd_bytes + k3_bwd_blocks(n, h, w) * weights)}
+                bwd_bytes + partials)}
 
 
 def library_heads(xc, w1, w2, w3, alphas):
@@ -1100,8 +1134,10 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
         if bf16:
             want_bf16.update(k4)
     bf16_counts = _bf16_launches()
+    cuda_counts = _cuda_launches()
     _expect_launches("train (bf16 launches)", bf16_counts, want_bf16)
     _expect_launches("train", counts, want)
+    _expect_cuda_launches("train", counts, cuda_counts)
     if head_stack_fwd.kept_u1 != heads * n:
         raise AssertionError(f"train: K3-fwd kept u1 in "
                              f"{head_stack_fwd.kept_u1} of {heads * n} "
@@ -1118,6 +1154,7 @@ def train(device, dataset, batch: int = TRAIN_BATCH, warmup: int = 3,
            "elbo": [float(m["elbo"]) for m in metrics]}
     out["dtype"] = "bfloat16" if bf16 else "float32"
     out["bf16_launches"] = bf16_counts
+    out["cuda_launches"] = cuda_counts
     if heads == 2:
         out["pk_loss"] = [float(m["pk_loss"]) for m in metrics]
     extra = dict(extra or {})
@@ -4486,9 +4523,16 @@ STATS_CLI = REPO / "scripts" / "compare_reference_stats_torch.py"
 # 22a: the training twin with --profile, 2 pepochs of 48 samples
 PROFILE_PEPOCH = 48
 PROFILE_PEPOCHS = 2
-# the kernels' symbols in a trace (csrc/*.cu)
-TRACE_KERNELS = {"k2": "gather_tiles_kernel", "k3_fwd": "head_fwd_kernel",
-                 "k3_bwd": "head_bwd_kernel"}
+# the kernels' symbols in a trace (csrc/*.cu), and the wrapper calls that
+# launch each once (``_launches``' keys): K2; K3-fwd's chain and K3-bwd's;
+# the 7x7 GEMM kernel, K3-fwd's u1 and K3-bwd's dx; K3-bwd's dw1
+TRACE_KERNELS = {"k2": "gather_tiles_kernel",
+                 "k3_fwd": "head_chain_fwd_kernel",
+                 "k3_bwd": "head_chain_bwd_kernel",
+                 "k3_gemm": "head_gemm_kernel",
+                 "k3_dw1": "head_dw1_kernel"}
+TRACE_CALLS = {"k2": ("k2",), "k3_fwd": ("k3_fwd",), "k3_bwd": ("k3_bwd",),
+               "k3_gemm": ("k3_fwd", "k3_bwd"), "k3_dw1": ("k3_bwd",)}
 # 22b: the test batch of validate (the JAX CLI's validation_batch_size)
 VALIDATE_BATCH = 8
 # the P(k) fractional errors of one painted batch, card against CPU:
@@ -4518,9 +4562,10 @@ def profile_run(device, dataset, batch: int = TRAIN_BATCH,
     K2 and K3 (``BPT_FUSED_HEADS=1``), ``pepochs`` pepochs of ``pepoch``
     samples at ``batch``, validation every ``pepoch`` samples, once with
     ``--profile`` and once without (after a warm-up run). The trace's
-    device kernels counted by name (``TRACE_KERNELS``) must equal the
-    wrappers' counts, which must be one K2 and one K3-bwd launch a step
-    and one K3-fwd a step and a validation loss (or figure). Prints the
+    device kernels counted by name (``TRACE_KERNELS``) must equal what
+    the wrappers' calls launch (``TRACE_CALLS``), and K3's passes as its
+    wrappers count them one a call; the calls must be one K2 and one K3-bwd
+    a step and one K3-fwd a step and a validation loss (or figure). Prints the
     trace's size and the profiler's cost on this short run: the whole
     block's seconds traced over untraced (the profiler's stop and the
     trace's export included); beside it both runs' samples/s over
@@ -4563,6 +4608,7 @@ def profile_run(device, dataset, batch: int = TRAIN_BATCH,
             res = twin.run(argv(label, *extra), datasets)
             _sync(device)
             out[label] = {"launches": _launches(),
+                          "cuda_launches": _cuda_launches(),
                           "samples_per_s": n_samples / res["seconds"],
                           "block_s": res["block_seconds"],
                           "trace": res["trace"]}
@@ -4575,12 +4621,16 @@ def profile_run(device, dataset, batch: int = TRAIN_BATCH,
     want = {"k2": n_steps, "k3_fwd": n_steps + n_evals + figures,
             "k3_bwd": n_steps} if cuda else {}
     _expect_launches("profile_run", counts, want)
+    _expect_cuda_launches("profile_run", counts,
+                          out["traced"]["cuda_launches"])
     traced = {k: by_name[v] for k, v in TRACE_KERNELS.items()}
-    if cuda and traced != {k: counts[k] for k in TRACE_KERNELS}:
+    from_calls = {k: sum(counts[c] for c in calls)
+                  for k, calls in TRACE_CALLS.items()}
+    if cuda and traced != from_calls:
         raise AssertionError(f"profile_run: the trace counts {traced}, the "
-                             f"wrappers {counts}")
-    per_step = {k: (v - (n_evals + figures if k == "k3_fwd" else 0))
-                / n_steps for k, v in traced.items()}
+                             f"wrappers' calls {from_calls}")
+    per_step = {k: (v - (n_evals + figures if "k3_fwd" in TRACE_CALLS[k]
+                         else 0)) / n_steps for k, v in traced.items()}
     cost = out["traced"]["block_s"] / out["untraced"]["block_s"]
     _line("22a", "profile_run", t0, card=json.dumps(card), steps=n_steps,
           evals=n_evals, figures=figures, launches=json.dumps(counts),
@@ -4982,8 +5032,10 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     tensor-core one (``k1_bound``'s ``tc``, ``k3_bounds``' ``fwd_tc`` and
     ``bwd_tc``), the f32 CUDA-core one beside it. K3-fwd's times are with
     u1 kept, as the training steps that count its launches run it; without
-    u1 (painting) beside them. Given phase 16, the bf16 K1 and K3-fwd
-    entries also carry their launches in the bf16 lightcone (16c) and per
+    u1 (painting) beside them. ``launches`` counts K3's wrapper calls and
+    ``cuda_launches`` the CUDA launches of the same steps by entry point
+    (K3-fwd 2 a call, K3-bwd 3; ``cuda_launches_per_call``). Given phase
+    16, the bf16 K1 and K3-fwd entries also carry their launches in the bf16 lightcone (16c) and per
     shell (the timed run). Given phase 17, both K1 entries carry the
     CGAN's: its launches per paint call (17b in f32, 17c in bf16) and in
     the f32 CGAN lightcone (17e), and K1 at the CLI's CGAN shape (slope
@@ -4997,9 +5049,10 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     (``_add_cgan_train_launches``)."""
     f32 = next(c for c in checks if c["dtype"] == "float32")
     bf16 = next(c for c in checks if c["dtype"] == "bfloat16")
-    def k3(name, key, replaces, heads=heads, launches=None):
+    def k3(name, key, replaces, heads=heads, launches=None, run=training):
         d = key[3:]
-        launches = training["launches"] if launches is None else launches
+        launches = run["launches"] if launches is None else launches
+        cuda = run["cuda_launches"][key]
         return {"name": name, "dtype": heads.get("dtype", "float32"),
                 "route": "cuda", "source": K3_SOURCE,
                 "replaces": replaces, "launches": launches[key],
@@ -5010,7 +5063,12 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
                 "bound_ms": heads[f"{d}_tc_bound"]["bound_ms"],
                 "bound_by": heads[f"{d}_tc_bound"]["bound_by"],
                 "library_ms": heads[f"{d}_library_ms"],
-                "bound_ms_f32_cuda_cores": heads[f"{d}_bound"]["bound_ms"]}
+                "bound_ms_f32_cuda_cores": heads[f"{d}_bound"]["bound_ms"],
+                # the CUDA launches of the same steps, by the library's
+                # entry point (``launches`` counts the wrapper's calls)
+                "cuda_launches": cuda,
+                "cuda_launches_per_call": sum(cuda.values()) / launches[key]
+                if launches[key] else None}
 
     k3_fwd = k3("head_stack_fwd", "k3_fwd", K3_FWD_REPLACES)
     k3_fwd["u1_max_abs_err"] = heads["abs_errors"]["u1"]
@@ -5031,11 +5089,12 @@ def kernels_record(checks: list, paint: dict, timing: dict, gather: dict,
     if heads_bf16 is not None and training_bf16 is not None:
         launches = training_bf16["bf16_launches"]
         fwd_b = k3("head_stack_fwd", "k3_fwd", K3_FWD_REPLACES, heads_bf16,
-                   launches)
+                   launches, training_bf16)
         fwd_b["u1_max_abs_err"] = heads_bf16["abs_errors"]["u1"]
         fwd_b["ms_without_u1"] = heads_bf16["fwd_without_u1_ms"]
         bf16_entries += [fwd_b, k3("head_stack_bwd", "k3_bwd",
-                                   K3_BWD_REPLACES, heads_bf16, launches)]
+                                   K3_BWD_REPLACES, heads_bf16, launches,
+                                   training_bf16)]
     if lightcone is not None:
         _add_lightcone_launches(bf16_entries, lightcone)
     k1_f32 = timing["bound_float32"]

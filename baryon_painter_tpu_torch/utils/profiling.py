@@ -118,7 +118,7 @@ def device_trace(log_dir: Optional[str]):
     there is a card, its CUDA activity (no-op when ``log_dir`` is None).
     Writes a Chrome trace, ``log_dir/trace.json``, which chrome://tracing
     or Perfetto opens. CUPTI records the kernels launched through ctypes
-    too, under their symbol names (``head_fwd_kernel``, ...)."""
+    too, under their symbol names (``head_chain_fwd_kernel``, ...)."""
     if log_dir is None:
         yield
         return

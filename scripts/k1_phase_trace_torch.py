@@ -108,7 +108,8 @@ def build(tmp: Path) -> ctypes.CDLL:
     from baryon_painter_tpu_torch.ops import _build
     (tmp / "res_block_trace.cu").write_text(
         instrumented(SOURCE.read_text()))
-    (tmp / "ptx.cuh").write_text((SOURCE.parent / "ptx.cuh").read_text())
+    for header in SOURCE.parent.glob("*.cuh"):   # ptx.cuh, hopper.cuh
+        (tmp / header.name).write_text(header.read_text())
     so = tmp / "libk1trace.so"
     subprocess.run([_build.find_nvcc(), *_build.ARCH_FLAGS, "-std=c++17",
                     "-O3", "-Xcompiler", "-fPIC", "-shared", "-o", str(so),

@@ -14,8 +14,9 @@ device time by kernel and the device's idle share: 1 - (union of device
 intervals per call) / (ms per call from the CUDA events); then the device
 time of each layer module, from CUDA events in forward hooks. With
 ``--fused-heads`` both painters run the two output heads as one K3-fwd
-launch (``fused_heads=True``); the heads are then no layer module, and
-their time is ``head_fwd_kernel``'s in the table by kernel. ``--dtype
+call (``fused_heads=True``); the heads are then no layer module, and
+their time is that of K3-fwd's two launches, ``head_gemm_kernel`` (the u1
+GEMM) and ``head_chain_fwd_kernel``, in the table by kernel. ``--dtype
 bf16`` paints with both painters in bf16 (``CVAEPainter(...,
 dtype=torch.bfloat16)``, the JAX package's default compute dtype). TF32 is
 off.

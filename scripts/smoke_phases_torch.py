@@ -43,6 +43,16 @@ f32 step without and with K4), 11b, 13 and 15 (bf16 without and with
 K4), 15b and 23b; the checkout's own functions, so a parent's checkout
 runs its own kernels (its record may lack bwd2's launches apart).
 
+    python3 scripts/smoke_phases_torch.py ROOT k3
+
+runs K3's phases alone: 7 and 7b (K3-fwd and K3-bwd against their plain
+versions at the training shape, f32 and bf16, each timed beside cuDNN's
+heads), K3-fwd timed at the paint shape (16, 512, 512) without u1 in both
+dtypes, 8 and 8b (the f32 step and its parity), 9 (the golden painted with
+K3's heads, timed), 13 and 13b (the bf16 step and its parity) and 14 (the
+bf16 paint, timed), building the kernels first; the checkout's own
+functions, so a parent's checkout runs its own kernels.
+
 Needs a CUDA device. Imports only torch and the port.
 """
 import json
@@ -66,7 +76,7 @@ if rule == "align8":
 elif rule == "both11":
     layers._low_precision_in_f32 = lambda fn, x, w: (
         x.device.type == "cpu" or w.shape[0] == w.shape[1] == 1)
-elif rule not in ("tree", "mesh", "scripts", "k1", "k4"):
+elif rule not in ("tree", "mesh", "scripts", "k1", "k3", "k4"):
     raise SystemExit(f"unknown rule {rule!r}")
 dev = torch.device("cuda", 0)
 card = smoke.environment(dev)["nvidia_smi"]
@@ -98,6 +108,36 @@ if rule == "k1":
                 if not k.startswith("bound")}}), flush=True)
     sys.exit(0)
 ds = smoke.training_data()
+if rule == "k3":
+    from baryon_painter_tpu_torch.ops.head_stack import head_stack_fwd
+    bf16 = torch.bfloat16
+    keys = ("errors", "fwd_ms", "fwd_without_u1_ms", "fwd_plain_ms",
+            "fwd_library_ms", "bwd_ms", "bwd_plain_ms", "bwd_library_ms")
+    h7 = smoke.check_heads(dev)
+    h7b = smoke.check_heads(dev, dtype=bf16)
+    paint_fwd = {}
+    for dt in (torch.float32, bf16):
+        x, w1, w2, w3, al, _ = smoke.head_inputs(16, 512, 512, dev)
+        x = x.to(dt)
+        paint_fwd[str(dt)] = smoke._time_ms(
+            lambda: head_stack_fwd(x, w1, w2, w3, al), dev, 2, 10)
+        del x
+    t8 = smoke.train(dev, ds, card=card)
+    p8b = smoke.train_parity(dev, ds)
+    p9 = smoke.paint_fused_heads(dev, card=card)
+    t13 = smoke.train(dev, ds, card=card, dtype=bf16, f32_ms=t8["step_ms"])
+    p13b = smoke.train_parity_bf16(dev, ds)
+    p14 = smoke.paint_bf16(dev, card=card, f32_ms=p9["paint_ms"])
+    print("PHASES", json.dumps({
+        "root": root, "rule": rule, "card": card,
+        "7": {k: h7[k] for k in keys}, "7b": {k: h7b[k] for k in keys},
+        "k3_fwd_paint16_ms": paint_fwd,
+        "step8_ms": t8["step_ms"], "step8_peak_bytes": t8.get("peak_bytes"),
+        "8b": p8b, "paint9_ms": p9["paint_ms"],
+        "step13_ms": t13["step_ms"],
+        "step13_peak_bytes": t13.get("peak_bytes"), "13b": p13b,
+        "paint14_ms": p14["paint_ms"]}, default=str), flush=True)
+    sys.exit(0)
 if rule == "mesh":
     with smoke.synthetic_lightcone(dev) as data:
         c = smoke_mesh.lightcone_sharded(dev, data)

@@ -1,9 +1,9 @@
 """The tensor cores' products as the port's kernels use them, emulated in
 numpy for the CPU tests of their GEMM designs (csrc/res_block.cu,
-csrc/head_stack.cu).
+csrc/head_stack.cu, csrc/conv_bn.cu).
 
-mma.sync with f32 accumulation adds each k-step's products into the
-accumulator and rounds the sum toward zero (it truncates), and reads a tf32
+mma.sync and wgmma with f32 accumulation add each k-step's products into
+the accumulator and round the sum toward zero (they truncate), and read a tf32
 operand's top 19 bits. In 3xTF32 each f32 operand v is split into big = v
 with its 13 low mantissa bits cleared and small = v - big, which enters the
 product truncated to tf32 (``split_tf32`` in csrc/ptx.cuh); small*big +

@@ -1,7 +1,8 @@
 """K3 (the fused output heads) in bf16: the port's plain bf16 versions
 against the JAX package's Pallas kernel in bf16 (interpret mode) and its
-gradient, the wrappers' bf16 dispatch, the bounds in bf16, and a plain model
-of the bf16 kernels' fragment index rules (csrc/head_stack.cu).
+gradient, the wrappers' bf16 dispatch and the bounds in bf16. The bf16
+kernels' index rules are modelled with the f32 ones in
+``tests/test_torch_head_stack_gemm.py``.
 
 The JAX kernel runs in its input's dtype: x, the weights, v1, v2, the
 cotangent, du2 and du1 are cast to bf16 before each product, the products
@@ -150,13 +151,15 @@ def test_bf16_bounds_at_the_training_shape():
     forward 157.8 GFLOP in 0.160 ms plus 5.3 GFLOP on the CUDA cores in
     0.079 ms; x (201 MB) and y (25 MB) in bf16, u1 (403 MB) in f32:
     >= 0.24 ms. Backward 315.7 GFLOP in 0.319 ms plus 15.6 GFLOP in 0.233
-    ms; 0.83 GB: >= 0.55 ms."""
+    ms; 0.83 GB and the partials (264 chain blocks' of dw2, dw3 and dalpha,
+    132 splits' of dw1): >= 0.55 ms."""
     b = smoke.k3_bounds(24, 512, 512, dtype=torch.bfloat16)
     pix = 24 * 512 * 512
     weights = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3 + 2) * 4
     assert b["fwd_tc"]["bytes"] == pix * ((16 + 2) * 2 + 16 * 4) + weights
     assert b["bwd_tc"]["bytes"] == (pix * ((16 + 16 + 2) * 2 + 16 * 4)
-                                    + (1 + 1536) * weights)
+                                    + weights + 264 * 2 * (200 + 9 + 2) * 4
+                                    + 132 * 2 * 6272 * 4)
     assert b["fwd_tc"]["bound_ms"] == pytest.approx(0.2381, rel=1e-3)
     assert b["bwd_tc"]["bound_ms"] == pytest.approx(0.5510, rel=1e-3)
     assert b["fwd_tc"]["bound_by"] == b["bwd_tc"]["bound_by"] == "operations"
@@ -172,152 +175,3 @@ def test_bf16_kink_free_cotangent_uses_the_rounded_chain():
         dtype=torch.bfloat16)
     assert kept.dtype == torch.bfloat16 and 0 < zeroed < 0.5
     assert torch.all(kept[kept != dy.bfloat16()] == 0)
-
-
-# ---------------------------------------------------------------------- #
-# the bf16 kernels' fragment index rules, modelled in numpy
-# (csrc/head_stack.cu: kFX, kFXS, kFPB, kLDWF, kBD1, kPD1, kPD1B)
-
-FX, FXS, FPB, LDWF, FA1 = 28, 30, 840, 792, 22
-BD1, PD1, PD1B = 22, 488, 488
-
-
-def _bf16(a):
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16(
-        ).float().numpy().astype(np.float64)
-
-
-def _frag_a(A, g, t):
-    """m16n8k16 A registers of lane (g, t): (row, k) pairs of a0..a3."""
-    return [((g, 2 * t), (g, 2 * t + 1)), ((g + 8, 2 * t), (g + 8, 2 * t + 1)),
-            ((g, 2 * t + 8), (g, 2 * t + 9)),
-            ((g + 8, 2 * t + 8), (g + 8, 2 * t + 9))]
-
-
-def test_fwd_pair_planes_feed_the_u1_gemm_and_hit_every_bank():
-    """K3-fwd in bf16: plane q of the staged x holds channels (2 q, 2 q + 1)
-    of pixel (ry, rx) at word ry * 30 + rx; GEMM row p (of the tile + 3)
-    at tap (ky, kx) reads word (p // 22) * 30 + p % 22 + 30 ky + kx of
-    plane tig (a0, a1) and tig + 4 (a2, a3); B word (n, k pair) at
-    n * 396 + 8 tap + tig (+ 4). Modelled over a tile, the GEMM is conv7
-    of both heads, and a half-warp's loads hit distinct banks."""
-    rng = np.random.default_rng(0)
-    xr = _bf16(rng.standard_normal((FX, FX, 16)))
-    wu = _bf16(rng.standard_normal((16, 784)))
-    planes = np.full((8, FPB, 2), np.nan)
-    q = (np.arange(FX)[:, None] * FXS + np.arange(FX)[None, :]).ravel()
-    for c in range(8):
-        planes[c, q, 0] = xr[..., 2 * c].ravel()
-        planes[c, q, 1] = xr[..., 2 * c + 1].ravel()
-    rows = np.arange(FA1 * FA1)
-    qrow = (rows // FA1) * FXS + rows % FA1
-    u = np.zeros((rows.size, 16))
-    for ky in range(7):
-        for kx in range(7):
-            tap = 7 * ky + kx
-            addr = qrow + ky * FXS + kx
-            a = np.concatenate([planes[:, addr, 0].T[:, :, None],
-                                planes[:, addr, 1].T[:, :, None]],
-                               axis=2).reshape(rows.size, 16)
-            u += a @ wu[:, 16 * tap:16 * tap + 16].T
-    want = np.zeros((FA1, FA1, 16))
-    w = wu.reshape(16, 7, 7, 16)
-    for ky in range(7):
-        for kx in range(7):
-            want += xr[ky:ky + FA1, kx:kx + FA1] @ w[:, ky, kx].T
-    np.testing.assert_allclose(u.reshape(FA1, FA1, 16), want, rtol=1e-12,
-                               atol=1e-9)
-    # banks: lanes (g, tig) of a warp's m16 tile read plane tig at rows g
-    for base in range(0, rows.size - 15, 16):
-        for tap in (0, 24, 48):
-            ky, kx = divmod(tap, 7)
-            banks = {(t * FPB + qrow[base + g] + ky * FXS + kx) % 32
-                     for g in range(8) for t in range(4)}
-            assert len(banks) == 32
-    banks = {(n * LDWF // 2 + t) % 32 for n in range(8) for t in range(4)}
-    assert len(banks) == 32
-
-
-def _du1_and_x(rng):
-    du1 = _bf16(rng.standard_normal((BD1, BD1, 16)))     # tile + 3, (h, c)
-    xr = _bf16(rng.standard_normal((BD1, BD1, 16)))
-    return du1, xr
-
-
-def test_dx_head_split_sums_each_head_then_rounds():
-    """K3-bwd's dx in bf16: k16 step = a tap's 16 (h, c); A registers a0,
-    a1 hold head 0's channels (2 tig, 2 tig + 1), a2, a3 head 1's; one MMA
-    a head with the other's registers zero gives each head's transposed
-    conv, rounded to bf16, then summed and rounded: the plain version's
-    per-head dx summed in bf16."""
-    rng = np.random.default_rng(1)
-    du1, _ = _du1_and_x(rng)
-    w1 = _bf16(rng.standard_normal((2, 7, 7, 16, 8)) * 0.1)
-    wdx = w1.transpose(3, 1, 2, 0, 4).reshape(16, 784)  # [ci][ky, kx, h, c]
-    heads = np.zeros((2, 16, 16, 16))
-    for r in range(16):
-        for col in range(16):
-            for ky in range(7):
-                for kx in range(7):
-                    a = du1[r + 6 - ky, col + 6 - kx]      # (16,) = (h, c)
-                    b = wdx[:, 16 * (7 * ky + kx):16 * (7 * ky + kx) + 16]
-                    heads[0, r, col] += b[:, :8] @ a[:8]
-                    heads[1, r, col] += b[:, 8:] @ a[8:]
-    got = _bf16(_bf16(heads[0]) + _bf16(heads[1]))
-    xg = torch.zeros(1, 16, 16, 16)
-    dx = torch.zeros(1, 16, 16, 16)
-    for h in range(2):
-        g = torch.from_numpy(du1[None, :, :, 8 * h:8 * h + 8]).permute(
-            0, 3, 1, 2).float()
-        w = torch.from_numpy(w1[h]).permute(3, 2, 0, 1).float()   # OIHW
-        full = torch.nn.grad.conv2d_input((1, 16, 22, 22), w, g, padding=3)
-        part = full[:, :, 3:19, 3:19].bfloat16().float()
-        dx = (dx + part).bfloat16().float()
-    np.testing.assert_allclose(got, dx.permute(0, 2, 3, 1)[0].numpy(),
-                               rtol=0, atol=1e-6)
-    # A fragment registers of the pair planes: word tig * 488 + pixel;
-    # 8 consecutive pixels and 4 planes: 32 banks
-    banks = {(t * PD1 + g) % 32 for g in range(8) for t in range(4)}
-    assert len(banks) == 32
-    del xg
-
-
-def test_dw1_planar_copies_give_even_pairs_and_the_weight_gradient():
-    """K3-bwd's dw1 in bf16: K = a tile row's 16 pixels a k16 step; du1's
-    planar copy holds pixel (py, px) at element py * 22 + px + 1, x's two
-    copies at py * 22 + px and py * 22 + px + 1; every register's pixel
-    pair starts at an even element of the copy it reads, and the product
-    is du1^T x over the tile, for every tap."""
-    rng = np.random.default_rng(2)
-    du1, xr = _du1_and_x(rng)
-    dpl = np.full((16, PD1B), np.nan)
-    x0 = np.full((16, PD1B), np.nan)
-    x1 = np.full((16, PD1B), np.nan)
-    p = np.arange(BD1 * BD1)
-    for c in range(16):
-        dpl[c, p + 1] = du1[..., c].ravel()
-        x0[c, p] = xr[..., c].ravel()
-        x1[c, p + 1] = xr[..., c].ravel()
-    got = np.zeros((49, 16, 16))     # [tap][ci][(h, c)]
-    for r in range(16):
-        for t in range(4):
-            for half in (0, 8):
-                a_off = (r + 3) * BD1 + 2 * t + 4 + half
-                assert a_off % 2 == 0
-                for tap in range(49):
-                    ky, kx = divmod(tap, 7)
-                    src, off = (x1, 1) if kx % 2 else (x0, 0)
-                    b_off = off + (r + ky) * BD1 + 2 * t + kx + half
-                    assert b_off % 2 == 0
-                    for e in (0, 1):
-                        got[tap] += np.outer(src[:, b_off + e],
-                                             dpl[:, a_off + e])
-    want = np.zeros((49, 16, 16))
-    for tap in range(49):
-        ky, kx = divmod(tap, 7)
-        want[tap] = np.einsum("rcm,rci->im", du1[3:19, 3:19],
-                              xr[ky:ky + 16, kx:kx + 16])
-    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
-    # dw1's A loads (8 planes x 4 words) and B loads hit 32 banks
-    banks = {(g * PD1B // 2 + t) % 32 for g in range(8) for t in range(4)}
-    assert len(banks) == 32

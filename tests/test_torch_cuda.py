@@ -240,11 +240,14 @@ def test_device_cache_on_the_card_matches_the_cpu(cuda_device):
 
 
 @pytest.mark.parametrize("shape", [(2, 32, 32), (3, 37, 45), (1, 16, 16),
-                                   (1, 12, 20), (4, 512, 512)],
+                                   (1, 12, 20), (4, 512, 512), (1, 29, 37),
+                                   (24, 512, 512)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_k3_matches_plain_version(cuda_device, shape):
     """Whole and ragged tiles, one tile, a partial tile at every image edge
-    (1, 12, 20) and the training resolution: K3-fwd's y and kept u1, and
+    (1, 12, 20; 1, 29, 37: H and W multiples of none of the passes'
+    tiles), the training resolution and the training shape (24, 512, 512:
+    dw1's splits over many chunks): K3-fwd's y and kept u1, and
     K3-bwd from that u1 against the plain backward given the same u1; the
     cotangent zeroed where it would reach u2's kink
     (``smoke.kink_free_cotangent``). Without u1 kept K3-fwd gives the same
@@ -311,6 +314,40 @@ def test_k3_bwd_is_deterministic(cuda_device):
         assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_k3_fwd_is_deterministic(cuda_device, dtype):
+    """K3-fwd's two launches (the u1 GEMM, the chain) give the same y and u1
+    bit for bit on a repeated call, with u1 kept or not."""
+    x, w1, w2, w3, al, _ = smoke.head_inputs(2, 40, 300, cuda_device, seed=6)
+    x = x.to(dtype)
+    y, u1 = k3.head_stack_fwd(x, w1, w2, w3, al, keep_u1=True)
+    y2, u12 = k3.head_stack_fwd(x, w1, w2, w3, al, keep_u1=True)
+    y3 = k3.head_stack_fwd(x, w1, w2, w3, al)
+    assert torch.equal(y, y2) and torch.equal(u1, u12)
+    assert torch.equal(y, y3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_k3_counts_each_pass_once_a_call(cuda_device, dtype):
+    """Each wrapper call adds one to its ``.launches`` and one to each of its
+    passes in ``.cuda_launches``: K3-fwd the u1 GEMM and the chain, K3-bwd
+    the chain, dx and dw1."""
+    x, w1, w2, w3, al, dy = smoke.head_inputs(1, 29, 37, cuda_device, seed=7)
+    x = x.to(dtype)
+    fwd0 = dict(k3.head_stack_fwd.cuda_launches)
+    bwd0 = dict(k3.head_stack_bwd.cuda_launches)
+    _, u1 = k3.head_stack_fwd(x, w1, w2, w3, al, keep_u1=True)
+    k3.head_stack_fwd(x, w1, w2, w3, al)
+    k3.head_stack_bwd(x, w1, w2, w3, al, dy, u1=u1)
+    torch.cuda.synchronize()
+    assert k3.head_stack_fwd.cuda_launches == {k: v + 2
+                                               for k, v in fwd0.items()}
+    assert k3.head_stack_bwd.cuda_launches == {k: v + 1
+                                               for k, v in bwd0.items()}
+
+
 def test_k3_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     x, w1, w2, w3, al, dy = smoke.head_inputs(1, 16, 16, cuda_device)
     with pytest.raises(TypeError, match="float32"):
@@ -333,7 +370,8 @@ def test_k3_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
 
 
 @pytest.mark.parametrize("shape", [(2, 32, 32), (3, 37, 45), (1, 12, 20),
-                                   (4, 512, 512)],
+                                   (4, 512, 512), (1, 29, 37),
+                                   (24, 512, 512)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_k3_bf16_matches_plain_version(cuda_device, shape):
     """K3-fwd and K3-bwd in bf16 against the plain bf16 versions, as the

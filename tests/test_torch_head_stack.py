@@ -169,8 +169,8 @@ def test_bounds_at_the_training_shape():
     cores: 1.035 ms (``fwd_tc``), against x read and y and u1 written (0.26
     ms at 3.35 TB/s). The backward's two 7x7 GEMMs (dx, dw1), 316 GFLOP,
     take >= 1.913 ms and the rest, 15.6 GFLOP, >= 0.232 ms: 2.145 ms
-    (``bwd_tc``), against x, u1 and dy read, dx written and 1,536 blocks'
-    partials."""
+    (``bwd_tc``), against x, u1 and dy read, dx written and the partials:
+    264 chain blocks' of dw2, dw3 and dalpha, 132 splits' of dw1."""
     b = smoke.k3_bounds(24, 512, 512)
     pix = 24 * 512 * 512
     weights = 2 * (7 * 7 * 16 * 8 + 5 * 5 * 8 + 3 * 3 + 2) * 4
@@ -183,7 +183,8 @@ def test_bounds_at_the_training_shape():
             ("fwd_tc", 2 * pix * 2 * 7 * 7 * 16 * 8, 1.035,
              pix * (16 + 2 + 16) * 4 + weights),
             ("bwd_tc", 2 * pix * 2 * 2 * 7 * 7 * 16 * 8, 2.145,
-             pix * (16 + 16 + 2 + 16) * 4 + (1 + 1536) * weights)):
+             pix * (16 + 16 + 2 + 16) * 4 + weights
+             + 264 * 2 * (200 + 9 + 2) * 4 + 132 * 2 * 6272 * 4)):
         tc = b[key]
         assert tc["flops"] == b[key[:3]]["flops"]
         assert tc["bound_by"] == "operations"
@@ -196,7 +197,7 @@ def test_bounds_at_the_training_shape():
     paint = smoke.k3_bounds(16, 512, 512, keep_u1=False)["fwd_tc"]
     assert paint["bytes"] == 16 * 512 * 512 * (16 + 2) * 4 + weights
     assert paint["bound_ms"] == pytest.approx(0.690, rel=1e-3)
-    assert smoke.k3_bwd_blocks(24, 512, 512) == 24 * 32 * 2
+    assert smoke.k3_bwd_blocks(24, 512, 512) == {"chain": 264, "dw1": 132}
     k2b = smoke.k2_bound(24, 2, 512)
     assert k2b["bytes"] == 2 * 24 * 2 * 2 * 512 * 512 * 4
     assert k2b["bound_by"] == "bytes"

@@ -16,7 +16,15 @@ K1_F32 = ("_ZN57_INTERNAL_res_block_cu_12345678_9_res_block_cu_abcdef12"
 K1_BF16 = ("_ZN57_INTERNAL_res_block_cu_12345678_9_res_block_cu_abcdef12"
            "16res_block_kernelI13__nv_bfloat16EEv14CUtensorMap_stS2_PKT_"
            "PKfS7_S7_S7_PS3_iiiiff")
-K3_FWD = "_ZN12_GLOBAL__N_115head_fwd_kernelIfEEvPKT_PKfS5_S5_PS1_Pfiiii"
+# K3's kernels: the pixel GEMMs <T, KIND> (0 the u1 GEMM, 1 dx), dw1 and
+# the chains <T>
+K3_U1 = ("_ZN12_GLOBAL__N_116head_gemm_kernelIfLi0EEEv14CUtensorMap_S1_"
+         "NS_7GemmGeoEiiiPv")
+K3_DX = ("_ZN12_GLOBAL__N_116head_gemm_kernelI13__nv_bfloat16Li1EEEv14"
+         "CUtensorMap_S2_NS_7GemmGeoEiiiPv")
+K3_DW1 = "_ZN12_GLOBAL__N_115head_dw1_kernelIfEEv14CUtensorMap_S1_NS_5DwGeoEPf"
+K3_CHAIN = ("_ZN12_GLOBAL__N_121head_chain_bwd_kernelI13__nv_bfloat16EEvPKfPK"
+            "T_S3_S3_S3_PS4_PfS8_S8_iii")
 # K4's GEMMs: <T, N> (the u GEMM <T, N, STATS>), T = f (float) or t (bf16
 # as uint16_t), and bwd2's du pass <T>
 K4_PREFIX = "_ZN43_GLOBAL__N__ae3193cd_10_conv_bn_cu_fc4f734f"
@@ -30,7 +38,10 @@ K4_DU = K4_PREFIX + "9du_kernelItEEvPKfPKT_S5_NS_8DuConstsEPS3_iiii"
 @pytest.mark.parametrize("mangled,name", [
     (K1_F32, "res_block_kernel<float>"),
     (K1_BF16, "res_block_kernel<bf16>"),
-    (K3_FWD, "head_fwd_kernel<float>"),
+    (K3_U1, "head_u1_kernel<float>"),
+    (K3_DX, "head_dx_kernel<bf16>"),
+    (K3_DW1, "head_dw1_kernel<float>"),
+    (K3_CHAIN, "head_chain_bwd_kernel<bf16>"),
     (K4_STATS, "stats_kernel<float,16>"),
     (K4_BWD1, "bwd1_kernel<bf16,64>"),
     (K4_DX, "dx_kernel<float,8>"),
@@ -71,7 +82,7 @@ def test_sass_counts_hmma_hgmma_and_tma_loads():
         "        /*0100*/                   UTMALDG.4D [UR8], [UR4] ;",
         "        /*0200*/                   HGMMA.64x128x16.F32.BF16 R24, "
         "R104, gdesc[UR4], R24, gsb0 ;",
-        f"\t\tFunction : {K3_FWD}",
+        f"\t\tFunction : {K3_U1}",
         "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, "
         "R4 ;",
         "        /*0110*/                   HMMA.1688.F32.TF32 R4, R8, R14, "
@@ -81,14 +92,14 @@ def test_sass_counts_hmma_hgmma_and_tma_loads():
         "R4 ;"])
     got = kernel_report.sass_counts(sass)
     assert set(got) == {"res_block_kernel<float>", "res_block_kernel<bf16>",
-                        "head_fwd_kernel<float>"}
+                        "head_u1_kernel<float>"}
     f32 = got["res_block_kernel<float>"]
     assert (f32["hmma"], f32["hgmma"], f32["tma_loads"]) == (0, 2, 2)
     assert f32["variants"] == {"HGMMA.64x128x8.F32.TF32": 2}
     assert f32["example"].startswith("HGMMA.64x128x8.F32.TF32 R24, R104")
     bf16 = got["res_block_kernel<bf16>"]
     assert (bf16["hmma"], bf16["hgmma"], bf16["tma_loads"]) == (0, 1, 1)
-    k3 = got["head_fwd_kernel<float>"]
+    k3 = got["head_u1_kernel<float>"]
     assert (k3["hmma"], k3["hgmma"], k3["tma_loads"]) == (2, 0, 0)
     assert k3["variants"] == {"HMMA.1688.F32.TF32": 2}
 

@@ -90,3 +90,35 @@ def test_tooling_launches_reach_the_kernels_record():
         "validate_launches": 1}
     assert got[("res_block_infer", "float32")] == {}
     assert all(v == {} for (n, d), v in got.items() if d == "bfloat16")
+
+
+@pytest.mark.parametrize("kernel", sorted(smoke.TRACE_KERNELS))
+def test_trace_kernels_are_launched_by_named_calls(kernel):
+    """22a compares each traced kernel with the wrapper calls that launch
+    it: every symbol has its calls, each a key of the launch counts, and the
+    symbols are told apart by name."""
+    calls = smoke.TRACE_CALLS[kernel]
+    assert calls and set(calls) <= set(smoke._launches())
+    others = [v for k, v in smoke.TRACE_KERNELS.items() if k != kernel]
+    assert not any(smoke.TRACE_KERNELS[kernel] in v or v in
+                   smoke.TRACE_KERNELS[kernel] for v in others)
+
+
+def test_k3_cuda_launches_are_held_to_one_a_call():
+    """K3's passes as its wrappers count them: reset with the calls, and a
+    pass launched more or fewer times than its wrapper was called fails."""
+    smoke._reset_launches()
+    cuda = smoke._cuda_launches()
+    assert cuda == {"k3_fwd": {"bpt_head_u1_gemm": 0, "bpt_head_chain_fwd": 0},
+                    "k3_bwd": {"bpt_head_chain_bwd": 0, "bpt_head_dx": 0,
+                               "bpt_head_dw1": 0}}
+    calls = {"k3_fwd": 3, "k3_bwd": 2}
+    ok = {k: dict.fromkeys(v, calls[k]) for k, v in cuda.items()}
+    smoke._expect_cuda_launches("ok", calls, ok)
+    for key, name in (("k3_fwd", "bpt_head_u1_gemm"),
+                      ("k3_bwd", "bpt_head_dw1")):
+        for off in (-1, 1):
+            bad = {k: dict(v) for k, v in ok.items()}
+            bad[key][name] += off
+            with pytest.raises(AssertionError, match="K3's CUDA launches"):
+                smoke._expect_cuda_launches("bad", calls, bad)
