@@ -73,6 +73,15 @@ and the bf16 configuration (the JAX package's default compute dtype):
      from the plain f32 step (the fused sites in plain PyTorch in both),
      printed beside the chaos floor: how far the plain bf16 step moves
      when only the sites' sums change order
+ 15c. under cuDNN's default algorithms (the training CLI's), the kernels
+     steps against the whole-model f64 step: f32 (K4 off and on) each
+     gradient leaf within max(STEP_GRAD_TOL, STEP_F64_FACTOR x the plain
+     f32 steps' distance, the larger of two plain versions', or, with
+     K4, the plain distance plus 11b's witness), the loss to
+     STEP_LOSS_RTOL, beside the
+     deterministic algorithms' distances; bf16 (K4 off and on) the
+     concatenated gradient, each leaf and the loss within BF16_F64_FACTOR
+     x the plain bf16 steps' distance (the larger of two plain versions')
 
 and the paint path's consumer, the SLICS lightcone (``lightcone``), through
 the lightcone CLI's own ``run`` (scripts/create_lightcone_torch.py) on a
@@ -1318,10 +1327,11 @@ def step_gradients(device, dataset, idx, eps, kernels: bool,
                    n_res_blocks: int = N_RES_BLOCKS, dtype=None,
                    plain_heads: bool = False, config: dict = None,
                    variables: dict = None, pk_eps=None,
-                   metrics: dict = None):
+                   metrics: dict = None, deterministic: bool = True):
     """One training step from the seeded initialisation on the batch
     ``idx`` with the latent noise ``eps``, the model in ``dtype``, cuDNN on
-    its deterministic algorithms: (loss, each trainable parameter's
+    its deterministic algorithms (on its default ones, as the training CLI
+    runs, with ``deterministic=False``): (loss, each trainable parameter's
     gradient by name). ``kernels``: K2's gather and K3's heads, else the
     plain versions and cuDNN's heads; ``plain_heads``: the plain gather
     and the fused heads through K3's plain versions; ``site`` runs in place
@@ -1333,13 +1343,9 @@ def step_gradients(device, dataset, idx, eps, kernels: bool,
                            use_kernel=kernels, n_res_blocks=n_res_blocks,
                            fused_train_conv=fused_train_conv, dtype=dtype,
                            config=config, variables=variables)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        with _k4_sites(site or conv_bn_relu), _plain_heads(plain_heads):
-            m = trainer.step_indices(idx, 1e-4, eps=eps, pk_eps=pk_eps)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    with _cudnn_algorithms(deterministic), _k4_sites(site or conv_bn_relu), \
+            _plain_heads(plain_heads):
+        m = trainer.step_indices(idx, 1e-4, eps=eps, pk_eps=pk_eps)
     if metrics is not None:
         metrics.update({k: float(v.float().sum()) for k, v in m.items()})
     return float(m["elbo"]), {
@@ -1363,14 +1369,10 @@ def step_gradients_f64(device, dataset, idx, eps,
     cache = trainer.device_cache
     raw_input, raw_labels, z = cache.gather(cache.digits(idx))
     x, y = trainer._prepare(raw_input, raw_labels, z)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with _cudnn_algorithms(True):
         out = model(x.double(), y.double(), z.double(),
                     eps=torch.as_tensor(eps).double())
         (-out["elbo"]).backward()
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     return float(out["elbo"].detach()), {
         n: p.grad.detach().clone()
         for n, p in model.named_parameters() if p.requires_grad}
@@ -1680,6 +1682,198 @@ def train_parity_bf16(device, dataset, batch: int = TRAIN_BATCH,
           ratio=f"{res['ratio']:.4f}", limit_ratio=BF16_STEP_RATIO, **extra,
           loss_rel_err=f"{loss_err:.3e}", worst_grad=res["worst_grad"])
     return res
+
+
+# 15c: the steps against the whole-model f64 step under cuDNN's default
+# algorithms (the training CLI's), f32 and bf16: a bf16 kernels step's
+# concatenated gradient, each of its leaves and its loss lie within
+# BF16_F64_FACTOR times the plain bf16 steps' distance from f64 (the
+# larger of two plain versions': bf16 is chaotic, a leaf's distance moves
+# with the order of a sum, 15b), STEP_GRAD_ZERO's leaves (0 analytically,
+# rounding noise in both) within STEP_GRAD_FLOOR of the largest entry or
+# that far
+BF16_F64_FACTOR = 1.5
+
+
+def _f64_distances(run, ref) -> dict:
+    """A step's distance from the f64 step ``ref`` (both (loss, grads)):
+    the loss's relative error, the concatenated gradient's relative L2
+    distance and each leaf's (``step_grad_errors``)."""
+    return {"loss": abs(run[0] - ref[0]) / abs(ref[0]),
+            "vector": rel_l2(_grad_vector(run[1]), _grad_vector(ref[1])),
+            "leaves": step_grad_errors(run[1], ref[1])[0]}
+
+
+def train_parity_f64(device, dataset, batch: int = TRAIN_BATCH,
+                     n_res_blocks: int = N_RES_BLOCKS, card=None) -> dict:
+    """Phase 15c: the kernels steps against the whole-model f64 step
+    (``step_gradients_f64``) under cuDNN's default algorithms, as the
+    training CLI runs them, from the same initialisation, batch and latent
+    noise as 8b.
+
+    - f32 (K2, K3, and K4 off and on): the loss to STEP_LOSS_RTOL and each
+      leaf within max(STEP_GRAD_TOL, STEP_F64_FACTOR times the plain f32
+      steps' distance for that leaf), under the same default algorithms,
+      the larger of two plain versions' (the wholly plain step with cuDNN's
+      heads and trunk, and the step with the kernels' plain versions: K3's,
+      and with K4 its sites through ``plain_k4``); with K4 a leaf may also
+      lie as far as the plain step plus 11b's witness for that leaf (how
+      far the sites' own f32 rounding moves it: the plain sites against
+      the sites in f64, ``_site_forward_f64``); the plain and kernels
+      steps' distances under the deterministic algorithms (8b's) are
+      printed beside them, so that the algorithms' own share is on record;
+    - bf16 (K2, K3 in bf16, and K4 in bf16 off and on): the concatenated
+      gradient, each leaf and the loss within BF16_F64_FACTOR times the
+      plain bf16 steps' distance from f64, the larger of two plain
+      versions' (default algorithms, the plain gather): with K4 off the
+      heads through K3's plain versions and through cuDNN's bf16 convs,
+      with K4 on the sites through ``plain_k4`` with their u summed in f32
+      and in f64 (``_k4_u_in_f64``, 15b's chaos floor); STEP_GRAD_ZERO's
+      leaves within max(1, that) of STEP_GRAD_FLOOR times the largest
+      entry.
+
+    Prints the worst leaves by name; raises on any rule."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    idx, eps = parity_inputs(dataset, batch)
+    bf16 = torch.bfloat16
+    plans = {
+        "f32_kernels": dict(kernels=True, fused_train_conv=False),
+        "f32_kernels_k4": dict(kernels=True, fused_train_conv=True),
+        "f32_plain": dict(kernels=False, fused_train_conv=False),
+        "f32_plain_heads": dict(kernels=False, plain_heads=True,
+                                fused_train_conv=False),
+        "f32_plain_k4": dict(kernels=False, plain_heads=True,
+                             fused_train_conv=True, site=plain_k4()),
+        "f32_sites_f64": dict(kernels=False, plain_heads=True,
+                              fused_train_conv=True,
+                              site=plain_k4(_site_forward_f64)),
+        "f32_kernels_det": dict(kernels=True, fused_train_conv=False,
+                                deterministic=True),
+        "f32_plain_det": dict(kernels=False, fused_train_conv=False,
+                              deterministic=True),
+        "bf16_kernels": dict(kernels=True, fused_train_conv=False,
+                             dtype=bf16),
+        "bf16_kernels_k4": dict(kernels=True, fused_train_conv=True,
+                                dtype=bf16),
+        "bf16_plain": dict(kernels=False, plain_heads=True,
+                           fused_train_conv=False, dtype=bf16),
+        "bf16_cudnn": dict(kernels=False, fused_train_conv=False,
+                           dtype=bf16),
+        "bf16_plain_k4": dict(kernels=False, plain_heads=True,
+                              fused_train_conv=True, site=plain_k4(),
+                              dtype=bf16),
+        "bf16_plain_k4_order": dict(kernels=False, plain_heads=True,
+                                    fused_train_conv=True, site=plain_k4(),
+                                    dtype=bf16, order=True)}
+    ref = step_gradients_f64(device, dataset, idx, eps, n_res_blocks)
+    dist, sites = {}, {}
+    for label, kw in plans.items():
+        kw.setdefault("deterministic", False)
+        order = kw.pop("order", False)
+        with (_k4_u_in_f64() if order else contextlib.nullcontext()):
+            run = step_gradients(device, dataset, idx, eps,
+                                 n_res_blocks=n_res_blocks, **kw)
+        dist[label] = _f64_distances(run, ref)
+        if label in ("f32_plain_k4", "f32_sites_f64"):
+            sites[label] = run[1]
+        del run
+    grads64 = ref[1]
+    # 11b's witness, leaf by leaf: how far the sites' own f32 rounding
+    # moves the step (the plain sites against the sites in f64)
+    witness = step_grad_errors(sites["f32_plain_k4"],
+                               sites["f32_sites_f64"])[0]
+    del sites
+    fails, out = [], {}
+    for label, plains in (("f32_kernels", ("f32_plain", "f32_plain_heads")),
+                          ("f32_kernels_k4", ("f32_plain", "f32_plain_k4"))):
+        errs = dist[label]["leaves"]
+        plain = {n: max(dist[q]["leaves"][n] for q in plains) for n in errs}
+        k4 = label.endswith("_k4")
+        share = {n: e / max(STEP_GRAD_TOL, STEP_F64_FACTOR * plain[n],
+                            plain[n] + witness[n] if k4 else 0.0)
+                 for n, e in errs.items()}
+        worst = max(share, key=share.get)
+        out[label] = {"loss": dist[label]["loss"],
+                      "worst_leaf": max(errs, key=errs.get),
+                      "worst_leaf_err": max(errs.values()),
+                      "limit_share": share[worst],
+                      "limit_share_leaf": worst}
+        print(f"  15c {label} against f64 (default algorithms): loss "
+              f"{dist[label]['loss']:.3e}, worst gradients "
+              f"{_worst(errs, grads64)}; worst shares of max("
+              f"{STEP_GRAD_TOL:g}, {STEP_F64_FACTOR} x plain"
+              + (", plain + witness" if k4 else "") + "): "
+              + ", ".join(f"{n}: {share[n]:.3f}"
+                          for n in sorted(share, key=share.get)[-5:]),
+              flush=True)
+        if dist[label]["loss"] > STEP_LOSS_RTOL:
+            fails.append((label, "loss", dist[label]["loss"]))
+        if share[worst] > 1.0:
+            fails.append((label, worst, share[worst]))
+    for label in ("f32_plain", "f32_plain_heads", "f32_plain_k4",
+                  "f32_sites_f64", "f32_plain_det", "f32_kernels_det"):
+        errs = dist[label]["leaves"]
+        out[label] = {"loss": dist[label]["loss"],
+                      "worst_leaf": max(errs, key=errs.get),
+                      "worst_leaf_err": max(errs.values())}
+        print(f"  15c {label} against f64: loss {dist[label]['loss']:.3e}, "
+              f"worst gradients {_worst(errs, grads64)}", flush=True)
+    for label, plains in (("bf16_kernels", ("bf16_plain", "bf16_cudnn")),
+                          ("bf16_kernels_k4", ("bf16_plain_k4",
+                                               "bf16_plain_k4_order"))):
+        d = dist[label]
+        p = {"loss": max(dist[q]["loss"] for q in plains),
+             "vector": max(dist[q]["vector"] for q in plains),
+             "leaves": {n: max(dist[q]["leaves"][n] for q in plains)
+                        for n in d["leaves"]}}
+        limit = {n: max(1.0 if n in STEP_GRAD_ZERO else 0.0,
+                        BF16_F64_FACTOR * e) for n, e in p["leaves"].items()}
+        share = {n: e / limit[n] if limit[n] > 0 else float("inf")
+                 for n, e in d["leaves"].items()}
+        worst = max(share, key=share.get)
+        out[label] = {"loss": d["loss"], "plain_loss": p["loss"],
+                      "vector": d["vector"], "plain_vector": p["vector"],
+                      "vector_ratio": d["vector"] / p["vector"],
+                      "loss_ratio": (d["loss"] / p["loss"] if p["loss"] > 0
+                                     else float("inf")),
+                      "limit_share": share[worst],
+                      "limit_share_leaf": worst}
+        print(f"  15c {label} against f64 (default algorithms): gradient "
+              f"{d['vector']:.4e} (plain {p['vector']:.4e}), loss "
+              f"{d['loss']:.3e} (plain {p['loss']:.3e}); worst gradients "
+              f"{_worst(d['leaves'], grads64)}; plain's "
+              f"{_worst(p['leaves'], grads64)}; "
+              + ", ".join(f"{q} {dist[q]['vector']:.4e}" for q in plains)
+              + f"; worst shares of {BF16_F64_FACTOR} x plain: "
+              + ", ".join(f"{n}: {share[n]:.3f}"
+                          for n in sorted(share, key=share.get)[-5:]),
+              flush=True)
+        for what, got, cap in (
+                ("vector", d["vector"], BF16_F64_FACTOR * p["vector"]),
+                ("loss", d["loss"], BF16_F64_FACTOR * p["loss"])):
+            if got > cap:
+                fails.append((label, what, got, cap))
+        if share[worst] > 1.0:
+            fails.append((label, worst, share[worst]))
+    if fails:
+        raise AssertionError(f"15c steps against f64: {fails}")
+    f32 = lambda key, field: f"{out[key][field]:.3e}"
+    _line("15c", "train_parity_f64", t0, card=json.dumps(card),
+          sites_witness_max=f"{max(witness.values()):.3e}",
+          f32_kernels_worst=f32("f32_kernels", "worst_leaf_err"),
+          f32_kernels_k4_worst=f32("f32_kernels_k4", "worst_leaf_err"),
+          f32_plain_worst=f32("f32_plain", "worst_leaf_err"),
+          f32_plain_det_worst=f32("f32_plain_det", "worst_leaf_err"),
+          f32_kernels_det_worst=f32("f32_kernels_det", "worst_leaf_err"),
+          f32_share_max=(
+              f"{max(out[k]['limit_share'] for k in ('f32_kernels', 'f32_kernels_k4')):.3f}"),
+          f32_loss_max=(
+              f"{max(out[k]['loss'] for k in ('f32_kernels', 'f32_kernels_k4')):.3e}"),
+          **{f"{k}_{f}": f"{out[k][f]:.4f}"
+             for k in ("bf16_kernels", "bf16_kernels_k4")
+             for f in ("vector_ratio", "loss_ratio", "limit_share")})
+    return out
 
 
 def paint_fused_heads(device, card=None, heads_unfused_ms=None,
@@ -3576,6 +3770,12 @@ def _gate_reference() -> dict:
         return {k: ref[k] for k in ref.files}
 
 
+# the readings whose bf16 is also held to the JAX package's bf16 through
+# its fused blocks and heads (the port's bf16 gate paints through K1 and
+# K3; the CGANs' fused readings are printed beside, not held)
+GATE_FUSED_HELD = ("cvae",)
+
+
 def gate_check(device, checkpoint: str, want_launches: dict, kind: str,
                fallback: dict = None, redshifts: str = None,
                seeds: int = GATE_SEEDS, card=None, phase="20a") -> dict:
@@ -3599,7 +3799,11 @@ def gate_check(device, checkpoint: str, want_launches: dict, kind: str,
       readings lie up to 0.63 of that distance from its CPU ones (the
       fiducial CVAE), the CGAN's pixels move by about all of it when only
       a sum's order changes (phase 17c); a bf16 paint gone wrong (NaN, or a
-      1 -> 1 channel convolution off by 350 %) lies orders beyond it;
+      1 -> 1 channel convolution off by 350 %) lies orders beyond it. A
+      CVAE's (``GATE_FUSED_HELD``) within the same limit of the JAX
+      package's CPU bf16 through its own fused blocks and heads too
+      (``bf16_fused``: K1's and K3's rounding points), where the reference
+      holds it; a CGAN's distance from that is printed;
     - the committed report's bf16 ("model") values beside the port's
       spread, printed and counted but not held: the TPU's bf16 readings
       are not reproducible off the TPU, by the JAX package either (its CPU
@@ -3651,6 +3855,7 @@ def gate_check(device, checkpoint: str, want_launches: dict, kind: str,
             jit = ref[f"{kind}_bf16_jit_z{zk}"]
             pinned = ref[f"{kind}_bf16_pinned_z{zk}"]
             jax32 = ref[f"{kind}_f32_z{zk}"]
+            fused = ref.get(f"{kind}_bf16_fused_z{zk}")
             for i, name in enumerate(("auto", "cross")):
                 r = {"f32": k[i], "f32_plain": p[i],
                      "kernels_vs_plain": abs(k[i] - p[i]),
@@ -3664,12 +3869,17 @@ def gate_check(device, checkpoint: str, want_launches: dict, kind: str,
                                        abs(jit[i] - pinned[i]))}
                 r["f32_vs_committed"] = abs(r["f32"] - r["committed_f32"])
                 r["bf16_vs_jax"] = abs(r["bf16"] - r["jax_bf16_pinned"])
+                if fused is not None:
+                    r["jax_bf16_fused"] = float(fused[i])
+                    r["bf16_vs_jax_fused"] = abs(r["bf16"] - fused[i])
                 rows[zk, name] = r
                 print(f"  {phase} z={zk} {name}: f32 {k[i]:.5f} (plain "
                       f"{p[i]:.5f}, committed {r['committed_f32']}); bf16 "
                       f"{bk[i]:.5f} (cuDNN {bc[i]:.5f}, JAX CPU pinned "
-                      f"{pinned[i]:.5f}, jitted {jit[i]:.5f}, limit "
-                      f"{r['bf16_limit']:.5f})", flush=True)
+                      f"{pinned[i]:.5f}, jitted {jit[i]:.5f}"
+                      + (f", fused {fused[i]:.5f}" if fused is not None
+                         else "")
+                      + f", limit {r['bf16_limit']:.5f})", flush=True)
                 if r["kernels_vs_plain"] > GATE_KERNEL_TOL:
                     fails.append(("kernels_vs_plain", zk, name,
                                   r["kernels_vs_plain"]))
@@ -3679,6 +3889,10 @@ def gate_check(device, checkpoint: str, want_launches: dict, kind: str,
                 if r["bf16_vs_jax"] > r["bf16_limit"]:
                     fails.append(("bf16_vs_jax", zk, name,
                                   r["bf16_vs_jax"]))
+                if (kind in GATE_FUSED_HELD and fused is not None
+                        and r["bf16_vs_jax_fused"] > r["bf16_limit"]):
+                    fails.append(("bf16_vs_jax_fused", zk, name,
+                                  r["bf16_vs_jax_fused"]))
         del p32, p16
         eval_s, reads = {}, {}
         for label, dtype in g.legs:
@@ -3711,6 +3925,10 @@ def gate_check(device, checkpoint: str, want_launches: dict, kind: str,
           bf16_vs_jax_max=f"{worst('bf16_vs_jax'):.3e}",
           bf16_over_limit_max=(
               f"{max(r['bf16_vs_jax'] / r['bf16_limit'] for r in rows.values()):.3f}"),
+          bf16_fused_over_limit_max=(
+              f"{max(r['bf16_vs_jax_fused'] / r['bf16_limit'] for r in rows.values()):.3f}"
+              if all("bf16_vs_jax_fused" in r for r in rows.values())
+              else "-"),
           f32_spread_outside=len(outside["f32"]),
           bf16_committed_outside=len(outside["model"]),
           setup_s=f"{setup_s:.3f}",
@@ -3782,7 +4000,9 @@ def gate_bf16(device, cases=GATE_BF16_CASES, card=None,
     bf16 prior noise. Each median error (auto, cross) is held, as 20a/20b
     hold theirs, within max(GATE_FLOOR, |JAX f32 - JAX bf16|, |JAX jitted
     - JAX pinned|) of the JAX package's CPU bf16 (``GATE_REFERENCE``,
-    ``scripts/make_gate_reference_torch.py``). Prints, for each reading,
+    ``scripts/make_gate_reference_torch.py``), and within the same limit of
+    its CPU bf16 through its fused blocks and heads where the reference
+    holds that (``bf16_fused``). Prints, for each reading,
     committed / JAX CPU bf16 / port / share of the limit, and whether it
     is one of the committed readings outside the port's spread
     (``GATE_BF16_OPEN``). ``keep`` maps a case's prefix to a directory in
@@ -3824,6 +4044,7 @@ def gate_bf16(device, cases=GATE_BF16_CASES, card=None,
                 jit = ref[f"{prefix}_bf16_jit_z{zk}"]
                 pinned = ref[f"{prefix}_bf16_pinned_z{zk}"]
                 jax32 = ref[f"{prefix}_f32_z{zk}"]
+                fused = ref.get(f"{prefix}_bf16_fused_z{zk}")
                 for i, kind in enumerate(("auto", "cross")):
                     limit = max(GATE_FLOOR, abs(jax32[i] - pinned[i]),
                                 abs(jit[i] - pinned[i]))
@@ -3837,15 +4058,24 @@ def gate_bf16(device, cases=GATE_BF16_CASES, card=None,
                          "open": kind in GATE_BF16_OPEN.get(prefix, {}).get(
                              z, ())}
                     r["share"] = abs(r["port"] - r["jax_bf16_pinned"]) / limit
+                    if fused is not None:
+                        r["jax_bf16_fused"] = float(fused[i])
+                        r["fused_share"] = abs(r["port"] - fused[i]) / limit
                     rows.append(r)
                     print(f"  20d {checkpoint} z={zk} {kind}: committed "
                           f"{r['committed']} / JAX CPU bf16 "
                           f"{r['jax_bf16_pinned']:.5f} / port "
                           f"{r['port']:.5f}: {r['share']:.3f} of the limit "
-                          f"{limit:.5f}" + (" (open)" if r["open"] else ""),
-                          flush=True)
+                          f"{limit:.5f}"
+                          + (f"; JAX CPU bf16 fused {fused[i]:.5f}: "
+                             f"{r['fused_share']:.3f}" if fused is not None
+                             else "")
+                          + (" (open)" if r["open"] else ""), flush=True)
                     if r["share"] > 1:
                         fails.append((checkpoint, zk, kind, r["share"]))
+                    if r.get("fused_share", 0.0) > 1:
+                        fails.append((checkpoint, zk, kind, "fused",
+                                      r["fused_share"]))
             _sync(device)
             eval_s[prefix] = (time.perf_counter() - t) / len(zs)
     open_rows = [r for r in rows if r["open"]]
@@ -3853,6 +4083,10 @@ def gate_bf16(device, cases=GATE_BF16_CASES, card=None,
           readings=len(rows), open_readings=len(open_rows),
           open_within=sum(r["share"] <= 1 for r in open_rows),
           share_max=f"{max(r['share'] for r in rows):.3f}",
+          fused_readings=sum("fused_share" in r for r in rows),
+          fused_share_max=(
+              f"{max(r['fused_share'] for r in rows if 'fused_share' in r):.3f}"
+              if any("fused_share" in r for r in rows) else "-"),
           open_share_max=(f"{max(r['share'] for r in open_rows):.3f}"
                           if open_rows else "-"),
           launches=json.dumps(launches),

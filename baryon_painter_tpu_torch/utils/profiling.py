@@ -153,3 +153,34 @@ def trace_kernel_counts(path: str, names) -> Dict[str, int]:
             if n in ev.get("name", ""):
                 counts[n] += 1
     return counts
+
+
+def trace_kernels_in_ranges(path: str, prefix: str = "") -> Dict[str, list]:
+    """The device kernels launched inside each host range of a Chrome trace
+    (``device_trace``'s file) whose name starts with ``prefix`` (a
+    ``torch.profiler.record_function`` label): {range name: [kernel names
+    in launch order]}. A kernel belongs to a range when the runtime or
+    driver call that launched it (matched by correlation id) lies inside
+    the range on the range's thread."""
+    import json
+    with open(path) as f:
+        events = [ev for ev in json.load(f).get("traceEvents", [])
+                  if ev.get("ph") == "X"]
+    kernels = {ev["args"]["correlation"]: ev["name"] for ev in events
+               if ev.get("cat") == "kernel"
+               and "correlation" in ev.get("args", {})}
+    launches = sorted(
+        (ev for ev in events
+         if ev.get("cat") in ("cuda_runtime", "cuda_driver")
+         and ev.get("args", {}).get("correlation") in kernels),
+        key=lambda ev: ev["ts"])
+    out = {}
+    for r in events:
+        if (r.get("cat") != "user_annotation"
+                or not r.get("name", "").startswith(prefix)):
+            continue
+        lo, hi = r["ts"], r["ts"] + r.get("dur", 0)
+        out.setdefault(r["name"], []).extend(
+            kernels[ev["args"]["correlation"]] for ev in launches
+            if ev.get("tid") == r.get("tid") and lo <= ev["ts"] <= hi)
+    return out

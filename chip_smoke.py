@@ -28,7 +28,9 @@ timed; then K4 in bf16 against its plain bf16 version at its four sites,
 training in bf16 with K4 (exactly 4 bf16 launches of each K4 kernel per
 step, beside one K2 and one bf16 K3-fwd and K3-bwd) and a kernels-vs-plain
 bf16 step with K4, beside how far the plain bf16 step moves when only its
-sites' sums change order; then a synthetic SLICS line of sight at real sizes
+sites' sums change order; then the f32 and bf16 kernels steps (K4 off and
+on) against the whole-model f64 step under cuDNN's default algorithms, as
+the training CLI runs them; then a synthetic SLICS line of sight at real sizes
 (three shells, a 12288^2 massplane) through the lightcone CLI's own code
 (scripts/create_lightcone_torch.py): the resampler against scipy at the
 lightcone's sizes with TF32 on, the f32 lightcone with the kernels against
@@ -61,7 +63,8 @@ redshifts (K1 4 and K3-fwd 1 launches a paint call) and the committed CGAN
 convolutions', the f32 scores at the JAX package's prior noise and over
 noise seeds against the committed reports, the bf16 scores against the
 JAX package's bf16 on the CPU (baryon_painter_tpu_torch/data/
-gate_reference.npz), and the committed reports' bf16 scores printed
+gate_reference.npz; the CVAEs' also against its bf16 through its own fused
+blocks and heads), and the committed reports' bf16 scores printed
 beside the port's (both CGANs, fiducial and fiducial-adv); and the
 spectral fine-tuning step at
 batch 24 from the fiducial weights (exactly one K2, two K3-fwd and two
@@ -160,6 +163,8 @@ def main() -> int:
                                    k4_off_ms=training_bf16["step_ms"],
                                    f32_ms=training_k4["step_ms"])
     smoke.train_parity_bf16(device, dataset, fused_train_conv=True)
+    # the kernels steps against f64 under cuDNN's default algorithms (15c)
+    smoke.train_parity_f64(device, dataset, card=card)
     # the paint path's consumer: a SLICS lightcone through the lightcone
     # CLI, with the CVAE (16), the CGAN (17) and whole planes (18)
     with smoke.synthetic_lightcone(device) as data:

@@ -22,10 +22,13 @@ fidelity_check.py``'s ``pk_errors`` on the synthetic validation stacks):
   f32 leg), in bf16 jitted (the JAX painter as it runs), in bf16 with
   the eval-mode batch norm's input pinned at its storage dtype by an
   optimization barrier (the source's rounding points, which ``jax.jit`` on
-  the CPU otherwise folds away), and, for the CGANs, in bf16 through the
-  fused residual blocks (``fused_inference=True``: on the CPU the JAX
-  package's XLA version of K1, whose rounding points K1's are: the
-  products summed in f32, the inner activation rounded once);
+  the CPU otherwise folds away), and in bf16 through the fused residual
+  blocks (``fused_inference=True``: on the CPU the JAX package's XLA
+  version of K1, whose rounding points K1's are: the products summed in
+  f32, the inner activation rounded once) and, for the CVAEs, the fused
+  output heads (``BPT_FUSED_HEADS=1``: the JAX package's Pallas head
+  kernel in interpret mode, whose rounding points K3's are), as the
+  port's gate paints with K1 and K3;
 
 and stores the prior noise each CVAE paints with: the draws of
 ``PRNGKey(seed)`` in f32 and in bf16 (the bf16 model draws its noise in
@@ -35,7 +38,12 @@ the port's painter takes through ``eps``.
 Run: JAX_PLATFORMS=cpu python scripts/make_gate_reference_torch.py
 (about 25 minutes). ``--case NAME`` (repeatable: the names of ``CASES``)
 and ``--mode MODE`` (repeatable) score only those cases and modes and
-keep every other array of the existing file as it is.
+keep every other array of the existing file as it is; the CVAEs' fused
+readings alone:
+
+    JAX_PLATFORMS=cpu python scripts/make_gate_reference_torch.py \
+        --case cvae --case cvae_z11 --case cvae_resize --case cvae_lt \
+        --case cvae_resize_wip --mode bf16_fused
 
 With ``--witness BASE --z Z`` it writes nothing and prints one JSON
 object instead: the JAX package's own noise spread of one committed f32
@@ -48,6 +56,7 @@ committed draw) and scores each, on the CPU:
         --witness trained_models/CVAE/physical-512-resize-wip/model \
         --z 0.125 --seeds 8
 """
+import contextlib
 import os
 import sys
 
@@ -138,10 +147,26 @@ def validation_set(tile, redshifts, root, base, physical=False):
     return train, val
 
 
+@contextlib.contextmanager
+def fused_heads(on: bool):
+    """The JAX CVAE's fused output heads (``BPT_FUSED_HEADS``, read when a
+    paint is traced) on or off for the block."""
+    saved = os.environ.get("BPT_FUSED_HEADS")
+    os.environ["BPT_FUSED_HEADS"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("BPT_FUSED_HEADS", None)
+        else:
+            os.environ["BPT_FUSED_HEADS"] = saved
+
+
 def painter(kind, base, train, dtype, fused=False):
     """The JAX gate's painter: the checkpoint's weights, the training
-    set's statistics (as ``from_trainer`` builds it); ``fused`` (the
-    CGAN) with the fused residual blocks."""
+    set's statistics (as ``from_trainer`` builds it); ``fused`` with the
+    fused residual blocks (the CVAE's heads as ``fused_heads`` sets
+    them)."""
     from baryon_painter_tpu.models.cgan import CGANGenerator
     from baryon_painter_tpu.models.cvae import CVAE
     from baryon_painter_tpu.painter import CGANPainter, CVAEPainter
@@ -151,7 +176,8 @@ def painter(kind, base, train, dtype, fused=False):
         arch = loaded.meta["model_architecture"]
         return CVAEPainter(model=CVAE(arch, dtype=dtype),
                            variables=loaded.variables,
-                           meta=ckpt.meta_from_dataset(train, arch))
+                           meta=ckpt.meta_from_dataset(train, arch),
+                           fused_inference=fused)
     loaded = CGANPainter(os.path.join(REPO, base), dtype=dtype)
     arch = loaded.meta["model_architecture"]
     meta = dict(ckpt.meta_from_dataset(train, arch), model_kind="cgan")
@@ -171,16 +197,41 @@ def prior_noise(p, shape, dtype):
     return np.asarray(eps[0, ..., 0].astype(np.float32))
 
 
-def main(cases=None, modes=None):
-    """Score ``cases`` (names of ``CASES``; None: all) in ``modes`` (of
-    ``MODES``; None: all; ``bf16_fused`` for the CGANs only) and write them
-    into the reference file beside the other arrays."""
-    import tempfile
-
+def score(arrays, name, kind, base, train, val, cvae, mode, dtype, tile,
+          zs):
+    """One case's readings in one mode into ``arrays`` (and a CVAE's prior
+    noise, which must be the draw the file holds)."""
     import jax
     import jax.numpy as jnp
 
     import fidelity_check
+    p = painter("cvae" if cvae else "cgan", base, train, dtype,
+                fused=mode == "bf16_fused")
+    if cvae:
+        h = tile // 32
+        key = f"{kind}_eps_{mode[:4]}"
+        eps = prior_noise(p, (TILES, h, h), dtype or jnp.float32)
+        if key in arrays and not np.array_equal(arrays[key], eps):
+            raise AssertionError(f"{key}: another draw")
+        arrays[key] = eps
+    with jax.default_matmul_precision(
+            "highest" if mode == "f32" else "default"):
+        for z in zs:
+            auto, cross, _ = fidelity_check.pk_errors(
+                p, val, n_sample=TILES, seed=SEED, z=z)
+            arrays[f"{kind}_{mode}_z{z:g}"] = np.array([auto, cross],
+                                                        np.float64)
+            print(f"{name} {mode} z={z:g}: auto {auto:.5f} cross "
+                  f"{cross:.5f}", flush=True)
+
+
+def main(cases=None, modes=None):
+    """Score ``cases`` (names of ``CASES``; None: all) in ``modes`` (of
+    ``MODES``; None: all) and write them into the reference file beside
+    the other arrays."""
+    import tempfile
+
+    import jax.numpy as jnp
     arrays = {}
     if (cases is not None or modes is not None) and os.path.exists(OUT):
         # the other cases' arrays as they are; the scored ones replaced
@@ -193,32 +244,14 @@ def main(cases=None, modes=None):
         with tempfile.TemporaryDirectory() as root:
             train, val = validation_set(tile, stack_z, root, base, physical)
             for mode in MODES:
-                if ((modes is not None and mode not in modes)
-                        or (mode == "bf16_fused" and cvae)):
+                if modes is not None and mode not in modes:
                     continue
                 dtype = None if mode == "f32" else jnp.bfloat16
                 undo = pinned_batch_norm() if mode == "bf16_pinned" else None
                 try:
-                    p = painter("cvae" if cvae else "cgan", base, train,
-                                dtype, fused=mode == "bf16_fused")
-                    if cvae:
-                        h = tile // 32
-                        key = f"{kind}_eps_{mode[:4]}"
-                        eps = prior_noise(p, (TILES, h, h),
-                                          dtype or jnp.float32)
-                        if key in arrays and not np.array_equal(
-                                arrays[key], eps):
-                            raise AssertionError(f"{key}: another draw")
-                        arrays[key] = eps
-                    with jax.default_matmul_precision(
-                            "highest" if mode == "f32" else "default"):
-                        for z in zs:
-                            auto, cross, _ = fidelity_check.pk_errors(
-                                p, val, n_sample=TILES, seed=SEED, z=z)
-                            arrays[f"{kind}_{mode}_z{z:g}"] = np.array(
-                                [auto, cross], np.float64)
-                            print(f"{name} {mode} z={z:g}: auto {auto:.5f} "
-                                  f"cross {cross:.5f}", flush=True)
+                    with fused_heads(mode == "bf16_fused"):
+                        score(arrays, name, kind, base, train, val, cvae,
+                              mode, dtype, tile, zs)
                 finally:
                     if undo is not None:
                         undo()

@@ -53,6 +53,12 @@ K3's heads, timed), 13 and 13b (the bf16 step and its parity) and 14 (the
 bf16 paint, timed), building the kernels first; the checkout's own
 functions, so a parent's checkout runs its own kernels.
 
+    python3 scripts/smoke_phases_torch.py ROOT f64
+
+runs phase 15c alone (the f32 and bf16 kernels steps against the
+whole-model f64 step under cuDNN's default algorithms, K4 off and on),
+building the kernels first.
+
 Needs a CUDA device. Imports only torch and the port.
 """
 import json
@@ -76,7 +82,7 @@ if rule == "align8":
 elif rule == "both11":
     layers._low_precision_in_f32 = lambda fn, x, w: (
         x.device.type == "cpu" or w.shape[0] == w.shape[1] == 1)
-elif rule not in ("tree", "mesh", "scripts", "k1", "k3", "k4"):
+elif rule not in ("tree", "mesh", "scripts", "k1", "k3", "k4", "f64"):
     raise SystemExit(f"unknown rule {rule!r}")
 dev = torch.device("cuda", 0)
 card = smoke.environment(dev)["nvidia_smi"]
@@ -147,6 +153,11 @@ if rule == "mesh":
     print("PHASES", json.dumps({"root": root, "rule": rule, "card": card,
           "23a": a["launches"], "23b": b["ranks"],
           "23c": c["launches"], "23d": d}), flush=True)
+    sys.exit(0)
+if rule == "f64":
+    p15c = smoke.train_parity_f64(dev, ds, card=card)
+    print("PHASES", json.dumps({"root": root, "rule": rule, "card": card,
+                                "15c": p15c}, default=str), flush=True)
     sys.exit(0)
 if rule == "k4":
     bf16 = torch.bfloat16

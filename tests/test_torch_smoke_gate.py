@@ -60,6 +60,37 @@ def test_gate_phase_on_cpu(gate_run):
     assert all(v > 0 for v in cvae["eval_s"].values())
 
 
+def test_gate_holds_cvae_bf16_to_the_fused_reference(gate_run):
+    """A CVAE's bf16 rows carry the JAX package's fused bf16 reading and
+    the distance 20a holds to the row's limit; a CGAN's carry it too,
+    printed, and only the CVAEs are held (``GATE_FUSED_HELD``)."""
+    ref = smoke._gate_reference()
+    row = gate_run["cvae"]["rows"]["0/auto"]
+    assert row["jax_bf16_fused"] == ref["cvae_bf16_fused_z0"][0]
+    assert row["bf16_vs_jax_fused"] == abs(row["bf16"]
+                                           - row["jax_bf16_fused"])
+    cgan = gate_run["cgan_adv"]["rows"]["0.5/cross"]
+    assert cgan["jax_bf16_fused"] == ref["cgan_adv_bf16_fused_z0.5"][1]
+    assert smoke.GATE_FUSED_HELD == ("cvae",)
+    assert not [f for f in gate_run["cgan_adv"]["fails"]
+                if f[0] == "bf16_vs_jax_fused"]
+
+
+def test_gate_reference_holds_every_cvae_fused_reading():
+    """The JAX package's fused bf16 readings (``--mode bf16_fused``) exist
+    for every CVAE reading 20a and 20d hold, beside the unfused ones,
+    finite and positive."""
+    ref = smoke._gate_reference()
+    cases = [("cvae", [float(z) for z in smoke.GATE_CVAE_Z.split(",")])]
+    cases += [(prefix, zs) for prefix, _, _, zs in smoke.GATE_BF16_CASES]
+    for prefix, zs in cases:
+        for z in zs:
+            got = ref[f"{prefix}_bf16_fused_z{z:g}"]
+            assert got.shape == (2,) and np.all(np.isfinite(got))
+            assert np.all(got > 0)
+            assert f"{prefix}_bf16_pinned_z{z:g}" in ref
+
+
 def test_gate_reference_is_the_jax_noise_and_the_committed_f32():
     """The reference's noise is each CVAE's JAX painter's draw of
     PRNGKey(0) (f32 and bf16) at its latent's shape, and its f32 readings
