@@ -46,6 +46,7 @@ from baryon_painter_tpu_torch.data.dataset import (BahamasTileDataset,
 from baryon_painter_tpu_torch.ops.gather import (dihedral_batch,
                                                  gather_tiles,
                                                  gather_tiles_ref)
+from baryon_painter_tpu_torch.utils import profiling
 from baryon_painter_tpu_torch.utils.platform import resolve_device
 
 __all__ = ["DeviceStackCache"]
@@ -166,8 +167,9 @@ class DeviceStackCache:
                            axis=1)                             # (F, slab, ..)
             return torch.from_numpy(arr).to(self.device)
 
-        self.data100 = stack_all("100")
-        self.data150 = stack_all("150")
+        with profiling.setup_span("setup.stacks"):
+            self.data100 = stack_all("100")
+            self.data150 = stack_all("150")
         # the z value of each of this rank's slots (padding: 0)
         z_arr = np.asarray(dataset.redshifts, np.float32)
         self.z_values = torch.from_numpy(np.where(
@@ -269,7 +271,9 @@ class DeviceStackCache:
         B, T, T), z (B,)), all float32 on the cache's device."""
         gather = gather_tiles if self.use_kernel else gather_tiles_ref
         tiles = gather(self.data100, self.data150, digits, self.tile_size)
-        d = torch.as_tensor(np.asarray(digits), device=self.device).long()
+        d = np.asarray(digits)
+        with profiling.span("train.upload", bytes=d.nbytes):
+            d = torch.as_tensor(d, device=self.device).long()
         tiles = (dihedral_batch(tiles[:, 0], d[:, 1])
                  + dihedral_batch(tiles[:, 1], d[:, 2]))        # (B, F, T, T)
         zs = self.z_values[d[:, 0]]

@@ -47,6 +47,7 @@ from baryon_painter_tpu_torch.models.layers import (SpecSequential,
                                                     merge_aux_label,
                                                     softplus)
 from baryon_painter_tpu_torch.ops.head_stack import head_stack
+from baryon_painter_tpu_torch.utils import profiling
 
 __all__ = ["CVAE", "fiducial_cvae_architecture", "count_parameters",
            "print_model_statistics", "stats_from_outputs"]
@@ -195,12 +196,13 @@ class CVAE(nn.Module):
         h_y = self.p_y_in(y).repeat(L, 1, 1, 1)
         h = torch.cat([self.p_z_in(z), h_y], dim=1)
         h = self.p_y_z_in(h)
-        if self._heads_fusable(h):
-            return self._fused_heads(h)
-        x_mu = self.p_mu_out(h)
-        if self.predict_var:
-            return x_mu, self.p_var_out(h)
-        return (x_mu,)
+        with profiling.span("decode.heads"):
+            if self._heads_fusable(h):
+                return self._fused_heads(h)
+            x_mu = self.p_mu_out(h)
+            if self.predict_var:
+                return x_mu, self.p_var_out(h)
+            return (x_mu,)
 
     def forward(self, x, y, aux_label=None, alpha_var: float = 1.0,
                 beta_KL: float = 1.0, sample_weight=None, eps=None,

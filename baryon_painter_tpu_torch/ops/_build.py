@@ -132,8 +132,13 @@ def build_library(force: bool = False) -> dict:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare every exported
-    function's argument and result types."""
-    lib = ctypes.CDLL(str(build_library()["path"]))
+    function's argument and result types (the set-up span
+    ``setup.library``, whose ``built`` is 1 where nvcc ran)."""
+    from baryon_painter_tpu_torch.utils import profiling
+    with profiling.setup_span("setup.library") as sp:
+        build = build_library()
+        lib = ctypes.CDLL(str(build["path"]))
+        sp.attrs["built"] = int(build["seconds"] > 0)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # x, weights, s1, b1, s2, b2, out, n, h, w, c, slopes, dtype, stream
     lib.bpt_res_block_infer.argtypes = [p] * 7 + [i, i, i, i, f, f, i, p]

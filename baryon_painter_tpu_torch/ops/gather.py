@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from baryon_painter_tpu_torch.utils import profiling
+
 __all__ = ["check_digits", "gather_tiles", "gather_tiles_ref",
            "dihedral_batch"]
 
@@ -111,7 +113,8 @@ def gather_tiles(data100, data150, digits, tile_size: int):
         raise ValueError(f"gather_tiles: tile {t} and grid {g} must be "
                          f"multiples of 4 (16-byte rows)")
     b = d.shape[0]
-    dig = torch.from_numpy(d).to(data100.device)
+    with profiling.span("train.upload", bytes=d.nbytes):
+        dig = torch.from_numpy(d).to(data100.device)
     out = torch.empty((b, 2, f, t, t), dtype=torch.float32,
                       device=data100.device)
 

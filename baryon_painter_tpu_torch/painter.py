@@ -48,6 +48,7 @@ from baryon_painter_tpu_torch.models.cvae import CVAE
 from baryon_painter_tpu_torch.models.fuse import (
     fuse_cgan_generator_variables, fuse_cvae_variables)
 from baryon_painter_tpu_torch.train import checkpoint as ckpt
+from baryon_painter_tpu_torch.utils import profiling
 from baryon_painter_tpu_torch.utils.platform import (f32_convolutions,
                                                      resolve_device)
 
@@ -163,27 +164,29 @@ class CVAEPainter:
                              self.meta)
 
     def _setup(self, variables, meta):
-        arch = meta["model_architecture"]
-        if self._fused_inference and not arch.get("fused_res_blocks"):
-            variables, arch = fuse_cvae_variables(variables, arch)
-            meta = {**meta, "model_architecture": arch}
-        self.model = from_jax_variables(
-            variables, arch, fused_heads=self._fused_heads,
-            dtype=self.dtype).to(self.device)
-        self.variables = {"params": variables["params"],
-                          "batch_stats": variables.get("batch_stats", {})}
-        self.meta = meta
-        self.architecture = arch
-        self.input_field = meta["input_field"]
-        self.label_fields = list(meta["label_fields"])
-        self.tile_L = meta["tile_L"]
-        self.tile_size = meta["tile_size"]
-        self.transforms, self.stats = ckpt.transforms_from_meta(
-            meta, device=self.device)
+        with profiling.setup_span("setup.model"):
+            arch = meta["model_architecture"]
+            if self._fused_inference and not arch.get("fused_res_blocks"):
+                variables, arch = fuse_cvae_variables(variables, arch)
+                meta = {**meta, "model_architecture": arch}
+            self.model = from_jax_variables(
+                variables, arch, fused_heads=self._fused_heads,
+                dtype=self.dtype).to(self.device)
+            self.variables = {"params": variables["params"],
+                              "batch_stats": variables.get("batch_stats", {})}
+            self.meta = meta
+            self.architecture = arch
+            self.input_field = meta["input_field"]
+            self.label_fields = list(meta["label_fields"])
+            self.tile_L = meta["tile_L"]
+            self.tile_size = meta["tile_size"]
+            self.transforms, self.stats = ckpt.transforms_from_meta(
+                meta, device=self.device)
 
     def load_state_from_file(self, filename: str):
         """Load a (state.msgpack, meta.json) checkpoint pair by base path."""
-        state, meta = ckpt.load_checkpoint(filename)
+        with profiling.setup_span("setup.checkpoint"):
+            state, meta = ckpt.load_checkpoint(filename)
         self._setup(state, meta)
 
     def replica(self, device) -> "CVAEPainter":
@@ -261,7 +264,8 @@ class CVAEPainter:
         decodes at the prior mean; 'zero' at z=0. Returns a tensor on the
         painter's device (and the predicted variance with ``return_var``).
         """
-        with f32_convolutions():
+        with profiling.span("paint", device=self.device,
+                            tiles=len(tiles)), f32_convolutions():
             return self._paint_batch(tiles, zs, transform, inverse_transform,
                                      return_var, generator, z_mode, eps)
 
@@ -270,37 +274,44 @@ class CVAEPainter:
         if z_mode not in _Z_MODES:
             raise ValueError(f"z_mode must be one of {_Z_MODES}, got "
                              f"'{z_mode}'")
-        tiles = torch.as_tensor(tiles, dtype=torch.float32,
-                                device=self.device)
-        zs = torch.as_tensor(zs, dtype=torch.float32, device=self.device)
         in_field, out_field = self.input_field, self.label_fields[0]
-        y = tiles
-        if transform:
-            y = self.transforms[in_field].forward(y, self.stats[in_field], zs)
-        # one field (N, H, W) gains its channel axis; a transform that
-        # emits channels (N, C, H, W) keeps them, as in the JAX painter
-        y = y[:, None] if y.ndim == 3 else y
-        y = y.contiguous(memory_format=torch.channels_last)
+        with profiling.span("paint.transform"):
+            tiles = torch.as_tensor(tiles, dtype=torch.float32,
+                                    device=self.device)
+            zs = torch.as_tensor(zs, dtype=torch.float32, device=self.device)
+            y = tiles
+            if transform:
+                y = self.transforms[in_field].forward(
+                    y, self.stats[in_field], zs)
+            # one field (N, H, W) gains its channel axis; a transform that
+            # emits channels (N, C, H, W) keeps them, as in the JAX painter
+            y = y[:, None] if y.ndim == 3 else y
+            y = y.contiguous(memory_format=torch.channels_last)
 
-        z_mu, z_log_var = self.model.prior(y, zs)
-        if z_mode == "sample":
-            if eps is None:
-                if generator is None:
-                    generator = self._generator
-                eps = torch.randn(z_mu.shape, dtype=z_mu.dtype,
-                                  device=self.device, generator=generator)
-            z = self.model.sample_z(z_mu, z_log_var,
-                                    self._latent_noise(eps, z_mu))
-        else:
-            z = z_mu if z_mode == "mean" else torch.zeros_like(z_mu)
-        res = self.model.sample_P(y, zs, z=z, return_var=return_var)
+        with profiling.span("paint.prior"):
+            z_mu, z_log_var = self.model.prior(y, zs)
+            if z_mode == "sample":
+                if eps is None:
+                    if generator is None:
+                        generator = self._generator
+                    eps = torch.randn(z_mu.shape, dtype=z_mu.dtype,
+                                      device=self.device, generator=generator)
+                z = self.model.sample_z(z_mu, z_log_var,
+                                        self._latent_noise(eps, z_mu))
+            else:
+                z = z_mu if z_mode == "mean" else torch.zeros_like(z_mu)
+        with profiling.span("paint.decode"):
+            res = self.model.sample_P(y, zs, z=z, return_var=return_var)
         pred, var = res if return_var else (res, None)
-        pred = pred[:, 0] if pred.shape[1] == 1 else pred
-        if inverse_transform:
-            pred = self.transforms[out_field].inverse(
-                pred, self.stats[out_field], zs)
-        pred = pred.contiguous()
-        return (pred, var[:, 0].contiguous()) if return_var else pred
+        with profiling.span("paint.inverse"):
+            pred = pred[:, 0] if pred.shape[1] == 1 else pred
+            if inverse_transform:
+                pred = self.transforms[out_field].inverse(
+                    pred, self.stats[out_field], zs)
+            pred = pred.contiguous()
+            if return_var:
+                var = var[:, 0].contiguous()
+        return (pred, var) if return_var else pred
 
 
 class CGANPainter:
@@ -363,23 +374,24 @@ class CGANPainter:
         return new
 
     def _setup(self, variables, meta):
-        arch = dict(meta["model_architecture"])
-        if self._fused_inference and not arch.get("fused_res_blocks"):
-            variables, kwargs = fuse_cgan_generator_variables(variables,
-                                                              arch)
-            arch = {**arch, **kwargs, "spectral_norm": False}
-            meta = {**meta, "model_architecture": arch}
-        self.generator = generator_from_jax_variables(
-            variables, arch, dtype=self.dtype).to(self.device)
-        self.variables = variables
-        self.meta = meta
-        self.architecture = arch
-        self.input_field = meta["input_field"]
-        self.label_fields = list(meta["label_fields"])
-        self.tile_L = meta["tile_L"]
-        self.tile_size = meta["tile_size"]
-        self.transforms, self.stats = ckpt.transforms_from_meta(
-            meta, device=self.device)
+        with profiling.setup_span("setup.model"):
+            arch = dict(meta["model_architecture"])
+            if self._fused_inference and not arch.get("fused_res_blocks"):
+                variables, kwargs = fuse_cgan_generator_variables(variables,
+                                                                  arch)
+                arch = {**arch, **kwargs, "spectral_norm": False}
+                meta = {**meta, "model_architecture": arch}
+            self.generator = generator_from_jax_variables(
+                variables, arch, dtype=self.dtype).to(self.device)
+            self.variables = variables
+            self.meta = meta
+            self.architecture = arch
+            self.input_field = meta["input_field"]
+            self.label_fields = list(meta["label_fields"])
+            self.tile_L = meta["tile_L"]
+            self.tile_size = meta["tile_size"]
+            self.transforms, self.stats = ckpt.transforms_from_meta(
+                meta, device=self.device)
 
     @classmethod
     def from_trainer(cls, trainer, dtype="keep",
@@ -401,7 +413,8 @@ class CGANPainter:
     def load_state_from_file(self, filename: str):
         """Load a (state.msgpack, meta.json) checkpoint pair by base path:
         the generator's ``g_params`` and ``g_stats``."""
-        state, meta = ckpt.load_checkpoint(filename)
+        with profiling.setup_span("setup.checkpoint"):
+            state, meta = ckpt.load_checkpoint(filename)
         self._setup({"params": state["g_params"],
                      "batch_stats": state.get("g_stats", {})}, meta)
 
@@ -433,23 +446,29 @@ class CGANPainter:
         returns a tensor on the painter's device. Other keyword arguments
         (a CVAE painter's ``z_mode``, ``eps``) are accepted and ignored, as
         the JAX painter ignores them: the generator draws no noise."""
-        with f32_convolutions():
+        with profiling.span("paint", device=self.device,
+                            tiles=len(tiles)), f32_convolutions():
             return self._paint_batch(tiles, zs, transform, inverse_transform)
 
     def _paint_batch(self, tiles, zs, transform, inverse_transform):
-        tiles = torch.as_tensor(tiles, dtype=torch.float32,
-                                device=self.device)
-        zs = torch.as_tensor(zs, dtype=torch.float32, device=self.device)
         in_field, out_field = self.input_field, self.label_fields[0]
-        y = tiles
-        if transform:
-            y = self.transforms[in_field].forward(y, self.stats[in_field], zs)
-        y = y[:, None].contiguous(memory_format=torch.channels_last)
-        pred = self.generator(y, zs)[:, 0]
-        if inverse_transform:
-            pred = self.transforms[out_field].inverse(
-                pred, self.stats[out_field], zs)
-        return pred.contiguous()
+        with profiling.span("paint.transform"):
+            tiles = torch.as_tensor(tiles, dtype=torch.float32,
+                                    device=self.device)
+            zs = torch.as_tensor(zs, dtype=torch.float32, device=self.device)
+            y = tiles
+            if transform:
+                y = self.transforms[in_field].forward(
+                    y, self.stats[in_field], zs)
+            y = y[:, None].contiguous(memory_format=torch.channels_last)
+        with profiling.span("paint.decode"):
+            pred = self.generator(y, zs)
+        with profiling.span("paint.inverse"):
+            pred = pred[:, 0]
+            if inverse_transform:
+                pred = self.transforms[out_field].inverse(
+                    pred, self.stats[out_field], zs)
+            return pred.contiguous()
 
 
 def load_painter(filename: str, **kwargs):

@@ -95,6 +95,7 @@ from baryon_painter_tpu_torch.train import checkpoint as ckpt
 from baryon_painter_tpu_torch.train.spectral import pk_fidelity_loss
 from baryon_painter_tpu_torch.train.stats import TrainingStats
 from baryon_painter_tpu_torch.transforms import FieldStats
+from baryon_painter_tpu_torch.utils import profiling
 from baryon_painter_tpu_torch.utils.platform import (f32_convolutions,
                                                      resolve_device,
                                                      to_device)
@@ -329,7 +330,8 @@ class CVAETrainer:
         if variables is not None:
             load_jax_variables(model, variables)
         else:
-            init_cvae(model, config.seed)
+            with profiling.setup_span("setup.trainer"):
+                init_cvae(model, config.seed)
         self.model = model.to(self.device).train()
         if mesh is not None:
             mesh.broadcast_module_(self.model)
@@ -459,7 +461,8 @@ class CVAETrainer:
 
     def _step_f(self, raw_input, raw_labels, z, lr, alpha_var, beta_KL,
                 eps, pk_eps, batch_rows=None, sample_weight=None):
-        x, y = self._prepare(raw_input, raw_labels, z)
+        with profiling.span("train.batch"):
+            x, y = self._prepare(raw_input, raw_labels, z)
         frozen = self._bn_state() if self.config.freeze_bn_stats else None
         for p in self.params:
             p.grad = None
@@ -467,36 +470,41 @@ class CVAETrainer:
         self._host_step += 1
         n_ranks = 1 if self.mesh is None else self.mesh.size
         with self._active():
-            pk = None
-            if self.config.pk_loss_weight > 0:
-                # before the ELBO's forward, which moves the running
-                # statistics this term paints through
-                pk = self._pk_loss(raw_input, raw_labels, z, x, y, pk_eps,
-                                   self._noise(step, stream=1), batch_rows)
-            out = self.model(x, y, z, alpha_var=alpha_var, beta_KL=beta_KL,
-                             eps=eps, generator=self._noise(step),
-                             sample_weight=sample_weight,
-                             batch_rows=batch_rows)
-            loss = -out["elbo"]
-            if pk is not None:
-                out["pk_loss"] = pk
-                # every rank holds the whole term: its share of the sum of
-                # the ranks' losses
-                loss = loss + self.config.pk_loss_weight * pk / n_ranks
-            loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+            with profiling.span("train.forward"):
+                pk = None
+                if self.config.pk_loss_weight > 0:
+                    # before the ELBO's forward, which moves the running
+                    # statistics this term paints through
+                    pk = self._pk_loss(raw_input, raw_labels, z, x, y,
+                                       pk_eps, self._noise(step, stream=1),
+                                       batch_rows)
+                out = self.model(x, y, z, alpha_var=alpha_var,
+                                 beta_KL=beta_KL, eps=eps,
+                                 generator=self._noise(step),
+                                 sample_weight=sample_weight,
+                                 batch_rows=batch_rows)
+                loss = -out["elbo"]
+                if pk is not None:
+                    out["pk_loss"] = pk
+                    # every rank holds the whole term: its share of the
+                    # sum of the ranks' losses
+                    loss = loss + self.config.pk_loss_weight * pk / n_ranks
+            with profiling.span("train.backward"):
+                loss.backward()
         metrics = {k: v.detach() for k, v in out.items()
                    if k not in ("x_mu", "x_var")}
-        if self.mesh is not None:
-            metrics = {k: v.clone() for k, v in metrics.items()}
-            self._reduce(grads, metrics)
-        norm = grad_norm(grads)
-        if self.config.clip_grad_norm > 0:
-            clip_grads_by_global_norm(grads, self.config.clip_grad_norm)
-        with torch.no_grad():
-            for p, d in zip(self.params, self.optimizer.update(grads)):
-                p.add_(lr * d)
+        with profiling.span("train.optimizer"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self.params]
+            if self.mesh is not None:
+                metrics = {k: v.clone() for k, v in metrics.items()}
+                self._reduce(grads, metrics)
+            norm = grad_norm(grads)
+            if self.config.clip_grad_norm > 0:
+                clip_grads_by_global_norm(grads, self.config.clip_grad_norm)
+            with torch.no_grad():
+                for p, d in zip(self.params, self.optimizer.update(grads)):
+                    p.add_(lr * d)
         if frozen is not None:
             self._restore_bn(frozen)
         metrics["grad_norm"] = norm.detach()
@@ -513,10 +521,14 @@ class CVAETrainer:
         replace the ELBO's and the spectral term's drawn noise. Under a
         mesh ``batch`` and the noise are the global batch's, and each rank
         steps on its rows."""
-        batch, rows = local_rows(self.mesh, batch)
-        return self._step(*self._to_device(batch), lr, alpha_var, beta_KL,
-                          local_noise(self.mesh, eps),
-                          local_noise(self.mesh, pk_eps), rows)
+        with profiling.span("train.step", device=self.device,
+                            samples=len(batch["input"])):
+            batch, rows = local_rows(self.mesh, batch)
+            with profiling.span("train.batch"):
+                raw = self._to_device(batch)
+            return self._step(*raw, lr, alpha_var, beta_KL,
+                              local_noise(self.mesh, eps),
+                              local_noise(self.mesh, pk_eps), rows)
 
     def step_indices(self, idx: np.ndarray, lr: float,
                      alpha_var: float = 1.0, beta_KL: float = 1.0,
@@ -529,16 +541,19 @@ class CVAETrainer:
         if cache is None:
             raise RuntimeError("Construct the trainer with device_data=True "
                                "to use step_indices.")
-        digits = cache.digits(idx)
-        rows = weights = None
-        if self.mesh is not None:
-            lo, hi = self.mesh.rows(len(digits))
-            rows = (lo, len(digits))
-            weights = cache.sample_weights(digits[lo:hi])
-        raw = cache.gather(cache.local_digits(digits))
-        return self._step(*raw, lr, alpha_var, beta_KL,
-                          local_noise(self.mesh, eps),
-                          local_noise(self.mesh, pk_eps), rows, weights)
+        with profiling.span("train.step", device=self.device,
+                            samples=len(idx)):
+            digits = cache.digits(idx)
+            rows = weights = None
+            if self.mesh is not None:
+                lo, hi = self.mesh.rows(len(digits))
+                rows = (lo, len(digits))
+                weights = cache.sample_weights(digits[lo:hi])
+            with profiling.span("train.batch"):
+                raw = cache.gather(cache.local_digits(digits))
+            return self._step(*raw, lr, alpha_var, beta_KL,
+                              local_noise(self.mesh, eps),
+                              local_noise(self.mesh, pk_eps), rows, weights)
 
     def step_scan(self, idx_matrix: np.ndarray, lr, alpha_var=1.0,
                   beta_KL=1.0) -> dict:
@@ -613,10 +628,11 @@ class CVAETrainer:
         copy to the host."""
         if not pending:
             return
-        rows = self._host_rows([m for _, m, _, _ in pending])
-        for (n_samples, _, lr, bs), row in zip(pending, rows):
-            training_stats.push_loss(n_samples, *row, lr, bs)
-        pending.clear()
+        with profiling.span("train.stats_flush", device=self.device):
+            rows = self._host_rows([m for _, m, _, _ in pending])
+            for (n_samples, _, lr, bs), row in zip(pending, rows):
+                training_stats.push_loss(n_samples, *row, lr, bs)
+            pending.clear()
 
     def _sample_indices(self, rng, n: int) -> np.ndarray:
         """A global batch's indices: device-grouped when the stack cache is
@@ -771,13 +787,15 @@ class CVAETrainer:
                     >= last_val_loss):
                 self._flush_stats(pending, training_stats)
                 last_val_loss = n_samples
-                vidx = self.test_data.sample_indices(
-                    data_rng, cfg.validation_loss_batch_size)
-                vmetrics = self.eval_loss(self.test_data.get_raw_batch(vidx),
-                                          alpha_var, beta_KL)
-                validation_stats.push_loss(
-                    n_samples, *self.stats_tuple(vmetrics),
-                    cfg.learning_rate * lr_mult, batch_size)
+                with profiling.span("train.validation", device=self.device):
+                    vidx = self.test_data.sample_indices(
+                        data_rng, cfg.validation_loss_batch_size)
+                    vmetrics = self.eval_loss(
+                        self.test_data.get_raw_batch(vidx), alpha_var,
+                        beta_KL)
+                    validation_stats.push_loss(
+                        n_samples, *self.stats_tuple(vmetrics),
+                        cfg.learning_rate * lr_mult, batch_size)
 
             if (ckpt_template is not None
                     and n_samples - cfg.checkpoint_frequency >= last_ckpt):

@@ -616,7 +616,8 @@ def _imports(path: Path):
                                              "pk_diagnose_torch.py",
                                              "make_model_report_torch.py",
                                              "promote_checkpoint_torch.py",
-                                             "transform_examples_torch.py")]
+                                             "transform_examples_torch.py",
+                                             "span_trace_torch.py")]
     + [Path(REPO) / "tests" / "torch_mesh_workers.py"],
     ids=lambda p: str(Path(p).relative_to(REPO)))
 def test_port_imports_nothing_of_jax(path):
